@@ -1,0 +1,101 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+`nvcc` compiles `ops/csrc/*.cu` into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds). The library goes to
+`build/idf_torch_kernels/<hash>/libidf_torch_kernels.so` at the repository
+root, where the hash covers the sources and the flags: a changed source builds
+anew, an unchanged one loads what is there. Nothing is committed and nothing
+falls back: without `nvcc` the build raises.
+
+The build directory is found relative to the package, so the kernels build
+from a source checkout or an editable install (`pip install -e .`); a
+non-editable install would put `build/` beside site-packages, and is not a
+supported way to run the port on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCES = ("stencils.cu",)
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "idf_torch_kernels"
+LIB_NAME = "libidf_torch_kernels.so"
+# No --use_fast_math: the exact kernels are held to rtol 1e-4, and fast
+# exp2/division would spend that margin. -Xptxas -v reports registers,
+# shared memory and spills of every kernel in the build log.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+_BUILD_TIMEOUT_S = 600
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of image_denoising_filter_tpu_torch "
+        "are compiled from ops/csrc at first use and need the CUDA toolkit "
+        "(put nvcc on PATH or set CUDA_HOME)"
+    )
+
+
+def _library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _SOURCES:
+        digest.update(name.encode())
+        digest.update((_CSRC / name).read_bytes())
+    return BUILD_ROOT / digest.hexdigest()[:16] / LIB_NAME
+
+
+def build() -> tuple[Path, str]:
+    """Compile the kernels unless the library for these sources exists.
+
+    Returns (library path, compiler log); the log is empty when nothing was
+    compiled. The library is written under a temporary name and renamed into
+    place, so concurrent builders never load a half-written file."""
+    lib = _library_path()
+    if lib.exists():
+        return lib, ""
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(_CSRC / s) for s in _SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=_BUILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed with code {proc.returncode}:\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, lib)
+    return lib, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed), with its C
+    signatures declared: every pointer and the stream as c_void_p."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.idf_bilateral.argtypes = [
+        ptr, ptr, ptr, ptr, i32, i32, ptr, i32, f32, f32, i32, i32, i32, i32, ptr,
+    ]
+    lib.idf_bilateral.restype = i32
+    lib.idf_nlm.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, i32, f32, f32, f32, i32, i32, ptr,
+    ]
+    lib.idf_nlm.restype = i32
+    lib.idf_normalize.argtypes = [ptr, ptr, ptr, i32, f32, f32, f32, f32, ptr]
+    lib.idf_normalize.restype = i32
+    return lib

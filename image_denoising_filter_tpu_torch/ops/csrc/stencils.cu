@@ -1,0 +1,318 @@
+// Hand-written Hopper (sm_90a) kernels of the exact denoising battery:
+// bilateral (fused or guided partials), frame-batched NLM accumulation and
+// the normalize epilogue.
+//
+// Images keep the public (H, W, 4) float32 layout: one pixel is one 16-byte
+// float4, the natural coalesced load of this card. Borders are handled inside
+// the kernels by clamping the tap index (CLAMP) or by substituting a zero
+// pixel (ZERO), so nothing is padded on the host.
+//
+// Every launcher takes raw device pointers, sizes, parameters and a stream,
+// launches on that stream, does not synchronise, allocates nothing, and
+// returns cudaGetLastError() as an int. Static tables (the bilateral disk
+// runs, the NLM candidate offsets) come from Python and travel by value in
+// the kernel's parameter space: every thread of a warp reads the same entry,
+// which the constant cache broadcasts.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBlockX = 32;  // a warp spans 32 neighbouring pixels of a row
+constexpr int kBlockY = 8;
+constexpr int kMaxRuns = 128;
+constexpr int kMaxCands = 1024;  // (2s)^2 candidates up to s = 16
+
+struct Runs {
+  int n;
+  short dy0[kMaxRuns];
+  short rows[kMaxRuns];
+  short hw[kMaxRuns];
+};
+
+struct Cands {
+  int n;
+  signed char dy[kMaxCands];
+  signed char dx[kMaxCands];
+};
+
+// Row pointer for tap row y: clamped to the image (CLAMP), or flagged as
+// outside (ZERO), in which case every tap of the row reads zero.
+template <bool ZERO>
+__device__ __forceinline__ const float4* row_ptr(const float4* img, int y, int h,
+                                                 int w, bool& ok) {
+  if (ZERO) {
+    ok = y >= 0 && y < h;
+    return img + static_cast<size_t>(ok ? y : 0) * w;
+  }
+  ok = true;
+  return img + static_cast<size_t>(min(max(y, 0), h - 1)) * w;
+}
+
+template <bool ZERO>
+__device__ __forceinline__ float4 col_tap(const float4* row, bool row_ok, int x,
+                                          int w) {
+  if (ZERO) {
+    if (!row_ok || x < 0 || x >= w) return make_float4(0.f, 0.f, 0.f, 0.f);
+    return __ldg(row + x);
+  }
+  return __ldg(row + min(max(x, 0), w - 1));
+}
+
+// Bilateral over the truncation disk.
+//
+// Replaces image_denoising_filter_tpu/ops/stencils.py:_bilateral_kernel
+// (launched by _bilateral_planar). Weight of tap (dy, dx):
+//   exp2(sp_coef * (dy^2 + dx^2) - col_coef * ||c - t||^2)
+// with log2(e) folded into both coefficients; c and t come from the guide
+// when GUIDED, and the values from img. Alpha is accumulated with the
+// RGB-derived weight.
+//
+// Bound on the H100: at the reference parameters the disk holds 499 taps, so
+// a 1080p frame costs ~1.0 G taps, each one exp2, ~15 FP32 operations and one
+// 16-byte load (two when guided) that hits L1. It is bound by instruction
+// issue, not by device memory: the image is read from DRAM about once.
+// Design: one thread per output pixel in 32x8 blocks, so a warp's tap load
+// is 32 consecutive float4 (512 B) and a block's taps reuse the same L1
+// lines; no shared-memory halo, so no radius can exceed the block's shared
+// memory.
+template <bool GUIDED, bool ZERO>
+__global__ void __launch_bounds__(kBlockX* kBlockY)
+    bilateral_kernel(const float4* __restrict__ img, const float4* __restrict__ guide,
+                     float4* __restrict__ out_wc, float* __restrict__ out_nw, int h,
+                     int w, const Runs runs, float sp_coef, float col_coef, float blue_w,
+                     int uniform_alpha, int fuse_normalize) {
+  const int x = blockIdx.x * kBlockX + threadIdx.x;
+  const int y = blockIdx.y * kBlockY + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const float4* wsrc = GUIDED ? guide : img;
+  const size_t idx = static_cast<size_t>(y) * w + x;
+  const float4 c = wsrc[idx];
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float nw = 0.f;
+  for (int r = 0; r < runs.n; ++r) {
+    const int hw = runs.hw[r];
+    const int dy_end = runs.dy0[r] + runs.rows[r];
+    for (int dy = runs.dy0[r]; dy < dy_end; ++dy) {
+      bool ok;
+      const float4* grow = row_ptr<ZERO>(wsrc, y + dy, h, w, ok);
+      const float4* vrow = GUIDED ? row_ptr<ZERO>(img, y + dy, h, w, ok) : grow;
+      const float row_term = sp_coef * static_cast<float>(dy * dy);
+      for (int dx = -hw; dx <= hw; ++dx) {
+        const float4 g = col_tap<ZERO>(grow, ok, x + dx, w);
+        const float dr = c.x - g.x;
+        const float dg = c.y - g.y;
+        const float db = c.z - g.z;
+        // blue_w is 0 under blue_bug: the blue term then adds exactly 0.
+        const float ssd = dr * dr + dg * dg + blue_w * (db * db);
+        const float wgt =
+            exp2f(row_term + sp_coef * static_cast<float>(dx * dx) - ssd * col_coef);
+        const float4 v = GUIDED ? col_tap<ZERO>(vrow, ok, x + dx, w) : g;
+        acc.x += v.x * wgt;
+        acc.y += v.y * wgt;
+        acc.z += v.z * wgt;
+        acc.w += v.w * wgt;
+        nw += wgt;
+      }
+    }
+  }
+  // sum(w * a) == a * sum(w) when alpha is one constant everywhere.
+  if (uniform_alpha) acc.w = img[idx].w * nw;
+  if (fuse_normalize) {
+    // IEEE division (no fast math): x / x is exactly 1.
+    acc.x /= nw;
+    acc.y /= nw;
+    acc.z /= nw;
+    acc.w /= nw;
+  }
+  out_wc[idx] = acc;
+  if (out_nw != nullptr) out_nw[idx] = nw;
+}
+
+// Frame-batched NLM accumulation.
+//
+// Replaces image_denoising_filter_tpu/ops/stencils.py:_nlm_kernel (launched
+// by _nlm_planar_frames; not the weights_halfres body _nlm_hrw_kernel). The
+// TPU's sequential frame grid axis becomes the loop over frames here, with
+// the accumulators in registers. For every candidate (dy, dx) of the table,
+// the patch SSD is the direct sum over patch offsets [-p, p)^2 of the RGB
+// squared difference; the weight is exp2(ssd_coef * SSD + bias), with bias
+// log2(stride^2) for every candidate but the self match (0 when stride is
+// 1). Each frame seeds nw with norm_seed, and the frame's partial, seed
+// included, is scaled by valid[f].
+//
+// Bound on the H100: at the reference parameters a 1080p frame costs
+// 196 candidates x 36 patch taps x 2 M pixels = 14.6 G taps, each two
+// 16-byte loads that hit L1 and ~9 FP32 operations (~44 GFLOP a frame). It
+// is bound by L1 load bandwidth and instruction issue; device memory sees
+// each frame about once. Design: one thread per output pixel in 32x8
+// blocks, row pointers computed once per patch row, so the inner loop is a
+// clamp, two coalesced float4 loads and three FMAs. The box-sum
+// decomposition of the TPU kernel, and shared-memory tiles, are later work.
+template <bool ZERO>
+__global__ void __launch_bounds__(kBlockX* kBlockY)
+    nlm_kernel(const float4* __restrict__ tgt, const float4* __restrict__ frames,
+               const float* __restrict__ valid, float4* __restrict__ out_wc,
+               float* __restrict__ out_nw, int h, int w, int n_frames, int p,
+               const Cands cands, float ssd_coef, float log_m, float norm_seed,
+               int uniform_alpha) {
+  const int x = blockIdx.x * kBlockX + threadIdx.x;
+  const int y = blockIdx.y * kBlockY + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const size_t idx = static_cast<size_t>(y) * w + x;
+  const size_t plane = static_cast<size_t>(h) * w;
+  float4 total = make_float4(0.f, 0.f, 0.f, 0.f);
+  float total_nw = 0.f;
+  for (int f = 0; f < n_frames; ++f) {
+    const float4* nbr = frames + f * plane;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    float nw = norm_seed;
+    for (int k = 0; k < cands.n; ++k) {
+      const int dy = cands.dy[k];
+      const int dx = cands.dx[k];
+      float ssd = 0.f;
+      for (int py = -p; py < p; ++py) {
+        bool tok, nok;
+        const float4* trow = row_ptr<ZERO>(tgt, y + py, h, w, tok);
+        const float4* nrow = row_ptr<ZERO>(nbr, y + dy + py, h, w, nok);
+        for (int px = -p; px < p; ++px) {
+          const float4 t = col_tap<ZERO>(trow, tok, x + px, w);
+          const float4 n = col_tap<ZERO>(nrow, nok, x + dx + px, w);
+          const float d0 = t.x - n.x;
+          const float d1 = t.y - n.y;
+          const float d2 = t.z - n.z;
+          ssd += d0 * d0 + d1 * d1 + d2 * d2;
+        }
+      }
+      const float bias = (dy != 0 || dx != 0) ? log_m : 0.f;
+      const float wgt = exp2f(ssd * ssd_coef + bias);
+      bool vok;
+      const float4* vrow = row_ptr<ZERO>(nbr, y + dy, h, w, vok);
+      const float4 v = col_tap<ZERO>(vrow, vok, x + dx, w);
+      acc.x += v.x * wgt;
+      acc.y += v.y * wgt;
+      acc.z += v.z * wgt;
+      acc.w += v.w * wgt;
+      nw += wgt;
+    }
+    // This frame's tap alphas are one constant a: sum(w * a) = a * (nw -
+    // seed); the seed is not alpha-weighted.
+    if (uniform_alpha) acc.w = nbr[idx].w * (nw - norm_seed);
+    const float vf = valid[f];
+    total.x += acc.x * vf;
+    total.y += acc.y * vf;
+    total.z += acc.z * vf;
+    total.w += acc.w * vf;
+    total_nw += nw * vf;
+  }
+  out_wc[idx] = total;
+  out_nw[idx] = total_nw;
+}
+
+// Normalize: wc / nw, with the sentinel where nw == 0 exactly.
+//
+// Replaces image_denoising_filter_tpu/ops/stencils.py:_normalize_kernel
+// (launched by normalize). Bound on the H100: device memory, 36 bytes a
+// pixel and one division per channel. Design: one thread per pixel, one
+// float4 load, one float load and one float4 store, all coalesced.
+__global__ void __launch_bounds__(256)
+    normalize_kernel(const float4* __restrict__ wc, const float* __restrict__ nw,
+                     float4* __restrict__ out, int n, float4 sentinel) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float d = nw[i];
+  const float4 v = wc[i];
+  out[i] = d == 0.f ? sentinel : make_float4(v.x / d, v.y / d, v.z / d, v.w / d);
+}
+
+}  // namespace
+
+extern "C" {
+
+// runs: host array of n_runs (dy_start, n_rows, half_width) triples.
+// guide == nullptr selects the plain bilateral; out_nw may be nullptr.
+int idf_bilateral(const void* img, const void* guide, void* out_wc, void* out_nw, int h,
+                  int w, const int* runs, int n_runs, float sp_coef, float col_coef,
+                  int blue_bug, int zero_border, int uniform_alpha, int fuse_normalize,
+                  void* stream) {
+  if (n_runs < 0 || n_runs > kMaxRuns) return static_cast<int>(cudaErrorInvalidValue);
+  if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+  Runs table;
+  table.n = n_runs;
+  for (int i = 0; i < n_runs; ++i) {
+    table.dy0[i] = static_cast<short>(runs[3 * i]);
+    table.rows[i] = static_cast<short>(runs[3 * i + 1]);
+    table.hw[i] = static_cast<short>(runs[3 * i + 2]);
+  }
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float4* in = static_cast<const float4*>(img);
+  const float4* gd = static_cast<const float4*>(guide);
+  float4* o = static_cast<float4*>(out_wc);
+  float* onw = static_cast<float*>(out_nw);
+  const float blue_w = blue_bug ? 0.f : 1.f;
+  if (gd != nullptr && zero_border) {
+    bilateral_kernel<true, true><<<grid, block, 0, s>>>(
+        in, gd, o, onw, h, w, table, sp_coef, col_coef, blue_w, uniform_alpha, fuse_normalize);
+  } else if (gd != nullptr) {
+    bilateral_kernel<true, false><<<grid, block, 0, s>>>(
+        in, gd, o, onw, h, w, table, sp_coef, col_coef, blue_w, uniform_alpha, fuse_normalize);
+  } else if (zero_border) {
+    bilateral_kernel<false, true><<<grid, block, 0, s>>>(
+        in, gd, o, onw, h, w, table, sp_coef, col_coef, blue_w, uniform_alpha, fuse_normalize);
+  } else {
+    bilateral_kernel<false, false><<<grid, block, 0, s>>>(
+        in, gd, o, onw, h, w, table, sp_coef, col_coef, blue_w, uniform_alpha, fuse_normalize);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cands: host array of n_cands (dy, dx) pairs; frames: (n_frames, h, w, 4);
+// valid: device array of n_frames floats.
+int idf_nlm(const void* tgt, const void* frames, const void* valid, void* out_wc,
+            void* out_nw, int h, int w, int n_frames, int p, const int* cands,
+            int n_cands, float ssd_coef, float log_m, float norm_seed, int zero_border,
+            int uniform_alpha, void* stream) {
+  if (n_cands < 0 || n_cands > kMaxCands) return static_cast<int>(cudaErrorInvalidValue);
+  if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+  Cands table;
+  table.n = n_cands;
+  for (int i = 0; i < n_cands; ++i) {
+    const int dy = cands[2 * i];
+    const int dx = cands[2 * i + 1];
+    if (dy < -128 || dy > 127 || dx < -128 || dx > 127)
+      return static_cast<int>(cudaErrorInvalidValue);
+    table.dy[i] = static_cast<signed char>(dy);
+    table.dx[i] = static_cast<signed char>(dx);
+  }
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float4* t = static_cast<const float4*>(tgt);
+  const float4* fr = static_cast<const float4*>(frames);
+  const float* v = static_cast<const float*>(valid);
+  float4* o = static_cast<float4*>(out_wc);
+  float* onw = static_cast<float*>(out_nw);
+  if (zero_border) {
+    nlm_kernel<true><<<grid, block, 0, s>>>(t, fr, v, o, onw, h, w, n_frames, p, table,
+                                            ssd_coef, log_m, norm_seed, uniform_alpha);
+  } else {
+    nlm_kernel<false><<<grid, block, 0, s>>>(t, fr, v, o, onw, h, w, n_frames, p, table,
+                                             ssd_coef, log_m, norm_seed, uniform_alpha);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int idf_normalize(const void* wc, const void* nw, void* out, int n_pixels, float s_r,
+                  float s_g, float s_b, float s_a, void* stream) {
+  if (n_pixels <= 0) return static_cast<int>(cudaSuccess);
+  const int threads = 256;
+  const int blocks = (n_pixels + threads - 1) / threads;
+  normalize_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(wc), static_cast<const float*>(nw),
+      static_cast<float4*>(out), n_pixels, make_float4(s_r, s_g, s_b, s_a));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,414 @@
+"""Hand-written CUDA kernels for the exact stencils: bilateral, layer-guided
+cross-bilateral, frame-batched NLM and the normalize epilogue.
+
+Counterpart of image_denoising_filter_tpu/ops/stencils.py. The kernels are in
+ops/csrc/stencils.cu and are built by ops/_build.py at first use. Beside each
+kernel this module holds:
+
+  * the static tables the kernel iterates, ported from the JAX module:
+    `_circle_runs` (the bilateral truncation disk) and `_sdx_steps` (the NLM
+    search candidates, with the stride and disk subsets);
+  * its plain PyTorch version, the same tap set and candidate table as
+    whole-image tensor ops (`bilateral_plain`, `nlm_plain`,
+    `normalize_plain`);
+  * a launch counter in `launches`, raised by one where the wrapper launches
+    the kernel and nowhere else.
+
+The public wrappers keep the JAX signatures and the (H, W, 4) float32
+layout. On a CPU tensor a wrapper runs the plain version; on a CUDA tensor
+it checks dtype, shape, contiguity and options, then launches the kernel or
+raises. There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from image_denoising_filter_tpu.config import (
+    BilateralParams,
+    BorderPolicy,
+    LayersParams,
+    NlmParams,
+    NormalizeParams,
+    TilingConfig,
+)
+
+from . import _build
+from .eager import _pad2d, nlm_eager, normalize_eager
+
+# exp(x) == exp2(x * log2(e)): log2(e) is folded into the weight constants.
+LOG2E = math.log2(math.e)
+
+# Table sizes the kernels take by value (stencils.cu: kMaxRuns, kMaxCands).
+MAX_RUNS = 128
+MAX_CANDIDATES = 1024
+
+#: Kernel launches since the last reset_launches(), by kernel form.
+launches = {"bilateral": 0, "bilateral_guided": 0, "nlm": 0, "normalize": 0}
+
+
+def reset_launches() -> None:
+    for key in launches:
+        launches[key] = 0
+
+
+# ---------------------------------------------------------------------------
+# Static tables
+# ---------------------------------------------------------------------------
+
+
+def _circle_runs(
+    radius: int, sigma_spatial: float, truncate_eps: float, max_extra: int = 2
+) -> list[tuple[int, int, int]]:
+    """(dy_start, n_rows, half_width) row runs covering the truncation disk
+    {dy^2 + dx^2 <= R^2}, R^2 = 2 ss^2 ln(1/eps) (stencils.py:_circle_runs).
+
+    Rows are grouped greedily into runs whose shared half width exceeds no
+    member row's exact width by more than `max_extra`; the slack taps are
+    real window taps, so both packages iterate exactly the same tap set."""
+    if truncate_eps > 0.0:
+        r2_max = 2.0 * sigma_spatial * sigma_spatial * math.log(1.0 / truncate_eps)
+    else:
+        r2_max = float("inf")
+    rows = []
+    for dy in range(-radius, radius + 1):
+        if dy * dy <= r2_max:
+            k = radius if math.isinf(r2_max) else int(math.sqrt(r2_max - dy * dy))
+            rows.append((dy, min(radius, k)))
+    runs = []
+    cur = None  # (dy_start, widths)
+    for dy, k in rows:
+        if cur is not None:
+            merged = cur[1] + [k]
+            if max(merged) - min(merged) <= max_extra:
+                cur = (cur[0], merged)
+                continue
+            runs.append((cur[0], len(cur[1]), max(cur[1])))
+        cur = (dy, [k])
+    if cur is not None:
+        runs.append((cur[0], len(cur[1]), max(cur[1])))
+    return runs
+
+
+def _sdx_steps(params: NlmParams) -> tuple[tuple[int, ...], ...]:
+    """Per search row, the candidate columns sdx = dx + s
+    (stencils.py:903-912): the stride subset keeps the zero offset, the disk
+    trim drops the grid corners."""
+    s, stride = params.search_radius, params.search_stride
+    sdx_all = tuple(range(s % stride, 2 * s, stride))
+    return tuple(
+        tuple(
+            sdx
+            for sdx in sdx_all
+            if not params.search_disk or (sdy - s) ** 2 + (sdx - s) ** 2 <= s * s
+        )
+        for sdy in sdx_all
+    )
+
+
+def nlm_candidates(params: NlmParams) -> list[tuple[int, int]]:
+    """The (dy, dx) search offsets of `_sdx_steps`, row by row."""
+    s = params.search_radius
+    sdy_all = range(s % params.search_stride, 2 * s, params.search_stride)
+    return [
+        (sdy - s, sdx - s)
+        for sdy, row in zip(sdy_all, _sdx_steps(params))
+        for sdx in row
+    ]
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (same taps and candidates as the kernels)
+# ---------------------------------------------------------------------------
+
+
+def bilateral_plain(
+    img: torch.Tensor,
+    guide: Optional[torch.Tensor],
+    params: BilateralParams,
+    fuse_normalize: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bilateral kernel as tensor ops over the `_circle_runs` disk.
+    Weights come from `guide` when given, else from `img`; values from
+    `img`. Returns (out or wc (H,W,4), nw (H,W))."""
+    h, w, _ = img.shape
+    r = params.effective_radius
+    padded_v = _pad2d(img, r, params.border)
+    padded_g = padded_v if guide is None else _pad2d(guide, r, params.border)
+    center = (img if guide is None else guide)[..., :3]
+    nrgb = 2 if params.blue_bug else 3
+    sp_coef = -0.5 / params.sigma_spatial**2 * LOG2E
+    col_coef = 0.5 / params.sigma_color**2 * LOG2E
+    wc = torch.zeros((h, w, 4), dtype=torch.float32, device=img.device)
+    nw = torch.zeros((h, w), dtype=torch.float32, device=img.device)
+    for dy0, n_rows, hw in _circle_runs(r, params.sigma_spatial, params.truncate_eps):
+        for dy in range(dy0, dy0 + n_rows):
+            for dx in range(-hw, hw + 1):
+                tap_g = padded_g[dy + r : dy + r + h, dx + r : dx + r + w]
+                d = center[..., :nrgb] - tap_g[..., :nrgb]
+                spatial = float(np.float32(sp_coef * (dy * dy + dx * dx)))
+                wgt = torch.exp2(spatial - (d * d).sum(-1) * col_coef)
+                tap_v = tap_g if guide is None else padded_v[dy + r : dy + r + h, dx + r : dx + r + w]
+                wc += tap_v * wgt[..., None]
+                nw += wgt
+    if params.uniform_alpha:
+        wc[..., 3] = img[..., 3] * nw
+    if fuse_normalize:
+        wc = wc / nw[..., None]
+    return wc, nw
+
+
+def nlm_plain(
+    target: torch.Tensor,
+    frames: torch.Tensor,
+    params: NlmParams,
+    valid: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The NLM kernel as tensor ops: the sum over frames of each frame's
+    partials (ops/eager.py:nlm_eager, which iterates the same
+    `nlm_candidates` table and seeds nw with the norm seed), each scaled by
+    valid[f], seed included."""
+    total_wc = torch.zeros_like(target)
+    total_nw = torch.zeros(target.shape[:2], dtype=torch.float32, device=target.device)
+    for f in range(frames.shape[0]):
+        wc, nw = nlm_eager(target, frames[f], params)
+        vf = 1.0 if valid is None else valid[f]
+        total_wc += wc * vf
+        total_nw += nw * vf
+    return total_wc, total_nw
+
+
+# The normalize pass is one division with a sentinel: its plain version is
+# the linear config's own (ops/eager.py).
+normalize_plain = normalize_eager
+
+
+# ---------------------------------------------------------------------------
+# Checks and launches
+# ---------------------------------------------------------------------------
+
+
+def _check_options(tiling: Optional[TilingConfig], params=None) -> None:
+    if tiling is not None and tiling.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={tiling.compute_dtype!r} is not ported yet: the "
+            "kernels take float32 taps only (ROADMAP.md queue A item 8)"
+        )
+    if isinstance(params, NlmParams) and params.weights_halfres:
+        raise NotImplementedError(
+            "weights_halfres is not ported yet (ROADMAP.md queue A item 8, turbo NLM)"
+        )
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors (after checking them for the kernels), False for
+    CPU tensors (which take the plain version); anything else raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"inputs are on different devices: {sorted(map(str, devices))}")
+    device = devices.pop()
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"expected float32 tensors, got {t.dtype}")
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}: use a CUDA or a CPU tensor")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernels take contiguous tensors")
+    return True
+
+
+def _check_image(img: torch.Tensor, name: str) -> None:
+    if img.dim() != 3 or img.shape[-1] != 4:
+        raise ValueError(f"{name} must be (H, W, 4), got {tuple(img.shape)}")
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _raise_on_error(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed with CUDA error {rc}")
+
+
+def _launch_bilateral(
+    img: torch.Tensor,
+    guide: Optional[torch.Tensor],
+    params: BilateralParams,
+    fuse_normalize: bool,
+) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    h, w, _ = img.shape
+    r = params.effective_radius
+    runs = np.asarray(
+        _circle_runs(r, params.sigma_spatial, params.truncate_eps), np.int32
+    ).reshape(-1)
+    if runs.size // 3 > MAX_RUNS:
+        raise ValueError(f"{runs.size // 3} disk runs exceed the kernel's table of {MAX_RUNS}")
+    out = torch.empty_like(img)
+    nw = None if fuse_normalize else torch.empty((h, w), dtype=torch.float32, device=img.device)
+    lib = _build.library()
+    with torch.cuda.device(img.device):
+        rc = lib.idf_bilateral(
+            img.data_ptr(),
+            None if guide is None else guide.data_ptr(),
+            out.data_ptr(),
+            None if nw is None else nw.data_ptr(),
+            h,
+            w,
+            runs.ctypes.data,
+            runs.size // 3,
+            -0.5 / params.sigma_spatial**2 * LOG2E,
+            0.5 / params.sigma_color**2 * LOG2E,
+            int(params.blue_bug),
+            int(params.border != BorderPolicy.CLAMP),
+            int(params.uniform_alpha),
+            int(fuse_normalize),
+            _stream(img),
+        )
+    _raise_on_error(rc, "bilateral")
+    launches["bilateral" if guide is None else "bilateral_guided"] += 1
+    return out, nw
+
+
+# ---------------------------------------------------------------------------
+# Public wrappers
+# ---------------------------------------------------------------------------
+
+
+def bilateral(
+    img: torch.Tensor,
+    params: BilateralParams = BilateralParams(),
+    tiling: Optional[TilingConfig] = None,
+) -> torch.Tensor:
+    """Bilateral filter with the normalize fused (shaders/bialteral.comp).
+    img: (H, W, 4) float32; returns the filtered (H, W, 4) image."""
+    _check_options(tiling)
+    _check_image(img, "img")
+    if not _on_cuda(img):
+        return bilateral_plain(img, None, params, True)[0]
+    return _launch_bilateral(img, None, params, True)[0]
+
+
+def cross_bilateral_layers(
+    target: torch.Tensor,
+    layer: torch.Tensor,
+    params: LayersParams = LayersParams(),
+    tiling: Optional[TilingConfig] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One layer's cross-bilateral partials (shaders/bialteral_layers.comp):
+    weights from `layer`, colours from `target`. Returns (weightColor
+    (H,W,4), normWeight (H,W))."""
+    _check_options(tiling)
+    _check_image(target, "target")
+    if layer.shape != target.shape:
+        raise ValueError(f"layer {tuple(layer.shape)} != target {tuple(target.shape)}")
+    if not _on_cuda(target, layer):
+        return bilateral_plain(target, layer, params, False)
+    return _launch_bilateral(target, layer, params, False)
+
+
+def nlm_accumulate(
+    target: torch.Tensor,
+    neighbour: torch.Tensor,
+    params: NlmParams = NlmParams(),
+    tiling: Optional[TilingConfig] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One frame's NLM partials (shaders/nonlocal.comp:30-65); normWeight is
+    seeded with params.norm_seed. One launch of the frame-batched kernel."""
+    return nlm_accumulate_frames(target, neighbour[None], params, tiling)
+
+
+def nlm_accumulate_frames(
+    target: torch.Tensor,
+    frames: torch.Tensor,
+    params: NlmParams = NlmParams(),
+    tiling: Optional[TilingConfig] = None,
+    valid: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Temporal NLM partials over a stacked (F, H, W, 4) frame batch in one
+    launch, the accumulators kept in registers across frames. Each frame adds
+    its norm seed; `valid` ((F,) float 0/1) masks frames, seed included."""
+    _check_options(tiling, params)
+    _check_image(target, "target")
+    if frames.dim() != 4 or frames.shape[1:] != target.shape:
+        raise ValueError(f"frames must be (F, *{tuple(target.shape)}), got {tuple(frames.shape)}")
+    n_frames = frames.shape[0]
+    if valid is not None and valid.shape != (n_frames,):
+        raise ValueError(f"valid must be ({n_frames},), got {tuple(valid.shape)}")
+    if not _on_cuda(target, frames, *(() if valid is None else (valid,))):
+        return nlm_plain(target, frames, params, valid)
+    if valid is None:
+        valid = torch.ones((n_frames,), dtype=torch.float32, device=target.device)
+    h, w, _ = target.shape
+    cands = np.asarray(nlm_candidates(params), np.int32).reshape(-1)
+    if cands.size // 2 > MAX_CANDIDATES:
+        raise ValueError(
+            f"{cands.size // 2} search candidates exceed the kernel's table of {MAX_CANDIDATES}"
+        )
+    wc = torch.empty_like(target)
+    nw = torch.empty((h, w), dtype=torch.float32, device=target.device)
+    lib = _build.library()
+    with torch.cuda.device(target.device):
+        rc = lib.idf_nlm(
+            target.data_ptr(),
+            frames.data_ptr(),
+            valid.data_ptr(),
+            wc.data_ptr(),
+            nw.data_ptr(),
+            h,
+            w,
+            n_frames,
+            params.patch_radius,
+            cands.ctypes.data,
+            cands.size // 2,
+            -LOG2E / params.h**2,
+            math.log2(params.search_stride**2),
+            params.norm_seed,
+            int(params.border != BorderPolicy.CLAMP),
+            int(params.uniform_alpha),
+            _stream(target),
+        )
+    _raise_on_error(rc, "nlm")
+    launches["nlm"] += 1
+    return wc, nw
+
+
+def normalize(
+    weight_color: torch.Tensor,
+    norm: torch.Tensor,
+    params: NormalizeParams = NormalizeParams(),
+    tiling: Optional[TilingConfig] = None,
+) -> torch.Tensor:
+    """Normalization pass (shaders/normalize.comp:30-44): out = wc / nw with a
+    magenta sentinel where nw == 0. weight_color: (H,W,4); norm: (H,W)."""
+    _check_options(tiling)
+    _check_image(weight_color, "weight_color")
+    if norm.shape != weight_color.shape[:2]:
+        raise ValueError(f"norm {tuple(norm.shape)} != {tuple(weight_color.shape[:2])}")
+    if not _on_cuda(weight_color, norm):
+        return normalize_plain(weight_color, norm, params)
+    out = torch.empty_like(weight_color)
+    lib = _build.library()
+    with torch.cuda.device(out.device):
+        rc = lib.idf_normalize(
+            weight_color.data_ptr(),
+            norm.data_ptr(),
+            out.data_ptr(),
+            norm.numel(),
+            params.sentinel_r,
+            params.sentinel_g,
+            params.sentinel_b,
+            params.sentinel_a,
+            _stream(out),
+        )
+    _raise_on_error(rc, "normalize")
+    launches["normalize"] += 1
+    return out
