@@ -6,7 +6,8 @@ configurations.
 (src/main.cpp:1935-1994): the six device configurations in fixed order, each
 printing its transfer/exec timing, with outputs under the reference's
 flag-encoded names (src/main.cpp:1677-1682). `--device` picks the device;
-`cuda` without a card is an error.
+`cuda` without a card is an error. `--turbo D` runs the bilateral and linear
+configs through the approximate bilateral grid (Session.run_turbo).
 """
 
 from __future__ import annotations
@@ -31,6 +32,14 @@ DEFAULT_IMAGE = "Animations/CornellBox/Animation01_LDR_0000.png"
 CONFIG_KEYS = ("bilateral", "layers", "linear", "nlm", "multiframe", "overlap")
 # The CPU bilateral configs of tpu-denoise wait for Session.run_cpu.
 NOT_PORTED = ("cpu1", "cpu8")
+# Under --turbo, the configs whose turbo forms wait for a later slice, with
+# the ROADMAP.md item that ports them.
+TURBO_NOT_PORTED = {
+    "layers": "queue A item 9, turbo layers",
+    "nlm": "queue A item 8, turbo NLM",
+    "multiframe": "queue A item 8, turbo NLM",
+    "overlap": "queue A item 8, turbo NLM",
+}
 
 _CONFIG_BANNERS = {
     # main.cpp:1952-1972 banners, modernized
@@ -87,6 +96,20 @@ def main(argv: list[str] | None = None) -> int:
         "instead of one launch per frame; long sequences are chunked at "
         "~1.5 GB of stacked frames",
     )
+    ap.add_argument(
+        "--turbo", type=int, default=0, metavar="D", choices=[0, 1, 2, 4, 8],
+        help="approximate speed mode for the bilateral configs: the per-channel "
+        "bilateral grid with spatial reduction D (0 = exact kernels; D = 1 is "
+        "the whole-image lattice, D = 2, 4, 8 the grid kernels). Under --turbo "
+        "the 'linear' config runs the same grid pipeline as 'bilateral' under "
+        "its own file name; the layers and NLM configs are not ported in turbo "
+        "form yet and are refused",
+    )
+    ap.add_argument(
+        "--turbo-levels", type=int, default=None, metavar="K",
+        help="bilateral-grid intensity levels for --turbo (default: K=5 at "
+        "D=2 and 4, K=6 otherwise)",
+    )
     # Filter parameters (the reference requires editing main.cpp to change
     # these, README.md:3; defaults are the reference's push-constant values).
     ap.add_argument("--radius", type=int, default=20, help="bilateral window radius")
@@ -106,6 +129,10 @@ def main(argv: list[str] | None = None) -> int:
         if key not in CONFIG_KEYS:
             print(f"error: unknown config {key!r} (choose from {','.join(CONFIG_KEYS)})",
                   file=sys.stderr)
+            return 1
+        if args.turbo and key in TURBO_NOT_PORTED:
+            print(f"error: config {key} under --turbo is not ported yet "
+                  f"(ROADMAP.md {TURBO_NOT_PORTED[key]})", file=sys.stderr)
             return 1
 
     try:
@@ -156,7 +183,12 @@ def main(argv: list[str] | None = None) -> int:
                 if key not in sel:
                     continue
                 print(f"<<<--- {_banner(cfg)} --->>>")
-                result = session.run(cfg)
+                if args.turbo:  # bilateral or linear: the same grid pipeline
+                    result = session.run_turbo(
+                        cfg, levels=args.turbo_levels, downsample=args.turbo
+                    )
+                else:
+                    result = session.run(cfg)
                 print(f"\toutput: {result.output_path}")
                 result.report.print()
     except Exception as e:  # main.cpp:1948-1991 catches and reports

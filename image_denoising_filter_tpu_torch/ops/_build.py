@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-`nvcc` compiles `ops/csrc/*.cu` into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds). The library goes to
-`build/idf_torch_kernels/<hash>/libidf_torch_kernels.so` at the repository
-root, where the hash covers the sources and the flags: a changed source builds
-anew, an unchanged one loads what is there. Nothing is committed and nothing
-falls back: without `nvcc` the build raises.
+`nvcc` compiles each source of `ops/csrc/` into an object, all sources at
+once in parallel processes, and links the objects into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds). The
+library goes to `build/idf_torch_kernels/<hash>/libidf_torch_kernels.so` at
+the repository root, where the hash covers the sources and the flags: a
+changed source builds anew, an unchanged one loads what is there. Nothing is
+committed and nothing falls back: without `nvcc` the build raises.
 
 The build directory is found relative to the package, so the kernels build
 from a source checkout or an editable install (`pip install -e .`); a
@@ -21,10 +22,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("stencils.cu",)
+_SOURCES = ("stencils.cu", "fast.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "idf_torch_kernels"
 LIB_NAME = "libidf_torch_kernels.so"
 # No --use_fast_math: the exact kernels are held to rtol 1e-4, and fast
@@ -32,7 +34,7 @@ LIB_NAME = "libidf_torch_kernels.so"
 # shared memory and spills of every kernel in the build log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 _BUILD_TIMEOUT_S = 600
@@ -63,22 +65,41 @@ def build() -> tuple[Path, str]:
     """Compile the kernels unless the library for these sources exists.
 
     Returns (library path, compiler log); the log is empty when nothing was
-    compiled. The library is written under a temporary name and renamed into
-    place, so concurrent builders never load a half-written file."""
+    compiled. One nvcc per source, all started together, then one link. The
+    work happens in a private temporary directory and the library is renamed
+    into place, so concurrent builds never load a half-written file."""
     lib = _library_path()
     if lib.exists():
         return lib, ""
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(_CSRC / s) for s in _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=_BUILD_TIMEOUT_S)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stdout}{proc.stderr}"
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        objs = [Path(tmp, Path(s).stem + ".o") for s in _SOURCES]
+        procs = []
+        try:
+            for src, obj in zip(_SOURCES, objs):
+                with open(obj.with_suffix(".log"), "w") as log:
+                    cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(_CSRC / src)]
+                    procs.append(subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
+            rcs = [p.wait(timeout=_BUILD_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        text = "".join(obj.with_suffix(".log").read_text() for obj in objs)
+        if any(rcs):
+            raise RuntimeError(f"nvcc failed with codes {rcs}:\n{text}")
+        out = Path(tmp, LIB_NAME)
+        link = subprocess.run(
+            [nvcc, "-shared", "-Xcompiler", "-fPIC", "-o", str(out), *map(str, objs)],
+            capture_output=True, text=True, timeout=_BUILD_TIMEOUT_S,
         )
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+        text += link.stdout + link.stderr
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed with code {link.returncode}:\n{text}")
+        os.replace(out, lib)
+    return lib, text
 
 
 @functools.lru_cache(maxsize=1)
@@ -98,4 +119,14 @@ def library() -> ctypes.CDLL:
     lib.idf_nlm.restype = i32
     lib.idf_normalize.argtypes = [ptr, ptr, ptr, i32, f32, f32, f32, f32, ptr]
     lib.idf_normalize.restype = i32
+    lib.idf_pool.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.idf_pool.restype = i32
+    lib.idf_build_grid.argtypes = [
+        ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, f32, i32, i32, ptr,
+    ]
+    lib.idf_build_grid.restype = i32
+    lib.idf_slice_grid.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr,
+    ]
+    lib.idf_slice_grid.restype = i32
     return lib

@@ -1,5 +1,5 @@
 """Whole-image PyTorch versions of the device stencils: the linear-layout
-config.
+config, and the turbo grid's lattice path.
 
 Counterpart of image_denoising_filter_tpu/ops/xla.py, the analog of the
 reference's *linear texel-buffer* variant (shaders/bialteral_linear.comp):
@@ -7,7 +7,12 @@ the same math as the hand-written kernels, written as whole-image tensor ops
 that re-read the image for every tap. In the JAX package this is plain XLA,
 not Pallas, so here it stays tensor ops on the device; it is the linear
 config itself, not the kernels' plain versions (those live beside the
-kernels in ops/stencils.py).
+kernels in ops/stencils.py and ops/fast.py).
+
+`bilateral_fast_eager` is the XLA lattice of
+image_denoising_filter_tpu/ops/fast.py:bilateral_fast_planar (219-271): the
+turbo bilateral grid without Pallas, which the JAX package runs at every
+downsample off the TPU and at downsample 1 on it.
 
 All functions take and return (H, W, 4) float32 tensors and run on whatever
 device their inputs are on. Accumulators are updated in place.
@@ -33,12 +38,54 @@ def _pad2d(img: torch.Tensor, r: int, border: str) -> torch.Tensor:
     otherwise (xla.py:_pad2d)."""
     if r == 0:
         return img
+    return _pad_dim(_pad_dim(img, r, 0, border), r, 1, border)
+
+
+def _pad_to(img: torch.Tensor, hp: int, wp: int, border: str) -> torch.Tensor:
+    """Pad the leading (H, W) axes at the bottom and right up to (hp, wp):
+    edge pixels under CLAMP, zeros otherwise (the jnp.pad of fast.py:404-406)."""
+    h, w = img.shape[:2]
+    if (hp, wp) == (h, w):
+        return img
     if border == BorderPolicy.CLAMP:
-        h, w = img.shape[:2]
-        ys = torch.arange(-r, h + r, device=img.device).clamp_(0, h - 1)
-        xs = torch.arange(-r, w + r, device=img.device).clamp_(0, w - 1)
+        ys = torch.arange(hp, device=img.device).clamp_(max=h - 1)
+        xs = torch.arange(wp, device=img.device).clamp_(max=w - 1)
         return img[ys][:, xs]
-    return F.pad(img, (0, 0, r, r, r, r))
+    return F.pad(img, (0, 0, 0, wp - w, 0, hp - h))
+
+
+def _pad_dim(x: torch.Tensor, r: int, dim: int, border: str) -> torch.Tensor:
+    """Pad axis `dim` by r on both sides: edge values under CLAMP, zeros
+    otherwise."""
+    n = x.shape[dim]
+    if border == BorderPolicy.CLAMP:
+        return x.index_select(dim, torch.arange(-r, n + r, device=x.device).clamp_(0, n - 1))
+    shape = list(x.shape)
+    shape[dim] = r
+    zeros = x.new_zeros(shape)
+    return torch.cat([zeros, x, zeros], dim)
+
+
+def _blur_valid(x: torch.Tensor, taps: np.ndarray, dim: int) -> torch.Tensor:
+    """sum_i taps[i] * x[i : i + n] along `dim` (n = size - len(taps) + 1),
+    accumulated in tap order, as fast.py:_sep_blur and the build kernel add."""
+    n = x.shape[dim] - len(taps) + 1
+    out = float(taps[0]) * x.narrow(dim, 0, n)
+    for i in range(1, len(taps)):
+        out = out + float(taps[i]) * x.narrow(dim, i, n)
+    return out
+
+
+def _mean_pool(x: torch.Tensor, d: int) -> torch.Tensor:
+    """d x d mean of (H, W, C), H and W multiples of d: strided row sums,
+    then strided column sums, then 1/d^2 (fast.py:_downsample), in float32."""
+    rows = x[0::d]
+    for i in range(1, d):
+        rows = rows + x[i::d]
+    out = rows[:, 0::d]
+    for j in range(1, d):
+        out = out + rows[:, j::d]
+    return out * (1.0 / (d * d))
 
 
 def _box_sum(e: torch.Tensor, k: int, out_h: int, out_w: int) -> torch.Tensor:
@@ -163,3 +210,49 @@ def normalize_eager(
     zero = norm == 0.0
     safe = torch.where(zero, torch.ones_like(norm), norm)
     return torch.where(zero[..., None], sentinel, weight_color / safe[..., None])
+
+
+def bilateral_fast_eager(
+    img: torch.Tensor,
+    params: BilateralParams = BilateralParams(),
+    levels: int = 6,
+    downsample: int = 2,
+) -> torch.Tensor:
+    """Approximate bilateral filter, the per-channel bilateral grid as
+    whole-image tensor ops (fast.py:bilateral_fast_planar's lattice,
+    219-271): pad to multiples of d, float32 mean pool, range weights
+    exp(-(p - level)^2 / (2 sigma_c^2)) from the pooled image, the separable
+    Gaussian blur of the fields (columns, then rows; padded fields under
+    ZERO carry no weight), normalize, then the tent sum over levels of the
+    bilinearly upsampled grid. Alpha rides green. img: (H, W, 4)."""
+    from .fast import _bilinear_up, _grid_taps, grid_range
+
+    img = img.to(torch.float32)
+    h, w, _ = img.shape
+    inv2sc = 0.5 / (params.sigma_color**2)
+    d = max(1, downsample)
+    small = _pad_to(img, -(-h // d) * d, -(-w // d) * d, params.border)
+    if d > 1:
+        small = _mean_pool(small, d)
+    rgb_s = small[..., :3]
+    lmin, step = grid_range(small, levels)
+    ks = torch.arange(levels, dtype=torch.float32, device=img.device)
+    level_vals = lmin + step * ks[:, None]  # (K, 3)
+    diff = rgb_s - level_vals[:, None, None]  # (K, hs, ws, 3)
+    wk = torch.exp(-(diff * diff) * inv2sc)
+    # Fields (K, hs, ws, 7): numerators r, g, b, a; denominators r, g, b.
+    fields = torch.cat([wk * rgb_s, wk[..., 1:2] * small[..., 3:], wk], -1)
+    taps = _grid_taps(params.sigma_spatial, d)
+    r = (len(taps) - 1) // 2
+    for dim in (2, 1):  # along W, then along H
+        fields = _blur_valid(_pad_dim(fields, r, dim, params.border), taps, dim)
+    den = fields[..., 4:].clamp_min(1e-20)
+    grid = torch.cat([fields[..., :3] / den, fields[..., 3:4] / den[..., 1:2]], -1)
+    t = ((img[..., :3] - lmin) / step).clamp(0.0, levels - 1.0)
+    t = torch.cat([t, t[..., 1:2]], -1)
+    out = torch.zeros((h, w, 4), dtype=torch.float32, device=img.device)
+    for k in range(levels):
+        tent = (1.0 - (t - k).abs()).clamp(0.0, 1.0)
+        up = _bilinear_up(grid[k], d, h, w) if d > 1 else grid[k]
+        out = out + tent * up
+    return out

@@ -1,0 +1,393 @@
+"""Hand-written CUDA kernels of the turbo bilateral grid -- pool, grid build
+and grid slice -- and the pipeline that runs them.
+
+Counterpart of image_denoising_filter_tpu/ops/fast.py, the bilateral family:
+`bilateral_fast` -> `_grid_pipeline_planar` -> `_pool_pallas`,
+`_build_grid_pallas`, `_slice_grid_pallas`. The kernels are in
+ops/csrc/fast.cu and are built by ops/_build.py at first use. Beside them
+this module holds:
+
+  * the static tables, ported from the JAX module: `_gauss_taps` and
+    `_grid_taps` (the pool-compensated blur taps) and `_bilinear_taps` with
+    `_upsample_matrix` (the half-pixel bilinear weights);
+  * each kernel's plain PyTorch version (`pool_plain`, `build_grid_plain`,
+    `slice_grid_plain`): whole-image tensor ops with the kernel's bf16
+    roundings, taps, summation order and lerp formula;
+  * launch counts, in `ops.stencils.launches` beside the exact kernels'.
+
+Layouts: images (H, W, 4) float32; the pooled image (hs, ws, 4) float32 with
+hs = ceil(H/d), ws = ceil(W/d); the grid (K, hs, ws, 4) bfloat16, channels
+r, g, b, a (`grid_to_planes` and `grid_from_planes` convert to and from the
+JAX package's (nc*K, hs, ws) planes). On a CPU tensor a wrapper runs the
+plain version; on a CUDA tensor it checks its inputs, then launches the
+kernel or raises. There is no fallback from one to the other.
+
+Not ported, because it is TPU machinery with no value of its own: the per-d
+tile defaults, the pad-free slab layout (`extend_to`), `cull_mask` and
+`out_dtype`. The fused build+slice kernel waits for ROADMAP queue B item 11.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from image_denoising_filter_tpu.config import BilateralParams, BorderPolicy
+
+from . import _build
+from .eager import _blur_valid, _pad2d, _pad_to, bilateral_fast_eager
+from .stencils import LOG2E, _check_image, _on_cuda, _raise_on_error, _stream, launches
+
+# Table size the build kernel takes by value (fast.cu: kMaxTaps).
+MAX_TAPS = 64
+#: Grid downsamples the kernels take; 1 is the eager lattice.
+DOWNSAMPLES = (2, 4, 8)
+
+
+# ---------------------------------------------------------------------------
+# Static tables
+# ---------------------------------------------------------------------------
+
+
+def _gauss_taps(sigma: float, radius: int) -> np.ndarray:
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    w = np.exp(-0.5 * (x / sigma) ** 2)
+    return (w / w.sum()).astype(np.float32)
+
+
+def _grid_taps(sigma_spatial: float, d: int) -> np.ndarray:
+    """Grid-resolution blur taps with the pooling prefilter compensated
+    (fast.py:_grid_taps): the mean of d unit-spaced samples has variance
+    (d^2 - 1)/12, so the grid blur supplies sigma_g = sqrt(max(sigma_s^2 -
+    (d^2 - 1)/12, 0.04)) / d, over radius ceil(4 sigma_g)."""
+    var = sigma_spatial * sigma_spatial - (d * d - 1) / 12.0
+    sigma_g = math.sqrt(max(var, 0.04)) / d
+    radius = max(1, int(math.ceil(4.0 * sigma_g)))
+    return _gauss_taps(sigma_g, radius)
+
+
+def _bilinear_taps(d: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """Half-pixel-centre bilinear taps over grid cells d samples apart:
+    output sample x reads cells f = floor(g) and f + 1 at g = (x + 0.5)/d -
+    0.5, with weight g - f on the second. Returns (f int64, weight float32)."""
+    g = (np.arange(n_out, dtype=np.float64) + 0.5) / d - 0.5
+    f = np.floor(g)
+    return f.astype(np.int64), (g - f).astype(np.float32)
+
+
+def _upsample_matrix(d: int, n_in: int, n_out: int) -> np.ndarray:
+    """The taps as the (n_in, n_out) matrix of fast.py:_upsample_matrix,
+    whose rows start one cell early (row f + 1 is cell f)."""
+    f, w1 = _bilinear_taps(d, n_out)
+    u = np.zeros((n_in, n_out), np.float32)
+    cols = np.arange(n_out)
+    np.add.at(u, (f + 1, cols), 1.0 - w1)
+    np.add.at(u, (f + 2, cols), w1)
+    return u
+
+
+def _bilinear_up(g: torch.Tensor, d: int, h: int, w: int) -> torch.Tensor:
+    """Bilinear upsample of (hs, ws, C) grid cells to (h, w) samples over the
+    edge-replicated grid: along W first, then along H, each as
+    a * (1 - wt) + b * wt (the slice kernel's order)."""
+    hs, ws = g.shape[:2]
+
+    def taps(n_out, n_in):
+        f, wt = _bilinear_taps(d, n_out)
+        i0 = torch.from_numpy(np.clip(f, 0, n_in - 1)).to(g.device)
+        i1 = torch.from_numpy(np.clip(f + 1, 0, n_in - 1)).to(g.device)
+        wt = torch.from_numpy(wt).to(g.device)
+        return i0, i1, wt
+
+    y0, y1, wy = taps(h, hs)
+    x0, x1, wx = taps(w, ws)
+    wx = wx[:, None]
+    gx = g[:, x0] * (1.0 - wx) + g[:, x1] * wx  # (hs, w, C)
+    wy = wy[:, None, None]
+    return gx[y0] * (1.0 - wy) + gx[y1] * wy
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (same roundings, taps and order as the kernels)
+# ---------------------------------------------------------------------------
+
+
+def pool_plain(img: torch.Tensor, d: int, border: str) -> torch.Tensor:
+    """The pool kernel as tensor ops: pad to multiples of d, cast to bf16,
+    mean over the d rows of each column, cast to bf16, mean over d columns."""
+    h, w, _ = img.shape
+    hs, ws = -(-h // d), -(-w // d)
+    x = _pad_to(img, hs * d, ws * d, border).to(torch.bfloat16).float()
+    inv_d = 1.0 / d
+    rows = x.view(hs, d, ws * d, 4)
+    col = rows[:, 0] * inv_d
+    for i in range(1, d):
+        col = col + rows[:, i] * inv_d
+    cols = col.to(torch.bfloat16).float().view(hs, ws, d, 4)
+    out = cols[:, :, 0] * inv_d
+    for j in range(1, d):
+        out = out + cols[:, :, j] * inv_d
+    return out
+
+
+def build_grid_plain(
+    small: torch.Tensor,
+    lmin: torch.Tensor,
+    step: torch.Tensor,
+    levels: int,
+    taps: np.ndarray,
+    border: str,
+    inv2sc: float,
+    uniform_alpha: bool = False,
+) -> torch.Tensor:
+    """The build kernel as tensor ops. The pooled image is padded by the blur
+    radius first (edge cells under CLAMP, zero pixels under ZERO, which keep
+    their range weight), then per level the seven fields (den r, g, b; num
+    r, g, b, a) are blurred along H, then W, over the valid region."""
+    r = (len(taps) - 1) // 2
+    p = _pad2d(small, r, border)
+    coef = float(np.float32(inv2sc * LOG2E))
+    out = []
+    for k in range(levels):
+        dc = p[..., :3] - (lmin + step * float(k))
+        wk = torch.exp2(-(dc * dc) * coef)
+        nums = wk * p[..., :3]
+        fields = torch.cat([wk, nums, wk[..., 1:2] * p[..., 3:]], -1)
+        fields = _blur_valid(_blur_valid(fields, taps, 0), taps, 1)
+        den = fields[..., :3].clamp_min(1e-20)
+        alpha = torch.zeros_like(den[..., :1]) if uniform_alpha else fields[..., 6:] / den[..., 1:2]
+        out.append(torch.cat([fields[..., 3:6] / den, alpha], -1).to(torch.bfloat16))
+    return torch.stack(out)
+
+
+def slice_grid_plain(
+    guide: torch.Tensor,
+    grid: torch.Tensor,
+    lmin: torch.Tensor,
+    inv_step: torch.Tensor,
+    d: int,
+    alpha_val: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The slice kernel as tensor ops: per level, the tent weight of each
+    pixel's t_c times the bilinearly upsampled level, summed in level order.
+    Alpha takes green's tent, or the constant alpha_val (uniform alpha)."""
+    h, w, _ = guide.shape
+    levels = grid.shape[0]
+    t = ((guide[..., :3] - lmin) * inv_step).clamp(0.0, levels - 1.0)
+    t = torch.cat([t, t[..., 1:2]], -1)
+    acc = torch.zeros((h, w, 4), dtype=torch.float32, device=guide.device)
+    for k in range(levels):
+        tent = (1.0 - (t - k).abs()).clamp_min(0.0)
+        acc = acc + tent * _bilinear_up(grid[k].float(), d, h, w)
+    if alpha_val is not None:
+        acc[..., 3] = alpha_val
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# Checks, layouts and launches
+# ---------------------------------------------------------------------------
+
+
+def _check_downsample(d: int) -> None:
+    if d not in DOWNSAMPLES:
+        raise ValueError(
+            f"the grid kernels take downsample d in {DOWNSAMPLES}, got {d} "
+            "(d = 1 is the eager lattice, ops.eager.bilateral_fast_eager)"
+        )
+
+
+def _check_range(*tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if tuple(t.shape) != (3,):
+            raise ValueError(f"grid range tensors must be (3,), got {tuple(t.shape)}")
+
+
+def _check_grid(grid: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    if grid.dtype != torch.bfloat16:
+        raise TypeError(f"the grid must be bfloat16, got {grid.dtype}")
+    if grid.dim() != 4 or tuple(grid.shape[1:]) != shape:
+        raise ValueError(f"grid must be (K, *{shape}), got {tuple(grid.shape)}")
+    if grid.device != device:
+        raise ValueError(f"grid on {grid.device}, image on {device}")
+    if device.type == "cuda" and not grid.is_contiguous():
+        raise ValueError("the CUDA kernels take contiguous tensors")
+
+
+def grid_to_planes(grid: torch.Tensor, uniform_alpha: bool) -> torch.Tensor:
+    """(K, hs, ws, 4) -> the JAX package's level-major (nc*K, hs, ws) planes,
+    nc = 3 under uniform alpha (fast.py:_build_grid_pallas's output)."""
+    nc = 3 if uniform_alpha else 4
+    levels, hs, ws, _ = grid.shape
+    return grid[..., :nc].permute(0, 3, 1, 2).reshape(levels * nc, hs, ws)
+
+
+def grid_from_planes(planes: torch.Tensor, uniform_alpha: bool) -> torch.Tensor:
+    """The inverse of grid_to_planes; the alpha slot is zero under uniform
+    alpha."""
+    nc = 3 if uniform_alpha else 4
+    _, hs, ws = planes.shape
+    grid = planes.reshape(-1, nc, hs, ws).permute(0, 2, 3, 1)
+    if uniform_alpha:
+        grid = torch.cat([grid, grid.new_zeros(grid.shape[:3] + (1,))], -1)
+    return grid.contiguous()
+
+
+def pool(img: torch.Tensor, d: int, border: str = BorderPolicy.CLAMP) -> torch.Tensor:
+    """d x d mean pool with bf16 operands (fast.py:_pool_pallas), the input
+    padded to multiples of d by `border`. img: (H, W, 4) float32; returns
+    (ceil(H/d), ceil(W/d), 4) float32."""
+    _check_image(img, "img")
+    _check_downsample(d)
+    if not _on_cuda(img):
+        return pool_plain(img, d, border)
+    h, w, _ = img.shape
+    out = torch.empty((-(-h // d), -(-w // d), 4), dtype=torch.float32, device=img.device)
+    lib = _build.library()
+    with torch.cuda.device(img.device):
+        rc = lib.idf_pool(
+            img.data_ptr(), out.data_ptr(), h, w, d,
+            int(border != BorderPolicy.CLAMP), _stream(img),
+        )
+    _raise_on_error(rc, "pool")
+    launches["pool"] += 1
+    return out
+
+
+def build_grid(
+    small: torch.Tensor,
+    lmin: torch.Tensor,
+    step: torch.Tensor,
+    levels: int,
+    taps: np.ndarray,
+    border: str,
+    inv2sc: float,
+    uniform_alpha: bool = False,
+) -> torch.Tensor:
+    """Per-channel bilateral grid of the pooled image (fast.py:
+    _build_grid_pallas, legacy layout): small (hs, ws, 4) float32, the grid
+    range lmin and step ((3,) float32, on small's device), K = levels,
+    the odd blur taps. Returns the (K, hs, ws, 4) bfloat16 grid."""
+    _check_image(small, "small")
+    _check_range(lmin, step)
+    if levels < 2:
+        raise ValueError(f"the grid needs at least 2 levels, got {levels}")
+    taps = np.ascontiguousarray(taps, np.float32)
+    if taps.ndim != 1 or taps.size % 2 == 0:
+        raise ValueError(f"blur taps must be one odd-length row, got shape {taps.shape}")
+    if taps.size > MAX_TAPS:
+        raise ValueError(f"{taps.size} blur taps exceed the kernel's table of {MAX_TAPS}")
+    if not _on_cuda(small, lmin, step):
+        return build_grid_plain(small, lmin, step, levels, taps, border, inv2sc, uniform_alpha)
+    hs, ws, _ = small.shape
+    grid = torch.empty((levels, hs, ws, 4), dtype=torch.bfloat16, device=small.device)
+    lib = _build.library()
+    with torch.cuda.device(small.device):
+        rc = lib.idf_build_grid(
+            small.data_ptr(), lmin.data_ptr(), step.data_ptr(), grid.data_ptr(),
+            hs, ws, levels, taps.ctypes.data, taps.size, inv2sc * LOG2E,
+            int(border != BorderPolicy.CLAMP), int(uniform_alpha), _stream(small),
+        )
+    _raise_on_error(rc, "build_grid")
+    launches["build_grid"] += 1
+    return grid
+
+
+def slice_grid(
+    guide: torch.Tensor,
+    grid: torch.Tensor,
+    lmin: torch.Tensor,
+    inv_step: torch.Tensor,
+    d: int,
+    alpha_val: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Slice the grid at full resolution (fast.py:_slice_grid_pallas with
+    pad_edge=True): guide (H, W, 4) float32, whose RGB places each pixel
+    between levels; grid (K, ceil(H/d), ceil(W/d), 4) bfloat16; lmin and
+    inv_step (3,) float32. alpha_val (one float32) is the output alpha under
+    uniform alpha; None slices the grid's alpha. Returns (H, W, 4) float32."""
+    _check_image(guide, "guide")
+    _check_downsample(d)
+    _check_range(lmin, inv_step)
+    if alpha_val is not None and alpha_val.numel() != 1:
+        raise ValueError(f"alpha_val must be one value, got {tuple(alpha_val.shape)}")
+    alpha = () if alpha_val is None else (alpha_val,)
+    on_cuda = _on_cuda(guide, lmin, inv_step, *alpha)
+    h, w, _ = guide.shape
+    hs, ws = -(-h // d), -(-w // d)
+    _check_grid(grid, (hs, ws, 4), guide.device)
+    if not on_cuda:
+        return slice_grid_plain(guide, grid, lmin, inv_step, d, alpha_val)
+    out = torch.empty_like(guide)
+    lib = _build.library()
+    with torch.cuda.device(guide.device):
+        rc = lib.idf_slice_grid(
+            guide.data_ptr(), grid.data_ptr(), lmin.data_ptr(), inv_step.data_ptr(),
+            None if alpha_val is None else alpha_val.data_ptr(), out.data_ptr(),
+            h, w, hs, ws, grid.shape[0], d, _stream(guide),
+        )
+    _raise_on_error(rc, "slice_grid")
+    launches["slice_grid"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Pipeline and public entry
+# ---------------------------------------------------------------------------
+
+
+def grid_range(small: torch.Tensor, levels: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The grid's intensity range from the pooled RGB (fast.py:412-414): lmin
+    per channel and step = max(lmax - lmin, 1e-6) / (K - 1), both (3,) on
+    small's device."""
+    rgb = small[..., :3]
+    lmin = rgb.amin((0, 1))
+    return lmin, (rgb.amax((0, 1)) - lmin).clamp_min(1e-6) / (levels - 1)
+
+
+def _pipeline(img, params, levels, d, pool_fn, build_fn, slice_fn) -> torch.Tensor:
+    small = pool_fn(img, d, params.border)
+    lmin, step = grid_range(small, levels)
+    grid = build_fn(
+        small, lmin, step, levels, _grid_taps(params.sigma_spatial, d), params.border,
+        0.5 / (params.sigma_color**2), params.uniform_alpha,
+    )
+    alpha_val = img[0, 0, 3] if params.uniform_alpha else None
+    return slice_fn(img, grid, lmin, 1.0 / step, d, alpha_val)
+
+
+def grid_pipeline(
+    img: torch.Tensor, params: BilateralParams, levels: int, d: int
+) -> torch.Tensor:
+    """Pool -> grid range -> build -> slice (fast.py:_grid_pipeline_planar
+    with pad_free=False). The grid range stays on the device. Under uniform
+    alpha the output alpha is img[0, 0, 3]."""
+    return _pipeline(img, params, levels, d, pool, build_grid, slice_grid)
+
+
+def grid_pipeline_plain(
+    img: torch.Tensor, params: BilateralParams, levels: int, d: int
+) -> torch.Tensor:
+    """grid_pipeline through the three plain versions, on any device."""
+    return _pipeline(img, params, levels, d, pool_plain, build_grid_plain, slice_grid_plain)
+
+
+def bilateral_fast(
+    img: torch.Tensor,
+    params: BilateralParams = BilateralParams(),
+    levels: int = 6,
+    downsample: int = 2,
+) -> torch.Tensor:
+    """Approximate bilateral filter, the per-channel bilateral grid
+    (fast.py:bilateral_fast). img: (H, W, 4) float32; levels = K intensity
+    levels; downsample = the grid's spatial reduction d. d in {2, 4, 8} runs
+    the three kernels (their plain versions for a CPU tensor); d = 1 is the
+    eager lattice, as the JAX package runs it with XLA on every backend."""
+    _check_image(img, "img")
+    d = max(1, downsample)
+    if d == 1:
+        return bilateral_fast_eager(img, params, levels, 1)
+    return grid_pipeline(img, params, levels, d)

@@ -48,8 +48,12 @@ LOG2E = math.log2(math.e)
 MAX_RUNS = 128
 MAX_CANDIDATES = 1024
 
-#: Kernel launches since the last reset_launches(), by kernel form.
-launches = {"bilateral": 0, "bilateral_guided": 0, "nlm": 0, "normalize": 0}
+#: Kernel launches since the last reset_launches(), by kernel form; the
+#: turbo grid's kernels (ops/fast.py) count here too.
+launches = {
+    "bilateral": 0, "bilateral_guided": 0, "nlm": 0, "normalize": 0,
+    "pool": 0, "build_grid": 0, "slice_grid": 0,
+}
 
 
 def reset_launches() -> None:

@@ -19,7 +19,7 @@ from image_denoising_filter_tpu.config import (
     NormalizeParams,
 )
 from image_denoising_filter_tpu.utils import imageio
-from image_denoising_filter_tpu_torch.ops import stencils
+from image_denoising_filter_tpu_torch.ops import fast, stencils
 from image_denoising_filter_tpu_torch.runtime import Session
 
 pytestmark = pytest.mark.cuda
@@ -113,6 +113,115 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
     with pytest.raises(ValueError):  # more candidates than the kernel's table
         stencils.nlm_accumulate(img, img, NlmParams(search_radius=17, patch_radius=1))
     assert all(n == 0 for n in stencils.launches.values())
+
+
+def _assert_bf16_close(got, want):
+    """The stored-grid bf16 contract (tests/test_sharding.py): at most 2 bf16
+    ulps apart, at most 1% of cells differing."""
+
+    def key(x):
+        b = x.contiguous().view(torch.int16).int()
+        return torch.where(b < 0, -(b & 0x7FFF), b)
+
+    assert int((key(got) - key(want)).abs().max()) <= 2
+    assert float((got != want).float().mean()) <= 0.01
+
+
+def _grid_inputs(img, d, border=BorderPolicy.CLAMP, levels=5):
+    small = fast.pool_plain(img, d, border)
+    return (small, *fast.grid_range(small, levels), fast._grid_taps(2.0, d))
+
+
+@pytest.mark.parametrize("border", [BorderPolicy.CLAMP, BorderPolicy.ZERO])
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_pool_kernel_matches_plain(cuda, d, border):
+    img = _image(0, cuda)
+    _close(fast.pool(img, d, border), fast.pool_plain(img, d, border), rtol=1e-6, atol=0)
+    assert stencils.launches["pool"] == 1
+
+
+@pytest.mark.parametrize("ua", [False, True])
+@pytest.mark.parametrize("border", [BorderPolicy.CLAMP, BorderPolicy.ZERO])
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_build_grid_kernel_matches_plain(cuda, d, border, ua):
+    small, lmin, step, taps = _grid_inputs(_image(0, cuda), d, border)
+    args = (small, lmin, step, 5, taps, border, 12.5, ua)
+    _assert_bf16_close(fast.build_grid(*args), fast.build_grid_plain(*args))
+    assert stencils.launches["build_grid"] == 1
+
+
+def test_build_grid_kernel_matches_plain_at_sigma_s_6(cuda):
+    """d = 8 at sigma_s 6, as `--turbo 8 --sigma-spatial 6` runs it: 7 blur
+    taps where sigma_s 2 gives 3."""
+    img = _image(0, cuda, 61, 83)
+    small = fast.pool_plain(img, 8, BorderPolicy.CLAMP)
+    taps = fast._grid_taps(6.0, 8)
+    assert taps.size == 7
+    args = (small, *fast.grid_range(small, 6), 6, taps, BorderPolicy.CLAMP, 12.5)
+    _assert_bf16_close(fast.build_grid(*args), fast.build_grid_plain(*args))
+    assert stencils.launches["build_grid"] == 1
+
+
+@pytest.mark.parametrize("ua", [False, True])
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_slice_grid_kernel_matches_plain(cuda, d, ua):
+    img = _image(0, cuda)
+    small, lmin, step, taps = _grid_inputs(img, d)
+    grid = fast.build_grid_plain(small, lmin, step, 5, taps, BorderPolicy.CLAMP, 12.5, ua)
+    args = (img, grid, lmin, 1.0 / step, d, img[0, 0, 3] if ua else None)
+    _close(fast.slice_grid(*args), fast.slice_grid_plain(*args), rtol=1e-5, atol=1e-6)
+    assert stencils.launches["slice_grid"] == 1
+
+
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_turbo_pipeline_on_card_matches_plain(cuda, d):
+    img = _image(0, cuda)
+    got = fast.bilateral_fast(img, BilateralParams(), 5, d)
+    want = fast.grid_pipeline_plain(img, BilateralParams(), 5, d)
+    # a build flip (at most 2 bf16 ulps, the grid contract) reaches the
+    # output through the slice's convex weights
+    _close(got, want, rtol=0, atol=2 * 2.0**-8)
+    assert {k: stencils.launches[k] for k in ("pool", "build_grid", "slice_grid")} == {
+        "pool": 1, "build_grid": 1, "slice_grid": 1}
+
+
+def test_grid_kernels_refuse_what_they_cannot_take(cuda):
+    img = _image(0, cuda)
+    small, lmin, step, taps = _grid_inputs(img, 2)
+    grid = fast.build_grid_plain(small, lmin, step, 5, taps, BorderPolicy.CLAMP, 12.5)
+    with pytest.raises(ValueError):  # not contiguous
+        fast.pool(img.transpose(0, 1), 2)
+    with pytest.raises(TypeError):  # not float32
+        fast.pool(img.half(), 2)
+    with pytest.raises(ValueError):  # more taps than the kernel's table
+        fast.build_grid(small, lmin, step, 5, np.ones(65, np.float32) / 65,
+                        BorderPolicy.CLAMP, 12.5)
+    with pytest.raises(ValueError):  # d outside {2, 4, 8}
+        fast.pool(img, 3)
+    with pytest.raises(ValueError):  # not contiguous
+        fast.slice_grid(img, grid.transpose(1, 2).contiguous().transpose(1, 2), lmin,
+                        1.0 / step, 2)
+    assert all(n == 0 for n in stencils.launches.values())
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_run_turbo_on_card_matches_cpu(cuda, tmp_path, d):
+    root = tmp_path / "anim"
+    root.mkdir()
+    img = _image(3, "cpu").numpy()
+    img[..., :3] = 0.3 + 0.4 * img[..., :3]
+    target = str(root / "frame_0001.png")
+    imageio.save(target, img)
+    out_gpu, out_cpu = tmp_path / "gpu", tmp_path / "cpu"
+    out_gpu.mkdir()
+    out_cpu.mkdir()
+    got = Session(target, device=cuda, output_dir=str(out_gpu)).run_turbo(GPU_BATTERY[0], downsample=d)
+    want = Session(target, device="cpu", output_dir=str(out_cpu)).run_turbo(
+        GPU_BATTERY[0], downsample=d
+    )
+    np.testing.assert_allclose(got.image, want.image, rtol=0, atol=2 * 2.0**-8)
+    turbo = [stencils.launches[k] for k in ("pool", "build_grid", "slice_grid")]
+    assert all(n > 0 for n in turbo) if d > 1 else sum(stencils.launches.values()) == 0
 
 
 @pytest.mark.parametrize("cfg", GPU_BATTERY, ids=lambda c: c.output_name(False))

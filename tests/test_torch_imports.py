@@ -14,6 +14,7 @@ MODULES = [
     "image_denoising_filter_tpu_torch.models",
     "image_denoising_filter_tpu_torch.ops",
     "image_denoising_filter_tpu_torch.ops._build",
+    "image_denoising_filter_tpu_torch.ops.fast",
     "image_denoising_filter_tpu_torch.utils",
 ]
 
