@@ -89,6 +89,19 @@ TURBO_RUNS = ((1, 2.0), (2, 2.0), (4, 2.0), (8, 6.0))
 TURBO_GATE_DB = 40.0
 
 
+# The port's modules this script drives; none may load jax or the JAX
+# package image_denoising_filter_tpu (tests/test_torch_imports.py).
+PORT_MODULES = (
+    "image_denoising_filter_tpu_torch.cli",
+    "image_denoising_filter_tpu_torch.config",
+    "image_denoising_filter_tpu_torch.ops._build",
+    "image_denoising_filter_tpu_torch.ops.fast",
+    "image_denoising_filter_tpu_torch.ops.stencils",
+    "image_denoising_filter_tpu_torch.runtime",
+    "image_denoising_filter_tpu_torch.utils.imageio",
+)
+
+
 class SmokeError(RuntimeError):
     pass
 
@@ -96,6 +109,12 @@ class SmokeError(RuntimeError):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeError(what)
+
+
+def check_no_jax() -> None:
+    bad = sorted(m for m in sys.modules if m in ("jax", "image_denoising_filter_tpu")
+                 or m.startswith(("jax.", "image_denoising_filter_tpu.")))
+    check(not bad, f"the port imported {bad}")
 
 
 def turbo_levels(d: int) -> int:
@@ -497,7 +516,7 @@ def main() -> int:
     from image_denoising_filter_tpu_torch.ops import _build, fast, stencils
     from image_denoising_filter_tpu_torch.runtime import Session
 
-    check("jax" not in sys.modules, "the port imported jax")
+    check_no_jax()
     render_frame = load_render_frame()
     smi = nvidia_smi_line()
     print(f"[1/6] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
@@ -528,7 +547,7 @@ def main() -> int:
         counts.update(phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_path))
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    check("jax" not in sys.modules, "the port imported jax")
+    check_no_jax()
 
     replaces = {
         "bilateral": (KERNEL_SOURCE, f"{JAX_STENCILS}:178"),

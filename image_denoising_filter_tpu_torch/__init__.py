@@ -9,14 +9,14 @@ name:
               temporal NLM)
   runtime  -- session orchestration and frame prefetch
   cli      -- the `gpu-denoise` command (the battery)
-  utils    -- the shared image and dataset utilities, re-exported
+  config   -- the parameter dataclasses and the battery (`GPU_BATTERY`)
+  utils    -- image I/O, dataset discovery, timing report, progress bar
 
-Configuration dataclasses and the image, dataset, timing and progress
-utilities are imported from image_denoising_filter_tpu; those modules import
-no JAX, and both packages hold the very same parameter objects (`config` is
-re-exported here). This package imports torch and never jax.
+`config` and `utils` are the port's own copies of the JAX package's modules
+of the same names, held equal to them by the tests: this package imports
+torch, never jax, and nothing of image_denoising_filter_tpu.
 """
 
 __version__ = "0.1.0"
 
-from image_denoising_filter_tpu import config  # noqa: F401
+from . import config  # noqa: F401

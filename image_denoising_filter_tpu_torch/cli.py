@@ -16,14 +16,14 @@ import argparse
 import os
 import sys
 
-from image_denoising_filter_tpu.config import (
+from .config import (
     GPU_BATTERY,
     BilateralParams,
     LayersParams,
     NlmParams,
     RunConfig,
 )
-from image_denoising_filter_tpu.utils import dataset as dataset_mod
+from .utils import dataset as dataset_mod
 
 from .runtime.session import Session
 

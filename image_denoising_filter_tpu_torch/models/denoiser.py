@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from image_denoising_filter_tpu.config import (
+from ..config import (
     BilateralParams,
     LayersParams,
     NlmParams,

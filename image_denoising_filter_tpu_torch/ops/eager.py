@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from image_denoising_filter_tpu.config import (
+from ..config import (
     BilateralParams,
     BorderPolicy,
     LayersParams,

@@ -35,7 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from image_denoising_filter_tpu.config import BilateralParams, BorderPolicy
+from ..config import BilateralParams, BorderPolicy
 
 from . import _build
 from .eager import _blur_valid, _pad2d, _pad_to, bilateral_fast_eager

@@ -29,7 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from image_denoising_filter_tpu.config import (
+from ..config import (
     BilateralParams,
     BorderPolicy,
     LayersParams,

@@ -16,7 +16,7 @@ from typing import Callable, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
-from image_denoising_filter_tpu.utils.timing import TimingReport
+from ..utils.timing import TimingReport
 
 
 class FramePrefetcher:
@@ -50,7 +50,7 @@ class FramePrefetcher:
             # items are file paths: decode them on the native library's C++
             # worker threads ahead of use, when the library is built.
             try:
-                from image_denoising_filter_tpu.utils.native import FrameLoader
+                from ..utils.native import FrameLoader
 
                 self._native = FrameLoader(self._items, lookahead=self._depth + 2)
             except (ImportError, OSError):

@@ -1,7 +1,7 @@
-"""Host-side image and dataset utilities, shared with image_denoising_filter_tpu.
+"""Host-side utilities of the port: image load and save (`imageio`, with the
+`png` and `exr` codecs and the optional `native` library), dataset discovery
+(`dataset`), the timing report (`timing`) and the progress bar (`progress`).
 
-Those modules import no JAX; they are re-exported here so that users of the
-port import from the port alone.
+Copies of the JAX package's modules of the same names, which import no JAX:
+the port keeps its own, so that it imports nothing of that package.
 """
-
-from image_denoising_filter_tpu.utils import dataset, imageio  # noqa: F401

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from image_denoising_filter_tpu.config import (
+from image_denoising_filter_tpu_torch.config import (
     GPU_BATTERY,
     BilateralParams,
     BorderPolicy,
@@ -18,9 +18,9 @@ from image_denoising_filter_tpu.config import (
     NlmParams,
     NormalizeParams,
 )
-from image_denoising_filter_tpu.utils import imageio
 from image_denoising_filter_tpu_torch.ops import fast, stencils
 from image_denoising_filter_tpu_torch.runtime import Session
+from image_denoising_filter_tpu_torch.utils import imageio
 
 pytestmark = pytest.mark.cuda
 

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from image_denoising_filter_tpu.config import (
+from image_denoising_filter_tpu_torch.config import (
     BilateralParams,
     BorderPolicy,
     LayersParams,
@@ -17,6 +17,7 @@ from image_denoising_filter_tpu.config import (
 )
 from image_denoising_filter_tpu.ops import xla
 from image_denoising_filter_tpu_torch.ops import eager
+from test_torch_config import jax_params
 
 torch.set_num_threads(1)
 
@@ -60,7 +61,7 @@ def test_bilateral_eager_matches_xla(params):
     img = _image(0, h=29)
     if params.uniform_alpha:
         img[..., 3] = 0.625
-    _close(eager.bilateral_eager(_t(img), params), xla.bilateral_xla(img, params))
+    _close(eager.bilateral_eager(_t(img), params), xla.bilateral_xla(img, jax_params(params)))
 
 
 @pytest.mark.parametrize(
@@ -78,7 +79,7 @@ def test_cross_bilateral_layers_eager_matches_xla(params):
     if params.uniform_alpha:
         target[..., 3] = 1.0
     wc, nw = eager.cross_bilateral_layers_eager(_t(target), _t(layer), params)
-    xwc, xnw = xla.cross_bilateral_layers_xla(target, layer, params)
+    xwc, xnw = xla.cross_bilateral_layers_xla(target, layer, jax_params(params))
     _close(wc, xwc)
     _close(nw, xnw)
 
@@ -101,7 +102,7 @@ def test_nlm_eager_matches_xla(params, tol):
     if params.uniform_alpha:
         nbr[..., 3] = 1.0
     wc, nw = eager.nlm_eager(_t(target), _t(nbr), params)
-    xwc, xnw = xla.nlm_xla(target, nbr, params)
+    xwc, xnw = xla.nlm_xla(target, nbr, jax_params(params))
     _close(wc, xwc, **tol)
     _close(nw, xnw, **tol)
 
@@ -119,5 +120,5 @@ def test_normalize_eager_matches_xla():
     nw[3, 5] = 0.0
     params = NormalizeParams(sentinel_g=0.5)
     got = eager.normalize_eager(_t(wc), _t(nw), params)
-    _close(got, xla.normalize_xla(wc, nw, params), rtol=1e-6, atol=0.0)
+    _close(got, xla.normalize_xla(wc, nw, jax_params(params)), rtol=1e-6, atol=0.0)
     np.testing.assert_array_equal(got[3, 5].numpy(), [1.0, 0.5, 1.0, 1.0])

@@ -36,15 +36,16 @@ import numpy as np
 import pytest
 import torch
 
-from image_denoising_filter_tpu.config import GPU_BATTERY, BilateralParams, BorderPolicy, RunConfig
 from image_denoising_filter_tpu.ops import bilateral_fast as jax_bilateral_fast
 from image_denoising_filter_tpu.ops import fast as jfast
 from image_denoising_filter_tpu.ops import reference as ref
-from image_denoising_filter_tpu.utils import imageio
 from image_denoising_filter_tpu_torch import cli
+from image_denoising_filter_tpu_torch.config import GPU_BATTERY, BilateralParams, BorderPolicy, RunConfig
 from image_denoising_filter_tpu_torch.ops import fast, stencils
 from image_denoising_filter_tpu_torch.ops.eager import bilateral_fast_eager
 from image_denoising_filter_tpu_torch.runtime import Session
+from image_denoising_filter_tpu_torch.utils import imageio
+from test_torch_config import jax_params
 
 torch.set_num_threads(2)
 
@@ -227,7 +228,7 @@ def test_stages_are_the_grid_pipeline():
     planar = jnp.transpose(jnp.asarray(case["img"]), (2, 0, 1))
     bp = BilateralParams(border=border, uniform_alpha=ua, sigma_spatial=sigma_s)
     np.testing.assert_array_equal(
-        _hwc(jfast._grid_pipeline_planar(planar, bp, K, d, pad_free=False)), case["out"]
+        _hwc(jfast._grid_pipeline_planar(planar, jax_params(bp), K, d, pad_free=False)), case["out"]
     )
 
 
@@ -312,7 +313,7 @@ def test_turbo_d2_within_40db_of_exact():
     noisy = np.clip(clean + rng.normal(0, 0.06, clean.shape) * [1, 1, 1, 0], 0, 1)
     noisy = noisy.astype(np.float32)
     bp = BilateralParams()
-    exact = ref.bilateral_reference(noisy, bp)
+    exact = ref.bilateral_reference(noisy, jax_params(bp))
     got = fast.bilateral_fast(_t(noisy), bp, K, 2).numpy()
     db = ref.psnr(got[..., :3], exact[..., :3])
     assert db >= 40.0, f"turbo d=2 vs exact: {db:.1f} dB"
@@ -332,7 +333,7 @@ def test_eager_lattice_matches_jax(d, border):
     img = _image((50, 64), False)
     bp = BilateralParams(border=border)
     got = bilateral_fast_eager(_t(img), bp, K, d)
-    np.testing.assert_allclose(got.numpy(), np.asarray(jax_bilateral_fast(img, bp, K, d)),
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_bilateral_fast(img, jax_params(bp), K, d)),
                                rtol=1e-5, atol=1e-5)
     if d == 1:  # the port's public entry takes the lattice at d = 1
         torch.testing.assert_close(fast.bilateral_fast(_t(img), bp, K, 1), got, rtol=0, atol=0)

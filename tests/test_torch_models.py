@@ -11,12 +11,13 @@ import pytest
 import torch
 
 from image_denoising_filter_tpu import models as jmodels
-from image_denoising_filter_tpu.config import (
+from image_denoising_filter_tpu_torch.config import (
     BilateralParams,
     LayersParams,
     NlmParams,
 )
 from image_denoising_filter_tpu_torch import models
+from test_torch_config import jax_params
 
 torch.set_num_threads(1)
 
@@ -53,7 +54,7 @@ def _close(got, want, rtol=1e-4, atol=1e-5):
 def test_bilateral_denoiser_matches_jax(layout):
     img = _frame(0)
     got = models.BilateralDenoiser(BP, layout=layout)(_t(img))
-    _close(got, jmodels.BilateralDenoiser(BP, layout=layout)(img))
+    _close(got, jmodels.BilateralDenoiser(jax_params(BP), layout=layout)(img))
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -61,14 +62,14 @@ def test_layer_guided_denoiser_matches_jax(layout):
     target = _frame(0)
     layers = np.stack([_frame(7), _frame(8)])
     got = models.LayerGuidedDenoiser(LP, layout=layout)(_t(target), _t(layers))
-    _close(got, jmodels.LayerGuidedDenoiser(LP, layout=layout)(target, layers))
+    _close(got, jmodels.LayerGuidedDenoiser(jax_params(LP), layout=layout)(target, layers))
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_nlm_denoiser_matches_jax(layout):
     img = _frame(0)
     got = models.NlmDenoiser(NP_, layout=layout)(_t(img))
-    _close(got, jmodels.NlmDenoiser(NP_, layout=layout)(img))
+    _close(got, jmodels.NlmDenoiser(jax_params(NP_), layout=layout)(img))
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -76,7 +77,7 @@ def test_temporal_nlm_denoiser_matches_jax(layout):
     target = _frame(0)
     frames = np.stack([_frame(i) for i in range(3)])
     model = models.TemporalNlmDenoiser(NP_, layout=layout)
-    jmodel = jmodels.TemporalNlmDenoiser(NP_, layout=layout)
+    jmodel = jmodels.TemporalNlmDenoiser(jax_params(NP_), layout=layout)
     _close(model(_t(target), _t(frames)), jmodel(target, frames))
     # the streaming form folds the same partials
     carry = None
@@ -91,7 +92,7 @@ def test_temporal_state_carried_from_jax(layout):
     port, which folds frames 2-3 and finalizes: equal to the all-JAX run."""
     target = _frame(0)
     frames = [_frame(i) for i in range(4)]
-    jmodel = jmodels.TemporalNlmDenoiser(NP_, layout=layout)
+    jmodel = jmodels.TemporalNlmDenoiser(jax_params(NP_), layout=layout)
     jcarry = None
     for f in frames[:2]:
         jcarry = jmodel.accumulate_one(target, f, jcarry)

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from image_denoising_filter_tpu.config import (
+from image_denoising_filter_tpu_torch.config import (
     GPU_BATTERY,
     BilateralParams,
     BorderPolicy,
@@ -22,12 +22,13 @@ from image_denoising_filter_tpu.config import (
 )
 from image_denoising_filter_tpu.ops import reference as ref
 from image_denoising_filter_tpu.runtime import Session as JaxSession
-from image_denoising_filter_tpu.utils import dataset as dataset_mod
-from image_denoising_filter_tpu.utils import imageio
 from image_denoising_filter_tpu_torch import cli
 from image_denoising_filter_tpu_torch.models import TemporalNlmDenoiser
 from image_denoising_filter_tpu_torch.ops import stencils
 from image_denoising_filter_tpu_torch.runtime import FramePrefetcher, Session
+from image_denoising_filter_tpu_torch.utils import dataset as dataset_mod
+from image_denoising_filter_tpu_torch.utils import imageio
+from test_torch_config import jax_params
 
 torch.set_num_threads(1)
 
@@ -35,6 +36,7 @@ BP = BilateralParams(radius=3)
 LP = LayersParams(radius=3)
 NP_ = NlmParams(search_radius=2, patch_radius=1)
 PARAMS = dict(bilateral_params=BP, layers_params=LP, nlm_params=NP_)
+JAX_PARAMS = {k: jax_params(v) for k, v in PARAMS.items()}
 IDS = ["bilateral", "layers", "linear", "nlm", "multiframe", "overlap"]
 
 
@@ -88,8 +90,8 @@ def test_battery_config_matches_jax_session(anim, tmp_path, cfg):
     """Every battery config: the port's output equals the JAX Session's and
     lands under the flag-encoded name (src/main.cpp:1677-1682)."""
     want = JaxSession(
-        anim, output_dir=_out_dir(tmp_path, "jax"), warmup=False, **PARAMS
-    ).run(cfg)
+        anim, output_dir=_out_dir(tmp_path, "jax"), warmup=False, **JAX_PARAMS
+    ).run(jax_params(cfg))
     got = Session(anim, device="cpu", output_dir=_out_dir(tmp_path, "port"), **PARAMS).run(cfg)
     assert os.path.basename(got.output_path) == cfg.output_name(False)
     out, hdr = imageio.load(got.output_path)
@@ -146,8 +148,8 @@ def test_multiframe_mixed_alpha_frames_exact(tmp_path):
     want = TemporalNlmDenoiser(NP_)(timg, stack).numpy()
     np.testing.assert_allclose(got.image, want, rtol=1e-5, atol=1e-6)
     jax_out = JaxSession(
-        target, nlm_params=NP_, output_dir=_out_dir(tmp_path, "j"), warmup=False
-    ).run(cfg)
+        target, nlm_params=jax_params(NP_), output_dir=_out_dir(tmp_path, "j"), warmup=False
+    ).run(jax_params(cfg))
     np.testing.assert_allclose(got.image, jax_out.image, rtol=1e-4, atol=1e-5)
 
 
@@ -162,7 +164,8 @@ def test_uniform_alpha_not_applied_with_zero_border(tmp_path):
     img_q = imageio.to_float(imageio.quantize(img))
     p = BilateralParams(radius=3, border=BorderPolicy.ZERO)
     r = Session(target, device="cpu", bilateral_params=p, output_dir=str(tmp_path)).run(RunConfig())
-    np.testing.assert_allclose(r.image, ref.bilateral_reference(img_q, p), rtol=1e-4, atol=1e-5)
+    want = ref.bilateral_reference(img_q, jax_params(p))
+    np.testing.assert_allclose(r.image, want, rtol=1e-4, atol=1e-5)
 
 
 def test_exr_target_round_trips(tmp_path):

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from image_denoising_filter_tpu import ops as jops
-from image_denoising_filter_tpu.config import (
+from image_denoising_filter_tpu_torch.config import (
     BilateralParams,
     BorderPolicy,
     LayersParams,
@@ -21,6 +21,7 @@ from image_denoising_filter_tpu.config import (
     TilingConfig,
 )
 from image_denoising_filter_tpu_torch.ops import stencils
+from test_torch_config import jax_params
 
 torch.set_num_threads(1)
 
@@ -76,7 +77,7 @@ def test_bilateral_matches_jax(params, h):
     img = _image(0, h=h)
     if params.uniform_alpha:
         img[..., 3] = 0.625
-    _close(stencils.bilateral(_t(img), params), jops.bilateral(img, params))
+    _close(stencils.bilateral(_t(img), params), jops.bilateral(img, jax_params(params)))
 
 
 @pytest.mark.parametrize(
@@ -87,7 +88,7 @@ def test_bilateral_matches_jax(params, h):
 def test_cross_bilateral_layers_matches_jax(params):
     target, layer = _image(0), _image(99)
     wc, nw = stencils.cross_bilateral_layers(_t(target), _t(layer), params)
-    jwc, jnw = jops.cross_bilateral_layers(target, layer, params)
+    jwc, jnw = jops.cross_bilateral_layers(target, layer, jax_params(params))
     _close(wc, jwc)
     _close(nw, jnw)
 
@@ -106,7 +107,7 @@ def test_cross_bilateral_layers_matches_jax(params):
 def test_nlm_accumulate_matches_jax(params, tol):
     target, nbr = _image(0), _image(99)
     wc, nw = stencils.nlm_accumulate(_t(target), _t(nbr), params)
-    jwc, jnw = jops.nlm_accumulate(target, nbr, params)
+    jwc, jnw = jops.nlm_accumulate(target, nbr, jax_params(params))
     _close(wc, jwc, **tol)
     _close(nw, jnw, **tol)
 
@@ -116,7 +117,7 @@ def test_nlm_uniform_alpha_matches_jax():
     nbr[..., 3] = 1.0
     params = NlmParams(search_radius=2, patch_radius=1, uniform_alpha=True)
     wc, nw = stencils.nlm_accumulate(_t(target), _t(nbr), params)
-    jwc, jnw = jops.nlm_accumulate(target, nbr, params)
+    jwc, jnw = jops.nlm_accumulate(target, nbr, jax_params(params))
     _close(wc, jwc)
     _close(nw, jnw)
 
@@ -128,7 +129,7 @@ def test_nlm_accumulate_frames_valid_mask_matches_jax():
     frames = np.stack([_image(0), _image(99), _image(7)])
     valid = np.array([1.0, 0.0, 1.0], np.float32)
     wc, nw = stencils.nlm_accumulate_frames(_t(target), _t(frames), NP_, None, _t(valid))
-    jwc, jnw = jops.nlm_accumulate_frames(target, frames, NP_, None, valid)
+    jwc, jnw = jops.nlm_accumulate_frames(target, frames, jax_params(NP_), None, valid)
     _close(wc, jwc)
     _close(nw, jnw)
     # and the mask is live: without it the second frame's seed shows up

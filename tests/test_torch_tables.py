@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from image_denoising_filter_tpu.config import BilateralParams, NlmParams
+from image_denoising_filter_tpu_torch.config import BilateralParams, NlmParams
 from image_denoising_filter_tpu.ops import stencils as jax_stencils
 from image_denoising_filter_tpu_torch.ops import stencils
 
