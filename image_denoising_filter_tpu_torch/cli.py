@@ -6,8 +6,10 @@ configurations.
 (src/main.cpp:1935-1994): the six device configurations in fixed order, each
 printing its transfer/exec timing, with outputs under the reference's
 flag-encoded names (src/main.cpp:1677-1682). `--device` picks the device;
-`cuda` without a card is an error. `--turbo D` runs the bilateral and linear
-configs through the approximate bilateral grid (Session.run_turbo).
+`cuda` without a card is an error. `--turbo D` runs every config in its
+approximate form, as tpu-denoise does: the bilateral, linear and layers
+configs through the grids with spatial reduction D (Session.run_turbo), the
+NLM configs with a stride-2 search and bf16 taps (Session.run).
 """
 
 from __future__ import annotations
@@ -22,24 +24,22 @@ from .config import (
     LayersParams,
     NlmParams,
     RunConfig,
+    TilingConfig,
 )
-from .utils import dataset as dataset_mod
-
 from .runtime.session import Session
+from .utils import dataset as dataset_mod
 
 DEFAULT_IMAGE = "Animations/CornellBox/Animation01_LDR_0000.png"
 
 CONFIG_KEYS = ("bilateral", "layers", "linear", "nlm", "multiframe", "overlap")
 # The CPU bilateral configs of tpu-denoise wait for Session.run_cpu.
 NOT_PORTED = ("cpu1", "cpu8")
-# Under --turbo, the configs whose turbo forms wait for a later slice, with
-# the ROADMAP.md item that ports them.
-TURBO_NOT_PORTED = {
-    "layers": "queue A item 9, turbo layers",
-    "nlm": "queue A item 8, turbo NLM",
-    "multiframe": "queue A item 8, turbo NLM",
-    "overlap": "queue A item 8, turbo NLM",
-}
+# The configs --turbo runs through the grids; the NLM configs take a
+# stride-2 search with bf16 taps instead.
+GRID_CONFIGS = ("bilateral", "linear", "layers")
+# The NLM weights at half row resolution wait for their kernel (#3,
+# _nlm_hrw_kernel).
+HALFRES_NOT_PORTED = "ROADMAP.md queue A item 8, kernel queue B item 7 (_nlm_hrw_kernel)"
 
 _CONFIG_BANNERS = {
     # main.cpp:1952-1972 banners, modernized
@@ -98,12 +98,14 @@ def main(argv: list[str] | None = None) -> int:
     )
     ap.add_argument(
         "--turbo", type=int, default=0, metavar="D", choices=[0, 1, 2, 4, 8],
-        help="approximate speed mode for the bilateral configs: the per-channel "
-        "bilateral grid with spatial reduction D (0 = exact kernels; D = 1 is "
-        "the whole-image lattice, D = 2, 4, 8 the grid kernels). Under --turbo "
-        "the 'linear' config runs the same grid pipeline as 'bilateral' under "
-        "its own file name; the layers and NLM configs are not ported in turbo "
-        "form yet and are refused",
+        help="approximate speed mode for every config (0 = exact kernels): the "
+        "bilateral and linear configs run the per-channel bilateral grid with "
+        "spatial reduction D (D = 1 is the whole-image lattice, D = 2, 4, 8 the "
+        "grid kernels), the layers config the layer-guided grid (the fused "
+        "kernel at D = 2 and 4, the guided build and slice at D = 1 and 8), "
+        "the NLM configs a stride-2 search (49 of 196 candidates) with bf16 "
+        "taps. Under --turbo the 'linear' config runs the same grid pipeline "
+        "as 'bilateral' under its own file name",
     )
     ap.add_argument(
         "--turbo-levels", type=int, default=None, metavar="K",
@@ -118,6 +120,16 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--nlm-h", type=float, default=0.5, help="NLM filtering parameter")
     ap.add_argument("--search-radius", type=int, default=7, help="NLM search radius (half-open)")
     ap.add_argument("--patch-radius", type=int, default=3, help="NLM patch radius (half-open)")
+    ap.add_argument(
+        "--search-disk", action="store_true",
+        help="trim the NLM search candidates to the disk dy^2+dx^2 <= s^2 "
+        "(with --turbo: 37 of 196 candidates)",
+    )
+    ap.add_argument(
+        "--weights-halfres", action="store_true",
+        help="NLM weights at half row resolution; requires --turbo, and is not "
+        f"ported yet ({HALFRES_NOT_PORTED}): refused",
+    )
     args = ap.parse_args(argv)
 
     sel = CONFIG_KEYS if args.configs == "all" else tuple(args.configs.split(","))
@@ -130,10 +142,13 @@ def main(argv: list[str] | None = None) -> int:
             print(f"error: unknown config {key!r} (choose from {','.join(CONFIG_KEYS)})",
                   file=sys.stderr)
             return 1
-        if args.turbo and key in TURBO_NOT_PORTED:
-            print(f"error: config {key} under --turbo is not ported yet "
-                  f"(ROADMAP.md {TURBO_NOT_PORTED[key]})", file=sys.stderr)
-            return 1
+    if args.weights_halfres:
+        if not args.turbo:
+            print("error: --weights-halfres requires --turbo (stride-2 search)", file=sys.stderr)
+        else:
+            print(f"error: --weights-halfres is not ported yet ({HALFRES_NOT_PORTED})",
+                  file=sys.stderr)
+        return 1
 
     try:
         targets = [args.image]
@@ -157,6 +172,9 @@ def main(argv: list[str] | None = None) -> int:
             search_radius=args.search_radius,
             patch_radius=args.patch_radius,
             h=args.nlm_h,
+            # The turbo NLM: every second search candidate along each axis.
+            search_stride=2 if args.turbo else 1,
+            search_disk=args.search_disk,
         )
         frame_cache: dict = {}
         os.makedirs(args.output_dir, exist_ok=True)
@@ -178,12 +196,14 @@ def main(argv: list[str] | None = None) -> int:
                 debug_weights=args.debug_weights,
                 frame_cache=frame_cache,
                 batch_frames=args.batch_frames,
+                # The turbo NLM pairs the stride-2 search with bf16 taps.
+                nlm_tiling=TilingConfig(compute_dtype="bfloat16") if args.turbo else None,
             )
             for cfg, key in zip(GPU_BATTERY, CONFIG_KEYS):
                 if key not in sel:
                     continue
                 print(f"<<<--- {_banner(cfg)} --->>>")
-                if args.turbo:  # bilateral or linear: the same grid pipeline
+                if args.turbo and key in GRID_CONFIGS:
                     result = session.run_turbo(
                         cfg, levels=args.turbo_levels, downsample=args.turbo
                     )

@@ -1,17 +1,19 @@
-"""Device stencils of the battery and of the turbo bilateral grid.
+"""Device stencils of the battery and of the turbo grids.
 
   * `stencils.*` -- hand-written CUDA kernels of the exact battery (tiled
-    layout, the production path on the card), each with its plain PyTorch
-    version and launch count;
-  * `fast.*` -- the turbo bilateral grid (`bilateral_fast`): hand-written
-    CUDA kernels for the pool, the grid build and the grid slice, with
-    their plain versions and launch counts;
+    layout, the production path on the card) and of the turbo NLM (bf16
+    taps), each with its plain PyTorch version and launch count;
+  * `fast.*` -- the turbo grids: the bilateral grid (`bilateral_fast`:
+    pool, grid build, grid slice) and the layer-guided grid
+    (`cross_bilateral_layers_fast`: pool, guided build and slice, or the
+    fused guided build+slice), hand-written CUDA kernels with their plain
+    versions and launch counts, and `normalize_layers_fast`;
   * `eager.*` -- whole-image tensor ops: the linear-layout config, and the
-    grid's lattice path (`bilateral_fast_eager`, the turbo mode at
+    bilateral grid's lattice path (`bilateral_fast_eager`, the turbo mode at
     downsample 1).
 
-Not ported yet: the turbo NLM (half-res weights, bf16 taps) and the turbo
-layers grid (ROADMAP.md queue A items 8 and 9).
+Not ported yet: the NLM weights at half row resolution (`weights_halfres`)
+and the fused bilateral build+slice (ROADMAP.md queue B items 7 and 11).
 """
 
 from .eager import (  # noqa: F401
@@ -21,7 +23,11 @@ from .eager import (  # noqa: F401
     nlm_eager,
     normalize_eager,
 )
-from .fast import bilateral_fast  # noqa: F401
+from .fast import (  # noqa: F401
+    bilateral_fast,
+    cross_bilateral_layers_fast,
+    normalize_layers_fast,
+)
 from .stencils import (  # noqa: F401
     bilateral,
     cross_bilateral_layers,

@@ -114,7 +114,7 @@ def library() -> ctypes.CDLL:
     ]
     lib.idf_bilateral.restype = i32
     lib.idf_nlm.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, i32, f32, f32, f32, i32, i32, ptr,
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, i32, f32, f32, f32, i32, i32, i32, ptr,
     ]
     lib.idf_nlm.restype = i32
     lib.idf_normalize.argtypes = [ptr, ptr, ptr, i32, f32, f32, f32, f32, ptr]
@@ -129,4 +129,17 @@ def library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr,
     ]
     lib.idf_slice_grid.restype = i32
+    lib.idf_build_guided_grid.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, f32, i32, ptr,
+    ]
+    lib.idf_build_guided_grid.restype = i32
+    lib.idf_slice_guided_grid.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr,
+    ]
+    lib.idf_slice_guided_grid.restype = i32
+    lib.idf_fused_guided.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        i32, i32, i32, i32, i32, ptr, i32, f32, i32, i32, ptr,
+    ]
+    lib.idf_fused_guided.restype = i32
     return lib

@@ -1,15 +1,19 @@
-// Hand-written Hopper (sm_90a) kernels of the turbo bilateral grid: the d x d
-// mean pool, the grid build (per-level range weights, Gaussian blur,
-// normalize, bf16 store) and the grid slice (tent interpolation across the
-// levels of the bilinearly upsampled grid).
+// Hand-written Hopper (sm_90a) kernels of the turbo grids. The bilateral
+// grid: the d x d mean pool, the grid build (per-level range weights,
+// Gaussian blur, normalize, bf16 store) and the grid slice (tent
+// interpolation across the levels of the bilinearly upsampled grid). The
+// layer-guided grid: the guided build (weights from a layer, payload from the
+// target, unnormalized), the guided slice, and the two fused per slice tile.
 //
 // Layouts: images (H, W, 4) float32, one pixel one float4; the pooled image
-// (hs, ws, 4) float32, hs = ceil(H/d), ws = ceil(W/d); the grid
+// (hs, ws, 4) float32, hs = ceil(H/d), ws = ceil(W/d); the bilateral grid
 // (K, hs, ws, 4) bfloat16, so that one cell of one level is one 8-byte load,
 // channels r, g, b, a. Alpha is payload under green's range weights; under
-// uniform alpha its slot holds zero and the slice writes the constant.
-// Borders are handled by clamping the cell index (CLAMP) or by substituting a
-// zero pixel (ZERO): nothing is padded on the host.
+// uniform alpha its slot holds zero and the slice writes the constant. The
+// guided grid (K, hs, ws, 8) bfloat16, one cell one 16-byte load: num r, g,
+// b, a, den r, g, b and a zero pad. Borders are handled by clamping the cell
+// index (CLAMP) or by substituting a zero pixel (ZERO): nothing is padded on
+// the host.
 //
 // Every launcher takes raw device pointers, sizes, parameters and a stream,
 // launches on that stream, does not synchronise, allocates nothing, and
@@ -40,6 +44,12 @@ struct Taps {
 struct __align__(8) Bf16x4 {
   __nv_bfloat162 lo;  // channels r, g
   __nv_bfloat162 hi;  // channels b, a
+};
+
+// One cell of the guided grid: num r, g, b, a; den r, g, b; pad.
+constexpr int kGuided = 7;
+struct __align__(16) Bf16x8 {
+  __nv_bfloat162 v[4];
 };
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -257,6 +267,429 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
   out[idx] = acc;
 }
 
+// ---------------------------------------------------------------------------
+// The layer-guided grid
+// ---------------------------------------------------------------------------
+
+// The seven fields of one tap of the guided build, under the range weights
+// w_c = exp2(-(l_c - lv_c)^2 * coef) of the layer pixel l, with payload p
+// from the target: num r, g, b, a (alpha under green's weight), den r, g, b.
+// Each field is added to its sum as tap * field, in the plain version's
+// order (fields first, then the tap product).
+__device__ __forceinline__ void add_guided_tap(float (&s)[kGuided], float tap, float4 p,
+                                               float4 l, float lv0, float lv1, float lv2,
+                                               float coef) {
+  const float d0 = l.x - lv0;
+  const float d1 = l.y - lv1;
+  const float d2 = l.z - lv2;
+  const float w0 = exp2f(__fmul_rn(-__fmul_rn(d0, d0), coef));
+  const float w1 = exp2f(__fmul_rn(-__fmul_rn(d1, d1), coef));
+  const float w2 = exp2f(__fmul_rn(-__fmul_rn(d2, d2), coef));
+  s[0] = __fadd_rn(s[0], __fmul_rn(tap, __fmul_rn(w0, p.x)));
+  s[1] = __fadd_rn(s[1], __fmul_rn(tap, __fmul_rn(w1, p.y)));
+  s[2] = __fadd_rn(s[2], __fmul_rn(tap, __fmul_rn(w2, p.z)));
+  s[3] = __fadd_rn(s[3], __fmul_rn(tap, __fmul_rn(w1, p.w)));
+  s[4] = __fadd_rn(s[4], __fmul_rn(tap, w0));
+  s[5] = __fadd_rn(s[5], __fmul_rn(tap, w1));
+  s[6] = __fadd_rn(s[6], __fmul_rn(tap, w2));
+}
+
+__device__ __forceinline__ Bf16x8 pack_guided(const float (&s)[kGuided]) {
+  Bf16x8 c;
+  c.v[0] = __floats2bfloat162_rn(s[0], s[1]);
+  c.v[1] = __floats2bfloat162_rn(s[2], s[3]);
+  c.v[2] = __floats2bfloat162_rn(s[4], s[5]);
+  c.v[3] = __floats2bfloat162_rn(s[6], 0.f);
+  return c;
+}
+
+__device__ __forceinline__ void unpack_guided(const Bf16x8& c, float (&v)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(c.v[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// The bilinear sample of one level of the guided grid, rows y0 and y1,
+// columns x0 and x1 of a cell array with row stride `stride`, in the slice's
+// lerp order (along W, then along H).
+__device__ __forceinline__ void sample_guided(const Bf16x8* cells, int stride, int y0, int y1,
+                                              int x0, int x1, float wx, float wy,
+                                              float (&up)[8]) {
+  float a[8], b[8], c[8], d[8];
+  unpack_guided(cells[y0 * stride + x0], a);
+  unpack_guided(cells[y0 * stride + x1], b);
+  unpack_guided(cells[y1 * stride + x0], c);
+  unpack_guided(cells[y1 * stride + x1], d);
+  const float ux = 1.f - wx;
+  const float uy = 1.f - wy;
+#pragma unroll
+  for (int i = 0; i < kGuided; ++i) {
+    const float row0 = __fadd_rn(__fmul_rn(a[i], ux), __fmul_rn(b[i], wx));
+    const float row1 = __fadd_rn(__fmul_rn(c[i], ux), __fmul_rn(d[i], wx));
+    up[i] = __fadd_rn(__fmul_rn(row0, uy), __fmul_rn(row1, wy));
+  }
+}
+
+// acc += tent * up for the seven partials; the r, g, b tents e0, e1, e2,
+// alpha's numerator under green's.
+__device__ __forceinline__ void add_guided_level(float (&acc)[kGuided], const float (&up)[8],
+                                                 float e0, float e1, float e2) {
+  acc[0] = __fadd_rn(acc[0], __fmul_rn(e0, up[0]));
+  acc[1] = __fadd_rn(acc[1], __fmul_rn(e1, up[1]));
+  acc[2] = __fadd_rn(acc[2], __fmul_rn(e2, up[2]));
+  acc[3] = __fadd_rn(acc[3], __fmul_rn(e1, up[3]));
+  acc[4] = __fadd_rn(acc[4], __fmul_rn(e0, up[4]));
+  acc[5] = __fadd_rn(acc[5], __fmul_rn(e1, up[5]));
+  acc[6] = __fadd_rn(acc[6], __fmul_rn(e2, up[6]));
+}
+
+__device__ __forceinline__ float clip_t(float v, float lmin, float inv_step, float kmax) {
+  return fminf(fmaxf(__fmul_rn(v - lmin, inv_step), 0.f), kmax);
+}
+
+// Guided grid build: per level k and RGB channel c, over the pooled layer l
+// and the pooled target p,
+//   w_c = exp2(-(l_c - lv_c)^2 * coef),  lv_c = lmin_c + step_c * k,
+//   num_c = blur(w_c * p_c), den_c = blur(w_c), num_a = blur(w_g * p_a),
+// unnormalized, stored as bf16.
+//
+// Replaces image_denoising_filter_tpu/ops/fast.py:_build_guided_grid_pallas.
+// The same design as build_grid_kernel, of which it is the guided twin: the
+// weights come from the layer and the payload from the target, seven outputs
+// a level and no divide. Under ZERO the cells outside the pooled images are
+// zero pixels that keep the range weight exp2(-lv^2 * coef).
+//
+// Bound on the H100: FP32 and SFU instruction throughput, as the bilateral
+// build: every cell recomputes its (2r+1)^2 taps' weights for every level
+// (4K, d=2, r=4, K=5: 2.07 M cells x 5 x 81 x 3 = 2.5 G exp2, two float4
+// loads a tap served by L1), while device memory sees the two 33 MB pooled
+// images about once and the 166 MB grid once. The fused kernel below shares
+// the weights of a tile instead and is the d = 2, 4 path.
+template <bool ZERO>
+__global__ void __launch_bounds__(kBlockX* kBlockY)
+    build_guided_grid_kernel(const float4* __restrict__ small_t,
+                             const float4* __restrict__ small_l, const float* __restrict__ lmin,
+                             const float* __restrict__ step, Bf16x8* __restrict__ grid, int hs,
+                             int ws, int levels, const Taps taps, float coef) {
+  const int x = blockIdx.x * kBlockX + threadIdx.x;
+  const int y = blockIdx.y * kBlockY + threadIdx.y;
+  if (x >= ws || y >= hs) return;
+  const int r = taps.n / 2;
+  const float lmin0 = lmin[0], lmin1 = lmin[1], lmin2 = lmin[2];
+  const float step0 = step[0], step1 = step[1], step2 = step[2];
+  for (int k = 0; k < levels; ++k) {
+    const float kf = static_cast<float>(k);
+    const float lv0 = __fadd_rn(lmin0, __fmul_rn(step0, kf));
+    const float lv1 = __fadd_rn(lmin1, __fmul_rn(step1, kf));
+    const float lv2 = __fadd_rn(lmin2, __fmul_rn(step2, kf));
+    float sum[kGuided] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int b = 0; b < taps.n; ++b) {
+      const int xx = x + b - r;
+      const bool col_ok = xx >= 0 && xx < ws;
+      const int cx = min(max(xx, 0), ws - 1);
+      float col[kGuided] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int a = 0; a < taps.n; ++a) {
+        const int yy = y + a - r;
+        float4 p = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 l = p;
+        if (!ZERO || (col_ok && yy >= 0 && yy < hs)) {
+          const size_t i = static_cast<size_t>(min(max(yy, 0), hs - 1)) * ws + cx;
+          p = __ldg(small_t + i);
+          l = __ldg(small_l + i);
+        }
+        add_guided_tap(col, taps.t[a], p, l, lv0, lv1, lv2, coef);
+      }
+      const float tb = taps.t[b];
+#pragma unroll
+      for (int i = 0; i < kGuided; ++i) sum[i] = __fadd_rn(sum[i], __fmul_rn(tb, col[i]));
+    }
+    grid[(static_cast<size_t>(k) * hs + y) * ws + x] = pack_guided(sum);
+  }
+}
+
+// Guided grid slice: for each full-resolution pixel, t_c = clip((l_c -
+// lmin_c) * inv_step_c, 0, K-1) from the full-resolution layer, and the
+// seven partials sum_k max(1 - |t - k|, 0) * up(g_k) over the bilinearly
+// upsampled, edge-replicated grid (alpha's numerator under green's t).
+// Writes wc (H, W, 4) and nw (H, W, 3) float32.
+//
+// Replaces image_denoising_filter_tpu/ops/fast.py:_slice_guided_grid_pallas.
+// As slice_grid_kernel: the two levels a pixel touches are summed directly
+// (the TPU telescopes over bf16-rounded level deltas and culls per tile).
+//
+// Bound on the H100: device memory. 16 B of layer read and 28 B of partials
+// written per pixel, and the grid (166 MB at 4K, d=2, K=5) read about once;
+// at most two levels of four 16-byte cells per pixel, served by L1. Design:
+// one thread per pixel in 32x8 blocks, closed-form bilinear taps.
+__global__ void __launch_bounds__(kBlockX* kBlockY)
+    slice_guided_grid_kernel(const float4* __restrict__ guide, const Bf16x8* __restrict__ grid,
+                             const float* __restrict__ lmin, const float* __restrict__ inv_step,
+                             float4* __restrict__ out_wc, float* __restrict__ out_nw, int h,
+                             int w, int hs, int ws, int levels, float inv_d) {
+  const int x = blockIdx.x * kBlockX + threadIdx.x;
+  const int y = blockIdx.y * kBlockY + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const size_t idx = static_cast<size_t>(y) * w + x;
+  const float4 g = guide[idx];
+  const float kmax = static_cast<float>(levels - 1);
+  const float t0 = clip_t(g.x, lmin[0], inv_step[0], kmax);
+  const float t1 = clip_t(g.y, lmin[1], inv_step[1], kmax);
+  const float t2 = clip_t(g.z, lmin[2], inv_step[2], kmax);
+  const float gy = __fmul_rn(static_cast<float>(y) + 0.5f, inv_d) - 0.5f;
+  const float gx = __fmul_rn(static_cast<float>(x) + 0.5f, inv_d) - 0.5f;
+  const float fy = floorf(gy);
+  const float fx = floorf(gx);
+  const int y0 = min(max(static_cast<int>(fy), 0), hs - 1);
+  const int y1 = min(max(static_cast<int>(fy) + 1, 0), hs - 1);
+  const int x0 = min(max(static_cast<int>(fx), 0), ws - 1);
+  const int x1 = min(max(static_cast<int>(fx) + 1, 0), ws - 1);
+  const size_t plane = static_cast<size_t>(hs) * ws;
+  float acc[kGuided] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < levels; ++k) {
+    const float kf = static_cast<float>(k);
+    const float e0 = fmaxf(1.f - fabsf(t0 - kf), 0.f);
+    const float e1 = fmaxf(1.f - fabsf(t1 - kf), 0.f);
+    const float e2 = fmaxf(1.f - fabsf(t2 - kf), 0.f);
+    if (e0 == 0.f && e1 == 0.f && e2 == 0.f) continue;
+    float up[8];
+    sample_guided(grid + k * plane, ws, y0, y1, x0, x1, gx - fx, gy - fy, up);
+    add_guided_level(acc, up, e0, e1, e2);
+  }
+  out_wc[idx] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  out_nw[3 * idx] = acc[4];
+  out_nw[3 * idx + 1] = acc[5];
+  out_nw[3 * idx + 2] = acc[6];
+}
+
+// The fused guided kernel's slice tile: 16 x 128 pixels, 256 threads, each
+// thread one column and every second row (kFusedRows pixels).
+constexpr int kFusedTileH = 16;
+constexpr int kFusedTileW = 128;
+constexpr int kFusedThreads = 256;
+constexpr int kFusedRows = kFusedTileH * kFusedTileW / kFusedThreads;
+// Room kept beside the dynamic shared memory for the kernel's static arrays.
+constexpr size_t kStaticSharedReserve = 1024;
+
+// Shared memory of one block at downsample d with blur radius r: the staged
+// pooled target and layer (float4 each) over the tile's cells plus the blur
+// halo, the vertical sums of the seven fields, and one level's cells.
+size_t fused_shared_bytes(int d, int r) {
+  const size_t rows = kFusedTileH / d + 2, cols = kFusedTileW / d + 2;
+  const size_t staged = 2 * (rows + 2 * r) * (cols + 2 * r) * sizeof(float4);
+  const size_t vsum = (kGuided * rows * (cols + 2 * r) * sizeof(float) + 15) / 16 * 16;
+  return staged + vsum + rows * cols * sizeof(Bf16x8);
+}
+
+// Fused guided build + slice: one block per 16 x 128-pixel slice tile.
+//
+// Replaces image_denoising_filter_tpu/ops/fast.py:
+// _fused_guided_pipeline_planar. The block stages the pooled target and
+// layer of the cells its pixels' bilinear taps read (with the blur halo) in
+// shared memory, finds the levels the tile's t touch, [floor(tmin_c),
+// ceil(tmax_c)] over the three channels, and for each of them builds that
+// level's cells in shared memory (a vertical then a horizontal blur pass,
+// the range weights shared by the whole tile) and adds its tents to the
+// pixels' partials, which stay in registers. The 7 K hs ws grid never goes
+// to device memory. Each cell's sums are the build kernel's, in its order,
+// and each pixel's the slice kernel's, so the output equals the two-kernel
+// path bit for bit; cells outside the grid are the edge cells (clamped
+// index), as the two-kernel path's edge replication gives them.
+//
+// Bound on the H100: device memory, the full-resolution layer read (16 B a
+// pixel) and the partials written (28 B a pixel) beside the two pooled
+// images read once. Per level, a tile costs (rows + 0) x (cols + 2r) x
+// (2r + 1) tap evaluations of 3 exp2: at d = 2, r = 4 about 10 exp2 a pixel
+// and level, an eighth of what the build kernel spends.
+template <bool ZERO>
+__global__ void __launch_bounds__(kFusedThreads)
+    fused_guided_kernel(const float4* __restrict__ small_t, const float4* __restrict__ small_l,
+                        const float4* __restrict__ guide, const float* __restrict__ lmin,
+                        const float* __restrict__ step, const float* __restrict__ inv_step,
+                        float4* __restrict__ out_wc, float* __restrict__ out_nw, int h, int w,
+                        int hs, int ws, int levels, const Taps taps, float coef, float inv_d,
+                        int max_rows, int max_cols) {
+  extern __shared__ float4 smem[];
+  __shared__ float red[kFusedThreads / 32][6];
+  __shared__ int level_range[2];
+  const int tid = threadIdx.x;
+  const int r = taps.n / 2;
+  const int py0 = blockIdx.y * kFusedTileH;
+  const int px0 = blockIdx.x * kFusedTileW;
+  const int py_last = min(py0 + kFusedTileH, h) - 1;
+  const int px_last = min(px0 + kFusedTileW, w) - 1;
+  // The cells the tile's bilinear taps read, clamped to the grid.
+  const int ay0 = min(max(static_cast<int>(floorf(
+                              __fmul_rn(static_cast<float>(py0) + 0.5f, inv_d) - 0.5f)), 0), hs - 1);
+  const int ay1 = min(max(static_cast<int>(floorf(
+                              __fmul_rn(static_cast<float>(py_last) + 0.5f, inv_d) - 0.5f)) + 1, 0), hs - 1);
+  const int ax0 = min(max(static_cast<int>(floorf(
+                              __fmul_rn(static_cast<float>(px0) + 0.5f, inv_d) - 0.5f)), 0), ws - 1);
+  const int ax1 = min(max(static_cast<int>(floorf(
+                              __fmul_rn(static_cast<float>(px_last) + 0.5f, inv_d) - 0.5f)) + 1, 0), ws - 1);
+  const int rows = ay1 - ay0 + 1;
+  const int cols = ax1 - ax0 + 1;
+  const int srows = rows + 2 * r;
+  const int scols = cols + 2 * r;
+  const int max_scols = max_cols + 2 * r;
+  float4* st_t = smem;
+  float4* st_l = st_t + (max_rows + 2 * r) * max_scols;
+  float* vsum = reinterpret_cast<float*>(st_l + (max_rows + 2 * r) * max_scols);
+  const int vplane = max_rows * max_scols;
+  Bf16x8* cells = reinterpret_cast<Bf16x8*>(
+      vsum + (kGuided * vplane + 3) / 4 * 4);
+
+  // Stage the pooled window with the build kernel's border rule.
+  for (int i = tid; i < srows * scols; i += kFusedThreads) {
+    const int yy = ay0 - r + i / scols;
+    const int xx = ax0 - r + i % scols;
+    float4 p = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 l = p;
+    if (!ZERO || (yy >= 0 && yy < hs && xx >= 0 && xx < ws)) {
+      const size_t j = static_cast<size_t>(min(max(yy, 0), hs - 1)) * ws + min(max(xx, 0), ws - 1);
+      p = __ldg(small_t + j);
+      l = __ldg(small_l + j);
+    }
+    st_t[i] = p;
+    st_l[i] = l;
+  }
+
+  // Each thread's pixels: t per channel, and the range of t over the tile.
+  const float kmax = static_cast<float>(levels - 1);
+  const float lmin0 = lmin[0], lmin1 = lmin[1], lmin2 = lmin[2];
+  const float is0 = inv_step[0], is1 = inv_step[1], is2 = inv_step[2];
+  const int px = px0 + tid % kFusedTileW;
+  const int row0 = tid / kFusedTileW;
+  constexpr int kRowStep = kFusedThreads / kFusedTileW;
+  float t[kFusedRows][3];
+  float tmin[3] = {kmax, kmax, kmax}, tmax[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kFusedRows; ++i) {
+    const int py = py0 + row0 + kRowStep * i;
+    if (px < w && py < h) {
+      const float4 g = guide[static_cast<size_t>(py) * w + px];
+      t[i][0] = clip_t(g.x, lmin0, is0, kmax);
+      t[i][1] = clip_t(g.y, lmin1, is1, kmax);
+      t[i][2] = clip_t(g.z, lmin2, is2, kmax);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        tmin[c] = fminf(tmin[c], t[i][c]);
+        tmax[c] = fmaxf(tmax[c], t[i][c]);
+      }
+    } else {
+      t[i][0] = t[i][1] = t[i][2] = -2.f;  // no tent reaches a level
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    for (int off = 16; off > 0; off >>= 1) {
+      tmin[c] = fminf(tmin[c], __shfl_xor_sync(0xffffffffu, tmin[c], off));
+      tmax[c] = fmaxf(tmax[c], __shfl_xor_sync(0xffffffffu, tmax[c], off));
+    }
+  }
+  if (tid % 32 == 0) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      red[tid / 32][c] = tmin[c];
+      red[tid / 32][3 + c] = tmax[c];
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float lo = kmax, hi = 0.f;
+    for (int wp = 0; wp < kFusedThreads / 32; ++wp) {
+      for (int c = 0; c < 3; ++c) {
+        lo = fminf(lo, red[wp][c]);
+        hi = fmaxf(hi, red[wp][3 + c]);
+      }
+    }
+    level_range[0] = static_cast<int>(floorf(lo));
+    level_range[1] = static_cast<int>(ceilf(hi));
+  }
+  __syncthreads();
+  const int k_lo = level_range[0];
+  const int k_hi = level_range[1];
+
+  // Per pixel row: the bilinear rows in the block's cell window; per column
+  // the same for every row of the thread.
+  const float gx = __fmul_rn(static_cast<float>(px) + 0.5f, inv_d) - 0.5f;
+  const float fx = floorf(gx);
+  const int x0 = min(max(static_cast<int>(fx), 0), ws - 1) - ax0;
+  const int x1 = min(max(static_cast<int>(fx) + 1, 0), ws - 1) - ax0;
+  const float wx = gx - fx;
+
+  float acc[kFusedRows][kGuided];
+#pragma unroll
+  for (int i = 0; i < kFusedRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kGuided; ++j) acc[i][j] = 0.f;
+
+  const float lstep0 = step[0], lstep1 = step[1], lstep2 = step[2];
+  for (int k = k_lo; k <= k_hi; ++k) {
+    const float kf = static_cast<float>(k);
+    const float lv0 = __fadd_rn(lmin0, __fmul_rn(lstep0, kf));
+    const float lv1 = __fadd_rn(lmin1, __fmul_rn(lstep1, kf));
+    const float lv2 = __fadd_rn(lmin2, __fmul_rn(lstep2, kf));
+    // Vertical pass: per cell row and staged column, the sum over the taps
+    // of the column (the build kernel's inner loop).
+    for (int i = tid; i < rows * scols; i += kFusedThreads) {
+      const int cy = i / scols;
+      const int sx = i % scols;
+      float col[kGuided] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int a = 0; a < taps.n; ++a) {
+        const int s = (cy + a) * scols + sx;
+        add_guided_tap(col, taps.t[a], st_t[s], st_l[s], lv0, lv1, lv2, coef);
+      }
+#pragma unroll
+      for (int j = 0; j < kGuided; ++j) vsum[j * vplane + cy * max_scols + sx] = col[j];
+    }
+    __syncthreads();
+    // Horizontal pass: the weighted sum of the columns, stored as bf16.
+    for (int i = tid; i < rows * cols; i += kFusedThreads) {
+      const int cy = i / cols;
+      const int cx = i % cols;
+      float sum[kGuided] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int b = 0; b < taps.n; ++b) {
+        const float tb = taps.t[b];
+#pragma unroll
+        for (int j = 0; j < kGuided; ++j)
+          sum[j] = __fadd_rn(sum[j], __fmul_rn(tb, vsum[j * vplane + cy * max_scols + cx + b]));
+      }
+      cells[cy * cols + cx] = pack_guided(sum);
+    }
+    __syncthreads();
+    // Slice this level into the pixels' partials.
+#pragma unroll
+    for (int i = 0; i < kFusedRows; ++i) {
+      const float e0 = fmaxf(1.f - fabsf(t[i][0] - kf), 0.f);
+      const float e1 = fmaxf(1.f - fabsf(t[i][1] - kf), 0.f);
+      const float e2 = fmaxf(1.f - fabsf(t[i][2] - kf), 0.f);
+      if (e0 == 0.f && e1 == 0.f && e2 == 0.f) continue;
+      const int py = py0 + row0 + kRowStep * i;
+      const float gy = __fmul_rn(static_cast<float>(py) + 0.5f, inv_d) - 0.5f;
+      const float fy = floorf(gy);
+      const int y0 = min(max(static_cast<int>(fy), 0), hs - 1) - ay0;
+      const int y1 = min(max(static_cast<int>(fy) + 1, 0), hs - 1) - ay0;
+      float up[8];
+      sample_guided(cells, cols, y0, y1, x0, x1, wx, gy - fy, up);
+      add_guided_level(acc[i], up, e0, e1, e2);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kFusedRows; ++i) {
+    const int py = py0 + row0 + kRowStep * i;
+    if (px >= w || py >= h) continue;
+    const size_t idx = static_cast<size_t>(py) * w + px;
+    out_wc[idx] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    out_nw[3 * idx] = acc[i][4];
+    out_nw[3 * idx + 1] = acc[i][5];
+    out_nw[3 * idx + 2] = acc[i][6];
+  }
+}
+
 dim3 grid_for(int w, int h) {
   return dim3((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
 }
@@ -335,6 +768,94 @@ int idf_slice_grid(const void* guide, const void* grid, const void* lmin, const 
     slice_grid_kernel<false><<<grid_for(w, h), block, 0, s>>>(gd, g, lm, is, a, o, h, w, hs, ws,
                                                               levels, inv_d);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// small_t, small_l: (hs, ws, 4) float32 pooled target and layer; lmin, step:
+// device arrays of 3 floats; taps: host array of n_taps floats (odd); grid:
+// (levels, hs, ws, 8) bf16.
+int idf_build_guided_grid(const void* small_t, const void* small_l, const void* lmin,
+                          const void* step, void* grid, int hs, int ws, int levels,
+                          const float* taps, int n_taps, float coef, int zero_border,
+                          void* stream) {
+  if (n_taps <= 0 || n_taps > kMaxTaps || n_taps % 2 == 0 || levels <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hs <= 0 || ws <= 0) return static_cast<int>(cudaSuccess);
+  Taps table;
+  table.n = n_taps;
+  for (int i = 0; i < n_taps; ++i) table.t[i] = taps[i];
+  const dim3 block(kBlockX, kBlockY);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float4* t = static_cast<const float4*>(small_t);
+  const float4* l = static_cast<const float4*>(small_l);
+  const float* lm = static_cast<const float*>(lmin);
+  const float* st = static_cast<const float*>(step);
+  Bf16x8* g = static_cast<Bf16x8*>(grid);
+  if (zero_border) {
+    build_guided_grid_kernel<true><<<grid_for(ws, hs), block, 0, s>>>(t, l, lm, st, g, hs, ws,
+                                                                      levels, table, coef);
+  } else {
+    build_guided_grid_kernel<false><<<grid_for(ws, hs), block, 0, s>>>(t, l, lm, st, g, hs, ws,
+                                                                       levels, table, coef);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// guide: (h, w, 4) float32 full-resolution layer; grid: (levels, hs, ws, 8)
+// bf16; lmin, inv_step: device arrays of 3 floats; out_wc: (h, w, 4) and
+// out_nw: (h, w, 3) float32.
+int idf_slice_guided_grid(const void* guide, const void* grid, const void* lmin,
+                          const void* inv_step, void* out_wc, void* out_nw, int h, int w, int hs,
+                          int ws, int levels, int d, void* stream) {
+  if (d <= 0 || levels <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+  slice_guided_grid_kernel<<<grid_for(w, h), dim3(kBlockX, kBlockY), 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(guide), static_cast<const Bf16x8*>(grid),
+      static_cast<const float*>(lmin), static_cast<const float*>(inv_step),
+      static_cast<float4*>(out_wc), static_cast<float*>(out_nw), h, w, hs, ws, levels,
+      1.f / static_cast<float>(d));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fused guided build + slice: the inputs of idf_build_guided_grid and
+// idf_slice_guided_grid (step and inv_step both), the same outputs. d must
+// divide the 16 x 128 slice tile (1, 2, 4, 8); the window must fit the
+// block's shared memory (fused_shared_bytes).
+int idf_fused_guided(const void* small_t, const void* small_l, const void* guide,
+                     const void* lmin, const void* step, const void* inv_step, void* out_wc,
+                     void* out_nw, int h, int w, int hs, int ws, int levels, const float* taps,
+                     int n_taps, float coef, int d, int zero_border, void* stream) {
+  if (n_taps <= 0 || n_taps > kMaxTaps || n_taps % 2 == 0 || levels <= 0 || d <= 0 ||
+      kFusedTileH % d != 0 || kFusedTileW % d != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+  const int r = n_taps / 2;
+  const size_t bytes = fused_shared_bytes(d, r);
+  int device = 0, max_bytes = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&max_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (bytes + kStaticSharedReserve > static_cast<size_t>(max_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Taps table;
+  table.n = n_taps;
+  for (int i = 0; i < n_taps; ++i) table.t[i] = taps[i];
+  const dim3 grid((w + kFusedTileW - 1) / kFusedTileW, (h + kFusedTileH - 1) / kFusedTileH);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int max_rows = kFusedTileH / d + 2;
+  const int max_cols = kFusedTileW / d + 2;
+  auto kernel = zero_border ? fused_guided_kernel<true> : fused_guided_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kFusedThreads, bytes, s>>>(
+      static_cast<const float4*>(small_t), static_cast<const float4*>(small_l),
+      static_cast<const float4*>(guide), static_cast<const float*>(lmin),
+      static_cast<const float*>(step), static_cast<const float*>(inv_step),
+      static_cast<float4*>(out_wc), static_cast<float*>(out_nw), h, w, hs, ws, levels, table,
+      coef, 1.f / static_cast<float>(d), max_rows, max_cols);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,6 +14,7 @@
 // the kernel's parameter space: every thread of a warp reads the same entry,
 // which the constant cache broadcasts.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -149,7 +150,33 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
 // blocks, row pointers computed once per patch row, so the inner loop is a
 // clamp, two coalesced float4 loads and three FMAs. The box-sum
 // decomposition of the TPU kernel, and shared-memory tiles, are later work.
-template <bool ZERO>
+//
+// BF16 taps (TilingConfig.compute_dtype "bfloat16", the turbo NLM): as the
+// TPU kernel with cdtype bfloat16 (stencils.py:532-534, 560-563), target and
+// neighbour RGB are rounded to bf16, and d = t - n, d*d and the two adds
+// each round to bf16, in the order d0*d0 + d1*d1 + d2*d2; the sum is
+// widened to float32 before the patch sum and the exp2. One bf16 intrinsic
+// an operation, so the kernel rounds where its plain version does: the _rn
+// forms (add.rn / sub.rn / mul.rn.bf16), since ptxas may contract a plain
+// __hmul and __hadd into one fused multiply-add with one rounding fewer.
+// Value taps and accumulators stay float32.
+template <bool BF16>
+__device__ __forceinline__ float tap_sq_diff(float4 t, float4 n) {
+  if constexpr (BF16) {
+    const __nv_bfloat16 d0 = __hsub_rn(__float2bfloat16_rn(t.x), __float2bfloat16_rn(n.x));
+    const __nv_bfloat16 d1 = __hsub_rn(__float2bfloat16_rn(t.y), __float2bfloat16_rn(n.y));
+    const __nv_bfloat16 d2 = __hsub_rn(__float2bfloat16_rn(t.z), __float2bfloat16_rn(n.z));
+    const __nv_bfloat16 e = __hadd_rn(__hmul_rn(d0, d0), __hmul_rn(d1, d1));
+    return __bfloat162float(__hadd_rn(e, __hmul_rn(d2, d2)));
+  } else {
+    const float d0 = t.x - n.x;
+    const float d1 = t.y - n.y;
+    const float d2 = t.z - n.z;
+    return d0 * d0 + d1 * d1 + d2 * d2;
+  }
+}
+
+template <bool ZERO, bool BF16>
 __global__ void __launch_bounds__(kBlockX* kBlockY)
     nlm_kernel(const float4* __restrict__ tgt, const float4* __restrict__ frames,
                const float* __restrict__ valid, float4* __restrict__ out_wc,
@@ -178,10 +205,7 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
         for (int px = -p; px < p; ++px) {
           const float4 t = col_tap<ZERO>(trow, tok, x + px, w);
           const float4 n = col_tap<ZERO>(nrow, nok, x + dx + px, w);
-          const float d0 = t.x - n.x;
-          const float d1 = t.y - n.y;
-          const float d2 = t.z - n.z;
-          ssd += d0 * d0 + d1 * d1 + d2 * d2;
+          ssd += tap_sq_diff<BF16>(t, n);
         }
       }
       const float bias = (dy != 0 || dx != 0) ? log_m : 0.f;
@@ -270,10 +294,11 @@ int idf_bilateral(const void* img, const void* guide, void* out_wc, void* out_nw
 
 // cands: host array of n_cands (dy, dx) pairs; frames: (n_frames, h, w, 4);
 // valid: device array of n_frames floats.
+// bf16_taps selects the bf16 tap arithmetic (the turbo NLM).
 int idf_nlm(const void* tgt, const void* frames, const void* valid, void* out_wc,
             void* out_nw, int h, int w, int n_frames, int p, const int* cands,
             int n_cands, float ssd_coef, float log_m, float norm_seed, int zero_border,
-            int uniform_alpha, void* stream) {
+            int uniform_alpha, int bf16_taps, void* stream) {
   if (n_cands < 0 || n_cands > kMaxCands) return static_cast<int>(cudaErrorInvalidValue);
   if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
   Cands table;
@@ -294,13 +319,10 @@ int idf_nlm(const void* tgt, const void* frames, const void* valid, void* out_wc
   const float* v = static_cast<const float*>(valid);
   float4* o = static_cast<float4*>(out_wc);
   float* onw = static_cast<float*>(out_nw);
-  if (zero_border) {
-    nlm_kernel<true><<<grid, block, 0, s>>>(t, fr, v, o, onw, h, w, n_frames, p, table,
-                                            ssd_coef, log_m, norm_seed, uniform_alpha);
-  } else {
-    nlm_kernel<false><<<grid, block, 0, s>>>(t, fr, v, o, onw, h, w, n_frames, p, table,
-                                             ssd_coef, log_m, norm_seed, uniform_alpha);
-  }
+  auto kernel = zero_border ? (bf16_taps ? nlm_kernel<true, true> : nlm_kernel<true, false>)
+                            : (bf16_taps ? nlm_kernel<false, true> : nlm_kernel<false, false>);
+  kernel<<<grid, block, 0, s>>>(t, fr, v, o, onw, h, w, n_frames, p, table, ssd_coef, log_m,
+                                norm_seed, uniform_alpha);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -147,16 +147,33 @@ def cross_bilateral_layers_eager(
     return _bilateral_window(target, layer, params)
 
 
+def _sq_diff_bf16(t: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Per-pixel RGB squared difference of two bf16 (..., 3) tensors with a
+    bf16 rounding after every operation, in the order d0*d0 + d1*d1 + d2*d2
+    (stencils.py:560-563 with cdtype bfloat16), widened to float32."""
+    d = t - n
+    e = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+    return (e + d[..., 2] * d[..., 2]).float()
+
+
 def nlm_eager(
-    target: torch.Tensor, neighbour: torch.Tensor, params: NlmParams
+    target: torch.Tensor,
+    neighbour: torch.Tensor,
+    params: NlmParams,
+    compute_dtype: str = "float32",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One frame's NLM partials (xla.py:nlm_xla; shaders/nonlocal.comp:30-65),
     exact or with the strided and disk candidate subsets. normWeight is
-    seeded with params.norm_seed."""
+    seeded with params.norm_seed. compute_dtype "bfloat16" computes the
+    squared differences with bf16 taps, as the turbo NLM kernel does; the
+    patch sums, weights and accumulators stay float32."""
     if params.weights_halfres:
         raise NotImplementedError(
-            "weights_halfres is not ported yet (ROADMAP.md queue A item 8, turbo NLM)"
+            "weights_halfres is not ported yet (ROADMAP.md queue A item 8, kernel queue B item 7)"
         )
+    if compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
+    bf16 = compute_dtype == "bfloat16"
     target = target.to(torch.float32)
     neighbour = neighbour.to(torch.float32)
     h, w, _ = target.shape
@@ -167,6 +184,8 @@ def nlm_eager(
     t_ext = _pad2d(target, p, params.border)[:eh, :ew, :3]
     pn = _pad2d(neighbour, halo, params.border)
     inv_h2 = float(np.float32(1.0 / (params.h**2)))
+    if bf16:
+        t_taps, n_taps = t_ext.to(torch.bfloat16), pn[..., :3].to(torch.bfloat16)
 
     # Half-open search offsets [-s, s)^2 (shaders/nonlocal.comp:36-38), from
     # the table the NLM kernel takes: the stride subset keeps the zero offset,
@@ -181,8 +200,12 @@ def nlm_eager(
         # E in padded-neighbour coords starts at oy = dy+s: E index e is
         # absolute row e-p+dy, at padded row e-p+dy+halo = e+oy.
         oy, ox = dy + s, dx + s
-        d = t_ext - pn[oy : oy + eh, ox : ox + ew, :3]
-        ssd = _box_sum((d * d).sum(-1), 2 * p, h, w)
+        if bf16:
+            e = _sq_diff_bf16(t_taps, n_taps[oy : oy + eh, ox : ox + ew])
+        else:
+            d = t_ext - pn[oy : oy + eh, ox : ox + ew, :3]
+            e = (d * d).sum(-1)
+        ssd = _box_sum(e, 2 * p, h, w)
         wgt = torch.exp(-ssd * inv_h2)
         if st > 1 and (dy, dx) != (0, 0):
             wgt = wgt * float(st * st)  # importance compensation, non-self

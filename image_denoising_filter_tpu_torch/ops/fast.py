@@ -1,30 +1,39 @@
-"""Hand-written CUDA kernels of the turbo bilateral grid -- pool, grid build
-and grid slice -- and the pipeline that runs them.
+"""Hand-written CUDA kernels of the turbo grids and the pipelines that run
+them: the bilateral grid (pool, grid build, grid slice) and the layer-guided
+grid (guided build, guided slice, and the fused guided build+slice).
 
-Counterpart of image_denoising_filter_tpu/ops/fast.py, the bilateral family:
-`bilateral_fast` -> `_grid_pipeline_planar` -> `_pool_pallas`,
-`_build_grid_pallas`, `_slice_grid_pallas`. The kernels are in
-ops/csrc/fast.cu and are built by ops/_build.py at first use. Beside them
-this module holds:
+Counterpart of image_denoising_filter_tpu/ops/fast.py:
+  * the bilateral family, `bilateral_fast` -> `_grid_pipeline_planar` ->
+    `_pool_pallas`, `_build_grid_pallas`, `_slice_grid_pallas`;
+  * the guided family, `cross_bilateral_layers_fast` -> `_pool_pallas`,
+    `_build_guided_grid_pallas` + `_slice_guided_grid_pallas` (d = 1, 8) or
+    `_fused_guided_pipeline_planar` (d = 2, 4), then `normalize_layers_fast`.
+The kernels are in ops/csrc/fast.cu and are built by ops/_build.py at first
+use. Beside them this module holds:
 
   * the static tables, ported from the JAX module: `_gauss_taps` and
     `_grid_taps` (the pool-compensated blur taps) and `_bilinear_taps` with
     `_upsample_matrix` (the half-pixel bilinear weights);
   * each kernel's plain PyTorch version (`pool_plain`, `build_grid_plain`,
-    `slice_grid_plain`): whole-image tensor ops with the kernel's bf16
+    `slice_grid_plain`, `build_guided_grid_plain`, `slice_guided_grid_plain`,
+    `fused_guided_plain`): whole-image tensor ops with the kernel's bf16
     roundings, taps, summation order and lerp formula;
   * launch counts, in `ops.stencils.launches` beside the exact kernels'.
 
 Layouts: images (H, W, 4) float32; the pooled image (hs, ws, 4) float32 with
-hs = ceil(H/d), ws = ceil(W/d); the grid (K, hs, ws, 4) bfloat16, channels
-r, g, b, a (`grid_to_planes` and `grid_from_planes` convert to and from the
-JAX package's (nc*K, hs, ws) planes). On a CPU tensor a wrapper runs the
-plain version; on a CUDA tensor it checks its inputs, then launches the
-kernel or raises. There is no fallback from one to the other.
+hs = ceil(H/d), ws = ceil(W/d); the bilateral grid (K, hs, ws, 4) bfloat16,
+channels r, g, b, a; the guided grid (K, hs, ws, 8) bfloat16, the planes
+num r, g, b, a, den r, g, b and one zero pad, so that one cell is one 16-byte
+load. `grid_to_planes`, `guided_grid_to_planes` and their inverses convert
+to and from the JAX package's level-major (nc*K, hs, ws) planes. On a CPU
+tensor a wrapper runs the plain version; on a CUDA tensor it checks its
+inputs, then launches the kernel or raises. There is no fallback from one to
+the other.
 
 Not ported, because it is TPU machinery with no value of its own: the per-d
 tile defaults, the pad-free slab layout (`extend_to`), `cull_mask` and
-`out_dtype`. The fused build+slice kernel waits for ROADMAP queue B item 11.
+`out_dtype`. The fused bilateral build+slice kernel waits for ROADMAP queue
+B item 11.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import BilateralParams, BorderPolicy
+from ..config import BilateralParams, BorderPolicy, LayersParams
 
 from . import _build
 from .eager import _blur_valid, _pad2d, _pad_to, bilateral_fast_eager
@@ -43,8 +52,18 @@ from .stencils import LOG2E, _check_image, _on_cuda, _raise_on_error, _stream, l
 
 # Table size the build kernel takes by value (fast.cu: kMaxTaps).
 MAX_TAPS = 64
-#: Grid downsamples the kernels take; 1 is the eager lattice.
+#: Grid downsamples the bilateral grid's kernels take; 1 is the eager lattice.
 DOWNSAMPLES = (2, 4, 8)
+#: Downsamples of the guided grid, and of the pool it runs: the JAX package
+#: runs its Pallas kernels at d = 1 too (a bf16 round trip of every value).
+GUIDED_DOWNSAMPLES = (1, 2, 4, 8)
+#: Guided grid planes per level: num r, g, b, a; den r, g, b; one zero pad.
+GUIDED_PLANES = 8
+#: The fused guided kernel's slice tile in pixels (fast.cu: kFusedTileH/W) and
+#: the dynamic shared memory a block may use on the H100: 227 KB less the
+#: 1 KB kept for the kernel's static arrays (kStaticSharedReserve).
+FUSED_TILE = (16, 128)
+MAX_SHARED_BYTES = 232448 - 1024
 
 
 # ---------------------------------------------------------------------------
@@ -187,17 +206,100 @@ def slice_grid_plain(
     return acc
 
 
+def build_guided_grid_plain(
+    small_t: torch.Tensor,
+    small_l: torch.Tensor,
+    lmin: torch.Tensor,
+    step: torch.Tensor,
+    levels: int,
+    taps: np.ndarray,
+    border: str,
+    inv2sc: float,
+) -> torch.Tensor:
+    """The guided build kernel as tensor ops: per level k and RGB channel c,
+    w = exp2(-(l_c - lmin_c - k step_c)^2 inv2sc log2 e) from the pooled
+    layer, then blur(w t_c) and blur(w) of the pooled target t, unnormalized,
+    alpha's numerator under green's weights; blurred along H, then W, over
+    the radius-padded pooled images (edge cells under CLAMP, zero pixels
+    under ZERO, which keep their range weight). Returns (K, hs, ws, 8)
+    bfloat16: num r, g, b, a, den r, g, b, and a zero pad."""
+    r = (len(taps) - 1) // 2
+    pt = _pad2d(small_t, r, border)
+    pl = _pad2d(small_l, r, border)
+    coef = float(np.float32(inv2sc * LOG2E))
+    pad = torch.zeros_like(pt[..., :1])
+    out = []
+    for k in range(levels):
+        dc = pl[..., :3] - (lmin + step * float(k))
+        wk = torch.exp2(-(dc * dc) * coef)
+        fields = torch.cat([wk * pt[..., :3], wk[..., 1:2] * pt[..., 3:], wk, pad], -1)
+        out.append(_blur_valid(_blur_valid(fields, taps, 0), taps, 1).to(torch.bfloat16))
+    return torch.stack(out)
+
+
+def slice_guided_grid_plain(
+    guide: torch.Tensor,
+    grid: torch.Tensor,
+    lmin: torch.Tensor,
+    inv_step: torch.Tensor,
+    d: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The guided slice kernel as tensor ops: t_c = clip((guide_c - lmin_c)
+    inv_step_c, 0, K-1) from the full-resolution layer, and per level the
+    tent weight of t times the bilinearly upsampled (edge-replicated) level,
+    summed in level order; alpha's numerator rides green's t. Returns the
+    partials (wc (H, W, 4), nw (H, W, 3))."""
+    h, w, _ = guide.shape
+    levels = grid.shape[0]
+    t = ((guide[..., :3] - lmin) * inv_step).clamp(0.0, levels - 1.0)
+    t = torch.cat([t, t[..., 1:2], t, t[..., :1]], -1)  # the pad plane's tent is unused
+    acc = torch.zeros((h, w, GUIDED_PLANES), dtype=torch.float32, device=guide.device)
+    for k in range(levels):
+        tent = (1.0 - (t - k).abs()).clamp_min(0.0)
+        acc = acc + tent * _bilinear_up(grid[k].float(), d, h, w)
+    return acc[..., :4].contiguous(), acc[..., 4:7].contiguous()
+
+
+def fused_guided_plain(
+    small_t: torch.Tensor,
+    small_l: torch.Tensor,
+    guide: torch.Tensor,
+    lmin: torch.Tensor,
+    step: torch.Tensor,
+    inv_step: torch.Tensor,
+    levels: int,
+    taps: np.ndarray,
+    border: str,
+    inv2sc: float,
+    d: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused guided kernel's plain version: the guided build, then the
+    guided slice (the fused kernel keeps each cell's sums in that order)."""
+    grid = build_guided_grid_plain(small_t, small_l, lmin, step, levels, taps, border, inv2sc)
+    return slice_guided_grid_plain(guide, grid, lmin, inv_step, d)
+
+
 # ---------------------------------------------------------------------------
 # Checks, layouts and launches
 # ---------------------------------------------------------------------------
 
 
-def _check_downsample(d: int) -> None:
-    if d not in DOWNSAMPLES:
+def _check_downsample(d: int, allowed: tuple = DOWNSAMPLES) -> None:
+    if d not in allowed:
         raise ValueError(
-            f"the grid kernels take downsample d in {DOWNSAMPLES}, got {d} "
-            "(d = 1 is the eager lattice, ops.eager.bilateral_fast_eager)"
+            f"the grid kernels take downsample d in {allowed}, got {d} "
+            "(the bilateral grid's d = 1 is the eager lattice, "
+            "ops.eager.bilateral_fast_eager)"
         )
+
+
+def _check_taps(taps: np.ndarray) -> np.ndarray:
+    taps = np.ascontiguousarray(taps, np.float32)
+    if taps.ndim != 1 or taps.size % 2 == 0:
+        raise ValueError(f"blur taps must be one odd-length row, got shape {taps.shape}")
+    if taps.size > MAX_TAPS:
+        raise ValueError(f"{taps.size} blur taps exceed the kernel's table of {MAX_TAPS}")
+    return taps
 
 
 def _check_range(*tensors: torch.Tensor) -> None:
@@ -239,9 +341,10 @@ def grid_from_planes(planes: torch.Tensor, uniform_alpha: bool) -> torch.Tensor:
 def pool(img: torch.Tensor, d: int, border: str = BorderPolicy.CLAMP) -> torch.Tensor:
     """d x d mean pool with bf16 operands (fast.py:_pool_pallas), the input
     padded to multiples of d by `border`. img: (H, W, 4) float32; returns
-    (ceil(H/d), ceil(W/d), 4) float32."""
+    (ceil(H/d), ceil(W/d), 4) float32. At d = 1 (the guided grid's) it is a
+    bf16 round trip of every value."""
     _check_image(img, "img")
-    _check_downsample(d)
+    _check_downsample(d, GUIDED_DOWNSAMPLES)
     if not _on_cuda(img):
         return pool_plain(img, d, border)
     h, w, _ = img.shape
@@ -275,11 +378,7 @@ def build_grid(
     _check_range(lmin, step)
     if levels < 2:
         raise ValueError(f"the grid needs at least 2 levels, got {levels}")
-    taps = np.ascontiguousarray(taps, np.float32)
-    if taps.ndim != 1 or taps.size % 2 == 0:
-        raise ValueError(f"blur taps must be one odd-length row, got shape {taps.shape}")
-    if taps.size > MAX_TAPS:
-        raise ValueError(f"{taps.size} blur taps exceed the kernel's table of {MAX_TAPS}")
+    taps = _check_taps(taps)
     if not _on_cuda(small, lmin, step):
         return build_grid_plain(small, lmin, step, levels, taps, border, inv2sc, uniform_alpha)
     hs, ws, _ = small.shape
@@ -332,6 +431,159 @@ def slice_grid(
     _raise_on_error(rc, "slice_grid")
     launches["slice_grid"] += 1
     return out
+
+
+def guided_grid_to_planes(grid: torch.Tensor) -> torch.Tensor:
+    """(K, hs, ws, 8) -> the JAX package's (7K, hs, ws) planes, per level
+    num r, g, b, a, den r, g, b (fast.py:_build_guided_grid_pallas's output)."""
+    levels, hs, ws, _ = grid.shape
+    return grid[..., :7].permute(0, 3, 1, 2).reshape(levels * 7, hs, ws)
+
+
+def guided_grid_from_planes(planes: torch.Tensor) -> torch.Tensor:
+    """The inverse of guided_grid_to_planes; the pad plane is zero."""
+    _, hs, ws = planes.shape
+    grid = planes.reshape(-1, 7, hs, ws).permute(0, 2, 3, 1)
+    return torch.cat([grid, grid.new_zeros(grid.shape[:3] + (1,))], -1).contiguous()
+
+
+def _check_guided_inputs(small_t, small_l, lmin, step, levels, taps):
+    _check_image(small_t, "small_t")
+    if small_l.shape != small_t.shape:
+        raise ValueError(f"small_l {tuple(small_l.shape)} != small_t {tuple(small_t.shape)}")
+    _check_range(lmin, step)
+    if levels < 2:
+        raise ValueError(f"the grid needs at least 2 levels, got {levels}")
+    return _check_taps(taps)
+
+
+def build_guided_grid(
+    small_t: torch.Tensor,
+    small_l: torch.Tensor,
+    lmin: torch.Tensor,
+    step: torch.Tensor,
+    levels: int,
+    taps: np.ndarray,
+    border: str,
+    inv2sc: float,
+) -> torch.Tensor:
+    """Unnormalized guided grid (fast.py:_build_guided_grid_pallas): range
+    weights from the pooled layer small_l, payload from the pooled target
+    small_t (both (hs, ws, 4) float32), the grid range lmin and step ((3,)
+    float32, on their device), K = levels, the odd blur taps. Returns the
+    (K, hs, ws, 8) bfloat16 grid."""
+    taps = _check_guided_inputs(small_t, small_l, lmin, step, levels, taps)
+    if not _on_cuda(small_t, small_l, lmin, step):
+        return build_guided_grid_plain(small_t, small_l, lmin, step, levels, taps, border, inv2sc)
+    hs, ws, _ = small_t.shape
+    grid = torch.empty((levels, hs, ws, GUIDED_PLANES), dtype=torch.bfloat16, device=small_t.device)
+    lib = _build.library()
+    with torch.cuda.device(small_t.device):
+        rc = lib.idf_build_guided_grid(
+            small_t.data_ptr(), small_l.data_ptr(), lmin.data_ptr(), step.data_ptr(),
+            grid.data_ptr(), hs, ws, levels, taps.ctypes.data, taps.size, inv2sc * LOG2E,
+            int(border != BorderPolicy.CLAMP), _stream(small_t),
+        )
+    _raise_on_error(rc, "build_guided_grid")
+    launches["build_guided_grid"] += 1
+    return grid
+
+
+def slice_guided_grid(
+    guide: torch.Tensor,
+    grid: torch.Tensor,
+    lmin: torch.Tensor,
+    inv_step: torch.Tensor,
+    d: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Slice the guided grid at full resolution (fast.py:
+    _slice_guided_grid_pallas with pad_edge=True): guide (H, W, 4) float32,
+    the full-resolution layer whose RGB places each pixel between levels;
+    grid (K, ceil(H/d), ceil(W/d), 8) bfloat16; lmin and inv_step (3,)
+    float32. Returns the partials (wc (H, W, 4), nw (H, W, 3)) float32."""
+    _check_image(guide, "guide")
+    _check_downsample(d, GUIDED_DOWNSAMPLES)
+    _check_range(lmin, inv_step)
+    on_cuda = _on_cuda(guide, lmin, inv_step)
+    h, w, _ = guide.shape
+    hs, ws = -(-h // d), -(-w // d)
+    _check_grid(grid, (hs, ws, GUIDED_PLANES), guide.device)
+    if not on_cuda:
+        return slice_guided_grid_plain(guide, grid, lmin, inv_step, d)
+    wc = torch.empty_like(guide)
+    nw = torch.empty((h, w, 3), dtype=torch.float32, device=guide.device)
+    lib = _build.library()
+    with torch.cuda.device(guide.device):
+        rc = lib.idf_slice_guided_grid(
+            guide.data_ptr(), grid.data_ptr(), lmin.data_ptr(), inv_step.data_ptr(),
+            wc.data_ptr(), nw.data_ptr(), h, w, hs, ws, grid.shape[0], d, _stream(guide),
+        )
+    _raise_on_error(rc, "slice_guided_grid")
+    launches["slice_guided_grid"] += 1
+    return wc, nw
+
+
+def fused_guided_shared_bytes(d: int, n_taps: int) -> int:
+    """Shared memory of one block of the fused guided kernel (fast.cu:
+    fused_shared_bytes): the staged pooled target and layer window with the
+    blur halo, the vertical blur sums of 7 fields, and one level's cells."""
+    r = n_taps // 2
+    th, tw = FUSED_TILE
+    rows, cols = th // d + 2, tw // d + 2
+    staged = 2 * (rows + 2 * r) * (cols + 2 * r) * 16
+    vsum = -(-7 * rows * (cols + 2 * r) * 4 // 16) * 16
+    return staged + vsum + rows * cols * 16
+
+
+def fused_guided(
+    small_t: torch.Tensor,
+    small_l: torch.Tensor,
+    guide: torch.Tensor,
+    lmin: torch.Tensor,
+    step: torch.Tensor,
+    inv_step: torch.Tensor,
+    levels: int,
+    taps: np.ndarray,
+    border: str,
+    inv2sc: float,
+    d: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Guided build + slice per slice tile, the grid kept in shared memory
+    (fast.py:_fused_guided_pipeline_planar): the inputs of build_guided_grid
+    and of slice_guided_grid, the same partials out. Each cell's sums keep
+    the two kernels' order, so the output equals theirs."""
+    taps = _check_guided_inputs(small_t, small_l, lmin, step, levels, taps)
+    _check_image(guide, "guide")
+    _check_downsample(d, GUIDED_DOWNSAMPLES)
+    _check_range(inv_step)
+    h, w, _ = guide.shape
+    hs, ws = -(-h // d), -(-w // d)
+    if tuple(small_t.shape) != (hs, ws, 4):
+        raise ValueError(f"pooled images {tuple(small_t.shape)} != ({hs}, {ws}, 4) at d = {d}")
+    smem = fused_guided_shared_bytes(d, taps.size)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"the fused guided kernel needs {smem} bytes of shared memory at d = {d} "
+            f"with {taps.size} blur taps, above the {MAX_SHARED_BYTES} a block has: "
+            "use the two guided kernels (fused=False)"
+        )
+    if not _on_cuda(small_t, small_l, guide, lmin, step, inv_step):
+        return fused_guided_plain(
+            small_t, small_l, guide, lmin, step, inv_step, levels, taps, border, inv2sc, d
+        )
+    wc = torch.empty_like(guide)
+    nw = torch.empty((h, w, 3), dtype=torch.float32, device=guide.device)
+    lib = _build.library()
+    with torch.cuda.device(guide.device):
+        rc = lib.idf_fused_guided(
+            small_t.data_ptr(), small_l.data_ptr(), guide.data_ptr(), lmin.data_ptr(),
+            step.data_ptr(), inv_step.data_ptr(), wc.data_ptr(), nw.data_ptr(), h, w, hs, ws,
+            levels, taps.ctypes.data, taps.size, inv2sc * LOG2E, d,
+            int(border != BorderPolicy.CLAMP), _stream(guide),
+        )
+    _raise_on_error(rc, "fused_guided")
+    launches["fused_guided"] += 1
+    return wc, nw
 
 
 # ---------------------------------------------------------------------------
@@ -391,3 +643,62 @@ def bilateral_fast(
     if d == 1:
         return bilateral_fast_eager(img, params, levels, 1)
     return grid_pipeline(img, params, levels, d)
+
+
+# ---------------------------------------------------------------------------
+# The guided grid: turbo layers
+# ---------------------------------------------------------------------------
+
+
+def default_guided_fused(d: int) -> bool:
+    """The reference's dispatch (fast.py:_default_guided_fused): the fused
+    guided kernel at d = 2 and 4, the two guided kernels at d = 1 and 8."""
+    return d in (2, 4)
+
+
+def cross_bilateral_layers_fast(
+    target: torch.Tensor,
+    layer: torch.Tensor,
+    params: LayersParams = LayersParams(),
+    levels: int = 6,
+    downsample: int = 2,
+    fused: Optional[bool] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Turbo cross-bilateral partials for one layer (fast.py:
+    cross_bilateral_layers_fast): (H, W, 4) target and layer -> (weightColor
+    (H, W, 4), normWeight (H, W, 3)), the per-channel guided grid with range
+    weights from the layer and payload from the target. Pool both, take the
+    grid range from the pooled layer (it stays on the device), then the fused
+    kernel or the guided build and slice (fused=None: default_guided_fused).
+    Accumulate the partials over all layers, then finish with
+    normalize_layers_fast."""
+    _check_image(target, "target")
+    if layer.shape != target.shape:
+        raise ValueError(f"layer {tuple(layer.shape)} != target {tuple(target.shape)}")
+    d = max(1, downsample)
+    if fused is None:
+        fused = default_guided_fused(d)
+    small_t = pool(target, d, params.border)
+    small_l = pool(layer, d, params.border)
+    lmin, step = grid_range(small_l, levels)
+    taps = _grid_taps(params.sigma_spatial, d)
+    inv2sc = 0.5 / (params.sigma_color**2)
+    if fused:
+        return fused_guided(
+            small_t, small_l, layer, lmin, step, 1.0 / step, levels, taps, params.border,
+            inv2sc, d,
+        )
+    grid = build_guided_grid(small_t, small_l, lmin, step, levels, taps, params.border, inv2sc)
+    return slice_guided_grid(layer, grid, lmin, 1.0 / step, d)
+
+
+def normalize_layers_fast(wc: torch.Tensor, nw: torch.Tensor) -> torch.Tensor:
+    """The turbo layers' final divide (fast.py:normalize_layers_fast):
+    out_c = wc_c / nw_c, alpha divided by green's norm, the magenta sentinel
+    (1, 0, 1, 1) where green's norm is zero. Tensor ops, as the JAX package
+    leaves it to XLA."""
+    zero = nw[..., 1:2] == 0.0
+    safe = torch.where(nw == 0.0, torch.ones_like(nw), nw)
+    out = torch.cat([wc[..., :3] / safe, wc[..., 3:] / safe[..., 1:2]], -1)
+    sentinel = torch.tensor([1.0, 0.0, 1.0, 1.0], dtype=torch.float32, device=wc.device)
+    return torch.where(zero, sentinel, out)

@@ -48,11 +48,13 @@ LOG2E = math.log2(math.e)
 MAX_RUNS = 128
 MAX_CANDIDATES = 1024
 
-#: Kernel launches since the last reset_launches(), by kernel form; the
-#: turbo grid's kernels (ops/fast.py) count here too.
+#: Kernel launches since the last reset_launches(), by kernel form: "nlm"
+#: with float32 taps, "nlm_bf16" with bf16 taps; the turbo grids' kernels
+#: (ops/fast.py) count here too.
 launches = {
-    "bilateral": 0, "bilateral_guided": 0, "nlm": 0, "normalize": 0,
+    "bilateral": 0, "bilateral_guided": 0, "nlm": 0, "nlm_bf16": 0, "normalize": 0,
     "pool": 0, "build_grid": 0, "slice_grid": 0,
+    "build_guided_grid": 0, "slice_guided_grid": 0, "fused_guided": 0,
 }
 
 
@@ -172,15 +174,16 @@ def nlm_plain(
     frames: torch.Tensor,
     params: NlmParams,
     valid: Optional[torch.Tensor] = None,
+    compute_dtype: str = "float32",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The NLM kernel as tensor ops: the sum over frames of each frame's
     partials (ops/eager.py:nlm_eager, which iterates the same
-    `nlm_candidates` table and seeds nw with the norm seed), each scaled by
-    valid[f], seed included."""
+    `nlm_candidates` table, seeds nw with the norm seed and takes the same
+    tap dtype), each scaled by valid[f], seed included."""
     total_wc = torch.zeros_like(target)
     total_nw = torch.zeros(target.shape[:2], dtype=torch.float32, device=target.device)
     for f in range(frames.shape[0]):
-        wc, nw = nlm_eager(target, frames[f], params)
+        wc, nw = nlm_eager(target, frames[f], params, compute_dtype)
         vf = 1.0 if valid is None else valid[f]
         total_wc += wc * vf
         total_nw += nw * vf
@@ -197,15 +200,23 @@ normalize_plain = normalize_eager
 # ---------------------------------------------------------------------------
 
 
-def _check_options(tiling: Optional[TilingConfig], params=None) -> None:
-    if tiling is not None and tiling.compute_dtype != "float32":
+def _compute_dtype(tiling: Optional[TilingConfig], dtypes: tuple[str, ...]) -> str:
+    """The kernel's tap dtype: float32, or one of `dtypes` the kernel takes.
+    bf16 taps exist for NLM only (the turbo NLM); no path of gpu-denoise
+    runs the bilateral kernels with them."""
+    dtype = "float32" if tiling is None else tiling.compute_dtype
+    if dtype not in dtypes:
         raise NotImplementedError(
-            f"compute_dtype={tiling.compute_dtype!r} is not ported yet: the "
-            "kernels take float32 taps only (ROADMAP.md queue A item 8)"
+            f"compute_dtype={dtype!r} is not ported for this kernel: it takes "
+            f"{' or '.join(dtypes)} taps"
         )
-    if isinstance(params, NlmParams) and params.weights_halfres:
+    return dtype
+
+
+def _check_nlm_params(params: NlmParams) -> None:
+    if params.weights_halfres:
         raise NotImplementedError(
-            "weights_halfres is not ported yet (ROADMAP.md queue A item 8, turbo NLM)"
+            "weights_halfres is not ported yet (ROADMAP.md queue A item 8, kernel queue B item 7)"
         )
 
 
@@ -294,7 +305,7 @@ def bilateral(
 ) -> torch.Tensor:
     """Bilateral filter with the normalize fused (shaders/bialteral.comp).
     img: (H, W, 4) float32; returns the filtered (H, W, 4) image."""
-    _check_options(tiling)
+    _compute_dtype(tiling, ("float32",))
     _check_image(img, "img")
     if not _on_cuda(img):
         return bilateral_plain(img, None, params, True)[0]
@@ -310,7 +321,7 @@ def cross_bilateral_layers(
     """One layer's cross-bilateral partials (shaders/bialteral_layers.comp):
     weights from `layer`, colours from `target`. Returns (weightColor
     (H,W,4), normWeight (H,W))."""
-    _check_options(tiling)
+    _compute_dtype(tiling, ("float32",))
     _check_image(target, "target")
     if layer.shape != target.shape:
         raise ValueError(f"layer {tuple(layer.shape)} != target {tuple(target.shape)}")
@@ -326,7 +337,8 @@ def nlm_accumulate(
     tiling: Optional[TilingConfig] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One frame's NLM partials (shaders/nonlocal.comp:30-65); normWeight is
-    seeded with params.norm_seed. One launch of the frame-batched kernel."""
+    seeded with params.norm_seed. One launch of the frame-batched kernel;
+    tiling.compute_dtype "bfloat16" takes bf16 taps (the turbo NLM)."""
     return nlm_accumulate_frames(target, neighbour[None], params, tiling)
 
 
@@ -339,8 +351,11 @@ def nlm_accumulate_frames(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Temporal NLM partials over a stacked (F, H, W, 4) frame batch in one
     launch, the accumulators kept in registers across frames. Each frame adds
-    its norm seed; `valid` ((F,) float 0/1) masks frames, seed included."""
-    _check_options(tiling, params)
+    its norm seed; `valid` ((F,) float 0/1) masks frames, seed included.
+    tiling.compute_dtype "bfloat16" takes bf16 taps: the squared differences
+    are computed in bf16, everything else in float32 (the turbo NLM)."""
+    dtype = _compute_dtype(tiling, ("float32", "bfloat16"))
+    _check_nlm_params(params)
     _check_image(target, "target")
     if frames.dim() != 4 or frames.shape[1:] != target.shape:
         raise ValueError(f"frames must be (F, *{tuple(target.shape)}), got {tuple(frames.shape)}")
@@ -348,7 +363,7 @@ def nlm_accumulate_frames(
     if valid is not None and valid.shape != (n_frames,):
         raise ValueError(f"valid must be ({n_frames},), got {tuple(valid.shape)}")
     if not _on_cuda(target, frames, *(() if valid is None else (valid,))):
-        return nlm_plain(target, frames, params, valid)
+        return nlm_plain(target, frames, params, valid, dtype)
     if valid is None:
         valid = torch.ones((n_frames,), dtype=torch.float32, device=target.device)
     h, w, _ = target.shape
@@ -378,10 +393,12 @@ def nlm_accumulate_frames(
             params.norm_seed,
             int(params.border != BorderPolicy.CLAMP),
             int(params.uniform_alpha),
+            int(dtype == "bfloat16"),
             _stream(target),
         )
-    _raise_on_error(rc, "nlm")
-    launches["nlm"] += 1
+    kernel = "nlm_bf16" if dtype == "bfloat16" else "nlm"
+    _raise_on_error(rc, kernel)
+    launches[kernel] += 1
     return wc, nw
 
 
@@ -392,8 +409,9 @@ def normalize(
     tiling: Optional[TilingConfig] = None,
 ) -> torch.Tensor:
     """Normalization pass (shaders/normalize.comp:30-44): out = wc / nw with a
-    magenta sentinel where nw == 0. weight_color: (H,W,4); norm: (H,W)."""
-    _check_options(tiling)
+    magenta sentinel where nw == 0. weight_color: (H,W,4); norm: (H,W).
+    `tiling` is accepted for the JAX signature: the division is float32
+    whatever its compute_dtype, as in the JAX kernel."""
     _check_image(weight_color, "weight_color")
     if norm.shape != weight_color.shape[:2]:
         raise ValueError(f"norm {tuple(norm.shape)} != {tuple(weight_color.shape[:2])}")

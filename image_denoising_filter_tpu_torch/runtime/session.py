@@ -1,7 +1,9 @@
 """Session: runs one denoising configuration end to end on one device.
 
 Counterpart of image_denoising_filter_tpu/runtime/session.py, the exact
-single-device paths and the bilateral turbo mode (`run_turbo`): dataset
+single-device paths and the turbo modes (`run_turbo` for the bilateral,
+linear and layers configs; `run` with a strided search and bf16 taps, the
+`nlm_tiling`, for the NLM configs): dataset
 discovery -> image loading -> host-to-device upload -> kernels -> readback
 -> flag-encoded save, with the per-run transfer/exec report (the PRINT_TIME
 analog of `ComputeApplication::RunOnGPU`, src/main.cpp:1307-1730). The
@@ -24,6 +26,7 @@ from ..config import (
     LayersParams,
     NlmParams,
     RunConfig,
+    TilingConfig,
 )
 from ..utils import dataset as dataset_mod
 from ..utils import imageio
@@ -91,12 +94,17 @@ class Session:
         debug_weights: bool = False,
         frame_cache: Optional[dict] = None,
         batch_frames: bool = False,
+        nlm_tiling: Optional[TilingConfig] = None,
     ) -> None:
         self.target = target
         self.device = _open_device(device)
         self.bilateral_params = bilateral_params
         self.layers_params = layers_params
         self.nlm_params = nlm_params
+        # The NLM kernels' tap dtype: --turbo pairs the stride-2 search with
+        # bf16 taps (TilingConfig(compute_dtype="bfloat16")), as the JAX CLI
+        # does.
+        self.nlm_tiling = nlm_tiling
         self.output_dir = output_dir
         self.clamp_output = clamp_output
         # Run each model once before its timed region, so the exec report
@@ -177,7 +185,7 @@ class Session:
             out_dev = self._run_multiframe(target_dev, ds, report, layout, cfg)
         else:
             if cfg.nlm:
-                model = NlmDenoiser(nlm_single_params, layout=layout)
+                model = NlmDenoiser(nlm_single_params, layout=layout, tiling=self.nlm_tiling)
             else:
                 model = BilateralDenoiser(bilateral_params, layout=layout)
             out_dev = self._execute(lambda: model(target_dev), report)
@@ -206,15 +214,19 @@ class Session:
     def run_turbo(
         self, cfg: RunConfig, levels: Optional[int] = None, downsample: int = 2
     ) -> RunResult:
-        """Approximate bilateral-grid mode for the bilateral config (opt-in;
-        ops/fast.py), saved under the config's flag-encoded name. Like the
-        JAX Session it loads the target directly and passes the bilateral
+        """Approximate grid mode for the bilateral and linear configs (the
+        per-channel bilateral grid, ops/fast.py:bilateral_fast) and the
+        layers config (the guided grid, `_run_turbo_layers`), saved under the
+        config's flag-encoded name. Like the JAX Session it passes the
         parameters as given (no uniform-alpha switch). levels=None resolves
-        to K=5 at downsample 2 and 4, K=6 otherwise. Single device: the
-        sharded turbo waits for ROADMAP.md queue A item 10."""
+        to K=5 at downsample 2 and 4, K=6 otherwise, for both families. The
+        NLM configs have no grid: their turbo form is `run` with a stride-2
+        search and bf16 taps (nlm_tiling). Single device: the sharded turbo
+        waits for ROADMAP.md queue A item 10."""
         if cfg.nlm:
-            raise NotImplementedError(
-                "turbo NLM is not ported yet (ROADMAP.md queue A item 8)"
+            raise ValueError(
+                "the NLM configs have no grid mode: turbo NLM runs through run() "
+                "with search_stride=2 and nlm_tiling=TilingConfig(compute_dtype='bfloat16')"
             )
         if levels is None:
             levels = 5 if downsample in (2, 4) else 6
@@ -229,9 +241,7 @@ class Session:
                 " or a larger --sigma-spatial."
             )
         if cfg.use_layers:
-            raise NotImplementedError(
-                "turbo layers is not ported yet (ROADMAP.md queue A item 9)"
-            )
+            return self._run_turbo_layers(cfg, levels, downsample)
 
         report = TimingReport()
         target_host = self._load(self.target)
@@ -242,6 +252,39 @@ class Session:
             lambda: fast.bilateral_fast(target_dev, bp, levels, downsample), report
         )
         return self._save(cfg, out_dev, report)
+
+    def _run_turbo_layers(self, cfg: RunConfig, levels: int, downsample: int) -> RunResult:
+        """The turbo layers config (JAX session.py:_run_turbo_layers): per
+        layer the guided grid's unnormalized partials, accumulated like the
+        exact two-pass pipeline (src/main.cpp:1608-1624), then one
+        per-channel divide with the magenta sentinel; with no layers the
+        sentinel everywhere."""
+        report = TimingReport()
+        ds = dataset_mod.discover(self.target, multiframe=False, use_layers=True)
+        target_host = self._load(ds.target)
+        with report.transfer():
+            target_dev = self._upload(target_host)
+        layers_host = [self._load(p) for p in ds.layers]
+        layers_dev = []
+        if layers_host:
+            with report.transfer():
+                layers_dev = self._upload(np.stack(layers_host))
+                self._fence()
+        lp = self.layers_params
+
+        def run():
+            h, w, _ = target_dev.shape
+            wc = torch.zeros((h, w, 4), dtype=torch.float32, device=self.device)
+            nw = torch.zeros((h, w, 3), dtype=torch.float32, device=self.device)
+            for layer_dev in layers_dev:
+                pwc, pnw = fast.cross_bilateral_layers_fast(
+                    target_dev, layer_dev, lp, levels, downsample
+                )
+                wc += pwc
+                nw += pnw
+            return fast.normalize_layers_fast(wc, nw)
+
+        return self._save(cfg, self._execute(run, report), report)
 
     def _dump_weights(self, wc: torch.Tensor, nw: torch.Tensor) -> None:
         wc = wc.cpu().numpy()
@@ -282,7 +325,7 @@ class Session:
         (the copy/compute overlap); otherwise frames upload then compute one
         by one like the reference's non-overlapped loop, or as frame-batched
         launches with batch_frames."""
-        model = TemporalNlmDenoiser(self.nlm_params, layout=layout)
+        model = TemporalNlmDenoiser(self.nlm_params, layout=layout, tiling=self.nlm_tiling)
         # Per-frame uniform-alpha fast path (non-overlap loops, where the
         # host frame is at hand): each frame's partial is exact on its own,
         # so mixing the two kernels' partials stays exact. CLAMP required.
@@ -292,7 +335,9 @@ class Session:
         )
         model_fast = (
             TemporalNlmDenoiser(
-                dataclasses.replace(self.nlm_params, uniform_alpha=True), layout=layout
+                dataclasses.replace(self.nlm_params, uniform_alpha=True),
+                layout=layout,
+                tiling=self.nlm_tiling,
             )
             if fast_ok
             else model

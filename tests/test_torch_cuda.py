@@ -17,6 +17,7 @@ from image_denoising_filter_tpu_torch.config import (
     LayersParams,
     NlmParams,
     NormalizeParams,
+    TilingConfig,
 )
 from image_denoising_filter_tpu_torch.ops import fast, stencils
 from image_denoising_filter_tpu_torch.runtime import Session
@@ -42,6 +43,16 @@ def _image(seed, device, h=29, w=37):
     img = rng.uniform(0, 1, (h, w, 4)).astype(np.float32)
     img[..., 3] = 1.0
     return torch.from_numpy(img).to(device)
+
+
+def _smooth_image(seed, device, h=40, w=56):
+    """Smooth RGB ramps and an edge with a little noise, alpha 1."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([0.5 + 0.4 * np.sin(xx / 5.0), 0.5 + 0.4 * np.cos(yy / 4.0),
+                    np.where(xx > w / 2, 0.8, 0.2), np.ones((h, w))], -1)
+    img[..., :3] += rng.normal(0, 0.03, (h, w, 3))
+    return torch.from_numpy(np.clip(img, 0, 1).astype(np.float32)).to(device)
 
 
 def _close(got, want, rtol=1e-4, atol=1e-5):
@@ -241,3 +252,123 @@ def test_session_on_card_matches_cpu(cuda, tmp_path, cfg):
     np.testing.assert_allclose(got.image, want.image, rtol=1e-4, atol=1e-5)
     if not cfg.linear:
         assert sum(stencils.launches.values()) > 0
+
+
+# ---------------------------------------------------------------------------
+# The guided grid (turbo layers) and the bf16 NLM taps (turbo NLM)
+# ---------------------------------------------------------------------------
+
+
+def _guided_inputs(d, border=BorderPolicy.CLAMP, levels=5, sigma_s=2.0, h=29, w=37):
+    target, layer = _image(0, "cuda", h, w), _image(1, "cuda", h, w)
+    small_t = fast.pool_plain(target, d, border)
+    small_l = fast.pool_plain(layer, d, border)
+    lmin, step = fast.grid_range(small_l, levels)
+    return target, layer, small_t, small_l, lmin, step, fast._grid_taps(sigma_s, d)
+
+
+def test_pool_kernel_at_d1_is_a_bf16_round_trip(cuda):
+    img = _image(0, cuda)
+    got = fast.pool(img, 1)
+    torch.testing.assert_close(got, img.to(torch.bfloat16).float(), rtol=0, atol=0)
+    assert stencils.launches["pool"] == 1
+
+
+@pytest.mark.parametrize("border", [BorderPolicy.CLAMP, BorderPolicy.ZERO])
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_build_guided_grid_kernel_matches_plain(cuda, d, border):
+    _, _, small_t, small_l, lmin, step, taps = _guided_inputs(d, border)
+    args = (small_t, small_l, lmin, step, 5, taps, border, 12.5)
+    _assert_bf16_close(fast.build_guided_grid(*args), fast.build_guided_grid_plain(*args))
+    assert stencils.launches["build_guided_grid"] == 1
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_slice_guided_grid_kernel_matches_plain(cuda, d):
+    _, layer, small_t, small_l, lmin, step, taps = _guided_inputs(d)
+    grid = fast.build_guided_grid_plain(small_t, small_l, lmin, step, 5, taps,
+                                        BorderPolicy.CLAMP, 12.5)
+    got = fast.slice_guided_grid(layer, grid, lmin, 1.0 / step, d)
+    want = fast.slice_guided_grid_plain(layer, grid, lmin, 1.0 / step, d)
+    for g, w_ in zip(got, want):
+        _close(g, w_, rtol=1e-5, atol=1e-6)
+    assert stencils.launches["slice_guided_grid"] == 1
+
+
+@pytest.mark.parametrize(
+    "d,border,shape",
+    [(2, BorderPolicy.CLAMP, (29, 37)), (2, BorderPolicy.ZERO, (61, 300)),
+     (4, BorderPolicy.CLAMP, (61, 300)), (8, BorderPolicy.ZERO, (61, 300))],
+)
+def test_fused_guided_kernel_equals_the_two_kernels(cuda, d, border, shape):
+    """Each cell's sums in the build kernel's order and each pixel's in the
+    slice kernel's: the fused kernel equals the two kernels bit for bit, on
+    several tiles and ragged edges."""
+    _, layer, small_t, small_l, lmin, step, taps = _guided_inputs(d, border, 6, 2.0, *shape)
+    grid = fast.build_guided_grid(small_t, small_l, lmin, step, 6, taps, border, 12.5)
+    two = fast.slice_guided_grid(layer, grid, lmin, 1.0 / step, d)
+    got = fast.fused_guided(small_t, small_l, layer, lmin, step, 1.0 / step, 6, taps, border,
+                            12.5, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], two[0]) and torch.equal(got[1], two[1])
+    assert stencils.launches["fused_guided"] == 1
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_turbo_layers_on_card_match_plain(cuda, d):
+    """cross_bilateral_layers_fast dispatches as the reference does: fused at
+    d = 2 and 4, the two guided kernels at d = 1 and 8; against the same
+    entry on CPU copies, which runs the plain versions."""
+    target, layer = _image(0, cuda, 61, 83), _image(1, cuda, 61, 83)
+    got = fast.cross_bilateral_layers_fast(target, layer, LayersParams(), 5, d)
+    want = fast.cross_bilateral_layers_fast(target.cpu(), layer.cpu(), LayersParams(), 5, d)
+    for g, w_ in zip(got, want):
+        g = g.cpu()
+        # a build flip (2 bf16 ulps of cells up to ~1) through the convex slice
+        _close(g, w_, rtol=0, atol=2 * 2.0**-8)
+    fused = stencils.launches["fused_guided"]
+    two = (stencils.launches["build_guided_grid"], stencils.launches["slice_guided_grid"])
+    assert (fused, two) == ((1, (0, 0)) if d in (2, 4) else (0, (1, 1)))
+    assert stencils.launches["pool"] == 2
+
+
+@pytest.mark.parametrize(
+    "params",
+    [NlmParams(search_stride=2), NlmParams(search_stride=2, search_disk=True),
+     NlmParams(search_radius=5, patch_radius=2, search_stride=2, border=BorderPolicy.ZERO,
+               uniform_alpha=True)],
+    ids=["stride2", "stride2_disk", "small_zero_ua"],
+)
+def test_nlm_bf16_kernel_matches_plain(cuda, params):
+    """On smooth content, where many candidates carry weight, so one bf16
+    rounding of a squared difference that the kernel skipped (a contracted
+    multiply-add) would show."""
+    target = _smooth_image(0, cuda)
+    frames = torch.stack([_smooth_image(i, cuda) for i in range(3)])
+    valid = torch.tensor([1.0, 0.0, 1.0], device=cuda)
+    bf16 = TilingConfig(compute_dtype="bfloat16")
+    wc, nw = stencils.nlm_accumulate_frames(target, frames, params, bf16, valid)
+    pwc, pnw = stencils.nlm_plain(target, frames, params, valid, "bfloat16")
+    _close(wc, pwc, rtol=2e-4, atol=1e-4)
+    _close(nw, pnw, rtol=2e-4, atol=1e-4)
+    assert stencils.launches["nlm_bf16"] == 1 and stencils.launches["nlm"] == 0
+
+
+@pytest.mark.parametrize("d", [1, 2, 8])
+def test_run_turbo_layers_on_card_matches_cpu(cuda, tmp_path, d):
+    root = tmp_path / "anim"
+    (root / "RenderElements").mkdir(parents=True)
+    imageio.save(str(root / "frame_0001.png"), _image(3, "cpu").numpy())
+    for i, name in enumerate(("albedo", "normal")):
+        imageio.save(str(root / "RenderElements" / f"{name}_0001.png"), _image(7 + i, "cpu").numpy())
+    target = str(root / "frame_0001.png")
+    out_gpu, out_cpu = tmp_path / "gpu", tmp_path / "cpu"
+    out_gpu.mkdir()
+    out_cpu.mkdir()
+    got = Session(target, device=cuda, output_dir=str(out_gpu)).run_turbo(GPU_BATTERY[1], downsample=d)
+    want = Session(target, device="cpu", output_dir=str(out_cpu)).run_turbo(
+        GPU_BATTERY[1], downsample=d
+    )
+    # the normalized output divides the partials' flips by den (>= ~0.5 here)
+    np.testing.assert_allclose(got.image, want.image, rtol=0, atol=4 * 2.0**-8)
+    assert stencils.launches["bilateral_guided"] == 0

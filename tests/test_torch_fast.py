@@ -420,12 +420,15 @@ def test_run_turbo_resolves_levels(tmp_path, monkeypatch, capsys, d, levels, wan
 
 
 def test_run_turbo_refuses_layers_and_nlm(tmp_path):
+    """run_turbo takes the layers config now (the guided grid); the NLM
+    configs have no grid mode and are still refused: their turbo form is
+    Session.run with the strided search and bf16 taps (the JAX Session
+    asserts)."""
     target = _write_target(tmp_path / "anim", _image((24, 32), False))
     session = Session(target, device="cpu", output_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        session.run_turbo(GPU_BATTERY[1])
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        session.run_turbo(GPU_BATTERY[3])
+    for cfg in GPU_BATTERY[3:]:
+        with pytest.raises(ValueError, match="no grid mode"):
+            session.run_turbo(cfg)
 
 
 @pytest.mark.parametrize("turbo", ["1", "2"])
@@ -439,20 +442,6 @@ def test_cli_turbo_bilateral_and_linear(tmp_path, capsys, turbo):
     b, _ = imageio.load(str(out / GPU_BATTERY[2].output_name(False)))
     np.testing.assert_array_equal(a, b)
     assert capsys.readouterr().out.count("execution time:") == 2
-
-
-@pytest.mark.parametrize("config,item", [("layers", "queue A item 9"), ("nlm", "queue A item 8"),
-                                         ("bilateral,multiframe", "queue A item 8"),
-                                         ("overlap", "queue A item 8")])
-def test_cli_turbo_refuses_configs_not_ported(tmp_path, capsys, config, item):
-    target = _write_target(tmp_path / "anim", _image((24, 32), False))
-    out = tmp_path / "out"
-    rc = cli.main([target, "--device", "cpu", "--output-dir", str(out), "--turbo", "2",
-                   "--configs", config])
-    assert rc == 1
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and item in err
-    assert not out.exists()  # refused before anything ran
 
 
 def test_cli_turbo_rejects_other_downsamples(tmp_path):
