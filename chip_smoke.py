@@ -10,8 +10,9 @@ Phases, one line or block each:
   1. device  -- the card, as nvidia-smi gives its name and power limit;
   2. build   -- the kernels compiled from ops/csrc with nvcc, one process
                 per source, all at once;
-  3. kernels -- each exact-battery CUDA kernel against its plain PyTorch
-                version on the card at 1920x1080, with max errors and
+  3. kernels -- each exact-battery CUDA kernel, and the NLM kernel with the
+                turbo NLM's bf16 taps and stride-2 search, against its plain
+                PyTorch version on the card at 1920x1080, with max errors and
                 median times;
   4. battery -- a 1080p animation (5 frames + albedo/normal/depth layers)
                 through `gpu-denoise` (cli.main) on the card, the launch
@@ -19,14 +20,19 @@ Phases, one line or block each:
   5. turbo kernels -- the bilateral grid's pool, build and slice kernels
                 and the whole grid pipeline against their plain versions at
                 3840x2160, for (D, K) = (2, 5), (4, 5), (8, 6), and on the
-                1080p target at each setting of phase 6, with median times
+                1080p target at each setting of phase 7, with median times
                 at 4K (2, 5) and the pipeline's Mpix/s at each D;
-  6. turbo battery -- `gpu-denoise --turbo D --configs bilateral,linear` on
-                the 1080p target for D = 1 (the eager lattice), 2, 4 and 8
-                (sigma_s 6), the launch counts of each run, and the PSNR of
-                its output against the clean render and against phase 4's
-                exact bilateral.
-Then one JSON line with every kernel's launches, error and times, the
+  6. guided kernels -- the layer-guided grid's build, slice and fused
+                build+slice against their plain versions (the fused kernel
+                against the two kernels, bit for bit) at 3840x2160 for the
+                same (D, K) and on the 1080p albedo layer at each setting of
+                phase 7, with median times at 4K (2, 5);
+  7. turbo battery -- `gpu-denoise --turbo D` on the 1080p target: every
+                config at D = 2, the grid configs (bilateral, linear,
+                layers) at D = 1, 4 and 8 (sigma_s 6), the launch counts of
+                each run, and the PSNR of each output against the clean
+                render and against phase 4's exact output of its config.
+Then one JSON line with every kernel's launches, error, times and bound, the
 nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -80,13 +86,28 @@ TOL_SLICE = dict(rtol=1e-5, atol=1e-6)
 H4K, W4K = 2160, 3840
 TURBO_CELLS = ((2, 5), (4, 5), (8, 6))  # (D, K): run_turbo's K at each D
 # The turbo battery: D and --sigma-spatial (D=8 is gated in the JAX package
-# only from sigma_s ~5-6 up, hence sigma_s 6 there). D=1 is the eager
-# lattice and launches no kernel. Phase 5 also holds the kernels to their
-# plain versions at each of these settings on the same 1080p target.
+# only from sigma_s ~5-6 up, hence sigma_s 6 there). At D=1 the bilateral
+# grid is the eager lattice, which launches no kernel, and the guided grid
+# runs its two kernels. Phases 5 and 6 also hold the kernels to their plain
+# versions at each of these settings on the same 1080p target.
 TURBO_RUNS = ((1, 2.0), (2, 2.0), (4, 2.0), (8, 6.0))
 # PSNR of the D=2 turbo output against the exact tiled bilateral: the repo's
 # 40 dB gate (bench.py:51, tests/test_fast.py:28).
 TURBO_GATE_DB = 40.0
+# The JAX package's gates of its own turbo tests, over RGB as they read
+# them: the bf16 stride-2 NLM at least 40 dB against the exact NLM
+# (tests/test_fast.py:119), the turbo layers at D=2 at least 35 dB against
+# the exact layers (tests/test_fast.py:254). TURBO_GATE_DB reads RGBA, as it
+# has since it was set (alpha is 1 in both, which adds 1.25 dB; over RGB
+# this frame reads 38.8 dB, ROADMAP.md queue C).
+TURBO_NLM_GATE_DB = 40.0
+TURBO_LAYERS_GATE_DB = 35.0
+# Card rates for the bound of each kernel (the on-chip-measurement guide's
+# H100 SXM figures): device memory 3.35 TB/s; float32 outside the tensor
+# cores 67 TFLOP/s, also taken for the bf16 tap arithmetic of the turbo NLM,
+# which runs on the same pipes.
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS_S = 67e12
 
 
 # The port's modules this script drives; none may load jax or the JAX
@@ -160,6 +181,93 @@ def median_ms(torch, fn, reps: int) -> float:
 def errors(torch, got, want) -> tuple[float, float]:
     diff = (got - want).abs()
     return float(diff.max()), float((diff / want.abs().clamp_min(1e-30)).max())
+
+
+def disk_taps(stencils, p) -> int:
+    """Taps of the exact bilateral's truncation disk (its `_circle_runs`)."""
+    runs = stencils._circle_runs(p.effective_radius, p.sigma_spatial, p.truncate_eps)
+    return sum(n_rows * (2 * hw + 1) for _, n_rows, hw in runs)
+
+
+def kernel_work(name: str, pixels: int, cells: int = 0, levels: int = 0, taps: int = 0,
+                frames: int = 1, cands: int = 0, disk: int = 0) -> tuple[int, int]:
+    """(bytes, operations) of one call of a kernel's function: each input
+    read once and each output written once, and the least arithmetic the
+    function needs (a multiply-add counts 2, an exp2 or a divide 1).
+    pixels: full-resolution pixels; cells: pooled cells of one level;
+    levels: K; taps: blur taps along one axis; frames and cands: the NLM's
+    frames and search candidates; disk: the bilateral's disk taps.
+
+    Per unit: a bilateral tap 20 (colour distance 8, exponent 2, exp2 1,
+    weighted colour 8, weight 1), its normalize 4; an NLM candidate 24 per
+    pixel and frame with box sums (squared difference 8, two running sums 4,
+    exponent and exp2 3, weighted colour 8, weight 1); a grid cell and level
+    16 (range weights 3 x 4, payload 4) plus 28 per blur tap (7 fields, two
+    passes, one multiply-add each), the normalized grid 4 more for its
+    divides; a slice 132 a pixel for the bilateral grid (the t of 3 channels
+    12, then 4 channels x 2 levels x (tent 4, bilinear 9, add 2)) and 222
+    for the guided grid (7 planes). Also the work of the two kernels still to
+    port, nlm_hrw (#3) and fused_grid (#7)."""
+    grid = levels * cells
+    blur = 28 * taps
+    nlm = (36 * pixels + 16 * frames * pixels, 24 * frames * cands * pixels)
+    build = grid * (20 + blur)
+    return {
+        # still to port: #3 computes the NLM weights at half the rows (the
+        # 15 operations before the weighted colour halve), #7 the bilateral
+        # build and slice without the grid in device memory
+        "nlm_hrw": (nlm[0], 17 * frames * cands * pixels),
+        "fused_grid": (16 * cells + 32 * pixels, build + 132 * pixels),
+        "bilateral": (32 * pixels, pixels * (20 * disk + 4)),
+        "bilateral_guided": (52 * pixels, pixels * 20 * disk),
+        "nlm": nlm,
+        "nlm_bf16": nlm,
+        "normalize": (36 * pixels, 5 * pixels),
+        "pool": (16 * pixels + 16 * cells, 8 * pixels),
+        "build_grid": (16 * cells + 8 * grid, build),
+        "slice_grid": (32 * pixels + 8 * grid, 132 * pixels),
+        "build_guided_grid": (32 * cells + 14 * grid, grid * (16 + blur)),
+        "slice_guided_grid": (44 * pixels + 14 * grid, 222 * pixels),
+        "fused_guided": (32 * cells + 44 * pixels, grid * (16 + blur) + 222 * pixels),
+    }[name]
+
+
+def bound(nbytes: int, flops: int) -> dict:
+    """The least time the card could take for that work: the larger of the
+    bytes over the memory rate and the operations over the float32 rate."""
+    mem_ms = nbytes / PEAK_BYTES_S * 1e3
+    op_ms = flops / PEAK_FLOPS_S * 1e3
+    return {"bound_ms": max(mem_ms, op_ms),
+            "bound_by": "bytes" if mem_ms >= op_ms else "operations"}
+
+
+def grid_sample_slice(torch, grid, guide, lmin, inv_step, d: int, groups):
+    """One torch.nn.functional.grid_sample call that slices a (K, hs, ws, c)
+    grid as the slice kernels do: the planes of each RGB channel's group
+    (groups[c]) sampled trilinearly at (x, y, t_c), edge-replicated. The
+    library yardstick of the slice kernels; the port never calls it. Returns
+    the call and a function that maps its output to the kernel's planes."""
+    levels, hs, ws, _ = grid.shape
+    h, w, _ = guide.shape
+    dev = grid.device
+    vol = torch.zeros((3, max(map(len, groups)), levels, hs, ws), device=dev)
+    for n, planes in enumerate(groups):
+        for c, p in enumerate(planes):
+            vol[n, c] = grid[..., p].float()
+    t = ((guide[..., :3] - lmin) * inv_step).clamp(0.0, levels - 1.0)
+    coords = torch.empty((3, 1, h, w, 3), device=dev)
+    coords[..., 0] = (2 * torch.arange(w, device=dev) + 1) / (d * ws) - 1
+    coords[..., 1] = ((2 * torch.arange(h, device=dev) + 1) / (d * hs) - 1)[:, None]
+    coords[..., 2] = ((2 * t + 1) / levels - 1).permute(2, 0, 1)[:, None]
+
+    def call():
+        return torch.nn.functional.grid_sample(vol, coords, mode="bilinear",
+                                               padding_mode="border", align_corners=False)
+
+    def planes(out):
+        return {p: out[n, c, 0] for n, group in enumerate(groups) for c, p in enumerate(group)}
+
+    return call, planes
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -238,6 +346,17 @@ def phase_kernels(torch, stencils, cfg, frames_np, layer_np):
     nw0[::97, ::89] = 0.0
     record("normalize", "with nw == 0 pixels", stencils.normalize(wc6, nw0),
            stencils.normalize_plain(wc6, nw0, cfg.NormalizeParams()), ulps=1)
+    # The turbo NLM: bf16 taps, stride-2 search (49 candidates; 37 with the
+    # disk). Kernel and plain version round each tap operation alike.
+    bf16 = cfg.TilingConfig(compute_dtype="bfloat16")
+    turbo_nlm = cfg.NlmParams(search_stride=2)
+    for case, p in [("stride 2", turbo_nlm),
+                    ("stride 2, disk", cfg.NlmParams(search_stride=2, search_disk=True))]:
+        record("nlm_bf16", f"{case}, F=1", stencils.nlm_accumulate(target, target, p, bf16),
+               stencils.nlm_plain(target, target[None], p, None, "bfloat16"), TOL_NLM)
+        record("nlm_bf16", f"{case}, F=6, valid mask",
+               stencils.nlm_accumulate_frames(target, frames6, p, bf16, valid6),
+               stencils.nlm_plain(target, frames6, p, valid6, "bfloat16"), TOL_NLM)
 
     timings = {
         "bilateral": (lambda: stencils.bilateral(target, bp),
@@ -246,14 +365,23 @@ def phase_kernels(torch, stencils, cfg, frames_np, layer_np):
                              lambda: stencils.bilateral_plain(target, layer, lp, False)),
         "nlm": (lambda: stencils.nlm_accumulate(target, target, np_),
                 lambda: stencils.nlm_plain(target, target[None], np_)),
+        "nlm_bf16": (lambda: stencils.nlm_accumulate(target, target, turbo_nlm, bf16),
+                     lambda: stencils.nlm_plain(target, target[None], turbo_nlm, None,
+                                                "bfloat16")),
         "normalize": (lambda: stencils.normalize(wc6, nw0),
                       lambda: stencils.normalize_plain(wc6, nw0, cfg.NormalizeParams())),
     }
-    for kernel, (kfn, pfn) in timings.items():
-        results[kernel]["ms"] = median_ms(torch, kfn, 10)
-        results[kernel]["plain_ms"] = median_ms(torch, pfn, 3)
-        print(f"  {kernel:17s} 1080p median {results[kernel]['ms']:.4f} ms "
-              f"(plain {results[kernel]['plain_ms']:.4f} ms)")
+    pixels = H * W
+    shapes = {
+        "bilateral": dict(pixels=pixels, disk=disk_taps(stencils, bp)),
+        "bilateral_guided": dict(pixels=pixels, disk=disk_taps(stencils, lp)),
+        "nlm": dict(pixels=pixels, cands=len(stencils.nlm_candidates(np_))),
+        "nlm_bf16": dict(pixels=pixels, cands=len(stencils.nlm_candidates(turbo_nlm))),
+        "normalize": dict(pixels=pixels),
+    }
+    nw0_b = nw0[..., None]
+    library = {"normalize": lambda: wc6 / nw0_b}  # the divide without the sentinel
+    time_kernels(torch, results, timings, shapes, library, "1080p")
     f6 = median_ms(torch, lambda: stencils.nlm_accumulate_frames(target, frames6, np_), 5)
     f6p = median_ms(torch, lambda: stencils.nlm_plain(target, frames6, np_), 2)
     print(f"  nlm F=6 (batched temporal) 1080p median {f6:.4f} ms (plain {f6p:.4f} ms)")
@@ -356,7 +484,7 @@ def phase_battery(cfg, stencils, cli, imageio, Session, anim, root):
           f"batched vs streamed multiframe: max abs {err_bs:.3g}")
     print(f"  tiled vs linear bilateral max abs {err_tl:.3g}; "
           f"batched vs streamed multiframe max abs {err_bs:.3g}")
-    return counts, os.path.join(out_main, cfg.GPU_BATTERY[0].output_name(False))
+    return counts, out_main
 
 
 def check_bf16_close(torch, got, want, what: str) -> None:
@@ -443,6 +571,19 @@ def phase_turbo_kernels(torch, fast, cfg, frame_4k, frame_1080):
                 "slice_grid": (lambda a=slice_args: fast.slice_grid(*a),
                                lambda a=slice_args: fast.slice_grid_plain(*a)),
             }
+            shape = dict(pixels=img.shape[0] * img.shape[1], cells=small.shape[0] * small.shape[1],
+                         levels=levels, taps=len(build_args[4]))
+            # The library yardsticks: one avg_pool2d over the image as NCHW;
+            # one trilinear grid_sample (alpha under green's t).
+            nchw = img.permute(2, 0, 1)[None].contiguous()
+            sample, planes = grid_sample_slice(torch, grid, img, lmin, 1.0 / step, d,
+                                               [(0,), (1, 3), (2,)])
+            kernel_out = fast.slice_grid(*slice_args)
+            lib_err = max(float((v - kernel_out[..., p]).abs().max())
+                          for p, v in planes(sample()).items())
+            print(f"  grid_sample yardstick vs slice_grid {case}: max abs {lib_err:.3g}")
+            library = {"pool": lambda a=(nchw, d): torch.nn.functional.avg_pool2d(*a),
+                       "slice_grid": sample}
 
     mpix = H4K * W4K / 1e6
     bp = cfg.BilateralParams()
@@ -451,55 +592,179 @@ def phase_turbo_kernels(torch, fast, cfg, frame_4k, frame_1080):
         plain_ms = median_ms(torch, lambda: fast.grid_pipeline_plain(img4k, bp, levels, d), 3)
         print(f"  pipeline D={d} K={levels} 4K median {ms:.4f} ms = {mpix / ms * 1e3:.1f} Mpix/s "
               f"(plain {plain_ms:.4f} ms = {mpix / plain_ms * 1e3:.1f} Mpix/s)")
-    for kernel, (kfn, pfn) in timed.items():
-        results[kernel]["ms"] = median_ms(torch, kfn, 10)
-        results[kernel]["plain_ms"] = median_ms(torch, pfn, 3)
-        print(f"  {kernel:10s} 4K D=2 K=5 median {results[kernel]['ms']:.4f} ms "
-              f"(plain {results[kernel]['plain_ms']:.4f} ms)")
+    time_kernels(torch, results, timed, dict.fromkeys(timed, shape), library, "4K D=2 K=5")
     return results
 
 
-def phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_path):
-    """gpu-denoise --turbo D on the card, each run's launch counts read just
-    after it; checks the outputs. Returns the summed launch counts."""
-    target, clean = anim["target"], anim["clean"]
-    exact, _ = imageio.load(exact_path)
-    noisy_psnr = psnr(anim["frames"][TARGET_FRAME], clean)
-    names = [cfg.GPU_BATTERY[i].output_name(False) for i in (0, 2)]  # bilateral, linear
-    totals = {"pool": 0, "build_grid": 0, "slice_grid": 0}
-    for d, sigma_s in TURBO_RUNS:
-        out_dir = os.path.join(root, f"turbo{d}")
-        extra = f"--sigma-spatial {sigma_s:g}"
-        stencils.reset_launches()
-        rc, text, err = run_cli(cli, [target, "--device", "cuda", "--clamp", "--turbo", str(d),
-                                      "--configs", "bilateral,linear", "--output-dir", out_dir,
-                                      *extra.split()])
-        counts = dict(stencils.launches)
-        check(rc == 0, f"gpu-denoise --turbo {d} failed ({rc}): {err.strip()}")
-        if d == 1:
-            check(not any(counts.values()), f"--turbo 1 launched a kernel: {counts}")
-        for kernel in totals if d > 1 else ():
-            check(counts[kernel] > 0, f"--turbo {d} launched no {kernel} kernel")
-            totals[kernel] += counts[kernel]
-        check(all(counts[k] == 0 for k in counts if k not in totals),
-              f"--turbo {d} launched an exact kernel: {counts}")
-        reports = re.findall(r"transfer time: (\d+)ns; execution time: (\d+)ns", text)
-        check(len(reports) == 2, f"--turbo {d}: expected 2 timing reports, got {len(reports)}")
-        bil, lin = (imageio.load(os.path.join(out_dir, n))[0] for n in names)
-        check(bil.shape == (H, W, 4) and bool(np.isfinite(bil).all()),
-              f"--turbo {d}: output shape {bil.shape} or non-finite values")
-        check(np.array_equal(bil, lin), f"--turbo {d}: bilateral and linear outputs differ")
-        db_clean, db_exact = psnr(bil, clean), psnr(bil, exact)
-        check(db_clean > noisy_psnr, f"--turbo {d}: {db_clean:.2f} dB vs clean, noisy "
-                                     f"{noisy_psnr:.2f} dB")
+def time_kernels(torch, results, timed, shapes, library, where: str) -> None:
+    """Median times of each kernel, its plain version and its library call,
+    and its bound at shapes[kernel] (kernel_work's arguments), into
+    results."""
+    for kernel, (kfn, pfn) in timed.items():
+        res = results[kernel]
+        res["ms"] = median_ms(torch, kfn, 10)
+        res["plain_ms"] = median_ms(torch, pfn, 3)
+        res.update(bound(*kernel_work(kernel, **shapes[kernel])))
+        res["library_ms"] = median_ms(torch, library[kernel], 10) if kernel in library else None
+        lib = "none" if res["library_ms"] is None else f"{res['library_ms']:.4f} ms"
+        print(f"  {kernel:17s} {where} median {res['ms']:.4f} ms (plain {res['plain_ms']:.4f} ms, "
+              f"bound {res['bound_ms']:.4f} ms by {res['bound_by']}, library {lib})")
+
+
+def phase_guided_kernels(torch, fast, cfg, images):
+    """The guided grid's kernels against their plain versions: the build at
+    the stored-grid bf16 contract, the slice at TOL_SLICE on the plain grid,
+    and the fused kernel bit for bit against the two kernels, at 4K for each
+    (D, K) of TURBO_CELLS (ZERO border once) and on the 1080p albedo layer at
+    each setting of the turbo battery. images: {"4K" | "1080p": (target,
+    layer)} on the card. Returns {kernel: {max_abs_err, ms, ...}}."""
+    kernels = ("build_guided_grid", "slice_guided_grid", "fused_guided")
+    results = {k: {"max_abs_err": 0.0} for k in kernels}
+    clamp, zero = cfg.BorderPolicy.CLAMP, cfg.BorderPolicy.ZERO
+    inv2sc = 0.5 / cfg.LayersParams().sigma_color**2
+
+    def note(kernel, case, got, want):
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, w in zip(got, want):
+            check(bool(torch.isfinite(g.float()).all()), f"{kernel} {case}: non-finite output")
+            err = max(err, float((g.float() - w.float()).abs().max()))
+        results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+        print(f"  {kernel:17s} {case:34s} max abs {err:.3g}")
+
+    cells = []  # (label, D, K, sigma_s, border)
+    for d, levels in TURBO_CELLS:
+        cells.append(("4K", d, levels, 2.0, clamp))
         if d == 2:
-            check(db_exact >= TURBO_GATE_DB,
-                  f"--turbo 2: {db_exact:.2f} dB vs exact < {TURBO_GATE_DB} dB")
-        for (tr, ex), cfg_name in zip(reports, ("bilateral", "linear")):
-            print(f"  --turbo {d} {extra:18s} {cfg_name:9s} transfer {int(tr):>10d} ns  "
-                  f"exec {int(ex):>10d} ns")
-        print(f"  --turbo {d} launches {dict((k, counts[k]) for k in totals)}; PSNR vs clean "
-              f"{db_clean:.2f} dB, vs exact (sigma_s 2) {db_exact:.2f} dB")
+            cells.append(("4K", d, levels, 2.0, zero))
+    for d, sigma_s in TURBO_RUNS:
+        cells.append(("1080p", d, turbo_levels(d), sigma_s, clamp))
+
+    timed = {}
+    for label, d, levels, sigma_s, border in cells:
+        target, layer = images[label]
+        case = f"{label} D={d} K={levels} {border} sigma_s {sigma_s:g}"
+        small_t = fast.pool_plain(target, d, border)
+        small_l = fast.pool_plain(layer, d, border)
+        lmin, step = fast.grid_range(small_l, levels)
+        taps = fast._grid_taps(sigma_s, d)
+        build_args = (small_t, small_l, lmin, step, levels, taps, border, inv2sc)
+        grid = fast.build_guided_grid_plain(*build_args)
+        got = fast.build_guided_grid(*build_args)
+        note("build_guided_grid", case, (got,), (grid,))
+        check_bf16_close(torch, got, grid, f"build_guided_grid {case}")
+        slice_args = (layer, grid, lmin, 1.0 / step, d)
+        want = fast.slice_guided_grid_plain(*slice_args)
+        got = fast.slice_guided_grid(*slice_args)
+        note("slice_guided_grid", case, got, want)
+        for g, w in zip(got, want):
+            ok = bool(((g - w).abs() <= TOL_SLICE["atol"] + TOL_SLICE["rtol"] * w.abs()).all())
+            check(ok, f"slice_guided_grid {case}: max abs {float((g - w).abs().max()):.3g}")
+        fused_args = (small_t, small_l, layer, lmin, step, 1.0 / step, levels, taps, border,
+                      inv2sc, d)
+        if fast.fused_guided_shared_bytes(d, taps.size) <= fast.MAX_SHARED_BYTES:
+            got = fast.fused_guided(*fused_args)
+            two = fast.slice_guided_grid(layer, fast.build_guided_grid(*build_args), lmin,
+                                         1.0 / step, d)
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, t) for g, t in zip(got, two)),
+                  f"fused_guided {case}: differs from the two guided kernels")
+            # against its plain version, the composition of the two plain
+            # versions (`want`): the build's bf16 flips through the slice
+            note("fused_guided", case, got, want)
+        if label == "4K" and d == 2 and border == clamp:
+            timed = {
+                "build_guided_grid": (lambda a=build_args: fast.build_guided_grid(*a),
+                                      lambda a=build_args: fast.build_guided_grid_plain(*a)),
+                "slice_guided_grid": (lambda a=slice_args: fast.slice_guided_grid(*a),
+                                      lambda a=slice_args: fast.slice_guided_grid_plain(*a)),
+                "fused_guided": (lambda a=fused_args: fast.fused_guided(*a),
+                                 lambda a=fused_args: fast.fused_guided_plain(*a)),
+            }
+            shape = dict(pixels=layer.shape[0] * layer.shape[1],
+                         cells=small_t.shape[0] * small_t.shape[1], levels=levels,
+                         taps=taps.size)
+            # The slice's library yardstick: one trilinear grid_sample over
+            # the planes of each channel (alpha's numerator under green's t).
+            sample, planes = grid_sample_slice(torch, grid, layer, lmin, 1.0 / step, d,
+                                               [(0, 4), (1, 3, 5), (2, 6)])
+            kernel_out = torch.cat(fast.slice_guided_grid(*slice_args), -1)
+            lib_err = max(float((v - kernel_out[..., p]).abs().max())
+                          for p, v in planes(sample()).items())
+            print(f"  grid_sample yardstick vs slice_guided_grid {case}: max abs {lib_err:.3g}")
+            library = {"slice_guided_grid": sample}
+    time_kernels(torch, results, timed, dict.fromkeys(timed, shape), library, "4K D=2 K=5")
+    return results
+
+
+# Kernels each turbo run may launch, and must: the grid configs through the
+# bilateral grid (pool, build, slice; D=1 is the eager lattice) and the
+# guided grid (fused at D = 2 and 4, the guided build and slice at D = 1 and
+# 8, beside the pool); the NLM configs through the bf16 NLM and normalize.
+def turbo_kernels(d: int, nlm: bool) -> set:
+    if nlm:
+        return {"nlm_bf16", "normalize"}
+    guided = {"fused_guided"} if d in (2, 4) else {"build_guided_grid", "slice_guided_grid"}
+    return {"pool"} | guided | ({"build_grid", "slice_grid"} if d > 1 else set())
+
+
+def phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir):
+    """gpu-denoise --turbo D on the card: the grid configs at every D of
+    TURBO_RUNS, the NLM configs at D = 2, each run's launch counts read just
+    after it; checks every output against the clean render and phase 4's
+    exact output of its config, with the gates at D = 2. Returns the summed
+    launch counts."""
+    target, clean = anim["target"], anim["clean"]
+    names = {k: c.output_name(False) for k, c in zip(cli.CONFIG_KEYS, cfg.GPU_BATTERY)}
+    exact = {k: imageio.load(os.path.join(exact_dir, names[k]))[0]
+             for k in ("bilateral", "layers", "nlm", "multiframe", "overlap")}
+    noisy_psnr = psnr(anim["frames"][TARGET_FRAME], clean)
+    # config: (gate in dB against exact, channels it reads)
+    gates = {"bilateral": (TURBO_GATE_DB, 4), "layers": (TURBO_LAYERS_GATE_DB, 3),
+             "nlm": (TURBO_NLM_GATE_DB, 3)}
+    totals = dict.fromkeys(stencils.launches, 0)
+    for d, sigma_s in TURBO_RUNS:
+        runs = [cli.GRID_CONFIGS] + ([("nlm", "multiframe", "overlap")] if d == 2 else [])
+        for keys in runs:
+            out_dir = os.path.join(root, f"turbo{d}_{keys[0]}")
+            stencils.reset_launches()
+            rc, text, err = run_cli(cli, [target, "--device", "cuda", "--clamp", "--turbo", str(d),
+                                          "--sigma-spatial", f"{sigma_s:g}", "--configs",
+                                          ",".join(keys), "--output-dir", out_dir])
+            counts = dict(stencils.launches)
+            what = f"--turbo {d} --configs {','.join(keys)}"
+            check(rc == 0, f"{what} failed ({rc}): {err.strip()}")
+            expected = turbo_kernels(d, keys[0] == "nlm")
+            check(all(counts[k] > 0 for k in expected), f"{what}: launches {counts}")
+            check(all(counts[k] == 0 for k in counts if k not in expected),
+                  f"{what} launched a kernel of another path: {counts}")
+            for k, n in counts.items():
+                totals[k] += n
+            reports = re.findall(r"transfer time: (\d+)ns; execution time: (\d+)ns", text)
+            check(len(reports) == len(keys), f"{what}: {len(reports)} timing reports")
+            outs = {k: imageio.load(os.path.join(out_dir, names[k]))[0] for k in keys}
+            print(f"  {what} (sigma_s {sigma_s:g}) launches "
+                  f"{ {k: counts[k] for k in sorted(expected)} }")
+            for key, (tr, ex) in zip(keys, reports):
+                out = outs[key]
+                check(out.shape == (H, W, 4) and bool(np.isfinite(out).all()),
+                      f"{what} {key}: output shape {out.shape} or non-finite values")
+                ref = exact["bilateral" if key == "linear" else key]
+                db_clean, db_exact = psnr(out, clean), psnr(out, ref)
+                db_rgb = psnr(out[..., :3], ref[..., :3])
+                check(db_clean > noisy_psnr, f"{what} {key}: {db_clean:.2f} dB vs clean, "
+                                             f"noisy {noisy_psnr:.2f} dB")
+                if d == 2 and key in gates:
+                    gate, channels = gates[key]
+                    got = db_exact if channels == 4 else db_rgb
+                    check(got >= gate, f"{what} {key}: {got:.2f} dB vs exact over "
+                                       f"{channels} channels < {gate} dB")
+                print(f"    {key:10s} transfer {int(tr):>10d} ns  exec {int(ex):>10d} ns  "
+                      f"PSNR vs clean {db_clean:.2f} dB, vs exact {db_exact:.2f} dB "
+                      f"(RGB {db_rgb:.2f} dB)")
+            if "linear" in keys:
+                check(np.array_equal(outs["bilateral"], outs["linear"]),
+                      f"{what}: bilateral and linear outputs differ")
     return totals
 
 
@@ -519,14 +784,14 @@ def main() -> int:
     check_no_jax()
     render_frame = load_render_frame()
     smi = nvidia_smi_line()
-    print(f"[1/6] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
+    print(f"[1/7] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
 
     t0 = time.perf_counter()
     lib_path, log = _build.build()
     build_s = time.perf_counter() - t0
-    print(f"[2/6] build: {build_s:.2f} s -> {os.path.relpath(lib_path, REPO)}")
+    print(f"[2/7] build: {build_s:.2f} s -> {os.path.relpath(lib_path, REPO)}")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip())
@@ -534,17 +799,27 @@ def main() -> int:
     root = scratch_dir()
     try:
         anim = write_animation(imageio, render_frame, root)
-        print(f"[3/6] kernels vs plain versions at {W}x{H}")
+        print(f"[3/7] kernels vs plain versions at {W}x{H}")
         kernels = phase_kernels(torch, stencils, cfg, anim["frames"], anim["layer"])
-        print(f"[4/6] battery through gpu-denoise --device cuda ({N_FRAMES} frames + 3 layers)")
-        counts, exact_path = phase_battery(cfg, stencils, cli, imageio, Session, anim, root)
-        print(f"[5/6] turbo grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
-        frame_4k = render_frame(0.5, H4K, W4K, np.random.default_rng(SEED), noise=NOISE)[0]
-        kernels.update(phase_turbo_kernels(torch, fast, cfg, frame_4k,
+        print(f"[4/7] battery through gpu-denoise --device cuda ({N_FRAMES} frames + 3 layers)")
+        counts, exact_dir = phase_battery(cfg, stencils, cli, imageio, Session, anim, root)
+        print(f"[5/7] turbo grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
+        noisy_4k, layers_4k = render_frame(0.5, H4K, W4K, np.random.default_rng(SEED),
+                                           noise=NOISE)
+        kernels.update(phase_turbo_kernels(torch, fast, cfg, noisy_4k,
                                            anim["frames"][TARGET_FRAME]))
-        del frame_4k
-        print("[6/6] turbo battery through gpu-denoise --turbo D --device cuda")
-        counts.update(phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_path))
+        print(f"[6/7] guided grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
+        images = {
+            "4K": (noisy_4k, np.clip(layers_4k["albedo"], 0, 1)),
+            "1080p": (anim["frames"][TARGET_FRAME], anim["layer"]),
+        }
+        images = {k: tuple(torch.from_numpy(np.ascontiguousarray(x)).to("cuda") for x in v)
+                  for k, v in images.items()}
+        del noisy_4k, layers_4k
+        kernels.update(phase_guided_kernels(torch, fast, cfg, images))
+        del images
+        print("[7/7] turbo battery through gpu-denoise --turbo D --device cuda")
+        totals = phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     check_no_jax()
@@ -553,15 +828,31 @@ def main() -> int:
         "bilateral": (KERNEL_SOURCE, f"{JAX_STENCILS}:178"),
         "bilateral_guided": (KERNEL_SOURCE, f"{JAX_STENCILS}:178"),
         "nlm": (KERNEL_SOURCE, f"{JAX_STENCILS}:467"),
+        "nlm_bf16": (KERNEL_SOURCE, f"{JAX_STENCILS}:467"),
         "normalize": (KERNEL_SOURCE, f"{JAX_STENCILS}:1039"),
         "pool": (FAST_SOURCE, f"{JAX_FAST}:83"),
         "build_grid": (FAST_SOURCE, f"{JAX_FAST}:1018"),
         "slice_grid": (FAST_SOURCE, f"{JAX_FAST}:502"),
+        "build_guided_grid": (FAST_SOURCE, f"{JAX_FAST}:1269"),
+        "slice_guided_grid": (FAST_SOURCE, f"{JAX_FAST}:1372"),
+        "fused_guided": (FAST_SOURCE, f"{JAX_FAST}:1516"),
     }
+    # The bounds of the two TPU kernels still to port, at the shapes their
+    # paths would give them: #3 the turbo NLM with half-row weights (1080p,
+    # F=1, stride 2), #7 the fused bilateral grid (4K, D=2, K=5).
+    cells_4k = -(-H4K // 2) * -(-W4K // 2)
+    for name, work in (
+        ("nlm_hrw (#3)", kernel_work("nlm_hrw", H * W, cands=len(stencils.nlm_candidates(
+            cfg.NlmParams(search_stride=2))))),
+        ("fused_grid (#7)", kernel_work("fused_grid", H4K * W4K, cells=cells_4k, levels=5,
+                                        taps=len(fast._grid_taps(2.0, 2)))),
+    ):
+        b = bound(*work)
+        print(f"  still to port: {name} bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": where,
-         "launches": counts[name], "max_abs_err": kernels[name]["max_abs_err"],
-         "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"]}
+         "launches": counts[name] + totals[name], **{k: kernels[name][k] for k in keys}}
         for name, (source, where) in replaces.items()
     ]}
     for k in line["kernels"]:
