@@ -102,8 +102,8 @@ TURBO_GATE_DB = 40.0
 # this frame reads 38.8 dB, ROADMAP.md queue C).
 TURBO_NLM_GATE_DB = 40.0
 TURBO_LAYERS_GATE_DB = 35.0
-# Card rates for the bound of each kernel (the on-chip-measurement guide's
-# H100 SXM figures): device memory 3.35 TB/s; float32 outside the tensor
+# Card rates for the bound of each kernel (H100 SXM datasheet figures):
+# device memory 3.35 TB/s; float32 outside the tensor
 # cores 67 TFLOP/s, also taken for the bf16 tap arithmetic of the turbo NLM,
 # which runs on the same pipes.
 PEAK_BYTES_S = 3.35e12
