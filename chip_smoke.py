@@ -102,12 +102,17 @@ TURBO_GATE_DB = 40.0
 # this frame reads 38.8 dB, ROADMAP.md queue C).
 TURBO_NLM_GATE_DB = 40.0
 TURBO_LAYERS_GATE_DB = 35.0
-# Card rates for the bound of each kernel (H100 SXM datasheet figures):
-# device memory 3.35 TB/s; float32 outside the tensor
-# cores 67 TFLOP/s, also taken for the bf16 tap arithmetic of the turbo NLM,
-# which runs on the same pipes.
+# Card rates for the bound of each kernel: device memory 3.35 TB/s and
+# float32 outside the tensor cores 67 TFLOP/s (H100 SXM datasheet); bfloat16
+# outside the tensor cores 133.8 TFLOP/s (NVIDIA H100 Tensor Core GPU
+# Architecture whitepaper, H100 SXM5), the rate of the turbo NLM's bf16
+# squared differences, elementwise operations that the tensor cores' bf16
+# matrix rate does not serve.
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = 67e12
+PEAK_BF16_FLOPS_S = 133.8e12
+# The NLM configs, which run at D = 2 of the turbo battery only.
+NLM_CONFIGS = ("nlm", "multiframe", "overlap")
 
 
 # The port's modules this script drives; none may load jax or the JAX
@@ -190,38 +195,42 @@ def disk_taps(stencils, p) -> int:
 
 
 def kernel_work(name: str, pixels: int, cells: int = 0, levels: int = 0, taps: int = 0,
-                frames: int = 1, cands: int = 0, disk: int = 0) -> tuple[int, int]:
-    """(bytes, operations) of one call of a kernel's function: each input
-    read once and each output written once, and the least arithmetic the
-    function needs (a multiply-add counts 2, an exp2 or a divide 1).
-    pixels: full-resolution pixels; cells: pooled cells of one level;
-    levels: K; taps: blur taps along one axis; frames and cands: the NLM's
-    frames and search candidates; disk: the bilateral's disk taps.
+                frames: int = 1, cands: int = 0, disk: int = 0,
+                aliased: bool = False) -> tuple[int, ...]:
+    """(bytes, float32 operations[, bfloat16 operations]) of one call of a
+    kernel's function: each input read once and each output written once, and
+    the least arithmetic the function needs (a multiply-add counts 2, an exp2
+    or a divide 1). pixels: full-resolution pixels; cells: pooled cells of
+    one level; levels: K; taps: blur taps along one axis; frames and cands:
+    the NLM's frames and search candidates; disk: the bilateral's disk taps;
+    aliased: the NLM's target is its one frame (F = 1), read once.
 
     Per unit: a bilateral tap 20 (colour distance 8, exponent 2, exp2 1,
     weighted colour 8, weight 1), its normalize 4; an NLM candidate 24 per
-    pixel and frame with box sums (squared difference 8, two running sums 4,
-    exponent and exp2 3, weighted colour 8, weight 1); a grid cell and level
-    16 (range weights 3 x 4, payload 4) plus 28 per blur tap (7 fields, two
-    passes, one multiply-add each), the normalized grid 4 more for its
-    divides; a slice 132 a pixel for the bilateral grid (the t of 3 channels
-    12, then 4 channels x 2 levels x (tent 4, bilinear 9, add 2)) and 222
-    for the guided grid (7 planes). Also the work of the two kernels still to
-    port, nlm_hrw (#3) and fused_grid (#7)."""
+    pixel and frame with box sums (squared difference 8, in bfloat16 with
+    bf16 taps; two running sums 4, exponent and exp2 3, weighted colour 8,
+    weight 1); a grid cell and level 16 (range weights 3 x 4, payload 4)
+    plus 28 per blur tap (7 fields, two passes, one multiply-add each), the
+    normalized grid 4 more for its divides; a slice 132 a pixel for the
+    bilateral grid (the t of 3 channels 12, then 4 channels x 2 levels x
+    (tent 4, bilinear 9, add 2)) and 222 for the guided grid (7 planes).
+    Also the work of the two kernels still to port, nlm_hrw (#3) and
+    fused_grid (#7)."""
     grid = levels * cells
     blur = 28 * taps
-    nlm = (36 * pixels + 16 * frames * pixels, 24 * frames * cands * pixels)
+    fcp = frames * cands * pixels
+    nlm_bytes = 20 * pixels + 16 * (frames + (0 if aliased else 1)) * pixels
     build = grid * (20 + blur)
     return {
-        # still to port: #3 computes the NLM weights at half the rows (the
-        # 15 operations before the weighted colour halve), #7 the bilateral
-        # build and slice without the grid in device memory
-        "nlm_hrw": (nlm[0], 17 * frames * cands * pixels),
+        # still to port: #3, the turbo NLM with weights at half the rows
+        # (the 15 operations before the weighted colour halve), #7 the
+        # bilateral build and slice without the grid in device memory
+        "nlm_hrw": (nlm_bytes, 25 * fcp // 2, 4 * fcp),
         "fused_grid": (16 * cells + 32 * pixels, build + 132 * pixels),
         "bilateral": (32 * pixels, pixels * (20 * disk + 4)),
         "bilateral_guided": (52 * pixels, pixels * 20 * disk),
-        "nlm": nlm,
-        "nlm_bf16": nlm,
+        "nlm": (nlm_bytes, 24 * fcp),
+        "nlm_bf16": (nlm_bytes, 16 * fcp, 8 * fcp),
         "normalize": (36 * pixels, 5 * pixels),
         "pool": (16 * pixels + 16 * cells, 8 * pixels),
         "build_grid": (16 * cells + 8 * grid, build),
@@ -232,11 +241,11 @@ def kernel_work(name: str, pixels: int, cells: int = 0, levels: int = 0, taps: i
     }[name]
 
 
-def bound(nbytes: int, flops: int) -> dict:
+def bound(nbytes: int, flops: int, bf16_flops: int = 0) -> dict:
     """The least time the card could take for that work: the larger of the
-    bytes over the memory rate and the operations over the float32 rate."""
+    bytes over the memory rate and the operations, each type over its rate."""
     mem_ms = nbytes / PEAK_BYTES_S * 1e3
-    op_ms = flops / PEAK_FLOPS_S * 1e3
+    op_ms = (flops / PEAK_FLOPS_S + bf16_flops / PEAK_BF16_FLOPS_S) * 1e3
     return {"bound_ms": max(mem_ms, op_ms),
             "bound_by": "bytes" if mem_ms >= op_ms else "operations"}
 
@@ -375,8 +384,10 @@ def phase_kernels(torch, stencils, cfg, frames_np, layer_np):
     shapes = {
         "bilateral": dict(pixels=pixels, disk=disk_taps(stencils, bp)),
         "bilateral_guided": dict(pixels=pixels, disk=disk_taps(stencils, lp)),
-        "nlm": dict(pixels=pixels, cands=len(stencils.nlm_candidates(np_))),
-        "nlm_bf16": dict(pixels=pixels, cands=len(stencils.nlm_candidates(turbo_nlm))),
+        # timed at F = 1 with the target as its own neighbour frame
+        "nlm": dict(pixels=pixels, cands=len(stencils.nlm_candidates(np_)), aliased=True),
+        "nlm_bf16": dict(pixels=pixels, cands=len(stencils.nlm_candidates(turbo_nlm)),
+                         aliased=True),
         "normalize": dict(pixels=pixels),
     }
     nw0_b = nw0[..., None]
@@ -662,7 +673,7 @@ def phase_guided_kernels(torch, fast, cfg, images):
             check(ok, f"slice_guided_grid {case}: max abs {float((g - w).abs().max()):.3g}")
         fused_args = (small_t, small_l, layer, lmin, step, 1.0 / step, levels, taps, border,
                       inv2sc, d)
-        if fast.fused_guided_shared_bytes(d, taps.size) <= fast.MAX_SHARED_BYTES:
+        if fast.fused_guided_fits(d, taps.size, layer.device):
             got = fast.fused_guided(*fused_args)
             two = fast.slice_guided_grid(layer, fast.build_guided_grid(*build_args), lmin,
                                          1.0 / step, d)
@@ -708,63 +719,87 @@ def turbo_kernels(d: int, nlm: bool) -> set:
     return {"pool"} | guided | ({"build_grid", "slice_grid"} if d > 1 else set())
 
 
+def output_names(cli, cfg) -> dict:
+    """{config key: the file name gpu-denoise saves its output under}."""
+    return {k: c.output_name(False) for k, c in zip(cli.CONFIG_KEYS, cfg.GPU_BATTERY)}
+
+
+def turbo_battery(cli, cfg, imageio, anim, root, exact, device, run):
+    """gpu-denoise --turbo D on anim's target, as phase 7 and
+    tools/torch_turbo_quality.py make it: for each (D, sigma_s) of
+    TURBO_RUNS one run of the grid configs, and at D = 2 one of NLM_CONFIGS.
+    exact: {config: its exact output}; run(argv) calls cli.main once and
+    returns (rc, stdout, stderr). Yields each run as (D, sigma_s, keys,
+    stdout, {key: (output, dB vs clean, dB vs exact, RGB dB vs exact)}), the
+    grid configs read against the exact tiled bilateral."""
+    names = output_names(cli, cfg)
+    for d, sigma_s in TURBO_RUNS:
+        for keys in [cli.GRID_CONFIGS] + ([NLM_CONFIGS] if d == 2 else []):
+            out_dir = os.path.join(root, f"turbo{d}_{keys[0]}")
+            rc, text, err = run([anim["target"], "--device", device, "--clamp", "--turbo", str(d),
+                                 "--sigma-spatial", f"{sigma_s:g}", "--configs", ",".join(keys),
+                                 "--output-dir", out_dir])
+            check(rc == 0, f"--turbo {d} --configs {','.join(keys)} failed ({rc}): {err.strip()}")
+            readings = {}
+            for key in keys:
+                out = imageio.load(os.path.join(out_dir, names[key]))[0]
+                ref = exact["bilateral" if key == "linear" else key]
+                readings[key] = (out, psnr(out, anim["clean"]), psnr(out, ref),
+                                 psnr(out[..., :3], ref[..., :3]))
+            yield d, sigma_s, keys, text, readings
+
+
 def phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir):
-    """gpu-denoise --turbo D on the card: the grid configs at every D of
-    TURBO_RUNS, the NLM configs at D = 2, each run's launch counts read just
-    after it; checks every output against the clean render and phase 4's
-    exact output of its config, with the gates at D = 2. Returns the summed
-    launch counts."""
-    target, clean = anim["target"], anim["clean"]
-    names = {k: c.output_name(False) for k, c in zip(cli.CONFIG_KEYS, cfg.GPU_BATTERY)}
+    """gpu-denoise --turbo D on the card (turbo_battery), each run's launch
+    counts read just after it; checks every output against the clean render
+    and phase 4's exact output of its config, with the gates at D = 2.
+    Returns the summed launch counts."""
+    names = output_names(cli, cfg)
     exact = {k: imageio.load(os.path.join(exact_dir, names[k]))[0]
-             for k in ("bilateral", "layers", "nlm", "multiframe", "overlap")}
-    noisy_psnr = psnr(anim["frames"][TARGET_FRAME], clean)
+             for k in ("bilateral", "layers") + NLM_CONFIGS}
+    noisy_psnr = psnr(anim["frames"][TARGET_FRAME], anim["clean"])
     # config: (gate in dB against exact, channels it reads)
     gates = {"bilateral": (TURBO_GATE_DB, 4), "layers": (TURBO_LAYERS_GATE_DB, 3),
              "nlm": (TURBO_NLM_GATE_DB, 3)}
     totals = dict.fromkeys(stencils.launches, 0)
-    for d, sigma_s in TURBO_RUNS:
-        runs = [cli.GRID_CONFIGS] + ([("nlm", "multiframe", "overlap")] if d == 2 else [])
-        for keys in runs:
-            out_dir = os.path.join(root, f"turbo{d}_{keys[0]}")
-            stencils.reset_launches()
-            rc, text, err = run_cli(cli, [target, "--device", "cuda", "--clamp", "--turbo", str(d),
-                                          "--sigma-spatial", f"{sigma_s:g}", "--configs",
-                                          ",".join(keys), "--output-dir", out_dir])
-            counts = dict(stencils.launches)
-            what = f"--turbo {d} --configs {','.join(keys)}"
-            check(rc == 0, f"{what} failed ({rc}): {err.strip()}")
-            expected = turbo_kernels(d, keys[0] == "nlm")
-            check(all(counts[k] > 0 for k in expected), f"{what}: launches {counts}")
-            check(all(counts[k] == 0 for k in counts if k not in expected),
-                  f"{what} launched a kernel of another path: {counts}")
-            for k, n in counts.items():
-                totals[k] += n
-            reports = re.findall(r"transfer time: (\d+)ns; execution time: (\d+)ns", text)
-            check(len(reports) == len(keys), f"{what}: {len(reports)} timing reports")
-            outs = {k: imageio.load(os.path.join(out_dir, names[k]))[0] for k in keys}
-            print(f"  {what} (sigma_s {sigma_s:g}) launches "
-                  f"{ {k: counts[k] for k in sorted(expected)} }")
-            for key, (tr, ex) in zip(keys, reports):
-                out = outs[key]
-                check(out.shape == (H, W, 4) and bool(np.isfinite(out).all()),
-                      f"{what} {key}: output shape {out.shape} or non-finite values")
-                ref = exact["bilateral" if key == "linear" else key]
-                db_clean, db_exact = psnr(out, clean), psnr(out, ref)
-                db_rgb = psnr(out[..., :3], ref[..., :3])
-                check(db_clean > noisy_psnr, f"{what} {key}: {db_clean:.2f} dB vs clean, "
-                                             f"noisy {noisy_psnr:.2f} dB")
-                if d == 2 and key in gates:
-                    gate, channels = gates[key]
-                    got = db_exact if channels == 4 else db_rgb
-                    check(got >= gate, f"{what} {key}: {got:.2f} dB vs exact over "
-                                       f"{channels} channels < {gate} dB")
-                print(f"    {key:10s} transfer {int(tr):>10d} ns  exec {int(ex):>10d} ns  "
-                      f"PSNR vs clean {db_clean:.2f} dB, vs exact {db_exact:.2f} dB "
-                      f"(RGB {db_rgb:.2f} dB)")
-            if "linear" in keys:
-                check(np.array_equal(outs["bilateral"], outs["linear"]),
-                      f"{what}: bilateral and linear outputs differ")
+    counts = {}
+
+    def run(argv):
+        stencils.reset_launches()
+        result = run_cli(cli, argv)
+        counts.update(stencils.launches)
+        return result
+
+    for d, sigma_s, keys, text, readings in turbo_battery(cli, cfg, imageio, anim, root, exact,
+                                                          "cuda", run):
+        what = f"--turbo {d} --configs {','.join(keys)}"
+        expected = turbo_kernels(d, keys[0] == "nlm")
+        check(all(counts[k] > 0 for k in expected), f"{what}: launches {counts}")
+        check(all(counts[k] == 0 for k in counts if k not in expected),
+              f"{what} launched a kernel of another path: {counts}")
+        for k, n in counts.items():
+            totals[k] += n
+        reports = re.findall(r"transfer time: (\d+)ns; execution time: (\d+)ns", text)
+        check(len(reports) == len(keys), f"{what}: {len(reports)} timing reports")
+        print(f"  {what} (sigma_s {sigma_s:g}) launches "
+              f"{ {k: counts[k] for k in sorted(expected)} }")
+        for key, (tr, ex) in zip(keys, reports):
+            out, db_clean, db_exact, db_rgb = readings[key]
+            check(out.shape == (H, W, 4) and bool(np.isfinite(out).all()),
+                  f"{what} {key}: output shape {out.shape} or non-finite values")
+            check(db_clean > noisy_psnr, f"{what} {key}: {db_clean:.2f} dB vs clean, "
+                                         f"noisy {noisy_psnr:.2f} dB")
+            if d == 2 and key in gates:
+                gate, channels = gates[key]
+                got = db_exact if channels == 4 else db_rgb
+                check(got >= gate, f"{what} {key}: {got:.2f} dB vs exact over "
+                                   f"{channels} channels < {gate} dB")
+            print(f"    {key:10s} transfer {int(tr):>10d} ns  exec {int(ex):>10d} ns  "
+                  f"PSNR vs clean {db_clean:.2f} dB, vs exact {db_exact:.2f} dB "
+                  f"(RGB {db_rgb:.2f} dB)")
+        if "linear" in keys:
+            check(np.array_equal(readings["bilateral"][0], readings["linear"][0]),
+                  f"{what}: bilateral and linear outputs differ")
     return totals
 
 
@@ -843,7 +878,7 @@ def main() -> int:
     cells_4k = -(-H4K // 2) * -(-W4K // 2)
     for name, work in (
         ("nlm_hrw (#3)", kernel_work("nlm_hrw", H * W, cands=len(stencils.nlm_candidates(
-            cfg.NlmParams(search_stride=2))))),
+            cfg.NlmParams(search_stride=2))), aliased=True)),
         ("fused_grid (#7)", kernel_work("fused_grid", H4K * W4K, cells=cells_4k, levels=5,
                                         taps=len(fast._grid_taps(2.0, 2)))),
     ):

@@ -105,7 +105,8 @@ def build() -> tuple[Path, str]:
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed), with its C
-    signatures declared: every pointer and the stream as c_void_p."""
+    signatures declared: every pointer and the stream as c_void_p, the one
+    int out-parameter as a c_int pointer."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -142,4 +143,6 @@ def library() -> ctypes.CDLL:
         i32, i32, i32, i32, i32, ptr, i32, f32, i32, i32, ptr,
     ]
     lib.idf_fused_guided.restype = i32
+    lib.idf_fused_guided_fits.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.idf_fused_guided_fits.restype = i32
     return lib

@@ -694,6 +694,19 @@ dim3 grid_for(int w, int h) {
   return dim3((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
 }
 
+// Whether the fused kernel's window at downsample d with blur radius r fits
+// the current device's opt-in shared memory per block, beside the kernel's
+// static arrays.
+cudaError_t fused_fits(int d, int r, bool* fits) {
+  int device = 0, max_bytes = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&max_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  *fits = err == cudaSuccess &&
+          fused_shared_bytes(d, r) + kStaticSharedReserve <= static_cast<size_t>(max_bytes);
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -821,7 +834,7 @@ int idf_slice_guided_grid(const void* guide, const void* grid, const void* lmin,
 // The fused guided build + slice: the inputs of idf_build_guided_grid and
 // idf_slice_guided_grid (step and inv_step both), the same outputs. d must
 // divide the 16 x 128 slice tile (1, 2, 4, 8); the window must fit the
-// block's shared memory (fused_shared_bytes).
+// block's shared memory (idf_fused_guided_fits).
 int idf_fused_guided(const void* small_t, const void* small_l, const void* guide,
                      const void* lmin, const void* step, const void* inv_step, void* out_wc,
                      void* out_nw, int h, int w, int hs, int ws, int levels, const float* taps,
@@ -832,13 +845,10 @@ int idf_fused_guided(const void* small_t, const void* small_l, const void* guide
   if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
   const int r = n_taps / 2;
   const size_t bytes = fused_shared_bytes(d, r);
-  int device = 0, max_bytes = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&max_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  bool fits = false;
+  cudaError_t err = fused_fits(d, r, &fits);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (bytes + kStaticSharedReserve > static_cast<size_t>(max_bytes))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!fits) return static_cast<int>(cudaErrorInvalidValue);
   Taps table;
   table.n = n_taps;
   for (int i = 0; i < n_taps; ++i) table.t[i] = taps[i];
@@ -857,6 +867,19 @@ int idf_fused_guided(const void* small_t, const void* small_l, const void* guide
       static_cast<float4*>(out_wc), static_cast<float*>(out_nw), h, w, hs, ws, levels, table,
       coef, 1.f / static_cast<float>(d), max_rows, max_cols);
   return static_cast<int>(cudaGetLastError());
+}
+
+// *fits = 1 if idf_fused_guided takes downsample d with n_taps blur taps on
+// the current device (its window fits a block's shared memory), else 0.
+int idf_fused_guided_fits(int d, int n_taps, int* fits) {
+  *fits = 0;
+  if (n_taps <= 0 || n_taps > kMaxTaps || n_taps % 2 == 0 || d <= 0 ||
+      kFusedTileH % d != 0 || kFusedTileW % d != 0)
+    return static_cast<int>(cudaSuccess);
+  bool ok = false;
+  const cudaError_t err = fused_fits(d, n_taps / 2, &ok);
+  *fits = ok ? 1 : 0;
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -38,6 +38,7 @@ B item 11.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -59,11 +60,6 @@ DOWNSAMPLES = (2, 4, 8)
 GUIDED_DOWNSAMPLES = (1, 2, 4, 8)
 #: Guided grid planes per level: num r, g, b, a; den r, g, b; one zero pad.
 GUIDED_PLANES = 8
-#: The fused guided kernel's slice tile in pixels (fast.cu: kFusedTileH/W) and
-#: the dynamic shared memory a block may use on the H100: 227 KB less the
-#: 1 KB kept for the kernel's static arrays (kStaticSharedReserve).
-FUSED_TILE = (16, 128)
-MAX_SHARED_BYTES = 232448 - 1024
 
 
 # ---------------------------------------------------------------------------
@@ -523,16 +519,18 @@ def slice_guided_grid(
     return wc, nw
 
 
-def fused_guided_shared_bytes(d: int, n_taps: int) -> int:
-    """Shared memory of one block of the fused guided kernel (fast.cu:
-    fused_shared_bytes): the staged pooled target and layer window with the
-    blur halo, the vertical blur sums of 7 fields, and one level's cells."""
-    r = n_taps // 2
-    th, tw = FUSED_TILE
-    rows, cols = th // d + 2, tw // d + 2
-    staged = 2 * (rows + 2 * r) * (cols + 2 * r) * 16
-    vsum = -(-7 * rows * (cols + 2 * r) * 4 // 16) * 16
-    return staged + vsum + rows * cols * 16
+def fused_guided_fits(d: int, n_taps: int, device: torch.device) -> bool:
+    """Whether the fused guided kernel takes downsample d with n_taps blur
+    taps on the CUDA device: its window (the staged pooled images with the
+    blur halo, the blur sums, one level's cells; fast.cu: fused_shared_bytes)
+    fits a block's shared memory there. Asks the kernel library, which
+    queries the device."""
+    fits = ctypes.c_int(0)
+    lib = _build.library()
+    with torch.cuda.device(device):
+        rc = lib.idf_fused_guided_fits(d, n_taps, ctypes.byref(fits))
+    _raise_on_error(rc, "fused_guided_fits")
+    return bool(fits.value)
 
 
 def fused_guided(
@@ -560,16 +558,15 @@ def fused_guided(
     hs, ws = -(-h // d), -(-w // d)
     if tuple(small_t.shape) != (hs, ws, 4):
         raise ValueError(f"pooled images {tuple(small_t.shape)} != ({hs}, {ws}, 4) at d = {d}")
-    smem = fused_guided_shared_bytes(d, taps.size)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"the fused guided kernel needs {smem} bytes of shared memory at d = {d} "
-            f"with {taps.size} blur taps, above the {MAX_SHARED_BYTES} a block has: "
-            "use the two guided kernels (fused=False)"
-        )
     if not _on_cuda(small_t, small_l, guide, lmin, step, inv_step):
         return fused_guided_plain(
             small_t, small_l, guide, lmin, step, inv_step, levels, taps, border, inv2sc, d
+        )
+    if not fused_guided_fits(d, taps.size, guide.device):
+        raise ValueError(
+            f"the fused guided kernel's window at d = {d} with {taps.size} blur taps "
+            "exceeds a block's shared memory on this device: use the two guided kernels "
+            "(build_guided_grid, slice_guided_grid)"
         )
     wc = torch.empty_like(guide)
     nw = torch.empty((h, w, 3), dtype=torch.float32, device=guide.device)
@@ -669,19 +666,24 @@ def cross_bilateral_layers_fast(
     (H, W, 4), normWeight (H, W, 3)), the per-channel guided grid with range
     weights from the layer and payload from the target. Pool both, take the
     grid range from the pooled layer (it stays on the device), then the fused
-    kernel or the guided build and slice (fused=None: default_guided_fused).
-    Accumulate the partials over all layers, then finish with
-    normalize_layers_fast."""
+    kernel or the guided build and slice. fused=None takes the fused kernel
+    where default_guided_fused(d) does and, on the card, its window fits a
+    block's shared memory (fused_guided_fits; on the H100 at d = 2 not from
+    sigma_s ~10.5 up), else the two kernels: the same partials either way.
+    On a CPU tensor the plain versions run whichever is chosen. Accumulate the
+    partials over all layers, then finish with normalize_layers_fast."""
     _check_image(target, "target")
     if layer.shape != target.shape:
         raise ValueError(f"layer {tuple(layer.shape)} != target {tuple(target.shape)}")
     d = max(1, downsample)
+    taps = _grid_taps(params.sigma_spatial, d)
     if fused is None:
-        fused = default_guided_fused(d)
+        fused = default_guided_fused(d) and (
+            not _on_cuda(target, layer) or fused_guided_fits(d, taps.size, target.device)
+        )
     small_t = pool(target, d, params.border)
     small_l = pool(layer, d, params.border)
     lmin, step = grid_range(small_l, levels)
-    taps = _grid_taps(params.sigma_spatial, d)
     inv2sc = 0.5 / (params.sigma_color**2)
     if fused:
         return fused_guided(

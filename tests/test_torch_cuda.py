@@ -332,6 +332,33 @@ def test_turbo_layers_on_card_match_plain(cuda, d):
     assert stencils.launches["pool"] == 2
 
 
+@pytest.mark.parametrize("d,n_taps,fits", [(2, 9, True), (4, 5, True), (8, 3, True),
+                                           (2, 41, True), (2, 43, True), (2, 45, False),
+                                           (2, 49, False), (4, 63, True), (1, 17, False)])
+def test_fused_guided_shared_memory(cuda, d, n_taps, fits):
+    """The fused kernel's window at the turbo battery's settings fits a
+    block's shared memory on the H100, up to 43 taps (radius 21) at d = 2 and
+    every tap table at d = 4; d = 1 (17 taps at sigma_s 2) does not."""
+    assert fast.fused_guided_fits(d, n_taps, cuda) == fits
+
+
+def test_turbo_layers_at_wide_sigma_on_card_take_the_two_kernels(cuda):
+    """At d = 2 and sigma_s 12 (49 taps) the fused window does not fit: the
+    entry takes the guided build and slice, and the fused wrapper refuses."""
+    target, layer = _image(0, cuda, 61, 83), _image(1, cuda, 61, 83)
+    params = LayersParams(sigma_spatial=12.0)
+    got = fast.cross_bilateral_layers_fast(target, layer, params, 5, 2)
+    want = fast.cross_bilateral_layers_fast(target.cpu(), layer.cpu(), params, 5, 2)
+    for g, w_ in zip(got, want):
+        _close(g.cpu(), w_, rtol=0, atol=2 * 2.0**-8)
+    assert stencils.launches["fused_guided"] == 0
+    assert stencils.launches["build_guided_grid"] == stencils.launches["slice_guided_grid"] == 1
+    _, _, small_t, small_l, lmin, step, _ = _guided_inputs(2, BorderPolicy.CLAMP, 5, 2.0, 61, 83)
+    with pytest.raises(ValueError, match="shared memory"):
+        fast.fused_guided(small_t, small_l, layer, lmin, step, 1.0 / step, 5,
+                          fast._grid_taps(12.0, 2), BorderPolicy.CLAMP, 12.5, 2)
+
+
 @pytest.mark.parametrize(
     "params",
     [NlmParams(search_stride=2), NlmParams(search_stride=2, search_disk=True),

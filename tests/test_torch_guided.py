@@ -300,16 +300,42 @@ def test_guided_wrappers_check_inputs():
     with pytest.raises(ValueError):  # pooled images of another size
         fast.fused_guided(small_t, small_l, layer[:-4], lmin, step, 1.0 / step, K, taps,
                           CLAMP, INV2SC, 2)
-    with pytest.raises(ValueError, match="shared memory"):  # d = 1 at sigma_s 2
-        fast.fused_guided(target, layer, layer, lmin, step, 1.0 / step, K,
-                          fast._grid_taps(2.0, 1), CLAMP, INV2SC, 1)
+    # A window beyond a block's shared memory on the card (d = 1 at sigma_s
+    # 2, tests/test_torch_cuda.py) is no limit of the plain version: on CPU
+    # tensors the fused wrapper runs it.
+    taps1 = fast._grid_taps(2.0, 1)
+    got = fast.fused_guided(target, layer, layer, lmin, step, 1.0 / step, K, taps1, CLAMP,
+                            INV2SC, 1)
+    grid = fast.build_guided_grid(target, layer, lmin, step, K, taps1, CLAMP, INV2SC)
+    want = fast.slice_guided_grid(layer, grid, lmin, 1.0 / step, 1)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("d,n_taps,fits", [(2, 9, True), (4, 5, True), (8, 3, True),
-                                           (2, 41, True), (1, 17, False)])
-def test_fused_guided_shared_memory(d, n_taps, fits):
-    """The fused kernel's window at the turbo battery's settings fits a
-    block's shared memory; d = 1 (17 taps at sigma_s 2) does not, and runs
-    the two guided kernels."""
-    assert (fast.fused_guided_shared_bytes(d, n_taps) <= fast.MAX_SHARED_BYTES) == fits
-    assert fast.default_guided_fused(d) == (d in (2, 4))
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_default_guided_fused_is_the_references(d):
+    assert fast.default_guided_fused(d) == jfast._default_guided_fused(d) == (d in (2, 4))
+
+
+@pytest.mark.parametrize("border", [CLAMP, ZERO])
+def test_cross_bilateral_layers_fast_at_wide_sigma_matches_jax(border):
+    """At d = 2 and sigma_s 12 (49 blur taps) the fused kernel's window
+    passes a block's shared memory on the card, where the entry takes the two
+    guided kernels (tests/test_torch_cuda.py); the JAX package runs its fused
+    kernel. On the CPU both choices give the same partials, which meet the
+    reference's as test_cross_bilateral_layers_fast_matches_jax holds them."""
+    from test_sharding import _assert_bf16_grid_close
+
+    shape, d = (97, 131), 2
+    target, layer = _image(shape, 1), _image(shape, 2)
+    params = LayersParams(border=border, sigma_spatial=12.0)
+    jwc, jnw = jfast.cross_bilateral_layers_fast(target, layer, jax_params(params), K, d)
+    want = np.concatenate([np.asarray(jwc), np.asarray(jnw)], -1)
+    target, layer = _t(target), _t(layer)
+    for fused in (None, False):
+        wc, nw = fast.cross_bilateral_layers_fast(target, layer, params, K, d, fused)
+        small_t, small_l = fast.pool(target, d, border), fast.pool(layer, d, border)
+        lmin, step = fast.grid_range(small_l, K)
+        grid = fast.build_guided_grid(small_t, small_l, lmin, step, K, fast._grid_taps(12.0, d),
+                                      border, INV2SC)
+        got = torch.cat([wc, nw], -1) + _delta_rounding(layer, grid, lmin, 1.0 / step, d)
+        _assert_bf16_grid_close(got.numpy(), want)

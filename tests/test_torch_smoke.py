@@ -1,0 +1,83 @@
+"""chip_smoke.py's arithmetic and its turbo run list, without a card: the
+work each kernel's bound counts, and the runs turbo_battery makes."""
+
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+
+PIXELS = 1920 * 1080
+
+
+@pytest.mark.parametrize("name", ["nlm", "nlm_bf16", "nlm_hrw"])
+def test_nlm_reads_an_aliased_target_once(name):
+    """F = 1 on the target itself: the target and its one frame are one
+    16-byte read a pixel, beside the 20-byte partials written."""
+    alone = smoke.kernel_work(name, PIXELS, cands=49, aliased=True)
+    apart = smoke.kernel_work(name, PIXELS, cands=49)
+    assert alone[0] == 36 * PIXELS and apart[0] == 52 * PIXELS
+    assert alone[1:] == apart[1:]
+
+
+def test_nlm_bf16_bound_counts_its_squared_differences_at_the_bf16_rate():
+    """8 of each candidate's 24 operations are bfloat16, at twice the float32
+    rate: 1080p, F = 1, 49 candidates is 0.0303 ms, bound by operations."""
+    nbytes, f32, bf16 = smoke.kernel_work("nlm_bf16", PIXELS, cands=49, aliased=True)
+    assert (f32, bf16) == (16 * 49 * PIXELS, 8 * 49 * PIXELS)
+    b = smoke.bound(nbytes, f32, bf16)
+    assert b["bound_by"] == "operations"
+    want = (f32 / 67e12 + bf16 / 133.8e12) * 1e3
+    assert b["bound_ms"] == pytest.approx(want, rel=1e-12)
+    assert b["bound_ms"] == pytest.approx(0.0303, abs=5e-5)
+    f32_only = smoke.bound(*smoke.kernel_work("nlm", PIXELS, cands=49, aliased=True))
+    assert f32_only["bound_ms"] > b["bound_ms"]
+
+
+@pytest.mark.parametrize("nbytes,flops,by", [(3.35e9, 1, "bytes"), (1, 67e9, "operations")])
+def test_bound_is_the_larger_of_bytes_and_operations(nbytes, flops, by):
+    b = smoke.bound(nbytes, flops)
+    assert b["bound_ms"] == pytest.approx(1.0) and b["bound_by"] == by
+
+
+def test_turbo_battery_makes_the_smokes_runs():
+    """Grid configs at every D of TURBO_RUNS, the NLM configs at D = 2 only;
+    each run's readings against clean and against exact (grid configs
+    against the exact tiled bilateral)."""
+    from image_denoising_filter_tpu_torch import cli
+    from image_denoising_filter_tpu_torch import config as cfg
+
+    names = smoke.output_names(cli, cfg)
+    clean = np.full((2, 3, 4), 0.5, np.float32)
+    outputs = {}
+
+    class Io:
+        @staticmethod
+        def load(path):
+            return outputs[path], None
+
+    argvs = []
+
+    def run(argv):
+        argvs.append(argv)
+        out_dir = argv[argv.index("--output-dir") + 1]
+        for k in argv[argv.index("--configs") + 1].split(","):
+            outputs[os.path.join(out_dir, names[k])] = clean + 0.01
+        return 0, "", ""
+
+    exact = {k: clean for k in ("bilateral", "layers") + smoke.NLM_CONFIGS}
+    anim = {"target": "t.png", "clean": clean}
+    runs = list(smoke.turbo_battery(cli, cfg, Io, anim, "root", exact, "cpu", run))
+    got = [(d, s, keys) for d, s, keys, _, _ in runs]
+    grid, nlm = cli.GRID_CONFIGS, smoke.NLM_CONFIGS
+    assert got == [(1, 2.0, grid), (2, 2.0, grid), (2, 2.0, nlm), (4, 2.0, grid),
+                   (8, 6.0, grid)]
+    assert all(a[a.index("--device") + 1] == "cpu" for a in argvs)
+    for *_, readings in runs:
+        for out, db_clean, db_exact, db_rgb in readings.values():
+            assert db_clean == db_exact == db_rgb == pytest.approx(40.0)

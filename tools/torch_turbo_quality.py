@@ -4,14 +4,10 @@ against the clean render, on chip_smoke.py's 1080p animation.
 
     python tools/torch_turbo_quality.py [--device cpu|cuda] [--threads N]
 
-Writes the smoke's animation (tools/make_dataset.render_frame: 5 frames of
-1920x1080, noise 0.08, seed 0, target frame 0003 with its albedo, normal and
-depth layers), runs `gpu-denoise` (image_denoising_filter_tpu_torch.cli) for
-the exact configs and for the turbo runs chip_smoke.py makes (D = 2 with
-every config; D = 1, 4 and 8 with the grid configs, sigma_s 6 at D = 8), and
+Writes the smoke's animation, runs `gpu-denoise` for the exact configs and
+then chip_smoke.turbo_battery, the smoke's own turbo runs and readings, and
 prints each output's PSNR against the clean render and against the exact
-output of its config (the grid configs against the exact tiled bilateral,
-layers against the exact layers), over RGBA as the smoke's gates read it and
+output of its config, over RGBA as the smoke's bilateral gate reads it and
 over RGB as the JAX package's tests do. With --device cpu the kernels' plain
 versions run, so the readings are what the smoke's gates should see on the
 card. Imports no JAX.
@@ -28,13 +24,9 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-import chip_smoke as smoke  # noqa: E402  (the smoke's animation and PSNR)
+import chip_smoke as smoke  # noqa: E402  (the smoke's animation, runs and PSNR)
 
-EXACT = ("bilateral", "layers", "nlm", "multiframe", "overlap")
-
-
-def db(a, b) -> str:
-    return f"{smoke.psnr(a, b):.2f} dB (RGB {smoke.psnr(a[..., :3], b[..., :3]):.2f})"
+EXACT = ("bilateral", "layers") + smoke.NLM_CONFIGS
 
 
 def main(argv=None) -> int:
@@ -50,39 +42,32 @@ def main(argv=None) -> int:
     from image_denoising_filter_tpu_torch import config as cfg
     from image_denoising_filter_tpu_torch.utils import imageio
 
-    names = {key: run.output_name(False) for key, run in zip(cli.CONFIG_KEYS, cfg.GPU_BATTERY)}
     root = smoke.scratch_dir()
     try:
         anim = smoke.write_animation(imageio, smoke.load_render_frame(), root)
-        clean = anim["clean"]
         noisy = anim["frames"][smoke.TARGET_FRAME]
-        print(f"device {args.device}; noisy target vs clean {db(noisy, clean)}")
+        print(f"device {args.device}; noisy target vs clean "
+              f"{smoke.psnr(noisy, anim['clean']):.2f} dB")
 
-        def run(out, argv):
+        def run(argv):
             t0 = time.perf_counter()
-            rc = cli.main([anim["target"], "--device", args.device, "--clamp",
-                           "--output-dir", out, *argv])
-            if rc:
-                raise SystemExit(f"gpu-denoise {' '.join(argv)} failed ({rc})")
-            return time.perf_counter() - t0
+            result = smoke.run_cli(cli, argv)
+            print(f"{' '.join(argv[4:-2])}: {time.perf_counter() - t0:.1f} s")
+            return result
 
         exact_dir = os.path.join(root, "exact")
-        secs = run(exact_dir, ["--configs", ",".join(EXACT)])
+        rc, _, err = run([anim["target"], "--device", args.device, "--clamp", "--configs",
+                          ",".join(EXACT), "--output-dir", exact_dir])
+        smoke.check(rc == 0, f"gpu-denoise exact configs failed ({rc}): {err.strip()}")
+        names = smoke.output_names(cli, cfg)
         exact = {k: imageio.load(os.path.join(exact_dir, names[k]))[0] for k in EXACT}
-        print(f"exact configs: {secs:.1f} s")
         for key in EXACT:
-            print(f"  exact {key:10s} vs clean {db(exact[key], clean)}")
-
-        for d, sigma_s in smoke.TURBO_RUNS:
-            keys = list(cli.GRID_CONFIGS) + (list(EXACT[2:]) if d == 2 else [])
-            out = os.path.join(root, f"turbo{d}")
-            secs = run(out, ["--turbo", str(d), "--sigma-spatial", f"{sigma_s:g}",
-                             "--configs", ",".join(keys)])
-            print(f"--turbo {d} (sigma_s {sigma_s:g}): {secs:.1f} s")
-            for key in keys:
-                img = imageio.load(os.path.join(out, names[key]))[0]
-                ref = exact["bilateral" if key == "linear" else key]
-                print(f"  turbo {key:10s} vs clean {db(img, clean)}, vs exact {db(img, ref)}")
+            print(f"  exact {key:10s} vs clean {smoke.psnr(exact[key], anim['clean']):.2f} dB")
+        for _, _, _, _, readings in smoke.turbo_battery(cli, cfg, imageio, anim, root, exact,
+                                                        args.device, run):
+            for key, (_, db_clean, db_exact, db_rgb) in readings.items():
+                print(f"  turbo {key:10s} vs clean {db_clean:.2f} dB, "
+                      f"vs exact {db_exact:.2f} dB (RGB {db_rgb:.2f})")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return 0
