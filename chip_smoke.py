@@ -10,25 +10,30 @@ Phases, one line or block each:
   1. device  -- the card, as nvidia-smi gives its name and power limit;
   2. build   -- the kernels compiled from ops/csrc with nvcc, one process
                 per source, all at once;
-  3. kernels -- each exact-battery CUDA kernel, and the NLM kernel with the
-                turbo NLM's bf16 taps and stride-2 search, against its plain
-                PyTorch version on the card at 1920x1080, with max errors and
-                median times;
+  3. kernels -- each exact-battery CUDA kernel, the NLM kernel with the
+                turbo NLM's bf16 taps and stride-2 search, and the half-row
+                NLM kernel (--weights-halfres) with float32 and bf16 taps,
+                against its plain PyTorch version on the card at 1920x1080,
+                with max errors and median times;
   4. battery -- a 1080p animation (5 frames + albedo/normal/depth layers)
                 through `gpu-denoise` (cli.main) on the card, the launch
                 counts of that run, and the checks on its outputs;
   5. turbo kernels -- the bilateral grid's pool, build and slice kernels
-                and the whole grid pipeline against their plain versions at
-                3840x2160, for (D, K) = (2, 5), (4, 5), (8, 6), and on the
-                1080p target at each setting of phase 7, with median times
-                at 4K (2, 5) and the pipeline's Mpix/s at each D;
+                and the whole grid pipeline against their plain versions, and
+                the fused build+slice kernel against the build and slice
+                kernels bit for bit, at 3840x2160 for (D, K) = (2, 5), (4, 5),
+                (8, 6), and on the 1080p target at each setting of phase 7;
+                the fused path, grid_pipeline(fused=True), driven at each 4K
+                (D, K) with its launch counts; median times at 4K (2, 5) and
+                both pipelines' Mpix/s at each D;
   6. guided kernels -- the layer-guided grid's build, slice and fused
                 build+slice against their plain versions (the fused kernel
                 against the two kernels, bit for bit) at 3840x2160 for the
                 same (D, K) and on the 1080p albedo layer at each setting of
                 phase 7, with median times at 4K (2, 5);
   7. turbo battery -- `gpu-denoise --turbo D` on the 1080p target: every
-                config at D = 2, the grid configs (bilateral, linear,
+                config at D = 2, the NLM configs again with
+                --weights-halfres, the grid configs (bilateral, linear,
                 layers) at D = 1, 4 and 8 (sigma_s 6), the launch counts of
                 each run, and the PSNR of each output against the clean
                 render and against phase 4's exact output of its config.
@@ -102,6 +107,14 @@ TURBO_GATE_DB = 40.0
 # this frame reads 38.8 dB, ROADMAP.md queue C).
 TURBO_NLM_GATE_DB = 40.0
 TURBO_LAYERS_GATE_DB = 35.0
+# The half-row NLM (--turbo 2 --weights-halfres) against the exact NLM over
+# RGB: the JAX package's own reading on this frame is 29.0547 dB
+# (tools/hrw_jax_reading.py, its float32 XLA oracle), below the 40 dB NLM
+# gate: pooling two rows halves the noise in each weight cell's squared
+# difference, so the weights, and the smoothing, grow on this noisy frame.
+# The gate is that reading less 0.05 dB (ROADMAP.md queue C).
+JAX_HRW_READING_DB = 29.0547
+TURBO_HRW_GATE_DB = min(TURBO_NLM_GATE_DB, JAX_HRW_READING_DB - 0.05)
 # Card rates for the bound of each kernel: device memory 3.35 TB/s and
 # float32 outside the tensor cores 67 TFLOP/s (H100 SXM datasheet); bfloat16
 # outside the tensor cores 133.8 TFLOP/s (NVIDIA H100 Tensor Core GPU
@@ -111,8 +124,10 @@ TURBO_LAYERS_GATE_DB = 35.0
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = 67e12
 PEAK_BF16_FLOPS_S = 133.8e12
-# The NLM configs, which run at D = 2 of the turbo battery only.
+# The NLM configs, which run at D = 2 of the turbo battery only: once as
+# --turbo 2, once with the half-row weights.
 NLM_CONFIGS = ("nlm", "multiframe", "overlap")
+NLM_RUNS = ((), ("--weights-halfres",))
 
 
 # The port's modules this script drives; none may load jax or the JAX
@@ -209,23 +224,24 @@ def kernel_work(name: str, pixels: int, cells: int = 0, levels: int = 0, taps: i
     weighted colour 8, weight 1), its normalize 4; an NLM candidate 24 per
     pixel and frame with box sums (squared difference 8, in bfloat16 with
     bf16 taps; two running sums 4, exponent and exp2 3, weighted colour 8,
-    weight 1); a grid cell and level 16 (range weights 3 x 4, payload 4)
-    plus 28 per blur tap (7 fields, two passes, one multiply-add each), the
-    normalized grid 4 more for its divides; a slice 132 a pixel for the
-    bilateral grid (the t of 3 channels 12, then 4 channels x 2 levels x
-    (tent 4, bilinear 9, add 2)) and 222 for the guided grid (7 planes).
-    Also the work of the two kernels still to port, nlm_hrw (#3) and
-    fused_grid (#7)."""
+    weight 1); with the weights at half the rows the 15 operations before
+    the weighted colour halve and the row upsample adds 3 (39/2, of which
+    the squared difference's 4 are bfloat16 with bf16 taps); a grid cell and
+    level 16 (range weights 3 x 4, payload 4) plus 28 per blur tap (7
+    fields, two passes, one multiply-add each), the normalized grid 4 more
+    for its divides; a slice 132 a pixel for the bilateral grid (the t of 3
+    channels 12, then 4 channels x 2 levels x (tent 4, bilinear 9, add 2))
+    and 222 for the guided grid (7 planes). The fused kernels read the
+    pooled images and the guide and write the slice's output: their grid
+    never goes to device memory."""
     grid = levels * cells
     blur = 28 * taps
     fcp = frames * cands * pixels
     nlm_bytes = 20 * pixels + 16 * (frames + (0 if aliased else 1)) * pixels
     build = grid * (20 + blur)
     return {
-        # still to port: #3, the turbo NLM with weights at half the rows
-        # (the 15 operations before the weighted colour halve), #7 the
-        # bilateral build and slice without the grid in device memory
-        "nlm_hrw": (nlm_bytes, 25 * fcp // 2, 4 * fcp),
+        "nlm_hrw": (nlm_bytes, 39 * fcp // 2),
+        "nlm_hrw_bf16": (nlm_bytes, 31 * fcp // 2, 4 * fcp),
         "fused_grid": (16 * cells + 32 * pixels, build + 132 * pixels),
         "bilateral": (32 * pixels, pixels * (20 * disk + 4)),
         "bilateral_guided": (52 * pixels, pixels * 20 * disk),
@@ -366,6 +382,18 @@ def phase_kernels(torch, stencils, cfg, frames_np, layer_np):
         record("nlm_bf16", f"{case}, F=6, valid mask",
                stencils.nlm_accumulate_frames(target, frames6, p, bf16, valid6),
                stencils.nlm_plain(target, frames6, p, valid6, "bfloat16"), TOL_NLM)
+    # The half-row NLM (--weights-halfres): float32 and bf16 taps.
+    hrw = cfg.NlmParams(search_stride=2, weights_halfres=True)
+    for kernel, tiling, dtype in (("nlm_hrw", None, "float32"),
+                                  ("nlm_hrw_bf16", bf16, "bfloat16")):
+        for case, p in [("stride 2", hrw),
+                        ("stride 2, disk", cfg.NlmParams(search_stride=2, search_disk=True,
+                                                         weights_halfres=True))]:
+            record(kernel, f"{case}, F=1", stencils.nlm_accumulate(target, target, p, tiling),
+                   stencils.nlm_plain(target, target[None], p, None, dtype), TOL_NLM)
+            record(kernel, f"{case}, F=6, valid mask",
+                   stencils.nlm_accumulate_frames(target, frames6, p, tiling, valid6),
+                   stencils.nlm_plain(target, frames6, p, valid6, dtype), TOL_NLM)
 
     timings = {
         "bilateral": (lambda: stencils.bilateral(target, bp),
@@ -377,6 +405,11 @@ def phase_kernels(torch, stencils, cfg, frames_np, layer_np):
         "nlm_bf16": (lambda: stencils.nlm_accumulate(target, target, turbo_nlm, bf16),
                      lambda: stencils.nlm_plain(target, target[None], turbo_nlm, None,
                                                 "bfloat16")),
+        "nlm_hrw": (lambda: stencils.nlm_accumulate(target, target, hrw),
+                    lambda: stencils.nlm_plain(target, target[None], hrw)),
+        "nlm_hrw_bf16": (lambda: stencils.nlm_accumulate(target, target, hrw, bf16),
+                         lambda: stencils.nlm_plain(target, target[None], hrw, None,
+                                                    "bfloat16")),
         "normalize": (lambda: stencils.normalize(wc6, nw0),
                       lambda: stencils.normalize_plain(wc6, nw0, cfg.NormalizeParams())),
     }
@@ -388,6 +421,9 @@ def phase_kernels(torch, stencils, cfg, frames_np, layer_np):
         "nlm": dict(pixels=pixels, cands=len(stencils.nlm_candidates(np_)), aliased=True),
         "nlm_bf16": dict(pixels=pixels, cands=len(stencils.nlm_candidates(turbo_nlm)),
                          aliased=True),
+        "nlm_hrw": dict(pixels=pixels, cands=len(stencils.nlm_candidates(hrw)), aliased=True),
+        "nlm_hrw_bf16": dict(pixels=pixels, cands=len(stencils.nlm_candidates(hrw)),
+                             aliased=True),
         "normalize": dict(pixels=pixels),
     }
     nw0_b = nw0[..., None]
@@ -437,8 +473,10 @@ def write_animation(imageio, render_frame, root: str) -> dict:
 
 
 def phase_battery(cfg, stencils, cli, imageio, Session, anim, root):
-    """Drive gpu-denoise on the card, check the run's launches and outputs.
-    Returns the launch counts of the six-config run."""
+    """Drive gpu-denoise on the card, check the run's launches and outputs;
+    then the half-row NLM with float32 taps through Session.run, as a
+    library caller runs it. Returns the launch counts of the six-config run
+    and of the Session run, summed, and the exact outputs' directory."""
     target, clean = anim["target"], anim["clean"]
     out_main = os.path.join(root, "out")
     out_linear = os.path.join(root, "out_linear")
@@ -495,6 +533,25 @@ def phase_battery(cfg, stencils, cli, imageio, Session, anim, root):
           f"batched vs streamed multiframe: max abs {err_bs:.3g}")
     print(f"  tiled vs linear bilateral max abs {err_tl:.3g}; "
           f"batched vs streamed multiframe max abs {err_bs:.3g}")
+
+    # The half-row NLM with float32 taps: gpu-denoise runs it with bf16 taps
+    # only (--turbo), a library caller through Session with its NlmParams.
+    hrw = Session(target, device="cuda", output_dir=out_linear, warmup=False,
+                  nlm_params=cfg.NlmParams(search_stride=2, weights_halfres=True))
+    stencils.reset_launches()
+    out = hrw.run(cfg.GPU_BATTERY[3]).image
+    hrw_counts = {k: n for k, n in stencils.launches.items() if n}
+    check(hrw_counts == {"nlm_hrw": 1, "normalize": 1},
+          f"Session.run, half-row NLM: launches {hrw_counts}")
+    check(out.shape == (H, W, 4) and bool(np.isfinite(out).all()),
+          "Session.run, half-row NLM: output shape or non-finite values")
+    hrw_psnr = psnr(out, clean)
+    check(hrw_psnr > noisy_psnr, f"half-row NLM {hrw_psnr:.2f} dB vs clean, "
+                                 f"noisy {noisy_psnr:.2f} dB")
+    print(f"  Session.run nlm, half-row weights, float32 taps: launches {hrw_counts}, "
+          f"PSNR vs clean {hrw_psnr:.2f} dB")
+    for k, n in hrw_counts.items():
+        counts[k] += n
     return counts, out_main
 
 
@@ -512,14 +569,19 @@ def check_bf16_close(torch, got, want, what: str) -> None:
           f"{what}: {ulps} bf16 ulps apart, {flipped:.3%} of cells differ")
 
 
-def phase_turbo_kernels(torch, fast, cfg, frame_4k, frame_1080):
-    """The grid kernels and the pipeline against their plain versions: at 4K
+def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080):
+    """The grid kernels and the pipeline against their plain versions, and
+    the fused kernel against the build and slice kernels bit for bit: at 4K
     for each (D, K) of TURBO_CELLS, and on the 1080p target at each setting
-    of the turbo battery. Returns {kernel: {max_abs_err, ms, plain_ms}} and
-    prints the pipeline's Mpix/s at each D at 4K."""
+    of the turbo battery. Drives the fused path, grid_pipeline(fused=True),
+    at each 4K cell, its launch counts read just after each call. Returns
+    ({kernel: {max_abs_err, ms, plain_ms, ...}}, the fused path's summed
+    launch counts) and prints both pipelines' Mpix/s at each D at 4K."""
     img4k = torch.from_numpy(frame_4k).to("cuda")
     img1080 = torch.from_numpy(frame_1080).to("cuda")
-    results = {k: {"max_abs_err": 0.0} for k in ("pool", "build_grid", "slice_grid")}
+    results = {k: {"max_abs_err": 0.0}
+               for k in ("pool", "build_grid", "slice_grid", "fused_grid")}
+    path_counts = dict.fromkeys(stencils.launches, 0)
 
     def note(kernel, case, got, want):
         torch.cuda.synchronize()
@@ -564,6 +626,24 @@ def phase_turbo_kernels(torch, fast, cfg, frame_4k, frame_1080):
         got = fast.slice_grid(*slice_args)
         note("slice_grid", case, got, want)
         close(got, want, TOL_SLICE, f"slice_grid {case}")
+        fused_args = (small, img, lmin, step, 1.0 / step, *build_args[3:7], d, slice_args[5])
+        got = fast.fused_grid(*fused_args)
+        two = fast.slice_grid(img, fast.build_grid(*build_args), *slice_args[2:])
+        torch.cuda.synchronize()
+        check(torch.equal(got, two), f"fused_grid {case}: differs from the build and slice kernels")
+        # against its plain version, the composition of the two plain
+        # versions (`want`): the build's bf16 flips through the slice
+        note("fused_grid", case, got, want)
+        if label == "4K":  # the fused path, as a caller drives it
+            stencils.reset_launches()
+            fused_out = fast.grid_pipeline(img, bp, levels, d, fused=True)
+            counts = {k: n for k, n in stencils.launches.items() if n}
+            check(counts == {"pool": 1, "fused_grid": 1},
+                  f"grid_pipeline(fused=True) {case}: launches {counts}")
+            for k, n in counts.items():
+                path_counts[k] += n
+            check(torch.equal(fused_out, fast.bilateral_fast(img, bp, levels, d)),
+                  f"grid_pipeline(fused=True) {case}: differs from bilateral_fast")
         got = fast.bilateral_fast(img, bp, levels, d)
         want = fast.grid_pipeline_plain(img, bp, levels, d)
         torch.cuda.synchronize()
@@ -581,6 +661,8 @@ def phase_turbo_kernels(torch, fast, cfg, frame_4k, frame_1080):
                                lambda a=build_args: fast.build_grid_plain(*a)),
                 "slice_grid": (lambda a=slice_args: fast.slice_grid(*a),
                                lambda a=slice_args: fast.slice_grid_plain(*a)),
+                "fused_grid": (lambda a=fused_args: fast.fused_grid(*a),
+                               lambda a=fused_args: fast.fused_grid_plain(*a)),
             }
             shape = dict(pixels=img.shape[0] * img.shape[1], cells=small.shape[0] * small.shape[1],
                          levels=levels, taps=len(build_args[4]))
@@ -600,11 +682,14 @@ def phase_turbo_kernels(torch, fast, cfg, frame_4k, frame_1080):
     bp = cfg.BilateralParams()
     for d, levels in TURBO_CELLS:
         ms = median_ms(torch, lambda: fast.bilateral_fast(img4k, bp, levels, d), 10)
+        fused_ms = median_ms(torch, lambda: fast.grid_pipeline(img4k, bp, levels, d, fused=True),
+                             10)
         plain_ms = median_ms(torch, lambda: fast.grid_pipeline_plain(img4k, bp, levels, d), 3)
-        print(f"  pipeline D={d} K={levels} 4K median {ms:.4f} ms = {mpix / ms * 1e3:.1f} Mpix/s "
+        print(f"  pipeline D={d} K={levels} 4K median {ms:.4f} ms = {mpix / ms * 1e3:.1f} Mpix/s, "
+              f"fused {fused_ms:.4f} ms = {mpix / fused_ms * 1e3:.1f} Mpix/s "
               f"(plain {plain_ms:.4f} ms = {mpix / plain_ms * 1e3:.1f} Mpix/s)")
     time_kernels(torch, results, timed, dict.fromkeys(timed, shape), library, "4K D=2 K=5")
-    return results
+    return results, path_counts
 
 
 def time_kernels(torch, results, timed, shapes, library, where: str) -> None:
@@ -711,10 +796,11 @@ def phase_guided_kernels(torch, fast, cfg, images):
 # Kernels each turbo run may launch, and must: the grid configs through the
 # bilateral grid (pool, build, slice; D=1 is the eager lattice) and the
 # guided grid (fused at D = 2 and 4, the guided build and slice at D = 1 and
-# 8, beside the pool); the NLM configs through the bf16 NLM and normalize.
-def turbo_kernels(d: int, nlm: bool) -> set:
+# 8, beside the pool); the NLM configs through the bf16 NLM, or with
+# --weights-halfres the bf16 half-row NLM, and normalize.
+def turbo_kernels(d: int, nlm: bool, flags: tuple = ()) -> set:
     if nlm:
-        return {"nlm_bf16", "normalize"}
+        return {"nlm_hrw_bf16" if "--weights-halfres" in flags else "nlm_bf16", "normalize"}
     guided = {"fused_guided"} if d in (2, 4) else {"build_guided_grid", "slice_guided_grid"}
     return {"pool"} | guided | ({"build_grid", "slice_grid"} if d > 1 else set())
 
@@ -727,26 +813,31 @@ def output_names(cli, cfg) -> dict:
 def turbo_battery(cli, cfg, imageio, anim, root, exact, device, run):
     """gpu-denoise --turbo D on anim's target, as phase 7 and
     tools/torch_turbo_quality.py make it: for each (D, sigma_s) of
-    TURBO_RUNS one run of the grid configs, and at D = 2 one of NLM_CONFIGS.
-    exact: {config: its exact output}; run(argv) calls cli.main once and
-    returns (rc, stdout, stderr). Yields each run as (D, sigma_s, keys,
-    stdout, {key: (output, dB vs clean, dB vs exact, RGB dB vs exact)}), the
-    grid configs read against the exact tiled bilateral."""
+    TURBO_RUNS one run of the grid configs, and at D = 2 one of NLM_CONFIGS
+    for each flags of NLM_RUNS. exact: {config: its exact output}; run(argv)
+    calls cli.main once and returns (rc, stdout, stderr). Yields each run as
+    (D, sigma_s, keys, flags, stdout, {key: (output, dB vs clean, dB vs
+    exact, RGB dB vs exact)}), the grid configs read against the exact tiled
+    bilateral."""
     names = output_names(cli, cfg)
     for d, sigma_s in TURBO_RUNS:
-        for keys in [cli.GRID_CONFIGS] + ([NLM_CONFIGS] if d == 2 else []):
-            out_dir = os.path.join(root, f"turbo{d}_{keys[0]}")
+        runs = [(cli.GRID_CONFIGS, ())]
+        if d == 2:
+            runs += [(NLM_CONFIGS, flags) for flags in NLM_RUNS]
+        for keys, flags in runs:
+            out_dir = os.path.join(root, f"turbo{d}_{keys[0]}{'_hrw' if flags else ''}")
             rc, text, err = run([anim["target"], "--device", device, "--clamp", "--turbo", str(d),
-                                 "--sigma-spatial", f"{sigma_s:g}", "--configs", ",".join(keys),
-                                 "--output-dir", out_dir])
-            check(rc == 0, f"--turbo {d} --configs {','.join(keys)} failed ({rc}): {err.strip()}")
+                                 *flags, "--sigma-spatial", f"{sigma_s:g}", "--configs",
+                                 ",".join(keys), "--output-dir", out_dir])
+            what = " ".join(("--turbo", str(d), *flags, "--configs", ",".join(keys)))
+            check(rc == 0, f"{what} failed ({rc}): {err.strip()}")
             readings = {}
             for key in keys:
                 out = imageio.load(os.path.join(out_dir, names[key]))[0]
                 ref = exact["bilateral" if key == "linear" else key]
                 readings[key] = (out, psnr(out, anim["clean"]), psnr(out, ref),
                                  psnr(out[..., :3], ref[..., :3]))
-            yield d, sigma_s, keys, text, readings
+            yield d, sigma_s, keys, flags, text, readings
 
 
 def phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir):
@@ -761,6 +852,7 @@ def phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir):
     # config: (gate in dB against exact, channels it reads)
     gates = {"bilateral": (TURBO_GATE_DB, 4), "layers": (TURBO_LAYERS_GATE_DB, 3),
              "nlm": (TURBO_NLM_GATE_DB, 3)}
+    hrw_gates = {"nlm": (TURBO_HRW_GATE_DB, 3)}
     totals = dict.fromkeys(stencils.launches, 0)
     counts = {}
 
@@ -770,10 +862,11 @@ def phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir):
         counts.update(stencils.launches)
         return result
 
-    for d, sigma_s, keys, text, readings in turbo_battery(cli, cfg, imageio, anim, root, exact,
-                                                          "cuda", run):
-        what = f"--turbo {d} --configs {','.join(keys)}"
-        expected = turbo_kernels(d, keys[0] == "nlm")
+    for d, sigma_s, keys, flags, text, readings in turbo_battery(cli, cfg, imageio, anim, root,
+                                                                 exact, "cuda", run):
+        what = " ".join(("--turbo", str(d), *flags, "--configs", ",".join(keys)))
+        expected = turbo_kernels(d, keys[0] == "nlm", flags)
+        run_gates = hrw_gates if flags else gates
         check(all(counts[k] > 0 for k in expected), f"{what}: launches {counts}")
         check(all(counts[k] == 0 for k in counts if k not in expected),
               f"{what} launched a kernel of another path: {counts}")
@@ -789,8 +882,8 @@ def phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir):
                   f"{what} {key}: output shape {out.shape} or non-finite values")
             check(db_clean > noisy_psnr, f"{what} {key}: {db_clean:.2f} dB vs clean, "
                                          f"noisy {noisy_psnr:.2f} dB")
-            if d == 2 and key in gates:
-                gate, channels = gates[key]
+            if d == 2 and key in run_gates:
+                gate, channels = run_gates[key]
                 got = db_exact if channels == 4 else db_rgb
                 check(got >= gate, f"{what} {key}: {got:.2f} dB vs exact over "
                                    f"{channels} channels < {gate} dB")
@@ -841,8 +934,9 @@ def main() -> int:
         print(f"[5/7] turbo grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
         noisy_4k, layers_4k = render_frame(0.5, H4K, W4K, np.random.default_rng(SEED),
                                            noise=NOISE)
-        kernels.update(phase_turbo_kernels(torch, fast, cfg, noisy_4k,
-                                           anim["frames"][TARGET_FRAME]))
+        turbo_kernels_results, fused_counts = phase_turbo_kernels(
+            torch, fast, stencils, cfg, noisy_4k, anim["frames"][TARGET_FRAME])
+        kernels.update(turbo_kernels_results)
         print(f"[6/7] guided grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
         images = {
             "4K": (noisy_4k, np.clip(layers_4k["albedo"], 0, 1)),
@@ -864,30 +958,22 @@ def main() -> int:
         "bilateral_guided": (KERNEL_SOURCE, f"{JAX_STENCILS}:178"),
         "nlm": (KERNEL_SOURCE, f"{JAX_STENCILS}:467"),
         "nlm_bf16": (KERNEL_SOURCE, f"{JAX_STENCILS}:467"),
+        "nlm_hrw": (KERNEL_SOURCE, f"{JAX_STENCILS}:645"),
+        "nlm_hrw_bf16": (KERNEL_SOURCE, f"{JAX_STENCILS}:645"),
         "normalize": (KERNEL_SOURCE, f"{JAX_STENCILS}:1039"),
         "pool": (FAST_SOURCE, f"{JAX_FAST}:83"),
         "build_grid": (FAST_SOURCE, f"{JAX_FAST}:1018"),
         "slice_grid": (FAST_SOURCE, f"{JAX_FAST}:502"),
+        "fused_grid": (FAST_SOURCE, f"{JAX_FAST}:730"),
         "build_guided_grid": (FAST_SOURCE, f"{JAX_FAST}:1269"),
         "slice_guided_grid": (FAST_SOURCE, f"{JAX_FAST}:1372"),
         "fused_guided": (FAST_SOURCE, f"{JAX_FAST}:1516"),
     }
-    # The bounds of the two TPU kernels still to port, at the shapes their
-    # paths would give them: #3 the turbo NLM with half-row weights (1080p,
-    # F=1, stride 2), #7 the fused bilateral grid (4K, D=2, K=5).
-    cells_4k = -(-H4K // 2) * -(-W4K // 2)
-    for name, work in (
-        ("nlm_hrw (#3)", kernel_work("nlm_hrw", H * W, cands=len(stencils.nlm_candidates(
-            cfg.NlmParams(search_stride=2))), aliased=True)),
-        ("fused_grid (#7)", kernel_work("fused_grid", H4K * W4K, cells=cells_4k, levels=5,
-                                        taps=len(fast._grid_taps(2.0, 2)))),
-    ):
-        b = bound(*work)
-        print(f"  still to port: {name} bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": where,
-         "launches": counts[name] + totals[name], **{k: kernels[name][k] for k in keys}}
+         "launches": counts[name] + fused_counts[name] + totals[name],
+         **{k: kernels[name][k] for k in keys}}
         for name, (source, where) in replaces.items()
     ]}
     for k in line["kernels"]:

@@ -9,7 +9,8 @@ flag-encoded names (src/main.cpp:1677-1682). `--device` picks the device;
 `cuda` without a card is an error. `--turbo D` runs every config in its
 approximate form, as tpu-denoise does: the bilateral, linear and layers
 configs through the grids with spatial reduction D (Session.run_turbo), the
-NLM configs with a stride-2 search and bf16 taps (Session.run).
+NLM configs with a stride-2 search and bf16 taps (Session.run);
+`--weights-halfres` adds the NLM weights at half row resolution to them.
 """
 
 from __future__ import annotations
@@ -37,9 +38,6 @@ NOT_PORTED = ("cpu1", "cpu8")
 # The configs --turbo runs through the grids; the NLM configs take a
 # stride-2 search with bf16 taps instead.
 GRID_CONFIGS = ("bilateral", "linear", "layers")
-# The NLM weights at half row resolution wait for their kernel (#3,
-# _nlm_hrw_kernel).
-HALFRES_NOT_PORTED = "ROADMAP.md queue A item 8, kernel queue B item 7 (_nlm_hrw_kernel)"
 
 _CONFIG_BANNERS = {
     # main.cpp:1952-1972 banners, modernized
@@ -127,8 +125,10 @@ def main(argv: list[str] | None = None) -> int:
     )
     ap.add_argument(
         "--weights-halfres", action="store_true",
-        help="NLM weights at half row resolution; requires --turbo, and is not "
-        f"ported yet ({HALFRES_NOT_PORTED}): refused",
+        help="compute the NLM weight field at half row resolution (bilinear "
+        "row upsample; value taps stay full resolution): the NLM configs run "
+        "the half-row NLM kernel; requires --turbo (stride-2 search) and "
+        "patch radius 3",
     )
     args = ap.parse_args(argv)
 
@@ -142,12 +142,8 @@ def main(argv: list[str] | None = None) -> int:
             print(f"error: unknown config {key!r} (choose from {','.join(CONFIG_KEYS)})",
                   file=sys.stderr)
             return 1
-    if args.weights_halfres:
-        if not args.turbo:
-            print("error: --weights-halfres requires --turbo (stride-2 search)", file=sys.stderr)
-        else:
-            print(f"error: --weights-halfres is not ported yet ({HALFRES_NOT_PORTED})",
-                  file=sys.stderr)
+    if args.weights_halfres and not args.turbo:
+        print("--weights-halfres requires --turbo (stride-2 search)", file=sys.stderr)
         return 1
 
     try:
@@ -175,6 +171,7 @@ def main(argv: list[str] | None = None) -> int:
             # The turbo NLM: every second search candidate along each axis.
             search_stride=2 if args.turbo else 1,
             search_disk=args.search_disk,
+            weights_halfres=args.weights_halfres,
         )
         frame_cache: dict = {}
         os.makedirs(args.output_dir, exist_ok=True)

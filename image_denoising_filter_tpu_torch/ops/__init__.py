@@ -2,18 +2,17 @@
 
   * `stencils.*` -- hand-written CUDA kernels of the exact battery (tiled
     layout, the production path on the card) and of the turbo NLM (bf16
-    taps), each with its plain PyTorch version and launch count;
+    taps, and the half-row weights of `weights_halfres`), each with its
+    plain PyTorch version and launch count;
   * `fast.*` -- the turbo grids: the bilateral grid (`bilateral_fast`:
-    pool, grid build, grid slice) and the layer-guided grid
+    pool, grid build, grid slice; `grid_pipeline(fused=True)` the fused
+    build+slice) and the layer-guided grid
     (`cross_bilateral_layers_fast`: pool, guided build and slice, or the
     fused guided build+slice), hand-written CUDA kernels with their plain
     versions and launch counts, and `normalize_layers_fast`;
   * `eager.*` -- whole-image tensor ops: the linear-layout config, and the
     bilateral grid's lattice path (`bilateral_fast_eager`, the turbo mode at
     downsample 1).
-
-Not ported yet: the NLM weights at half row resolution (`weights_halfres`)
-and the fused bilateral build+slice (ROADMAP.md queue B items 7 and 11).
 """
 
 from .eager import (  # noqa: F401

@@ -118,6 +118,10 @@ def library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, i32, f32, f32, f32, i32, i32, i32, ptr,
     ]
     lib.idf_nlm.restype = i32
+    lib.idf_nlm_hrw.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, f32, f32, f32, i32, i32, i32, ptr,
+    ]
+    lib.idf_nlm_hrw.restype = i32
     lib.idf_normalize.argtypes = [ptr, ptr, ptr, i32, f32, f32, f32, f32, ptr]
     lib.idf_normalize.restype = i32
     lib.idf_pool.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
@@ -138,6 +142,12 @@ def library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr,
     ]
     lib.idf_slice_guided_grid.restype = i32
+    lib.idf_fused_grid.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, i32, f32, i32, i32, ptr,
+    ]
+    lib.idf_fused_grid.restype = i32
+    lib.idf_fused_grid_fits.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.idf_fused_grid_fits.restype = i32
     lib.idf_fused_guided.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, ptr, i32, f32, i32, i32, ptr,

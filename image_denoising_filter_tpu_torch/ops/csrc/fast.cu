@@ -1,9 +1,10 @@
 // Hand-written Hopper (sm_90a) kernels of the turbo grids. The bilateral
 // grid: the d x d mean pool, the grid build (per-level range weights,
-// Gaussian blur, normalize, bf16 store) and the grid slice (tent
-// interpolation across the levels of the bilinearly upsampled grid). The
-// layer-guided grid: the guided build (weights from a layer, payload from the
-// target, unnormalized), the guided slice, and the two fused per slice tile.
+// Gaussian blur, normalize, bf16 store), the grid slice (tent interpolation
+// across the levels of the bilinearly upsampled grid), and the two fused per
+// slice tile. The layer-guided grid: the guided build (weights from a layer,
+// payload from the target, unnormalized), the guided slice, and the two
+// fused per slice tile.
 //
 // Layouts: images (H, W, 4) float32, one pixel one float4; the pooled image
 // (hs, ws, 4) float32, hs = ceil(H/d), ws = ceil(W/d); the bilateral grid
@@ -464,63 +465,35 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
   out_nw[3 * idx + 2] = acc[6];
 }
 
-// The fused guided kernel's slice tile: 16 x 128 pixels, 256 threads, each
-// thread one column and every second row (kFusedRows pixels).
+// The fused kernels' slice tile: 16 x 128 pixels, 256 threads, each thread
+// one column and every second row (kFusedRows pixels).
 constexpr int kFusedTileH = 16;
 constexpr int kFusedTileW = 128;
 constexpr int kFusedThreads = 256;
 constexpr int kFusedRows = kFusedTileH * kFusedTileW / kFusedThreads;
-// Room kept beside the dynamic shared memory for the kernel's static arrays.
+constexpr int kRowStep = kFusedThreads / kFusedTileW;
+// Room kept beside the dynamic shared memory for the kernels' static arrays.
 constexpr size_t kStaticSharedReserve = 1024;
 
-// Shared memory of one block at downsample d with blur radius r: the staged
-// pooled target and layer (float4 each) over the tile's cells plus the blur
-// halo, the vertical sums of the seven fields, and one level's cells.
-size_t fused_shared_bytes(int d, int r) {
+// Shared memory of one fused block at downsample d with blur radius r: the
+// n_images staged pooled images (float4 each) over the tile's cells plus the
+// blur halo, the vertical sums of the seven fields, and one level's cells of
+// cell_bytes each.
+size_t fused_shared_bytes(int d, int r, int n_images, size_t cell_bytes) {
   const size_t rows = kFusedTileH / d + 2, cols = kFusedTileW / d + 2;
-  const size_t staged = 2 * (rows + 2 * r) * (cols + 2 * r) * sizeof(float4);
+  const size_t staged = n_images * (rows + 2 * r) * (cols + 2 * r) * sizeof(float4);
   const size_t vsum = (kGuided * rows * (cols + 2 * r) * sizeof(float) + 15) / 16 * 16;
-  return staged + vsum + rows * cols * sizeof(Bf16x8);
+  return staged + vsum + rows * cols * cell_bytes;
 }
 
-// Fused guided build + slice: one block per 16 x 128-pixel slice tile.
-//
-// Replaces image_denoising_filter_tpu/ops/fast.py:
-// _fused_guided_pipeline_planar. The block stages the pooled target and
-// layer of the cells its pixels' bilinear taps read (with the blur halo) in
-// shared memory, finds the levels the tile's t touch, [floor(tmin_c),
-// ceil(tmax_c)] over the three channels, and for each of them builds that
-// level's cells in shared memory (a vertical then a horizontal blur pass,
-// the range weights shared by the whole tile) and adds its tents to the
-// pixels' partials, which stay in registers. The 7 K hs ws grid never goes
-// to device memory. Each cell's sums are the build kernel's, in its order,
-// and each pixel's the slice kernel's, so the output equals the two-kernel
-// path bit for bit; cells outside the grid are the edge cells (clamped
-// index), as the two-kernel path's edge replication gives them.
-//
-// Bound on the H100: device memory, the full-resolution layer read (16 B a
-// pixel) and the partials written (28 B a pixel) beside the two pooled
-// images read once. Per level, a tile costs (rows + 0) x (cols + 2r) x
-// (2r + 1) tap evaluations of 3 exp2: at d = 2, r = 4 about 10 exp2 a pixel
-// and level, an eighth of what the build kernel spends.
-template <bool ZERO>
-__global__ void __launch_bounds__(kFusedThreads)
-    fused_guided_kernel(const float4* __restrict__ small_t, const float4* __restrict__ small_l,
-                        const float4* __restrict__ guide, const float* __restrict__ lmin,
-                        const float* __restrict__ step, const float* __restrict__ inv_step,
-                        float4* __restrict__ out_wc, float* __restrict__ out_nw, int h, int w,
-                        int hs, int ws, int levels, const Taps taps, float coef, float inv_d,
-                        int max_rows, int max_cols) {
-  extern __shared__ float4 smem[];
-  __shared__ float red[kFusedThreads / 32][6];
-  __shared__ int level_range[2];
-  const int tid = threadIdx.x;
-  const int r = taps.n / 2;
+// The cell window of a fused block's slice tile: the cells its pixels'
+// bilinear taps read, clamped to the grid, as (first row, first column, rows,
+// columns).
+__device__ __forceinline__ int4 fused_window(int h, int w, int hs, int ws, float inv_d) {
   const int py0 = blockIdx.y * kFusedTileH;
   const int px0 = blockIdx.x * kFusedTileW;
   const int py_last = min(py0 + kFusedTileH, h) - 1;
   const int px_last = min(px0 + kFusedTileW, w) - 1;
-  // The cells the tile's bilinear taps read, clamped to the grid.
   const int ay0 = min(max(static_cast<int>(floorf(
                               __fmul_rn(static_cast<float>(py0) + 0.5f, inv_d) - 0.5f)), 0), hs - 1);
   const int ay1 = min(max(static_cast<int>(floorf(
@@ -529,45 +502,46 @@ __global__ void __launch_bounds__(kFusedThreads)
                               __fmul_rn(static_cast<float>(px0) + 0.5f, inv_d) - 0.5f)), 0), ws - 1);
   const int ax1 = min(max(static_cast<int>(floorf(
                               __fmul_rn(static_cast<float>(px_last) + 0.5f, inv_d) - 0.5f)) + 1, 0), ws - 1);
-  const int rows = ay1 - ay0 + 1;
-  const int cols = ax1 - ax0 + 1;
-  const int srows = rows + 2 * r;
-  const int scols = cols + 2 * r;
-  const int max_scols = max_cols + 2 * r;
-  float4* st_t = smem;
-  float4* st_l = st_t + (max_rows + 2 * r) * max_scols;
-  float* vsum = reinterpret_cast<float*>(st_l + (max_rows + 2 * r) * max_scols);
-  const int vplane = max_rows * max_scols;
-  Bf16x8* cells = reinterpret_cast<Bf16x8*>(
-      vsum + (kGuided * vplane + 3) / 4 * 4);
+  return make_int4(ay0, ax0, ay1 - ay0 + 1, ax1 - ax0 + 1);
+}
 
-  // Stage the pooled window with the build kernel's border rule.
-  for (int i = tid; i < srows * scols; i += kFusedThreads) {
-    const int yy = ay0 - r + i / scols;
-    const int xx = ax0 - r + i % scols;
+// Stage a pooled image's window of srows x scols cells from (y0, x0) into
+// shared memory with the build kernels' border rule: edge cells (CLAMP) or
+// zero pixels (ZERO).
+template <bool ZERO>
+__device__ __forceinline__ void stage_window(const float4* __restrict__ small, float4* dst,
+                                             int y0, int x0, int srows, int scols, int hs,
+                                             int ws) {
+  for (int i = threadIdx.x; i < srows * scols; i += kFusedThreads) {
+    const int yy = y0 + i / scols;
+    const int xx = x0 + i % scols;
     float4 p = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 l = p;
-    if (!ZERO || (yy >= 0 && yy < hs && xx >= 0 && xx < ws)) {
-      const size_t j = static_cast<size_t>(min(max(yy, 0), hs - 1)) * ws + min(max(xx, 0), ws - 1);
-      p = __ldg(small_t + j);
-      l = __ldg(small_l + j);
-    }
-    st_t[i] = p;
-    st_l[i] = l;
+    if (!ZERO || (yy >= 0 && yy < hs && xx >= 0 && xx < ws))
+      p = __ldg(small + static_cast<size_t>(min(max(yy, 0), hs - 1)) * ws + min(max(xx, 0), ws - 1));
+    dst[i] = p;
   }
+}
 
-  // Each thread's pixels: t per channel, and the range of t over the tile.
+// Each thread's pixels' t per RGB channel (a pixel outside the image gets
+// -2, which no tent reaches), and the levels [floor(tmin_c), ceil(tmax_c)]
+// that the block's pixels touch over the three channels, as (first, last).
+// Synchronises the block.
+__device__ __forceinline__ int2 tile_levels(const float4* __restrict__ guide, int h, int w,
+                                            const float* __restrict__ lmin,
+                                            const float* __restrict__ inv_step, int levels,
+                                            float (&t)[kFusedRows][3]) {
+  __shared__ float red[kFusedThreads / 32][6];
+  __shared__ int level_range[2];
+  const int tid = threadIdx.x;
+  const int px = blockIdx.x * kFusedTileW + tid % kFusedTileW;
+  const int py0 = blockIdx.y * kFusedTileH + tid / kFusedTileW;
   const float kmax = static_cast<float>(levels - 1);
   const float lmin0 = lmin[0], lmin1 = lmin[1], lmin2 = lmin[2];
   const float is0 = inv_step[0], is1 = inv_step[1], is2 = inv_step[2];
-  const int px = px0 + tid % kFusedTileW;
-  const int row0 = tid / kFusedTileW;
-  constexpr int kRowStep = kFusedThreads / kFusedTileW;
-  float t[kFusedRows][3];
   float tmin[3] = {kmax, kmax, kmax}, tmax[3] = {0.f, 0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < kFusedRows; ++i) {
-    const int py = py0 + row0 + kRowStep * i;
+    const int py = py0 + kRowStep * i;
     if (px < w && py < h) {
       const float4 g = guide[static_cast<size_t>(py) * w + px];
       t[i][0] = clip_t(g.x, lmin0, is0, kmax);
@@ -609,11 +583,214 @@ __global__ void __launch_bounds__(kFusedThreads)
     level_range[1] = static_cast<int>(ceilf(hi));
   }
   __syncthreads();
-  const int k_lo = level_range[0];
-  const int k_hi = level_range[1];
+  return make_int2(level_range[0], level_range[1]);
+}
+
+// The vertical blur pass of one level over the staged window: per cell row
+// cy and staged column sx, the seven fields of add_guided_tap summed over
+// the taps of the column (the build kernels' inner loop), weights from the
+// staged layer st_l and payload from the staged st_p (the same image for the
+// bilateral grid). Writes vsum[j * vplane + cy * vstride + sx].
+__device__ __forceinline__ void fused_vertical_pass(const float4* st_p, const float4* st_l,
+                                                    float* vsum, int rows, int scols,
+                                                    int vstride, int vplane, const Taps& taps,
+                                                    float lv0, float lv1, float lv2,
+                                                    float coef) {
+  for (int i = threadIdx.x; i < rows * scols; i += kFusedThreads) {
+    const int cy = i / scols;
+    const int sx = i % scols;
+    float col[kGuided] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int a = 0; a < taps.n; ++a) {
+      const int s = (cy + a) * scols + sx;
+      add_guided_tap(col, taps.t[a], st_p[s], st_l[s], lv0, lv1, lv2, coef);
+    }
+#pragma unroll
+    for (int j = 0; j < kGuided; ++j) vsum[j * vplane + cy * vstride + sx] = col[j];
+  }
+}
+
+// The horizontal blur pass of one cell (cy, cx): the weighted sum of the
+// vertical sums of its 2r + 1 columns, the build kernels' outer loop.
+__device__ __forceinline__ void fused_horizontal_sums(const float* vsum, int cy, int cx,
+                                                      int vstride, int vplane,
+                                                      const Taps& taps,
+                                                      float (&sum)[kGuided]) {
+#pragma unroll
+  for (int j = 0; j < kGuided; ++j) sum[j] = 0.f;
+  for (int b = 0; b < taps.n; ++b) {
+    const float tb = taps.t[b];
+#pragma unroll
+    for (int j = 0; j < kGuided; ++j)
+      sum[j] = __fadd_rn(sum[j], __fmul_rn(tb, vsum[j * vplane + cy * vstride + cx + b]));
+  }
+}
+
+// Fused bilateral build + slice: one block per 16 x 128-pixel slice tile.
+//
+// Replaces image_denoising_filter_tpu/ops/fast.py:
+// _fused_grid_pipeline_planar. The block stages the pooled image of the
+// cells its pixels' bilinear taps read (with the blur halo) in shared
+// memory, finds the levels the tile's t touch, [floor(tmin_c), ceil(tmax_c)]
+// over the three channels, and for each of them builds that level's cells in
+// shared memory (a vertical then a horizontal blur pass, the range weights
+// shared by the whole tile; num / max(den, 1e-20) rounded to bf16, alpha by
+// green's weights) and adds its tents to the pixels' outputs, which stay in
+// registers. The (K, hs, ws, 4) grid never goes to device memory. Each
+// cell's sums are build_grid_kernel's, in its order, and each pixel's
+// slice_grid_kernel's, so the output equals pool -> build -> slice bit for
+// bit; cells outside the grid are the edge cells (clamped index), as the
+// slice kernel's clamped cell index reads them. The TPU kernel telescopes
+// its tent sum over bf16 level deltas rebased at floor(tmin); this sums the
+// two levels a pixel touches, as the slice kernel does.
+//
+// Bound on the H100: device memory, the image read (16 B a pixel) and the
+// output written (16 B a pixel) beside the pooled image read once. Per
+// level, a tile costs rows x (cols + 2r) x (2r + 1) tap evaluations of
+// 3 exp2: at d = 2, r = 4 about 10 exp2 a pixel and level, an eighth of
+// what the build kernel spends. The design is fused_guided_kernel's with one
+// staged image and four bf16 cell planes.
+template <bool ZERO, bool UNIFORM_ALPHA>
+__global__ void __launch_bounds__(kFusedThreads)
+    fused_grid_kernel(const float4* __restrict__ small, const float4* __restrict__ img,
+                      const float* __restrict__ lmin, const float* __restrict__ step,
+                      const float* __restrict__ inv_step, const float* __restrict__ alpha,
+                      float4* __restrict__ out, int h, int w, int hs, int ws, int levels,
+                      const Taps taps, float coef, float inv_d, int max_rows, int max_cols) {
+  extern __shared__ float4 smem[];
+  const int r = taps.n / 2;
+  const int4 win = fused_window(h, w, hs, ws, inv_d);
+  const int ay0 = win.x, ax0 = win.y, rows = win.z, cols = win.w;
+  const int scols = cols + 2 * r;
+  const int max_scols = max_cols + 2 * r;
+  float4* staged = smem;
+  float* vsum = reinterpret_cast<float*>(staged + (max_rows + 2 * r) * max_scols);
+  const int vplane = max_rows * max_scols;
+  Bf16x4* cells = reinterpret_cast<Bf16x4*>(vsum + (kGuided * vplane + 3) / 4 * 4);
+  stage_window<ZERO>(small, staged, ay0 - r, ax0 - r, rows + 2 * r, scols, hs, ws);
+  float t[kFusedRows][3];
+  const int2 k_range = tile_levels(img, h, w, lmin, inv_step, levels, t);
+
+  const int px = blockIdx.x * kFusedTileW + threadIdx.x % kFusedTileW;
+  const int py0 = blockIdx.y * kFusedTileH + threadIdx.x / kFusedTileW;
+  const float gx = __fmul_rn(static_cast<float>(px) + 0.5f, inv_d) - 0.5f;
+  const float fx = floorf(gx);
+  const int x0 = min(max(static_cast<int>(fx), 0), ws - 1) - ax0;
+  const int x1 = min(max(static_cast<int>(fx) + 1, 0), ws - 1) - ax0;
+  const float wx = gx - fx;
+
+  float4 acc[kFusedRows];
+#pragma unroll
+  for (int i = 0; i < kFusedRows; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const float lmin0 = lmin[0], lmin1 = lmin[1], lmin2 = lmin[2];
+  const float step0 = step[0], step1 = step[1], step2 = step[2];
+  for (int k = k_range.x; k <= k_range.y; ++k) {
+    const float kf = static_cast<float>(k);
+    const float lv0 = __fadd_rn(lmin0, __fmul_rn(step0, kf));
+    const float lv1 = __fadd_rn(lmin1, __fmul_rn(step1, kf));
+    const float lv2 = __fadd_rn(lmin2, __fmul_rn(step2, kf));
+    fused_vertical_pass(staged, staged, vsum, rows, scols, max_scols, vplane, taps, lv0, lv1,
+                        lv2, coef);
+    __syncthreads();
+    // Horizontal pass, then build_grid_kernel's normalize and bf16 store.
+    for (int i = threadIdx.x; i < rows * cols; i += kFusedThreads) {
+      float s[kGuided];
+      fused_horizontal_sums(vsum, i / cols, i % cols, max_scols, vplane, taps, s);
+      const float safe1 = fmaxf(s[5], 1e-20f);
+      Bf16x4 cell;
+      cell.lo = __floats2bfloat162_rn(s[0] / fmaxf(s[4], 1e-20f), s[1] / safe1);
+      cell.hi = __floats2bfloat162_rn(s[2] / fmaxf(s[6], 1e-20f),
+                                      UNIFORM_ALPHA ? 0.f : s[3] / safe1);
+      cells[i] = cell;
+    }
+    __syncthreads();
+    // Slice this level into the pixels' outputs (slice_grid_kernel's sums).
+#pragma unroll
+    for (int i = 0; i < kFusedRows; ++i) {
+      const float e0 = fmaxf(1.f - fabsf(t[i][0] - kf), 0.f);
+      const float e1 = fmaxf(1.f - fabsf(t[i][1] - kf), 0.f);
+      const float e2 = fmaxf(1.f - fabsf(t[i][2] - kf), 0.f);
+      if (e0 == 0.f && e1 == 0.f && e2 == 0.f) continue;
+      const int py = py0 + kRowStep * i;
+      const float gy = __fmul_rn(static_cast<float>(py) + 0.5f, inv_d) - 0.5f;
+      const float fy = floorf(gy);
+      const int y0 = min(max(static_cast<int>(fy), 0), hs - 1) - ay0;
+      const int y1 = min(max(static_cast<int>(fy) + 1, 0), hs - 1) - ay0;
+      const float4 row0 = lerp4(load_cell(cells, y0, x0, cols), load_cell(cells, y0, x1, cols), wx);
+      const float4 row1 = lerp4(load_cell(cells, y1, x0, cols), load_cell(cells, y1, x1, cols), wx);
+      const float4 up = lerp4(row0, row1, gy - fy);
+      acc[i].x = __fadd_rn(acc[i].x, __fmul_rn(e0, up.x));
+      acc[i].y = __fadd_rn(acc[i].y, __fmul_rn(e1, up.y));
+      acc[i].z = __fadd_rn(acc[i].z, __fmul_rn(e2, up.z));
+      if (!UNIFORM_ALPHA) acc[i].w = __fadd_rn(acc[i].w, __fmul_rn(e1, up.w));
+    }
+    // The next level's vertical pass overwrites vsum, read above only
+    // before the second barrier; cells are rewritten after its barrier.
+  }
+
+#pragma unroll
+  for (int i = 0; i < kFusedRows; ++i) {
+    const int py = py0 + kRowStep * i;
+    if (px >= w || py >= h) continue;
+    if (UNIFORM_ALPHA) acc[i].w = *alpha;
+    out[static_cast<size_t>(py) * w + px] = acc[i];
+  }
+}
+
+// Fused guided build + slice: one block per 16 x 128-pixel slice tile.
+//
+// Replaces image_denoising_filter_tpu/ops/fast.py:
+// _fused_guided_pipeline_planar. The block stages the pooled target and
+// layer of the cells its pixels' bilinear taps read (with the blur halo) in
+// shared memory, finds the levels the tile's t touch, [floor(tmin_c),
+// ceil(tmax_c)] over the three channels, and for each of them builds that
+// level's cells in shared memory (a vertical then a horizontal blur pass,
+// the range weights shared by the whole tile) and adds its tents to the
+// pixels' partials, which stay in registers. The 7 K hs ws grid never goes
+// to device memory. Each cell's sums are the build kernel's, in its order,
+// and each pixel's the slice kernel's, so the output equals the two-kernel
+// path bit for bit; cells outside the grid are the edge cells (clamped
+// index), as the two-kernel path's edge replication gives them.
+//
+// Bound on the H100: device memory, the full-resolution layer read (16 B a
+// pixel) and the partials written (28 B a pixel) beside the two pooled
+// images read once. Per level, a tile costs (rows + 0) x (cols + 2r) x
+// (2r + 1) tap evaluations of 3 exp2: at d = 2, r = 4 about 10 exp2 a pixel
+// and level, an eighth of what the build kernel spends.
+template <bool ZERO>
+__global__ void __launch_bounds__(kFusedThreads)
+    fused_guided_kernel(const float4* __restrict__ small_t, const float4* __restrict__ small_l,
+                        const float4* __restrict__ guide, const float* __restrict__ lmin,
+                        const float* __restrict__ step, const float* __restrict__ inv_step,
+                        float4* __restrict__ out_wc, float* __restrict__ out_nw, int h, int w,
+                        int hs, int ws, int levels, const Taps taps, float coef, float inv_d,
+                        int max_rows, int max_cols) {
+  extern __shared__ float4 smem[];
+  const int r = taps.n / 2;
+  const int4 win = fused_window(h, w, hs, ws, inv_d);
+  const int ay0 = win.x, ax0 = win.y, rows = win.z, cols = win.w;
+  const int srows = rows + 2 * r;
+  const int scols = cols + 2 * r;
+  const int max_scols = max_cols + 2 * r;
+  float4* st_t = smem;
+  float4* st_l = st_t + (max_rows + 2 * r) * max_scols;
+  float* vsum = reinterpret_cast<float*>(st_l + (max_rows + 2 * r) * max_scols);
+  const int vplane = max_rows * max_scols;
+  Bf16x8* cells = reinterpret_cast<Bf16x8*>(
+      vsum + (kGuided * vplane + 3) / 4 * 4);
+
+  // Stage the pooled window with the build kernel's border rule.
+  stage_window<ZERO>(small_t, st_t, ay0 - r, ax0 - r, srows, scols, hs, ws);
+  stage_window<ZERO>(small_l, st_l, ay0 - r, ax0 - r, srows, scols, hs, ws);
+
+  // Each thread's pixels: t per channel, and the range of t over the tile.
+  float t[kFusedRows][3];
+  const int2 k_range = tile_levels(guide, h, w, lmin, inv_step, levels, t);
 
   // Per pixel row: the bilinear rows in the block's cell window; per column
   // the same for every row of the thread.
+  const int px = blockIdx.x * kFusedTileW + threadIdx.x % kFusedTileW;
+  const int py0 = blockIdx.y * kFusedTileH + threadIdx.x / kFusedTileW;
   const float gx = __fmul_rn(static_cast<float>(px) + 0.5f, inv_d) - 0.5f;
   const float fx = floorf(gx);
   const int x0 = min(max(static_cast<int>(fx), 0), ws - 1) - ax0;
@@ -626,38 +803,21 @@ __global__ void __launch_bounds__(kFusedThreads)
 #pragma unroll
     for (int j = 0; j < kGuided; ++j) acc[i][j] = 0.f;
 
+  const float lmin0 = lmin[0], lmin1 = lmin[1], lmin2 = lmin[2];
   const float lstep0 = step[0], lstep1 = step[1], lstep2 = step[2];
-  for (int k = k_lo; k <= k_hi; ++k) {
+  for (int k = k_range.x; k <= k_range.y; ++k) {
     const float kf = static_cast<float>(k);
     const float lv0 = __fadd_rn(lmin0, __fmul_rn(lstep0, kf));
     const float lv1 = __fadd_rn(lmin1, __fmul_rn(lstep1, kf));
     const float lv2 = __fadd_rn(lmin2, __fmul_rn(lstep2, kf));
-    // Vertical pass: per cell row and staged column, the sum over the taps
-    // of the column (the build kernel's inner loop).
-    for (int i = tid; i < rows * scols; i += kFusedThreads) {
-      const int cy = i / scols;
-      const int sx = i % scols;
-      float col[kGuided] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      for (int a = 0; a < taps.n; ++a) {
-        const int s = (cy + a) * scols + sx;
-        add_guided_tap(col, taps.t[a], st_t[s], st_l[s], lv0, lv1, lv2, coef);
-      }
-#pragma unroll
-      for (int j = 0; j < kGuided; ++j) vsum[j * vplane + cy * max_scols + sx] = col[j];
-    }
+    fused_vertical_pass(st_t, st_l, vsum, rows, scols, max_scols, vplane, taps, lv0, lv1, lv2,
+                        coef);
     __syncthreads();
     // Horizontal pass: the weighted sum of the columns, stored as bf16.
-    for (int i = tid; i < rows * cols; i += kFusedThreads) {
-      const int cy = i / cols;
-      const int cx = i % cols;
-      float sum[kGuided] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      for (int b = 0; b < taps.n; ++b) {
-        const float tb = taps.t[b];
-#pragma unroll
-        for (int j = 0; j < kGuided; ++j)
-          sum[j] = __fadd_rn(sum[j], __fmul_rn(tb, vsum[j * vplane + cy * max_scols + cx + b]));
-      }
-      cells[cy * cols + cx] = pack_guided(sum);
+    for (int i = threadIdx.x; i < rows * cols; i += kFusedThreads) {
+      float sum[kGuided];
+      fused_horizontal_sums(vsum, i / cols, i % cols, max_scols, vplane, taps, sum);
+      cells[i] = pack_guided(sum);
     }
     __syncthreads();
     // Slice this level into the pixels' partials.
@@ -667,7 +827,7 @@ __global__ void __launch_bounds__(kFusedThreads)
       const float e1 = fmaxf(1.f - fabsf(t[i][1] - kf), 0.f);
       const float e2 = fmaxf(1.f - fabsf(t[i][2] - kf), 0.f);
       if (e0 == 0.f && e1 == 0.f && e2 == 0.f) continue;
-      const int py = py0 + row0 + kRowStep * i;
+      const int py = py0 + kRowStep * i;
       const float gy = __fmul_rn(static_cast<float>(py) + 0.5f, inv_d) - 0.5f;
       const float fy = floorf(gy);
       const int y0 = min(max(static_cast<int>(fy), 0), hs - 1) - ay0;
@@ -680,7 +840,7 @@ __global__ void __launch_bounds__(kFusedThreads)
 
 #pragma unroll
   for (int i = 0; i < kFusedRows; ++i) {
-    const int py = py0 + row0 + kRowStep * i;
+    const int py = py0 + kRowStep * i;
     if (px >= w || py >= h) continue;
     const size_t idx = static_cast<size_t>(py) * w + px;
     out_wc[idx] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
@@ -694,17 +854,28 @@ dim3 grid_for(int w, int h) {
   return dim3((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
 }
 
-// Whether the fused kernel's window at downsample d with blur radius r fits
+// Whether a fused kernel's window of `bytes` of dynamic shared memory fits
 // the current device's opt-in shared memory per block, beside the kernel's
 // static arrays.
-cudaError_t fused_fits(int d, int r, bool* fits) {
+cudaError_t fused_fits(size_t bytes, bool* fits) {
   int device = 0, max_bytes = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&max_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  *fits = err == cudaSuccess &&
-          fused_shared_bytes(d, r) + kStaticSharedReserve <= static_cast<size_t>(max_bytes);
+  *fits = err == cudaSuccess && bytes + kStaticSharedReserve <= static_cast<size_t>(max_bytes);
   return err;
+}
+
+// Shared memory of the fused bilateral kernel (one staged image, four bf16
+// planes a cell) and of the fused guided kernel (two, eight).
+size_t fused_grid_bytes(int d, int r) { return fused_shared_bytes(d, r, 1, sizeof(Bf16x4)); }
+size_t fused_guided_bytes(int d, int r) { return fused_shared_bytes(d, r, 2, sizeof(Bf16x8)); }
+
+// Whether n_taps (odd, at most kMaxTaps) and d (dividing the slice tile)
+// are arguments the fused kernels take.
+bool fused_args_ok(int d, int n_taps) {
+  return n_taps > 0 && n_taps <= kMaxTaps && n_taps % 2 == 1 && d > 0 && kFusedTileH % d == 0 &&
+         kFusedTileW % d == 0;
 }
 
 }  // namespace
@@ -831,6 +1002,51 @@ int idf_slice_guided_grid(const void* guide, const void* grid, const void* lmin,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The fused bilateral build + slice: the inputs of idf_build_grid and
+// idf_slice_grid (step and inv_step both), with img the slice's guide, and
+// its output. d must divide the 16 x 128 slice tile (1, 2, 4, 8); the window
+// must fit the block's shared memory (idf_fused_grid_fits).
+int idf_fused_grid(const void* small, const void* img, const void* lmin, const void* step,
+                   const void* inv_step, const void* alpha, void* out, int h, int w, int hs,
+                   int ws, int levels, const float* taps, int n_taps, float coef, int d,
+                   int zero_border, void* stream) {
+  if (!fused_args_ok(d, n_taps) || levels <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+  const size_t bytes = fused_grid_bytes(d, n_taps / 2);
+  bool fits = false;
+  cudaError_t err = fused_fits(bytes, &fits);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!fits) return static_cast<int>(cudaErrorInvalidValue);
+  Taps table;
+  table.n = n_taps;
+  for (int i = 0; i < n_taps; ++i) table.t[i] = taps[i];
+  const dim3 grid((w + kFusedTileW - 1) / kFusedTileW, (h + kFusedTileH - 1) / kFusedTileH);
+  const bool ua = alpha != nullptr;
+  auto kernel = zero_border ? (ua ? fused_grid_kernel<true, true> : fused_grid_kernel<true, false>)
+                            : (ua ? fused_grid_kernel<false, true> : fused_grid_kernel<false, false>);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kFusedThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(small), static_cast<const float4*>(img),
+      static_cast<const float*>(lmin), static_cast<const float*>(step),
+      static_cast<const float*>(inv_step), static_cast<const float*>(alpha),
+      static_cast<float4*>(out), h, w, hs, ws, levels, table, coef, 1.f / static_cast<float>(d),
+      kFusedTileH / d + 2, kFusedTileW / d + 2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// *fits = 1 if idf_fused_grid takes downsample d with n_taps blur taps on
+// the current device (its window fits a block's shared memory), else 0.
+int idf_fused_grid_fits(int d, int n_taps, int* fits) {
+  *fits = 0;
+  if (!fused_args_ok(d, n_taps)) return static_cast<int>(cudaSuccess);
+  bool ok = false;
+  const cudaError_t err = fused_fits(fused_grid_bytes(d, n_taps / 2), &ok);
+  *fits = ok ? 1 : 0;
+  return static_cast<int>(err);
+}
+
 // The fused guided build + slice: the inputs of idf_build_guided_grid and
 // idf_slice_guided_grid (step and inv_step both), the same outputs. d must
 // divide the 16 x 128 slice tile (1, 2, 4, 8); the window must fit the
@@ -839,14 +1055,11 @@ int idf_fused_guided(const void* small_t, const void* small_l, const void* guide
                      const void* lmin, const void* step, const void* inv_step, void* out_wc,
                      void* out_nw, int h, int w, int hs, int ws, int levels, const float* taps,
                      int n_taps, float coef, int d, int zero_border, void* stream) {
-  if (n_taps <= 0 || n_taps > kMaxTaps || n_taps % 2 == 0 || levels <= 0 || d <= 0 ||
-      kFusedTileH % d != 0 || kFusedTileW % d != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!fused_args_ok(d, n_taps) || levels <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
-  const int r = n_taps / 2;
-  const size_t bytes = fused_shared_bytes(d, r);
+  const size_t bytes = fused_guided_bytes(d, n_taps / 2);
   bool fits = false;
-  cudaError_t err = fused_fits(d, r, &fits);
+  cudaError_t err = fused_fits(bytes, &fits);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!fits) return static_cast<int>(cudaErrorInvalidValue);
   Taps table;
@@ -873,11 +1086,9 @@ int idf_fused_guided(const void* small_t, const void* small_l, const void* guide
 // the current device (its window fits a block's shared memory), else 0.
 int idf_fused_guided_fits(int d, int n_taps, int* fits) {
   *fits = 0;
-  if (n_taps <= 0 || n_taps > kMaxTaps || n_taps % 2 == 0 || d <= 0 ||
-      kFusedTileH % d != 0 || kFusedTileW % d != 0)
-    return static_cast<int>(cudaSuccess);
+  if (!fused_args_ok(d, n_taps)) return static_cast<int>(cudaSuccess);
   bool ok = false;
-  const cudaError_t err = fused_fits(d, n_taps / 2, &ok);
+  const cudaError_t err = fused_fits(fused_guided_bytes(d, n_taps / 2), &ok);
   *fits = ok ? 1 : 0;
   return static_cast<int>(err);
 }

@@ -133,7 +133,7 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
 // Frame-batched NLM accumulation.
 //
 // Replaces image_denoising_filter_tpu/ops/stencils.py:_nlm_kernel (launched
-// by _nlm_planar_frames; not the weights_halfres body _nlm_hrw_kernel). The
+// by _nlm_planar_frames; its weights_halfres body is nlm_hrw_kernel's). The
 // TPU's sequential frame grid axis becomes the loop over frames here, with
 // the accumulators in registers. For every candidate (dy, dx) of the table,
 // the patch SSD is the direct sum over patch offsets [-p, p)^2 of the RGB
@@ -221,6 +221,154 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
     }
     // This frame's tap alphas are one constant a: sum(w * a) = a * (nw -
     // seed); the seed is not alpha-weighted.
+    if (uniform_alpha) acc.w = nbr[idx].w * (nw - norm_seed);
+    const float vf = valid[f];
+    total.x += acc.x * vf;
+    total.y += acc.y * vf;
+    total.z += acc.z * vf;
+    total.w += acc.w * vf;
+    total_nw += nw * vf;
+  }
+  out_wc[idx] = total;
+  out_nw[idx] = total_nw;
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Half-row cells of the half-row NLM's weight path: cell ih of an image is
+// 0.5 * (row 2ih + row 2ih+1), the rows past the image given by the border
+// policy (edge rows, or zero rows). With BF16, as the TPU kernel's bf16 pool
+// matmul rounds them (stencils.py:727-742): bf16(0.5 * (bf16(a) + bf16(b))),
+// the sum in float32. Writes cells ih in [-1, hc] of image blockIdx.z at row
+// ih + 1 of its (hc + 2, w) plane: every cell before -1 equals cell -1, and
+// every cell past hc equals cell hc, so the NLM kernel clamps its cell index
+// into [-1, hc] under either border policy. Alpha is not pooled (zero).
+template <bool ZERO, bool BF16>
+__global__ void __launch_bounds__(kBlockX* kBlockY)
+    pool_rows2_kernel(const float4* __restrict__ src, float4* __restrict__ dst, int h, int w,
+                      int hc) {
+  const int x = blockIdx.x * kBlockX + threadIdx.x;
+  const int r = blockIdx.y * kBlockY + threadIdx.y;
+  if (x >= w || r >= hc + 2) return;
+  const float4* img = src + static_cast<size_t>(blockIdx.z) * h * w;
+  const int ih = r - 1;
+  bool ok_a, ok_b;
+  const float4 a = col_tap<ZERO>(row_ptr<ZERO>(img, 2 * ih, h, w, ok_a), ok_a, x, w);
+  const float4 b = col_tap<ZERO>(row_ptr<ZERO>(img, 2 * ih + 1, h, w, ok_b), ok_b, x, w);
+  float4 c;
+  if constexpr (BF16) {
+    c.x = bf16_round(__fmul_rn(0.5f, __fadd_rn(bf16_round(a.x), bf16_round(b.x))));
+    c.y = bf16_round(__fmul_rn(0.5f, __fadd_rn(bf16_round(a.y), bf16_round(b.y))));
+    c.z = bf16_round(__fmul_rn(0.5f, __fadd_rn(bf16_round(a.z), bf16_round(b.z))));
+  } else {
+    c.x = __fmul_rn(0.5f, __fadd_rn(a.x, b.x));
+    c.y = __fmul_rn(0.5f, __fadd_rn(a.y, b.y));
+    c.z = __fmul_rn(0.5f, __fadd_rn(a.z, b.z));
+  }
+  c.w = 0.f;
+  dst[(static_cast<size_t>(blockIdx.z) * (hc + 2) + r) * w + x] = c;
+}
+
+// Frame-batched NLM accumulation with the weights at half row resolution
+// (NlmParams.weights_halfres; search stride 2, patch radius 3).
+//
+// Replaces image_denoising_filter_tpu/ops/stencils.py:_nlm_hrw_kernel (the
+// weights_halfres body of _nlm_planar_frames). For each candidate (dy, dx),
+// dy even, the weight cells live on the half-row lattice: cell c of the
+// target's and the neighbour's pooled planes (pool_rows2_kernel) give the
+// RGB squared difference e(c, x') = |t(c, x') - n(c + dy/2, x' + dx)|^2,
+// summed over the 3 cells c-1..c+1, then over the 6 lanes x-3..x+2, and
+//   w(c) = exp2(ssd_coef * ssd(c)),  ssd_coef = -kappa log2(e) / h^2,
+// kappa = 2. Pixel row y = 2i reads 0.25 w(i-1) + 0.75 w(i), row 2i+1
+// 0.75 w(i) + 0.25 w(i+1) (the x2 bilinear row upsample); non-self
+// candidates are multiplied by stride^2 (exact, a power of two). Value taps,
+// the frame loop, the validity mask, the per-frame seed and uniform alpha
+// are nlm_kernel's.
+//
+// BF16 (the turbo NLM): the pooled planes are bf16 values, e rounds as in
+// nlm_kernel (tap_sq_diff<true>), and each weight cell is rounded to bf16
+// before the upsample (the TPU kernel's wh.astype(bf16) ahead of its
+// upsample matmul, stencils.py:786-788); the sums and the upsample are
+// float32. Sums run in the plain version's order: per lane the three cells
+// in order, then the lanes left to right.
+//
+// Bound on the H100: at the turbo parameters (49 candidates) a 1080p frame
+// costs 49 x 2 M pixels x 24 squared differences, each two 16-byte loads
+// that hit L1, and two exp2: bound by L1 load bandwidth and instruction
+// issue, as nlm_kernel. Design: one thread per output pixel in 32x8 blocks;
+// each thread computes the two weight cells its row reads, from 4 cell rows
+// x 6 lanes of squared differences (24, where the full-resolution kernel
+// evaluates 36 a candidate), so no shared memory and no synchronisation.
+// Computing each cell once per block and sharing it through shared memory
+// would cut that to about one squared difference a pixel, and is later work.
+constexpr int kHrwLanes = 6;  // 2p lanes at patch radius 3
+
+template <bool ZERO, bool BF16>
+__global__ void __launch_bounds__(kBlockX* kBlockY)
+    nlm_hrw_kernel(const float4* __restrict__ tgt_h, const float4* __restrict__ frames_h,
+                   const float4* __restrict__ frames, const float* __restrict__ valid,
+                   float4* __restrict__ out_wc, float* __restrict__ out_nw, int h, int w,
+                   int hc, int n_frames, const Cands cands, float ssd_coef, float stride_w,
+                   float norm_seed, int uniform_alpha) {
+  const int x = blockIdx.x * kBlockX + threadIdx.x;
+  const int y = blockIdx.y * kBlockY + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const size_t idx = static_cast<size_t>(y) * w + x;
+  const size_t plane = static_cast<size_t>(h) * w;
+  const size_t hplane = static_cast<size_t>(hc + 2) * w;
+  // The two cells row y reads, ca and ca + 1, and their upsample weights.
+  const int ca = (y >> 1) - 1 + (y & 1);
+  const float ua = (y & 1) ? 0.75f : 0.25f;
+  const float ub = (y & 1) ? 0.25f : 0.75f;
+  // Target cell rows ca - 1 .. ca + 2 (clamped into the stored [-1, hc]).
+  const float4* trow[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) trow[r] = tgt_h + (min(max(ca - 1 + r, -1), hc) + 1) * w;
+  float4 total = make_float4(0.f, 0.f, 0.f, 0.f);
+  float total_nw = 0.f;
+  for (int f = 0; f < n_frames; ++f) {
+    const float4* nbr = frames + f * plane;
+    const float4* nbr_h = frames_h + f * hplane;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    float nw = norm_seed;
+    for (int k = 0; k < cands.n; ++k) {
+      const int dy = cands.dy[k];
+      const int dx = cands.dx[k];
+      const float4* nrow[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        nrow[r] = nbr_h + (min(max(ca - 1 + r + dy / 2, -1), hc) + 1) * w;
+      float ssd_a = 0.f, ssd_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < kHrwLanes; ++j) {
+        const int xt = x + j - kHrwLanes / 2;
+        float e[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          e[r] = tap_sq_diff<BF16>(col_tap<ZERO>(trow[r], true, xt, w),
+                                   col_tap<ZERO>(nrow[r], true, xt + dx, w));
+        ssd_a = __fadd_rn(ssd_a, __fadd_rn(__fadd_rn(e[0], e[1]), e[2]));
+        ssd_b = __fadd_rn(ssd_b, __fadd_rn(__fadd_rn(e[1], e[2]), e[3]));
+      }
+      float wa = exp2f(ssd_a * ssd_coef);
+      float wb = exp2f(ssd_b * ssd_coef);
+      if constexpr (BF16) {
+        wa = bf16_round(wa);
+        wb = bf16_round(wb);
+      }
+      float wgt = __fadd_rn(__fmul_rn(ua, wa), __fmul_rn(ub, wb));
+      if (dy != 0 || dx != 0) wgt *= stride_w;
+      bool vok;
+      const float4* vrow = row_ptr<ZERO>(nbr, y + dy, h, w, vok);
+      const float4 v = col_tap<ZERO>(vrow, vok, x + dx, w);
+      acc.x += v.x * wgt;
+      acc.y += v.y * wgt;
+      acc.z += v.z * wgt;
+      acc.w += v.w * wgt;
+      nw += wgt;
+    }
     if (uniform_alpha) acc.w = nbr[idx].w * (nw - norm_seed);
     const float vf = valid[f];
     total.x += acc.x * vf;
@@ -323,6 +471,54 @@ int idf_nlm(const void* tgt, const void* frames, const void* valid, void* out_wc
                             : (bf16_taps ? nlm_kernel<false, true> : nlm_kernel<false, false>);
   kernel<<<grid, block, 0, s>>>(t, fr, v, o, onw, h, w, n_frames, p, table, ssd_coef, log_m,
                                 norm_seed, uniform_alpha);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The half-row NLM: the inputs and outputs of idf_nlm (patch radius 3, every
+// dy even), and pooled, device scratch of (1 + n_frames) planes of (hc + 2,
+// w) float4, hc = ceil(h / 2): the target's half-row cells, then each
+// frame's. stride_w multiplies every non-self candidate's weight.
+int idf_nlm_hrw(const void* tgt, const void* frames, const void* valid, void* pooled,
+                void* out_wc, void* out_nw, int h, int w, int n_frames, const int* cands,
+                int n_cands, float ssd_coef, float stride_w, float norm_seed, int zero_border,
+                int uniform_alpha, int bf16_taps, void* stream) {
+  if (n_cands < 0 || n_cands > kMaxCands || n_frames < 0 || n_frames > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+  Cands table;
+  table.n = n_cands;
+  for (int i = 0; i < n_cands; ++i) {
+    const int dy = cands[2 * i];
+    const int dx = cands[2 * i + 1];
+    if (dy < -128 || dy > 127 || dx < -128 || dx > 127 || dy % 2 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    table.dy[i] = static_cast<signed char>(dy);
+    table.dx[i] = static_cast<signed char>(dx);
+  }
+  const int hc = (h + 1) / 2;
+  const dim3 block(kBlockX, kBlockY);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float4* t = static_cast<const float4*>(tgt);
+  const float4* fr = static_cast<const float4*>(frames);
+  float4* tgt_h = static_cast<float4*>(pooled);
+  float4* frames_h = tgt_h + static_cast<size_t>(hc + 2) * w;
+  const dim3 pool_grid((w + kBlockX - 1) / kBlockX, (hc + 2 + kBlockY - 1) / kBlockY);
+  auto pool = zero_border ? (bf16_taps ? pool_rows2_kernel<true, true> : pool_rows2_kernel<true, false>)
+                          : (bf16_taps ? pool_rows2_kernel<false, true> : pool_rows2_kernel<false, false>);
+  pool<<<pool_grid, block, 0, s>>>(t, tgt_h, h, w, hc);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_frames > 0) {
+    pool<<<dim3(pool_grid.x, pool_grid.y, n_frames), block, 0, s>>>(fr, frames_h, h, w, hc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
+  auto kernel = zero_border ? (bf16_taps ? nlm_hrw_kernel<true, true> : nlm_hrw_kernel<true, false>)
+                            : (bf16_taps ? nlm_hrw_kernel<false, true> : nlm_hrw_kernel<false, false>);
+  kernel<<<grid, block, 0, s>>>(tgt_h, frames_h, fr, static_cast<const float*>(valid),
+                                static_cast<float4*>(out_wc), static_cast<float*>(out_nw), h, w,
+                                hc, n_frames, table, ssd_coef, stride_w, norm_seed, uniform_alpha);
   return static_cast<int>(cudaGetLastError());
 }
 

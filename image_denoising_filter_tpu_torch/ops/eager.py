@@ -95,9 +95,15 @@ def _box_sum(e: torch.Tensor, k: int, out_h: int, out_w: int) -> torch.Tensor:
     rows = e[0:out_h]
     for j in range(1, k):
         rows = rows + e[j : j + out_h]
-    out = rows[:, 0:out_w]
+    return _box_lanes(rows, k, out_w)
+
+
+def _box_lanes(e: torch.Tensor, k: int, out_w: int) -> torch.Tensor:
+    """Valid sums of k neighbouring columns: out[:, x] = sum of e[:, x:x+k],
+    added left to right."""
+    out = e[:, 0:out_w]
     for j in range(1, k):
-        out = out + rows[:, j : j + out_w]
+        out = out + e[:, j : j + out_w]
     return out
 
 
@@ -156,6 +162,101 @@ def _sq_diff_bf16(t: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return (e + d[..., 2] * d[..., 2]).float()
 
 
+# The half-row weight field's SSD scale: 3 x 2p half cells stand in for the
+# 2p x 2p full box (stencils.py:NLM_HRW_KAPPA).
+NLM_HRW_KAPPA = 2.0
+
+
+def _pool_rows_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Half-row cells of rows (2i, 2i+1) as the turbo NLM's half-row kernel
+    pools them (stencils.py:727-742): bf16(0.5 * (bf16(a) + bf16(b))), the
+    sum in float32."""
+    x = x.to(torch.bfloat16).float()
+    return (0.5 * (x[0::2] + x[1::2])).to(torch.bfloat16)
+
+
+def _weights_bf16(wh: torch.Tensor) -> torch.Tensor:
+    """The half-row weight cells rounded to bf16 before the row upsample
+    (stencils.py:786-788, wh.astype(vup.dtype)), widened to float32."""
+    return wh.to(torch.bfloat16).float()
+
+
+def _upsample_rows2(c: torch.Tensor, h: int) -> torch.Tensor:
+    """x2 bilinear row upsample of half-row cells with half-pixel centres:
+    c holds cells [-1, hc+1); w(2i) = 0.25 c(i-1) + 0.75 c(i), w(2i+1) =
+    0.75 c(i) + 0.25 c(i+1), rows [0, h)."""
+    even = 0.25 * c[:-2] + 0.75 * c[1:-1]
+    odd = 0.75 * c[1:-1] + 0.25 * c[2:]
+    return torch.stack([even, odd], 1).reshape(-1, *c.shape[1:])[:h]
+
+
+def check_hrw_params(params: NlmParams) -> None:
+    """The half-row weights take search stride 2 (even row offsets land on
+    the half-row lattice) and patch radius 3 (its 6-row box is the 3-cell
+    one), as both JAX lowerings require."""
+    if params.search_stride != 2 or params.patch_radius != 3:
+        raise ValueError("weights_halfres requires search_stride=2 and patch_radius=3")
+
+
+def _nlm_hrw_weights(
+    target: torch.Tensor, neighbour: torch.Tensor, params: NlmParams, bf16: bool
+):
+    """Per candidate (dy, dx), the half-row-resolution weight field at full
+    resolution (xla.py:nlm_xla's halfres branch, 162-226; stencils.py:
+    _nlm_hrw_kernel). Weight cells sit on the absolute half-row lattice,
+    cell ih <-> rows (2ih, 2ih+1), rows past the image padded by the border
+    policy. The squared difference of the pooled RGB is boxed over 3 half
+    rows, then 2p lanes, scaled by kappa; the weight exp(-kappa ssd / h^2)
+    is upsampled x2 along rows; non-self candidates get stride^2. With bf16
+    the pooled planes, the squared difference and the weight cells round
+    where the TPU kernel rounds them. Yields (dy, dx, weights (H, W))."""
+    check_hrw_params(params)
+    from .stencils import nlm_candidates
+
+    h, w, _ = target.shape
+    s, p = params.search_radius, params.patch_radius
+    halo = s + p
+    hc = (h + 1) // 2
+    # rp rows above (even, so the lattice stays on absolute even rows) reach
+    # the neighbour's cells from -2 + dy/2 >= -2 - s/2; below, up to row
+    # 2 hc + rp covers cells up to hc + 2 + dy/2 < hc + rp/2.
+    rp = 2 * ((s + 5) // 2)
+    rows = torch.arange(-rp, 2 * hc + rp, device=target.device)
+
+    def pooled(img):
+        x = _pad_dim(img[..., :3], halo, 1, params.border)
+        if params.border == BorderPolicy.CLAMP:
+            x = x[rows.clamp(0, h - 1)]
+        else:
+            x = F.pad(x, (0, 0, 0, 0, rp, rp + 2 * hc - h))
+        if bf16:
+            return _pool_rows_bf16(x)
+        return 0.5 * (x[0::2] + x[1::2])
+
+    c0 = rp // 2  # cell ih is pooled row ih + c0
+    ew = w + 2 * p - 1  # lanes x' in [-p, w + p - 1)
+    t_he = pooled(target)[c0 - 2 : c0 + hc + 2, halo - p : halo - p + ew]
+    n_half = pooled(neighbour)
+    inv_h2 = float(np.float32(1.0 / (params.h**2)))
+    for dy, dx in nlm_candidates(params):
+        r0 = c0 - 2 + dy // 2
+        n_he = n_half[r0 : r0 + hc + 4, dx + s : dx + s + ew]
+        if bf16:
+            e = _sq_diff_bf16(t_he, n_he)
+        else:
+            d = t_he - n_he
+            e = (d * d).sum(-1)
+        e3 = e[:-2] + e[1:-1] + e[2:]  # cells [-1, hc + 1)
+        ssd = _box_lanes(e3, 2 * p, w)
+        wh = torch.exp(-(NLM_HRW_KAPPA * ssd) * inv_h2)
+        if bf16:
+            wh = _weights_bf16(wh)
+        wgt = _upsample_rows2(wh, h)
+        if (dy, dx) != (0, 0):
+            wgt = wgt * float(params.search_stride**2)  # importance compensation
+        yield dy, dx, wgt
+
+
 def nlm_eager(
     target: torch.Tensor,
     neighbour: torch.Tensor,
@@ -163,14 +264,11 @@ def nlm_eager(
     compute_dtype: str = "float32",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One frame's NLM partials (xla.py:nlm_xla; shaders/nonlocal.comp:30-65),
-    exact or with the strided and disk candidate subsets. normWeight is
+    exact or with the strided and disk candidate subsets, and with the
+    weights at half row resolution (params.weights_halfres). normWeight is
     seeded with params.norm_seed. compute_dtype "bfloat16" computes the
-    squared differences with bf16 taps, as the turbo NLM kernel does; the
+    squared differences with bf16 taps, as the turbo NLM kernels do; the
     patch sums, weights and accumulators stay float32."""
-    if params.weights_halfres:
-        raise NotImplementedError(
-            "weights_halfres is not ported yet (ROADMAP.md queue A item 8, kernel queue B item 7)"
-        )
     if compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
     bf16 = compute_dtype == "bfloat16"
@@ -179,23 +277,44 @@ def nlm_eager(
     h, w, _ = target.shape
     s, p = params.search_radius, params.patch_radius
     halo = s + p
-    # E must exist at rows y+j for y in [0,h), j in [-p, p): h+2p-1 rows from -p.
-    eh, ew = h + 2 * p - 1, w + 2 * p - 1
-    t_ext = _pad2d(target, p, params.border)[:eh, :ew, :3]
     pn = _pad2d(neighbour, halo, params.border)
-    inv_h2 = float(np.float32(1.0 / (params.h**2)))
-    if bf16:
-        t_taps, n_taps = t_ext.to(torch.bfloat16), pn[..., :3].to(torch.bfloat16)
+    nch = 3 if params.uniform_alpha else 4
+    wc = torch.zeros((h, w, nch), dtype=torch.float32, device=target.device)
+    nw = torch.full((h, w), params.norm_seed, dtype=torch.float32, device=target.device)
+    if params.weights_halfres:
+        weights = _nlm_hrw_weights(target, neighbour, params, bf16)
+    else:
+        weights = _nlm_full_weights(target, pn, params, bf16)
+    for dy, dx, wgt in weights:
+        oy, ox = dy + s, dx + s
+        tap = pn[oy + p : oy + p + h, ox + p : ox + p + w]
+        wc += tap[..., :nch] * wgt[..., None]
+        nw += wgt
+    if params.uniform_alpha:
+        # the seed is not alpha-weighted (shaders/nonlocal.comp:32, 61)
+        wc = torch.cat([wc, neighbour[..., 3:] * (nw - params.norm_seed)[..., None]], dim=-1)
+    return wc, nw
 
+
+def _nlm_full_weights(target: torch.Tensor, pn: torch.Tensor, params: NlmParams, bf16: bool):
+    """Per candidate (dy, dx), the full-resolution weight field: the 2p x 2p
+    patch SSD of the RGB squared difference, exp(-ssd / h^2), stride^2 for
+    non-self candidates. pn: the neighbour padded by s + p. Yields (dy, dx,
+    weights (H, W))."""
     # Half-open search offsets [-s, s)^2 (shaders/nonlocal.comp:36-38), from
     # the table the NLM kernel takes: the stride subset keeps the zero offset,
     # the disk trim drops the corners. (ops/stencils.py imports this module.)
     from .stencils import nlm_candidates
 
+    h, w, _ = target.shape
+    s, p = params.search_radius, params.patch_radius
+    # E must exist at rows y+j for y in [0,h), j in [-p, p): h+2p-1 rows from -p.
+    eh, ew = h + 2 * p - 1, w + 2 * p - 1
+    t_ext = _pad2d(target, p, params.border)[:eh, :ew, :3]
+    inv_h2 = float(np.float32(1.0 / (params.h**2)))
+    if bf16:
+        t_taps, n_taps = t_ext.to(torch.bfloat16), pn[..., :3].to(torch.bfloat16)
     st = params.search_stride
-    nch = 3 if params.uniform_alpha else 4
-    wc = torch.zeros((h, w, nch), dtype=torch.float32, device=target.device)
-    nw = torch.full((h, w), params.norm_seed, dtype=torch.float32, device=target.device)
     for dy, dx in nlm_candidates(params):
         # E in padded-neighbour coords starts at oy = dy+s: E index e is
         # absolute row e-p+dy, at padded row e-p+dy+halo = e+oy.
@@ -209,13 +328,7 @@ def nlm_eager(
         wgt = torch.exp(-ssd * inv_h2)
         if st > 1 and (dy, dx) != (0, 0):
             wgt = wgt * float(st * st)  # importance compensation, non-self
-        tap = pn[oy + p : oy + p + h, ox + p : ox + p + w]
-        wc += tap[..., :nch] * wgt[..., None]
-        nw += wgt
-    if params.uniform_alpha:
-        # the seed is not alpha-weighted (shaders/nonlocal.comp:32, 61)
-        wc = torch.cat([wc, neighbour[..., 3:] * (nw - params.norm_seed)[..., None]], dim=-1)
-    return wc, nw
+        yield dy, dx, wgt
 
 
 def normalize_eager(

@@ -1,10 +1,12 @@
 """Hand-written CUDA kernels of the turbo grids and the pipelines that run
-them: the bilateral grid (pool, grid build, grid slice) and the layer-guided
-grid (guided build, guided slice, and the fused guided build+slice).
+them: the bilateral grid (pool, grid build, grid slice, and the fused
+build+slice) and the layer-guided grid (guided build, guided slice, and the
+fused guided build+slice).
 
 Counterpart of image_denoising_filter_tpu/ops/fast.py:
   * the bilateral family, `bilateral_fast` -> `_grid_pipeline_planar` ->
-    `_pool_pallas`, `_build_grid_pallas`, `_slice_grid_pallas`;
+    `_pool_pallas`, `_build_grid_pallas`, `_slice_grid_pallas`, or with
+    fused=True `_fused_grid_pipeline_planar` (`grid_pipeline(fused=True)`);
   * the guided family, `cross_bilateral_layers_fast` -> `_pool_pallas`,
     `_build_guided_grid_pallas` + `_slice_guided_grid_pallas` (d = 1, 8) or
     `_fused_guided_pipeline_planar` (d = 2, 4), then `normalize_layers_fast`.
@@ -15,9 +17,9 @@ use. Beside them this module holds:
     `_grid_taps` (the pool-compensated blur taps) and `_bilinear_taps` with
     `_upsample_matrix` (the half-pixel bilinear weights);
   * each kernel's plain PyTorch version (`pool_plain`, `build_grid_plain`,
-    `slice_grid_plain`, `build_guided_grid_plain`, `slice_guided_grid_plain`,
-    `fused_guided_plain`): whole-image tensor ops with the kernel's bf16
-    roundings, taps, summation order and lerp formula;
+    `slice_grid_plain`, `fused_grid_plain`, `build_guided_grid_plain`,
+    `slice_guided_grid_plain`, `fused_guided_plain`): whole-image tensor ops
+    with the kernel's bf16 roundings, taps, summation order and lerp formula;
   * launch counts, in `ops.stencils.launches` beside the exact kernels'.
 
 Layouts: images (H, W, 4) float32; the pooled image (hs, ws, 4) float32 with
@@ -32,8 +34,7 @@ the other.
 
 Not ported, because it is TPU machinery with no value of its own: the per-d
 tile defaults, the pad-free slab layout (`extend_to`), `cull_mask` and
-`out_dtype`. The fused bilateral build+slice kernel waits for ROADMAP queue
-B item 11.
+`out_dtype`.
 """
 
 from __future__ import annotations
@@ -254,6 +255,26 @@ def slice_guided_grid_plain(
         tent = (1.0 - (t - k).abs()).clamp_min(0.0)
         acc = acc + tent * _bilinear_up(grid[k].float(), d, h, w)
     return acc[..., :4].contiguous(), acc[..., 4:7].contiguous()
+
+
+def fused_grid_plain(
+    small: torch.Tensor,
+    img: torch.Tensor,
+    lmin: torch.Tensor,
+    step: torch.Tensor,
+    inv_step: torch.Tensor,
+    levels: int,
+    taps: np.ndarray,
+    border: str,
+    inv2sc: float,
+    d: int,
+    alpha_val: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The fused bilateral kernel's plain version: the build, then the slice
+    (the fused kernel keeps each cell's sums and each pixel's in their
+    order). alpha_val given is uniform alpha."""
+    grid = build_grid_plain(small, lmin, step, levels, taps, border, inv2sc, alpha_val is not None)
+    return slice_grid_plain(img, grid, lmin, inv_step, d, alpha_val)
 
 
 def fused_guided_plain(
@@ -519,18 +540,86 @@ def slice_guided_grid(
     return wc, nw
 
 
+def _fits(kernel: str, d: int, n_taps: int, device: torch.device) -> bool:
+    fits = ctypes.c_int(0)
+    lib = _build.library()
+    with torch.cuda.device(device):
+        rc = getattr(lib, f"idf_{kernel}_fits")(d, n_taps, ctypes.byref(fits))
+    _raise_on_error(rc, f"{kernel}_fits")
+    return bool(fits.value)
+
+
 def fused_guided_fits(d: int, n_taps: int, device: torch.device) -> bool:
     """Whether the fused guided kernel takes downsample d with n_taps blur
     taps on the CUDA device: its window (the staged pooled images with the
     blur halo, the blur sums, one level's cells; fast.cu: fused_shared_bytes)
     fits a block's shared memory there. Asks the kernel library, which
     queries the device."""
-    fits = ctypes.c_int(0)
+    return _fits("fused_guided", d, n_taps, device)
+
+
+def fused_grid_fits(d: int, n_taps: int, device: torch.device) -> bool:
+    """Whether the fused bilateral kernel takes downsample d with n_taps blur
+    taps on the CUDA device: its window (one staged pooled image, the blur
+    sums, one level's cells) fits a block's shared memory there. Asks the
+    kernel library, which queries the device."""
+    return _fits("fused_grid", d, n_taps, device)
+
+
+def fused_grid(
+    small: torch.Tensor,
+    img: torch.Tensor,
+    lmin: torch.Tensor,
+    step: torch.Tensor,
+    inv_step: torch.Tensor,
+    levels: int,
+    taps: np.ndarray,
+    border: str,
+    inv2sc: float,
+    d: int,
+    alpha_val: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Bilateral grid build + slice per slice tile, the grid kept in shared
+    memory (fast.py:_fused_grid_pipeline_planar): the inputs of build_grid
+    and of slice_grid (img the slice's guide; alpha_val, one float32, is the
+    output alpha under uniform alpha), the same (H, W, 4) float32 output.
+    Each cell's sums keep the two kernels' order, so the output equals
+    theirs."""
+    _check_image(small, "small")
+    _check_image(img, "img")
+    _check_downsample(d)
+    _check_range(lmin, step, inv_step)
+    if levels < 2:
+        raise ValueError(f"the grid needs at least 2 levels, got {levels}")
+    taps = _check_taps(taps)
+    h, w, _ = img.shape
+    hs, ws = -(-h // d), -(-w // d)
+    if tuple(small.shape) != (hs, ws, 4):
+        raise ValueError(f"pooled image {tuple(small.shape)} != ({hs}, {ws}, 4) at d = {d}")
+    if alpha_val is not None and alpha_val.numel() != 1:
+        raise ValueError(f"alpha_val must be one value, got {tuple(alpha_val.shape)}")
+    alpha = () if alpha_val is None else (alpha_val,)
+    if not _on_cuda(small, img, lmin, step, inv_step, *alpha):
+        return fused_grid_plain(
+            small, img, lmin, step, inv_step, levels, taps, border, inv2sc, d, alpha_val
+        )
+    if not fused_grid_fits(d, taps.size, img.device):
+        raise ValueError(
+            f"the fused grid kernel's window at d = {d} with {taps.size} blur taps exceeds "
+            "a block's shared memory on this device: use build_grid and slice_grid"
+        )
+    out = torch.empty_like(img)
     lib = _build.library()
-    with torch.cuda.device(device):
-        rc = lib.idf_fused_guided_fits(d, n_taps, ctypes.byref(fits))
-    _raise_on_error(rc, "fused_guided_fits")
-    return bool(fits.value)
+    with torch.cuda.device(img.device):
+        rc = lib.idf_fused_grid(
+            small.data_ptr(), img.data_ptr(), lmin.data_ptr(), step.data_ptr(),
+            inv_step.data_ptr(), None if alpha_val is None else alpha_val.data_ptr(),
+            out.data_ptr(), h, w, hs, ws, levels, taps.ctypes.data, taps.size,
+            inv2sc * LOG2E, d, int(border != BorderPolicy.CLAMP), _stream(img),
+        )
+    _raise_on_error(rc, "fused_grid")
+    launches["fused_grid"] += 1
+    return out
 
 
 def fused_guided(
@@ -597,31 +686,52 @@ def grid_range(small: torch.Tensor, levels: int) -> tuple[torch.Tensor, torch.Te
     return lmin, (rgb.amax((0, 1)) - lmin).clamp_min(1e-6) / (levels - 1)
 
 
-def _pipeline(img, params, levels, d, pool_fn, build_fn, slice_fn) -> torch.Tensor:
+def _pipeline(img, params, levels, d, pool_fn, grid_fn) -> torch.Tensor:
     small = pool_fn(img, d, params.border)
     lmin, step = grid_range(small, levels)
-    grid = build_fn(
-        small, lmin, step, levels, _grid_taps(params.sigma_spatial, d), params.border,
-        0.5 / (params.sigma_color**2), params.uniform_alpha,
+    return grid_fn(
+        small, img, lmin, step, 1.0 / step, levels, _grid_taps(params.sigma_spatial, d),
+        params.border, 0.5 / (params.sigma_color**2), d,
+        img[0, 0, 3] if params.uniform_alpha else None,
     )
-    alpha_val = img[0, 0, 3] if params.uniform_alpha else None
-    return slice_fn(img, grid, lmin, 1.0 / step, d, alpha_val)
+
+
+def _build_and_slice(small, img, lmin, step, inv_step, levels, taps, border, inv2sc, d,
+                     alpha_val=None) -> torch.Tensor:
+    """fused_grid's function through the build and the slice kernels."""
+    grid = build_grid(small, lmin, step, levels, taps, border, inv2sc, alpha_val is not None)
+    return slice_grid(img, grid, lmin, inv_step, d, alpha_val)
+
+
+def default_fused(d: int) -> bool:
+    """The reference's dispatch (fast.py:_default_fused): the build and the
+    slice kernels at every d; the fused kernel only when asked for."""
+    return False
 
 
 def grid_pipeline(
-    img: torch.Tensor, params: BilateralParams, levels: int, d: int
+    img: torch.Tensor,
+    params: BilateralParams,
+    levels: int,
+    d: int,
+    fused: Optional[bool] = None,
 ) -> torch.Tensor:
     """Pool -> grid range -> build -> slice (fast.py:_grid_pipeline_planar
     with pad_free=False). The grid range stays on the device. Under uniform
-    alpha the output alpha is img[0, 0, 3]."""
-    return _pipeline(img, params, levels, d, pool, build_grid, slice_grid)
+    alpha the output alpha is img[0, 0, 3]. fused=True runs the build and
+    the slice as the fused kernel (fused_grid; raises on the card where its
+    window does not fit), which gives the same output; None takes
+    default_fused(d)."""
+    if fused is None:
+        fused = default_fused(d)
+    return _pipeline(img, params, levels, d, pool, fused_grid if fused else _build_and_slice)
 
 
 def grid_pipeline_plain(
     img: torch.Tensor, params: BilateralParams, levels: int, d: int
 ) -> torch.Tensor:
-    """grid_pipeline through the three plain versions, on any device."""
-    return _pipeline(img, params, levels, d, pool_plain, build_grid_plain, slice_grid_plain)
+    """grid_pipeline through the plain versions, on any device."""
+    return _pipeline(img, params, levels, d, pool_plain, fused_grid_plain)
 
 
 def bilateral_fast(

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for the exact stencils: bilateral, layer-guided
-cross-bilateral, frame-batched NLM and the normalize epilogue.
+cross-bilateral, frame-batched NLM (with float32 or bf16 taps, and with the
+weights at full or at half row resolution) and the normalize epilogue.
 
 Counterpart of image_denoising_filter_tpu/ops/stencils.py. The kernels are in
 ops/csrc/stencils.cu and are built by ops/_build.py at first use. Beside each
@@ -39,7 +40,7 @@ from ..config import (
 )
 
 from . import _build
-from .eager import _pad2d, nlm_eager, normalize_eager
+from .eager import NLM_HRW_KAPPA, _pad2d, check_hrw_params, nlm_eager, normalize_eager
 
 # exp(x) == exp2(x * log2(e)): log2(e) is folded into the weight constants.
 LOG2E = math.log2(math.e)
@@ -49,11 +50,13 @@ MAX_RUNS = 128
 MAX_CANDIDATES = 1024
 
 #: Kernel launches since the last reset_launches(), by kernel form: "nlm"
-#: with float32 taps, "nlm_bf16" with bf16 taps; the turbo grids' kernels
-#: (ops/fast.py) count here too.
+#: with float32 taps, "nlm_bf16" with bf16 taps, "nlm_hrw" and
+#: "nlm_hrw_bf16" the same with the weights at half row resolution; the
+#: turbo grids' kernels (ops/fast.py) count here too.
 launches = {
-    "bilateral": 0, "bilateral_guided": 0, "nlm": 0, "nlm_bf16": 0, "normalize": 0,
-    "pool": 0, "build_grid": 0, "slice_grid": 0,
+    "bilateral": 0, "bilateral_guided": 0, "nlm": 0, "nlm_bf16": 0,
+    "nlm_hrw": 0, "nlm_hrw_bf16": 0, "normalize": 0,
+    "pool": 0, "build_grid": 0, "slice_grid": 0, "fused_grid": 0,
     "build_guided_grid": 0, "slice_guided_grid": 0, "fused_guided": 0,
 }
 
@@ -213,13 +216,6 @@ def _compute_dtype(tiling: Optional[TilingConfig], dtypes: tuple[str, ...]) -> s
     return dtype
 
 
-def _check_nlm_params(params: NlmParams) -> None:
-    if params.weights_halfres:
-        raise NotImplementedError(
-            "weights_halfres is not ported yet (ROADMAP.md queue A item 8, kernel queue B item 7)"
-        )
-
-
 def _on_cuda(*tensors: torch.Tensor) -> bool:
     """True for CUDA tensors (after checking them for the kernels), False for
     CPU tensors (which take the plain version); anything else raises."""
@@ -338,7 +334,8 @@ def nlm_accumulate(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One frame's NLM partials (shaders/nonlocal.comp:30-65); normWeight is
     seeded with params.norm_seed. One launch of the frame-batched kernel;
-    tiling.compute_dtype "bfloat16" takes bf16 taps (the turbo NLM)."""
+    tiling.compute_dtype "bfloat16" takes bf16 taps (the turbo NLM), and
+    params.weights_halfres the half-row weights."""
     return nlm_accumulate_frames(target, neighbour[None], params, tiling)
 
 
@@ -353,9 +350,13 @@ def nlm_accumulate_frames(
     launch, the accumulators kept in registers across frames. Each frame adds
     its norm seed; `valid` ((F,) float 0/1) masks frames, seed included.
     tiling.compute_dtype "bfloat16" takes bf16 taps: the squared differences
-    are computed in bf16, everything else in float32 (the turbo NLM)."""
+    are computed in bf16, everything else in float32 (the turbo NLM).
+    params.weights_halfres computes the weights at half row resolution (the
+    half-row kernel, after a pass that pools each image's row pairs; search
+    stride 2 and patch radius 3 only, else ValueError)."""
     dtype = _compute_dtype(tiling, ("float32", "bfloat16"))
-    _check_nlm_params(params)
+    if params.weights_halfres:
+        check_hrw_params(params)
     _check_image(target, "target")
     if frames.dim() != 4 or frames.shape[1:] != target.shape:
         raise ValueError(f"frames must be (F, *{tuple(target.shape)}), got {tuple(frames.shape)}")
@@ -375,28 +376,30 @@ def nlm_accumulate_frames(
     wc = torch.empty_like(target)
     nw = torch.empty((h, w), dtype=torch.float32, device=target.device)
     lib = _build.library()
+    zero = int(params.border != BorderPolicy.CLAMP)
+    ua = int(params.uniform_alpha)
+    bf16 = int(dtype == "bfloat16")
     with torch.cuda.device(target.device):
-        rc = lib.idf_nlm(
-            target.data_ptr(),
-            frames.data_ptr(),
-            valid.data_ptr(),
-            wc.data_ptr(),
-            nw.data_ptr(),
-            h,
-            w,
-            n_frames,
-            params.patch_radius,
-            cands.ctypes.data,
-            cands.size // 2,
-            -LOG2E / params.h**2,
-            math.log2(params.search_stride**2),
-            params.norm_seed,
-            int(params.border != BorderPolicy.CLAMP),
-            int(params.uniform_alpha),
-            int(dtype == "bfloat16"),
-            _stream(target),
-        )
-    kernel = "nlm_bf16" if dtype == "bfloat16" else "nlm"
+        if params.weights_halfres:
+            # the half-row cells [-1, hc] of the target, then of each frame
+            pooled = torch.empty(
+                (1 + n_frames, (h + 1) // 2 + 2, w, 4), dtype=torch.float32, device=target.device
+            )
+            rc = lib.idf_nlm_hrw(
+                target.data_ptr(), frames.data_ptr(), valid.data_ptr(), pooled.data_ptr(),
+                wc.data_ptr(), nw.data_ptr(), h, w, n_frames, cands.ctypes.data,
+                cands.size // 2, -NLM_HRW_KAPPA * LOG2E / params.h**2,
+                float(params.search_stride**2), params.norm_seed, zero, ua, bf16,
+                _stream(target),
+            )
+        else:
+            rc = lib.idf_nlm(
+                target.data_ptr(), frames.data_ptr(), valid.data_ptr(), wc.data_ptr(),
+                nw.data_ptr(), h, w, n_frames, params.patch_radius, cands.ctypes.data,
+                cands.size // 2, -LOG2E / params.h**2, math.log2(params.search_stride**2),
+                params.norm_seed, zero, ua, bf16, _stream(target),
+            )
+    kernel = ("nlm_hrw" if params.weights_halfres else "nlm") + ("_bf16" if bf16 else "")
     _raise_on_error(rc, kernel)
     launches[kernel] += 1
     return wc, nw

@@ -399,3 +399,68 @@ def test_run_turbo_layers_on_card_matches_cpu(cuda, tmp_path, d):
     # the normalized output divides the partials' flips by den (>= ~0.5 here)
     np.testing.assert_allclose(got.image, want.image, rtol=0, atol=4 * 2.0**-8)
     assert stencils.launches["bilateral_guided"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The half-row NLM (--weights-halfres) and the fused bilateral grid
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "params,h,n_frames",
+    [
+        (NlmParams(search_stride=2, weights_halfres=True), 40, 1),
+        (NlmParams(search_stride=2, weights_halfres=True, border=BorderPolicy.ZERO), 39, 1),
+        (NlmParams(search_stride=2, weights_halfres=True, search_disk=True), 39, 3),
+        (NlmParams(search_stride=2, weights_halfres=True, border=BorderPolicy.ZERO,
+                   uniform_alpha=True), 40, 3),
+    ],
+    ids=["clamp_F1", "zero_odd_F1", "disk_odd_F3", "zero_ua_F3"],
+)
+def test_nlm_hrw_kernel_matches_plain(cuda, params, h, n_frames, bf16):
+    """On smooth content, where many candidates carry weight: both tap forms,
+    both borders, odd H (the last cell pools a border row), a masked frame."""
+    target = _smooth_image(0, cuda, h)
+    frames = torch.stack([_smooth_image(i, cuda, h) for i in range(n_frames)])
+    valid = torch.tensor([1.0, 0.0, 1.0][:n_frames], device=cuda)
+    tiling = TilingConfig(compute_dtype="bfloat16") if bf16 else None
+    wc, nw = stencils.nlm_accumulate_frames(target, frames, params, tiling, valid)
+    pwc, pnw = stencils.nlm_plain(target, frames, params, valid,
+                                  "bfloat16" if bf16 else "float32")
+    _close(wc, pwc, rtol=2e-4, atol=1e-4)
+    _close(nw, pnw, rtol=2e-4, atol=1e-4)
+    kernel = "nlm_hrw_bf16" if bf16 else "nlm_hrw"
+    assert stencils.launches[kernel] == 1
+    assert sum(stencils.launches.values()) == 1
+
+
+@pytest.mark.parametrize(
+    "d,border,ua,shape",
+    [(2, BorderPolicy.CLAMP, False, (29, 37)), (2, BorderPolicy.ZERO, True, (61, 300)),
+     (4, BorderPolicy.CLAMP, True, (61, 300)), (4, BorderPolicy.ZERO, False, (97, 131)),
+     (8, BorderPolicy.CLAMP, False, (97, 131)), (8, BorderPolicy.ZERO, True, (61, 300))],
+)
+def test_fused_grid_kernel_equals_the_two_kernels(cuda, d, border, ua, shape):
+    """Each cell's sums in the build kernel's order and each pixel's in the
+    slice kernel's: grid_pipeline(fused=True) equals pool + build + slice bit
+    for bit, on several tiles and ragged edges."""
+    img = _image(0, cuda, *shape)
+    bp = BilateralParams(border=border, uniform_alpha=ua)
+    two = fast.grid_pipeline(img, bp, 6, d)
+    assert stencils.launches["fused_grid"] == 0
+    stencils.reset_launches()
+    got = fast.grid_pipeline(img, bp, 6, d, fused=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, two)
+    assert {k: n for k, n in stencils.launches.items() if n} == {"pool": 1, "fused_grid": 1}
+
+
+@pytest.mark.parametrize("d,n_taps,fits", [(2, 9, True), (4, 5, True), (8, 7, True),
+                                           (2, 63, True), (2, 65, False), (3, 9, False)])
+def test_fused_grid_shared_memory(cuda, d, n_taps, fits):
+    """The fused bilateral kernel stages one pooled image: its window fits a
+    block's shared memory on the H100 for every tap table it takes at d = 2,
+    4 and 8; more taps than its table, or a d that does not divide the
+    slice tile, it does not take."""
+    assert fast.fused_grid_fits(d, n_taps, cuda) == fits

@@ -107,12 +107,6 @@ def test_nlm_eager_matches_xla(params, tol):
     _close(nw, xnw, **tol)
 
 
-def test_nlm_eager_refuses_weights_halfres():
-    img = _t(_image(0))
-    with pytest.raises(NotImplementedError):
-        eager.nlm_eager(img, img, NlmParams(search_radius=4, search_stride=2, weights_halfres=True))
-
-
 def test_normalize_eager_matches_xla():
     rng = np.random.default_rng(3)
     wc = rng.uniform(0, 5, (24, 32, 4)).astype(np.float32)

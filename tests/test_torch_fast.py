@@ -284,6 +284,31 @@ def test_bilateral_fast_matches_grid_pipeline(d, border, ua, shape, sigma_s):
     _assert_turbo_close(got.numpy(), case["out"], _scale(case["img"]))
 
 
+@pytest.mark.parametrize("d,border,ua,shape,sigma_s", CASES, ids=IDS)
+def test_fused_grid_matches_fused_pipeline(d, border, ua, shape, sigma_s):
+    """grid_pipeline(fused=True) takes the fused kernel (its plain version on
+    the CPU): bit for bit the build-and-slice pipeline, and within the
+    pipeline contract of the JAX package's fused pipeline
+    (_grid_pipeline_planar(fused=True)), which rebases its telescoped sum at
+    floor(tmin) where the port sums the levels themselves."""
+    img = _image(shape, ua)
+    bp = BilateralParams(border=border, uniform_alpha=ua, sigma_spatial=sigma_s)
+    got = fast.grid_pipeline(_t(img), bp, K, d, fused=True)
+    assert torch.equal(got, fast.grid_pipeline(_t(img), bp, K, d, fused=False))
+    assert torch.equal(got, fast.grid_pipeline_plain(_t(img), bp, K, d))
+    planar = jnp.transpose(jnp.asarray(img), (2, 0, 1))
+    want = _hwc(jfast._grid_pipeline_planar(planar, jax_params(bp), K, d, fused=True))
+    _assert_turbo_close(got.numpy(), want, _scale(img))
+
+
+def test_fused_grid_is_off_by_default():
+    """As in the reference (fast.py:_default_fused), no d takes the fused
+    kernel unless asked: bilateral_fast and grid_pipeline(fused=None) run
+    the build and the slice."""
+    for d in (2, 4, 8):
+        assert fast.default_fused(d) is False and jfast._default_fused(d) is False
+
+
 def test_bilateral_fast_hdr_matches_grid_pipeline():
     """HDR content (RGB up to 4), which the reference never sent through the
     grid: the two packages agree within the pipeline contract scaled by the
@@ -367,6 +392,25 @@ def test_grid_wrappers_check_inputs():
         fast.slice_grid(img[:-2], grid, lmin, 1.0 / step, 2)
     with pytest.raises(ValueError):  # uniform alpha is one constant
         fast.slice_grid(img, grid, lmin, 1.0 / step, 2, img[0, :2, 3])
+
+
+def test_fused_grid_checks_inputs():
+    img = _t(_image((24, 32), False))
+    small = fast.pool(img, 2)
+    lmin = small[..., :3].amin((0, 1))
+    step = torch.full((3,), 0.25)
+    taps = fast._grid_taps(2.0, 2)
+    args = (small, img, lmin, step, 1.0 / step, K, taps, CLAMP, INV2SC)
+    with pytest.raises(ValueError):  # pooled at another d
+        fast.fused_grid(*args, 4)
+    with pytest.raises(ValueError):  # d outside {2, 4, 8}
+        fast.fused_grid(small, img, lmin, step, 1.0 / step, K, taps, CLAMP, INV2SC, 1)
+    with pytest.raises(ValueError):  # uniform alpha is one constant
+        fast.fused_grid(*args, 2, img[0, :2, 3])
+    with pytest.raises(ValueError):
+        fast.fused_grid(small, img, lmin[:2], step, 1.0 / step, K, taps, CLAMP, INV2SC, 2)
+    with pytest.raises(TypeError):
+        fast.fused_grid(small, img.double(), lmin, step, 1.0 / step, K, taps, CLAMP, INV2SC, 2)
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,7 @@ _spec.loader.exec_module(smoke)
 PIXELS = 1920 * 1080
 
 
-@pytest.mark.parametrize("name", ["nlm", "nlm_bf16", "nlm_hrw"])
+@pytest.mark.parametrize("name", ["nlm", "nlm_bf16", "nlm_hrw", "nlm_hrw_bf16"])
 def test_nlm_reads_an_aliased_target_once(name):
     """F = 1 on the target itself: the target and its one frame are one
     16-byte read a pixel, beside the 20-byte partials written."""
@@ -45,8 +45,24 @@ def test_bound_is_the_larger_of_bytes_and_operations(nbytes, flops, by):
     assert b["bound_ms"] == pytest.approx(1.0) and b["bound_by"] == by
 
 
+def test_nlm_hrw_bf16_bound_counts_its_half_rows():
+    """The half-row NLM halves the 15 operations before the weighted colour
+    and adds the 3 of the row upsample; its bf16 squared differences (4) run
+    at the bf16 rate: 1080p, F = 1, 49 candidates is 0.0265 ms, bound by
+    operations, where the bytes take 0.0223 ms."""
+    nbytes, f32, bf16 = smoke.kernel_work("nlm_hrw_bf16", PIXELS, cands=49, aliased=True)
+    assert (f32, bf16) == (31 * 49 * PIXELS // 2, 4 * 49 * PIXELS)
+    b = smoke.bound(nbytes, f32, bf16)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(0.0265, abs=5e-5)
+    assert nbytes / 3.35e12 * 1e3 == pytest.approx(0.0223, abs=5e-5)
+    f32_only = smoke.kernel_work("nlm_hrw", PIXELS, cands=49, aliased=True)
+    assert f32_only[1] == f32 + bf16
+
+
 def test_turbo_battery_makes_the_smokes_runs():
-    """Grid configs at every D of TURBO_RUNS, the NLM configs at D = 2 only;
+    """Grid configs at every D of TURBO_RUNS, the NLM configs at D = 2 only,
+    once more with --weights-halfres;
     each run's readings against clean and against exact (grid configs
     against the exact tiled bilateral)."""
     from image_denoising_filter_tpu_torch import cli
@@ -73,11 +89,12 @@ def test_turbo_battery_makes_the_smokes_runs():
     exact = {k: clean for k in ("bilateral", "layers") + smoke.NLM_CONFIGS}
     anim = {"target": "t.png", "clean": clean}
     runs = list(smoke.turbo_battery(cli, cfg, Io, anim, "root", exact, "cpu", run))
-    got = [(d, s, keys) for d, s, keys, _, _ in runs]
-    grid, nlm = cli.GRID_CONFIGS, smoke.NLM_CONFIGS
-    assert got == [(1, 2.0, grid), (2, 2.0, grid), (2, 2.0, nlm), (4, 2.0, grid),
-                   (8, 6.0, grid)]
+    got = [(d, s, keys, flags) for d, s, keys, flags, _, _ in runs]
+    grid, nlm, hrw = cli.GRID_CONFIGS, smoke.NLM_CONFIGS, ("--weights-halfres",)
+    assert got == [(1, 2.0, grid, ()), (2, 2.0, grid, ()), (2, 2.0, nlm, ()),
+                   (2, 2.0, nlm, hrw), (4, 2.0, grid, ()), (8, 6.0, grid, ())]
     assert all(a[a.index("--device") + 1] == "cpu" for a in argvs)
+    assert [("--weights-halfres" in a) for a in argvs] == [False] * 3 + [True] + [False] * 2
     for *_, readings in runs:
         for out, db_clean, db_exact, db_rgb in readings.values():
             assert db_clean == db_exact == db_rgb == pytest.approx(40.0)

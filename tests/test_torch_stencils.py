@@ -150,10 +150,10 @@ def test_normalize_matches_jax_with_sentinel():
 
 
 def test_options_not_ported_are_refused():
-    """bf16 taps of the bilateral kernels (no gpu-denoise path runs them) and
-    half-res NLM weights are not ported: the wrappers refuse them instead of
-    computing something else. bf16 NLM taps are ported (the turbo NLM), and
-    normalize divides in float32 whatever the tiling says, as in JAX."""
+    """bf16 taps of the bilateral kernels (no gpu-denoise path runs them) are
+    not ported: the wrappers refuse them instead of computing something else.
+    bf16 NLM taps are ported (the turbo NLM), and normalize divides in
+    float32 whatever the tiling says, as in JAX."""
     img = _t(_image(0))
     bf16 = TilingConfig(compute_dtype="bfloat16")
     with pytest.raises(NotImplementedError):
@@ -165,11 +165,6 @@ def test_options_not_ported_are_refused():
     stencils.nlm_accumulate(img, img, NP_, bf16)
     torch.testing.assert_close(stencils.normalize(img, img[..., 0] + 1, tiling=bf16),
                                stencils.normalize(img, img[..., 0] + 1), rtol=0, atol=0)
-    hrw = NlmParams(search_radius=4, search_stride=2, weights_halfres=True)
-    with pytest.raises(NotImplementedError):
-        stencils.nlm_accumulate(img, img, hrw)
-    with pytest.raises(NotImplementedError):
-        stencils.nlm_accumulate_frames(img, img[None], hrw)
 
 
 def test_wrappers_check_inputs():

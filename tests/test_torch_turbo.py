@@ -227,14 +227,9 @@ def test_cli_turbo_matches_jax_cli(anim, tmp_path_factory, capsys, argv):
 
 
 def test_cli_weights_halfres_is_refused(anim, tmp_path, capsys):
-    """--weights-halfres waits for its kernel (#3, _nlm_hrw_kernel) and says
-    where it stands; without --turbo it fails as tpu-denoise does."""
+    """Without --turbo, --weights-halfres fails as tpu-denoise does
+    (tests/test_torch_hrw.py runs it with --turbo)."""
     out = tmp_path / "out"
-    rc = cli.main([anim, "--device", "cpu", "--output-dir", str(out), "--turbo", "2",
-                   "--weights-halfres"])
-    assert rc == 1
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and "queue B item 7" in err and "_nlm_hrw_kernel" in err
     rc = cli.main([anim, "--device", "cpu", "--output-dir", str(out), "--weights-halfres"])
     assert rc == 1
     assert "--weights-halfres requires --turbo (stride-2 search)" in capsys.readouterr().err

@@ -63,8 +63,8 @@ def main(argv=None) -> int:
         exact = {k: imageio.load(os.path.join(exact_dir, names[k]))[0] for k in EXACT}
         for key in EXACT:
             print(f"  exact {key:10s} vs clean {smoke.psnr(exact[key], anim['clean']):.2f} dB")
-        for _, _, _, _, readings in smoke.turbo_battery(cli, cfg, imageio, anim, root, exact,
-                                                        args.device, run):
+        for *_, readings in smoke.turbo_battery(cli, cfg, imageio, anim, root, exact,
+                                                args.device, run):
             for key, (_, db_clean, db_exact, db_rgb) in readings.items():
                 print(f"  turbo {key:10s} vs clean {db_clean:.2f} dB, "
                       f"vs exact {db_exact:.2f} dB (RGB {db_rgb:.2f})")
