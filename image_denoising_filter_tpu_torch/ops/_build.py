@@ -105,25 +105,33 @@ def build() -> tuple[Path, str]:
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed), with its C
-    signatures declared: every pointer and the stream as c_void_p, the one
-    int out-parameter as a c_int pointer."""
+    signatures declared: every pointer and the stream as c_void_p, the int
+    out-parameters as c_int pointers, normalize's pixel count as 64 bits."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    i32p = ctypes.POINTER(i32)
     lib.idf_bilateral.argtypes = [
         ptr, ptr, ptr, ptr, i32, i32, ptr, i32, f32, f32, i32, i32, i32, i32, ptr,
     ]
     lib.idf_bilateral.restype = i32
     lib.idf_nlm.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, i32, f32, f32, f32, i32, i32, i32, ptr,
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, i32, f32, f32, f32, i32, i32, i32,
+        i32, i32, i32, i32, i32, i32, ptr,
     ]
     lib.idf_nlm.restype = i32
+    lib.idf_max_shared_bytes.argtypes = [i32p]
+    lib.idf_max_shared_bytes.restype = i32
+    lib.idf_nlm_info.argtypes = [i32, i32, i32, i32, i32p]
+    lib.idf_nlm_info.restype = i32
     lib.idf_nlm_hrw.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, f32, f32, f32, i32, i32, i32, ptr,
     ]
     lib.idf_nlm_hrw.restype = i32
-    lib.idf_normalize.argtypes = [ptr, ptr, ptr, i32, f32, f32, f32, f32, ptr]
+    lib.idf_normalize.argtypes = [ptr, ptr, ptr, i64, f32, f32, f32, f32, ptr]
     lib.idf_normalize.restype = i32
+    lib.idf_normalize_info.argtypes = [i32p]
+    lib.idf_normalize_info.restype = i32
     lib.idf_pool.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
     lib.idf_pool.restype = i32
     lib.idf_build_grid.argtypes = [
@@ -146,13 +154,13 @@ def library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, i32, f32, i32, i32, ptr,
     ]
     lib.idf_fused_grid.restype = i32
-    lib.idf_fused_grid_fits.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.idf_fused_grid_fits.argtypes = [i32, i32, i32p]
     lib.idf_fused_grid_fits.restype = i32
     lib.idf_fused_guided.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, ptr, i32, f32, i32, i32, ptr,
     ]
     lib.idf_fused_guided.restype = i32
-    lib.idf_fused_guided_fits.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.idf_fused_guided_fits.argtypes = [i32, i32, i32p]
     lib.idf_fused_guided_fits.restype = i32
     return lib

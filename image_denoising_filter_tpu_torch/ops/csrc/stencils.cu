@@ -17,12 +17,33 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <type_traits>
+
 namespace {
 
 constexpr int kBlockX = 32;  // a warp spans 32 neighbouring pixels of a row
 constexpr int kBlockY = 8;
 constexpr int kMaxRuns = 128;
 constexpr int kMaxCands = 1024;  // (2s)^2 candidates up to s = 16
+// The NLM kernel's block (ops/stencils.py: NLM_THREADS, NLM_TILE_W,
+// NLM_TILE_HS, NLM_MAX_PATCH): 256 threads own an output tile of kNlmTileW
+// columns and up to kNlmMaxTileH rows, for patch radii 1 to kNlmMaxPatch,
+// and hold the target RGB of at most kNlmEPerThread squared-difference
+// positions each in registers.
+constexpr int kNlmThreads = 256;
+constexpr int kNlmTileW = 32;
+constexpr int kNlmMaxTileH = 16;
+constexpr int kNlmMaxPatch = 4;
+constexpr int kNlmEPerThread = 4;
+static_assert((kNlmMaxTileH + 2 * kNlmMaxPatch - 1) * (kNlmTileW + 2 * kNlmMaxPatch - 1) <=
+                  kNlmThreads * kNlmEPerThread,
+              "the e region of the largest tile must fit the threads' registers");
+constexpr int kNlmOutPerThread = kNlmMaxTileH * kNlmTileW / kNlmThreads;
+constexpr int kNlmStrip = 4;  // patch row sums a thread makes in the row pass
+// The normalize kernel: pixels a thread loads before its first divide.
+constexpr int kNormThreads = 256;
+constexpr int kNormPixels = 4;
 
 struct Runs {
   int n;
@@ -130,107 +151,268 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
   if (out_nw != nullptr) out_nw[idx] = nw;
 }
 
-// Frame-batched NLM accumulation.
-//
-// Replaces image_denoising_filter_tpu/ops/stencils.py:_nlm_kernel (launched
-// by _nlm_planar_frames; its weights_halfres body is nlm_hrw_kernel's). The
-// TPU's sequential frame grid axis becomes the loop over frames here, with
-// the accumulators in registers. For every candidate (dy, dx) of the table,
-// the patch SSD is the direct sum over patch offsets [-p, p)^2 of the RGB
-// squared difference; the weight is exp2(ssd_coef * SSD + bias), with bias
-// log2(stride^2) for every candidate but the self match (0 when stride is
-// 1). Each frame seeds nw with norm_seed, and the frame's partial, seed
-// included, is scaled by valid[f].
-//
-// Bound on the H100: at the reference parameters a 1080p frame costs
-// 196 candidates x 36 patch taps x 2 M pixels = 14.6 G taps, each two
-// 16-byte loads that hit L1 and ~9 FP32 operations (~44 GFLOP a frame). It
-// is bound by L1 load bandwidth and instruction issue; device memory sees
-// each frame about once. Design: one thread per output pixel in 32x8
-// blocks, row pointers computed once per patch row, so the inner loop is a
-// clamp, two coalesced float4 loads and three FMAs. The box-sum
-// decomposition of the TPU kernel, and shared-memory tiles, are later work.
-//
-// BF16 taps (TilingConfig.compute_dtype "bfloat16", the turbo NLM): as the
-// TPU kernel with cdtype bfloat16 (stencils.py:532-534, 560-563), target and
-// neighbour RGB are rounded to bf16, and d = t - n, d*d and the two adds
+// The RGB squared difference e = |t - n|^2 of two pixels, in float32, or
+// with bf16 taps (TilingConfig.compute_dtype "bfloat16", the turbo NLM): as
+// the TPU kernel with cdtype bfloat16 (stencils.py:532-534, 560-563), target
+// and neighbour RGB are rounded to bf16, and d = t - n, d*d and the two adds
 // each round to bf16, in the order d0*d0 + d1*d1 + d2*d2; the sum is
 // widened to float32 before the patch sum and the exp2. One bf16 intrinsic
 // an operation, so the kernel rounds where its plain version does: the _rn
 // forms (add.rn / sub.rn / mul.rn.bf16), since ptxas may contract a plain
 // __hmul and __hadd into one fused multiply-add with one rounding fewer.
 // Value taps and accumulators stay float32.
+struct alignas(8) Bf16x4 {
+  __nv_bfloat16 x, y, z, w;
+};
+
+__device__ __forceinline__ Bf16x4 to_bf16x4(float4 v) {
+  return {__float2bfloat16_rn(v.x), __float2bfloat16_rn(v.y), __float2bfloat16_rn(v.z),
+          __float2bfloat16_rn(0.f)};
+}
+
+__device__ __forceinline__ float sq_diff(float4 t, float4 n) {
+  const float d0 = t.x - n.x;
+  const float d1 = t.y - n.y;
+  const float d2 = t.z - n.z;
+  return d0 * d0 + d1 * d1 + d2 * d2;
+}
+
+__device__ __forceinline__ float sq_diff(Bf16x4 t, Bf16x4 n) {
+  const __nv_bfloat16 d0 = __hsub_rn(t.x, n.x);
+  const __nv_bfloat16 d1 = __hsub_rn(t.y, n.y);
+  const __nv_bfloat16 d2 = __hsub_rn(t.z, n.z);
+  const __nv_bfloat16 e = __hadd_rn(__hmul_rn(d0, d0), __hmul_rn(d1, d1));
+  return __bfloat162float(__hadd_rn(e, __hmul_rn(d2, d2)));
+}
+
 template <bool BF16>
 __device__ __forceinline__ float tap_sq_diff(float4 t, float4 n) {
   if constexpr (BF16) {
-    const __nv_bfloat16 d0 = __hsub_rn(__float2bfloat16_rn(t.x), __float2bfloat16_rn(n.x));
-    const __nv_bfloat16 d1 = __hsub_rn(__float2bfloat16_rn(t.y), __float2bfloat16_rn(n.y));
-    const __nv_bfloat16 d2 = __hsub_rn(__float2bfloat16_rn(t.z), __float2bfloat16_rn(n.z));
-    const __nv_bfloat16 e = __hadd_rn(__hmul_rn(d0, d0), __hmul_rn(d1, d1));
-    return __bfloat162float(__hadd_rn(e, __hmul_rn(d2, d2)));
+    return sq_diff(to_bf16x4(t), to_bf16x4(n));
   } else {
-    const float d0 = t.x - n.x;
-    const float d1 = t.y - n.y;
-    const float d2 = t.z - n.z;
-    return d0 * d0 + d1 * d1 + d2 * d2;
+    return sq_diff(t, n);
   }
 }
 
-template <bool ZERO, bool BF16>
-__global__ void __launch_bounds__(kBlockX* kBlockY)
+// A pixel as the squared difference reads it: float4, or its RGB in bf16.
+template <bool BF16>
+using NlmTap = typename std::conditional<BF16, Bf16x4, float4>::type;
+
+template <bool BF16>
+__device__ __forceinline__ NlmTap<BF16> nlm_tap(float4 v) {
+  if constexpr (BF16) {
+    return to_bf16x4(v);
+  } else {
+    return v;
+  }
+}
+
+// Frame-batched NLM accumulation.
+//
+// Replaces image_denoising_filter_tpu/ops/stencils.py:_nlm_kernel (launched
+// by _nlm_planar_frames; its weights_halfres body is nlm_hrw_kernel's). The
+// TPU's sequential frame grid axis becomes the loop over frames here, with
+// the accumulators in registers. For every candidate (dy, dx) of the table,
+// the patch SSD is the 2p x 2p box sum of the RGB squared difference e
+// (patch offsets [-p, p)^2); the weight is exp2(ssd_coef * SSD + bias), with
+// bias log2(stride^2) for every candidate but the self match (0 when stride
+// is 1). Each frame seeds nw with norm_seed, and the frame's partial, seed
+// included, is scaled by valid[f].
+//
+// Bound on the H100: chip_smoke.py's kernel_work counts 24 operations a
+// candidate, pixel and frame with the box sums (e 8, two running sums 4,
+// exponent and exp2 3, weighted colour 8, weight 1): at the reference
+// parameters a 1080p frame is 196 x 2.07 M candidate-pixels, 9.8 GFLOP,
+// 0.146 ms at 67 TFLOP/s. The kernel does more: each box pass adds 2p - 1
+// terms a sum in the plain version's order, where running sums would add
+// two, and e is computed over the tile's patch halo (1.5 positions an
+// output at p = 3). What limits it is the shared memory's bandwidth: per
+// tile and candidate at p = 3 it moves ~400 wavefronts of 128 bytes (e
+// ~150, row pass ~90, lane pass and value taps ~160), at most one a cycle
+// on each SM, against ~230 cycles of instruction issue. ptxas gives it
+// 60-64 registers and no spills at p = 3, so 4 blocks (32 warps) a SM.
+//
+// Design: a block of 256 threads owns an output tile of th x 32 pixels (th
+// from ops/stencils.py:nlm_tile, 16 where the window fits) and makes one
+// pass over the frames. The patch radius P is a template argument (1 to 4),
+// so both box passes unroll into loads and adds with no loop or predicate. Per frame it stages the neighbour window, the tile
+// plus the search and patch halo ((th + 2p - 1 + dy range) x (32 + 2p - 1 +
+// dx range) pixels), in shared memory, applying the border policy (index
+// clamp, or a zero pixel) as it stages, and with bf16 taps also the
+// window's RGB rounded to bf16. The target's e positions, the tile plus the
+// patch halo, are loaded once into registers: each thread computes the same
+// positions for every candidate. Per candidate, with two barriers:
+//   1. e once per position of the (th + 2p - 1) x (32 + 2p - 1) region;
+//   2. the row pass: a thread sums 2p rows, top to bottom, for a strip of
+//      kNlmStrip outputs of one column;
+//   3. the lane pass: each output adds 2p row sums left to right, then
+//      exp2, one value tap from the window and five multiply-adds.
+// The sums keep the plain version's order (ops/eager.py:_box_sum), so the
+// SSD matches nlm_plain's up to the contraction of e's own multiply-adds.
+template <int P, bool ZERO, bool BF16>
+__global__ void __launch_bounds__(kNlmThreads)
     nlm_kernel(const float4* __restrict__ tgt, const float4* __restrict__ frames,
                const float* __restrict__ valid, float4* __restrict__ out_wc,
-               float* __restrict__ out_nw, int h, int w, int n_frames, int p,
-               const Cands cands, float ssd_coef, float log_m, float norm_seed,
-               int uniform_alpha) {
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
-  if (x >= w || y >= h) return;
-  const size_t idx = static_cast<size_t>(y) * w + x;
+               float* __restrict__ out_nw, int h, int w, int n_frames, const Cands cands,
+               float ssd_coef, float log_m, float norm_seed, int uniform_alpha, int th,
+               int oy, int ox, int win_h, int win_w) {
+  using Tap = NlmTap<BF16>;
+  constexpr int p = P;
+  constexpr int box = 2 * P;
+  constexpr int e_w = kNlmTileW + box - 1;
+  // Shared memory: the window as float4, [its RGB in bf16,] e, row sums.
+  extern __shared__ __align__(16) unsigned char nlm_smem[];
+  const int n_win = win_h * win_w;
+  const int e_h = th + box - 1;
+  const int n_e = e_h * e_w;
+  float4* win = reinterpret_cast<float4*>(nlm_smem);
+  unsigned char* next = nlm_smem + n_win * sizeof(float4);
+  Tap* win_taps = reinterpret_cast<Tap*>(nlm_smem);
+  if constexpr (BF16) {
+    win_taps = reinterpret_cast<Tap*>(next);
+    next += n_win * sizeof(Tap);
+  }
+  float* e_buf = reinterpret_cast<float*>(next);
+  float* row_buf = e_buf + n_e;
+
+  const int t = threadIdx.x;
+  const int y0 = blockIdx.y * th;
+  const int x0 = blockIdx.x * kNlmTileW;
+  // Window index of candidate (dy, dx) relative to (dy_min, dx_min):
+  // off = (dy - dy_min) * win_w + dx - dx_min.
+  const int dy_min = oy + p;
+  const int dx_min = ox + p;
   const size_t plane = static_cast<size_t>(h) * w;
-  float4 total = make_float4(0.f, 0.f, 0.f, 0.f);
-  float total_nw = 0.f;
+
+  // This thread's e positions: e(r, c) pairs target pixel (y0 - p + r,
+  // x0 - p + c) with the window's pixel e_win + off.
+  Tap tv[kNlmEPerThread];
+  int e_win[kNlmEPerThread];
+#pragma unroll
+  for (int q = 0; q < kNlmEPerThread; ++q) {
+    const int pos = t + q * kNlmThreads;
+    const int r = pos / e_w;
+    const int c = pos - r * e_w;
+    e_win[q] = r * win_w + c;
+    bool ok = true;
+    const float4* row = row_ptr<ZERO>(tgt, y0 - p + r, h, w, ok);
+    tv[q] = nlm_tap<BF16>(pos < n_e ? col_tap<ZERO>(row, ok, x0 - p + c, w)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f));
+  }
+  // This thread's outputs: rows (t / 32) + 8q of column t % 32, the value
+  // tap of candidate (dy, dx) at window index o_win + off.
+  const int ocol = t % kNlmTileW;
+  int o_win[kNlmOutPerThread];
+  float4 total[kNlmOutPerThread];
+  float total_nw[kNlmOutPerThread];
+#pragma unroll
+  for (int q = 0; q < kNlmOutPerThread; ++q) {
+    const int orow = t / kNlmTileW + q * (kNlmThreads / kNlmTileW);
+    o_win[q] = (orow + p) * win_w + ocol + p;
+    total[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    total_nw[q] = 0.f;
+  }
+  const int n_tasks = (th + kNlmStrip - 1) / kNlmStrip * e_w;
+
   for (int f = 0; f < n_frames; ++f) {
     const float4* nbr = frames + f * plane;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    float nw = norm_seed;
+    __syncthreads();  // the previous frame's last window reads are done
+    for (int i = t; i < n_win; i += kNlmThreads) {
+      const int wr = i / win_w;
+      bool ok;
+      const float4* row = row_ptr<ZERO>(nbr, y0 + oy + wr, h, w, ok);
+      const float4 v = col_tap<ZERO>(row, ok, x0 + ox + i - wr * win_w, w);
+      win[i] = v;
+      if constexpr (BF16) win_taps[i] = nlm_tap<true>(v);
+    }
+    __syncthreads();
+    float4 acc[kNlmOutPerThread];
+    float nw[kNlmOutPerThread];
+#pragma unroll
+    for (int q = 0; q < kNlmOutPerThread; ++q) {
+      acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+      nw[q] = norm_seed;
+    }
     for (int k = 0; k < cands.n; ++k) {
       const int dy = cands.dy[k];
       const int dx = cands.dx[k];
-      float ssd = 0.f;
-      for (int py = -p; py < p; ++py) {
-        bool tok, nok;
-        const float4* trow = row_ptr<ZERO>(tgt, y + py, h, w, tok);
-        const float4* nrow = row_ptr<ZERO>(nbr, y + dy + py, h, w, nok);
-        for (int px = -p; px < p; ++px) {
-          const float4 t = col_tap<ZERO>(trow, tok, x + px, w);
-          const float4 n = col_tap<ZERO>(nrow, nok, x + dx + px, w);
-          ssd += tap_sq_diff<BF16>(t, n);
+      const int off = (dy - dy_min) * win_w + dx - dx_min;
+      // 1. e over the tile and its patch halo.
+#pragma unroll
+      for (int q = 0; q < kNlmEPerThread; ++q) {
+        const int pos = t + q * kNlmThreads;
+        if (pos < n_e) e_buf[pos] = sq_diff(tv[q], win_taps[e_win[q] + off]);
+      }
+      __syncthreads();
+      // 2. Row pass: rs(r, c) = e(r, c) + e(r + 1, c) + ... + e(r + 2p - 1,
+      // c), added in that order, for the rows r of one strip.
+      for (int task = t; task < n_tasks; task += kNlmThreads) {
+        const int strip = task / e_w;
+        const int c = task - strip * e_w;
+        const int r0 = strip * kNlmStrip;
+        const int rows = min(kNlmStrip, th - r0);
+        const float* ecol = e_buf + r0 * e_w + c;
+        float ev[kNlmStrip + box - 1];
+#pragma unroll
+        for (int j = 0; j < kNlmStrip + box - 1; ++j)
+          ev[j] = j < rows + box - 1 ? ecol[j * e_w] : 0.f;
+#pragma unroll
+        for (int i = 0; i < kNlmStrip; ++i) {
+          float rs = ev[i];
+#pragma unroll
+          for (int j = 1; j < box; ++j) rs += ev[i + j];
+          if (i < rows) row_buf[(r0 + i) * e_w + c] = rs;
         }
       }
+      __syncthreads();
+      // 3. Lane pass, weight and value tap. The next candidate's e and row
+      // sums are written only after the barriers that follow these reads.
       const float bias = (dy != 0 || dx != 0) ? log_m : 0.f;
-      const float wgt = exp2f(ssd * ssd_coef + bias);
-      bool vok;
-      const float4* vrow = row_ptr<ZERO>(nbr, y + dy, h, w, vok);
-      const float4 v = col_tap<ZERO>(vrow, vok, x + dx, w);
-      acc.x += v.x * wgt;
-      acc.y += v.y * wgt;
-      acc.z += v.z * wgt;
-      acc.w += v.w * wgt;
-      nw += wgt;
+#pragma unroll
+      for (int q = 0; q < kNlmOutPerThread; ++q) {
+        const int orow = t / kNlmTileW + q * (kNlmThreads / kNlmTileW);
+        if (orow < th) {
+          const float* rs = row_buf + orow * e_w + ocol;
+          float ssd = rs[0];
+#pragma unroll
+          for (int j = 1; j < box; ++j) ssd += rs[j];
+          const float wgt = exp2f(ssd * ssd_coef + bias);
+          const float4 v = win[o_win[q] + off];
+          acc[q].x += v.x * wgt;
+          acc[q].y += v.y * wgt;
+          acc[q].z += v.z * wgt;
+          acc[q].w += v.w * wgt;
+          nw[q] += wgt;
+        }
+      }
     }
-    // This frame's tap alphas are one constant a: sum(w * a) = a * (nw -
-    // seed); the seed is not alpha-weighted.
-    if (uniform_alpha) acc.w = nbr[idx].w * (nw - norm_seed);
     const float vf = valid[f];
-    total.x += acc.x * vf;
-    total.y += acc.y * vf;
-    total.z += acc.z * vf;
-    total.w += acc.w * vf;
-    total_nw += nw * vf;
+#pragma unroll
+    for (int q = 0; q < kNlmOutPerThread; ++q) {
+      const int y = y0 + t / kNlmTileW + q * (kNlmThreads / kNlmTileW);
+      const int x = x0 + ocol;
+      // This frame's tap alphas are one constant a: sum(w * a) = a * (nw -
+      // seed); the seed is not alpha-weighted.
+      if (uniform_alpha && y < h && x < w)
+        acc[q].w = nbr[static_cast<size_t>(y) * w + x].w * (nw[q] - norm_seed);
+      total[q].x += acc[q].x * vf;
+      total[q].y += acc[q].y * vf;
+      total[q].z += acc[q].z * vf;
+      total[q].w += acc[q].w * vf;
+      total_nw[q] += nw[q] * vf;
+    }
   }
-  out_wc[idx] = total;
-  out_nw[idx] = total_nw;
+#pragma unroll
+  for (int q = 0; q < kNlmOutPerThread; ++q) {
+    const int orow = t / kNlmTileW + q * (kNlmThreads / kNlmTileW);
+    const int y = y0 + orow;
+    const int x = x0 + ocol;
+    if (orow < th && y < h && x < w) {
+      const size_t idx = static_cast<size_t>(y) * w + x;
+      out_wc[idx] = total[q];
+      out_nw[idx] = total_nw[q];
+    }
+  }
 }
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -385,16 +567,99 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
 //
 // Replaces image_denoising_filter_tpu/ops/stencils.py:_normalize_kernel
 // (launched by normalize). Bound on the H100: device memory, 36 bytes a
-// pixel and one division per channel. Design: one thread per pixel, one
-// float4 load, one float load and one float4 store, all coalesced.
-__global__ void __launch_bounds__(256)
+// pixel and one division per channel (0.022 ms at 1080p). Design: a
+// streaming kernel. The grid is as many blocks as the card holds at once
+// (normalize_grid) and walks the image in a grid-stride loop; each thread
+// takes kNormPixels pixels a step, kNormThreads apart so that every warp
+// load and store is 512 contiguous bytes, and issues all their loads before
+// its first divide; the ragged tail is masked. Loads and stores are plain:
+// evict-first hints (__ldcs, __stcs) measured no faster at 1080p or 4K
+// (tools/torch_normalize_hints.py). Division is IEEE (no fast math): x / x
+// is exactly 1, and the output equals normalize_plain's.
+__global__ void __launch_bounds__(kNormThreads)
     normalize_kernel(const float4* __restrict__ wc, const float* __restrict__ nw,
-                     float4* __restrict__ out, int n, float4 sentinel) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float d = nw[i];
-  const float4 v = wc[i];
-  out[i] = d == 0.f ? sentinel : make_float4(v.x / d, v.y / d, v.z / d, v.w / d);
+                     float4* __restrict__ out, long long n, float4 sentinel) {
+  const long long step = static_cast<long long>(gridDim.x) * kNormThreads * kNormPixels;
+  for (long long base = static_cast<long long>(blockIdx.x) * kNormThreads * kNormPixels +
+                        threadIdx.x;
+       base < n; base += step) {
+    float4 v[kNormPixels];
+    float d[kNormPixels];
+#pragma unroll
+    for (int k = 0; k < kNormPixels; ++k) {
+      const long long i = base + k * kNormThreads;
+      if (i < n) {
+        v[k] = wc[i];
+        d[k] = nw[i];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kNormPixels; ++k) {
+      const long long i = base + k * kNormThreads;
+      if (i < n)
+        out[i] = d[k] == 0.f ? sentinel
+                             : make_float4(v[k].x / d[k], v[k].y / d[k], v[k].z / d[k],
+                                           v[k].w / d[k]);
+    }
+  }
+}
+
+// *blocks = the blocks of normalize_kernel the current device holds at once
+// (cached per device).
+cudaError_t normalize_grid(int* blocks) {
+  constexpr int kMaxDevices = 64;
+  static int cached[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cached[device] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, normalize_kernel,
+                                                          kNormThreads, 0);
+    if (err != cudaSuccess) return err;
+    cached[device] = sms * per_sm;
+  }
+  *blocks = cached[device];
+  return *blocks > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+// Shared memory of nlm_kernel's layout (ops/stencils.py:nlm_shared_bytes).
+size_t nlm_shared_bytes(int th, int p, int win_h, int win_w, bool bf16) {
+  const size_t e_w = kNlmTileW + 2 * p - 1;
+  const size_t e_h = th + 2 * p - 1;
+  const size_t tap = sizeof(float4) + (bf16 ? sizeof(Bf16x4) : 0);
+  return static_cast<size_t>(win_h) * win_w * tap + sizeof(float) * (e_h + th) * e_w;
+}
+
+cudaError_t max_shared_bytes(int* bytes) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return err;
+}
+
+using NlmKernel = decltype(&nlm_kernel<1, false, false>);
+
+template <int P>
+NlmKernel nlm_kernel_for(int zero_border, int bf16_taps) {
+  return zero_border ? (bf16_taps ? nlm_kernel<P, true, true> : nlm_kernel<P, true, false>)
+                     : (bf16_taps ? nlm_kernel<P, false, true> : nlm_kernel<P, false, false>);
+}
+
+// The kernel for patch radius p (1 to kNlmMaxPatch), or nullptr.
+NlmKernel nlm_kernel_for(int p, int zero_border, int bf16_taps) {
+  static_assert(kNlmMaxPatch == 4, "one case per patch radius");
+  switch (p) {
+    case 1: return nlm_kernel_for<1>(zero_border, bf16_taps);
+    case 2: return nlm_kernel_for<2>(zero_border, bf16_taps);
+    case 3: return nlm_kernel_for<3>(zero_border, bf16_taps);
+    case 4: return nlm_kernel_for<4>(zero_border, bf16_taps);
+    default: return nullptr;
+  }
 }
 
 }  // namespace
@@ -443,35 +708,74 @@ int idf_bilateral(const void* img, const void* guide, void* out_wc, void* out_nw
 // cands: host array of n_cands (dy, dx) pairs; frames: (n_frames, h, w, 4);
 // valid: device array of n_frames floats.
 // bf16_taps selects the bf16 tap arithmetic (the turbo NLM).
+// The tile (ops/stencils.py:nlm_tile): th output rows of 32 columns; the
+// staged window of win_h x win_w pixels at (oy, ox) from the tile's first
+// output pixel; shared_bytes of dynamic shared memory, which must equal the
+// layout's and fit the device. Every candidate's taps must fall inside the
+// window, else cudaErrorInvalidValue and no launch.
 int idf_nlm(const void* tgt, const void* frames, const void* valid, void* out_wc,
             void* out_nw, int h, int w, int n_frames, int p, const int* cands,
             int n_cands, float ssd_coef, float log_m, float norm_seed, int zero_border,
-            int uniform_alpha, int bf16_taps, void* stream) {
-  if (n_cands < 0 || n_cands > kMaxCands) return static_cast<int>(cudaErrorInvalidValue);
-  if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+            int uniform_alpha, int bf16_taps, int th, int oy, int ox, int win_h, int win_w,
+            int shared_bytes, void* stream) {
+  const cudaError_t invalid = cudaErrorInvalidValue;
+  const NlmKernel kernel = nlm_kernel_for(p, zero_border, bf16_taps);
+  if (kernel == nullptr || n_cands < 0 || n_cands > kMaxCands || n_frames < 0 || th < 1 ||
+      th > kNlmMaxTileH || win_h < 1 || win_w < 1 ||
+      static_cast<size_t>(shared_bytes) != nlm_shared_bytes(th, p, win_h, win_w, bf16_taps))
+    return static_cast<int>(invalid);
+  const int e_h = th + 2 * p - 1;
+  const int e_w = kNlmTileW + 2 * p - 1;
   Cands table;
   table.n = n_cands;
   for (int i = 0; i < n_cands; ++i) {
     const int dy = cands[2 * i];
     const int dx = cands[2 * i + 1];
-    if (dy < -128 || dy > 127 || dx < -128 || dx > 127)
-      return static_cast<int>(cudaErrorInvalidValue);
+    // e rows dy - p .. dy + th + p - 2 and columns likewise from the tile.
+    if (dy < -128 || dy > 127 || dx < -128 || dx > 127 || dy - p < oy ||
+        dy - p + e_h > oy + win_h || dx - p < ox || dx - p + e_w > ox + win_w)
+      return static_cast<int>(invalid);
     table.dy[i] = static_cast<signed char>(dy);
     table.dx[i] = static_cast<signed char>(dx);
   }
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float4* t = static_cast<const float4*>(tgt);
-  const float4* fr = static_cast<const float4*>(frames);
-  const float* v = static_cast<const float*>(valid);
-  float4* o = static_cast<float4*>(out_wc);
-  float* onw = static_cast<float*>(out_nw);
-  auto kernel = zero_border ? (bf16_taps ? nlm_kernel<true, true> : nlm_kernel<true, false>)
-                            : (bf16_taps ? nlm_kernel<false, true> : nlm_kernel<false, false>);
-  kernel<<<grid, block, 0, s>>>(t, fr, v, o, onw, h, w, n_frames, p, table, ssd_coef, log_m,
-                                norm_seed, uniform_alpha);
+  int max_bytes = 0;
+  cudaError_t err = max_shared_bytes(&max_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (shared_bytes > max_bytes) return static_cast<int>(invalid);
+  if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+  if (shared_bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((w + kNlmTileW - 1) / kNlmTileW, (h + th - 1) / th);
+  kernel<<<grid, kNlmThreads, shared_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(tgt), static_cast<const float4*>(frames),
+      static_cast<const float*>(valid), static_cast<float4*>(out_wc),
+      static_cast<float*>(out_nw), h, w, n_frames, table, ssd_coef, log_m, norm_seed,
+      uniform_alpha, th, oy, ox, win_h, win_w);
   return static_cast<int>(cudaGetLastError());
+}
+
+// *bytes = the shared memory a block may opt into on the current device.
+int idf_max_shared_bytes(int* bytes) { return static_cast<int>(max_shared_bytes(bytes)); }
+
+// The NLM kernel of a patch radius, border and tap form as compiled, and its
+// occupancy at shared_bytes a block: info[0] registers a thread, info[1]
+// local (spill) bytes a thread, info[2] blocks a multiprocessor holds at
+// once.
+int idf_nlm_info(int p, int zero_border, int bf16_taps, int shared_bytes, int* info) {
+  const NlmKernel kernel = nlm_kernel_for(p, zero_border, bf16_taps);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess && shared_bytes > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], kernel, kNlmThreads,
+                                                        shared_bytes);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(err);
 }
 
 // The half-row NLM: the inputs and outputs of idf_nlm (patch radius 3, every
@@ -522,15 +826,30 @@ int idf_nlm_hrw(const void* tgt, const void* frames, const void* valid, void* po
   return static_cast<int>(cudaGetLastError());
 }
 
-int idf_normalize(const void* wc, const void* nw, void* out, int n_pixels, float s_r,
+int idf_normalize(const void* wc, const void* nw, void* out, long long n_pixels, float s_r,
                   float s_g, float s_b, float s_a, void* stream) {
   if (n_pixels <= 0) return static_cast<int>(cudaSuccess);
-  const int threads = 256;
-  const int blocks = (n_pixels + threads - 1) / threads;
-  normalize_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  int resident = 0;
+  const cudaError_t err = normalize_grid(&resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long per_block = kNormThreads * kNormPixels;
+  const int blocks =
+      static_cast<int>(std::min<long long>(resident, (n_pixels + per_block - 1) / per_block));
+  normalize_kernel<<<blocks, kNormThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(wc), static_cast<const float*>(nw),
       static_cast<float4*>(out), n_pixels, make_float4(s_r, s_g, s_b, s_a));
   return static_cast<int>(cudaGetLastError());
+}
+
+// normalize_kernel as compiled: info[0] registers a thread, info[1] local
+// (spill) bytes a thread, info[2] the blocks of its grid on this device.
+int idf_normalize_info(int* info) {
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaFuncGetAttributes(&attr, normalize_kernel);
+  if (err == cudaSuccess) err = normalize_grid(&info[2]);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

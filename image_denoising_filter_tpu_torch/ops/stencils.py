@@ -9,6 +9,8 @@ kernel this module holds:
   * the static tables the kernel iterates, ported from the JAX module:
     `_circle_runs` (the bilateral truncation disk) and `_sdx_steps` (the NLM
     search candidates, with the stride and disk subsets);
+  * the NLM kernel's tile and staged window (`nlm_tile`), index arithmetic
+    in pure Python that the CPU tests check;
   * its plain PyTorch version, the same tap set and candidate table as
     whole-image tensor ops (`bilateral_plain`, `nlm_plain`,
     `normalize_plain`);
@@ -24,6 +26,8 @@ raises. There is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -48,6 +52,18 @@ LOG2E = math.log2(math.e)
 # Table sizes the kernels take by value (stencils.cu: kMaxRuns, kMaxCands).
 MAX_RUNS = 128
 MAX_CANDIDATES = 1024
+
+# The NLM kernel's block (stencils.cu: kNlmThreads, kNlmTileW, kNlmMaxTileH,
+# kNlmMaxPatch): 256 threads own an output tile of 32 columns and one of
+# NLM_TILE_HS rows; the patch radius is a template argument of the kernel,
+# 1 to 4.
+NLM_THREADS = 256
+NLM_TILE_W = 32
+NLM_TILE_HS = (16, 8, 4, 2, 1)
+NLM_MAX_PATCH = 4
+# Shared memory a block may opt into on the H100 (232,448 bytes); the
+# wrapper reads the card's own limit.
+H100_SHARED_OPTIN = 232448
 
 #: Kernel launches since the last reset_launches(), by kernel form: "nlm"
 #: with float32 taps, "nlm_bf16" with bf16 taps, "nlm_hrw" and
@@ -129,6 +145,78 @@ def nlm_candidates(params: NlmParams) -> list[tuple[int, int]]:
         for sdy, row in zip(sdy_all, _sdx_steps(params))
         for sdx in row
     ]
+
+
+# ---------------------------------------------------------------------------
+# The NLM kernel's tile and staged window
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class NlmTile:
+    """One block's geometry in the NLM kernel. The block owns output rows
+    [y0, y0 + th) and columns [x0, x0 + tw) and computes the squared
+    difference e(r, c) of target pixel (y0 - p + r, x0 - p + c) for r <
+    e_h = th + 2p - 1, c < e_w = tw + 2p - 1. Per frame it stages the
+    neighbour's pixels (y0 + oy + i, x0 + ox + j), i < win_h, j < win_w: with
+    (dy_min, dx_min) the table's least offsets, oy = dy_min - p, ox = dx_min -
+    p, candidate (dy, dx) reads e(r, c)'s neighbour at window index (r + dy -
+    dy_min, c + dx - dx_min) and output (y0 + i, x0 + j)'s value tap at (i +
+    p + dy - dy_min, j + p + dx - dx_min). shared_bytes is the block's dynamic
+    shared memory (nlm_shared_bytes)."""
+
+    th: int
+    tw: int
+    p: int
+    oy: int
+    ox: int
+    win_h: int
+    win_w: int
+    shared_bytes: int
+
+    @property
+    def e_h(self) -> int:
+        return self.th + 2 * self.p - 1
+
+    @property
+    def e_w(self) -> int:
+        return self.tw + 2 * self.p - 1
+
+
+def nlm_shared_bytes(th: int, p: int, win_h: int, win_w: int, bf16: bool) -> int:
+    """The NLM kernel's shared memory (stencils.cu:nlm_shared_bytes): the
+    window as float4 (16 bytes a pixel), with bf16 taps also its RGB in bf16
+    (8 bytes a pixel), then e (e_h x e_w floats) and the row sums (th x e_w
+    floats)."""
+    e_w = NLM_TILE_W + 2 * p - 1
+    e_h = th + 2 * p - 1
+    return win_h * win_w * (16 + (8 if bf16 else 0)) + 4 * (e_h + th) * e_w
+
+
+@functools.lru_cache(maxsize=None)
+def nlm_tile(params: NlmParams, bf16: bool, shared_limit: int = H100_SHARED_OPTIN) -> NlmTile:
+    """The NLM kernel's tile for these parameters: the tallest of NLM_TILE_HS
+    whose shared memory fits `shared_limit`; ValueError where no height
+    fits, or for a patch radius outside 1 to NLM_MAX_PATCH (the kernel's
+    instantiations; the tests and the reference take 1 to 3)."""
+    p = params.patch_radius
+    if not 1 <= p <= NLM_MAX_PATCH:
+        raise ValueError(f"the NLM kernel takes patch radius 1 to {NLM_MAX_PATCH}, got {p}")
+    cands = nlm_candidates(params)
+    dys = [dy for dy, _ in cands]
+    dxs = [dx for _, dx in cands]
+    e_w = NLM_TILE_W + 2 * p - 1
+    win_w = e_w + max(dxs) - min(dxs)
+    for th in NLM_TILE_HS:
+        e_h = th + 2 * p - 1
+        win_h = e_h + max(dys) - min(dys)
+        nbytes = nlm_shared_bytes(th, p, win_h, win_w, bf16)
+        if nbytes <= shared_limit:
+            return NlmTile(th, NLM_TILE_W, p, min(dys) - p, min(dxs) - p, win_h, win_w, nbytes)
+    raise ValueError(
+        f"no NLM tile fits patch radius {p} and search radius {params.search_radius} "
+        f"in {shared_limit} bytes of shared memory"
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -248,6 +336,39 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 def _raise_on_error(rc: int, kernel: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error {rc}")
+
+
+@functools.lru_cache(maxsize=None)
+def max_shared_bytes(device: torch.device) -> int:
+    """The shared memory a block may opt into on that card."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _build.library().idf_max_shared_bytes(ctypes.byref(out))
+    _raise_on_error(rc, "max_shared_bytes")
+    return out.value
+
+
+def kernel_info(kernel: str, device: torch.device, params: Optional[NlmParams] = None) -> dict:
+    """How a kernel form runs on `device`, as compiled: registers and spill
+    (local) bytes a thread; for "nlm" and "nlm_bf16" also its tile at
+    `params` (th x tw, shared bytes) and the blocks a multiprocessor holds at
+    once; for "normalize" the blocks of its grid."""
+    info = (ctypes.c_int * 3)()
+    lib = _build.library()
+    with torch.cuda.device(device):
+        if kernel == "normalize":
+            rc = lib.idf_normalize_info(info)
+        else:
+            tile = nlm_tile(params, kernel == "nlm_bf16", max_shared_bytes(device))
+            zero = int(params.border != BorderPolicy.CLAMP)
+            rc = lib.idf_nlm_info(params.patch_radius, zero, int(kernel == "nlm_bf16"),
+                                  tile.shared_bytes, info)
+    _raise_on_error(rc, f"{kernel} info")
+    out = {"registers": info[0], "spill_bytes": info[1]}
+    if kernel == "normalize":
+        return {**out, "grid_blocks": info[2]}
+    return {**out, "tile": f"{tile.th}x{tile.tw}", "shared_bytes": tile.shared_bytes,
+            "blocks_per_sm": info[2]}
 
 
 def _launch_bilateral(
@@ -393,11 +514,13 @@ def nlm_accumulate_frames(
                 _stream(target),
             )
         else:
+            tile = nlm_tile(params, bool(bf16), max_shared_bytes(target.device))
             rc = lib.idf_nlm(
                 target.data_ptr(), frames.data_ptr(), valid.data_ptr(), wc.data_ptr(),
                 nw.data_ptr(), h, w, n_frames, params.patch_radius, cands.ctypes.data,
                 cands.size // 2, -LOG2E / params.h**2, math.log2(params.search_stride**2),
-                params.norm_seed, zero, ua, bf16, _stream(target),
+                params.norm_seed, zero, ua, bf16, tile.th, tile.oy, tile.ox, tile.win_h,
+                tile.win_w, tile.shared_bytes, _stream(target),
             )
     kernel = ("nlm_hrw" if params.weights_halfres else "nlm") + ("_bf16" if bf16 else "")
     _raise_on_error(rc, kernel)

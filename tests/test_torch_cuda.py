@@ -85,18 +85,28 @@ def test_guided_kernel_matches_plain(cuda):
 
 
 @pytest.mark.parametrize(
-    "params,tol",
+    "params,tol,shape",
     [
-        (NP_, {}),
+        (NP_, {}, (29, 37)),
         (NlmParams(search_radius=5, patch_radius=2, search_stride=2, search_disk=True,
-                   border=BorderPolicy.ZERO), {}),
-        (NlmParams(uniform_alpha=True), dict(rtol=2e-4, atol=1e-4)),
+                   border=BorderPolicy.ZERO), {}, (29, 37)),
+        (NlmParams(uniform_alpha=True), dict(rtol=2e-4, atol=1e-4), (29, 37)),
+        (NP_, {}, (1, 64)),
+        (NlmParams(search_radius=3, patch_radius=2, uniform_alpha=True), {}, (7, 300)),
+        (NlmParams(search_radius=4, patch_radius=3, border=BorderPolicy.ZERO,
+                   uniform_alpha=True), {}, (40, 5)),
+        (NlmParams(search_radius=16, patch_radius=1), {}, (29, 37)),
     ],
-    ids=["small", "stride2_disk_zero", "reference_uniform_alpha"],
+    ids=["small", "stride2_disk_zero", "reference_uniform_alpha", "small_1x64",
+         "clamp_ua_7x300", "zero_ua_40x5", "s16_1024_candidates"],
 )
-def test_nlm_kernel_matches_plain(cuda, params, tol):
-    target = _image(0, cuda)
-    frames = torch.stack([_image(i, cuda) for i in range(3)])
+def test_nlm_kernel_matches_plain(cuda, params, tol, shape):
+    """F = 3 with the middle frame masked, on shapes that are not multiples
+    of the kernel's 16 x 32 tile (one row; narrower than 2s), both borders,
+    uniform alpha, and the largest table (s = 16, 1024 candidates, its
+    window above 48 KB of shared memory)."""
+    target = _image(0, cuda, *shape)
+    frames = torch.stack([_image(i, cuda, *shape) for i in range(3)])
     valid = torch.tensor([1.0, 0.0, 1.0], device=cuda)
     wc, nw = stencils.nlm_accumulate_frames(target, frames, params, None, valid)
     pwc, pnw = stencils.nlm_plain(target, frames, params, valid)
@@ -105,9 +115,46 @@ def test_nlm_kernel_matches_plain(cuda, params, tol):
     assert stencils.launches["nlm"] == 1
 
 
-def test_normalize_kernel_matches_plain_exactly(cuda):
-    wc = torch.rand(29, 37, 4, device=cuda) * 5
-    nw = torch.rand(29, 37, device=cuda) + 0.5
+def test_nlm_launcher_refuses_a_window_that_misses_a_tap(cuda):
+    """The C launcher checks the tile against every candidate before it
+    launches: a window one row short is refused with cudaErrorInvalidValue
+    (1)."""
+    img = _image(0, cuda)
+    out, nw = torch.empty_like(img), torch.empty(img.shape[:2], device=cuda)
+    valid = torch.ones(1, device=cuda)
+    tile = stencils.nlm_tile(NP_, False, stencils.max_shared_bytes(img.device))
+    cands = np.asarray(stencils.nlm_candidates(NP_), np.int32).reshape(-1)
+    lib = stencils._build.library()
+    for win_h, nbytes in ((tile.win_h, tile.shared_bytes),
+                          (tile.win_h - 1, stencils.nlm_shared_bytes(
+                              tile.th, tile.p, tile.win_h - 1, tile.win_w, False))):
+        rc = lib.idf_nlm(img.data_ptr(), img.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                         nw.data_ptr(), 29, 37, 1, NP_.patch_radius, cands.ctypes.data,
+                         cands.size // 2, -1.0, 0.0, 0.001, 0, 0, 0, tile.th, tile.oy, tile.ox,
+                         win_h, tile.win_w, nbytes, stencils._stream(img))
+        assert rc == (0 if win_h == tile.win_h else 1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kernel,params", [("nlm", NlmParams()),
+                                           ("nlm_bf16", NlmParams(search_stride=2))])
+def test_nlm_kernel_info(cuda, kernel, params):
+    """The reference tiles launch: registers without spills, and at least
+    two blocks a multiprocessor."""
+    info = stencils.kernel_info(kernel, cuda, params)
+    assert info["tile"] == "16x32" and info["spill_bytes"] == 0
+    assert info["blocks_per_sm"] >= 2 and 0 < info["registers"] <= 255
+
+
+@pytest.mark.parametrize("shape", [(29, 37), (1, 1023), (2160, 3840)],
+                         ids=["29x37", "1x1023", "4K"])
+def test_normalize_kernel_matches_plain_exactly(cuda, shape):
+    """Pixel counts that are not multiples of the 4 pixels a thread takes,
+    or of the 1024 a block takes, and a 4K frame (more pixels than the grid
+    holds at once, so the grid-stride loop turns)."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    wc = torch.rand(*shape, 4, device=cuda, generator=gen) * 5
+    nw = torch.rand(*shape, device=cuda, generator=gen) + 0.5
     nw[::4, ::3] = 0.0
     got = stencils.normalize(wc, nw)
     torch.testing.assert_close(got, stencils.normalize_plain(wc, nw, NormalizeParams()),
@@ -123,6 +170,8 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
         stencils.cross_bilateral_layers(img, img.cpu(), LP)
     with pytest.raises(ValueError):  # more candidates than the kernel's table
         stencils.nlm_accumulate(img, img, NlmParams(search_radius=17, patch_radius=1))
+    with pytest.raises(ValueError):  # a patch radius the kernel is not built for
+        stencils.nlm_accumulate(img, img, NlmParams(search_radius=2, patch_radius=5))
     assert all(n == 0 for n in stencils.launches.values())
 
 
@@ -360,18 +409,27 @@ def test_turbo_layers_at_wide_sigma_on_card_take_the_two_kernels(cuda):
 
 
 @pytest.mark.parametrize(
-    "params",
-    [NlmParams(search_stride=2), NlmParams(search_stride=2, search_disk=True),
-     NlmParams(search_radius=5, patch_radius=2, search_stride=2, border=BorderPolicy.ZERO,
-               uniform_alpha=True)],
-    ids=["stride2", "stride2_disk", "small_zero_ua"],
+    "params,shape",
+    [(NlmParams(search_stride=2), (40, 56)),
+     (NlmParams(search_stride=2, search_disk=True), (40, 56)),
+     (NlmParams(search_radius=5, patch_radius=2, search_stride=2, border=BorderPolicy.ZERO,
+                uniform_alpha=True), (40, 56)),
+     (NlmParams(search_stride=2), (29, 37)),
+     (NlmParams(search_stride=2, border=BorderPolicy.ZERO), (1, 64)),
+     (NlmParams(search_stride=2, search_disk=True, uniform_alpha=True), (7, 300)),
+     (NlmParams(search_radius=5, patch_radius=2, search_stride=2), (40, 5)),
+     (NlmParams(search_radius=16, patch_radius=1), (29, 37))],
+    ids=["stride2", "stride2_disk", "small_zero_ua", "stride2_29x37", "stride2_zero_1x64",
+         "stride2_disk_ua_7x300", "small_40x5", "s16_1024_candidates"],
 )
-def test_nlm_bf16_kernel_matches_plain(cuda, params):
+def test_nlm_bf16_kernel_matches_plain(cuda, params, shape):
     """On smooth content, where many candidates carry weight, so one bf16
     rounding of a squared difference that the kernel skipped (a contracted
-    multiply-add) would show."""
-    target = _smooth_image(0, cuda)
-    frames = torch.stack([_smooth_image(i, cuda) for i in range(3)])
+    multiply-add) would show. F = 3 with the middle frame masked; shapes
+    that are not multiples of the 16 x 32 tile, both borders, uniform alpha
+    and the largest table (s = 16, 1024 candidates)."""
+    target = _smooth_image(0, cuda, *shape)
+    frames = torch.stack([_smooth_image(i, cuda, *shape) for i in range(3)])
     valid = torch.tensor([1.0, 0.0, 1.0], device=cuda)
     bf16 = TilingConfig(compute_dtype="bfloat16")
     wc, nw = stencils.nlm_accumulate_frames(target, frames, params, bf16, valid)
