@@ -49,6 +49,7 @@ The script imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib.util
 import io
 import json
@@ -88,9 +89,10 @@ TOL_NLM = dict(rtol=2e-4, atol=1e-4)
 # pixels beyond 1e-5.
 TOL_POOL = dict(rtol=1e-6, atol=0.0)
 TOL_SLICE = dict(rtol=1e-5, atol=1e-6)
-# The redesigned kernels' medians before the redesign at the same shapes (PR
-# 4's chip run, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6).
-PR4_MS = {"nlm": 16.5052, "nlm_bf16": 5.3654, "normalize": 0.0517, "nlm F=6": 96.5132}
+# The redesigned kernels' medians before their redesign, at the same shapes
+# (this script on an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6).
+BEFORE_REDESIGN_MS = {"nlm": 16.5052, "nlm_bf16": 5.3654, "normalize": 0.0517,
+                      "nlm F=6": 96.5132}
 H4K, W4K = 2160, 3840
 TURBO_CELLS = ((2, 5), (4, 5), (8, 6))  # (D, K): run_turbo's K at each D
 # The turbo battery: D and --sigma-spatial (D=8 is gated in the JAX package
@@ -185,22 +187,18 @@ def load_render_frame():
     return mod.render_frame
 
 
-_SLEEP_CYCLES_PER_MS = []
-
-
+@functools.lru_cache(maxsize=1)
 def sleep_cycles_per_ms(torch) -> float:
     """The card's clock cycles a millisecond of torch.cuda._sleep, measured
     once."""
-    if not _SLEEP_CYCLES_PER_MS:
-        torch.cuda._sleep(1000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        torch.cuda._sleep(10_000_000)
-        end.record()
-        end.synchronize()
-        _SLEEP_CYCLES_PER_MS.append(10_000_000 / start.elapsed_time(end))
-    return _SLEEP_CYCLES_PER_MS[0]
+    torch.cuda._sleep(1000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    return 10_000_000 / start.elapsed_time(end)
 
 
 def median_ms(torch, fn, reps: int) -> float:
@@ -462,7 +460,7 @@ def phase_kernels(torch, stencils, cfg, frames_np, layer_np):
     f6 = median_ms(torch, lambda: stencils.nlm_accumulate_frames(target, frames6, np_), 5)
     f6p = median_ms(torch, lambda: stencils.nlm_plain(target, frames6, np_), 2)
     print(f"  nlm F=6 (batched temporal) 1080p median {f6:.4f} ms (plain {f6p:.4f} ms; "
-          f"PR 4 {PR4_MS['nlm F=6']} ms)")
+          f"before the redesign {BEFORE_REDESIGN_MS['nlm F=6']} ms)")
     f6b = median_ms(torch, lambda: stencils.nlm_accumulate_frames(target, frames6, turbo_nlm,
                                                                   bf16), 5)
     print(f"  nlm_bf16 F=6 (batched temporal) 1080p median {f6b:.4f} ms")
@@ -471,7 +469,7 @@ def phase_kernels(torch, stencils, cfg, frames_np, layer_np):
     for kernel, p in (("nlm", np_), ("nlm_bf16", turbo_nlm), ("normalize", None)):
         info = stencils.kernel_info(kernel, dev, p)
         print(f"  {kernel:17s} {json.dumps(info)}: median {results[kernel]['ms']:.4f} ms, "
-              f"PR 4 {PR4_MS[kernel]} ms")
+              f"before the redesign {BEFORE_REDESIGN_MS[kernel]} ms")
     return results
 
 
