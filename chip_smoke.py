@@ -89,10 +89,11 @@ TOL_NLM = dict(rtol=2e-4, atol=1e-4)
 # pixels beyond 1e-5.
 TOL_POOL = dict(rtol=1e-6, atol=0.0)
 TOL_SLICE = dict(rtol=1e-5, atol=1e-6)
-# The redesigned kernels' medians before their redesign, at the same shapes
-# (this script on an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6).
-BEFORE_REDESIGN_MS = {"nlm": 16.5052, "nlm_bf16": 5.3654, "normalize": 0.0517,
-                      "nlm F=6": 96.5132}
+# The redesigned NLM kernel's medians before its redesign, at the same shapes
+# and timed as median_ms times (tools/torch_kernel_ab.py, the two runs of the
+# kernel before the redesign, on an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+# section 6).
+BEFORE_REDESIGN_MS = {"nlm": 16.0932, "nlm_bf16": 5.2365, "nlm F=6": 96.5862}
 H4K, W4K = 2160, 3840
 TURBO_CELLS = ((2, 5), (4, 5), (8, 6))  # (D, K): run_turbo's K at each D
 # The turbo battery: D and --sigma-spatial (D=8 is gated in the JAX package
@@ -464,9 +465,9 @@ def phase_kernels(torch, stencils, cfg, frames_np, layer_np):
     f6b = median_ms(torch, lambda: stencils.nlm_accumulate_frames(target, frames6, turbo_nlm,
                                                                   bf16), 5)
     print(f"  nlm_bf16 F=6 (batched temporal) 1080p median {f6b:.4f} ms")
-    # The kernels redesigned for this card: launch shape as compiled, and the
+    # The kernel redesigned for this card: launch shape as compiled, and the
     # time beside the one before the redesign.
-    for kernel, p in (("nlm", np_), ("nlm_bf16", turbo_nlm), ("normalize", None)):
+    for kernel, p in (("nlm", np_), ("nlm_bf16", turbo_nlm)):
         info = stencils.kernel_info(kernel, dev, p)
         print(f"  {kernel:17s} {json.dumps(info)}: median {results[kernel]['ms']:.4f} ms, "
               f"before the redesign {BEFORE_REDESIGN_MS[kernel]} ms")

@@ -4,9 +4,10 @@
 once in parallel processes, and links the objects into one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds). The
 library goes to `build/idf_torch_kernels/<hash>/libidf_torch_kernels.so` at
-the repository root, where the hash covers the sources and the flags: a
-changed source builds anew, an unchanged one loads what is there. Nothing is
-committed and nothing falls back: without `nvcc` the build raises.
+the repository root, where the hash covers the sources and the flags (with
+the NLM block's macros from ops/stencils.py): a changed source builds anew,
+an unchanged one loads what is there. Nothing is committed and nothing falls
+back: without `nvcc` the build raises.
 
 The build directory is found relative to the package, so the kernels build
 from a source checkout or an editable install (`pip install -e .`); a
@@ -40,6 +41,13 @@ NVCC_FLAGS = (
 _BUILD_TIMEOUT_S = 600
 
 
+def _flags() -> tuple[str, ...]:
+    """NVCC_FLAGS and the NLM kernel's block, which ops/stencils.py defines."""
+    from .stencils import nvcc_defines
+
+    return NVCC_FLAGS + nvcc_defines()
+
+
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
@@ -54,7 +62,7 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_flags()).encode())
     for name in _SOURCES:
         digest.update(name.encode())
         digest.update((_CSRC / name).read_bytes())
@@ -79,7 +87,7 @@ def build() -> tuple[Path, str]:
         try:
             for src, obj in zip(_SOURCES, objs):
                 with open(obj.with_suffix(".log"), "w") as log:
-                    cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(_CSRC / src)]
+                    cmd = [nvcc, *_flags(), "-c", "-o", str(obj), str(_CSRC / src)]
                     procs.append(subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
             rcs = [p.wait(timeout=_BUILD_TIMEOUT_S) for p in procs]
         finally:
@@ -117,7 +125,7 @@ def library() -> ctypes.CDLL:
     lib.idf_bilateral.restype = i32
     lib.idf_nlm.argtypes = [
         ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, i32, f32, f32, f32, i32, i32, i32,
-        i32, i32, i32, i32, i32, i32, ptr,
+        ptr, ptr,
     ]
     lib.idf_nlm.restype = i32
     lib.idf_max_shared_bytes.argtypes = [i32p]
@@ -130,8 +138,6 @@ def library() -> ctypes.CDLL:
     lib.idf_nlm_hrw.restype = i32
     lib.idf_normalize.argtypes = [ptr, ptr, ptr, i64, f32, f32, f32, f32, ptr]
     lib.idf_normalize.restype = i32
-    lib.idf_normalize_info.argtypes = [i32p]
-    lib.idf_normalize_info.restype = i32
     lib.idf_pool.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
     lib.idf_pool.restype = i32
     lib.idf_build_grid.argtypes = [

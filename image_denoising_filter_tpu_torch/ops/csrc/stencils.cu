@@ -17,7 +17,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -26,24 +25,26 @@ constexpr int kBlockX = 32;  // a warp spans 32 neighbouring pixels of a row
 constexpr int kBlockY = 8;
 constexpr int kMaxRuns = 128;
 constexpr int kMaxCands = 1024;  // (2s)^2 candidates up to s = 16
-// The NLM kernel's block (ops/stencils.py: NLM_THREADS, NLM_TILE_W,
-// NLM_TILE_HS, NLM_MAX_PATCH): 256 threads own an output tile of kNlmTileW
-// columns and up to kNlmMaxTileH rows, for patch radii 1 to kNlmMaxPatch,
-// and hold the target RGB of at most kNlmEPerThread squared-difference
-// positions each in registers.
-constexpr int kNlmThreads = 256;
-constexpr int kNlmTileW = 32;
-constexpr int kNlmMaxTileH = 16;
-constexpr int kNlmMaxPatch = 4;
-constexpr int kNlmEPerThread = 4;
-static_assert((kNlmMaxTileH + 2 * kNlmMaxPatch - 1) * (kNlmTileW + 2 * kNlmMaxPatch - 1) <=
+// The NLM kernel's block, defined in ops/stencils.py and passed to nvcc as
+// macros by ops/_build.py: kNlmThreads threads own an output tile of
+// kNlmTileW columns and up to kNlmMaxTileH rows. For patch radii 1 to
+// kNlmRegisterPatch each thread holds the target RGB of at most
+// kNlmEPerThread squared-difference positions in registers; wider radii
+// read the target from shared memory.
+constexpr int kNlmThreads = IDF_NLM_THREADS;
+constexpr int kNlmTileW = IDF_NLM_TILE_W;
+constexpr int kNlmMaxTileH = IDF_NLM_MAX_TILE_H;
+constexpr int kNlmRegisterPatch = IDF_NLM_REGISTER_PATCH;
+constexpr int kNlmEPerThread = IDF_NLM_E_PER_THREAD;
+static_assert((kNlmMaxTileH + 2 * kNlmRegisterPatch - 1) *
+                      (kNlmTileW + 2 * kNlmRegisterPatch - 1) <=
                   kNlmThreads * kNlmEPerThread,
               "the e region of the largest tile must fit the threads' registers");
+static_assert(kNlmMaxTileH * kNlmTileW % kNlmThreads == 0 && kNlmThreads % kNlmTileW == 0,
+              "a thread owns whole output rows of one column");
 constexpr int kNlmOutPerThread = kNlmMaxTileH * kNlmTileW / kNlmThreads;
 constexpr int kNlmStrip = 4;  // patch row sums a thread makes in the row pass
-// The normalize kernel: pixels a thread loads before its first divide.
-constexpr int kNormThreads = 256;
-constexpr int kNormPixels = 4;
+constexpr int kNormThreads = 256;  // the normalize kernel: one pixel a thread
 
 struct Runs {
   int n;
@@ -226,81 +227,113 @@ __device__ __forceinline__ NlmTap<BF16> nlm_tap(float4 v) {
 // 0.146 ms at 67 TFLOP/s. The kernel does more: each box pass adds 2p - 1
 // terms a sum in the plain version's order, where running sums would add
 // two, and e is computed over the tile's patch halo (1.5 positions an
-// output at p = 3). What limits it is the shared memory's bandwidth: per
-// tile and candidate at p = 3 it moves ~400 wavefronts of 128 bytes (e
-// ~150, row pass ~90, lane pass and value taps ~160), at most one a cycle
-// on each SM, against ~230 cycles of instruction issue. ptxas gives it
-// 60-64 registers and no spills at p = 3, so 4 blocks (32 warps) a SM.
+// output at p = 3). What limits it is an estimate from a hand count, which
+// no profiler reading backs: per tile and candidate at p = 3 it moves ~400
+// shared-memory wavefronts of 128 bytes (e ~150, row pass ~90, lane pass and
+// value taps ~160), at most one a cycle on each SM, against ~230 cycles of
+// instruction issue, so shared-memory bandwidth before issue. Measured on
+// an H100 80GB HBM3 (tools/torch_kernel_ab.py), a 1080p frame takes ~607
+// cycles a tile and candidate on each SM at the 1980 MHz SM clock that
+// nvidia-smi reads during the run. ptxas gives it 60-64 registers and no
+// spills at p = 3, so 4 blocks (32 warps) a SM.
 //
-// Design: a block of 256 threads owns an output tile of th x 32 pixels (th
-// from ops/stencils.py:nlm_tile, 16 where the window fits) and makes one
-// pass over the frames. The patch radius P is a template argument (1 to 4),
-// so both box passes unroll into loads and adds with no loop or predicate. Per frame it stages the neighbour window, the tile
-// plus the search and patch halo ((th + 2p - 1 + dy range) x (32 + 2p - 1 +
-// dx range) pixels), in shared memory, applying the border policy (index
-// clamp, or a zero pixel) as it stages, and with bf16 taps also the
-// window's RGB rounded to bf16. The target's e positions, the tile plus the
-// patch halo, are loaded once into registers: each thread computes the same
-// positions for every candidate. Per candidate, with two barriers:
-//   1. e once per position of the (th + 2p - 1) x (32 + 2p - 1) region;
-//   2. the row pass: a thread sums 2p rows, top to bottom, for a strip of
-//      kNlmStrip outputs of one column;
+// Design: a block of kNlmThreads threads owns an output tile of th x
+// kNlmTileW pixels (th from ops/stencils.py:nlm_tile, 16 where the window
+// fits) and makes one pass over the frames. Per frame it stages the
+// neighbour window, the tile plus the search and patch halo ((th + 2p - 1 +
+// dy range) x (kNlmTileW + 2p - 1 + dx range) pixels), in shared memory,
+// applying the border policy (index clamp, or a zero pixel) as it stages,
+// and with bf16 taps also the window's RGB rounded to bf16. The target's e
+// positions, the tile plus the patch halo, are loaded once a block. Per
+// candidate, with two barriers:
+//   1. e once per position of the (th + 2p - 1) x (kNlmTileW + 2p - 1)
+//      region;
+//   2. the row pass: each row sum adds 2p values of e, top to bottom;
 //   3. the lane pass: each output adds 2p row sums left to right, then
 //      exp2, one value tap from the window and five multiply-adds.
 // The sums keep the plain version's order (ops/eager.py:_box_sum), so the
 // SSD matches nlm_plain's up to the contraction of e's own multiply-adds.
+//
+// P > 0 is the patch radius, 1 to kNlmRegisterPatch: both box passes unroll
+// into loads and adds with no loop or predicate, each thread keeps the
+// target's taps for its kNlmEPerThread e positions in registers (every
+// candidate computes the same positions), and a row-pass thread sums a strip
+// of kNlmStrip row sums of one column from 2p + kNlmStrip - 1 loaded values.
+// P == 0 takes the radius `patch` at run time, for radii above
+// kNlmRegisterPatch: the target's taps are staged in shared memory, and the
+// e positions, row sums and lane sums are loops. The shared-memory layout
+// (byte offsets in `tile`) is nlm_tile's.
+struct NlmTile {
+  int th, oy, ox, win_h, win_w;
+  // byte offsets: the window's bf16 RGB (the window itself with float32
+  // taps), the target's taps (P == 0), e, the row sums
+  int taps_at, tgt_at, e_at, rows_at;
+};
+// The ints of a tile as the launcher takes them: NlmTile's, then the bytes.
+constexpr int kNlmTileFields = 10;
+
 template <int P, bool ZERO, bool BF16>
 __global__ void __launch_bounds__(kNlmThreads)
     nlm_kernel(const float4* __restrict__ tgt, const float4* __restrict__ frames,
                const float* __restrict__ valid, float4* __restrict__ out_wc,
-               float* __restrict__ out_nw, int h, int w, int n_frames, const Cands cands,
-               float ssd_coef, float log_m, float norm_seed, int uniform_alpha, int th,
-               int oy, int ox, int win_h, int win_w) {
+               float* __restrict__ out_nw, int h, int w, int n_frames, int patch,
+               const Cands cands, float ssd_coef, float log_m, float norm_seed,
+               int uniform_alpha, const NlmTile tile) {
   using Tap = NlmTap<BF16>;
-  constexpr int p = P;
-  constexpr int box = 2 * P;
-  constexpr int e_w = kNlmTileW + box - 1;
-  // Shared memory: the window as float4, [its RGB in bf16,] e, row sums.
+  constexpr bool kRegs = P > 0;
+  constexpr int kBox = 2 * P;
+  const int p = kRegs ? P : patch;
+  const int box = kRegs ? kBox : 2 * patch;
+  const int e_w = kNlmTileW + box - 1;
+  const int th = tile.th;
+  const int win_w = tile.win_w;
   extern __shared__ __align__(16) unsigned char nlm_smem[];
-  const int n_win = win_h * win_w;
+  const int n_win = tile.win_h * win_w;
   const int e_h = th + box - 1;
   const int n_e = e_h * e_w;
   float4* win = reinterpret_cast<float4*>(nlm_smem);
-  unsigned char* next = nlm_smem + n_win * sizeof(float4);
-  Tap* win_taps = reinterpret_cast<Tap*>(nlm_smem);
-  if constexpr (BF16) {
-    win_taps = reinterpret_cast<Tap*>(next);
-    next += n_win * sizeof(Tap);
-  }
-  float* e_buf = reinterpret_cast<float*>(next);
-  float* row_buf = e_buf + n_e;
+  Tap* win_taps = reinterpret_cast<Tap*>(nlm_smem + tile.taps_at);
+  Tap* tgt_taps = reinterpret_cast<Tap*>(nlm_smem + tile.tgt_at);
+  float* e_buf = reinterpret_cast<float*>(nlm_smem + tile.e_at);
+  float* row_buf = reinterpret_cast<float*>(nlm_smem + tile.rows_at);
 
   const int t = threadIdx.x;
   const int y0 = blockIdx.y * th;
   const int x0 = blockIdx.x * kNlmTileW;
   // Window index of candidate (dy, dx) relative to (dy_min, dx_min):
   // off = (dy - dy_min) * win_w + dx - dx_min.
-  const int dy_min = oy + p;
-  const int dx_min = ox + p;
+  const int dy_min = tile.oy + p;
+  const int dx_min = tile.ox + p;
   const size_t plane = static_cast<size_t>(h) * w;
 
-  // This thread's e positions: e(r, c) pairs target pixel (y0 - p + r,
-  // x0 - p + c) with the window's pixel e_win + off.
+  // The target's e positions: e(r, c) pairs target pixel (y0 - p + r,
+  // x0 - p + c) with the window's pixel r * win_w + c + off. With P > 0
+  // this thread's positions t + q * kNlmThreads, in registers.
   Tap tv[kNlmEPerThread];
   int e_win[kNlmEPerThread];
+  if constexpr (kRegs) {
 #pragma unroll
-  for (int q = 0; q < kNlmEPerThread; ++q) {
-    const int pos = t + q * kNlmThreads;
-    const int r = pos / e_w;
-    const int c = pos - r * e_w;
-    e_win[q] = r * win_w + c;
-    bool ok = true;
-    const float4* row = row_ptr<ZERO>(tgt, y0 - p + r, h, w, ok);
-    tv[q] = nlm_tap<BF16>(pos < n_e ? col_tap<ZERO>(row, ok, x0 - p + c, w)
-                                    : make_float4(0.f, 0.f, 0.f, 0.f));
+    for (int q = 0; q < kNlmEPerThread; ++q) {
+      const int pos = t + q * kNlmThreads;
+      const int r = pos / e_w;
+      const int c = pos - r * e_w;
+      e_win[q] = r * win_w + c;
+      bool ok;
+      const float4* row = row_ptr<ZERO>(tgt, y0 - p + r, h, w, ok);
+      tv[q] = nlm_tap<BF16>(pos < n_e ? col_tap<ZERO>(row, ok, x0 - p + c, w)
+                                      : make_float4(0.f, 0.f, 0.f, 0.f));
+    }
+  } else {
+    for (int pos = t; pos < n_e; pos += kNlmThreads) {
+      const int r = pos / e_w;
+      bool ok;
+      const float4* row = row_ptr<ZERO>(tgt, y0 - p + r, h, w, ok);
+      tgt_taps[pos] = nlm_tap<BF16>(col_tap<ZERO>(row, ok, x0 - p + pos - r * e_w, w));
+    }
   }
-  // This thread's outputs: rows (t / 32) + 8q of column t % 32, the value
-  // tap of candidate (dy, dx) at window index o_win + off.
+  // This thread's outputs: rows (t / kNlmTileW) + q * (kNlmThreads /
+  // kNlmTileW) of column t % kNlmTileW, the value tap of candidate (dy, dx)
+  // at window index o_win + off.
   const int ocol = t % kNlmTileW;
   int o_win[kNlmOutPerThread];
   float4 total[kNlmOutPerThread];
@@ -312,7 +345,7 @@ __global__ void __launch_bounds__(kNlmThreads)
     total[q] = make_float4(0.f, 0.f, 0.f, 0.f);
     total_nw[q] = 0.f;
   }
-  const int n_tasks = (th + kNlmStrip - 1) / kNlmStrip * e_w;
+  const int n_strips = (th + kNlmStrip - 1) / kNlmStrip * e_w;
 
   for (int f = 0; f < n_frames; ++f) {
     const float4* nbr = frames + f * plane;
@@ -320,8 +353,8 @@ __global__ void __launch_bounds__(kNlmThreads)
     for (int i = t; i < n_win; i += kNlmThreads) {
       const int wr = i / win_w;
       bool ok;
-      const float4* row = row_ptr<ZERO>(nbr, y0 + oy + wr, h, w, ok);
-      const float4 v = col_tap<ZERO>(row, ok, x0 + ox + i - wr * win_w, w);
+      const float4* row = row_ptr<ZERO>(nbr, y0 + tile.oy + wr, h, w, ok);
+      const float4 v = col_tap<ZERO>(row, ok, x0 + tile.ox + i - wr * win_w, w);
       win[i] = v;
       if constexpr (BF16) win_taps[i] = nlm_tap<true>(v);
     }
@@ -338,30 +371,46 @@ __global__ void __launch_bounds__(kNlmThreads)
       const int dx = cands.dx[k];
       const int off = (dy - dy_min) * win_w + dx - dx_min;
       // 1. e over the tile and its patch halo.
+      if constexpr (kRegs) {
 #pragma unroll
-      for (int q = 0; q < kNlmEPerThread; ++q) {
-        const int pos = t + q * kNlmThreads;
-        if (pos < n_e) e_buf[pos] = sq_diff(tv[q], win_taps[e_win[q] + off]);
+        for (int q = 0; q < kNlmEPerThread; ++q) {
+          const int pos = t + q * kNlmThreads;
+          if (pos < n_e) e_buf[pos] = sq_diff(tv[q], win_taps[e_win[q] + off]);
+        }
+      } else {
+        for (int pos = t; pos < n_e; pos += kNlmThreads) {
+          const int r = pos / e_w;
+          e_buf[pos] = sq_diff(tgt_taps[pos], win_taps[r * win_w + pos - r * e_w + off]);
+        }
       }
       __syncthreads();
       // 2. Row pass: rs(r, c) = e(r, c) + e(r + 1, c) + ... + e(r + 2p - 1,
-      // c), added in that order, for the rows r of one strip.
-      for (int task = t; task < n_tasks; task += kNlmThreads) {
-        const int strip = task / e_w;
-        const int c = task - strip * e_w;
-        const int r0 = strip * kNlmStrip;
-        const int rows = min(kNlmStrip, th - r0);
-        const float* ecol = e_buf + r0 * e_w + c;
-        float ev[kNlmStrip + box - 1];
+      // c), added in that order.
+      if constexpr (kRegs) {
+        for (int task = t; task < n_strips; task += kNlmThreads) {
+          const int strip = task / e_w;
+          const int c = task - strip * e_w;
+          const int r0 = strip * kNlmStrip;
+          const int rows = min(kNlmStrip, th - r0);
+          const float* ecol = e_buf + r0 * e_w + c;
+          float ev[kNlmStrip + kBox - 1];
 #pragma unroll
-        for (int j = 0; j < kNlmStrip + box - 1; ++j)
-          ev[j] = j < rows + box - 1 ? ecol[j * e_w] : 0.f;
+          for (int j = 0; j < kNlmStrip + kBox - 1; ++j)
+            ev[j] = j < rows + kBox - 1 ? ecol[j * e_w] : 0.f;
 #pragma unroll
-        for (int i = 0; i < kNlmStrip; ++i) {
-          float rs = ev[i];
+          for (int i = 0; i < kNlmStrip; ++i) {
+            float rs = ev[i];
 #pragma unroll
-          for (int j = 1; j < box; ++j) rs += ev[i + j];
-          if (i < rows) row_buf[(r0 + i) * e_w + c] = rs;
+            for (int j = 1; j < kBox; ++j) rs += ev[i + j];
+            if (i < rows) row_buf[(r0 + i) * e_w + c] = rs;
+          }
+        }
+      } else {
+        // task = r * e_w + c indexes both e(r, c) and rs(r, c)
+        for (int task = t; task < th * e_w; task += kNlmThreads) {
+          float rs = e_buf[task];
+          for (int j = 1; j < box; ++j) rs += e_buf[task + j * e_w];
+          row_buf[task] = rs;
         }
       }
       __syncthreads();
@@ -567,71 +616,21 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
 //
 // Replaces image_denoising_filter_tpu/ops/stencils.py:_normalize_kernel
 // (launched by normalize). Bound on the H100: device memory, 36 bytes a
-// pixel and one division per channel (0.022 ms at 1080p). Design: a
-// streaming kernel. The grid is as many blocks as the card holds at once
-// (normalize_grid) and walks the image in a grid-stride loop; each thread
-// takes kNormPixels pixels a step, kNormThreads apart so that every warp
-// load and store is 512 contiguous bytes, and issues all their loads before
-// its first divide; the ragged tail is masked. Loads and stores are plain:
-// evict-first hints (__ldcs, __stcs) measured no faster at 1080p or 4K
-// (tools/torch_normalize_hints.py). Division is IEEE (no fast math): x / x
-// is exactly 1, and the output equals normalize_plain's.
+// pixel and one division per channel (0.022 ms at 1080p). Design: one
+// thread per pixel, one float4 load, one float load and one float4 store,
+// all coalesced. Division is IEEE (no fast math): x / x is exactly 1, and
+// the output equals normalize_plain's. A grid-stride streaming form (four
+// pixels a thread, every load before the first divide, a grid of the blocks
+// the card holds at once) timed no faster on the H100
+// (tools/torch_kernel_ab.py), so this one stays.
 __global__ void __launch_bounds__(kNormThreads)
     normalize_kernel(const float4* __restrict__ wc, const float* __restrict__ nw,
                      float4* __restrict__ out, long long n, float4 sentinel) {
-  const long long step = static_cast<long long>(gridDim.x) * kNormThreads * kNormPixels;
-  for (long long base = static_cast<long long>(blockIdx.x) * kNormThreads * kNormPixels +
-                        threadIdx.x;
-       base < n; base += step) {
-    float4 v[kNormPixels];
-    float d[kNormPixels];
-#pragma unroll
-    for (int k = 0; k < kNormPixels; ++k) {
-      const long long i = base + k * kNormThreads;
-      if (i < n) {
-        v[k] = wc[i];
-        d[k] = nw[i];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kNormPixels; ++k) {
-      const long long i = base + k * kNormThreads;
-      if (i < n)
-        out[i] = d[k] == 0.f ? sentinel
-                             : make_float4(v[k].x / d[k], v[k].y / d[k], v[k].z / d[k],
-                                           v[k].w / d[k]);
-    }
-  }
-}
-
-// *blocks = the blocks of normalize_kernel the current device holds at once
-// (cached per device).
-cudaError_t normalize_grid(int* blocks) {
-  constexpr int kMaxDevices = 64;
-  static int cached[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (cached[device] == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, normalize_kernel,
-                                                          kNormThreads, 0);
-    if (err != cudaSuccess) return err;
-    cached[device] = sms * per_sm;
-  }
-  *blocks = cached[device];
-  return *blocks > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
-}
-
-// Shared memory of nlm_kernel's layout (ops/stencils.py:nlm_shared_bytes).
-size_t nlm_shared_bytes(int th, int p, int win_h, int win_w, bool bf16) {
-  const size_t e_w = kNlmTileW + 2 * p - 1;
-  const size_t e_h = th + 2 * p - 1;
-  const size_t tap = sizeof(float4) + (bf16 ? sizeof(Bf16x4) : 0);
-  return static_cast<size_t>(win_h) * win_w * tap + sizeof(float) * (e_h + th) * e_w;
+  const long long i = static_cast<long long>(blockIdx.x) * kNormThreads + threadIdx.x;
+  if (i >= n) return;
+  const float d = nw[i];
+  const float4 v = wc[i];
+  out[i] = d == 0.f ? sentinel : make_float4(v.x / d, v.y / d, v.z / d, v.w / d);
 }
 
 cudaError_t max_shared_bytes(int* bytes) {
@@ -650,15 +649,16 @@ NlmKernel nlm_kernel_for(int zero_border, int bf16_taps) {
                      : (bf16_taps ? nlm_kernel<P, false, true> : nlm_kernel<P, false, false>);
 }
 
-// The kernel for patch radius p (1 to kNlmMaxPatch), or nullptr.
+// The kernel for patch radius p: unrolled up to kNlmRegisterPatch, the
+// run-time radius above it; nullptr for p < 1.
 NlmKernel nlm_kernel_for(int p, int zero_border, int bf16_taps) {
-  static_assert(kNlmMaxPatch == 4, "one case per patch radius");
+  static_assert(kNlmRegisterPatch == 4, "one case per unrolled patch radius");
   switch (p) {
     case 1: return nlm_kernel_for<1>(zero_border, bf16_taps);
     case 2: return nlm_kernel_for<2>(zero_border, bf16_taps);
     case 3: return nlm_kernel_for<3>(zero_border, bf16_taps);
     case 4: return nlm_kernel_for<4>(zero_border, bf16_taps);
-    default: return nullptr;
+    default: return p > kNlmRegisterPatch ? nlm_kernel_for<0>(zero_border, bf16_taps) : nullptr;
   }
 }
 
@@ -708,23 +708,27 @@ int idf_bilateral(const void* img, const void* guide, void* out_wc, void* out_nw
 // cands: host array of n_cands (dy, dx) pairs; frames: (n_frames, h, w, 4);
 // valid: device array of n_frames floats.
 // bf16_taps selects the bf16 tap arithmetic (the turbo NLM).
-// The tile (ops/stencils.py:nlm_tile): th output rows of 32 columns; the
-// staged window of win_h x win_w pixels at (oy, ox) from the tile's first
-// output pixel; shared_bytes of dynamic shared memory, which must equal the
-// layout's and fit the device. Every candidate's taps must fall inside the
-// window, else cudaErrorInvalidValue and no launch.
+// tile: host array of kNlmTileFields ints from ops/stencils.py:nlm_tile: th
+// output rows of kNlmTileW columns; the staged window of win_h x win_w
+// pixels at (oy, ox) from the tile's first output pixel; the byte offsets
+// of NlmTile; the block's dynamic shared memory in bytes, which must fit
+// the device. Every candidate's taps must fall inside the window, else
+// cudaErrorInvalidValue and no launch.
 int idf_nlm(const void* tgt, const void* frames, const void* valid, void* out_wc,
             void* out_nw, int h, int w, int n_frames, int p, const int* cands,
             int n_cands, float ssd_coef, float log_m, float norm_seed, int zero_border,
-            int uniform_alpha, int bf16_taps, int th, int oy, int ox, int win_h, int win_w,
-            int shared_bytes, void* stream) {
+            int uniform_alpha, int bf16_taps, const int* tile, void* stream) {
   const cudaError_t invalid = cudaErrorInvalidValue;
   const NlmKernel kernel = nlm_kernel_for(p, zero_border, bf16_taps);
-  if (kernel == nullptr || n_cands < 0 || n_cands > kMaxCands || n_frames < 0 || th < 1 ||
-      th > kNlmMaxTileH || win_h < 1 || win_w < 1 ||
-      static_cast<size_t>(shared_bytes) != nlm_shared_bytes(th, p, win_h, win_w, bf16_taps))
+  const NlmTile geom{tile[0], tile[1], tile[2], tile[3], tile[4],
+                     tile[5], tile[6], tile[7], tile[8]};
+  const int shared_bytes = tile[kNlmTileFields - 1];
+  if (kernel == nullptr || n_cands < 0 || n_cands > kMaxCands || n_frames < 0 ||
+      geom.th < 1 || geom.th > kNlmMaxTileH || geom.win_h < 1 || geom.win_w < 1)
     return static_cast<int>(invalid);
-  const int e_h = th + 2 * p - 1;
+  for (const int at : {geom.taps_at, geom.tgt_at, geom.e_at, geom.rows_at})
+    if (at < 0 || at > shared_bytes) return static_cast<int>(invalid);
+  const int e_h = geom.th + 2 * p - 1;
   const int e_w = kNlmTileW + 2 * p - 1;
   Cands table;
   table.n = n_cands;
@@ -732,8 +736,9 @@ int idf_nlm(const void* tgt, const void* frames, const void* valid, void* out_wc
     const int dy = cands[2 * i];
     const int dx = cands[2 * i + 1];
     // e rows dy - p .. dy + th + p - 2 and columns likewise from the tile.
-    if (dy < -128 || dy > 127 || dx < -128 || dx > 127 || dy - p < oy ||
-        dy - p + e_h > oy + win_h || dx - p < ox || dx - p + e_w > ox + win_w)
+    if (dy < -128 || dy > 127 || dx < -128 || dx > 127 || dy - p < geom.oy ||
+        dy - p + e_h > geom.oy + geom.win_h || dx - p < geom.ox ||
+        dx - p + e_w > geom.ox + geom.win_w)
       return static_cast<int>(invalid);
     table.dy[i] = static_cast<signed char>(dy);
     table.dx[i] = static_cast<signed char>(dx);
@@ -747,12 +752,12 @@ int idf_nlm(const void* tgt, const void* frames, const void* valid, void* out_wc
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((w + kNlmTileW - 1) / kNlmTileW, (h + th - 1) / th);
+  const dim3 grid((w + kNlmTileW - 1) / kNlmTileW, (h + geom.th - 1) / geom.th);
   kernel<<<grid, kNlmThreads, shared_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(tgt), static_cast<const float4*>(frames),
       static_cast<const float*>(valid), static_cast<float4*>(out_wc),
-      static_cast<float*>(out_nw), h, w, n_frames, table, ssd_coef, log_m, norm_seed,
-      uniform_alpha, th, oy, ox, win_h, win_w);
+      static_cast<float*>(out_nw), h, w, n_frames, p, table, ssd_coef, log_m, norm_seed,
+      uniform_alpha, geom);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -829,27 +834,13 @@ int idf_nlm_hrw(const void* tgt, const void* frames, const void* valid, void* po
 int idf_normalize(const void* wc, const void* nw, void* out, long long n_pixels, float s_r,
                   float s_g, float s_b, float s_a, void* stream) {
   if (n_pixels <= 0) return static_cast<int>(cudaSuccess);
-  int resident = 0;
-  const cudaError_t err = normalize_grid(&resident);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long per_block = kNormThreads * kNormPixels;
-  const int blocks =
-      static_cast<int>(std::min<long long>(resident, (n_pixels + per_block - 1) / per_block));
-  normalize_kernel<<<blocks, kNormThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long blocks = (n_pixels + kNormThreads - 1) / kNormThreads;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  normalize_kernel<<<static_cast<unsigned>(blocks), kNormThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(wc), static_cast<const float*>(nw),
       static_cast<float4*>(out), n_pixels, make_float4(s_r, s_g, s_b, s_a));
   return static_cast<int>(cudaGetLastError());
-}
-
-// normalize_kernel as compiled: info[0] registers a thread, info[1] local
-// (spill) bytes a thread, info[2] the blocks of its grid on this device.
-int idf_normalize_info(int* info) {
-  cudaFuncAttributes attr{};
-  cudaError_t err = cudaFuncGetAttributes(&attr, normalize_kernel);
-  if (err == cudaSuccess) err = normalize_grid(&info[2]);
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(attr.localSizeBytes);
-  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -9,8 +9,9 @@ kernel this module holds:
   * the static tables the kernel iterates, ported from the JAX module:
     `_circle_runs` (the bilateral truncation disk) and `_sdx_steps` (the NLM
     search candidates, with the stride and disk subsets);
-  * the NLM kernel's tile and staged window (`nlm_tile`), index arithmetic
-    in pure Python that the CPU tests check;
+  * the NLM kernel's block (compiled into the kernel from here), tile,
+    staged window and shared-memory layout (`nlm_tile`), index arithmetic in
+    pure Python that the CPU tests check;
   * its plain PyTorch version, the same tap set and candidate table as
     whole-image tensor ops (`bilateral_plain`, `nlm_plain`,
     `normalize_plain`);
@@ -53,17 +54,28 @@ LOG2E = math.log2(math.e)
 MAX_RUNS = 128
 MAX_CANDIDATES = 1024
 
-# The NLM kernel's block (stencils.cu: kNlmThreads, kNlmTileW, kNlmMaxTileH,
-# kNlmMaxPatch): 256 threads own an output tile of 32 columns and one of
-# NLM_TILE_HS rows; the patch radius is a template argument of the kernel,
-# 1 to 4.
+# The NLM kernel's block, compiled into stencils.cu (nvcc_defines): 256
+# threads own an output tile of 32 columns and one of NLM_TILE_HS rows. Up to
+# patch radius NLM_REGISTER_PATCH the kernel is unrolled for the radius and
+# each thread keeps the target's taps of NLM_E_PER_THREAD squared-difference
+# positions in registers; wider radii read them from shared memory.
 NLM_THREADS = 256
 NLM_TILE_W = 32
 NLM_TILE_HS = (16, 8, 4, 2, 1)
-NLM_MAX_PATCH = 4
-# Shared memory a block may opt into on the H100 (232,448 bytes); the
-# wrapper reads the card's own limit.
-H100_SHARED_OPTIN = 232448
+NLM_REGISTER_PATCH = 4
+NLM_E_PER_THREAD = 4
+
+
+def nvcc_defines() -> tuple[str, ...]:
+    """The NLM block above as the macros stencils.cu is compiled with."""
+    return (
+        f"-DIDF_NLM_THREADS={NLM_THREADS}",
+        f"-DIDF_NLM_TILE_W={NLM_TILE_W}",
+        f"-DIDF_NLM_MAX_TILE_H={max(NLM_TILE_HS)}",
+        f"-DIDF_NLM_REGISTER_PATCH={NLM_REGISTER_PATCH}",
+        f"-DIDF_NLM_E_PER_THREAD={NLM_E_PER_THREAD}",
+    )
+
 
 #: Kernel launches since the last reset_launches(), by kernel form: "nlm"
 #: with float32 taps, "nlm_bf16" with bf16 taps, "nlm_hrw" and
@@ -162,8 +174,12 @@ class NlmTile:
     (dy_min, dx_min) the table's least offsets, oy = dy_min - p, ox = dx_min -
     p, candidate (dy, dx) reads e(r, c)'s neighbour at window index (r + dy -
     dy_min, c + dx - dx_min) and output (y0 + i, x0 + j)'s value tap at (i +
-    p + dy - dy_min, j + p + dx - dx_min). shared_bytes is the block's dynamic
-    shared memory (nlm_shared_bytes)."""
+    p + dy - dy_min, j + p + dx - dx_min). The block's dynamic shared memory
+    (nlm_layout) holds the window as float4 at byte 0, and from the byte
+    offsets taps_at, tgt_at, e_at and rows_at the window's bf16 RGB (with
+    float32 taps the window itself, taps_at 0), the target's taps (patch
+    radii above NLM_REGISTER_PATCH; empty below), e and the row sums;
+    shared_bytes in all."""
 
     th: int
     tw: int
@@ -172,6 +188,10 @@ class NlmTile:
     ox: int
     win_h: int
     win_w: int
+    taps_at: int
+    tgt_at: int
+    e_at: int
+    rows_at: int
     shared_bytes: int
 
     @property
@@ -182,26 +202,45 @@ class NlmTile:
     def e_w(self) -> int:
         return self.tw + 2 * self.p - 1
 
+    def launch_args(self) -> np.ndarray:
+        """The ints idf_nlm takes (stencils.cu: NlmTile, then the bytes)."""
+        return np.asarray(
+            [self.th, self.oy, self.ox, self.win_h, self.win_w, self.taps_at, self.tgt_at,
+             self.e_at, self.rows_at, self.shared_bytes],
+            np.int32,
+        )
 
-def nlm_shared_bytes(th: int, p: int, win_h: int, win_w: int, bf16: bool) -> int:
-    """The NLM kernel's shared memory (stencils.cu:nlm_shared_bytes): the
-    window as float4 (16 bytes a pixel), with bf16 taps also its RGB in bf16
-    (8 bytes a pixel), then e (e_h x e_w floats) and the row sums (th x e_w
-    floats)."""
+
+def nlm_layout(th: int, p: int, win_h: int, win_w: int, bf16: bool) -> tuple[int, ...]:
+    """The NLM kernel's shared memory, in this order: the window as float4
+    (16 bytes a pixel); with bf16 taps its RGB in bf16 (8 bytes a pixel); for
+    patch radii above NLM_REGISTER_PATCH the target's taps over the e region
+    (one window tap each); e (th + 2p - 1 rows of e_w floats); the row sums
+    (th rows of e_w floats). Returns (taps_at, tgt_at, e_at, rows_at,
+    shared bytes)."""
+    tap = 8 if bf16 else 16
     e_w = NLM_TILE_W + 2 * p - 1
-    e_h = th + 2 * p - 1
-    return win_h * win_w * (16 + (8 if bf16 else 0)) + 4 * (e_h + th) * e_w
+    n_e = (th + 2 * p - 1) * e_w
+    n_win = win_h * win_w
+    at = 16 * n_win
+    taps_at = at if bf16 else 0
+    at += 8 * n_win if bf16 else 0
+    tgt_at = at
+    at += tap * n_e if p > NLM_REGISTER_PATCH else 0
+    e_at = at
+    rows_at = e_at + 4 * n_e
+    return taps_at, tgt_at, e_at, rows_at, rows_at + 4 * th * e_w
 
 
 @functools.lru_cache(maxsize=None)
-def nlm_tile(params: NlmParams, bf16: bool, shared_limit: int = H100_SHARED_OPTIN) -> NlmTile:
-    """The NLM kernel's tile for these parameters: the tallest of NLM_TILE_HS
-    whose shared memory fits `shared_limit`; ValueError where no height
-    fits, or for a patch radius outside 1 to NLM_MAX_PATCH (the kernel's
-    instantiations; the tests and the reference take 1 to 3)."""
+def nlm_tile(params: NlmParams, bf16: bool, shared_limit: int) -> NlmTile:
+    """The NLM kernel's tile for these parameters on a card whose blocks may
+    hold `shared_limit` bytes of shared memory (max_shared_bytes): the
+    tallest of NLM_TILE_HS whose window fits; ValueError where no height
+    fits, or for a patch radius under 1 (no box to sum)."""
     p = params.patch_radius
-    if not 1 <= p <= NLM_MAX_PATCH:
-        raise ValueError(f"the NLM kernel takes patch radius 1 to {NLM_MAX_PATCH}, got {p}")
+    if p < 1:
+        raise ValueError(f"the NLM kernel takes patch radius 1 or more, got {p}")
     cands = nlm_candidates(params)
     dys = [dy for dy, _ in cands]
     dxs = [dx for _, dx in cands]
@@ -210,9 +249,10 @@ def nlm_tile(params: NlmParams, bf16: bool, shared_limit: int = H100_SHARED_OPTI
     for th in NLM_TILE_HS:
         e_h = th + 2 * p - 1
         win_h = e_h + max(dys) - min(dys)
-        nbytes = nlm_shared_bytes(th, p, win_h, win_w, bf16)
+        *offsets, nbytes = nlm_layout(th, p, win_h, win_w, bf16)
         if nbytes <= shared_limit:
-            return NlmTile(th, NLM_TILE_W, p, min(dys) - p, min(dxs) - p, win_h, win_w, nbytes)
+            return NlmTile(th, NLM_TILE_W, p, min(dys) - p, min(dxs) - p, win_h, win_w,
+                           *offsets, nbytes)
     raise ValueError(
         f"no NLM tile fits patch radius {p} and search radius {params.search_radius} "
         f"in {shared_limit} bytes of shared memory"
@@ -348,27 +388,21 @@ def max_shared_bytes(device: torch.device) -> int:
     return out.value
 
 
-def kernel_info(kernel: str, device: torch.device, params: Optional[NlmParams] = None) -> dict:
-    """How a kernel form runs on `device`, as compiled: registers and spill
-    (local) bytes a thread; for "nlm" and "nlm_bf16" also its tile at
-    `params` (th x tw, shared bytes) and the blocks a multiprocessor holds at
-    once; for "normalize" the blocks of its grid."""
+def kernel_info(kernel: str, device: torch.device, params: NlmParams) -> dict:
+    """How the NLM kernel form `kernel` ("nlm" or "nlm_bf16") runs at
+    `params` on `device`, as compiled: registers and spill (local) bytes a
+    thread, its tile (th x tw) and shared bytes, and the blocks a
+    multiprocessor holds at once."""
     info = (ctypes.c_int * 3)()
-    lib = _build.library()
+    bf16 = kernel == "nlm_bf16"
+    tile = nlm_tile(params, bf16, max_shared_bytes(device))
     with torch.cuda.device(device):
-        if kernel == "normalize":
-            rc = lib.idf_normalize_info(info)
-        else:
-            tile = nlm_tile(params, kernel == "nlm_bf16", max_shared_bytes(device))
-            zero = int(params.border != BorderPolicy.CLAMP)
-            rc = lib.idf_nlm_info(params.patch_radius, zero, int(kernel == "nlm_bf16"),
-                                  tile.shared_bytes, info)
+        rc = _build.library().idf_nlm_info(params.patch_radius,
+                                           int(params.border != BorderPolicy.CLAMP),
+                                           int(bf16), tile.shared_bytes, info)
     _raise_on_error(rc, f"{kernel} info")
-    out = {"registers": info[0], "spill_bytes": info[1]}
-    if kernel == "normalize":
-        return {**out, "grid_blocks": info[2]}
-    return {**out, "tile": f"{tile.th}x{tile.tw}", "shared_bytes": tile.shared_bytes,
-            "blocks_per_sm": info[2]}
+    return {"registers": info[0], "spill_bytes": info[1], "tile": f"{tile.th}x{tile.tw}",
+            "shared_bytes": tile.shared_bytes, "blocks_per_sm": info[2]}
 
 
 def _launch_bilateral(
@@ -514,13 +548,12 @@ def nlm_accumulate_frames(
                 _stream(target),
             )
         else:
-            tile = nlm_tile(params, bool(bf16), max_shared_bytes(target.device))
+            geom = nlm_tile(params, bool(bf16), max_shared_bytes(target.device)).launch_args()
             rc = lib.idf_nlm(
                 target.data_ptr(), frames.data_ptr(), valid.data_ptr(), wc.data_ptr(),
                 nw.data_ptr(), h, w, n_frames, params.patch_radius, cands.ctypes.data,
                 cands.size // 2, -LOG2E / params.h**2, math.log2(params.search_stride**2),
-                params.norm_seed, zero, ua, bf16, tile.th, tile.oy, tile.ox, tile.win_h,
-                tile.win_w, tile.shared_bytes, _stream(target),
+                params.norm_seed, zero, ua, bf16, geom.ctypes.data, _stream(target),
             )
     kernel = ("nlm_hrw" if params.weights_halfres else "nlm") + ("_bf16" if bf16 else "")
     _raise_on_error(rc, kernel)

@@ -28,6 +28,9 @@ pytestmark = pytest.mark.cuda
 BP = BilateralParams(radius=3)
 LP = LayersParams(radius=3)
 NP_ = NlmParams(search_radius=2, patch_radius=1)
+# NLM at wide patches sums many candidates in another order than the plain
+# version (chip_smoke.py: TOL_NLM)
+TOL_NLM = dict(rtol=2e-4, atol=1e-4)
 
 
 @pytest.fixture
@@ -96,15 +99,24 @@ def test_guided_kernel_matches_plain(cuda):
         (NlmParams(search_radius=4, patch_radius=3, border=BorderPolicy.ZERO,
                    uniform_alpha=True), {}, (40, 5)),
         (NlmParams(search_radius=16, patch_radius=1), {}, (29, 37)),
+        (NlmParams(search_radius=3, patch_radius=5, h=4.0), TOL_NLM, (29, 37)),
+        (NlmParams(search_radius=2, patch_radius=6, h=4.0, border=BorderPolicy.ZERO,
+                   uniform_alpha=True), TOL_NLM, (40, 5)),
+        (NlmParams(search_radius=4, patch_radius=7, h=5.0, search_stride=2, search_disk=True),
+         TOL_NLM, (7, 300)),
+        (NlmParams(search_radius=16, patch_radius=8, h=6.0), TOL_NLM, (29, 37)),
     ],
     ids=["small", "stride2_disk_zero", "reference_uniform_alpha", "small_1x64",
-         "clamp_ua_7x300", "zero_ua_40x5", "s16_1024_candidates"],
+         "clamp_ua_7x300", "zero_ua_40x5", "s16_1024_candidates", "p5", "p6_zero_ua_40x5",
+         "p7_stride2_disk_7x300", "p8_s16_1024_candidates"],
 )
 def test_nlm_kernel_matches_plain(cuda, params, tol, shape):
     """F = 3 with the middle frame masked, on shapes that are not multiples
     of the kernel's 16 x 32 tile (one row; narrower than 2s), both borders,
     uniform alpha, and the largest table (s = 16, 1024 candidates, its
-    window above 48 KB of shared memory)."""
+    window above 48 KB of shared memory); patch radii 5 to 8, which read
+    the target from shared memory (h raised so that the random patches
+    still weigh)."""
     target = _image(0, cuda, *shape)
     frames = torch.stack([_image(i, cuda, *shape) for i in range(3)])
     valid = torch.tensor([1.0, 0.0, 1.0], device=cuda)
@@ -123,24 +135,27 @@ def test_nlm_launcher_refuses_a_window_that_misses_a_tap(cuda):
     out, nw = torch.empty_like(img), torch.empty(img.shape[:2], device=cuda)
     valid = torch.ones(1, device=cuda)
     tile = stencils.nlm_tile(NP_, False, stencils.max_shared_bytes(img.device))
+    short = tile.launch_args()
+    short[3] -= 1  # win_h
+    short[5:] = stencils.nlm_layout(tile.th, tile.p, tile.win_h - 1, tile.win_w, False)
     cands = np.asarray(stencils.nlm_candidates(NP_), np.int32).reshape(-1)
     lib = stencils._build.library()
-    for win_h, nbytes in ((tile.win_h, tile.shared_bytes),
-                          (tile.win_h - 1, stencils.nlm_shared_bytes(
-                              tile.th, tile.p, tile.win_h - 1, tile.win_w, False))):
+    for geom, want in ((tile.launch_args(), 0), (short, 1)):
         rc = lib.idf_nlm(img.data_ptr(), img.data_ptr(), valid.data_ptr(), out.data_ptr(),
                          nw.data_ptr(), 29, 37, 1, NP_.patch_radius, cands.ctypes.data,
-                         cands.size // 2, -1.0, 0.0, 0.001, 0, 0, 0, tile.th, tile.oy, tile.ox,
-                         win_h, tile.win_w, nbytes, stencils._stream(img))
-        assert rc == (0 if win_h == tile.win_h else 1)
+                         cands.size // 2, -1.0, 0.0, 0.001, 0, 0, 0, geom.ctypes.data,
+                         stencils._stream(img))
+        assert rc == want
     torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("kernel,params", [("nlm", NlmParams()),
-                                           ("nlm_bf16", NlmParams(search_stride=2))])
+                                           ("nlm_bf16", NlmParams(search_stride=2)),
+                                           ("nlm", NlmParams(patch_radius=6))])
 def test_nlm_kernel_info(cuda, kernel, params):
-    """The reference tiles launch: registers without spills, and at least
-    two blocks a multiprocessor."""
+    """The reference tiles, and a patch radius above the unrolled ones,
+    launch: registers without spills, and at least two blocks a
+    multiprocessor."""
     info = stencils.kernel_info(kernel, cuda, params)
     assert info["tile"] == "16x32" and info["spill_bytes"] == 0
     assert info["blocks_per_sm"] >= 2 and 0 < info["registers"] <= 255
@@ -149,9 +164,8 @@ def test_nlm_kernel_info(cuda, kernel, params):
 @pytest.mark.parametrize("shape", [(29, 37), (1, 1023), (2160, 3840)],
                          ids=["29x37", "1x1023", "4K"])
 def test_normalize_kernel_matches_plain_exactly(cuda, shape):
-    """Pixel counts that are not multiples of the 4 pixels a thread takes,
-    or of the 1024 a block takes, and a 4K frame (more pixels than the grid
-    holds at once, so the grid-stride loop turns)."""
+    """Pixel counts that are not a multiple of the 256 pixels a block takes
+    (a ragged last block), and a 4K frame."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     wc = torch.rand(*shape, 4, device=cuda, generator=gen) * 5
     nw = torch.rand(*shape, device=cuda, generator=gen) + 0.5
@@ -170,8 +184,10 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
         stencils.cross_bilateral_layers(img, img.cpu(), LP)
     with pytest.raises(ValueError):  # more candidates than the kernel's table
         stencils.nlm_accumulate(img, img, NlmParams(search_radius=17, patch_radius=1))
-    with pytest.raises(ValueError):  # a patch radius the kernel is not built for
-        stencils.nlm_accumulate(img, img, NlmParams(search_radius=2, patch_radius=5))
+    with pytest.raises(ValueError):  # no box to sum
+        stencils.nlm_accumulate(img, img, NlmParams(search_radius=2, patch_radius=0))
+    with pytest.raises(ValueError):  # no tile of this patch radius fits the card
+        stencils.nlm_accumulate(img, img, NlmParams(search_radius=16, patch_radius=26))
     assert all(n == 0 for n in stencils.launches.values())
 
 
@@ -418,16 +434,22 @@ def test_turbo_layers_at_wide_sigma_on_card_take_the_two_kernels(cuda):
      (NlmParams(search_stride=2, border=BorderPolicy.ZERO), (1, 64)),
      (NlmParams(search_stride=2, search_disk=True, uniform_alpha=True), (7, 300)),
      (NlmParams(search_radius=5, patch_radius=2, search_stride=2), (40, 5)),
-     (NlmParams(search_radius=16, patch_radius=1), (29, 37))],
+     (NlmParams(search_radius=16, patch_radius=1), (29, 37)),
+     (NlmParams(search_radius=3, patch_radius=5), (29, 37)),
+     (NlmParams(search_radius=2, patch_radius=6, border=BorderPolicy.ZERO, uniform_alpha=True),
+      (40, 5)),
+     (NlmParams(search_radius=4, patch_radius=7, search_stride=2, search_disk=True), (7, 300)),
+     (NlmParams(search_radius=16, patch_radius=8), (29, 37))],
     ids=["stride2", "stride2_disk", "small_zero_ua", "stride2_29x37", "stride2_zero_1x64",
-         "stride2_disk_ua_7x300", "small_40x5", "s16_1024_candidates"],
+         "stride2_disk_ua_7x300", "small_40x5", "s16_1024_candidates", "p5",
+         "p6_zero_ua_40x5", "p7_stride2_disk_7x300", "p8_s16_1024_candidates"],
 )
 def test_nlm_bf16_kernel_matches_plain(cuda, params, shape):
     """On smooth content, where many candidates carry weight, so one bf16
     rounding of a squared difference that the kernel skipped (a contracted
     multiply-add) would show. F = 3 with the middle frame masked; shapes
     that are not multiples of the 16 x 32 tile, both borders, uniform alpha
-    and the largest table (s = 16, 1024 candidates)."""
+    and the largest table (s = 16, 1024 candidates); patch radii 5 to 8."""
     target = _smooth_image(0, cuda, *shape)
     frames = torch.stack([_smooth_image(i, cuda, *shape) for i in range(3)])
     valid = torch.tensor([1.0, 0.0, 1.0], device=cuda)

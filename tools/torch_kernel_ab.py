@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Time the NLM and normalize kernels of two checkouts of the port on one
+card, the same way and in turns.
+
+    git archive <commit> | tar -x -C build/ab_base    # the other checkout
+    python3 tools/torch_kernel_ab.py --baseline build/ab_base
+
+Each side runs in a process of its own from its own root: its package, its
+kernels built from its own sources into its own build/. The order is
+baseline, this checkout, this checkout, baseline. Every process times with
+this checkout's chip_smoke.py:median_ms (device time only: a spin kernel
+holds the stream while the host enqueues the call), at 1920x1080 on random
+frames (seed 0) with the reference parameters:
+
+  nlm        F=1, the target as its own frame (s=7, p=3, 196 candidates)
+  nlm F=6    six frames
+  nlm_bf16   F=1, bf16 taps, stride 2 (49 candidates)
+  nlm p=5    F=1, patch radius 5
+  normalize  wc / nw with a sentinel where nw == 0
+  divide     the broadcast divide wc / nw[..., None] (no sentinel)
+
+This checkout's processes also read the SM clock with nvidia-smi while the
+nlm kernel runs back to back, and turn the nlm time into cycles a tile and
+candidate on each SM. Prints one JSON line a run, the median of each side's
+two runs and the nvidia-smi line; --out PATH also writes them to PATH as
+JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+H, W = 1080, 1920
+
+
+def load_smoke():
+    """This checkout's chip_smoke.py, loaded by file path."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sm_clock_mhz(torch, fn, seconds: float = 2.0) -> float:
+    """Median SM clock nvidia-smi reads every 100 ms while fn() runs back to
+    back for `seconds`."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True,
+    )
+    try:
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=30)[0]
+    readings = [float(x) for x in out.split() if x.strip()]
+    # drop the first and last reading, taken around the loop's edges
+    return statistics.median(readings[1:-1] if len(readings) > 2 else readings)
+
+
+def worker(root: str) -> dict:
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, root)
+    from image_denoising_filter_tpu_torch import config as cfg
+    from image_denoising_filter_tpu_torch.ops import _build, stencils
+
+    package = os.path.dirname(os.path.dirname(os.path.abspath(stencils.__file__)))
+    assert os.path.samefile(os.path.dirname(package), root), stencils.__file__
+    smoke = load_smoke()
+    _build.build()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.uniform(0, 1, (6, H, W, 4)).astype(np.float32)).to(dev)
+    frames[..., 3] = 1.0
+    target = frames[0]
+    wc = torch.from_numpy(rng.uniform(0, 5, (H, W, 4)).astype(np.float32)).to(dev)
+    nw = torch.from_numpy(rng.uniform(0.5, 1.5, (H, W)).astype(np.float32)).to(dev)
+    nw[::97, ::89] = 0.0
+    nw_b = nw[..., None]
+    bf16 = cfg.TilingConfig(compute_dtype="bfloat16")
+    ref, turbo, p5 = cfg.NlmParams(), cfg.NlmParams(search_stride=2), cfg.NlmParams(patch_radius=5)
+    cases = {
+        "nlm": (lambda: stencils.nlm_accumulate(target, target, ref), 10),
+        "nlm F=6": (lambda: stencils.nlm_accumulate_frames(target, frames, ref), 5),
+        "nlm_bf16": (lambda: stencils.nlm_accumulate(target, target, turbo, bf16), 10),
+        "nlm p=5": (lambda: stencils.nlm_accumulate(target, target, p5), 5),
+        "normalize": (lambda: stencils.normalize(wc, nw), 50),
+        "divide": (lambda: wc / nw_b, 50),
+    }
+    out = {"root": root}
+    for name, (fn, reps) in cases.items():
+        fn()  # first call: module load, shared-memory opt-in
+        torch.cuda.synchronize()
+        out[name] = smoke.median_ms(torch, fn, reps)
+    if hasattr(stencils, "nlm_tile"):
+        mhz = sm_clock_mhz(torch, cases["nlm"][0])
+        tile = stencils.nlm_tile(ref, False, stencils.max_shared_bytes(dev))
+        tiles = -(-H // tile.th) * -(-W // tile.tw)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        out["sm_clock_mhz"] = mhz
+        out["nlm cycles a tile-candidate a SM"] = (
+            out["nlm"] * 1e-3 * mhz * 1e6 * sms / (tiles * len(stencils.nlm_candidates(ref))))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", help="root of the other checkout")
+    ap.add_argument("--out", help="write the runs and medians to this JSON file")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        print(json.dumps(worker(os.path.abspath(args.worker))))
+        return 0
+    if not args.baseline:
+        ap.error("--baseline is required")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    base = os.path.abspath(args.baseline)
+    runs = []
+    for side, root in (("baseline", base), ("this", REPO), ("this", REPO), ("baseline", base)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root],
+                              capture_output=True, text=True, timeout=1200)
+        if proc.returncode:
+            sys.stderr.write(proc.stdout + proc.stderr)
+            raise SystemExit(f"{side} run failed with code {proc.returncode}")
+        run = {"side": side, **json.loads(proc.stdout.strip().splitlines()[-1])}
+        print(json.dumps(run))
+        runs.append(run)
+    keys = list(dict.fromkeys(k for r in runs for k in r if k not in ("side", "root")))
+    summary = {
+        side: {k: statistics.median(r[k] for r in runs if r["side"] == side and k in r)
+               for k in keys if any(r["side"] == side and k in r for r in runs)}
+        for side in ("baseline", "this")
+    }
+    for k in keys:
+        print(f"{k:34s} baseline {summary['baseline'].get(k, float('nan')):.4f}  "
+              f"this {summary['this'].get(k, float('nan')):.4f}")
+    print(smi)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": smi, "runs": runs, "summary": summary}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
