@@ -14,10 +14,14 @@ Phases, one line or block each:
                 turbo NLM's bf16 taps and stride-2 search, and the half-row
                 NLM kernel (--weights-halfres) with float32 and bf16 taps,
                 against its plain PyTorch version on the card at 1920x1080,
-                with max errors and median times;
+                with max errors and median times; the redesigned kernels'
+                registers, spill bytes, tile, shared bytes and blocks a SM
+                beside their times before the redesign;
   4. battery -- a 1080p animation (5 frames + albedo/normal/depth layers)
                 through `gpu-denoise` (cli.main) on the card, the launch
-                counts of that run, and the checks on its outputs;
+                counts of that run, and the checks on its outputs; then
+                the NLM configs at --search-radius 0 (no candidate: the
+                seeds alone) on the card against --device cpu;
   5. turbo kernels -- the bilateral grid's pool, build and slice kernels
                 and the whole grid pipeline against their plain versions, and
                 the fused build+slice kernel against the build and slice
@@ -30,7 +34,9 @@ Phases, one line or block each:
                 build+slice against their plain versions (the fused kernel
                 against the two kernels, bit for bit) at 3840x2160 for the
                 same (D, K) and on the 1080p albedo layer at each setting of
-                phase 7, with median times at 4K (2, 5);
+                phase 7, with median times at 4K (2, 5), and the guided
+                build's also at the main path's --turbo 1 shape (1080p, D=1,
+                K=6, 17 taps) with its registers, tile and shared bytes;
   7. turbo battery -- `gpu-denoise --turbo D` on the 1080p target: every
                 config at D = 2, the NLM configs again with
                 --weights-halfres, the grid configs (bilateral, linear,
@@ -89,11 +95,14 @@ TOL_NLM = dict(rtol=2e-4, atol=1e-4)
 # pixels beyond 1e-5.
 TOL_POOL = dict(rtol=1e-6, atol=0.0)
 TOL_SLICE = dict(rtol=1e-5, atol=1e-6)
-# The redesigned NLM kernel's medians before its redesign, at the same shapes
-# and timed as median_ms times (tools/torch_kernel_ab.py, the two runs of the
-# kernel before the redesign, on an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
-# section 6).
-BEFORE_REDESIGN_MS = {"nlm": 16.0932, "nlm_bf16": 5.2365, "nlm F=6": 96.5862}
+# The redesigned kernels' medians before their redesign, at the same shapes
+# and timed as median_ms times (tools/torch_kernel_ab.py, the two runs of
+# each kernel before its redesign, on an NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md section 6).
+BEFORE_REDESIGN_MS = {"nlm": 16.0932, "nlm_bf16": 5.2365, "nlm F=6": 96.5862,
+                      "nlm_hrw": 2.2086, "nlm_hrw_bf16": 3.3669,
+                      "build_guided_grid 4K D=2 K=5": 1.7550,
+                      "build_guided_grid 1080p D=1": 7.1050}
 H4K, W4K = 2160, 3840
 TURBO_CELLS = ((2, 5), (4, 5), (8, 6))  # (D, K): run_turbo's K at each D
 # The turbo battery: D and --sigma-spatial (D=8 is gated in the JAX package
@@ -465,13 +474,18 @@ def phase_kernels(torch, stencils, cfg, frames_np, layer_np):
     f6b = median_ms(torch, lambda: stencils.nlm_accumulate_frames(target, frames6, turbo_nlm,
                                                                   bf16), 5)
     print(f"  nlm_bf16 F=6 (batched temporal) 1080p median {f6b:.4f} ms")
-    # The kernel redesigned for this card: launch shape as compiled, and the
+    # The kernels redesigned for this card: launch shape as compiled, and the
     # time beside the one before the redesign.
-    for kernel, p in (("nlm", np_), ("nlm_bf16", turbo_nlm)):
-        info = stencils.kernel_info(kernel, dev, p)
-        print(f"  {kernel:17s} {json.dumps(info)}: median {results[kernel]['ms']:.4f} ms, "
-              f"before the redesign {BEFORE_REDESIGN_MS[kernel]} ms")
+    for kernel, p in (("nlm", np_), ("nlm_bf16", turbo_nlm), ("nlm_hrw", hrw),
+                      ("nlm_hrw_bf16", hrw)):
+        print_redesigned(kernel, stencils.kernel_info(kernel, dev, p), results[kernel]["ms"])
     return results
+
+
+def print_redesigned(kernel: str, info: dict, ms: float) -> None:
+    before = BEFORE_REDESIGN_MS.get(kernel)
+    print(f"  {kernel:17s} {json.dumps(info)}: median {ms:.4f} ms, before the redesign "
+          f"{'not measured' if before is None else f'{before} ms'}")
 
 
 def run_cli(cli, argv: list[str]) -> tuple[int, str, str]:
@@ -590,6 +604,28 @@ def phase_battery(cfg, stencils, cli, imageio, Session, anim, root):
     print(f"  Session.run nlm, half-row weights, float32 taps: launches {hrw_counts}, "
           f"PSNR vs clean {hrw_psnr:.2f} dB")
     for k, n in hrw_counts.items():
+        counts[k] += n
+
+    # Search radius 0: no candidate, each frame's seed alone; the card's
+    # outputs are --device cpu's.
+    saved = {}
+    for device in ("cuda", "cpu"):
+        out_dir = os.path.join(root, f"out_s0_{device}")
+        stencils.reset_launches()
+        rc, _, err = run_cli(cli, [target, "--device", device, "--clamp", "--search-radius", "0",
+                                   "--configs", "nlm,multiframe", "--output-dir", out_dir])
+        check(rc == 0, f"gpu-denoise --search-radius 0 --device {device} failed ({rc}): "
+                       f"{err.strip()}")
+        saved[device] = [imageio.load(os.path.join(out_dir, cfg.GPU_BATTERY[i].output_name(False)))[0]
+                         for i in (3, 4)]
+        if device == "cuda":
+            s0_counts = {k: n for k, n in stencils.launches.items() if n}
+    check(s0_counts.get("nlm", 0) > 0, f"--search-radius 0 launched no NLM kernel: {s0_counts}")
+    check(all(np.array_equal(g, c) for g, c in zip(saved["cuda"], saved["cpu"])),
+          "--search-radius 0: the card's outputs differ from --device cpu's")
+    print(f"  gpu-denoise --search-radius 0 --configs nlm,multiframe: launches {s0_counts}, "
+          "outputs equal to --device cpu's")
+    for k, n in s0_counts.items():
         counts[k] += n
     return counts, out_main
 
@@ -807,6 +843,8 @@ def phase_guided_kernels(torch, fast, cfg, images):
             # against its plain version, the composition of the two plain
             # versions (`want`): the build's bf16 flips through the slice
             note("fused_guided", case, got, want)
+        if label == "1080p" and d == 1:
+            main_build = build_args  # the main path's --turbo 1 build
         if label == "4K" and d == 2 and border == clamp:
             timed = {
                 "build_guided_grid": (lambda a=build_args: fast.build_guided_grid(*a),
@@ -829,6 +867,18 @@ def phase_guided_kernels(torch, fast, cfg, images):
             print(f"  grid_sample yardstick vs slice_guided_grid {case}: max abs {lib_err:.3g}")
             library = {"slice_guided_grid": sample}
     time_kernels(torch, results, timed, dict.fromkeys(timed, shape), library, "4K D=2 K=5")
+    # The guided build at the main path's --turbo 1 shape, and as compiled.
+    small_t, _, _, _, levels, taps, border, _ = main_build
+    d1 = {"ms": median_ms(torch, lambda: fast.build_guided_grid(*main_build), 10),
+          "plain_ms": median_ms(torch, lambda: fast.build_guided_grid_plain(*main_build), 3),
+          **bound(*kernel_work("build_guided_grid", 0, cells=small_t.shape[0] * small_t.shape[1],
+                               levels=levels, taps=taps.size))}
+    print(f"  build_guided_grid 1080p D=1 K={levels} ({taps.size} taps) median {d1['ms']:.4f} ms "
+          f"(plain {d1['plain_ms']:.4f} ms, bound {d1['bound_ms']:.4f} ms by {d1['bound_by']})")
+    for where, n_taps, ms in (("4K D=2 K=5", shape["taps"], results["build_guided_grid"]["ms"]),
+                              ("1080p D=1", taps.size, d1["ms"])):
+        print_redesigned(f"build_guided_grid {where}",
+                         fast.build_guided_grid_info(small_t.device, n_taps, border), ms)
     return results
 
 
@@ -915,7 +965,8 @@ def phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir):
         check(len(reports) == len(keys), f"{what}: {len(reports)} timing reports")
         print(f"  {what} (sigma_s {sigma_s:g}) launches "
               f"{ {k: counts[k] for k in sorted(expected)} }")
-        for key, (tr, ex) in zip(keys, reports):
+        # gpu-denoise runs (and reports) the selected configs in its own order
+        for key, (tr, ex) in zip([k for k in cli.CONFIG_KEYS if k in keys], reports):
             out, db_clean, db_exact, db_rgb = readings[key]
             check(out.shape == (H, W, 4) and bool(np.isfinite(out).all()),
                   f"{what} {key}: output shape {out.shape} or non-finite values")

@@ -5,9 +5,9 @@ once in parallel processes, and links the objects into one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds). The
 library goes to `build/idf_torch_kernels/<hash>/libidf_torch_kernels.so` at
 the repository root, where the hash covers the sources and the flags (with
-the NLM block's macros from ops/stencils.py): a changed source builds anew,
-an unchanged one loads what is there. Nothing is committed and nothing falls
-back: without `nvcc` the build raises.
+the kernels' block macros from ops/stencils.py and ops/fast.py): a changed
+source builds anew, an unchanged one loads what is there. Nothing is
+committed and nothing falls back: without `nvcc` the build raises.
 
 The build directory is found relative to the package, so the kernels build
 from a source checkout or an editable install (`pip install -e .`); a
@@ -42,10 +42,11 @@ _BUILD_TIMEOUT_S = 600
 
 
 def _flags() -> tuple[str, ...]:
-    """NVCC_FLAGS and the NLM kernel's block, which ops/stencils.py defines."""
-    from .stencils import nvcc_defines
+    """NVCC_FLAGS and the kernels' blocks, which ops/stencils.py (the NLM
+    kernels) and ops/fast.py (the guided build) define."""
+    from . import fast, stencils
 
-    return NVCC_FLAGS + nvcc_defines()
+    return NVCC_FLAGS + stencils.nvcc_defines() + fast.nvcc_defines()
 
 
 def _nvcc() -> str:
@@ -133,9 +134,11 @@ def library() -> ctypes.CDLL:
     lib.idf_nlm_info.argtypes = [i32, i32, i32, i32, i32p]
     lib.idf_nlm_info.restype = i32
     lib.idf_nlm_hrw.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, f32, f32, f32, i32, i32, i32, ptr,
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, f32, f32, f32, i32, i32, i32, ptr, ptr,
     ]
     lib.idf_nlm_hrw.restype = i32
+    lib.idf_nlm_hrw_info.argtypes = [i32, i32, i32, i32p]
+    lib.idf_nlm_hrw_info.restype = i32
     lib.idf_normalize.argtypes = [ptr, ptr, ptr, i64, f32, f32, f32, f32, ptr]
     lib.idf_normalize.restype = i32
     lib.idf_pool.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
@@ -149,9 +152,11 @@ def library() -> ctypes.CDLL:
     ]
     lib.idf_slice_grid.restype = i32
     lib.idf_build_guided_grid.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, f32, i32, ptr,
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, f32, i32, ptr, ptr,
     ]
     lib.idf_build_guided_grid.restype = i32
+    lib.idf_build_guided_grid_info.argtypes = [i32, i32, i32p]
+    lib.idf_build_guided_grid_info.restype = i32
     lib.idf_slice_guided_grid.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr,
     ]

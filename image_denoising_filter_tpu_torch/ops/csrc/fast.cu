@@ -31,6 +31,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+// Device queries, defined in stencils.cu.
+namespace idf {
+cudaError_t max_shared_bytes(int* bytes);
+cudaError_t kernel_info(const void* kernel, int threads, int shared_bytes, int* info);
+}  // namespace idf
+
 namespace {
 
 constexpr int kBlockX = 32;  // a warp spans 32 neighbouring cells of a row
@@ -351,66 +357,6 @@ __device__ __forceinline__ float clip_t(float v, float lmin, float inv_step, flo
   return fminf(fmaxf(__fmul_rn(v - lmin, inv_step), 0.f), kmax);
 }
 
-// Guided grid build: per level k and RGB channel c, over the pooled layer l
-// and the pooled target p,
-//   w_c = exp2(-(l_c - lv_c)^2 * coef),  lv_c = lmin_c + step_c * k,
-//   num_c = blur(w_c * p_c), den_c = blur(w_c), num_a = blur(w_g * p_a),
-// unnormalized, stored as bf16.
-//
-// Replaces image_denoising_filter_tpu/ops/fast.py:_build_guided_grid_pallas.
-// The same design as build_grid_kernel, of which it is the guided twin: the
-// weights come from the layer and the payload from the target, seven outputs
-// a level and no divide. Under ZERO the cells outside the pooled images are
-// zero pixels that keep the range weight exp2(-lv^2 * coef).
-//
-// Bound on the H100: FP32 and SFU instruction throughput, as the bilateral
-// build: every cell recomputes its (2r+1)^2 taps' weights for every level
-// (4K, d=2, r=4, K=5: 2.07 M cells x 5 x 81 x 3 = 2.5 G exp2, two float4
-// loads a tap served by L1), while device memory sees the two 33 MB pooled
-// images about once and the 166 MB grid once. The fused kernel below shares
-// the weights of a tile instead and is the d = 2, 4 path.
-template <bool ZERO>
-__global__ void __launch_bounds__(kBlockX* kBlockY)
-    build_guided_grid_kernel(const float4* __restrict__ small_t,
-                             const float4* __restrict__ small_l, const float* __restrict__ lmin,
-                             const float* __restrict__ step, Bf16x8* __restrict__ grid, int hs,
-                             int ws, int levels, const Taps taps, float coef) {
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
-  if (x >= ws || y >= hs) return;
-  const int r = taps.n / 2;
-  const float lmin0 = lmin[0], lmin1 = lmin[1], lmin2 = lmin[2];
-  const float step0 = step[0], step1 = step[1], step2 = step[2];
-  for (int k = 0; k < levels; ++k) {
-    const float kf = static_cast<float>(k);
-    const float lv0 = __fadd_rn(lmin0, __fmul_rn(step0, kf));
-    const float lv1 = __fadd_rn(lmin1, __fmul_rn(step1, kf));
-    const float lv2 = __fadd_rn(lmin2, __fmul_rn(step2, kf));
-    float sum[kGuided] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int b = 0; b < taps.n; ++b) {
-      const int xx = x + b - r;
-      const bool col_ok = xx >= 0 && xx < ws;
-      const int cx = min(max(xx, 0), ws - 1);
-      float col[kGuided] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      for (int a = 0; a < taps.n; ++a) {
-        const int yy = y + a - r;
-        float4 p = make_float4(0.f, 0.f, 0.f, 0.f);
-        float4 l = p;
-        if (!ZERO || (col_ok && yy >= 0 && yy < hs)) {
-          const size_t i = static_cast<size_t>(min(max(yy, 0), hs - 1)) * ws + cx;
-          p = __ldg(small_t + i);
-          l = __ldg(small_l + i);
-        }
-        add_guided_tap(col, taps.t[a], p, l, lv0, lv1, lv2, coef);
-      }
-      const float tb = taps.t[b];
-#pragma unroll
-      for (int i = 0; i < kGuided; ++i) sum[i] = __fadd_rn(sum[i], __fmul_rn(tb, col[i]));
-    }
-    grid[(static_cast<size_t>(k) * hs + y) * ws + x] = pack_guided(sum);
-  }
-}
-
 // Guided grid slice: for each full-resolution pixel, t_c = clip((l_c -
 // lmin_c) * inv_step_c, 0, K-1) from the full-resolution layer, and the
 // seven partials sum_k max(1 - |t - k|, 0) * up(g_k) over the bilinearly
@@ -474,6 +420,12 @@ constexpr int kFusedRows = kFusedTileH * kFusedTileW / kFusedThreads;
 constexpr int kRowStep = kFusedThreads / kFusedTileW;
 // Room kept beside the dynamic shared memory for the kernels' static arrays.
 constexpr size_t kStaticSharedReserve = 1024;
+// The guided build's block, defined in ops/fast.py and passed to nvcc as
+// macros by ops/_build.py: kBuildThreads threads (it stages with
+// stage_window), and a vertical-pass thread sums kBuildStrip cell rows.
+constexpr int kBuildThreads = IDF_BUILD_THREADS;
+constexpr int kBuildStrip = IDF_BUILD_STRIP;
+static_assert(kBuildThreads == kFusedThreads, "the build stages its window with stage_window");
 
 // Shared memory of one fused block at downsample d with blur radius r: the
 // n_images staged pooled images (float4 each) over the tile's cells plus the
@@ -850,6 +802,166 @@ __global__ void __launch_bounds__(kFusedThreads)
   }
 }
 
+// The range weights exp2(-(l_c - lv_c)^2 * coef) of one layer pixel at one
+// level, per RGB channel: add_guided_tap's, for a kernel that computes them
+// once a pixel and level.
+__device__ __forceinline__ float3 guided_range_weights(float4 l, float lv0, float lv1,
+                                                       float lv2, float coef) {
+  const float d0 = l.x - lv0;
+  const float d1 = l.y - lv1;
+  const float d2 = l.z - lv2;
+  return make_float3(exp2f(__fmul_rn(-__fmul_rn(d0, d0), coef)),
+                     exp2f(__fmul_rn(-__fmul_rn(d1, d1), coef)),
+                     exp2f(__fmul_rn(-__fmul_rn(d2, d2), coef)));
+}
+
+// add_guided_tap with the range weights given: the seven fields of payload p
+// under weights (w0, w1, w2), each added to its sum as tap * field.
+__device__ __forceinline__ void add_guided_fields(float (&s)[kGuided], float tap, float4 p,
+                                                  float w0, float w1, float w2) {
+  s[0] = __fadd_rn(s[0], __fmul_rn(tap, __fmul_rn(w0, p.x)));
+  s[1] = __fadd_rn(s[1], __fmul_rn(tap, __fmul_rn(w1, p.y)));
+  s[2] = __fadd_rn(s[2], __fmul_rn(tap, __fmul_rn(w2, p.z)));
+  s[3] = __fadd_rn(s[3], __fmul_rn(tap, __fmul_rn(w1, p.w)));
+  s[4] = __fadd_rn(s[4], __fmul_rn(tap, w0));
+  s[5] = __fadd_rn(s[5], __fmul_rn(tap, w1));
+  s[6] = __fadd_rn(s[6], __fmul_rn(tap, w2));
+}
+
+// Guided grid build: per level k and RGB channel c, over the pooled layer l
+// and the pooled target p,
+//   w_c = exp2(-(l_c - lv_c)^2 * coef),  lv_c = lmin_c + step_c * k,
+//   num_c = blur(w_c * p_c), den_c = blur(w_c), num_a = blur(w_g * p_a),
+// unnormalized, stored as bf16.
+//
+// Replaces image_denoising_filter_tpu/ops/fast.py:_build_guided_grid_pallas.
+// Under ZERO the cells outside the pooled images are zero pixels that keep
+// the range weight exp2(-lv^2 * coef). Each cell's products and sums are
+// add_guided_tap's in its order (the vertical sum of each tap column, then
+// the weighted sum of the columns: the TPU kernel's rows-then-columns banded
+// matmuls), so the grid equals build_guided_grid_plain's bit for bit.
+//
+// Bound on the H100: device memory, the two pooled images read once and the
+// grid written once (14 bytes a cell and level): 0.063 ms at 4K, d = 2, K =
+// 5 (chip_smoke.py's kernel_work); the blur's 28 operations a tap, cell and
+// level (7 fields, two passes) take 0.042 ms there at 9 taps. A kernel of
+// one thread a cell evaluates the (2r + 1)^2 taps' range weights of every
+// cell (3 exp2 each); this one evaluates (th + 2r)(tw + 2r) / (th tw) staged pixels a cell, 1.9
+// at 9 taps on a 16 x 32 tile, 3.0 at 17.
+// Design: a block of kBuildThreads threads owns a th x tw tile of cells
+// (ops/fast.py:guided_build_tile: 16 x 32 where the window fits, shrinking as
+// the taps widen). It stages the two pooled images over the tile plus the
+// blur halo r on each side with the build's border rule (stage_window), then
+// per level, with two barriers:
+//   1. each staged pixel's three range weights, once;
+//   2. the vertical pass: per cell row and staged column the seven fields
+//      (add_guided_fields) summed over the column's taps in order; a thread
+//      sums kBuildStrip consecutive cell rows of one column from its 2r +
+//      kBuildStrip staged pixels;
+//   3. the horizontal pass: per cell the weighted sum of its 2r + 1 columns
+//      in order (fused_horizontal_sums), pack_guided, and one 16-byte store,
+//      a warp's stores along ws.
+// The shared-memory layout (byte offsets in `tile`) is guided_build_tile's.
+struct BuildTile {
+  int th, tw;
+  // byte offsets: the staged layer, the range weights (three planes), the
+  // vertical sums (seven planes of th x (tw + 2r)); the staged target is at 0
+  int l_at, w_at, v_at;
+};
+// The ints of a tile as the launcher takes them: BuildTile's, then the bytes.
+constexpr int kBuildTileFields = 6;
+
+template <bool ZERO>
+__global__ void __launch_bounds__(kBuildThreads)
+    build_guided_grid_kernel(const float4* __restrict__ small_t,
+                             const float4* __restrict__ small_l, const float* __restrict__ lmin,
+                             const float* __restrict__ step, Bf16x8* __restrict__ grid, int hs,
+                             int ws, int levels, const Taps taps, float coef,
+                             const BuildTile tile) {
+  extern __shared__ __align__(16) unsigned char build_smem[];
+  const int r = taps.n / 2;
+  const int y0 = blockIdx.y * tile.th;
+  const int x0 = blockIdx.x * tile.tw;
+  const int srows = tile.th + 2 * r;
+  const int scols = tile.tw + 2 * r;
+  const int n_st = srows * scols;
+  const int vplane = tile.th * scols;
+  float4* st_p = reinterpret_cast<float4*>(build_smem);
+  float4* st_l = reinterpret_cast<float4*>(build_smem + tile.l_at);
+  float* wgt = reinterpret_cast<float*>(build_smem + tile.w_at);
+  float* vsum = reinterpret_cast<float*>(build_smem + tile.v_at);
+  // The block's cells inside the grid, the staged columns they read, and
+  // the vertical pass's strips.
+  const int rows = min(tile.th, hs - y0);
+  const int cols = min(tile.tw, ws - x0);
+  const int vcols = cols + 2 * r;
+  const int n_strips = (rows + kBuildStrip - 1) / kBuildStrip;
+  stage_window<ZERO>(small_t, st_p, y0 - r, x0 - r, srows, scols, hs, ws);
+  stage_window<ZERO>(small_l, st_l, y0 - r, x0 - r, srows, scols, hs, ws);
+  __syncthreads();
+
+  const float lmin0 = lmin[0], lmin1 = lmin[1], lmin2 = lmin[2];
+  const float step0 = step[0], step1 = step[1], step2 = step[2];
+  for (int k = 0; k < levels; ++k) {
+    const float kf = static_cast<float>(k);
+    const float lv0 = __fadd_rn(lmin0, __fmul_rn(step0, kf));
+    const float lv1 = __fadd_rn(lmin1, __fmul_rn(step1, kf));
+    const float lv2 = __fadd_rn(lmin2, __fmul_rn(step2, kf));
+    // 1. The range weights. The last level's vertical pass read them before
+    // its barrier.
+    for (int i = threadIdx.x; i < n_st; i += kBuildThreads) {
+      const float3 wv = guided_range_weights(st_l[i], lv0, lv1, lv2, coef);
+      wgt[i] = wv.x;
+      wgt[n_st + i] = wv.y;
+      wgt[2 * n_st + i] = wv.z;
+    }
+    __syncthreads();
+    // 2. The vertical pass: cell rows cy0 .. cy0 + kBuildStrip - 1 of staged
+    // column sx; staged row cy0 + a is tap a - j of cell row cy0 + j. The
+    // last level's horizontal pass read vsum before the barrier above.
+    for (int task = threadIdx.x; task < n_strips * vcols; task += kBuildThreads) {
+      const int g = task / vcols;
+      const int sx = task - g * vcols;
+      const int cy0 = g * kBuildStrip;
+      float col[kBuildStrip][kGuided];
+#pragma unroll
+      for (int j = 0; j < kBuildStrip; ++j)
+#pragma unroll
+        for (int i = 0; i < kGuided; ++i) col[j][i] = 0.f;
+      for (int a = 0; a < taps.n + kBuildStrip - 1 && cy0 + a < srows; ++a) {
+        const int s = (cy0 + a) * scols + sx;
+        const float4 p = st_p[s];
+        const float w0 = wgt[s];
+        const float w1 = wgt[n_st + s];
+        const float w2 = wgt[2 * n_st + s];
+#pragma unroll
+        for (int j = 0; j < kBuildStrip; ++j) {
+          const int tap = a - j;
+          if (tap >= 0 && tap < taps.n) add_guided_fields(col[j], taps.t[tap], p, w0, w1, w2);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBuildStrip; ++j) {
+        if (cy0 + j < rows) {
+#pragma unroll
+          for (int i = 0; i < kGuided; ++i) vsum[i * vplane + (cy0 + j) * scols + sx] = col[j][i];
+        }
+      }
+    }
+    __syncthreads();
+    // 3. The horizontal pass and the store. The next level's weights may be
+    // written meanwhile: this pass reads vsum alone.
+    for (int task = threadIdx.x; task < rows * tile.tw; task += kBuildThreads) {
+      const int cy = task / tile.tw;
+      const int cx = task - cy * tile.tw;
+      if (cx >= cols) continue;
+      float sum[kGuided];
+      fused_horizontal_sums(vsum, cy, cx, scols, vplane, taps, sum);
+      grid[(static_cast<size_t>(k) * hs + y0 + cy) * ws + x0 + cx] = pack_guided(sum);
+    }
+  }
+}
+
 dim3 grid_for(int w, int h) {
   return dim3((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
 }
@@ -858,10 +970,8 @@ dim3 grid_for(int w, int h) {
 // the current device's opt-in shared memory per block, beside the kernel's
 // static arrays.
 cudaError_t fused_fits(size_t bytes, bool* fits) {
-  int device = 0, max_bytes = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&max_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  int max_bytes = 0;
+  const cudaError_t err = idf::max_shared_bytes(&max_bytes);
   *fits = err == cudaSuccess && bytes + kStaticSharedReserve <= static_cast<size_t>(max_bytes);
   return err;
 }
@@ -957,32 +1067,53 @@ int idf_slice_grid(const void* guide, const void* grid, const void* lmin, const 
 
 // small_t, small_l: (hs, ws, 4) float32 pooled target and layer; lmin, step:
 // device arrays of 3 floats; taps: host array of n_taps floats (odd); grid:
-// (levels, hs, ws, 8) bf16.
+// (levels, hs, ws, 8) bf16. tile: host array of kBuildTileFields ints from
+// ops/fast.py:guided_build_tile: th x tw cells, the byte offsets of
+// BuildTile, the block's dynamic shared memory in bytes, which must fit the
+// device; regions that overlap or are short of what the kernel indexes are
+// refused (cudaErrorInvalidValue, no launch).
 int idf_build_guided_grid(const void* small_t, const void* small_l, const void* lmin,
                           const void* step, void* grid, int hs, int ws, int levels,
                           const float* taps, int n_taps, float coef, int zero_border,
-                          void* stream) {
+                          const int* tile, void* stream) {
+  const cudaError_t invalid = cudaErrorInvalidValue;
   if (n_taps <= 0 || n_taps > kMaxTaps || n_taps % 2 == 0 || levels <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(invalid);
+  const BuildTile geom{tile[0], tile[1], tile[2], tile[3], tile[4]};
+  const int shared_bytes = tile[kBuildTileFields - 1];
+  const int r = n_taps / 2;
+  const int n_st = (geom.th + 2 * r) * (geom.tw + 2 * r);
+  if (geom.th < 1 || geom.tw < 1 || geom.l_at < 16 * n_st || geom.l_at % 16 != 0 ||
+      geom.w_at < geom.l_at + 16 * n_st || geom.v_at < geom.w_at + 12 * n_st ||
+      shared_bytes < geom.v_at + 4 * kGuided * geom.th * (geom.tw + 2 * r))
+    return static_cast<int>(invalid);
+  int max_bytes = 0;
+  cudaError_t err = idf::max_shared_bytes(&max_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (shared_bytes > max_bytes) return static_cast<int>(invalid);
   if (hs <= 0 || ws <= 0) return static_cast<int>(cudaSuccess);
   Taps table;
   table.n = n_taps;
   for (int i = 0; i < n_taps; ++i) table.t[i] = taps[i];
-  const dim3 block(kBlockX, kBlockY);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float4* t = static_cast<const float4*>(small_t);
-  const float4* l = static_cast<const float4*>(small_l);
-  const float* lm = static_cast<const float*>(lmin);
-  const float* st = static_cast<const float*>(step);
-  Bf16x8* g = static_cast<Bf16x8*>(grid);
-  if (zero_border) {
-    build_guided_grid_kernel<true><<<grid_for(ws, hs), block, 0, s>>>(t, l, lm, st, g, hs, ws,
-                                                                      levels, table, coef);
-  } else {
-    build_guided_grid_kernel<false><<<grid_for(ws, hs), block, 0, s>>>(t, l, lm, st, g, hs, ws,
-                                                                       levels, table, coef);
+  auto kernel = zero_border ? build_guided_grid_kernel<true> : build_guided_grid_kernel<false>;
+  if (shared_bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const dim3 blocks((ws + geom.tw - 1) / geom.tw, (hs + geom.th - 1) / geom.th);
+  kernel<<<blocks, kBuildThreads, shared_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(small_t), static_cast<const float4*>(small_l),
+      static_cast<const float*>(lmin), static_cast<const float*>(step),
+      static_cast<Bf16x8*>(grid), hs, ws, levels, table, coef, geom);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The guided build kernel of a border as compiled, and its occupancy at
+// shared_bytes a block (kernel_info's).
+int idf_build_guided_grid_info(int zero_border, int shared_bytes, int* info) {
+  auto kernel = zero_border ? build_guided_grid_kernel<true> : build_guided_grid_kernel<false>;
+  return static_cast<int>(
+      idf::kernel_info(reinterpret_cast<const void*>(kernel), kBuildThreads, shared_bytes, info));
 }
 
 // guide: (h, w, 4) float32 full-resolution layer; grid: (levels, hs, ws, 8)

@@ -44,6 +44,22 @@ static_assert(kNlmMaxTileH * kNlmTileW % kNlmThreads == 0 && kNlmThreads % kNlmT
               "a thread owns whole output rows of one column");
 constexpr int kNlmOutPerThread = kNlmMaxTileH * kNlmTileW / kNlmThreads;
 constexpr int kNlmStrip = 4;  // patch row sums a thread makes in the row pass
+// The half-row NLM kernel's block, from ops/stencils.py likewise: kHrwThreads
+// threads own an output tile of kHrwTileW columns and up to kHrwMaxTileH
+// rows, each thread one pixel pair (rows 2i, 2i+1) of one column, and keep
+// the target's half-row cells of kHrwEPerThread squared-difference positions
+// in registers. kHrwLanes is the 2p-lane box at patch radius 3.
+constexpr int kHrwThreads = IDF_HRW_THREADS;
+constexpr int kHrwTileW = IDF_HRW_TILE_W;
+constexpr int kHrwMaxTileH = IDF_HRW_MAX_TILE_H;
+constexpr int kHrwEPerThread = IDF_HRW_E_PER_THREAD;
+constexpr int kHrwLanes = IDF_HRW_LANES;
+constexpr int kHrwEW = kHrwTileW + kHrwLanes - 1;  // lanes of the e region
+static_assert((kHrwMaxTileH / 2 + 4) * kHrwEW <= kHrwThreads * kHrwEPerThread,
+              "the e region of the largest tile must fit the threads' registers");
+static_assert(kHrwMaxTileH % 2 == 0 && kHrwThreads % kHrwTileW == 0 &&
+                  kHrwMaxTileH / 2 <= kHrwThreads / kHrwTileW,
+              "a thread owns one pixel pair of one column");
 constexpr int kNormThreads = 256;  // the normalize kernel: one pixel a thread
 
 struct Runs {
@@ -468,38 +484,30 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Half-row cells of the half-row NLM's weight path: cell ih of an image is
-// 0.5 * (row 2ih + row 2ih+1), the rows past the image given by the border
-// policy (edge rows, or zero rows). With BF16, as the TPU kernel's bf16 pool
-// matmul rounds them (stencils.py:727-742): bf16(0.5 * (bf16(a) + bf16(b))),
-// the sum in float32. Writes cells ih in [-1, hc] of image blockIdx.z at row
-// ih + 1 of its (hc + 2, w) plane: every cell before -1 equals cell -1, and
-// every cell past hc equals cell hc, so the NLM kernel clamps its cell index
-// into [-1, hc] under either border policy. Alpha is not pooled (zero).
+// Half-row cell ci of an image at column x, as the half-row NLM's weight path
+// reads it: 0.5 * (row 2ci + row 2ci+1), the rows and columns past the image
+// given by the border policy (edge pixels, or zero pixels). Every cell before
+// -1 equals cell -1 and every cell past hc = ceil(h / 2) equals cell hc under
+// either policy, so ci is clamped into [-1, hc] first. With BF16, as the TPU
+// kernel's bf16 pool matmul rounds them (stencils.py:727-742): bf16(0.5 *
+// (bf16(a) + bf16(b))), the sum in float32, returned as the bf16 tap. Alpha
+// is not pooled (zero).
 template <bool ZERO, bool BF16>
-__global__ void __launch_bounds__(kBlockX* kBlockY)
-    pool_rows2_kernel(const float4* __restrict__ src, float4* __restrict__ dst, int h, int w,
-                      int hc) {
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int r = blockIdx.y * kBlockY + threadIdx.y;
-  if (x >= w || r >= hc + 2) return;
-  const float4* img = src + static_cast<size_t>(blockIdx.z) * h * w;
-  const int ih = r - 1;
+__device__ __forceinline__ NlmTap<BF16> half_row_cell(const float4* __restrict__ img, int ci,
+                                                     int x, int h, int w, int hc) {
+  ci = min(max(ci, -1), hc);
   bool ok_a, ok_b;
-  const float4 a = col_tap<ZERO>(row_ptr<ZERO>(img, 2 * ih, h, w, ok_a), ok_a, x, w);
-  const float4 b = col_tap<ZERO>(row_ptr<ZERO>(img, 2 * ih + 1, h, w, ok_b), ok_b, x, w);
-  float4 c;
+  const float4 a = col_tap<ZERO>(row_ptr<ZERO>(img, 2 * ci, h, w, ok_a), ok_a, x, w);
+  const float4 b = col_tap<ZERO>(row_ptr<ZERO>(img, 2 * ci + 1, h, w, ok_b), ok_b, x, w);
   if constexpr (BF16) {
-    c.x = bf16_round(__fmul_rn(0.5f, __fadd_rn(bf16_round(a.x), bf16_round(b.x))));
-    c.y = bf16_round(__fmul_rn(0.5f, __fadd_rn(bf16_round(a.y), bf16_round(b.y))));
-    c.z = bf16_round(__fmul_rn(0.5f, __fadd_rn(bf16_round(a.z), bf16_round(b.z))));
+    return {__float2bfloat16_rn(__fmul_rn(0.5f, __fadd_rn(bf16_round(a.x), bf16_round(b.x)))),
+            __float2bfloat16_rn(__fmul_rn(0.5f, __fadd_rn(bf16_round(a.y), bf16_round(b.y)))),
+            __float2bfloat16_rn(__fmul_rn(0.5f, __fadd_rn(bf16_round(a.z), bf16_round(b.z)))),
+            __float2bfloat16_rn(0.f)};
   } else {
-    c.x = __fmul_rn(0.5f, __fadd_rn(a.x, b.x));
-    c.y = __fmul_rn(0.5f, __fadd_rn(a.y, b.y));
-    c.z = __fmul_rn(0.5f, __fadd_rn(a.z, b.z));
+    return make_float4(__fmul_rn(0.5f, __fadd_rn(a.x, b.x)), __fmul_rn(0.5f, __fadd_rn(a.y, b.y)),
+                       __fmul_rn(0.5f, __fadd_rn(a.z, b.z)), 0.f);
   }
-  c.w = 0.f;
-  dst[(static_cast<size_t>(blockIdx.z) * (hc + 2) + r) * w + x] = c;
 }
 
 // Frame-batched NLM accumulation with the weights at half row resolution
@@ -508,108 +516,223 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
 // Replaces image_denoising_filter_tpu/ops/stencils.py:_nlm_hrw_kernel (the
 // weights_halfres body of _nlm_planar_frames). For each candidate (dy, dx),
 // dy even, the weight cells live on the half-row lattice: cell c of the
-// target's and the neighbour's pooled planes (pool_rows2_kernel) give the
-// RGB squared difference e(c, x') = |t(c, x') - n(c + dy/2, x' + dx)|^2,
-// summed over the 3 cells c-1..c+1, then over the 6 lanes x-3..x+2, and
+// target's and the neighbour's half-row cells (half_row_cell) give the RGB
+// squared difference e(c, x') = |t(c, x') - n(c + dy/2, x' + dx)|^2
+// (nlm_kernel's, bf16 taps included), summed over the 3 cells c-1, c, c+1
+// in that order, then over the 6 lanes x-3 .. x+2 left to right, and
 //   w(c) = exp2(ssd_coef * ssd(c)),  ssd_coef = -kappa log2(e) / h^2,
-// kappa = 2. Pixel row y = 2i reads 0.25 w(i-1) + 0.75 w(i), row 2i+1
-// 0.75 w(i) + 0.25 w(i+1) (the x2 bilinear row upsample); non-self
-// candidates are multiplied by stride^2 (exact, a power of two). Value taps,
-// the frame loop, the validity mask, the per-frame seed and uniform alpha
-// are nlm_kernel's.
+// kappa = 2; with BF16 each weight cell is rounded to bf16 (the TPU kernel's
+// wh.astype(bf16) ahead of its upsample matmul, stencils.py:786-788). Pixel
+// row y = 2i reads 0.25 w(i-1) + 0.75 w(i), row 2i+1 0.75 w(i) + 0.25
+// w(i+1) (the x2 bilinear row upsample, float32); non-self candidates are
+// multiplied by stride^2 (exact, a power of two). Value taps, the frame
+// loop, the validity mask, the per-frame seed and uniform alpha are
+// nlm_kernel's. The sums and products are those of a kernel of one thread
+// a pixel, in the same order, so the output does not depend on the tile.
 //
-// BF16 (the turbo NLM): the pooled planes are bf16 values, e rounds as in
-// nlm_kernel (tap_sq_diff<true>), and each weight cell is rounded to bf16
-// before the upsample (the TPU kernel's wh.astype(bf16) ahead of its
-// upsample matmul, stencils.py:786-788); the sums and the upsample are
-// float32. Sums run in the plain version's order: per lane the three cells
-// in order, then the lanes left to right.
+// Bound on the H100: chip_smoke.py's kernel_work counts 19.5 operations a
+// candidate, pixel and frame (nlm_kernel's 15 before the weighted colour
+// halve, the row upsample adds 3), 4 of them bf16 with bf16 taps: 49
+// candidates at 1080p are ~2 G operations, ~0.027 ms. What limits the design
+// is a hand count, which no profiler reading backs: per th = 16 tile and
+// candidate ~1,000 warp instructions (e ~280, the two sums ~300, the pixels
+// ~400) and ~250 shared-memory wavefronts, so issue and shared memory about
+// alike, where one thread a pixel evaluates 24 squared differences a pixel
+// from two 16-byte loads each.
 //
-// Bound on the H100: at the turbo parameters (49 candidates) a 1080p frame
-// costs 49 x 2 M pixels x 24 squared differences, each two 16-byte loads
-// that hit L1, and two exp2: bound by L1 load bandwidth and instruction
-// issue, as nlm_kernel. Design: one thread per output pixel in 32x8 blocks;
-// each thread computes the two weight cells its row reads, from 4 cell rows
-// x 6 lanes of squared differences (24, where the full-resolution kernel
-// evaluates 36 a candidate), so no shared memory and no synchronisation.
-// Computing each cell once per block and sharing it through shared memory
-// would cut that to about one squared difference a pixel, and is later work.
-constexpr int kHrwLanes = 6;  // 2p lanes at patch radius 3
+// Design: a block of kHrwThreads threads owns an output tile of th x
+// kHrwTileW pixels (th even, so that its rows start on the absolute even-row
+// lattice of the cells; from ops/stencils.py:hrw_tile, 16 where the windows
+// fit) and makes one pass over the frames. Per frame it stages, with the
+// border policy applied as it stages, the neighbour's half-row cells (th/2
+// + 4 + dy range/2 cell rows x kHrwEW + dx range lanes, pooled from the two
+// full-resolution rows as they are staged, as bf16 RGB with BF16) and its
+// value window (th + dy range rows x kHrwTileW + dx range columns). The
+// target's cells over the e region, (th/2 + 4) x kHrwEW, are pooled once a
+// block into registers, kHrwEPerThread a thread. Per candidate, with three
+// barriers:
+//   1. e once per position of the e region;
+//   2. the 3-cell sums, (th/2 + 2) x kHrwEW;
+//   3. the 6-lane sums and exp2 once per weight cell, (th/2 + 2) x
+//      kHrwTileW, rounded to bf16 with BF16;
+//   4. per pixel pair (rows 2i, 2i+1 of one column, three weight cells): the
+//      upsample, one value tap a pixel and five multiply-adds.
+// The shared-memory layout (byte offsets in `tile`) is hrw_tile's.
+struct HrwTile {
+  int th, oy, ox, win_h, win_w, cell_h, cell_w;
+  // byte offsets: the half-row cells, e, the 3-cell sums, the weight cells
+  // (the value window is at 0)
+  int cells_at, e_at, sums_at, w_at;
+};
+// The ints of a tile as the launcher takes them: HrwTile's, then the bytes.
+constexpr int kHrwTileFields = 12;
 
 template <bool ZERO, bool BF16>
-__global__ void __launch_bounds__(kBlockX* kBlockY)
-    nlm_hrw_kernel(const float4* __restrict__ tgt_h, const float4* __restrict__ frames_h,
-                   const float4* __restrict__ frames, const float* __restrict__ valid,
-                   float4* __restrict__ out_wc, float* __restrict__ out_nw, int h, int w,
-                   int hc, int n_frames, const Cands cands, float ssd_coef, float stride_w,
-                   float norm_seed, int uniform_alpha) {
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
-  if (x >= w || y >= h) return;
-  const size_t idx = static_cast<size_t>(y) * w + x;
+__global__ void __launch_bounds__(kHrwThreads)
+    nlm_hrw_kernel(const float4* __restrict__ tgt, const float4* __restrict__ frames,
+                   const float* __restrict__ valid, float4* __restrict__ out_wc,
+                   float* __restrict__ out_nw, int h, int w, int n_frames, const Cands cands,
+                   float ssd_coef, float stride_w, float norm_seed, int uniform_alpha,
+                   const HrwTile tile) {
+  using Tap = NlmTap<BF16>;
+  extern __shared__ __align__(16) unsigned char hrw_smem[];
+  const int th = tile.th;
+  const int win_w = tile.win_w;
+  const int cell_w = tile.cell_w;
+  const int n_win = tile.win_h * win_w;
+  const int n_cells = tile.cell_h * cell_w;
+  const int n_e = (th / 2 + 4) * kHrwEW;
+  const int n_sums = (th / 2 + 2) * kHrwEW;
+  const int n_w = (th / 2 + 2) * kHrwTileW;
+  float4* win = reinterpret_cast<float4*>(hrw_smem);
+  Tap* cells = reinterpret_cast<Tap*>(hrw_smem + tile.cells_at);
+  float* e_buf = reinterpret_cast<float*>(hrw_smem + tile.e_at);
+  float* sums = reinterpret_cast<float*>(hrw_smem + tile.sums_at);
+  float* wbuf = reinterpret_cast<float*>(hrw_smem + tile.w_at);
+
+  const int t = threadIdx.x;
+  const int y0 = blockIdx.y * th;
+  const int x0 = blockIdx.x * kHrwTileW;
+  const int hc = (h + 1) / 2;
   const size_t plane = static_cast<size_t>(h) * w;
-  const size_t hplane = static_cast<size_t>(hc + 2) * w;
-  // The two cells row y reads, ca and ca + 1, and their upsample weights.
-  const int ca = (y >> 1) - 1 + (y & 1);
-  const float ua = (y & 1) ? 0.75f : 0.25f;
-  const float ub = (y & 1) ? 0.25f : 0.75f;
-  // Target cell rows ca - 1 .. ca + 2 (clamped into the stored [-1, hc]).
-  const float4* trow[4];
+  // e(r, c) pairs the target's cell y0/2 - 2 + r, lane x0 - kHrwLanes/2 + c,
+  // with the staged cell r * cell_w + c + off_c of candidate (dy, dx),
+  // off_c = (dy - oy)/2 * cell_w + dx - ox: the staged cells start at cell
+  // y0/2 - 2 + oy/2, lane x0 - kHrwLanes/2 + ox. This thread's positions t +
+  // q * kHrwThreads, the target's cells in registers.
+  const int cy0 = y0 / 2 - 2;
+  const int cx0 = x0 - kHrwLanes / 2;
+  Tap tv[kHrwEPerThread];
+  int e_cell[kHrwEPerThread];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) trow[r] = tgt_h + (min(max(ca - 1 + r, -1), hc) + 1) * w;
-  float4 total = make_float4(0.f, 0.f, 0.f, 0.f);
-  float total_nw = 0.f;
+  for (int q = 0; q < kHrwEPerThread; ++q) {
+    const int pos = t + q * kHrwThreads;
+    const int r = pos / kHrwEW;
+    const int c = pos - r * kHrwEW;
+    e_cell[q] = r * cell_w + c;
+    tv[q] = half_row_cell<ZERO, BF16>(tgt, cy0 + r, cx0 + c, h, w, hc);
+  }
+  // This thread's pixels: local rows 2 * pair and 2 * pair + 1 of column
+  // ocol, which read weight cell rows pair .. pair + 2; their value taps of
+  // candidate (dy, dx) at window index o_win + off_v (and one row below),
+  // off_v = (dy - oy) * win_w + dx - ox.
+  const int ocol = t % kHrwTileW;
+  const int pair = t / kHrwTileW;
+  const bool owns = 2 * pair < th;
+  const int o_win = 2 * pair * win_w + ocol;
+  float4 total[2];
+  float total_nw[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    total[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    total_nw[q] = 0.f;
+  }
+
   for (int f = 0; f < n_frames; ++f) {
     const float4* nbr = frames + f * plane;
-    const float4* nbr_h = frames_h + f * hplane;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    float nw = norm_seed;
+    __syncthreads();  // the previous frame's last window reads are done
+    for (int i = t; i < n_win; i += kHrwThreads) {
+      const int wr = i / win_w;
+      bool ok;
+      const float4* row = row_ptr<ZERO>(nbr, y0 + tile.oy + wr, h, w, ok);
+      win[i] = col_tap<ZERO>(row, ok, x0 + tile.ox + i - wr * win_w, w);
+    }
+    for (int i = t; i < n_cells; i += kHrwThreads) {
+      const int cr = i / cell_w;
+      cells[i] = half_row_cell<ZERO, BF16>(nbr, cy0 + tile.oy / 2 + cr,
+                                           cx0 + tile.ox + i - cr * cell_w, h, w, hc);
+    }
+    __syncthreads();
+    float4 acc[2];
+    float nw[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+      nw[q] = norm_seed;
+    }
     for (int k = 0; k < cands.n; ++k) {
       const int dy = cands.dy[k];
       const int dx = cands.dx[k];
-      const float4* nrow[4];
+      const int off_c = (dy - tile.oy) / 2 * cell_w + dx - tile.ox;
+      const int off_v = (dy - tile.oy) * win_w + dx - tile.ox;
+      // 1. e over the e region.
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        nrow[r] = nbr_h + (min(max(ca - 1 + r + dy / 2, -1), hc) + 1) * w;
-      float ssd_a = 0.f, ssd_b = 0.f;
-#pragma unroll
-      for (int j = 0; j < kHrwLanes; ++j) {
-        const int xt = x + j - kHrwLanes / 2;
-        float e[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          e[r] = tap_sq_diff<BF16>(col_tap<ZERO>(trow[r], true, xt, w),
-                                   col_tap<ZERO>(nrow[r], true, xt + dx, w));
-        ssd_a = __fadd_rn(ssd_a, __fadd_rn(__fadd_rn(e[0], e[1]), e[2]));
-        ssd_b = __fadd_rn(ssd_b, __fadd_rn(__fadd_rn(e[1], e[2]), e[3]));
+      for (int q = 0; q < kHrwEPerThread; ++q) {
+        const int pos = t + q * kHrwThreads;
+        if (pos < n_e) e_buf[pos] = sq_diff(tv[q], cells[e_cell[q] + off_c]);
       }
-      float wa = exp2f(ssd_a * ssd_coef);
-      float wb = exp2f(ssd_b * ssd_coef);
-      if constexpr (BF16) {
-        wa = bf16_round(wa);
-        wb = bf16_round(wb);
+      __syncthreads();
+      // 2. Row r of the 3-cell sums is weight cell y0/2 - 1 + r: e rows r,
+      // r + 1 and r + 2, added in that order.
+      for (int i = t; i < n_sums; i += kHrwThreads)
+        sums[i] = __fadd_rn(__fadd_rn(e_buf[i], e_buf[i + kHrwEW]), e_buf[i + 2 * kHrwEW]);
+      __syncthreads();
+      // 3. Each weight cell: its 6 lanes left to right, then exp2.
+      for (int i = t; i < n_w; i += kHrwThreads) {
+        const int r = i / kHrwTileW;
+        const float* s = sums + r * kHrwEW + i - r * kHrwTileW;
+        float ssd = 0.f;
+#pragma unroll
+        for (int j = 0; j < kHrwLanes; ++j) ssd = __fadd_rn(ssd, s[j]);
+        float wv = exp2f(ssd * ssd_coef);
+        if constexpr (BF16) wv = bf16_round(wv);
+        wbuf[i] = wv;
       }
-      float wgt = __fadd_rn(__fmul_rn(ua, wa), __fmul_rn(ub, wb));
-      if (dy != 0 || dx != 0) wgt *= stride_w;
-      bool vok;
-      const float4* vrow = row_ptr<ZERO>(nbr, y + dy, h, w, vok);
-      const float4 v = col_tap<ZERO>(vrow, vok, x + dx, w);
-      acc.x += v.x * wgt;
-      acc.y += v.y * wgt;
-      acc.z += v.z * wgt;
-      acc.w += v.w * wgt;
-      nw += wgt;
+      __syncthreads();
+      // 4. The row upsample, value taps and accumulation. The next
+      // candidate's e, sums and weight cells are written only after the
+      // barriers that follow these reads.
+      if (owns) {
+        const float* wc = wbuf + pair * kHrwTileW + ocol;
+        const float wa = wc[0];
+        const float wb = wc[kHrwTileW];
+        const float wn = wc[2 * kHrwTileW];
+        float w_even = __fadd_rn(__fmul_rn(0.25f, wa), __fmul_rn(0.75f, wb));
+        float w_odd = __fadd_rn(__fmul_rn(0.75f, wb), __fmul_rn(0.25f, wn));
+        if (dy != 0 || dx != 0) {
+          w_even *= stride_w;
+          w_odd *= stride_w;
+        }
+        const float4 v0 = win[o_win + off_v];
+        const float4 v1 = win[o_win + win_w + off_v];
+        acc[0].x += v0.x * w_even;
+        acc[0].y += v0.y * w_even;
+        acc[0].z += v0.z * w_even;
+        acc[0].w += v0.w * w_even;
+        nw[0] += w_even;
+        acc[1].x += v1.x * w_odd;
+        acc[1].y += v1.y * w_odd;
+        acc[1].z += v1.z * w_odd;
+        acc[1].w += v1.w * w_odd;
+        nw[1] += w_odd;
+      }
     }
-    if (uniform_alpha) acc.w = nbr[idx].w * (nw - norm_seed);
     const float vf = valid[f];
-    total.x += acc.x * vf;
-    total.y += acc.y * vf;
-    total.z += acc.z * vf;
-    total.w += acc.w * vf;
-    total_nw += nw * vf;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int y = y0 + 2 * pair + q;
+      const int x = x0 + ocol;
+      // This frame's tap alphas are one constant a: sum(w * a) = a * (nw -
+      // seed); the seed is not alpha-weighted.
+      if (uniform_alpha && owns && y < h && x < w)
+        acc[q].w = nbr[static_cast<size_t>(y) * w + x].w * (nw[q] - norm_seed);
+      total[q].x += acc[q].x * vf;
+      total[q].y += acc[q].y * vf;
+      total[q].z += acc[q].z * vf;
+      total[q].w += acc[q].w * vf;
+      total_nw[q] += nw[q] * vf;
+    }
   }
-  out_wc[idx] = total;
-  out_nw[idx] = total_nw;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int y = y0 + 2 * pair + q;
+    const int x = x0 + ocol;
+    if (owns && y < h && x < w) {
+      const size_t idx = static_cast<size_t>(y) * w + x;
+      out_wc[idx] = total[q];
+      out_nw[idx] = total_nw[q];
+    }
+  }
 }
 
 // Normalize: wc / nw, with the sentinel where nw == 0 exactly.
@@ -633,14 +756,6 @@ __global__ void __launch_bounds__(kNormThreads)
   out[i] = d == 0.f ? sentinel : make_float4(v.x / d, v.y / d, v.z / d, v.w / d);
 }
 
-cudaError_t max_shared_bytes(int* bytes) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return err;
-}
-
 using NlmKernel = decltype(&nlm_kernel<1, false, false>);
 
 template <int P>
@@ -662,7 +777,44 @@ NlmKernel nlm_kernel_for(int p, int zero_border, int bf16_taps) {
   }
 }
 
+using HrwKernel = decltype(&nlm_hrw_kernel<false, false>);
+
+HrwKernel nlm_hrw_kernel_for(int zero_border, int bf16_taps) {
+  return zero_border ? (bf16_taps ? nlm_hrw_kernel<true, true> : nlm_hrw_kernel<true, false>)
+                     : (bf16_taps ? nlm_hrw_kernel<false, true> : nlm_hrw_kernel<false, false>);
+}
+
 }  // namespace
+
+// Device queries of both sources' launchers (fast.cu declares them).
+namespace idf {
+
+// The current device's opt-in shared memory a block, in bytes.
+cudaError_t max_shared_bytes(int* bytes) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return err;
+}
+
+// A kernel as compiled and its occupancy at `threads` a block and
+// shared_bytes of dynamic shared memory: info[0] registers a thread, info[1]
+// local (spill) bytes a thread, info[2] blocks a multiprocessor holds at
+// once.
+cudaError_t kernel_info(const void* kernel, int threads, int shared_bytes, int* info) {
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess && shared_bytes > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], kernel, threads, shared_bytes);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  return err;
+}
+
+}  // namespace idf
 
 extern "C" {
 
@@ -744,7 +896,7 @@ int idf_nlm(const void* tgt, const void* frames, const void* valid, void* out_wc
     table.dx[i] = static_cast<signed char>(dx);
   }
   int max_bytes = 0;
-  cudaError_t err = max_shared_bytes(&max_bytes);
+  cudaError_t err = idf::max_shared_bytes(&max_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (shared_bytes > max_bytes) return static_cast<int>(invalid);
   if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
@@ -762,73 +914,90 @@ int idf_nlm(const void* tgt, const void* frames, const void* valid, void* out_wc
 }
 
 // *bytes = the shared memory a block may opt into on the current device.
-int idf_max_shared_bytes(int* bytes) { return static_cast<int>(max_shared_bytes(bytes)); }
+int idf_max_shared_bytes(int* bytes) { return static_cast<int>(idf::max_shared_bytes(bytes)); }
 
 // The NLM kernel of a patch radius, border and tap form as compiled, and its
-// occupancy at shared_bytes a block: info[0] registers a thread, info[1]
-// local (spill) bytes a thread, info[2] blocks a multiprocessor holds at
-// once.
+// occupancy at shared_bytes a block (kernel_info's).
 int idf_nlm_info(int p, int zero_border, int bf16_taps, int shared_bytes, int* info) {
   const NlmKernel kernel = nlm_kernel_for(p, zero_border, bf16_taps);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  cudaFuncAttributes attr{};
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err == cudaSuccess && shared_bytes > 48 * 1024)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], kernel, kNlmThreads,
-                                                        shared_bytes);
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(attr.localSizeBytes);
-  return static_cast<int>(err);
+  return static_cast<int>(
+      idf::kernel_info(reinterpret_cast<const void*>(kernel), kNlmThreads, shared_bytes, info));
 }
 
 // The half-row NLM: the inputs and outputs of idf_nlm (patch radius 3, every
-// dy even), and pooled, device scratch of (1 + n_frames) planes of (hc + 2,
-// w) float4, hc = ceil(h / 2): the target's half-row cells, then each
-// frame's. stride_w multiplies every non-self candidate's weight.
-int idf_nlm_hrw(const void* tgt, const void* frames, const void* valid, void* pooled,
-                void* out_wc, void* out_nw, int h, int w, int n_frames, const int* cands,
-                int n_cands, float ssd_coef, float stride_w, float norm_seed, int zero_border,
-                int uniform_alpha, int bf16_taps, void* stream) {
-  if (n_cands < 0 || n_cands > kMaxCands || n_frames < 0 || n_frames > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+// dy even); stride_w multiplies every non-self candidate's weight.
+// tile: host array of kHrwTileFields ints from ops/stencils.py:hrw_tile: th
+// (even) output rows of kHrwTileW columns; the value window of win_h x win_w
+// pixels at (oy, ox) from the tile's first output pixel (oy even); the
+// half-row cell window of cell_h x cell_w; the byte offsets of HrwTile; the
+// block's dynamic shared memory in bytes, which must fit the device. Every
+// candidate's cells and value taps must fall inside the windows and the
+// regions must not overlap, else cudaErrorInvalidValue and no launch.
+int idf_nlm_hrw(const void* tgt, const void* frames, const void* valid, void* out_wc,
+                void* out_nw, int h, int w, int n_frames, const int* cands, int n_cands,
+                float ssd_coef, float stride_w, float norm_seed, int zero_border,
+                int uniform_alpha, int bf16_taps, const int* tile, void* stream) {
+  const cudaError_t invalid = cudaErrorInvalidValue;
+  const HrwKernel kernel = nlm_hrw_kernel_for(zero_border, bf16_taps);
+  const HrwTile geom{tile[0], tile[1], tile[2], tile[3], tile[4], tile[5],
+                     tile[6], tile[7], tile[8], tile[9], tile[10]};
+  const int shared_bytes = tile[kHrwTileFields - 1];
+  const int half = geom.th / 2;
+  if (n_cands < 0 || n_cands > kMaxCands || n_frames < 0 || geom.th < 2 || geom.th % 2 != 0 ||
+      geom.th > kHrwMaxTileH || geom.oy % 2 != 0 || geom.win_h < geom.th ||
+      geom.win_w < kHrwTileW || geom.cell_h < half + 4 || geom.cell_w < kHrwEW ||
+      geom.cells_at % 16 != 0)
+    return static_cast<int>(invalid);
+  // The regions in order, each starting where the one before it may end.
+  const int tap = bf16_taps ? 8 : 16;
+  const int ends[] = {16 * geom.win_h * geom.win_w,
+                      geom.cells_at + tap * geom.cell_h * geom.cell_w,
+                      geom.e_at + 4 * (half + 4) * kHrwEW, geom.sums_at + 4 * (half + 2) * kHrwEW,
+                      geom.w_at + 4 * (half + 2) * kHrwTileW};
+  const int starts[] = {geom.cells_at, geom.e_at, geom.sums_at, geom.w_at, shared_bytes};
+  for (int i = 0; i < 5; ++i)
+    if (starts[i] < ends[i]) return static_cast<int>(invalid);
   Cands table;
   table.n = n_cands;
   for (int i = 0; i < n_cands; ++i) {
     const int dy = cands[2 * i];
     const int dx = cands[2 * i + 1];
-    if (dy < -128 || dy > 127 || dx < -128 || dx > 127 || dy % 2 != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
+    // value rows dy .. dy + th - 1 and columns dx .. dx + kHrwTileW - 1 from
+    // the tile; cell rows (dy - oy)/2 .. + half + 3 and lanes dx - ox .. +
+    // kHrwEW - 1 of the cell window.
+    if (dy < -128 || dy > 127 || dx < -128 || dx > 127 || dy % 2 != 0 || dy < geom.oy ||
+        dy - geom.oy + geom.th > geom.win_h || dx < geom.ox ||
+        dx - geom.ox + kHrwTileW > geom.win_w || (dy - geom.oy) / 2 + half + 4 > geom.cell_h ||
+        dx - geom.ox + kHrwEW > geom.cell_w)
+      return static_cast<int>(invalid);
     table.dy[i] = static_cast<signed char>(dy);
     table.dx[i] = static_cast<signed char>(dx);
   }
-  const int hc = (h + 1) / 2;
-  const dim3 block(kBlockX, kBlockY);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float4* t = static_cast<const float4*>(tgt);
-  const float4* fr = static_cast<const float4*>(frames);
-  float4* tgt_h = static_cast<float4*>(pooled);
-  float4* frames_h = tgt_h + static_cast<size_t>(hc + 2) * w;
-  const dim3 pool_grid((w + kBlockX - 1) / kBlockX, (hc + 2 + kBlockY - 1) / kBlockY);
-  auto pool = zero_border ? (bf16_taps ? pool_rows2_kernel<true, true> : pool_rows2_kernel<true, false>)
-                          : (bf16_taps ? pool_rows2_kernel<false, true> : pool_rows2_kernel<false, false>);
-  pool<<<pool_grid, block, 0, s>>>(t, tgt_h, h, w, hc);
-  cudaError_t err = cudaGetLastError();
+  int max_bytes = 0;
+  cudaError_t err = idf::max_shared_bytes(&max_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_frames > 0) {
-    pool<<<dim3(pool_grid.x, pool_grid.y, n_frames), block, 0, s>>>(fr, frames_h, h, w, hc);
-    err = cudaGetLastError();
+  if (shared_bytes > max_bytes) return static_cast<int>(invalid);
+  if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+  if (shared_bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
-  auto kernel = zero_border ? (bf16_taps ? nlm_hrw_kernel<true, true> : nlm_hrw_kernel<true, false>)
-                            : (bf16_taps ? nlm_hrw_kernel<false, true> : nlm_hrw_kernel<false, false>);
-  kernel<<<grid, block, 0, s>>>(tgt_h, frames_h, fr, static_cast<const float*>(valid),
-                                static_cast<float4*>(out_wc), static_cast<float*>(out_nw), h, w,
-                                hc, n_frames, table, ssd_coef, stride_w, norm_seed, uniform_alpha);
+  const dim3 grid((w + kHrwTileW - 1) / kHrwTileW, (h + geom.th - 1) / geom.th);
+  kernel<<<grid, kHrwThreads, shared_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(tgt), static_cast<const float4*>(frames),
+      static_cast<const float*>(valid), static_cast<float4*>(out_wc),
+      static_cast<float*>(out_nw), h, w, n_frames, table, ssd_coef, stride_w, norm_seed,
+      uniform_alpha, geom);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The half-row NLM kernel of a border and tap form as compiled, and its
+// occupancy at shared_bytes a block (kernel_info's).
+int idf_nlm_hrw_info(int zero_border, int bf16_taps, int shared_bytes, int* info) {
+  return static_cast<int>(
+      idf::kernel_info(reinterpret_cast<const void*>(nlm_hrw_kernel_for(zero_border, bf16_taps)),
+                       kHrwThreads, shared_bytes, info));
 }
 
 int idf_normalize(const void* wc, const void* nw, void* out, long long n_pixels, float s_r,

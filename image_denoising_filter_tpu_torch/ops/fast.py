@@ -20,6 +20,8 @@ use. Beside them this module holds:
     `slice_grid_plain`, `fused_grid_plain`, `build_guided_grid_plain`,
     `slice_guided_grid_plain`, `fused_guided_plain`): whole-image tensor ops
     with the kernel's bf16 roundings, taps, summation order and lerp formula;
+  * the guided build kernel's block, tile, staged window and shared-memory
+    layout (`guided_build_tile`), in pure Python that the CPU tests check;
   * launch counts, in `ops.stencils.launches` beside the exact kernels'.
 
 Layouts: images (H, W, 4) float32; the pooled image (hs, ws, 4) float32 with
@@ -40,6 +42,8 @@ tile defaults, the pad-free slab layout (`extend_to`), `cull_mask` and
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -50,7 +54,16 @@ from ..config import BilateralParams, BorderPolicy, LayersParams
 
 from . import _build
 from .eager import _blur_valid, _pad2d, _pad_to, bilateral_fast_eager
-from .stencils import LOG2E, _check_image, _on_cuda, _raise_on_error, _stream, launches
+from .stencils import (
+    LOG2E,
+    _check_image,
+    _on_cuda,
+    _raise_on_error,
+    _stream,
+    info_dict,
+    launches,
+    max_shared_bytes,
+)
 
 # Table size the build kernel takes by value (fast.cu: kMaxTaps).
 MAX_TAPS = 64
@@ -61,6 +74,22 @@ DOWNSAMPLES = (2, 4, 8)
 GUIDED_DOWNSAMPLES = (1, 2, 4, 8)
 #: Guided grid planes per level: num r, g, b, a; den r, g, b; one zero pad.
 GUIDED_PLANES = 8
+# The guided build kernel's block, compiled into fast.cu from here
+# (nvcc_defines): 256 threads own a tile of cells, the first of
+# GUIDED_BUILD_TILES (rows, columns) whose staged window fits a block's
+# shared memory, and a vertical-pass thread sums GUIDED_BUILD_STRIP cell rows
+# of one staged column.
+GUIDED_BUILD_THREADS = 256
+GUIDED_BUILD_STRIP = 4
+GUIDED_BUILD_TILES = (
+    (16, 32), (8, 32), (4, 32), (2, 32), (1, 32), (1, 16), (1, 8), (1, 4), (1, 2), (1, 1),
+)
+
+
+def nvcc_defines() -> tuple[str, ...]:
+    """The guided build's block as the macros fast.cu is compiled with."""
+    return (f"-DIDF_BUILD_THREADS={GUIDED_BUILD_THREADS}",
+            f"-DIDF_BUILD_STRIP={GUIDED_BUILD_STRIP}")
 
 
 # ---------------------------------------------------------------------------
@@ -297,6 +326,91 @@ def fused_guided_plain(
 
 
 # ---------------------------------------------------------------------------
+# The guided build kernel's tile and staged window
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GuidedBuildTile:
+    """One block's geometry in the guided build kernel. The block owns cells
+    [y0, y0 + th) x [x0, x0 + tw) of every level and stages the pooled
+    target and layer at cells (y0 - r + i, x0 - r + j), i < srows = th + 2r,
+    j < scols = tw + 2r (r = the blur radius), under the build's border rule:
+    cell (y, x)'s tap (a, b) of the blur reads staged (y - y0 + a, x - x0 +
+    b). The block's dynamic shared memory (guided_build_layout) holds the
+    staged target as float4 at byte 0, and from the byte offsets l_at, w_at
+    and v_at the staged layer (float4), its three range-weight planes and the
+    seven vertical-sum planes (th x scols floats each); shared_bytes in
+    all."""
+
+    th: int
+    tw: int
+    r: int
+    l_at: int
+    w_at: int
+    v_at: int
+    shared_bytes: int
+
+    @property
+    def srows(self) -> int:
+        return self.th + 2 * self.r
+
+    @property
+    def scols(self) -> int:
+        return self.tw + 2 * self.r
+
+    def launch_args(self) -> np.ndarray:
+        """The ints idf_build_guided_grid takes (fast.cu: BuildTile, then the
+        bytes)."""
+        return np.asarray([self.th, self.tw, self.l_at, self.w_at, self.v_at, self.shared_bytes],
+                          np.int32)
+
+
+def guided_build_layout(th: int, tw: int, r: int) -> tuple[int, int, int, int]:
+    """The guided build kernel's shared memory, in this order: the staged
+    target and the staged layer, float4 each ((th + 2r) x (tw + 2r)); the
+    range weights, three float planes of the staged window; the vertical
+    sums, seven float planes of th x (tw + 2r). Returns (l_at, w_at, v_at,
+    shared bytes)."""
+    n_staged = (th + 2 * r) * (tw + 2 * r)
+    l_at = 16 * n_staged
+    w_at = l_at + 16 * n_staged
+    v_at = w_at + 12 * n_staged
+    return l_at, w_at, v_at, v_at + 4 * 7 * th * (tw + 2 * r)
+
+
+@functools.lru_cache(maxsize=None)
+def guided_build_tile(n_taps: int, shared_limit: int) -> GuidedBuildTile:
+    """The guided build kernel's tile for n_taps (odd) blur taps on a card
+    whose blocks may hold `shared_limit` bytes of shared memory: the first of
+    GUIDED_BUILD_TILES whose window fits; ValueError where none fits."""
+    if n_taps < 1 or n_taps % 2 == 0:
+        raise ValueError(f"the guided build takes an odd number of blur taps, got {n_taps}")
+    r = n_taps // 2
+    for th, tw in GUIDED_BUILD_TILES:
+        *offsets, nbytes = guided_build_layout(th, tw, r)
+        if nbytes <= shared_limit:
+            return GuidedBuildTile(th, tw, r, *offsets, nbytes)
+    raise ValueError(
+        f"no guided build tile fits {n_taps} blur taps in {shared_limit} bytes of shared memory"
+    )
+
+
+def build_guided_grid_info(device: torch.device, n_taps: int, border: str) -> dict:
+    """How the guided build kernel runs with n_taps blur taps on `device`,
+    as compiled: registers and spill (local) bytes a thread, its tile (th x
+    tw cells) and shared bytes, and the blocks a multiprocessor holds at
+    once (as ops.stencils.kernel_info gives them for the NLM kernels)."""
+    info = (ctypes.c_int * 3)()
+    tile = guided_build_tile(n_taps, max_shared_bytes(device))
+    with torch.cuda.device(device):
+        rc = _build.library().idf_build_guided_grid_info(
+            int(border != BorderPolicy.CLAMP), tile.shared_bytes, info)
+    _raise_on_error(rc, "build_guided_grid info")
+    return info_dict(info, f"{tile.th}x{tile.tw}", tile.shared_bytes)
+
+
+# ---------------------------------------------------------------------------
 # Checks, layouts and launches
 # ---------------------------------------------------------------------------
 
@@ -494,12 +608,13 @@ def build_guided_grid(
         return build_guided_grid_plain(small_t, small_l, lmin, step, levels, taps, border, inv2sc)
     hs, ws, _ = small_t.shape
     grid = torch.empty((levels, hs, ws, GUIDED_PLANES), dtype=torch.bfloat16, device=small_t.device)
+    geom = guided_build_tile(taps.size, max_shared_bytes(small_t.device)).launch_args()
     lib = _build.library()
     with torch.cuda.device(small_t.device):
         rc = lib.idf_build_guided_grid(
             small_t.data_ptr(), small_l.data_ptr(), lmin.data_ptr(), step.data_ptr(),
             grid.data_ptr(), hs, ws, levels, taps.ctypes.data, taps.size, inv2sc * LOG2E,
-            int(border != BorderPolicy.CLAMP), _stream(small_t),
+            int(border != BorderPolicy.CLAMP), geom.ctypes.data, _stream(small_t),
         )
     _raise_on_error(rc, "build_guided_grid")
     launches["build_guided_grid"] += 1

@@ -9,9 +9,9 @@ kernel this module holds:
   * the static tables the kernel iterates, ported from the JAX module:
     `_circle_runs` (the bilateral truncation disk) and `_sdx_steps` (the NLM
     search candidates, with the stride and disk subsets);
-  * the NLM kernel's block (compiled into the kernel from here), tile,
-    staged window and shared-memory layout (`nlm_tile`), index arithmetic in
-    pure Python that the CPU tests check;
+  * the NLM kernels' blocks (compiled into the kernels from here), tiles,
+    staged windows and shared-memory layouts (`nlm_tile`, `hrw_tile`), index
+    arithmetic in pure Python that the CPU tests check;
   * its plain PyTorch version, the same tap set and candidate table as
     whole-image tensor ops (`bilateral_plain`, `nlm_plain`,
     `normalize_plain`);
@@ -64,16 +64,32 @@ NLM_TILE_W = 32
 NLM_TILE_HS = (16, 8, 4, 2, 1)
 NLM_REGISTER_PATCH = 4
 NLM_E_PER_THREAD = 4
+# The half-row NLM kernel's block, likewise: 256 threads own an output tile
+# of 32 columns and one of HRW_TILE_HS rows (even: the tile starts on the
+# absolute even-row lattice of the half-row cells), each thread one pixel
+# pair of a column; each keeps the target's cells of HRW_E_PER_THREAD
+# squared-difference positions in registers. HRW_LANES is the 2p-lane box
+# at patch radius 3, the one radius the half-row weights take.
+HRW_THREADS = 256
+HRW_TILE_W = 32
+HRW_TILE_HS = (16, 8, 4, 2)
+HRW_E_PER_THREAD = 2
+HRW_LANES = 6
 
 
 def nvcc_defines() -> tuple[str, ...]:
-    """The NLM block above as the macros stencils.cu is compiled with."""
+    """The NLM blocks above as the macros stencils.cu is compiled with."""
     return (
         f"-DIDF_NLM_THREADS={NLM_THREADS}",
         f"-DIDF_NLM_TILE_W={NLM_TILE_W}",
         f"-DIDF_NLM_MAX_TILE_H={max(NLM_TILE_HS)}",
         f"-DIDF_NLM_REGISTER_PATCH={NLM_REGISTER_PATCH}",
         f"-DIDF_NLM_E_PER_THREAD={NLM_E_PER_THREAD}",
+        f"-DIDF_HRW_THREADS={HRW_THREADS}",
+        f"-DIDF_HRW_TILE_W={HRW_TILE_W}",
+        f"-DIDF_HRW_MAX_TILE_H={max(HRW_TILE_HS)}",
+        f"-DIDF_HRW_E_PER_THREAD={HRW_E_PER_THREAD}",
+        f"-DIDF_HRW_LANES={HRW_LANES}",
     )
 
 
@@ -149,7 +165,8 @@ def _sdx_steps(params: NlmParams) -> tuple[tuple[int, ...], ...]:
 
 
 def nlm_candidates(params: NlmParams) -> list[tuple[int, int]]:
-    """The (dy, dx) search offsets of `_sdx_steps`, row by row."""
+    """The (dy, dx) search offsets of `_sdx_steps`, row by row: none at
+    search radius 0."""
     s = params.search_radius
     sdy_all = range(s % params.search_stride, 2 * s, params.search_stride)
     return [
@@ -160,8 +177,17 @@ def nlm_candidates(params: NlmParams) -> list[tuple[int, int]]:
 
 
 # ---------------------------------------------------------------------------
-# The NLM kernel's tile and staged window
+# The NLM kernels' tiles and staged windows
 # ---------------------------------------------------------------------------
+
+
+def _window_offsets(params: NlmParams) -> tuple[list[int], list[int]]:
+    """The candidates' dy and dx, which the staged windows span. An empty
+    table (search radius 0) takes the window of the self match (0, 0): the
+    kernel then runs no candidate and writes each frame's seed, as the JAX
+    package does."""
+    cands = nlm_candidates(params) or [(0, 0)]
+    return [dy for dy, _ in cands], [dx for _, dx in cands]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,9 +267,7 @@ def nlm_tile(params: NlmParams, bf16: bool, shared_limit: int) -> NlmTile:
     p = params.patch_radius
     if p < 1:
         raise ValueError(f"the NLM kernel takes patch radius 1 or more, got {p}")
-    cands = nlm_candidates(params)
-    dys = [dy for dy, _ in cands]
-    dxs = [dx for _, dx in cands]
+    dys, dxs = _window_offsets(params)
     e_w = NLM_TILE_W + 2 * p - 1
     win_w = e_w + max(dxs) - min(dxs)
     for th in NLM_TILE_HS:
@@ -255,6 +279,97 @@ def nlm_tile(params: NlmParams, bf16: bool, shared_limit: int) -> NlmTile:
                            *offsets, nbytes)
     raise ValueError(
         f"no NLM tile fits patch radius {p} and search radius {params.search_radius} "
+        f"in {shared_limit} bytes of shared memory"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class HrwTile:
+    """One block's geometry in the half-row NLM kernel. The block owns output
+    rows [y0, y0 + th), th even, and columns [x0, x0 + tw). Its squared
+    differences e(r, c) pair the target's half-row cell y0/2 - 2 + r with
+    lane x0 - 3 + c, for r < e_h = th/2 + 4 and c < e_w = tw + HRW_LANES - 1;
+    row r of the 3-cell sums (th/2 + 2 rows of e_w) is weight cell y0/2 - 1 +
+    r, and output rows y0 + 2i, y0 + 2i + 1 read weight rows i .. i + 2.
+    Per frame it stages the neighbour's value window, pixels (y0 + oy + i, x0
+    + ox + j) for i < win_h, j < win_w, and its half-row cells (y0/2 - 2 +
+    oy/2 + i, lane x0 - 3 + ox + j) for i < cell_h, j < cell_w: with (oy,
+    ox) the table's least offsets (oy even), candidate (dy, dx) reads e(r,
+    c)'s neighbour at cell (r + (dy - oy)/2, c + dx - ox) and output (y0 + i,
+    x0 + j)'s value tap at (i + dy - oy, j + dx - ox). The block's dynamic
+    shared memory (hrw_layout) holds the value window as float4 at byte 0,
+    and from the byte offsets cells_at, e_at, sums_at and w_at the cells
+    (float4, or bf16 RGB with bf16 taps), e, the 3-cell sums and the weight
+    cells (th/2 + 2 rows of tw floats); shared_bytes in all."""
+
+    th: int
+    tw: int
+    oy: int
+    ox: int
+    win_h: int
+    win_w: int
+    cell_h: int
+    cell_w: int
+    cells_at: int
+    e_at: int
+    sums_at: int
+    w_at: int
+    shared_bytes: int
+
+    @property
+    def e_h(self) -> int:
+        return self.th // 2 + 4
+
+    @property
+    def e_w(self) -> int:
+        return self.tw + HRW_LANES - 1
+
+    def launch_args(self) -> np.ndarray:
+        """The ints idf_nlm_hrw takes (stencils.cu: HrwTile, then the bytes)."""
+        return np.asarray(
+            [self.th, self.oy, self.ox, self.win_h, self.win_w, self.cell_h, self.cell_w,
+             self.cells_at, self.e_at, self.sums_at, self.w_at, self.shared_bytes],
+            np.int32,
+        )
+
+
+def hrw_layout(
+    th: int, win_h: int, win_w: int, cell_h: int, cell_w: int, bf16: bool
+) -> tuple[int, ...]:
+    """The half-row NLM kernel's shared memory, in this order: the value
+    window as float4 (16 bytes a pixel); the half-row cells as float4, or as
+    bf16 RGB (8 bytes) with bf16 taps; e ((th/2 + 4) rows of e_w floats); the
+    3-cell sums ((th/2 + 2) rows of e_w floats); the weight cells ((th/2 + 2)
+    rows of HRW_TILE_W floats). Returns (cells_at, e_at, sums_at, w_at,
+    shared bytes)."""
+    e_w = HRW_TILE_W + HRW_LANES - 1
+    cells_at = 16 * win_h * win_w
+    e_at = cells_at + (8 if bf16 else 16) * cell_h * cell_w
+    sums_at = e_at + 4 * (th // 2 + 4) * e_w
+    w_at = sums_at + 4 * (th // 2 + 2) * e_w
+    return cells_at, e_at, sums_at, w_at, w_at + 4 * (th // 2 + 2) * HRW_TILE_W
+
+
+@functools.lru_cache(maxsize=None)
+def hrw_tile(params: NlmParams, bf16: bool, shared_limit: int) -> HrwTile:
+    """The half-row NLM kernel's tile for these parameters (search stride 2,
+    patch radius 3) on a card whose blocks may hold `shared_limit` bytes of
+    shared memory: the tallest of HRW_TILE_HS whose windows fit; ValueError
+    where none fits."""
+    check_hrw_params(params)
+    dys, dxs = _window_offsets(params)
+    dy_range, dx_range = max(dys) - min(dys), max(dxs) - min(dxs)
+    win_w = HRW_TILE_W + dx_range
+    cell_w = win_w + HRW_LANES - 1
+    for th in HRW_TILE_HS:
+        win_h = th + dy_range
+        cell_h = th // 2 + 4 + dy_range // 2
+        *offsets, nbytes = hrw_layout(th, win_h, win_w, cell_h, cell_w, bf16)
+        if nbytes <= shared_limit:
+            return HrwTile(th, HRW_TILE_W, min(dys), min(dxs), win_h, win_w, cell_h, cell_w,
+                           *offsets, nbytes)
+    raise ValueError(
+        f"no half-row NLM tile fits search radius {params.search_radius} "
         f"in {shared_limit} bytes of shared memory"
     )
 
@@ -389,20 +504,31 @@ def max_shared_bytes(device: torch.device) -> int:
 
 
 def kernel_info(kernel: str, device: torch.device, params: NlmParams) -> dict:
-    """How the NLM kernel form `kernel` ("nlm" or "nlm_bf16") runs at
-    `params` on `device`, as compiled: registers and spill (local) bytes a
-    thread, its tile (th x tw) and shared bytes, and the blocks a
-    multiprocessor holds at once."""
+    """How the NLM kernel form `kernel` ("nlm", "nlm_bf16", "nlm_hrw" or
+    "nlm_hrw_bf16") runs at `params` on `device`, as compiled: registers and
+    spill (local) bytes a thread, its tile (th x tw) and shared bytes, and
+    the blocks a multiprocessor holds at once."""
     info = (ctypes.c_int * 3)()
-    bf16 = kernel == "nlm_bf16"
-    tile = nlm_tile(params, bf16, max_shared_bytes(device))
+    bf16 = kernel.endswith("_bf16")
+    zero = int(params.border != BorderPolicy.CLAMP)
+    lib = _build.library()
     with torch.cuda.device(device):
-        rc = _build.library().idf_nlm_info(params.patch_radius,
-                                           int(params.border != BorderPolicy.CLAMP),
-                                           int(bf16), tile.shared_bytes, info)
+        if kernel.startswith("nlm_hrw"):
+            tile = hrw_tile(params, bf16, max_shared_bytes(device))
+            rc = lib.idf_nlm_hrw_info(zero, int(bf16), tile.shared_bytes, info)
+        else:
+            tile = nlm_tile(params, bf16, max_shared_bytes(device))
+            rc = lib.idf_nlm_info(params.patch_radius, zero, int(bf16), tile.shared_bytes, info)
     _raise_on_error(rc, f"{kernel} info")
-    return {"registers": info[0], "spill_bytes": info[1], "tile": f"{tile.th}x{tile.tw}",
-            "shared_bytes": tile.shared_bytes, "blocks_per_sm": info[2]}
+    return info_dict(info, f"{tile.th}x{tile.tw}", tile.shared_bytes)
+
+
+def info_dict(info, tile: str, shared_bytes: int) -> dict:
+    """A kernel's C info array (registers, spill bytes, blocks a
+    multiprocessor) with its tile and shared bytes, as kernel_info returns
+    them."""
+    return {"registers": info[0], "spill_bytes": info[1], "tile": tile,
+            "shared_bytes": shared_bytes, "blocks_per_sm": info[2]}
 
 
 def _launch_bilateral(
@@ -507,8 +633,8 @@ def nlm_accumulate_frames(
     tiling.compute_dtype "bfloat16" takes bf16 taps: the squared differences
     are computed in bf16, everything else in float32 (the turbo NLM).
     params.weights_halfres computes the weights at half row resolution (the
-    half-row kernel, after a pass that pools each image's row pairs; search
-    stride 2 and patch radius 3 only, else ValueError)."""
+    half-row kernel, which pools each image's row pairs as it stages them;
+    search stride 2 and patch radius 3 only, else ValueError)."""
     dtype = _compute_dtype(tiling, ("float32", "bfloat16"))
     if params.weights_halfres:
         check_hrw_params(params)
@@ -536,16 +662,12 @@ def nlm_accumulate_frames(
     bf16 = int(dtype == "bfloat16")
     with torch.cuda.device(target.device):
         if params.weights_halfres:
-            # the half-row cells [-1, hc] of the target, then of each frame
-            pooled = torch.empty(
-                (1 + n_frames, (h + 1) // 2 + 2, w, 4), dtype=torch.float32, device=target.device
-            )
+            geom = hrw_tile(params, bool(bf16), max_shared_bytes(target.device)).launch_args()
             rc = lib.idf_nlm_hrw(
-                target.data_ptr(), frames.data_ptr(), valid.data_ptr(), pooled.data_ptr(),
-                wc.data_ptr(), nw.data_ptr(), h, w, n_frames, cands.ctypes.data,
-                cands.size // 2, -NLM_HRW_KAPPA * LOG2E / params.h**2,
-                float(params.search_stride**2), params.norm_seed, zero, ua, bf16,
-                _stream(target),
+                target.data_ptr(), frames.data_ptr(), valid.data_ptr(), wc.data_ptr(),
+                nw.data_ptr(), h, w, n_frames, cands.ctypes.data, cands.size // 2,
+                -NLM_HRW_KAPPA * LOG2E / params.h**2, float(params.search_stride**2),
+                params.norm_seed, zero, ua, bf16, geom.ctypes.data, _stream(target),
             )
         else:
             geom = nlm_tile(params, bool(bf16), max_shared_bytes(target.device)).launch_args()

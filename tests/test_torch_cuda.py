@@ -544,3 +544,178 @@ def test_fused_grid_shared_memory(cuda, d, n_taps, fits):
     4 and 8; more taps than its table, or a d that does not divide the
     slice tile, it does not take."""
     assert fast.fused_grid_fits(d, n_taps, cuda) == fits
+
+
+# ---------------------------------------------------------------------------
+# The redesigned half-row NLM and guided build kernels; search radius 0
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "params,shape,n_frames",
+    [
+        (NlmParams(search_radius=0, search_stride=2, weights_halfres=True), (29, 37), 3),
+        (NlmParams(search_stride=2, weights_halfres=True), (37, 70), 3),
+        (NlmParams(search_stride=2, weights_halfres=True, border=BorderPolicy.ZERO,
+                   uniform_alpha=True), (17, 45), 3),
+        (NlmParams(search_radius=16, search_stride=2, weights_halfres=True), (29, 37), 3),
+        (NlmParams(search_radius=16, search_stride=2, weights_halfres=True,
+                   border=BorderPolicy.ZERO, search_disk=True), (40, 33), 1),
+        (NlmParams(search_stride=2, weights_halfres=True), (1, 64), 3),
+        (NlmParams(search_stride=2, weights_halfres=True, border=BorderPolicy.ZERO), (1, 64), 1),
+        (NlmParams(search_radius=32, search_stride=2, weights_halfres=True), (35, 40), 1),
+    ],
+    ids=["s0", "s7_odd", "s7_zero_ua_odd", "s16_odd", "s16_zero_disk", "s7_1x64",
+         "s7_zero_1x64", "s32_1024_candidates"],
+)
+def test_nlm_hrw_redesigned_kernel_matches_plain(cuda, params, shape, n_frames, bf16):
+    """The redesigned half-row kernel on smooth content: s = 0 (no candidate:
+    the seeds alone), 7, 16 and 32 (1024 candidates, its windows above 48 KB
+    of shared memory), both borders, odd heights, one row, images narrower
+    and wider than the 16 x 32 tile, F = 3 with the middle frame masked."""
+    target = _smooth_image(0, cuda, *shape)
+    frames = torch.stack([_smooth_image(i, cuda, *shape) for i in range(n_frames)])
+    valid = torch.tensor([1.0, 0.0, 1.0][:n_frames], device=cuda)
+    tiling = TilingConfig(compute_dtype="bfloat16") if bf16 else None
+    wc, nw = stencils.nlm_accumulate_frames(target, frames, params, tiling, valid)
+    pwc, pnw = stencils.nlm_plain(target, frames, params, valid,
+                                  "bfloat16" if bf16 else "float32")
+    _close(wc, pwc, rtol=2e-4, atol=1e-4)
+    _close(nw, pnw, rtol=2e-4, atol=1e-4)
+    if params.search_radius == 0:
+        torch.testing.assert_close(nw, torch.full_like(nw, 2 * params.norm_seed), rtol=0, atol=0)
+        assert not wc.any()
+    assert stencils.launches["nlm_hrw_bf16" if bf16 else "nlm_hrw"] == 1
+    assert sum(stencils.launches.values()) == 1
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("ua", [False, True])
+def test_nlm_at_search_radius_0_writes_the_seeds(cuda, bf16, ua):
+    """An empty candidate table launches the kernel, which writes what the
+    JAX package writes: wc = 0 and nw = the sum of valid[f] times the seed
+    (F = 2, the second frame masked), uniform alpha included."""
+    params = NlmParams(search_radius=0, uniform_alpha=ua)
+    target = _image(0, cuda)
+    frames = torch.stack([_image(1, cuda), _image(2, cuda)])
+    valid = torch.tensor([1.0, 0.0], device=cuda)
+    tiling = TilingConfig(compute_dtype="bfloat16") if bf16 else None
+    wc, nw = stencils.nlm_accumulate_frames(target, frames, params, tiling, valid)
+    pwc, pnw = stencils.nlm_plain(target, frames, params, valid,
+                                  "bfloat16" if bf16 else "float32")
+    torch.testing.assert_close(wc, pwc, rtol=0, atol=0)
+    torch.testing.assert_close(nw, pnw, rtol=0, atol=0)
+    torch.testing.assert_close(nw, torch.full_like(nw, params.norm_seed), rtol=0, atol=0)
+    assert stencils.launches["nlm_bf16" if bf16 else "nlm"] == 1
+
+
+def test_cli_at_search_radius_0_on_card_matches_cpu(cuda, tmp_path):
+    """gpu-denoise --search-radius 0 on the card writes the seed-only result
+    that --device cpu writes."""
+    from image_denoising_filter_tpu_torch import cli
+
+    root = tmp_path / "anim"
+    root.mkdir()
+    for i in range(3):
+        imageio.save(str(root / f"frame_{i:04d}.png"), _image(i, "cpu").numpy())
+    target = str(root / "frame_0001.png")
+    outs = {}
+    for device in ("cuda", "cpu"):
+        out = tmp_path / device
+        rc = cli.main([target, "--device", device, "--search-radius", "0", "--configs",
+                       "nlm,multiframe", "--output-dir", str(out)])
+        assert rc == 0
+        outs[device] = {p.name: imageio.load(str(p))[0] for p in out.iterdir()}
+    assert sorted(outs["cuda"]) == sorted(outs["cpu"]) and len(outs["cuda"]) == 2
+    for name, img in outs["cuda"].items():
+        np.testing.assert_array_equal(img, outs["cpu"][name])
+    assert stencils.launches["nlm"] > 0
+
+
+@pytest.mark.parametrize("kernel,params", [
+    ("nlm_hrw", NlmParams(search_stride=2, weights_halfres=True)),
+    ("nlm_hrw_bf16", NlmParams(search_stride=2, weights_halfres=True)),
+    ("nlm_hrw", NlmParams(search_stride=2, weights_halfres=True, border=BorderPolicy.ZERO)),
+])
+def test_nlm_hrw_kernel_info(cuda, kernel, params):
+    """The turbo tile launches: registers without spills, and at least two
+    blocks a multiprocessor."""
+    info = stencils.kernel_info(kernel, cuda, params)
+    assert info["tile"] == "16x32" and info["spill_bytes"] == 0
+    assert info["blocks_per_sm"] >= 2 and 0 < info["registers"] <= 255
+
+
+@pytest.mark.parametrize(
+    "d,sigma_s,n_taps,border,shape",
+    [(1, 2.0, 17, BorderPolicy.CLAMP, (61, 83)), (1, 2.0, 17, BorderPolicy.ZERO, (40, 37)),
+     (2, 2.0, 9, BorderPolicy.CLAMP, (97, 131)), (2, 2.0, 9, BorderPolicy.ZERO, (61, 300)),
+     (8, 6.0, 7, BorderPolicy.CLAMP, (97, 131)), (8, 6.0, 7, BorderPolicy.ZERO, (61, 83)),
+     (1, 7.6, 63, BorderPolicy.CLAMP, (29, 70)), (2, 15.1, 63, BorderPolicy.ZERO, (61, 83))],
+    ids=["d1_17taps", "d1_17taps_zero", "d2", "d2_zero", "d8_7taps", "d8_7taps_zero",
+         "d1_63taps", "d2_63taps_zero"],
+)
+def test_build_guided_grid_kernel_equals_plain_bit_for_bit(cuda, d, sigma_s, n_taps, border,
+                                                           shape):
+    """The redesigned guided build keeps the plain version's products and sum
+    order, so its bf16 grid is the plain version's bit for bit: the main
+    path's d = 1 (17 taps), d = 2, d = 8 at sigma_s 6 (7 taps) and the
+    widest table (63 taps), both borders, grids smaller than, at and larger
+    than one tile."""
+    _, _, small_t, small_l, lmin, step, taps = _guided_inputs(d, border, 6, sigma_s, *shape)
+    assert taps.size == n_taps
+    args = (small_t, small_l, lmin, step, 6, taps, border, 12.5)
+    got = fast.build_guided_grid(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fast.build_guided_grid_plain(*args))
+    assert stencils.launches["build_guided_grid"] == 1
+
+
+@pytest.mark.parametrize("n_taps,tile", [(9, "16x32"), (17, "16x32"), (63, "1x16")])
+def test_build_guided_grid_kernel_info(cuda, n_taps, tile):
+    """The guided build's tiles launch: registers without spills, and at
+    least one block a multiprocessor (two at the main path's 17 taps)."""
+    info = fast.build_guided_grid_info(cuda, n_taps, BorderPolicy.CLAMP)
+    assert info["tile"] == tile and info["spill_bytes"] == 0
+    assert info["blocks_per_sm"] >= (2 if n_taps <= 17 else 1)
+    assert 0 < info["registers"] <= 255
+
+
+def test_nlm_hrw_launcher_refuses_a_window_that_misses_a_tap(cuda):
+    """The half-row launcher checks the tile against every candidate before it
+    launches: a value window one row short, or a cell window one lane short,
+    is refused with cudaErrorInvalidValue (1)."""
+    params = NlmParams(search_stride=2, weights_halfres=True)
+    img = _image(0, cuda)
+    out, nw = torch.empty_like(img), torch.empty(img.shape[:2], device=cuda)
+    valid = torch.ones(1, device=cuda)
+    tile = stencils.hrw_tile(params, False, stencils.max_shared_bytes(img.device))
+    cands = np.asarray(stencils.nlm_candidates(params), np.int32).reshape(-1)
+    lib = stencils._build.library()
+    short_rows, short_lanes = tile.launch_args(), tile.launch_args()
+    short_rows[3] -= 1  # win_h
+    short_lanes[6] -= 1  # cell_w
+    for geom, want in ((tile.launch_args(), 0), (short_rows, 1), (short_lanes, 1)):
+        rc = lib.idf_nlm_hrw(img.data_ptr(), img.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                             nw.data_ptr(), 29, 37, 1, cands.ctypes.data, cands.size // 2, -1.0,
+                             4.0, 0.001, 0, 0, 0, geom.ctypes.data, stencils._stream(img))
+        assert rc == want
+    torch.cuda.synchronize()
+
+
+def test_build_guided_grid_launcher_refuses_a_short_layout(cuda):
+    """The guided build's launcher refuses a layout whose vertical sums
+    overrun the block's shared memory (cudaErrorInvalidValue, 1)."""
+    _, _, small_t, small_l, lmin, step, taps = _guided_inputs(2)
+    grid = torch.empty((5, *small_t.shape[:2], 8), dtype=torch.bfloat16, device=cuda)
+    tile = fast.guided_build_tile(taps.size, stencils.max_shared_bytes(small_t.device))
+    short = tile.launch_args()
+    short[-1] -= 4  # shared bytes
+    lib = stencils._build.library()
+    for geom, want in ((tile.launch_args(), 0), (short, 1)):
+        rc = lib.idf_build_guided_grid(
+            small_t.data_ptr(), small_l.data_ptr(), lmin.data_ptr(), step.data_ptr(),
+            grid.data_ptr(), small_t.shape[0], small_t.shape[1], 5, taps.ctypes.data, taps.size,
+            1.0, 0, geom.ctypes.data, stencils._stream(small_t))
+        assert rc == want
+    torch.cuda.synchronize()

@@ -181,3 +181,22 @@ def test_widest_patch_radius_on_the_h100(bf16, widest, th):
     with pytest.raises(ValueError, match="no NLM tile fits"):
         stencils.nlm_tile(NlmParams(search_radius=16, patch_radius=widest + 1), bf16,
                           H100_SHARED_OPTIN)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("p", [1, 3, 5])
+def test_search_radius_0_stages_the_self_match(p, bf16):
+    """At search radius 0 the table is empty (the JAX package and the plain
+    version return each frame's seed): the tile stages the window of the
+    self match (0, 0) alone, the tile plus the patch halo, and the kernel
+    runs no candidate."""
+    params = NlmParams(search_radius=0, patch_radius=p)
+    assert stencils.nlm_candidates(params) == []
+    tile = stencils.nlm_tile(params, bf16, H100_SHARED_OPTIN)
+    assert (tile.th, tile.oy, tile.ox) == (16, -p, -p)
+    assert (tile.win_h, tile.win_w) == (tile.e_h, tile.e_w)
+    for h, w in ((3, 5), (16, 32), (35, 71)):
+        for y0 in range(0, h, tile.th):
+            _check_axis(h, y0, tile.th, tile.e_h, p, tile.oy, tile.win_h, [0])
+        for x0 in range(0, w, tile.tw):
+            _check_axis(w, x0, tile.tw, tile.e_w, p, tile.ox, tile.win_w, [0])

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the NLM and normalize kernels of two checkouts of the port on one
-card, the same way and in turns.
+"""Time the redesigned kernels of two checkouts of the port on one card, the
+same way and in turns, and compare their outputs bit for bit.
 
     git archive <commit> | tar -x -C build/ab_base    # the other checkout
     python3 tools/torch_kernel_ab.py --baseline build/ab_base
@@ -18,6 +18,19 @@ frames (seed 0) with the reference parameters:
   nlm p=5    F=1, patch radius 5
   normalize  wc / nw with a sentinel where nw == 0
   divide     the broadcast divide wc / nw[..., None] (no sentinel)
+  nlm_hrw, nlm_hrw_bf16
+             the half-row NLM, F=1, stride 2 (49 candidates), float32 and
+             bf16 taps, on a smooth frame (seed 0) where the weights carry
+  build_guided 4K d=2 K=5
+             the guided grid build of a 3840x2160 target and layer pooled at
+             d=2 (9 blur taps at sigma_s 2), 5 levels
+  build_guided 1080p d=1 K=6
+             the same at the main path's --turbo 1 shape: 1920x1080 at d=1
+             (17 blur taps), 6 levels
+
+Each process also hashes the output of every case but the divide (SHA-256
+of its bytes); the summary says for each whether the two sides' outputs are
+equal bit for bit.
 
 This checkout's processes also read the SM clock with nvidia-smi while the
 nlm kernel runs back to back, and turn the nlm time into cycles a tile and
@@ -29,6 +42,7 @@ JSON.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -76,7 +90,7 @@ def worker(root: str) -> dict:
 
     sys.path.insert(0, root)
     from image_denoising_filter_tpu_torch import config as cfg
-    from image_denoising_filter_tpu_torch.ops import _build, stencils
+    from image_denoising_filter_tpu_torch.ops import _build, fast, stencils
 
     package = os.path.dirname(os.path.dirname(os.path.abspath(stencils.__file__)))
     assert os.path.samefile(os.path.dirname(package), root), stencils.__file__
@@ -93,6 +107,19 @@ def worker(root: str) -> dict:
     nw_b = nw[..., None]
     bf16 = cfg.TilingConfig(compute_dtype="bfloat16")
     ref, turbo, p5 = cfg.NlmParams(), cfg.NlmParams(search_stride=2), cfg.NlmParams(patch_radius=5)
+    hrw = cfg.NlmParams(search_stride=2, weights_halfres=True)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    smooth = np.stack([0.5 + 0.4 * np.sin(xx / 23.0), 0.5 + 0.4 * np.cos(yy / 17.0),
+                       np.where(xx > W / 2, 0.8, 0.2), np.ones((H, W))], -1)
+    smooth[..., :3] += rng.normal(0, 0.05, (H, W, 3))
+    smooth = torch.from_numpy(np.clip(smooth, 0, 1).astype(np.float32)).to(dev)
+    guided = {}
+    for key, h, w, d, levels in (("4K d=2 K=5", 2160, 3840, 2, 5), ("1080p d=1 K=6", H, W, 1, 6)):
+        imgs = torch.from_numpy(rng.uniform(0, 1, (2, h, w, 4)).astype(np.float32)).to(dev)
+        small_t = fast.pool_plain(imgs[0], d, cfg.BorderPolicy.CLAMP)
+        small_l = fast.pool_plain(imgs[1], d, cfg.BorderPolicy.CLAMP)
+        guided[key] = (small_t, small_l, *fast.grid_range(small_l, levels), levels,
+                       fast._grid_taps(2.0, d), cfg.BorderPolicy.CLAMP, 12.5)
     cases = {
         "nlm": (lambda: stencils.nlm_accumulate(target, target, ref), 10),
         "nlm F=6": (lambda: stencils.nlm_accumulate_frames(target, frames, ref), 5),
@@ -100,11 +127,20 @@ def worker(root: str) -> dict:
         "nlm p=5": (lambda: stencils.nlm_accumulate(target, target, p5), 5),
         "normalize": (lambda: stencils.normalize(wc, nw), 50),
         "divide": (lambda: wc / nw_b, 50),
+        "nlm_hrw": (lambda: stencils.nlm_accumulate(smooth, smooth, hrw), 10),
+        "nlm_hrw_bf16": (lambda: stencils.nlm_accumulate(smooth, smooth, hrw, bf16), 10),
+        **{f"build_guided {key}": (lambda a=args: fast.build_guided_grid(*a), 10)
+           for key, args in guided.items()},
     }
-    out = {"root": root}
+    out = {"root": root, "digests": {}}
     for name, (fn, reps) in cases.items():
-        fn()  # first call: module load, shared-memory opt-in
+        result = fn()  # first call: module load, shared-memory opt-in
         torch.cuda.synchronize()
+        if name != "divide":
+            digest = hashlib.sha256()
+            for t in result if isinstance(result, tuple) else (result,):
+                digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+            out["digests"][name] = digest.hexdigest()
         out[name] = smoke.median_ms(torch, fn, reps)
     if hasattr(stencils, "nlm_tile"):
         mhz = sm_clock_mhz(torch, cases["nlm"][0])
@@ -141,7 +177,7 @@ def main() -> int:
         run = {"side": side, **json.loads(proc.stdout.strip().splitlines()[-1])}
         print(json.dumps(run))
         runs.append(run)
-    keys = list(dict.fromkeys(k for r in runs for k in r if k not in ("side", "root")))
+    keys = list(dict.fromkeys(k for r in runs for k in r if k not in ("side", "root", "digests")))
     summary = {
         side: {k: statistics.median(r[k] for r in runs if r["side"] == side and k in r)
                for k in keys if any(r["side"] == side and k in r for r in runs)}
@@ -150,6 +186,15 @@ def main() -> int:
     for k in keys:
         print(f"{k:34s} baseline {summary['baseline'].get(k, float('nan')):.4f}  "
               f"this {summary['this'].get(k, float('nan')):.4f}")
+    # Each side's runs agree with themselves; the two sides bit for bit?
+    digests = {side: [r["digests"] for r in runs if r["side"] == side]
+               for side in ("baseline", "this")}
+    bitwise = {}
+    for name in digests["this"][0]:
+        seen = {side: {d.get(name) for d in ds} for side, ds in digests.items()}
+        bitwise[name] = seen["baseline"] == seen["this"] and len(seen["this"]) == 1
+        print(f"{name:34s} outputs {'equal' if bitwise[name] else 'DIFFER'} bit for bit")
+    summary["bit_for_bit"] = bitwise
     print(smi)
     if args.out:
         with open(args.out, "w") as f:
