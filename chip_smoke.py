@@ -28,15 +28,18 @@ Phases, one line or block each:
                 kernels bit for bit, at 3840x2160 for (D, K) = (2, 5), (4, 5),
                 (8, 6), and on the 1080p target at each setting of phase 7;
                 the fused path, grid_pipeline(fused=True), driven at each 4K
-                (D, K) with its launch counts; median times at 4K (2, 5) and
-                both pipelines' Mpix/s at each D;
+                (D, K) with its launch counts; median times at 4K (2, 5),
+                the build's registers, tile and shared bytes, and both
+                pipelines' Mpix/s at each D;
   6. guided kernels -- the layer-guided grid's build, slice and fused
                 build+slice against their plain versions (the fused kernel
                 against the two kernels, bit for bit) at 3840x2160 for the
                 same (D, K) and on the 1080p albedo layer at each setting of
                 phase 7, with median times at 4K (2, 5), and the guided
                 build's also at the main path's --turbo 1 shape (1080p, D=1,
-                K=6, 17 taps) with its registers, tile and shared bytes;
+                K=6, 17 taps); the guided build's and the fused kernel's
+                registers, tile and shared bytes; the fused kernel's time
+                against the two kernels' at 4K (2, 5) and (4, 5);
   7. turbo battery -- `gpu-denoise --turbo D` on the 1080p target: every
                 config at D = 2, the NLM configs again with
                 --weights-halfres, the grid configs (bilateral, linear,
@@ -102,7 +105,8 @@ TOL_SLICE = dict(rtol=1e-5, atol=1e-6)
 BEFORE_REDESIGN_MS = {"nlm": 16.0932, "nlm_bf16": 5.2365, "nlm F=6": 96.5862,
                       "nlm_hrw": 2.2086, "nlm_hrw_bf16": 3.3669,
                       "build_guided_grid 4K D=2 K=5": 1.7550,
-                      "build_guided_grid 1080p D=1": 7.1050}
+                      "build_guided_grid 1080p D=1": 7.1050,
+                      "build_grid 4K D=2 K=5": 1.5590, "fused_guided 4K D=2 K=5": 0.8898}
 H4K, W4K = 2160, 3840
 TURBO_CELLS = ((2, 5), (4, 5), (8, 6))  # (D, K): run_turbo's K at each D
 # The turbo battery: D and --sigma-spatial (D=8 is gated in the JAX package
@@ -764,6 +768,9 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080):
               f"fused {fused_ms:.4f} ms = {mpix / fused_ms * 1e3:.1f} Mpix/s "
               f"(plain {plain_ms:.4f} ms = {mpix / plain_ms * 1e3:.1f} Mpix/s)")
     time_kernels(torch, results, timed, dict.fromkeys(timed, shape), library, "4K D=2 K=5")
+    print_redesigned("build_grid 4K D=2 K=5",
+                     fast.build_grid_info(img4k.device, shape["taps"], cfg.BorderPolicy.CLAMP),
+                     results["build_grid"]["ms"])
     return results, path_counts
 
 
@@ -811,7 +818,7 @@ def phase_guided_kernels(torch, fast, cfg, images):
     for d, sigma_s in TURBO_RUNS:
         cells.append(("1080p", d, turbo_levels(d), sigma_s, clamp))
 
-    timed = {}
+    timed, fused_vs_two = {}, {}
     for label, d, levels, sigma_s, border in cells:
         target, layer = images[label]
         case = f"{label} D={d} K={levels} {border} sigma_s {sigma_s:g}"
@@ -845,6 +852,8 @@ def phase_guided_kernels(torch, fast, cfg, images):
             note("fused_guided", case, got, want)
         if label == "1080p" and d == 1:
             main_build = build_args  # the main path's --turbo 1 build
+        if label == "4K" and d in (2, 4) and border == clamp:
+            fused_vs_two[d] = (fused_args, build_args, slice_args[2:])
         if label == "4K" and d == 2 and border == clamp:
             timed = {
                 "build_guided_grid": (lambda a=build_args: fast.build_guided_grid(*a),
@@ -878,7 +887,21 @@ def phase_guided_kernels(torch, fast, cfg, images):
     for where, n_taps, ms in (("4K D=2 K=5", shape["taps"], results["build_guided_grid"]["ms"]),
                               ("1080p D=1", taps.size, d1["ms"])):
         print_redesigned(f"build_guided_grid {where}",
-                         fast.build_guided_grid_info(small_t.device, n_taps, border), ms)
+                         fast.build_grid_info(small_t.device, n_taps, border, guided=True), ms)
+    print_redesigned("fused_guided 4K D=2 K=5",
+                     fast.fused_guided_info(small_t.device, 2, shape["taps"], clamp),
+                     results["fused_guided"]["ms"])
+    # The fused kernel against the two kernels it fuses, which the reference's
+    # dispatch runs at d = 1 and 8 (the layers' default_guided_fused).
+    for d, (fused_args, build_args, slice_rest) in sorted(fused_vs_two.items()):
+        layer = fused_args[2]
+        fused_ms = median_ms(torch, lambda a=fused_args: fast.fused_guided(*a), 10)
+        build_ms = median_ms(torch, lambda a=build_args: fast.build_guided_grid(*a), 10)
+        grid = fast.build_guided_grid(*build_args)
+        slice_ms = median_ms(torch, lambda: fast.slice_guided_grid(layer, grid, *slice_rest), 10)
+        print(f"  fused_guided 4K D={d} K={build_args[4]} median {fused_ms:.4f} ms against "
+              f"build_guided_grid + slice_guided_grid {build_ms:.4f} + {slice_ms:.4f} = "
+              f"{build_ms + slice_ms:.4f} ms")
     return results
 
 

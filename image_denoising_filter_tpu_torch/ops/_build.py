@@ -43,7 +43,8 @@ _BUILD_TIMEOUT_S = 600
 
 def _flags() -> tuple[str, ...]:
     """NVCC_FLAGS and the kernels' blocks, which ops/stencils.py (the NLM
-    kernels) and ops/fast.py (the guided build) define."""
+    kernels) and ops/fast.py (the grid build and the fused guided kernel)
+    define."""
     from . import fast, stencils
 
     return NVCC_FLAGS + stencils.nvcc_defines() + fast.nvcc_defines()
@@ -144,9 +145,11 @@ def library() -> ctypes.CDLL:
     lib.idf_pool.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
     lib.idf_pool.restype = i32
     lib.idf_build_grid.argtypes = [
-        ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, f32, i32, i32, ptr,
+        ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, f32, i32, i32, ptr, ptr,
     ]
     lib.idf_build_grid.restype = i32
+    lib.idf_build_grid_info.argtypes = [i32, i32, i32p]
+    lib.idf_build_grid_info.restype = i32
     lib.idf_slice_grid.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr,
     ]
@@ -169,9 +172,9 @@ def library() -> ctypes.CDLL:
     lib.idf_fused_grid_fits.restype = i32
     lib.idf_fused_guided.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, ptr, i32, f32, i32, i32, ptr,
+        i32, i32, i32, i32, i32, ptr, i32, f32, i32, i32, ptr, ptr,
     ]
     lib.idf_fused_guided.restype = i32
-    lib.idf_fused_guided_fits.argtypes = [i32, i32, i32p]
-    lib.idf_fused_guided_fits.restype = i32
+    lib.idf_fused_guided_info.argtypes = [i32, i32, i32p]
+    lib.idf_fused_guided_info.restype = i32
     return lib

@@ -3,8 +3,8 @@
 // Gaussian blur, normalize, bf16 store), the grid slice (tent interpolation
 // across the levels of the bilinearly upsampled grid), and the two fused per
 // slice tile. The layer-guided grid: the guided build (weights from a layer,
-// payload from the target, unnormalized), the guided slice, and the two
-// fused per slice tile.
+// payload from the target, unnormalized; one kernel body with the bilateral
+// build), the guided slice, and the two fused per slice tile.
 //
 // Layouts: images (H, W, 4) float32, one pixel one float4; the pooled image
 // (hs, ws, 4) float32, hs = ceil(H/d), ws = ceil(W/d); the bilateral grid
@@ -119,91 +119,6 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
     acc.w = __fadd_rn(acc.w, __fmul_rn(bf16_round(col.w), inv_d));
   }
   out[static_cast<size_t>(y) * ws + x] = acc;
-}
-
-// Grid build: per level k and RGB channel c, over the pooled image p,
-//   w_c  = exp2(-(p_c - lv_c)^2 * coef),  lv_c = lmin_c + step_c * k,
-//   g_c  = blur(w_c * p_c) / max(blur(w_c), 1e-20),
-// with coef = log2(e) / (2 sigma_c^2) and blur the separable Gaussian of the
-// pool-compensated taps; alpha's payload is p_a under green's weights,
-// divided by green's den. Stored as bf16.
-//
-// Replaces image_denoising_filter_tpu/ops/fast.py:_build_grid_pallas (the
-// legacy layout; the slab-layout `extend_to` emission is TPU DMA machinery).
-// Under ZERO the cells outside the pooled image are zero pixels that still
-// carry the range weight exp2(-lv^2 * coef) with payload 0: they are summed,
-// not skipped, as the TPU kernel sums its zero-padded tile.
-//
-// Bound on the H100: FP32 and SFU instruction throughput. Each cell recomputes the
-// range weights of its (2r+1)^2 taps for every level: at 4K, d=2 (r=4),
-// K=5 that is 2.07 M cells x 5 x 81 taps x 3 exp2 = 2.5 G exp2; device
-// memory sees the 33 MB pooled image about once and the 83 MB grid once.
-// Design: one thread per cell in 32x8 blocks, tap loads served by L1; the
-// blur runs column by column (the vertical sum of each tap column first,
-// then the weighted sum of the columns), the order of the TPU kernel's
-// rows-then-columns banded matmuls. Sharing the range weights through
-// shared memory would divide the exp2 work by ~30 and is later work.
-template <bool ZERO>
-__global__ void __launch_bounds__(kBlockX* kBlockY)
-    build_grid_kernel(const float4* __restrict__ small, const float* __restrict__ lmin,
-                      const float* __restrict__ step, Bf16x4* __restrict__ grid, int hs,
-                      int ws, int levels, const Taps taps, float coef, int uniform_alpha) {
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
-  if (x >= ws || y >= hs) return;
-  const int r = taps.n / 2;
-  const float lmin0 = lmin[0], lmin1 = lmin[1], lmin2 = lmin[2];
-  const float step0 = step[0], step1 = step[1], step2 = step[2];
-  for (int k = 0; k < levels; ++k) {
-    const float kf = static_cast<float>(k);
-    const float lv0 = __fadd_rn(lmin0, __fmul_rn(step0, kf));
-    const float lv1 = __fadd_rn(lmin1, __fmul_rn(step1, kf));
-    const float lv2 = __fadd_rn(lmin2, __fmul_rn(step2, kf));
-    float den0 = 0.f, den1 = 0.f, den2 = 0.f;
-    float num0 = 0.f, num1 = 0.f, num2 = 0.f, numa = 0.f;
-    for (int b = 0; b < taps.n; ++b) {
-      const int xx = x + b - r;
-      const bool col_ok = xx >= 0 && xx < ws;
-      const float4* col_ptr = small + min(max(xx, 0), ws - 1);
-      float cden0 = 0.f, cden1 = 0.f, cden2 = 0.f;
-      float cnum0 = 0.f, cnum1 = 0.f, cnum2 = 0.f, cnuma = 0.f;
-      for (int a = 0; a < taps.n; ++a) {
-        const int yy = y + a - r;
-        float4 p = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (!ZERO || (col_ok && yy >= 0 && yy < hs))
-          p = __ldg(col_ptr + static_cast<size_t>(min(max(yy, 0), hs - 1)) * ws);
-        const float d0 = p.x - lv0;
-        const float d1 = p.y - lv1;
-        const float d2 = p.z - lv2;
-        const float w0 = exp2f(__fmul_rn(-__fmul_rn(d0, d0), coef));
-        const float w1 = exp2f(__fmul_rn(-__fmul_rn(d1, d1), coef));
-        const float w2 = exp2f(__fmul_rn(-__fmul_rn(d2, d2), coef));
-        const float ta = taps.t[a];
-        cden0 = __fadd_rn(cden0, __fmul_rn(ta, w0));
-        cden1 = __fadd_rn(cden1, __fmul_rn(ta, w1));
-        cden2 = __fadd_rn(cden2, __fmul_rn(ta, w2));
-        cnum0 = __fadd_rn(cnum0, __fmul_rn(ta, __fmul_rn(w0, p.x)));
-        cnum1 = __fadd_rn(cnum1, __fmul_rn(ta, __fmul_rn(w1, p.y)));
-        cnum2 = __fadd_rn(cnum2, __fmul_rn(ta, __fmul_rn(w2, p.z)));
-        if (!uniform_alpha) cnuma = __fadd_rn(cnuma, __fmul_rn(ta, __fmul_rn(w1, p.w)));
-      }
-      const float tb = taps.t[b];
-      den0 = __fadd_rn(den0, __fmul_rn(tb, cden0));
-      den1 = __fadd_rn(den1, __fmul_rn(tb, cden1));
-      den2 = __fadd_rn(den2, __fmul_rn(tb, cden2));
-      num0 = __fadd_rn(num0, __fmul_rn(tb, cnum0));
-      num1 = __fadd_rn(num1, __fmul_rn(tb, cnum1));
-      num2 = __fadd_rn(num2, __fmul_rn(tb, cnum2));
-      numa = __fadd_rn(numa, __fmul_rn(tb, cnuma));
-    }
-    // IEEE division (no fast math), as the plain version divides.
-    const float safe1 = fmaxf(den1, 1e-20f);
-    Bf16x4 cell;
-    cell.lo = __floats2bfloat162_rn(num0 / fmaxf(den0, 1e-20f), num1 / safe1);
-    cell.hi = __floats2bfloat162_rn(num2 / fmaxf(den2, 1e-20f),
-                                    uniform_alpha ? 0.f : numa / safe1);
-    grid[(static_cast<size_t>(k) * hs + y) * ws + x] = cell;
-  }
 }
 
 // Grid slice: for each full-resolution pixel and RGB channel c,
@@ -411,41 +326,49 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
   out_nw[3 * idx + 2] = acc[6];
 }
 
-// The fused kernels' slice tile: 16 x 128 pixels, 256 threads, each thread
-// one column and every second row (kFusedRows pixels).
+// The fused bilateral kernel's slice tile: 16 x 128 pixels, 256 threads,
+// each thread one column and every second row (kFusedRows pixels).
 constexpr int kFusedTileH = 16;
 constexpr int kFusedTileW = 128;
 constexpr int kFusedThreads = 256;
 constexpr int kFusedRows = kFusedTileH * kFusedTileW / kFusedThreads;
 constexpr int kRowStep = kFusedThreads / kFusedTileW;
-// Room kept beside the dynamic shared memory for the kernels' static arrays.
-constexpr size_t kStaticSharedReserve = 1024;
-// The guided build's block, defined in ops/fast.py and passed to nvcc as
-// macros by ops/_build.py: kBuildThreads threads (it stages with
-// stage_window), and a vertical-pass thread sums kBuildStrip cell rows.
+// The blocks below are defined in ops/fast.py and passed to nvcc as macros
+// by ops/_build.py. Room kept beside a fused kernel's dynamic shared memory
+// for its static arrays.
+constexpr size_t kStaticSharedReserve = IDF_STATIC_SHARED_RESERVE;
+// The grid build: kBuildThreads threads (it stages with stage_window), and a
+// vertical-pass thread sums kBuildStrip cell rows.
 constexpr int kBuildThreads = IDF_BUILD_THREADS;
 constexpr int kBuildStrip = IDF_BUILD_STRIP;
 static_assert(kBuildThreads == kFusedThreads, "the build stages its window with stage_window");
+// The fused guided kernel: kFusedThreads threads, at most kGuidedPixels
+// pixels a thread, a vertical-pass thread sums kGuidedStrip cell rows, the
+// cells of kGuidedLevels levels are built before a slice, and the kernel is
+// compiled for kGuidedMinBlocks blocks a multiprocessor.
+constexpr int kGuidedPixels = IDF_FUSED_GUIDED_PIXELS;
+constexpr int kGuidedStrip = IDF_FUSED_GUIDED_STRIP;
+constexpr int kGuidedLevels = IDF_FUSED_GUIDED_LEVELS;
+constexpr int kGuidedMinBlocks = IDF_FUSED_GUIDED_MIN_BLOCKS;
+static_assert(IDF_FUSED_GUIDED_THREADS == kFusedThreads, "the fused guided block");
 
-// Shared memory of one fused block at downsample d with blur radius r: the
-// n_images staged pooled images (float4 each) over the tile's cells plus the
-// blur halo, the vertical sums of the seven fields, and one level's cells of
-// cell_bytes each.
-size_t fused_shared_bytes(int d, int r, int n_images, size_t cell_bytes) {
+// Shared memory of one fused bilateral block at downsample d with blur
+// radius r: the staged pooled image (float4) over the tile's cells plus the
+// blur halo, the vertical sums of the seven fields, and one level's cells.
+size_t fused_grid_bytes(int d, int r) {
   const size_t rows = kFusedTileH / d + 2, cols = kFusedTileW / d + 2;
-  const size_t staged = n_images * (rows + 2 * r) * (cols + 2 * r) * sizeof(float4);
+  const size_t staged = (rows + 2 * r) * (cols + 2 * r) * sizeof(float4);
   const size_t vsum = (kGuided * rows * (cols + 2 * r) * sizeof(float) + 15) / 16 * 16;
-  return staged + vsum + rows * cols * cell_bytes;
+  return staged + vsum + rows * cols * sizeof(Bf16x4);
 }
 
-// The cell window of a fused block's slice tile: the cells its pixels'
-// bilinear taps read, clamped to the grid, as (first row, first column, rows,
-// columns).
-__device__ __forceinline__ int4 fused_window(int h, int w, int hs, int ws, float inv_d) {
-  const int py0 = blockIdx.y * kFusedTileH;
-  const int px0 = blockIdx.x * kFusedTileW;
-  const int py_last = min(py0 + kFusedTileH, h) - 1;
-  const int px_last = min(px0 + kFusedTileW, w) - 1;
+// The cell window of a slice tile of ph x pw pixels from (py0, px0): the
+// cells its pixels' bilinear taps read, clamped to the grid, as (first row,
+// first column, rows, columns).
+__device__ __forceinline__ int4 tile_window(int py0, int px0, int ph, int pw, int h, int w,
+                                            int hs, int ws, float inv_d) {
+  const int py_last = min(py0 + ph, h) - 1;
+  const int px_last = min(px0 + pw, w) - 1;
   const int ay0 = min(max(static_cast<int>(floorf(
                               __fmul_rn(static_cast<float>(py0) + 0.5f, inv_d) - 0.5f)), 0), hs - 1);
   const int ay1 = min(max(static_cast<int>(floorf(
@@ -455,6 +378,12 @@ __device__ __forceinline__ int4 fused_window(int h, int w, int hs, int ws, float
   const int ax1 = min(max(static_cast<int>(floorf(
                               __fmul_rn(static_cast<float>(px_last) + 0.5f, inv_d) - 0.5f)) + 1, 0), ws - 1);
   return make_int4(ay0, ax0, ay1 - ay0 + 1, ax1 - ax0 + 1);
+}
+
+// The fused bilateral block's cell window.
+__device__ __forceinline__ int4 fused_window(int h, int w, int hs, int ws, float inv_d) {
+  return tile_window(blockIdx.y * kFusedTileH, blockIdx.x * kFusedTileW, kFusedTileH,
+                     kFusedTileW, h, w, hs, ws, inv_d);
 }
 
 // Stage a pooled image's window of srows x scols cells from (y0, x0) into
@@ -474,27 +403,28 @@ __device__ __forceinline__ void stage_window(const float4* __restrict__ small, f
   }
 }
 
-// Each thread's pixels' t per RGB channel (a pixel outside the image gets
-// -2, which no tent reaches), and the levels [floor(tmin_c), ceil(tmax_c)]
-// that the block's pixels touch over the three channels, as (first, last).
+// Each thread's pixels' t per RGB channel, and the levels [floor(tmin_c),
+// ceil(tmax_c)] that the block's pixels touch over the three channels, as
+// (first, last). The thread's pixel i is (py0 + row_step i, px); one at or
+// below row py_end or outside the image gets t = -2, which no tent reaches.
 // Synchronises the block.
-__device__ __forceinline__ int2 tile_levels(const float4* __restrict__ guide, int h, int w,
+template <int P>
+__device__ __forceinline__ int2 tile_levels(const float4* __restrict__ guide, int w, int px,
+                                            int py0, int row_step, int py_end,
                                             const float* __restrict__ lmin,
                                             const float* __restrict__ inv_step, int levels,
-                                            float (&t)[kFusedRows][3]) {
+                                            float (&t)[P][3]) {
   __shared__ float red[kFusedThreads / 32][6];
   __shared__ int level_range[2];
   const int tid = threadIdx.x;
-  const int px = blockIdx.x * kFusedTileW + tid % kFusedTileW;
-  const int py0 = blockIdx.y * kFusedTileH + tid / kFusedTileW;
   const float kmax = static_cast<float>(levels - 1);
   const float lmin0 = lmin[0], lmin1 = lmin[1], lmin2 = lmin[2];
   const float is0 = inv_step[0], is1 = inv_step[1], is2 = inv_step[2];
   float tmin[3] = {kmax, kmax, kmax}, tmax[3] = {0.f, 0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < kFusedRows; ++i) {
-    const int py = py0 + kRowStep * i;
-    if (px < w && py < h) {
+  for (int i = 0; i < P; ++i) {
+    const int py = py0 + row_step * i;
+    if (px < w && py < py_end) {
       const float4 g = guide[static_cast<size_t>(py) * w + px];
       t[i][0] = clip_t(g.x, lmin0, is0, kmax);
       t[i][1] = clip_t(g.y, lmin1, is1, kmax);
@@ -536,6 +466,16 @@ __device__ __forceinline__ int2 tile_levels(const float4* __restrict__ guide, in
   }
   __syncthreads();
   return make_int2(level_range[0], level_range[1]);
+}
+
+// The fused bilateral block's pixels: one column, every kRowStep-th row.
+__device__ __forceinline__ int2 tile_levels(const float4* __restrict__ guide, int h, int w,
+                                            const float* __restrict__ lmin,
+                                            const float* __restrict__ inv_step, int levels,
+                                            float (&t)[kFusedRows][3]) {
+  return tile_levels<kFusedRows>(guide, w, blockIdx.x * kFusedTileW + threadIdx.x % kFusedTileW,
+                                 blockIdx.y * kFusedTileH + threadIdx.x / kFusedTileW, kRowStep,
+                                 h, lmin, inv_step, levels, t);
 }
 
 // The vertical blur pass of one level over the staged window: per cell row
@@ -599,8 +539,7 @@ __device__ __forceinline__ void fused_horizontal_sums(const float* vsum, int cy,
 // output written (16 B a pixel) beside the pooled image read once. Per
 // level, a tile costs rows x (cols + 2r) x (2r + 1) tap evaluations of
 // 3 exp2: at d = 2, r = 4 about 10 exp2 a pixel and level, an eighth of
-// what the build kernel spends. The design is fused_guided_kernel's with one
-// staged image and four bf16 cell planes.
+// what a kernel of one thread a cell spends.
 template <bool ZERO, bool UNIFORM_ALPHA>
 __global__ void __launch_bounds__(kFusedThreads)
     fused_grid_kernel(const float4* __restrict__ small, const float4* __restrict__ img,
@@ -689,130 +628,18 @@ __global__ void __launch_bounds__(kFusedThreads)
   }
 }
 
-// Fused guided build + slice: one block per 16 x 128-pixel slice tile.
-//
-// Replaces image_denoising_filter_tpu/ops/fast.py:
-// _fused_guided_pipeline_planar. The block stages the pooled target and
-// layer of the cells its pixels' bilinear taps read (with the blur halo) in
-// shared memory, finds the levels the tile's t touch, [floor(tmin_c),
-// ceil(tmax_c)] over the three channels, and for each of them builds that
-// level's cells in shared memory (a vertical then a horizontal blur pass,
-// the range weights shared by the whole tile) and adds its tents to the
-// pixels' partials, which stay in registers. The 7 K hs ws grid never goes
-// to device memory. Each cell's sums are the build kernel's, in its order,
-// and each pixel's the slice kernel's, so the output equals the two-kernel
-// path bit for bit; cells outside the grid are the edge cells (clamped
-// index), as the two-kernel path's edge replication gives them.
-//
-// Bound on the H100: device memory, the full-resolution layer read (16 B a
-// pixel) and the partials written (28 B a pixel) beside the two pooled
-// images read once. Per level, a tile costs (rows + 0) x (cols + 2r) x
-// (2r + 1) tap evaluations of 3 exp2: at d = 2, r = 4 about 10 exp2 a pixel
-// and level, an eighth of what the build kernel spends.
-template <bool ZERO>
-__global__ void __launch_bounds__(kFusedThreads)
-    fused_guided_kernel(const float4* __restrict__ small_t, const float4* __restrict__ small_l,
-                        const float4* __restrict__ guide, const float* __restrict__ lmin,
-                        const float* __restrict__ step, const float* __restrict__ inv_step,
-                        float4* __restrict__ out_wc, float* __restrict__ out_nw, int h, int w,
-                        int hs, int ws, int levels, const Taps taps, float coef, float inv_d,
-                        int max_rows, int max_cols) {
-  extern __shared__ float4 smem[];
-  const int r = taps.n / 2;
-  const int4 win = fused_window(h, w, hs, ws, inv_d);
-  const int ay0 = win.x, ax0 = win.y, rows = win.z, cols = win.w;
-  const int srows = rows + 2 * r;
-  const int scols = cols + 2 * r;
-  const int max_scols = max_cols + 2 * r;
-  float4* st_t = smem;
-  float4* st_l = st_t + (max_rows + 2 * r) * max_scols;
-  float* vsum = reinterpret_cast<float*>(st_l + (max_rows + 2 * r) * max_scols);
-  const int vplane = max_rows * max_scols;
-  Bf16x8* cells = reinterpret_cast<Bf16x8*>(
-      vsum + (kGuided * vplane + 3) / 4 * 4);
-
-  // Stage the pooled window with the build kernel's border rule.
-  stage_window<ZERO>(small_t, st_t, ay0 - r, ax0 - r, srows, scols, hs, ws);
-  stage_window<ZERO>(small_l, st_l, ay0 - r, ax0 - r, srows, scols, hs, ws);
-
-  // Each thread's pixels: t per channel, and the range of t over the tile.
-  float t[kFusedRows][3];
-  const int2 k_range = tile_levels(guide, h, w, lmin, inv_step, levels, t);
-
-  // Per pixel row: the bilinear rows in the block's cell window; per column
-  // the same for every row of the thread.
-  const int px = blockIdx.x * kFusedTileW + threadIdx.x % kFusedTileW;
-  const int py0 = blockIdx.y * kFusedTileH + threadIdx.x / kFusedTileW;
-  const float gx = __fmul_rn(static_cast<float>(px) + 0.5f, inv_d) - 0.5f;
-  const float fx = floorf(gx);
-  const int x0 = min(max(static_cast<int>(fx), 0), ws - 1) - ax0;
-  const int x1 = min(max(static_cast<int>(fx) + 1, 0), ws - 1) - ax0;
-  const float wx = gx - fx;
-
-  float acc[kFusedRows][kGuided];
-#pragma unroll
-  for (int i = 0; i < kFusedRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kGuided; ++j) acc[i][j] = 0.f;
-
-  const float lmin0 = lmin[0], lmin1 = lmin[1], lmin2 = lmin[2];
-  const float lstep0 = step[0], lstep1 = step[1], lstep2 = step[2];
-  for (int k = k_range.x; k <= k_range.y; ++k) {
-    const float kf = static_cast<float>(k);
-    const float lv0 = __fadd_rn(lmin0, __fmul_rn(lstep0, kf));
-    const float lv1 = __fadd_rn(lmin1, __fmul_rn(lstep1, kf));
-    const float lv2 = __fadd_rn(lmin2, __fmul_rn(lstep2, kf));
-    fused_vertical_pass(st_t, st_l, vsum, rows, scols, max_scols, vplane, taps, lv0, lv1, lv2,
-                        coef);
-    __syncthreads();
-    // Horizontal pass: the weighted sum of the columns, stored as bf16.
-    for (int i = threadIdx.x; i < rows * cols; i += kFusedThreads) {
-      float sum[kGuided];
-      fused_horizontal_sums(vsum, i / cols, i % cols, max_scols, vplane, taps, sum);
-      cells[i] = pack_guided(sum);
-    }
-    __syncthreads();
-    // Slice this level into the pixels' partials.
-#pragma unroll
-    for (int i = 0; i < kFusedRows; ++i) {
-      const float e0 = fmaxf(1.f - fabsf(t[i][0] - kf), 0.f);
-      const float e1 = fmaxf(1.f - fabsf(t[i][1] - kf), 0.f);
-      const float e2 = fmaxf(1.f - fabsf(t[i][2] - kf), 0.f);
-      if (e0 == 0.f && e1 == 0.f && e2 == 0.f) continue;
-      const int py = py0 + kRowStep * i;
-      const float gy = __fmul_rn(static_cast<float>(py) + 0.5f, inv_d) - 0.5f;
-      const float fy = floorf(gy);
-      const int y0 = min(max(static_cast<int>(fy), 0), hs - 1) - ay0;
-      const int y1 = min(max(static_cast<int>(fy) + 1, 0), hs - 1) - ay0;
-      float up[8];
-      sample_guided(cells, cols, y0, y1, x0, x1, wx, gy - fy, up);
-      add_guided_level(acc[i], up, e0, e1, e2);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kFusedRows; ++i) {
-    const int py = py0 + kRowStep * i;
-    if (px >= w || py >= h) continue;
-    const size_t idx = static_cast<size_t>(py) * w + px;
-    out_wc[idx] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    out_nw[3 * idx] = acc[i][4];
-    out_nw[3 * idx + 1] = acc[i][5];
-    out_nw[3 * idx + 2] = acc[i][6];
-  }
+// The range weight exp2(-(l - lv)^2 * coef) of one channel value l at the
+// level centre lv: add_guided_tap's, for a kernel that computes it once a
+// pixel and level.
+__device__ __forceinline__ float range_weight(float l, float lv, float coef) {
+  const float d = l - lv;
+  return exp2f(__fmul_rn(-__fmul_rn(d, d), coef));
 }
 
-// The range weights exp2(-(l_c - lv_c)^2 * coef) of one layer pixel at one
-// level, per RGB channel: add_guided_tap's, for a kernel that computes them
-// once a pixel and level.
-__device__ __forceinline__ float3 guided_range_weights(float4 l, float lv0, float lv1,
-                                                       float lv2, float coef) {
-  const float d0 = l.x - lv0;
-  const float d1 = l.y - lv1;
-  const float d2 = l.z - lv2;
-  return make_float3(exp2f(__fmul_rn(-__fmul_rn(d0, d0), coef)),
-                     exp2f(__fmul_rn(-__fmul_rn(d1, d1), coef)),
-                     exp2f(__fmul_rn(-__fmul_rn(d2, d2), coef)));
+// The range weights of one layer pixel at one level, per RGB channel.
+__device__ __forceinline__ float3 guided_range_weights(float4 l, float3 lv, float coef) {
+  return make_float3(range_weight(l.x, lv.x, coef), range_weight(l.y, lv.y, coef),
+                     range_weight(l.z, lv.z, coef));
 }
 
 // add_guided_tap with the range weights given: the seven fields of payload p
@@ -828,56 +655,137 @@ __device__ __forceinline__ void add_guided_fields(float (&s)[kGuided], float tap
   s[6] = __fadd_rn(s[6], __fmul_rn(tap, w2));
 }
 
-// Guided grid build: per level k and RGB channel c, over the pooled layer l
-// and the pooled target p,
+// The level centres lv_c = lmin_c + step_c * k.
+__device__ __forceinline__ float3 level_centres(float3 lmin, float3 step, int k) {
+  const float kf = static_cast<float>(k);
+  return make_float3(__fadd_rn(lmin.x, __fmul_rn(step.x, kf)),
+                     __fadd_rn(lmin.y, __fmul_rn(step.y, kf)),
+                     __fadd_rn(lmin.z, __fmul_rn(step.z, kf)));
+}
+
+// The range weights of the n_st staged layer pixels st_l at one level, once
+// each, into three planes: wgt[c * n_st + i].
+__device__ __forceinline__ void range_weight_planes(const float4* st_l, float* wgt, int n_st,
+                                                    float3 lv, float coef) {
+  for (int i = threadIdx.x; i < n_st; i += kFusedThreads) {
+    const float3 wv = guided_range_weights(st_l[i], lv, coef);
+    wgt[i] = wv.x;
+    wgt[n_st + i] = wv.y;
+    wgt[2 * n_st + i] = wv.z;
+  }
+}
+
+// The vertical blur pass of one level over a staged window of srows x scols
+// pixels (payload st_p, range weights in the planes wgt): per cell row cy <
+// rows and staged column sx < vcols, the seven fields (add_guided_fields)
+// summed over the column's taps in order. A thread sums STRIP consecutive
+// cell rows cy0 .. cy0 + STRIP - 1 of one column from its 2r + STRIP staged
+// pixels: staged row cy0 + a is tap a - j of cell row cy0 + j. Writes
+// vsum[j * vplane + cy * scols + sx].
+template <int STRIP>
+__device__ __forceinline__ void vertical_strips(const float4* st_p, const float* wgt, int n_st,
+                                                int srows, int scols, int rows, int vcols,
+                                                float* vsum, int vplane, const Taps& taps) {
+  const int n_strips = (rows + STRIP - 1) / STRIP;
+  for (int task = threadIdx.x; task < n_strips * vcols; task += kFusedThreads) {
+    const int g = task / vcols;
+    const int sx = task - g * vcols;
+    const int cy0 = g * STRIP;
+    float col[STRIP][kGuided];
+#pragma unroll
+    for (int j = 0; j < STRIP; ++j)
+#pragma unroll
+      for (int i = 0; i < kGuided; ++i) col[j][i] = 0.f;
+    for (int a = 0; a < taps.n + STRIP - 1 && cy0 + a < srows; ++a) {
+      const int s = (cy0 + a) * scols + sx;
+      const float4 p = st_p[s];
+      const float w0 = wgt[s];
+      const float w1 = wgt[n_st + s];
+      const float w2 = wgt[2 * n_st + s];
+#pragma unroll
+      for (int j = 0; j < STRIP; ++j) {
+        const int tap = a - j;
+        if (tap >= 0 && tap < taps.n) add_guided_fields(col[j], taps.t[tap], p, w0, w1, w2);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < STRIP; ++j) {
+      if (cy0 + j < rows) {
+#pragma unroll
+        for (int i = 0; i < kGuided; ++i) vsum[i * vplane + (cy0 + j) * scols + sx] = col[j][i];
+      }
+    }
+  }
+}
+
+// The bilateral grid's cell from the seven sums: num / max(den, 1e-20) per
+// RGB channel, alpha's numerator over green's den (0 under uniform alpha),
+// as four bf16. IEEE division (no fast math), as the plain version divides.
+__device__ __forceinline__ Bf16x4 normalized_cell(const float (&s)[kGuided], bool uniform_alpha) {
+  const float safe1 = fmaxf(s[5], 1e-20f);
+  Bf16x4 cell;
+  cell.lo = __floats2bfloat162_rn(s[0] / fmaxf(s[4], 1e-20f), s[1] / safe1);
+  cell.hi = __floats2bfloat162_rn(s[2] / fmaxf(s[6], 1e-20f), uniform_alpha ? 0.f : s[3] / safe1);
+  return cell;
+}
+
+// Grid build: per level k and RGB channel c, the range weights
 //   w_c = exp2(-(l_c - lv_c)^2 * coef),  lv_c = lmin_c + step_c * k,
-//   num_c = blur(w_c * p_c), den_c = blur(w_c), num_a = blur(w_g * p_a),
-// unnormalized, stored as bf16.
-//
-// Replaces image_denoising_filter_tpu/ops/fast.py:_build_guided_grid_pallas.
+// with coef = log2(e) / (2 sigma_c^2), of the pooled layer l, and the blur
+// (the separable Gaussian of the pool-compensated taps) of the seven fields
+// of the pooled payload p: num_c = blur(w_c p_c), den_c = blur(w_c), num_a =
+// blur(w_g p_a). One body, two kernels:
+//   - GUIDED = false, the bilateral grid: the layer is the payload itself
+//     (one staged image); each cell is normalized (normalized_cell) and
+//     stored as four bf16, (K, hs, ws, 4). Replaces
+//     image_denoising_filter_tpu/ops/fast.py:_build_grid_pallas (the legacy
+//     layout; the slab-layout `extend_to` emission is TPU DMA machinery).
+//   - GUIDED = true, the guided grid: layer and payload (the target) pooled
+//     apart (two staged images); unnormalized, stored as eight bf16
+//     (pack_guided), (K, hs, ws, 8). Replaces
+//     image_denoising_filter_tpu/ops/fast.py:_build_guided_grid_pallas.
 // Under ZERO the cells outside the pooled images are zero pixels that keep
-// the range weight exp2(-lv^2 * coef). Each cell's products and sums are
-// add_guided_tap's in its order (the vertical sum of each tap column, then
-// the weighted sum of the columns: the TPU kernel's rows-then-columns banded
-// matmuls), so the grid equals build_guided_grid_plain's bit for bit.
+// the range weight exp2(-lv^2 * coef), as the TPU kernels sum their
+// zero-padded tiles. Each cell's products and sums are add_guided_tap's in
+// its order (the vertical sum of each tap column, then the weighted sum of
+// the columns: the TPU kernels' rows-then-columns banded matmuls), so each
+// grid equals its plain version bit for bit.
 //
-// Bound on the H100: device memory, the two pooled images read once and the
-// grid written once (14 bytes a cell and level): 0.063 ms at 4K, d = 2, K =
-// 5 (chip_smoke.py's kernel_work); the blur's 28 operations a tap, cell and
-// level (7 fields, two passes) take 0.042 ms there at 9 taps. A kernel of
-// one thread a cell evaluates the (2r + 1)^2 taps' range weights of every
-// cell (3 exp2 each); this one evaluates (th + 2r)(tw + 2r) / (th tw) staged pixels a cell, 1.9
-// at 9 taps on a 16 x 32 tile, 3.0 at 17.
+// Bound on the H100, at 4K, d = 2, K = 5, 9 taps (chip_smoke.py's
+// kernel_work): device memory for the guided grid, the two pooled images
+// read once and 14 bytes a cell and level written (0.063 ms); the blur's 28
+// operations a tap, cell and level (7 fields, two passes) for the bilateral
+// grid (0.042 ms). A kernel of one thread a cell evaluates the (2r + 1)^2
+// taps' range weights of every cell (3 exp2 each: 2.5 G exp2 there); this
+// one evaluates (th + 2r)(tw + 2r) / (th tw) staged pixels a cell, 1.9 at 9
+// taps on a 16 x 32 tile, 3.0 at 17.
 // Design: a block of kBuildThreads threads owns a th x tw tile of cells
-// (ops/fast.py:guided_build_tile: 16 x 32 where the window fits, shrinking as
-// the taps widen). It stages the two pooled images over the tile plus the
-// blur halo r on each side with the build's border rule (stage_window), then
-// per level, with two barriers:
-//   1. each staged pixel's three range weights, once;
-//   2. the vertical pass: per cell row and staged column the seven fields
-//      (add_guided_fields) summed over the column's taps in order; a thread
-//      sums kBuildStrip consecutive cell rows of one column from its 2r +
-//      kBuildStrip staged pixels;
+// (ops/fast.py:build_tile: 16 x 32 where the window fits, shrinking as the
+// taps widen). It stages the pooled image(s) over the tile plus the blur
+// halo r on each side with the build's border rule (stage_window), then per
+// level, with two barriers:
+//   1. each staged pixel's three range weights, once (range_weight_planes);
+//   2. the vertical pass in strips of kBuildStrip cell rows (vertical_strips);
 //   3. the horizontal pass: per cell the weighted sum of its 2r + 1 columns
-//      in order (fused_horizontal_sums), pack_guided, and one 16-byte store,
-//      a warp's stores along ws.
-// The shared-memory layout (byte offsets in `tile`) is guided_build_tile's.
+//      in order (fused_horizontal_sums), the cell, and one 8- or 16-byte
+//      store, a warp's stores along ws.
+// The shared-memory layout (byte offsets in `tile`) is build_tile's.
 struct BuildTile {
   int th, tw;
-  // byte offsets: the staged layer, the range weights (three planes), the
-  // vertical sums (seven planes of th x (tw + 2r)); the staged target is at 0
+  // byte offsets: the staged layer (0 with one staged image: the payload is
+  // the layer), the range weights (three planes), the vertical sums (seven
+  // planes of th x (tw + 2r)); the staged payload is at 0
   int l_at, w_at, v_at;
 };
 // The ints of a tile as the launcher takes them: BuildTile's, then the bytes.
 constexpr int kBuildTileFields = 6;
 
-template <bool ZERO>
+template <bool ZERO, bool GUIDED>
 __global__ void __launch_bounds__(kBuildThreads)
-    build_guided_grid_kernel(const float4* __restrict__ small_t,
-                             const float4* __restrict__ small_l, const float* __restrict__ lmin,
-                             const float* __restrict__ step, Bf16x8* __restrict__ grid, int hs,
-                             int ws, int levels, const Taps taps, float coef,
-                             const BuildTile tile) {
+    build_grid_kernel(const float4* __restrict__ small_p, const float4* __restrict__ small_l,
+                      const float* __restrict__ lmin, const float* __restrict__ step,
+                      void* __restrict__ grid, int hs, int ws, int levels, const Taps taps,
+                      float coef, const BuildTile tile, int uniform_alpha) {
   extern __shared__ __align__(16) unsigned char build_smem[];
   const int r = taps.n / 2;
   const int y0 = blockIdx.y * tile.th;
@@ -887,67 +795,27 @@ __global__ void __launch_bounds__(kBuildThreads)
   const int n_st = srows * scols;
   const int vplane = tile.th * scols;
   float4* st_p = reinterpret_cast<float4*>(build_smem);
-  float4* st_l = reinterpret_cast<float4*>(build_smem + tile.l_at);
+  float4* st_l = GUIDED ? reinterpret_cast<float4*>(build_smem + tile.l_at) : st_p;
   float* wgt = reinterpret_cast<float*>(build_smem + tile.w_at);
   float* vsum = reinterpret_cast<float*>(build_smem + tile.v_at);
-  // The block's cells inside the grid, the staged columns they read, and
-  // the vertical pass's strips.
+  // The block's cells inside the grid.
   const int rows = min(tile.th, hs - y0);
   const int cols = min(tile.tw, ws - x0);
-  const int vcols = cols + 2 * r;
-  const int n_strips = (rows + kBuildStrip - 1) / kBuildStrip;
-  stage_window<ZERO>(small_t, st_p, y0 - r, x0 - r, srows, scols, hs, ws);
-  stage_window<ZERO>(small_l, st_l, y0 - r, x0 - r, srows, scols, hs, ws);
+  stage_window<ZERO>(small_p, st_p, y0 - r, x0 - r, srows, scols, hs, ws);
+  if (GUIDED) stage_window<ZERO>(small_l, st_l, y0 - r, x0 - r, srows, scols, hs, ws);
   __syncthreads();
 
-  const float lmin0 = lmin[0], lmin1 = lmin[1], lmin2 = lmin[2];
-  const float step0 = step[0], step1 = step[1], step2 = step[2];
+  const float3 lmin3 = make_float3(lmin[0], lmin[1], lmin[2]);
+  const float3 step3 = make_float3(step[0], step[1], step[2]);
   for (int k = 0; k < levels; ++k) {
-    const float kf = static_cast<float>(k);
-    const float lv0 = __fadd_rn(lmin0, __fmul_rn(step0, kf));
-    const float lv1 = __fadd_rn(lmin1, __fmul_rn(step1, kf));
-    const float lv2 = __fadd_rn(lmin2, __fmul_rn(step2, kf));
     // 1. The range weights. The last level's vertical pass read them before
     // its barrier.
-    for (int i = threadIdx.x; i < n_st; i += kBuildThreads) {
-      const float3 wv = guided_range_weights(st_l[i], lv0, lv1, lv2, coef);
-      wgt[i] = wv.x;
-      wgt[n_st + i] = wv.y;
-      wgt[2 * n_st + i] = wv.z;
-    }
+    range_weight_planes(st_l, wgt, n_st, level_centres(lmin3, step3, k), coef);
     __syncthreads();
-    // 2. The vertical pass: cell rows cy0 .. cy0 + kBuildStrip - 1 of staged
-    // column sx; staged row cy0 + a is tap a - j of cell row cy0 + j. The
-    // last level's horizontal pass read vsum before the barrier above.
-    for (int task = threadIdx.x; task < n_strips * vcols; task += kBuildThreads) {
-      const int g = task / vcols;
-      const int sx = task - g * vcols;
-      const int cy0 = g * kBuildStrip;
-      float col[kBuildStrip][kGuided];
-#pragma unroll
-      for (int j = 0; j < kBuildStrip; ++j)
-#pragma unroll
-        for (int i = 0; i < kGuided; ++i) col[j][i] = 0.f;
-      for (int a = 0; a < taps.n + kBuildStrip - 1 && cy0 + a < srows; ++a) {
-        const int s = (cy0 + a) * scols + sx;
-        const float4 p = st_p[s];
-        const float w0 = wgt[s];
-        const float w1 = wgt[n_st + s];
-        const float w2 = wgt[2 * n_st + s];
-#pragma unroll
-        for (int j = 0; j < kBuildStrip; ++j) {
-          const int tap = a - j;
-          if (tap >= 0 && tap < taps.n) add_guided_fields(col[j], taps.t[tap], p, w0, w1, w2);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kBuildStrip; ++j) {
-        if (cy0 + j < rows) {
-#pragma unroll
-          for (int i = 0; i < kGuided; ++i) vsum[i * vplane + (cy0 + j) * scols + sx] = col[j][i];
-        }
-      }
-    }
+    // 2. The vertical pass. The last level's horizontal pass read vsum
+    // before the barrier above.
+    vertical_strips<kBuildStrip>(st_p, wgt, n_st, srows, scols, rows, cols + 2 * r, vsum, vplane,
+                                 taps);
     __syncthreads();
     // 3. The horizontal pass and the store. The next level's weights may be
     // written meanwhile: this pass reads vsum alone.
@@ -957,7 +825,200 @@ __global__ void __launch_bounds__(kBuildThreads)
       if (cx >= cols) continue;
       float sum[kGuided];
       fused_horizontal_sums(vsum, cy, cx, scols, vplane, taps, sum);
-      grid[(static_cast<size_t>(k) * hs + y0 + cy) * ws + x0 + cx] = pack_guided(sum);
+      const size_t at = (static_cast<size_t>(k) * hs + y0 + cy) * ws + x0 + cx;
+      if constexpr (GUIDED) {
+        static_cast<Bf16x8*>(grid)[at] = pack_guided(sum);
+      } else {
+        static_cast<Bf16x4*>(grid)[at] = normalized_cell(sum, uniform_alpha);
+      }
+    }
+  }
+}
+
+// Stage a pooled image's window as stage_window does, with asynchronous
+// copies (cp.async, 16 bytes each; a zero pixel is a copy of no bytes, which
+// fills zeros): the block goes on while they land, until
+// cp_async_wait_all().
+template <bool ZERO>
+__device__ __forceinline__ void stage_window_async(const float4* __restrict__ small, float4* dst,
+                                                   int y0, int x0, int srows, int scols, int hs,
+                                                   int ws) {
+  for (int i = threadIdx.x; i < srows * scols; i += kFusedThreads) {
+    const int yy = y0 + i / scols;
+    const int xx = x0 + i % scols;
+    const bool inside = !ZERO || (yy >= 0 && yy < hs && xx >= 0 && xx < ws);
+    const float4* src =
+        small + static_cast<size_t>(min(max(yy, 0), hs - 1)) * ws + min(max(xx, 0), ws - 1);
+    const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(dst + i));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(at), "l"(src),
+                 "r"(inside ? 16 : 0));
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Fused guided build + slice: one block per slice tile of ph x pw pixels.
+//
+// Replaces image_denoising_filter_tpu/ops/fast.py:
+// _fused_guided_pipeline_planar. The block stages the pooled target and
+// layer of the cells its pixels' bilinear taps read (with the blur halo) in
+// shared memory, finds the levels the tile's t touch, [floor(tmin_c),
+// ceil(tmax_c)] over the three channels, and builds each of them in shared
+// memory with build_grid_kernel's guided passes (each staged pixel's range
+// weights once, the vertical pass in strips, the horizontal pass into bf16
+// cells), kGuidedLevels levels at a time; then it slices those levels into
+// its pixels' partials. The 7 K hs ws grid never goes to device memory.
+// Each cell's sums are the build kernel's, in its order, and each pixel's
+// the slice kernel's (a tile whose levels take more than one pass leaves
+// the partials in the outputs and adds the next levels to them, in level
+// order), so the output equals the two-kernel path bit for bit; cells
+// outside the grid are the edge cells (clamped index), as the two-kernel
+// path's edge replication gives them.
+//
+// Bound on the H100: device memory, the full-resolution layer read (16 B a
+// pixel) and the partials written (28 B a pixel) beside the two pooled
+// images read once: 0.129 ms at 4K, d = 2, K = 5 (chip_smoke.py's
+// kernel_work). Against it: per level the tile's cells and halo, about 1.3
+// cells built a cell at d = 2 (10 x 34 for 8 x 32) and 2.9 staged range
+// weights a cell; two barriers a level; and a block's steps in series
+// (staging, the guide read, the levels, the slice), which only other
+// blocks on the multiprocessor overlap.
+// Design: the tile (ops/fast.py:fused_guided_tile) is 16 x 64 pixels where
+// its window fits, shrinking as the taps widen; each of the kFusedThreads
+// threads takes one column and every (kFusedThreads / pw)-th row. The
+// window is staged with cp.async while the block reads the guide for its
+// level range. No pixel's partials live across the build: the slice reads
+// the guide again, so the build's registers are #9's and the block is
+// compiled for kGuidedMinBlocks blocks a multiprocessor. Per level: the
+// vertical pass; barrier; the horizontal pass beside the next level's range
+// weights; barrier. The shared-memory layout (byte offsets in `tile`) is
+// fused_guided_tile's.
+struct FusedGuidedTile {
+  int ph, pw;      // the slice tile in pixels
+  int rows, cols;  // the most cells a tile's window holds
+  // byte offsets: the staged layer, the range weights (three planes), the
+  // vertical sums (seven planes of rows x (cols + 2r)), kGuidedLevels
+  // levels' cells; the staged target is at 0
+  int l_at, w_at, v_at, c_at;
+};
+// The ints of a tile as the launcher takes them: FusedGuidedTile's, then the
+// bytes.
+constexpr int kFusedGuidedTileFields = 9;
+
+template <bool ZERO>
+__global__ void __launch_bounds__(kFusedThreads, kGuidedMinBlocks)
+    fused_guided_kernel(const float4* __restrict__ small_t, const float4* __restrict__ small_l,
+                        const float4* __restrict__ guide, const float* __restrict__ lmin,
+                        const float* __restrict__ step, const float* __restrict__ inv_step,
+                        float4* __restrict__ out_wc, float* __restrict__ out_nw, int h, int w,
+                        int hs, int ws, int levels, const Taps taps, float coef, float inv_d,
+                        const FusedGuidedTile tile) {
+  extern __shared__ __align__(16) unsigned char fused_smem[];
+  const int r = taps.n / 2;
+  const int ty0 = blockIdx.y * tile.ph;
+  const int tx0 = blockIdx.x * tile.pw;
+  const int4 win = tile_window(ty0, tx0, tile.ph, tile.pw, h, w, hs, ws, inv_d);
+  const int ay0 = win.x, ax0 = win.y, rows = win.z, cols = win.w;
+  const int srows = rows + 2 * r;
+  const int scols = cols + 2 * r;
+  const int n_st = srows * scols;
+  const int vplane = rows * scols;
+  float4* st_t = reinterpret_cast<float4*>(fused_smem);
+  float4* st_l = reinterpret_cast<float4*>(fused_smem + tile.l_at);
+  float* wgt = reinterpret_cast<float*>(fused_smem + tile.w_at);
+  float* vsum = reinterpret_cast<float*>(fused_smem + tile.v_at);
+  Bf16x8* cells = reinterpret_cast<Bf16x8*>(fused_smem + tile.c_at);
+
+  // Stage the pooled window with the build kernel's border rule, and
+  // meanwhile read the guide for the tile's level range.
+  stage_window_async<ZERO>(small_t, st_t, ay0 - r, ax0 - r, srows, scols, hs, ws);
+  stage_window_async<ZERO>(small_l, st_l, ay0 - r, ax0 - r, srows, scols, hs, ws);
+  const int px = tx0 + threadIdx.x % tile.pw;
+  const int py0 = ty0 + threadIdx.x / tile.pw;
+  const int row_step = kFusedThreads / tile.pw;
+  const int py_end = min(ty0 + tile.ph, h);
+  int2 k_range;
+  {
+    float t[kGuidedPixels][3];
+    k_range = tile_levels<kGuidedPixels>(guide, w, px, py0, row_step, py_end, lmin, inv_step,
+                                         levels, t);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const float3 lmin3 = make_float3(lmin[0], lmin[1], lmin[2]);
+  const float3 step3 = make_float3(step[0], step[1], step[2]);
+  range_weight_planes(st_l, wgt, n_st, level_centres(lmin3, step3, k_range.x), coef);
+  __syncthreads();
+  const int n_cells = rows * cols;
+  for (int k0 = k_range.x; k0 <= k_range.y; k0 += kGuidedLevels) {
+    const int k1 = min(k0 + kGuidedLevels - 1, k_range.y);
+    for (int k = k0; k <= k1; ++k) {
+      vertical_strips<kGuidedStrip>(st_t, wgt, n_st, srows, scols, rows, scols, vsum, vplane,
+                                    taps);
+      __syncthreads();
+      // The horizontal pass into this level's bf16 cells, and the next
+      // level's range weights (this level's vertical pass read the planes
+      // before the barrier above).
+      Bf16x8* level = cells + (k - k0) * n_cells;
+      for (int i = threadIdx.x; i < n_cells; i += kFusedThreads) {
+        float sum[kGuided];
+        fused_horizontal_sums(vsum, i / cols, i % cols, scols, vplane, taps, sum);
+        level[i] = pack_guided(sum);
+      }
+      if (k < k_range.y)
+        range_weight_planes(st_l, wgt, n_st, level_centres(lmin3, step3, k + 1), coef);
+      __syncthreads();
+    }
+    // Slice levels k0 .. k1 into the pixels' partials (slice_guided_grid_kernel's
+    // sums): from zero, or from what the last pass left in the outputs. The
+    // next pass's horizontal pass overwrites the cells only after its
+    // vertical pass's barrier.
+    const float kmax = static_cast<float>(levels - 1);
+    const float gx = __fmul_rn(static_cast<float>(px) + 0.5f, inv_d) - 0.5f;
+    const float fx = floorf(gx);
+    const int x0 = min(max(static_cast<int>(fx), 0), ws - 1) - ax0;
+    const int x1 = min(max(static_cast<int>(fx) + 1, 0), ws - 1) - ax0;
+#pragma unroll
+    for (int i = 0; i < kGuidedPixels; ++i) {
+      const int py = py0 + row_step * i;
+      if (px >= w || py >= py_end) continue;
+      const size_t idx = static_cast<size_t>(py) * w + px;
+      const float4 g = guide[idx];
+      const float t0 = clip_t(g.x, lmin3.x, inv_step[0], kmax);
+      const float t1 = clip_t(g.y, lmin3.y, inv_step[1], kmax);
+      const float t2 = clip_t(g.z, lmin3.z, inv_step[2], kmax);
+      float acc[kGuided] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (k0 > k_range.x) {
+        const float4 wc = out_wc[idx];
+        acc[0] = wc.x;
+        acc[1] = wc.y;
+        acc[2] = wc.z;
+        acc[3] = wc.w;
+        acc[4] = out_nw[3 * idx];
+        acc[5] = out_nw[3 * idx + 1];
+        acc[6] = out_nw[3 * idx + 2];
+      }
+      const float gy = __fmul_rn(static_cast<float>(py) + 0.5f, inv_d) - 0.5f;
+      const float fy = floorf(gy);
+      const int y0 = min(max(static_cast<int>(fy), 0), hs - 1) - ay0;
+      const int y1 = min(max(static_cast<int>(fy) + 1, 0), hs - 1) - ay0;
+      for (int k = k0; k <= k1; ++k) {
+        const float kf = static_cast<float>(k);
+        const float e0 = fmaxf(1.f - fabsf(t0 - kf), 0.f);
+        const float e1 = fmaxf(1.f - fabsf(t1 - kf), 0.f);
+        const float e2 = fmaxf(1.f - fabsf(t2 - kf), 0.f);
+        if (e0 == 0.f && e1 == 0.f && e2 == 0.f) continue;
+        float up[8];
+        sample_guided(cells + (k - k0) * n_cells, cols, y0, y1, x0, x1, gx - fx, gy - fy, up);
+        add_guided_level(acc, up, e0, e1, e2);
+      }
+      out_wc[idx] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      out_nw[3 * idx] = acc[4];
+      out_nw[3 * idx + 1] = acc[5];
+      out_nw[3 * idx + 2] = acc[6];
     }
   }
 }
@@ -966,26 +1027,96 @@ dim3 grid_for(int w, int h) {
   return dim3((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
 }
 
-// Whether a fused kernel's window of `bytes` of dynamic shared memory fits
-// the current device's opt-in shared memory per block, beside the kernel's
-// static arrays.
-cudaError_t fused_fits(size_t bytes, bool* fits) {
+// Whether `bytes` of dynamic shared memory, beside `reserve` bytes of a
+// kernel's static arrays, fit the current device's opt-in shared memory per
+// block.
+cudaError_t shared_fits(size_t bytes, size_t reserve, bool* fits) {
   int max_bytes = 0;
   const cudaError_t err = idf::max_shared_bytes(&max_bytes);
-  *fits = err == cudaSuccess && bytes + kStaticSharedReserve <= static_cast<size_t>(max_bytes);
+  *fits = err == cudaSuccess && bytes + reserve <= static_cast<size_t>(max_bytes);
   return err;
 }
 
-// Shared memory of the fused bilateral kernel (one staged image, four bf16
-// planes a cell) and of the fused guided kernel (two, eight).
-size_t fused_grid_bytes(int d, int r) { return fused_shared_bytes(d, r, 1, sizeof(Bf16x4)); }
-size_t fused_guided_bytes(int d, int r) { return fused_shared_bytes(d, r, 2, sizeof(Bf16x8)); }
+// Whether n_taps is a tap count the kernels take: odd, at most kMaxTaps.
+bool taps_ok(int n_taps) { return n_taps > 0 && n_taps <= kMaxTaps && n_taps % 2 == 1; }
 
-// Whether n_taps (odd, at most kMaxTaps) and d (dividing the slice tile)
-// are arguments the fused kernels take.
+// Whether n_taps and d (dividing the slice tile) are arguments the fused
+// bilateral kernel takes.
 bool fused_args_ok(int d, int n_taps) {
-  return n_taps > 0 && n_taps <= kMaxTaps && n_taps % 2 == 1 && d > 0 && kFusedTileH % d == 0 &&
-         kFusedTileW % d == 0;
+  return taps_ok(n_taps) && d > 0 && kFusedTileH % d == 0 && kFusedTileW % d == 0;
+}
+
+// The blur taps as the kernels take them, by value.
+Taps tap_table(const float* taps, int n_taps) {
+  Taps table;
+  table.n = n_taps;
+  for (int i = 0; i < n_taps; ++i) table.t[i] = taps[i];
+  return table;
+}
+
+// shared_fits for a kernel's launch, and where they fit above the default
+// 48 KB, the kernel's opt-in to them.
+cudaError_t opt_in(const void* kernel, int bytes, size_t reserve, bool* fits) {
+  cudaError_t err = shared_fits(bytes, reserve, fits);
+  if (*fits && bytes > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return err;
+}
+
+// Whether a build tile for blur radius r lays out what build_grid_kernel
+// indexes: the staged payload at 0, the staged layer (two images) after it,
+// then the weight planes and the vertical sums, back to back within `bytes`.
+bool build_tile_ok(const BuildTile& t, bool guided, int r, int bytes) {
+  if (t.th < 1 || t.tw < 1) return false;
+  const int n_st = (t.th + 2 * r) * (t.tw + 2 * r);
+  const bool staged = guided ? t.l_at >= 16 * n_st && t.l_at % 16 == 0 &&
+                                   t.w_at >= t.l_at + 16 * n_st
+                             : t.l_at == 0 && t.w_at >= 16 * n_st;
+  return staged && t.w_at % 4 == 0 && t.v_at >= t.w_at + 12 * n_st && t.v_at % 4 == 0 &&
+         bytes >= t.v_at + 4 * kGuided * t.th * (t.tw + 2 * r);
+}
+
+template <bool GUIDED>
+int launch_build(const void* small_p, const void* small_l, const void* lmin, const void* step,
+                 void* grid, int hs, int ws, int levels, const float* taps, int n_taps,
+                 float coef, int zero_border, int uniform_alpha, const int* tile, void* stream) {
+  const cudaError_t invalid = cudaErrorInvalidValue;
+  if (!taps_ok(n_taps) || levels <= 0) return static_cast<int>(invalid);
+  const BuildTile geom{tile[0], tile[1], tile[2], tile[3], tile[4]};
+  const int shared_bytes = tile[kBuildTileFields - 1];
+  if (!build_tile_ok(geom, GUIDED, n_taps / 2, shared_bytes)) return static_cast<int>(invalid);
+  auto kernel = zero_border ? build_grid_kernel<true, GUIDED> : build_grid_kernel<false, GUIDED>;
+  bool fits = false;
+  const cudaError_t err =
+      opt_in(reinterpret_cast<const void*>(kernel), shared_bytes, 0, &fits);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!fits) return static_cast<int>(invalid);
+  if (hs <= 0 || ws <= 0) return static_cast<int>(cudaSuccess);
+  const dim3 blocks((ws + geom.tw - 1) / geom.tw, (hs + geom.th - 1) / geom.th);
+  kernel<<<blocks, kBuildThreads, shared_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(small_p), static_cast<const float4*>(small_l),
+      static_cast<const float*>(lmin), static_cast<const float*>(step), grid, hs, ws, levels,
+      tap_table(taps, n_taps), coef, geom, uniform_alpha);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether a fused guided tile for downsample d and blur radius r is one
+// fused_guided_kernel takes: its threads cover the tile (each one column and
+// up to kGuidedPixels rows), d divides it, its rows x cols cells hold every
+// tile's window (ph / d + 2 rows, ph + 1 at d = 1; columns alike), and the
+// staged target at 0, the staged layer, the weight planes, the vertical sums
+// and kGuidedLevels levels' cells lie back to back within `bytes`.
+bool fused_guided_tile_ok(const FusedGuidedTile& t, int d, int r, int bytes) {
+  if (t.ph < 1 || t.pw < 1 || t.pw > kFusedThreads || kFusedThreads % t.pw != 0 ||
+      kFusedThreads / t.pw * kGuidedPixels < t.ph || d < 1 || t.ph % d != 0 || t.pw % d != 0)
+    return false;
+  const int halo = d == 1 ? 1 : 2;
+  if (t.rows < t.ph / d + halo || t.cols < t.pw / d + halo) return false;
+  const int n_st = (t.rows + 2 * r) * (t.cols + 2 * r);
+  return t.l_at >= 16 * n_st && t.l_at % 16 == 0 && t.w_at >= t.l_at + 16 * n_st &&
+         t.v_at >= t.w_at + 12 * n_st && t.v_at % 4 == 0 &&
+         t.c_at >= t.v_at + 4 * kGuided * t.rows * (t.cols + 2 * r) && t.c_at % 16 == 0 &&
+         bytes >= t.c_at + static_cast<int>(sizeof(Bf16x8)) * kGuidedLevels * t.rows * t.cols;
 }
 
 }  // namespace
@@ -1013,29 +1144,24 @@ int idf_pool(const void* img, void* out, int h, int w, int d, int zero_border, v
 
 // small: (hs, ws, 4) float32; lmin, step: device arrays of 3 floats;
 // taps: host array of n_taps floats (odd); grid: (levels, hs, ws, 4) bf16.
+// tile: host array of kBuildTileFields ints from ops/fast.py:build_tile
+// with one staged image: th x tw cells, the byte offsets of BuildTile (l_at
+// 0), the block's dynamic shared memory in bytes, which must fit the
+// device; regions that overlap or are short of what the kernel indexes are
+// refused (cudaErrorInvalidValue, no launch).
 int idf_build_grid(const void* small, const void* lmin, const void* step, void* grid, int hs,
                    int ws, int levels, const float* taps, int n_taps, float coef,
-                   int zero_border, int uniform_alpha, void* stream) {
-  if (n_taps <= 0 || n_taps > kMaxTaps || n_taps % 2 == 0 || levels <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (hs <= 0 || ws <= 0) return static_cast<int>(cudaSuccess);
-  Taps table;
-  table.n = n_taps;
-  for (int i = 0; i < n_taps; ++i) table.t[i] = taps[i];
-  const dim3 block(kBlockX, kBlockY);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float4* in = static_cast<const float4*>(small);
-  const float* lm = static_cast<const float*>(lmin);
-  const float* st = static_cast<const float*>(step);
-  Bf16x4* g = static_cast<Bf16x4*>(grid);
-  if (zero_border) {
-    build_grid_kernel<true><<<grid_for(ws, hs), block, 0, s>>>(
-        in, lm, st, g, hs, ws, levels, table, coef, uniform_alpha);
-  } else {
-    build_grid_kernel<false><<<grid_for(ws, hs), block, 0, s>>>(
-        in, lm, st, g, hs, ws, levels, table, coef, uniform_alpha);
-  }
-  return static_cast<int>(cudaGetLastError());
+                   int zero_border, int uniform_alpha, const int* tile, void* stream) {
+  return launch_build<false>(small, small, lmin, step, grid, hs, ws, levels, taps, n_taps, coef,
+                             zero_border, uniform_alpha, tile, stream);
+}
+
+// The bilateral build kernel of a border as compiled, and its occupancy at
+// shared_bytes a block (kernel_info's).
+int idf_build_grid_info(int zero_border, int shared_bytes, int* info) {
+  auto kernel = zero_border ? build_grid_kernel<true, false> : build_grid_kernel<false, false>;
+  return static_cast<int>(
+      idf::kernel_info(reinterpret_cast<const void*>(kernel), kBuildThreads, shared_bytes, info));
 }
 
 // guide: (h, w, 4) float32 (its RGB guides the tents); grid: (levels, hs, ws,
@@ -1067,51 +1193,20 @@ int idf_slice_grid(const void* guide, const void* grid, const void* lmin, const 
 
 // small_t, small_l: (hs, ws, 4) float32 pooled target and layer; lmin, step:
 // device arrays of 3 floats; taps: host array of n_taps floats (odd); grid:
-// (levels, hs, ws, 8) bf16. tile: host array of kBuildTileFields ints from
-// ops/fast.py:guided_build_tile: th x tw cells, the byte offsets of
-// BuildTile, the block's dynamic shared memory in bytes, which must fit the
-// device; regions that overlap or are short of what the kernel indexes are
-// refused (cudaErrorInvalidValue, no launch).
+// (levels, hs, ws, 8) bf16. tile: as idf_build_grid's, from
+// ops/fast.py:build_tile with two staged images.
 int idf_build_guided_grid(const void* small_t, const void* small_l, const void* lmin,
                           const void* step, void* grid, int hs, int ws, int levels,
                           const float* taps, int n_taps, float coef, int zero_border,
                           const int* tile, void* stream) {
-  const cudaError_t invalid = cudaErrorInvalidValue;
-  if (n_taps <= 0 || n_taps > kMaxTaps || n_taps % 2 == 0 || levels <= 0)
-    return static_cast<int>(invalid);
-  const BuildTile geom{tile[0], tile[1], tile[2], tile[3], tile[4]};
-  const int shared_bytes = tile[kBuildTileFields - 1];
-  const int r = n_taps / 2;
-  const int n_st = (geom.th + 2 * r) * (geom.tw + 2 * r);
-  if (geom.th < 1 || geom.tw < 1 || geom.l_at < 16 * n_st || geom.l_at % 16 != 0 ||
-      geom.w_at < geom.l_at + 16 * n_st || geom.v_at < geom.w_at + 12 * n_st ||
-      shared_bytes < geom.v_at + 4 * kGuided * geom.th * (geom.tw + 2 * r))
-    return static_cast<int>(invalid);
-  int max_bytes = 0;
-  cudaError_t err = idf::max_shared_bytes(&max_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (shared_bytes > max_bytes) return static_cast<int>(invalid);
-  if (hs <= 0 || ws <= 0) return static_cast<int>(cudaSuccess);
-  Taps table;
-  table.n = n_taps;
-  for (int i = 0; i < n_taps; ++i) table.t[i] = taps[i];
-  auto kernel = zero_border ? build_guided_grid_kernel<true> : build_guided_grid_kernel<false>;
-  if (shared_bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 blocks((ws + geom.tw - 1) / geom.tw, (hs + geom.th - 1) / geom.th);
-  kernel<<<blocks, kBuildThreads, shared_bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(small_t), static_cast<const float4*>(small_l),
-      static_cast<const float*>(lmin), static_cast<const float*>(step),
-      static_cast<Bf16x8*>(grid), hs, ws, levels, table, coef, geom);
-  return static_cast<int>(cudaGetLastError());
+  return launch_build<true>(small_t, small_l, lmin, step, grid, hs, ws, levels, taps, n_taps,
+                            coef, zero_border, 0, tile, stream);
 }
 
 // The guided build kernel of a border as compiled, and its occupancy at
 // shared_bytes a block (kernel_info's).
 int idf_build_guided_grid_info(int zero_border, int shared_bytes, int* info) {
-  auto kernel = zero_border ? build_guided_grid_kernel<true> : build_guided_grid_kernel<false>;
+  auto kernel = zero_border ? build_grid_kernel<true, true> : build_grid_kernel<false, true>;
   return static_cast<int>(
       idf::kernel_info(reinterpret_cast<const void*>(kernel), kBuildThreads, shared_bytes, info));
 }
@@ -1144,20 +1239,16 @@ int idf_fused_grid(const void* small, const void* img, const void* lmin, const v
   if (!fused_args_ok(d, n_taps) || levels <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
   const size_t bytes = fused_grid_bytes(d, n_taps / 2);
-  bool fits = false;
-  cudaError_t err = fused_fits(bytes, &fits);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!fits) return static_cast<int>(cudaErrorInvalidValue);
-  Taps table;
-  table.n = n_taps;
-  for (int i = 0; i < n_taps; ++i) table.t[i] = taps[i];
-  const dim3 grid((w + kFusedTileW - 1) / kFusedTileW, (h + kFusedTileH - 1) / kFusedTileH);
   const bool ua = alpha != nullptr;
   auto kernel = zero_border ? (ua ? fused_grid_kernel<true, true> : fused_grid_kernel<true, false>)
                             : (ua ? fused_grid_kernel<false, true> : fused_grid_kernel<false, false>);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
+  bool fits = false;
+  const cudaError_t err = opt_in(reinterpret_cast<const void*>(kernel), static_cast<int>(bytes),
+                                 kStaticSharedReserve, &fits);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!fits) return static_cast<int>(cudaErrorInvalidValue);
+  const Taps table = tap_table(taps, n_taps);
+  const dim3 grid((w + kFusedTileW - 1) / kFusedTileW, (h + kFusedTileH - 1) / kFusedTileH);
   kernel<<<grid, kFusedThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(small), static_cast<const float4*>(img),
       static_cast<const float*>(lmin), static_cast<const float*>(step),
@@ -1173,55 +1264,53 @@ int idf_fused_grid_fits(int d, int n_taps, int* fits) {
   *fits = 0;
   if (!fused_args_ok(d, n_taps)) return static_cast<int>(cudaSuccess);
   bool ok = false;
-  const cudaError_t err = fused_fits(fused_grid_bytes(d, n_taps / 2), &ok);
+  const cudaError_t err = shared_fits(fused_grid_bytes(d, n_taps / 2), kStaticSharedReserve, &ok);
   *fits = ok ? 1 : 0;
   return static_cast<int>(err);
 }
 
 // The fused guided build + slice: the inputs of idf_build_guided_grid and
-// idf_slice_guided_grid (step and inv_step both), the same outputs. d must
-// divide the 16 x 128 slice tile (1, 2, 4, 8); the window must fit the
-// block's shared memory (idf_fused_guided_fits).
+// idf_slice_guided_grid (step and inv_step both), the same outputs. tile:
+// host array of kFusedGuidedTileFields ints from
+// ops/fast.py:fused_guided_tile: the slice tile, its cell window, the byte
+// offsets of FusedGuidedTile, the block's dynamic shared memory in bytes,
+// which must fit the device beside the kernel's static arrays; a tile the
+// kernel cannot take (fused_guided_tile_ok) is refused
+// (cudaErrorInvalidValue, no launch).
 int idf_fused_guided(const void* small_t, const void* small_l, const void* guide,
                      const void* lmin, const void* step, const void* inv_step, void* out_wc,
                      void* out_nw, int h, int w, int hs, int ws, int levels, const float* taps,
-                     int n_taps, float coef, int d, int zero_border, void* stream) {
-  if (!fused_args_ok(d, n_taps) || levels <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
-  const size_t bytes = fused_guided_bytes(d, n_taps / 2);
-  bool fits = false;
-  cudaError_t err = fused_fits(bytes, &fits);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!fits) return static_cast<int>(cudaErrorInvalidValue);
-  Taps table;
-  table.n = n_taps;
-  for (int i = 0; i < n_taps; ++i) table.t[i] = taps[i];
-  const dim3 grid((w + kFusedTileW - 1) / kFusedTileW, (h + kFusedTileH - 1) / kFusedTileH);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int max_rows = kFusedTileH / d + 2;
-  const int max_cols = kFusedTileW / d + 2;
+                     int n_taps, float coef, int d, int zero_border, const int* tile,
+                     void* stream) {
+  const cudaError_t invalid = cudaErrorInvalidValue;
+  if (!taps_ok(n_taps) || levels <= 0) return static_cast<int>(invalid);
+  const FusedGuidedTile geom{tile[0], tile[1], tile[2], tile[3], tile[4],
+                             tile[5], tile[6], tile[7]};
+  const int shared_bytes = tile[kFusedGuidedTileFields - 1];
+  if (!fused_guided_tile_ok(geom, d, n_taps / 2, shared_bytes)) return static_cast<int>(invalid);
   auto kernel = zero_border ? fused_guided_kernel<true> : fused_guided_kernel<false>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
+  bool fits = false;
+  const cudaError_t err = opt_in(reinterpret_cast<const void*>(kernel), shared_bytes,
+                                 kStaticSharedReserve, &fits);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kFusedThreads, bytes, s>>>(
+  if (!fits) return static_cast<int>(invalid);
+  if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid((w + geom.pw - 1) / geom.pw, (h + geom.ph - 1) / geom.ph);
+  kernel<<<grid, kFusedThreads, shared_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(small_t), static_cast<const float4*>(small_l),
       static_cast<const float4*>(guide), static_cast<const float*>(lmin),
       static_cast<const float*>(step), static_cast<const float*>(inv_step),
-      static_cast<float4*>(out_wc), static_cast<float*>(out_nw), h, w, hs, ws, levels, table,
-      coef, 1.f / static_cast<float>(d), max_rows, max_cols);
+      static_cast<float4*>(out_wc), static_cast<float*>(out_nw), h, w, hs, ws, levels,
+      tap_table(taps, n_taps), coef, 1.f / static_cast<float>(d), geom);
   return static_cast<int>(cudaGetLastError());
 }
 
-// *fits = 1 if idf_fused_guided takes downsample d with n_taps blur taps on
-// the current device (its window fits a block's shared memory), else 0.
-int idf_fused_guided_fits(int d, int n_taps, int* fits) {
-  *fits = 0;
-  if (!fused_args_ok(d, n_taps)) return static_cast<int>(cudaSuccess);
-  bool ok = false;
-  const cudaError_t err = fused_fits(fused_guided_bytes(d, n_taps / 2), &ok);
-  *fits = ok ? 1 : 0;
-  return static_cast<int>(err);
+// The fused guided kernel of a border as compiled, and its occupancy at
+// shared_bytes a block (kernel_info's).
+int idf_fused_guided_info(int zero_border, int shared_bytes, int* info) {
+  auto kernel = zero_border ? fused_guided_kernel<true> : fused_guided_kernel<false>;
+  return static_cast<int>(
+      idf::kernel_info(reinterpret_cast<const void*>(kernel), kFusedThreads, shared_bytes, info));
 }
 
 }  // extern "C"

@@ -20,8 +20,9 @@ use. Beside them this module holds:
     `slice_grid_plain`, `fused_grid_plain`, `build_guided_grid_plain`,
     `slice_guided_grid_plain`, `fused_guided_plain`): whole-image tensor ops
     with the kernel's bf16 roundings, taps, summation order and lerp formula;
-  * the guided build kernel's block, tile, staged window and shared-memory
-    layout (`guided_build_tile`), in pure Python that the CPU tests check;
+  * the grid build kernel's and the fused guided kernel's blocks, tiles,
+    staged windows and shared-memory layouts (`build_tile`,
+    `fused_guided_tile`), in pure Python that the CPU tests check;
   * launch counts, in `ops.stencils.launches` beside the exact kernels'.
 
 Layouts: images (H, W, 4) float32; the pooled image (hs, ws, 4) float32 with
@@ -74,22 +75,43 @@ DOWNSAMPLES = (2, 4, 8)
 GUIDED_DOWNSAMPLES = (1, 2, 4, 8)
 #: Guided grid planes per level: num r, g, b, a; den r, g, b; one zero pad.
 GUIDED_PLANES = 8
-# The guided build kernel's block, compiled into fast.cu from here
-# (nvcc_defines): 256 threads own a tile of cells, the first of
-# GUIDED_BUILD_TILES (rows, columns) whose staged window fits a block's
-# shared memory, and a vertical-pass thread sums GUIDED_BUILD_STRIP cell rows
-# of one staged column.
-GUIDED_BUILD_THREADS = 256
-GUIDED_BUILD_STRIP = 4
-GUIDED_BUILD_TILES = (
+# The grid build kernels' block (one body for the bilateral and the guided
+# grid), compiled into fast.cu from here (nvcc_defines): 256 threads own a
+# tile of cells, the first of BUILD_TILES (rows, columns) whose staged window
+# fits a block's shared memory, and a vertical-pass thread sums BUILD_STRIP
+# cell rows of one staged column.
+BUILD_THREADS = 256
+BUILD_STRIP = 4
+BUILD_TILES = (
     (16, 32), (8, 32), (4, 32), (2, 32), (1, 32), (1, 16), (1, 8), (1, 4), (1, 2), (1, 1),
 )
+# The fused guided kernel's block, likewise: FUSED_GUIDED_THREADS threads own
+# a slice tile of pixels, the first of FUSED_GUIDED_TILES (rows, columns)
+# whose window fits, each thread one column and at most FUSED_GUIDED_PIXELS
+# rows of it; a vertical-pass thread sums FUSED_GUIDED_STRIP cell rows; the
+# block builds FUSED_GUIDED_LEVELS levels' cells (the main path's K at d = 2
+# and 4) before it slices them; the kernel is compiled for
+# FUSED_GUIDED_MIN_BLOCKS blocks a multiprocessor.
+FUSED_GUIDED_THREADS = 256
+FUSED_GUIDED_PIXELS = 4
+FUSED_GUIDED_STRIP = 2
+FUSED_GUIDED_LEVELS = 5
+FUSED_GUIDED_MIN_BLOCKS = 3
+FUSED_GUIDED_TILES = ((16, 64), (16, 32), (8, 32))
+#: Shared memory a fused kernel keeps beside its window for its static arrays.
+STATIC_SHARED_RESERVE = 1024
 
 
 def nvcc_defines() -> tuple[str, ...]:
-    """The guided build's block as the macros fast.cu is compiled with."""
-    return (f"-DIDF_BUILD_THREADS={GUIDED_BUILD_THREADS}",
-            f"-DIDF_BUILD_STRIP={GUIDED_BUILD_STRIP}")
+    """The blocks above as the macros fast.cu is compiled with."""
+    return (f"-DIDF_BUILD_THREADS={BUILD_THREADS}",
+            f"-DIDF_BUILD_STRIP={BUILD_STRIP}",
+            f"-DIDF_FUSED_GUIDED_THREADS={FUSED_GUIDED_THREADS}",
+            f"-DIDF_FUSED_GUIDED_PIXELS={FUSED_GUIDED_PIXELS}",
+            f"-DIDF_FUSED_GUIDED_STRIP={FUSED_GUIDED_STRIP}",
+            f"-DIDF_FUSED_GUIDED_LEVELS={FUSED_GUIDED_LEVELS}",
+            f"-DIDF_FUSED_GUIDED_MIN_BLOCKS={FUSED_GUIDED_MIN_BLOCKS}",
+            f"-DIDF_STATIC_SHARED_RESERVE={STATIC_SHARED_RESERVE}")
 
 
 # ---------------------------------------------------------------------------
@@ -326,26 +348,29 @@ def fused_guided_plain(
 
 
 # ---------------------------------------------------------------------------
-# The guided build kernel's tile and staged window
+# The kernels' tiles and shared-memory layouts
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
-class GuidedBuildTile:
-    """One block's geometry in the guided build kernel. The block owns cells
-    [y0, y0 + th) x [x0, x0 + tw) of every level and stages the pooled
-    target and layer at cells (y0 - r + i, x0 - r + j), i < srows = th + 2r,
-    j < scols = tw + 2r (r = the blur radius), under the build's border rule:
-    cell (y, x)'s tap (a, b) of the blur reads staged (y - y0 + a, x - x0 +
-    b). The block's dynamic shared memory (guided_build_layout) holds the
-    staged target as float4 at byte 0, and from the byte offsets l_at, w_at
-    and v_at the staged layer (float4), its three range-weight planes and the
-    seven vertical-sum planes (th x scols floats each); shared_bytes in
-    all."""
+class BuildTile:
+    """One block's geometry in the grid build kernel (fast.cu:
+    build_grid_kernel). The block owns cells [y0, y0 + th) x [x0, x0 + tw)
+    of every level and stages its n_images pooled images (the payload; with
+    two, the guided grid's layer too) at cells (y0 - r + i, x0 - r + j), i <
+    srows = th + 2r, j < scols = tw + 2r (r = the blur radius), under the
+    build's border rule: cell (y, x)'s tap (a, b) of the blur reads staged
+    (y - y0 + a, x - x0 + b). The block's dynamic shared memory
+    (build_layout) holds the staged payload as float4 at byte 0, and from
+    the byte offsets l_at, w_at and v_at the staged layer (float4; l_at = 0
+    with one image, the payload being the layer), its three range-weight
+    planes and the seven vertical-sum planes (th x scols floats each);
+    shared_bytes in all."""
 
     th: int
     tw: int
     r: int
+    n_images: int
     l_at: int
     w_at: int
     v_at: int
@@ -360,54 +385,164 @@ class GuidedBuildTile:
         return self.tw + 2 * self.r
 
     def launch_args(self) -> np.ndarray:
-        """The ints idf_build_guided_grid takes (fast.cu: BuildTile, then the
-        bytes)."""
+        """The ints idf_build_grid and idf_build_guided_grid take (fast.cu:
+        BuildTile, then the bytes)."""
         return np.asarray([self.th, self.tw, self.l_at, self.w_at, self.v_at, self.shared_bytes],
                           np.int32)
 
 
-def guided_build_layout(th: int, tw: int, r: int) -> tuple[int, int, int, int]:
-    """The guided build kernel's shared memory, in this order: the staged
-    target and the staged layer, float4 each ((th + 2r) x (tw + 2r)); the
-    range weights, three float planes of the staged window; the vertical
-    sums, seven float planes of th x (tw + 2r). Returns (l_at, w_at, v_at,
-    shared bytes)."""
+def build_layout(th: int, tw: int, r: int, n_images: int) -> tuple[int, int, int, int]:
+    """The grid build kernel's shared memory, in this order: the n_images
+    staged pooled images, float4 each ((th + 2r) x (tw + 2r)); the range
+    weights, three float planes of the staged window; the vertical sums,
+    seven float planes of th x (tw + 2r). Returns (l_at, w_at, v_at, shared
+    bytes), l_at = 0 with one image."""
+    if n_images not in (1, 2):
+        raise ValueError(f"the grid build stages 1 or 2 images, got {n_images}")
     n_staged = (th + 2 * r) * (tw + 2 * r)
-    l_at = 16 * n_staged
-    w_at = l_at + 16 * n_staged
+    l_at = 16 * n_staged if n_images == 2 else 0
+    w_at = 16 * n_staged * n_images
     v_at = w_at + 12 * n_staged
     return l_at, w_at, v_at, v_at + 4 * 7 * th * (tw + 2 * r)
 
 
+def _odd_taps(n_taps: int, what: str) -> int:
+    """The blur radius of n_taps, which must be odd and within the kernels'
+    table."""
+    if n_taps < 1 or n_taps % 2 == 0 or n_taps > MAX_TAPS:
+        raise ValueError(f"{what} takes an odd number of blur taps up to {MAX_TAPS}, "
+                         f"got {n_taps}")
+    return n_taps // 2
+
+
 @functools.lru_cache(maxsize=None)
-def guided_build_tile(n_taps: int, shared_limit: int) -> GuidedBuildTile:
-    """The guided build kernel's tile for n_taps (odd) blur taps on a card
+def build_tile(n_taps: int, shared_limit: int, n_images: int) -> BuildTile:
+    """The grid build kernel's tile for n_taps (odd) blur taps and n_images
+    staged images (1: the bilateral grid, 2: the guided grid) on a card
     whose blocks may hold `shared_limit` bytes of shared memory: the first of
-    GUIDED_BUILD_TILES whose window fits; ValueError where none fits."""
-    if n_taps < 1 or n_taps % 2 == 0:
-        raise ValueError(f"the guided build takes an odd number of blur taps, got {n_taps}")
-    r = n_taps // 2
-    for th, tw in GUIDED_BUILD_TILES:
-        *offsets, nbytes = guided_build_layout(th, tw, r)
+    BUILD_TILES whose window fits; ValueError where none fits."""
+    r = _odd_taps(n_taps, "the grid build")
+    for th, tw in BUILD_TILES:
+        *offsets, nbytes = build_layout(th, tw, r, n_images)
         if nbytes <= shared_limit:
-            return GuidedBuildTile(th, tw, r, *offsets, nbytes)
+            return BuildTile(th, tw, r, n_images, *offsets, nbytes)
     raise ValueError(
-        f"no guided build tile fits {n_taps} blur taps in {shared_limit} bytes of shared memory"
+        f"no grid build tile fits {n_taps} blur taps in {shared_limit} bytes of shared memory"
     )
 
 
-def build_guided_grid_info(device: torch.device, n_taps: int, border: str) -> dict:
-    """How the guided build kernel runs with n_taps blur taps on `device`,
-    as compiled: registers and spill (local) bytes a thread, its tile (th x
-    tw cells) and shared bytes, and the blocks a multiprocessor holds at
-    once (as ops.stencils.kernel_info gives them for the NLM kernels)."""
+def _kernel_info(fn: str, device: torch.device, zero: bool, shared_bytes: int, tile: str) -> dict:
     info = (ctypes.c_int * 3)()
-    tile = guided_build_tile(n_taps, max_shared_bytes(device))
     with torch.cuda.device(device):
-        rc = _build.library().idf_build_guided_grid_info(
-            int(border != BorderPolicy.CLAMP), tile.shared_bytes, info)
-    _raise_on_error(rc, "build_guided_grid info")
-    return info_dict(info, f"{tile.th}x{tile.tw}", tile.shared_bytes)
+        rc = getattr(_build.library(), fn)(int(zero), shared_bytes, info)
+    _raise_on_error(rc, fn)
+    return info_dict(info, tile, shared_bytes)
+
+
+def build_grid_info(device: torch.device, n_taps: int, border: str, guided: bool = False) -> dict:
+    """How the grid build kernel (the guided one with guided=True) runs with
+    n_taps blur taps on `device`, as compiled: registers and spill (local)
+    bytes a thread, its tile (th x tw cells) and shared bytes, and the blocks
+    a multiprocessor holds at once (as ops.stencils.kernel_info gives them
+    for the NLM kernels)."""
+    tile = build_tile(n_taps, max_shared_bytes(device), 2 if guided else 1)
+    fn = "idf_build_guided_grid_info" if guided else "idf_build_grid_info"
+    return _kernel_info(fn, device, border != BorderPolicy.CLAMP, tile.shared_bytes,
+                        f"{tile.th}x{tile.tw}")
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedGuidedTile:
+    """One block's geometry in the fused guided kernel (fast.cu:
+    fused_guided_kernel) at downsample d with blur radius r. The block owns
+    the slice tile of ph x pw pixels from (by ph, bx pw); thread i takes
+    column i % pw and rows i // pw + k (FUSED_GUIDED_THREADS // pw), k <
+    FUSED_GUIDED_PIXELS. Its pixels' bilinear taps read a window of at most
+    rows x cols cells (tile_window), which the block builds at each level
+    it touches from the pooled target and layer staged over the window plus
+    the blur halo r ((rows + 2r) x (cols + 2r) pixels at most). The dynamic
+    shared memory (fused_guided_layout) holds the staged target as float4 at
+    byte 0, and from l_at, w_at, v_at and c_at the staged layer (float4),
+    its three range-weight planes, the seven vertical-sum planes (rows x
+    (cols + 2r) floats each) and FUSED_GUIDED_LEVELS levels' cells (16 bytes
+    each); shared_bytes in all."""
+
+    d: int
+    r: int
+    ph: int
+    pw: int
+    rows: int
+    cols: int
+    l_at: int
+    w_at: int
+    v_at: int
+    c_at: int
+    shared_bytes: int
+
+    @property
+    def srows(self) -> int:
+        return self.rows + 2 * self.r
+
+    @property
+    def scols(self) -> int:
+        return self.cols + 2 * self.r
+
+    def launch_args(self) -> np.ndarray:
+        """The ints idf_fused_guided takes (fast.cu: FusedGuidedTile, then
+        the bytes)."""
+        return np.asarray([self.ph, self.pw, self.rows, self.cols, self.l_at, self.w_at,
+                           self.v_at, self.c_at, self.shared_bytes], np.int32)
+
+
+def fused_guided_window(ph: int, pw: int, d: int) -> tuple[int, int]:
+    """The most cells (rows, columns) the bilinear taps of one ph x pw slice
+    tile read at downsample d (d dividing both): pixel y reads cells
+    floor((y + 0.5)/d - 0.5) and the next, so a tile from a multiple of d
+    reads ph/d + 2 rows (ph + 1 at d = 1), columns alike."""
+    halo = 1 if d == 1 else 2
+    return ph // d + halo, pw // d + halo
+
+
+def fused_guided_layout(ph: int, pw: int, d: int, r: int) -> tuple[int, ...]:
+    """The fused guided kernel's shared memory, in this order: the staged
+    target and layer, float4 each over the window plus the halo; the range
+    weights, three float planes of it; the vertical sums, seven float planes
+    of rows x (cols + 2r); FUSED_GUIDED_LEVELS levels' cells, 16 bytes each.
+    Returns (rows, cols, l_at, w_at, v_at, c_at, shared bytes)."""
+    rows, cols = fused_guided_window(ph, pw, d)
+    n_staged = (rows + 2 * r) * (cols + 2 * r)
+    l_at = 16 * n_staged
+    w_at = l_at + 16 * n_staged
+    v_at = w_at + 12 * n_staged
+    c_at = -(-(v_at + 4 * 7 * rows * (cols + 2 * r)) // 16) * 16
+    return rows, cols, l_at, w_at, v_at, c_at, c_at + 16 * FUSED_GUIDED_LEVELS * rows * cols
+
+
+@functools.lru_cache(maxsize=None)
+def fused_guided_tile(d: int, n_taps: int, shared_limit: int) -> FusedGuidedTile:
+    """The fused guided kernel's tile at downsample d with n_taps (odd) blur
+    taps on a card whose blocks may hold `shared_limit` bytes of shared
+    memory: the first of FUSED_GUIDED_TILES that d divides and whose window
+    fits beside STATIC_SHARED_RESERVE; ValueError where none does."""
+    r = _odd_taps(n_taps, "the fused guided kernel")
+    for ph, pw in FUSED_GUIDED_TILES:
+        if d < 1 or ph % d or pw % d:
+            continue
+        layout = fused_guided_layout(ph, pw, d, r)
+        if layout[-1] + STATIC_SHARED_RESERVE <= shared_limit:
+            return FusedGuidedTile(d, r, ph, pw, *layout)
+    raise ValueError(
+        f"no fused guided tile at d = {d} fits {n_taps} blur taps in {shared_limit} bytes of "
+        "shared memory"
+    )
+
+
+def fused_guided_info(device: torch.device, d: int, n_taps: int, border: str) -> dict:
+    """build_grid_info of the fused guided kernel at downsample d; its tile
+    in pixels."""
+    tile = fused_guided_tile(d, n_taps, max_shared_bytes(device))
+    return _kernel_info("idf_fused_guided_info", device, border != BorderPolicy.CLAMP,
+                        tile.shared_bytes, f"{tile.ph}x{tile.pw}")
 
 
 # ---------------------------------------------------------------------------
@@ -514,12 +649,14 @@ def build_grid(
         return build_grid_plain(small, lmin, step, levels, taps, border, inv2sc, uniform_alpha)
     hs, ws, _ = small.shape
     grid = torch.empty((levels, hs, ws, 4), dtype=torch.bfloat16, device=small.device)
+    geom = build_tile(taps.size, max_shared_bytes(small.device), 1).launch_args()
     lib = _build.library()
     with torch.cuda.device(small.device):
         rc = lib.idf_build_grid(
             small.data_ptr(), lmin.data_ptr(), step.data_ptr(), grid.data_ptr(),
             hs, ws, levels, taps.ctypes.data, taps.size, inv2sc * LOG2E,
-            int(border != BorderPolicy.CLAMP), int(uniform_alpha), _stream(small),
+            int(border != BorderPolicy.CLAMP), int(uniform_alpha), geom.ctypes.data,
+            _stream(small),
         )
     _raise_on_error(rc, "build_grid")
     launches["build_grid"] += 1
@@ -608,7 +745,7 @@ def build_guided_grid(
         return build_guided_grid_plain(small_t, small_l, lmin, step, levels, taps, border, inv2sc)
     hs, ws, _ = small_t.shape
     grid = torch.empty((levels, hs, ws, GUIDED_PLANES), dtype=torch.bfloat16, device=small_t.device)
-    geom = guided_build_tile(taps.size, max_shared_bytes(small_t.device)).launch_args()
+    geom = build_tile(taps.size, max_shared_bytes(small_t.device), 2).launch_args()
     lib = _build.library()
     with torch.cuda.device(small_t.device):
         rc = lib.idf_build_guided_grid(
@@ -655,22 +792,15 @@ def slice_guided_grid(
     return wc, nw
 
 
-def _fits(kernel: str, d: int, n_taps: int, device: torch.device) -> bool:
-    fits = ctypes.c_int(0)
-    lib = _build.library()
-    with torch.cuda.device(device):
-        rc = getattr(lib, f"idf_{kernel}_fits")(d, n_taps, ctypes.byref(fits))
-    _raise_on_error(rc, f"{kernel}_fits")
-    return bool(fits.value)
-
-
 def fused_guided_fits(d: int, n_taps: int, device: torch.device) -> bool:
     """Whether the fused guided kernel takes downsample d with n_taps blur
-    taps on the CUDA device: its window (the staged pooled images with the
-    blur halo, the blur sums, one level's cells; fast.cu: fused_shared_bytes)
-    fits a block's shared memory there. Asks the kernel library, which
-    queries the device."""
-    return _fits("fused_guided", d, n_taps, device)
+    taps on the CUDA device: some tile's window (fused_guided_tile) fits a
+    block's shared memory there."""
+    try:
+        fused_guided_tile(d, n_taps, max_shared_bytes(device))
+    except ValueError:
+        return False
+    return True
 
 
 def fused_grid_fits(d: int, n_taps: int, device: torch.device) -> bool:
@@ -678,7 +808,11 @@ def fused_grid_fits(d: int, n_taps: int, device: torch.device) -> bool:
     taps on the CUDA device: its window (one staged pooled image, the blur
     sums, one level's cells) fits a block's shared memory there. Asks the
     kernel library, which queries the device."""
-    return _fits("fused_grid", d, n_taps, device)
+    fits = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _build.library().idf_fused_grid_fits(d, n_taps, ctypes.byref(fits))
+    _raise_on_error(rc, "fused_grid_fits")
+    return bool(fits.value)
 
 
 def fused_grid(
@@ -766,12 +900,14 @@ def fused_guided(
         return fused_guided_plain(
             small_t, small_l, guide, lmin, step, inv_step, levels, taps, border, inv2sc, d
         )
-    if not fused_guided_fits(d, taps.size, guide.device):
+    try:
+        geom = fused_guided_tile(d, taps.size, max_shared_bytes(guide.device)).launch_args()
+    except ValueError as e:
         raise ValueError(
             f"the fused guided kernel's window at d = {d} with {taps.size} blur taps "
             "exceeds a block's shared memory on this device: use the two guided kernels "
             "(build_guided_grid, slice_guided_grid)"
-        )
+        ) from e
     wc = torch.empty_like(guide)
     nw = torch.empty((h, w, 3), dtype=torch.float32, device=guide.device)
     lib = _build.library()
@@ -780,7 +916,7 @@ def fused_guided(
             small_t.data_ptr(), small_l.data_ptr(), guide.data_ptr(), lmin.data_ptr(),
             step.data_ptr(), inv_step.data_ptr(), wc.data_ptr(), nw.data_ptr(), h, w, hs, ws,
             levels, taps.ctypes.data, taps.size, inv2sc * LOG2E, d,
-            int(border != BorderPolicy.CLAMP), _stream(guide),
+            int(border != BorderPolicy.CLAMP), geom.ctypes.data, _stream(guide),
         )
     _raise_on_error(rc, "fused_guided")
     launches["fused_guided"] += 1
@@ -894,7 +1030,8 @@ def cross_bilateral_layers_fast(
     kernel or the guided build and slice. fused=None takes the fused kernel
     where default_guided_fused(d) does and, on the card, its window fits a
     block's shared memory (fused_guided_fits; on the H100 at d = 2 not from
-    sigma_s ~10.5 up), else the two kernels: the same partials either way.
+    59 taps, sigma_s ~14.1, up), else the two kernels: the same partials
+    either way.
     On a CPU tensor the plain versions run whichever is chosen. Accumulate the
     partials over all layers, then finish with normalize_layers_fast."""
     _check_image(target, "target")

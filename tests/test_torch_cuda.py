@@ -398,20 +398,24 @@ def test_turbo_layers_on_card_match_plain(cuda, d):
 
 
 @pytest.mark.parametrize("d,n_taps,fits", [(2, 9, True), (4, 5, True), (8, 3, True),
-                                           (2, 41, True), (2, 43, True), (2, 45, False),
-                                           (2, 49, False), (4, 63, True), (1, 17, False)])
+                                           (2, 41, True), (2, 43, True), (2, 45, True),
+                                           (2, 49, True), (4, 63, True), (1, 17, True),
+                                           (2, 57, True), (2, 59, False), (2, 63, False)])
 def test_fused_guided_shared_memory(cuda, d, n_taps, fits):
-    """The fused kernel's window at the turbo battery's settings fits a
-    block's shared memory on the H100, up to 43 taps (radius 21) at d = 2 and
-    every tap table at d = 4; d = 1 (17 taps at sigma_s 2) does not."""
+    """The fused kernel's window fits a block's shared memory on the H100 at
+    the turbo battery's settings, up to 57 taps (radius 28) at d = 2, its
+    tile shrinking from 16 x 64 pixels as the taps widen, and every tap table
+    at d = 4; d = 1 (17 taps at sigma_s 2) fits too."""
     assert fast.fused_guided_fits(d, n_taps, cuda) == fits
 
 
 def test_turbo_layers_at_wide_sigma_on_card_take_the_two_kernels(cuda):
-    """At d = 2 and sigma_s 12 (49 taps) the fused window does not fit: the
-    entry takes the guided build and slice, and the fused wrapper refuses."""
+    """At d = 2 and sigma_s 15.1 (63 taps; from 59 up) the fused window does
+    not fit: the entry takes the guided build and slice, and the fused
+    wrapper refuses."""
     target, layer = _image(0, cuda, 61, 83), _image(1, cuda, 61, 83)
-    params = LayersParams(sigma_spatial=12.0)
+    params = LayersParams(sigma_spatial=15.1)
+    assert fast._grid_taps(15.1, 2).size == 63
     got = fast.cross_bilateral_layers_fast(target, layer, params, 5, 2)
     want = fast.cross_bilateral_layers_fast(target.cpu(), layer.cpu(), params, 5, 2)
     for g, w_ in zip(got, want):
@@ -421,7 +425,7 @@ def test_turbo_layers_at_wide_sigma_on_card_take_the_two_kernels(cuda):
     _, _, small_t, small_l, lmin, step, _ = _guided_inputs(2, BorderPolicy.CLAMP, 5, 2.0, 61, 83)
     with pytest.raises(ValueError, match="shared memory"):
         fast.fused_guided(small_t, small_l, layer, lmin, step, 1.0 / step, 5,
-                          fast._grid_taps(12.0, 2), BorderPolicy.CLAMP, 12.5, 2)
+                          fast._grid_taps(15.1, 2), BorderPolicy.CLAMP, 12.5, 2)
 
 
 @pytest.mark.parametrize(
@@ -675,7 +679,7 @@ def test_build_guided_grid_kernel_equals_plain_bit_for_bit(cuda, d, sigma_s, n_t
 def test_build_guided_grid_kernel_info(cuda, n_taps, tile):
     """The guided build's tiles launch: registers without spills, and at
     least one block a multiprocessor (two at the main path's 17 taps)."""
-    info = fast.build_guided_grid_info(cuda, n_taps, BorderPolicy.CLAMP)
+    info = fast.build_grid_info(cuda, n_taps, BorderPolicy.CLAMP, guided=True)
     assert info["tile"] == tile and info["spill_bytes"] == 0
     assert info["blocks_per_sm"] >= (2 if n_taps <= 17 else 1)
     assert 0 < info["registers"] <= 255
@@ -708,7 +712,7 @@ def test_build_guided_grid_launcher_refuses_a_short_layout(cuda):
     overrun the block's shared memory (cudaErrorInvalidValue, 1)."""
     _, _, small_t, small_l, lmin, step, taps = _guided_inputs(2)
     grid = torch.empty((5, *small_t.shape[:2], 8), dtype=torch.bfloat16, device=cuda)
-    tile = fast.guided_build_tile(taps.size, stencils.max_shared_bytes(small_t.device))
+    tile = fast.build_tile(taps.size, stencils.max_shared_bytes(small_t.device), 2)
     short = tile.launch_args()
     short[-1] -= 4  # shared bytes
     lib = stencils._build.library()
@@ -717,5 +721,127 @@ def test_build_guided_grid_launcher_refuses_a_short_layout(cuda):
             small_t.data_ptr(), small_l.data_ptr(), lmin.data_ptr(), step.data_ptr(),
             grid.data_ptr(), small_t.shape[0], small_t.shape[1], 5, taps.ctypes.data, taps.size,
             1.0, 0, geom.ctypes.data, stencils._stream(small_t))
+        assert rc == want
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("ua", [False, True])
+@pytest.mark.parametrize(
+    "d,sigma_s,n_taps,border,shape",
+    [(2, 2.0, 9, BorderPolicy.CLAMP, (97, 131)), (2, 2.0, 9, BorderPolicy.ZERO, (61, 300)),
+     (4, 2.0, 5, BorderPolicy.CLAMP, (7, 9)), (8, 6.0, 7, BorderPolicy.ZERO, (300, 61)),
+     (2, 15.1, 63, BorderPolicy.CLAMP, (29, 70)), (2, 15.1, 63, BorderPolicy.ZERO, (61, 83))],
+    ids=["d2", "d2_zero", "d4_below_a_tile", "d8_7taps_zero", "d2_63taps", "d2_63taps_zero"],
+)
+def test_build_grid_kernel_equals_plain_bit_for_bit(cuda, d, sigma_s, n_taps, border, shape, ua):
+    """The bilateral build shares the guided build's body with one staged
+    image: the plain version's products, sums and divides in its order, so
+    its bf16 grid is the plain version's bit for bit, on grids smaller than
+    one tile, at it and beyond it with ragged edges, at the widest table (63
+    taps, 8 x 32 cells), with uniform alpha (a zero alpha slot)."""
+    img = _image(0, cuda, *shape)
+    small = fast.pool_plain(img, d, border)
+    taps = fast._grid_taps(sigma_s, d)
+    assert taps.size == n_taps
+    args = (small, *fast.grid_range(small, 6), 6, taps, border, 12.5, ua)
+    got = fast.build_grid(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fast.build_grid_plain(*args))
+    assert not ua or bool((got[..., 3] == 0).all())
+    assert stencils.launches["build_grid"] == 1
+
+
+@pytest.mark.parametrize("border", [BorderPolicy.CLAMP, BorderPolicy.ZERO])
+def test_build_grid_kernel_at_one_tap(cuda, border):
+    """A one-tap table (no blur, halo 0): each cell normalized on its own."""
+    small = fast.pool_plain(_image(0, cuda, 40, 70), 2, border)
+    args = (small, *fast.grid_range(small, 5), 5, np.ones(1, np.float32), border, 12.5)
+    got = fast.build_grid(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fast.build_grid_plain(*args))
+
+
+@pytest.mark.parametrize("n_taps,tile", [(5, "16x32"), (9, "16x32"), (63, "8x32")])
+def test_build_grid_kernel_info(cuda, n_taps, tile):
+    """The bilateral build's tiles launch: registers without spills, at least
+    three blocks a multiprocessor at the main path's tap counts."""
+    info = fast.build_grid_info(cuda, n_taps, BorderPolicy.CLAMP)
+    assert info["tile"] == tile and info["spill_bytes"] == 0
+    assert info["blocks_per_sm"] >= (3 if n_taps <= 9 else 1)
+    assert 0 < info["registers"] <= 255
+
+
+def test_build_grid_launcher_refuses_a_short_layout(cuda):
+    """The bilateral build's launcher refuses a layout whose vertical sums
+    overrun the block's shared memory, or one that stages a second image
+    (cudaErrorInvalidValue, 1)."""
+    small, lmin, step, taps = _grid_inputs(_image(0, cuda), 2)
+    grid = torch.empty((5, *small.shape[:2], 4), dtype=torch.bfloat16, device=cuda)
+    tile = fast.build_tile(taps.size, stencils.max_shared_bytes(small.device), 1)
+    short, two = tile.launch_args(), fast.build_tile(taps.size, tile.shared_bytes * 2, 2)
+    short[-1] -= 4  # shared bytes
+    lib = stencils._build.library()
+    for geom, want in ((tile.launch_args(), 0), (short, 1), (two.launch_args(), 1)):
+        rc = lib.idf_build_grid(
+            small.data_ptr(), lmin.data_ptr(), step.data_ptr(), grid.data_ptr(),
+            small.shape[0], small.shape[1], 5, taps.ctypes.data, taps.size, 1.0, 0, 0,
+            geom.ctypes.data, stencils._stream(small))
+        assert rc == want
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize(
+    "d,sigma_s,n_taps,border,shape",
+    [(2, 10.5, 43, BorderPolicy.CLAMP, (61, 300)), (2, 10.5, 43, BorderPolicy.ZERO, (29, 37)),
+     (4, 30.1, 63, BorderPolicy.ZERO, (97, 131)), (4, 30.1, 63, BorderPolicy.CLAMP, (40, 200)),
+     (1, 2.0, 17, BorderPolicy.CLAMP, (40, 150)), (2, 12.0, 49, BorderPolicy.CLAMP, (70, 70))],
+    ids=["d2_43taps", "d2_43taps_zero", "d4_63taps_zero", "d4_63taps", "d1_17taps",
+         "d2_49taps"],
+)
+def test_fused_guided_kernel_equals_the_two_kernels_at_wide_tables(cuda, d, sigma_s, n_taps,
+                                                                   border, shape):
+    """At wide tables (43 taps at d = 2, the widest before; 49 at d = 2, on
+    the shrunk 16 x 32 tile; 63 at d = 4, on 8 x 32) and at d = 1, which it
+    now takes: the fused kernel equals the two kernels bit for bit."""
+    _, layer, small_t, small_l, lmin, step, taps = _guided_inputs(d, border, 6, sigma_s, *shape)
+    assert taps.size == n_taps
+    grid = fast.build_guided_grid(small_t, small_l, lmin, step, 6, taps, border, 12.5)
+    two = fast.slice_guided_grid(layer, grid, lmin, 1.0 / step, d)
+    got = fast.fused_guided(small_t, small_l, layer, lmin, step, 1.0 / step, 6, taps, border,
+                            12.5, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], two[0]) and torch.equal(got[1], two[1])
+    assert stencils.launches["fused_guided"] == 1
+
+
+@pytest.mark.parametrize("d,n_taps,tile", [(2, 9, "16x64"), (4, 5, "16x64"), (4, 63, "8x32")])
+def test_fused_guided_kernel_info(cuda, d, n_taps, tile):
+    """The fused guided kernel launches without spills, three blocks a
+    multiprocessor at the main path's settings (it is compiled for three)."""
+    info = fast.fused_guided_info(cuda, d, n_taps, BorderPolicy.CLAMP)
+    assert info["tile"] == tile and info["spill_bytes"] == 0
+    assert info["blocks_per_sm"] >= (3 if n_taps <= 9 else 1)
+    assert 0 < info["registers"] <= 255
+
+
+def test_fused_guided_launcher_refuses_a_short_layout(cuda):
+    """The fused guided launcher refuses a tile whose cells overrun its
+    shared bytes, or whose window is one row short of what the tile's
+    pixels read (cudaErrorInvalidValue, 1)."""
+    _, layer, small_t, small_l, lmin, step, taps = _guided_inputs(2)
+    wc = torch.empty_like(layer)
+    nw = torch.empty((*layer.shape[:2], 3), device=cuda)
+    tile = fast.fused_guided_tile(2, taps.size, stencils.max_shared_bytes(layer.device))
+    short_bytes, short_rows = tile.launch_args(), tile.launch_args()
+    short_bytes[-1] -= 16
+    short_rows[2] -= 1  # rows
+    lib = stencils._build.library()
+    h, w = layer.shape[:2]
+    for geom, want in ((tile.launch_args(), 0), (short_bytes, 1), (short_rows, 1)):
+        rc = lib.idf_fused_guided(
+            small_t.data_ptr(), small_l.data_ptr(), layer.data_ptr(), lmin.data_ptr(),
+            step.data_ptr(), (1.0 / step).data_ptr(), wc.data_ptr(), nw.data_ptr(), h, w,
+            small_t.shape[0], small_t.shape[1], 5, taps.ctypes.data, taps.size, 1.0, 2, 0,
+            geom.ctypes.data, stencils._stream(layer))
         assert rc == want
     torch.cuda.synchronize()

@@ -27,6 +27,14 @@ frames (seed 0) with the reference parameters:
   build_guided 1080p d=1 K=6
              the same at the main path's --turbo 1 shape: 1920x1080 at d=1
              (17 blur taps), 6 levels
+  build_grid 4K d=2 K=5, d=4 K=5, d=8 s6 K=6
+             the bilateral grid build of chip_smoke.py's noisy 3840x2160
+             frame pooled at d (9, 5 and, at sigma_s 6, 7 blur taps)
+  fused_guided 4K d=2 K=5, d=4 K=5
+             the fused guided build + slice of that frame (target) and its
+             albedo layer, as chip_smoke.py's phase 6 runs it
+  two_kernel 4K d=2 K=5, d=4 K=5
+             the same partials through build_guided_grid + slice_guided_grid
 
 Each process also hashes the output of every case but the divide (SHA-256
 of its bytes); the summary says for each whether the two sides' outputs are
@@ -84,7 +92,7 @@ def sm_clock_mhz(torch, fn, seconds: float = 2.0) -> float:
     return statistics.median(readings[1:-1] if len(readings) > 2 else readings)
 
 
-def worker(root: str) -> dict:
+def worker(root: str, only: str = "") -> dict:
     import numpy as np
     import torch
 
@@ -120,6 +128,28 @@ def worker(root: str) -> dict:
         small_l = fast.pool_plain(imgs[1], d, cfg.BorderPolicy.CLAMP)
         guided[key] = (small_t, small_l, *fast.grid_range(small_l, levels), levels,
                        fast._grid_taps(2.0, d), cfg.BorderPolicy.CLAMP, 12.5)
+    noisy, layers = smoke.load_render_frame()(0.5, 2160, 3840, np.random.default_rng(smoke.SEED),
+                                              noise=smoke.NOISE)
+    noisy = torch.from_numpy(noisy).to(dev)
+    albedo = torch.from_numpy(np.ascontiguousarray(np.clip(layers["albedo"], 0, 1))).to(dev)
+    clamp = cfg.BorderPolicy.CLAMP
+    grid_cases, fused_cases = {}, {}
+    for key, d, levels, sigma_s in (("4K d=2 K=5", 2, 5, 2.0), ("4K d=4 K=5", 4, 5, 2.0),
+                                    ("4K d=8 s6 K=6", 8, 6, 6.0)):
+        small = fast.pool_plain(noisy, d, clamp)
+        grid_cases[key] = (small, *fast.grid_range(small, levels), levels,
+                           fast._grid_taps(sigma_s, d), clamp, 12.5)
+        if d in (2, 4):
+            small_l = fast.pool_plain(albedo, d, clamp)
+            lmin, step = fast.grid_range(small_l, levels)
+            fused_cases[key] = (small, small_l, albedo, lmin, step, 1.0 / step, levels,
+                                fast._grid_taps(sigma_s, d), clamp, 12.5, d)
+
+    def two_kernels(small_t, small_l, guide, lmin, step, inv_step, levels, taps, border,
+                    inv2sc, d):
+        grid = fast.build_guided_grid(small_t, small_l, lmin, step, levels, taps, border, inv2sc)
+        return fast.slice_guided_grid(guide, grid, lmin, inv_step, d)
+
     cases = {
         "nlm": (lambda: stencils.nlm_accumulate(target, target, ref), 10),
         "nlm F=6": (lambda: stencils.nlm_accumulate_frames(target, frames, ref), 5),
@@ -131,9 +161,17 @@ def worker(root: str) -> dict:
         "nlm_hrw_bf16": (lambda: stencils.nlm_accumulate(smooth, smooth, hrw, bf16), 10),
         **{f"build_guided {key}": (lambda a=args: fast.build_guided_grid(*a), 10)
            for key, args in guided.items()},
+        **{f"build_grid {key}": (lambda a=args: fast.build_grid(*a), 10)
+           for key, args in grid_cases.items()},
+        **{f"fused_guided {key}": (lambda a=args: fast.fused_guided(*a), 10)
+           for key, args in fused_cases.items()},
+        **{f"two_kernel {key}": (lambda a=args: two_kernels(*a), 10)
+           for key, args in fused_cases.items()},
     }
     out = {"root": root, "digests": {}}
     for name, (fn, reps) in cases.items():
+        if not name.startswith(only):
+            continue
         result = fn()  # first call: module load, shared-memory opt-in
         torch.cuda.synchronize()
         if name != "divide":
@@ -142,7 +180,7 @@ def worker(root: str) -> dict:
                 digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
             out["digests"][name] = digest.hexdigest()
         out[name] = smoke.median_ms(torch, fn, reps)
-    if hasattr(stencils, "nlm_tile"):
+    if hasattr(stencils, "nlm_tile") and not only:
         mhz = sm_clock_mhz(torch, cases["nlm"][0])
         tile = stencils.nlm_tile(ref, False, stencils.max_shared_bytes(dev))
         tiles = -(-H // tile.th) * -(-W // tile.tw)
@@ -157,10 +195,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", help="root of the other checkout")
     ap.add_argument("--out", help="write the runs and medians to this JSON file")
+    ap.add_argument("--only", default="", help="time only the cases whose name starts so")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(os.path.abspath(args.worker))))
+        print(json.dumps(worker(os.path.abspath(args.worker), args.only)))
         return 0
     if not args.baseline:
         ap.error("--baseline is required")
@@ -169,8 +208,8 @@ def main() -> int:
     base = os.path.abspath(args.baseline)
     runs = []
     for side, root in (("baseline", base), ("this", REPO), ("this", REPO), ("baseline", base)):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root],
-                              capture_output=True, text=True, timeout=1200)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root,
+                               "--only", args.only], capture_output=True, text=True, timeout=1200)
         if proc.returncode:
             sys.stderr.write(proc.stdout + proc.stderr)
             raise SystemExit(f"{side} run failed with code {proc.returncode}")
