@@ -10,9 +10,10 @@ Phases, one line or block each:
   1. device  -- the card, as nvidia-smi gives its name and power limit;
   2. build   -- the kernels compiled from ops/csrc with nvcc, one process
                 per source, all at once;
-  3. kernels -- each exact-battery CUDA kernel, the NLM kernel with the
-                turbo NLM's bf16 taps and stride-2 search, and the half-row
-                NLM kernel (--weights-halfres) with float32 and bf16 taps,
+  3. kernels -- each exact-battery CUDA kernel, the bilateral kernel's
+                two forms with bf16 taps, the NLM kernel with the turbo
+                NLM's bf16 taps and stride-2 search, and the half-row NLM
+                kernel (--weights-halfres) with float32 and bf16 taps,
                 against its plain PyTorch version on the card at 1920x1080,
                 with max errors and median times; the redesigned kernels'
                 registers, spill bytes, tile, shared bytes and blocks a SM
@@ -21,7 +22,9 @@ Phases, one line or block each:
                 through `gpu-denoise` (cli.main) on the card, the launch
                 counts of that run, and the checks on its outputs; then
                 the NLM configs at --search-radius 0 (no candidate: the
-                seeds alone) on the card against --device cpu;
+                seeds alone) on the card against --device cpu; then the
+                tiled bilateral and layers configs with bf16 taps through
+                Session(tiling=...), each gated against its exact output;
   5. turbo kernels -- the bilateral grid's pool, build and slice kernels
                 and the whole grid pipeline against their plain versions, and
                 the fused build+slice kernel against the build and slice
@@ -98,11 +101,15 @@ TOL_NLM = dict(rtol=2e-4, atol=1e-4)
 # pixels beyond 1e-5.
 TOL_POOL = dict(rtol=1e-6, atol=0.0)
 TOL_SLICE = dict(rtol=1e-5, atol=1e-6)
+# The bilateral with bf16 taps against its config's exact output: the JAX
+# package's own bf16 headroom (tests/test_kernels.py: rtol 0.1 / atol 0.03).
+TOL_BF16_CONFIG = dict(rtol=0.1, atol=0.03)
 # The redesigned kernels' medians before their redesign, at the same shapes
 # and timed as median_ms times (tools/torch_kernel_ab.py, the two runs of
 # each kernel before its redesign, on an NVIDIA H100 80GB HBM3, 700.00 W;
 # PERF.md section 6).
-BEFORE_REDESIGN_MS = {"nlm": 16.0932, "nlm_bf16": 5.2365, "nlm F=6": 96.5862,
+BEFORE_REDESIGN_MS = {"bilateral": 1.1941, "bilateral_guided": 1.4404,
+                      "nlm": 16.0932, "nlm_bf16": 5.2365, "nlm F=6": 96.5862,
                       "nlm_hrw": 2.2086, "nlm_hrw_bf16": 3.3669,
                       "build_guided_grid 4K D=2 K=5": 1.7550,
                       "build_guided_grid 1080p D=1": 7.1050,
@@ -262,8 +269,9 @@ def kernel_work(name: str, pixels: int, cells: int = 0, levels: int = 0, taps: i
     the NLM's frames and search candidates; disk: the bilateral's disk taps;
     aliased: the NLM's target is its one frame (F = 1), read once.
 
-    Per unit: a bilateral tap 20 (colour distance 8, exponent 2, exp2 1,
-    weighted colour 8, weight 1), its normalize 4; an NLM candidate 24 per
+    Per unit: a bilateral tap 20 (colour distance 8, in bfloat16 with bf16
+    taps; exponent 2, exp2 1, weighted colour 8, weight 1), its normalize 4;
+    an NLM candidate 24 per
     pixel and frame with box sums (squared difference 8, in bfloat16 with
     bf16 taps; two running sums 4, exponent and exp2 3, weighted colour 8,
     weight 1); with the weights at half the rows the 15 operations before
@@ -287,6 +295,8 @@ def kernel_work(name: str, pixels: int, cells: int = 0, levels: int = 0, taps: i
         "fused_grid": (16 * cells + 32 * pixels, build + 132 * pixels),
         "bilateral": (32 * pixels, pixels * (20 * disk + 4)),
         "bilateral_guided": (52 * pixels, pixels * 20 * disk),
+        "bilateral_bf16": (32 * pixels, pixels * (12 * disk + 4), pixels * 8 * disk),
+        "bilateral_guided_bf16": (52 * pixels, pixels * 12 * disk, pixels * 8 * disk),
         "nlm": (nlm_bytes, 24 * fcp),
         "nlm_bf16": (nlm_bytes, 16 * fcp, 8 * fcp),
         "normalize": (36 * pixels, 5 * pixels),
@@ -400,6 +410,24 @@ def phase_kernels(torch, stencils, cfg, frames_np, layer_np):
                     ("uniform_alpha", cfg.LayersParams(uniform_alpha=True))]:
         record("bilateral_guided", case, stencils.cross_bilateral_layers(target, layer, p),
                stencils.bilateral_plain(target, layer, p, False), TOL_BILATERAL)
+    # bf16 taps (Session(tiling=...)): kernel and plain version round each
+    # operation of the colour distance and each value tap alike.
+    bf16 = cfg.TilingConfig(compute_dtype="bfloat16")
+    for case, p in [
+        ("defaults", bp),
+        ("blue_bug", cfg.BilateralParams(blue_bug=True)),
+        ("zero border", cfg.BilateralParams(border=cfg.BorderPolicy.ZERO)),
+        ("uniform_alpha", cfg.BilateralParams(uniform_alpha=True)),
+    ]:
+        record("bilateral_bf16", case, stencils.bilateral(target, p, bf16),
+               stencils.bilateral_plain(target, None, p, True, "bfloat16")[0], TOL_BILATERAL)
+    for case, p in [("guided partials", lp),
+                    ("uniform_alpha", cfg.LayersParams(uniform_alpha=True)),
+                    ("zero border, blue_bug", cfg.LayersParams(border=cfg.BorderPolicy.ZERO,
+                                                               blue_bug=True))]:
+        record("bilateral_guided_bf16", case,
+               stencils.cross_bilateral_layers(target, layer, p, bf16),
+               stencils.bilateral_plain(target, layer, p, False, "bfloat16"), TOL_BILATERAL)
     np_ = cfg.NlmParams()
     record("nlm", "F=1", stencils.nlm_accumulate(target, target, np_),
            stencils.nlm_plain(target, target[None], np_), TOL_NLM)
@@ -415,7 +443,6 @@ def phase_kernels(torch, stencils, cfg, frames_np, layer_np):
            stencils.normalize_plain(wc6, nw0, cfg.NormalizeParams()), ulps=1)
     # The turbo NLM: bf16 taps, stride-2 search (49 candidates; 37 with the
     # disk). Kernel and plain version round each tap operation alike.
-    bf16 = cfg.TilingConfig(compute_dtype="bfloat16")
     turbo_nlm = cfg.NlmParams(search_stride=2)
     for case, p in [("stride 2", turbo_nlm),
                     ("stride 2, disk", cfg.NlmParams(search_stride=2, search_disk=True))]:
@@ -442,6 +469,11 @@ def phase_kernels(torch, stencils, cfg, frames_np, layer_np):
                       lambda: stencils.bilateral_plain(target, None, bp, True)),
         "bilateral_guided": (lambda: stencils.cross_bilateral_layers(target, layer, lp),
                              lambda: stencils.bilateral_plain(target, layer, lp, False)),
+        "bilateral_bf16": (lambda: stencils.bilateral(target, bp, bf16),
+                           lambda: stencils.bilateral_plain(target, None, bp, True, "bfloat16")),
+        "bilateral_guided_bf16": (
+            lambda: stencils.cross_bilateral_layers(target, layer, lp, bf16),
+            lambda: stencils.bilateral_plain(target, layer, lp, False, "bfloat16")),
         "nlm": (lambda: stencils.nlm_accumulate(target, target, np_),
                 lambda: stencils.nlm_plain(target, target[None], np_)),
         "nlm_bf16": (lambda: stencils.nlm_accumulate(target, target, turbo_nlm, bf16),
@@ -459,6 +491,8 @@ def phase_kernels(torch, stencils, cfg, frames_np, layer_np):
     shapes = {
         "bilateral": dict(pixels=pixels, disk=disk_taps(stencils, bp)),
         "bilateral_guided": dict(pixels=pixels, disk=disk_taps(stencils, lp)),
+        "bilateral_bf16": dict(pixels=pixels, disk=disk_taps(stencils, bp)),
+        "bilateral_guided_bf16": dict(pixels=pixels, disk=disk_taps(stencils, lp)),
         # timed at F = 1 with the target as its own neighbour frame
         "nlm": dict(pixels=pixels, cands=len(stencils.nlm_candidates(np_)), aliased=True),
         "nlm_bf16": dict(pixels=pixels, cands=len(stencils.nlm_candidates(turbo_nlm)),
@@ -479,17 +513,19 @@ def phase_kernels(torch, stencils, cfg, frames_np, layer_np):
                                                                   bf16), 5)
     print(f"  nlm_bf16 F=6 (batched temporal) 1080p median {f6b:.4f} ms")
     # The kernels redesigned for this card: launch shape as compiled, and the
-    # time beside the one before the redesign.
-    for kernel, p in (("nlm", np_), ("nlm_bf16", turbo_nlm), ("nlm_hrw", hrw),
-                      ("nlm_hrw_bf16", hrw)):
+    # time beside the one before the redesign (the bilateral's bf16 forms
+    # have none: they are new).
+    for kernel, p in (("bilateral", bp), ("bilateral_guided", lp), ("bilateral_bf16", bp),
+                      ("bilateral_guided_bf16", lp), ("nlm", np_), ("nlm_bf16", turbo_nlm),
+                      ("nlm_hrw", hrw), ("nlm_hrw_bf16", hrw)):
         print_redesigned(kernel, stencils.kernel_info(kernel, dev, p), results[kernel]["ms"])
     return results
 
 
 def print_redesigned(kernel: str, info: dict, ms: float) -> None:
     before = BEFORE_REDESIGN_MS.get(kernel)
-    print(f"  {kernel:17s} {json.dumps(info)}: median {ms:.4f} ms, before the redesign "
-          f"{'not measured' if before is None else f'{before} ms'}")
+    print(f"  {kernel:21s} {json.dumps(info)}: median {ms:.4f} ms, before the redesign "
+          f"{'none (a new form)' if before is None else f'{before} ms'}")
 
 
 def run_cli(cli, argv: list[str]) -> tuple[int, str, str]:
@@ -631,6 +667,36 @@ def phase_battery(cfg, stencils, cli, imageio, Session, anim, root):
           "outputs equal to --device cpu's")
     for k, n in s0_counts.items():
         counts[k] += n
+
+    # The tiled bilateral and layers configs with bf16 taps, as a library
+    # caller runs them (gpu-denoise has no flag for it, as tpu-denoise has
+    # none): each within the bf16 headroom of its exact output.
+    out_bf16 = os.path.join(root, "out_bf16")
+    os.makedirs(out_bf16)
+    exact = Session(target, device="cuda", output_dir=out_bf16, warmup=False)
+    tiled = Session(target, device="cuda", output_dir=out_bf16,
+                    tiling=cfg.TilingConfig(compute_dtype="bfloat16"))
+    for key, run_cfg, kernel in (("bilateral", cfg.GPU_BATTERY[0], "bilateral_bf16"),
+                                 ("layers", cfg.GPU_BATTERY[1], "bilateral_guided_bf16")):
+        want = exact.run(run_cfg).image
+        stencils.reset_launches()
+        res = tiled.run(run_cfg)
+        got = res.image
+        bf16_counts = {k: n for k, n in stencils.launches.items() if n}
+        check(bf16_counts.get(kernel, 0) > 0 and not bf16_counts.get(kernel[:-5]),
+              f"Session(tiling=bf16) {key}: launches {bf16_counts}")
+        check(got.shape == (H, W, 4) and bool(np.isfinite(got).all()),
+              f"Session(tiling=bf16) {key}: output shape or non-finite values")
+        err = float(np.abs(got - want).max())
+        check(np.allclose(got, want, **TOL_BF16_CONFIG),
+              f"Session(tiling=bf16) {key}: max abs {err:.3g} from exact, beyond {TOL_BF16_CONFIG}")
+        check(not np.array_equal(got, want), f"Session(tiling=bf16) {key}: equals exact")
+        print(f"  Session(tiling=bf16) {key}: launches {bf16_counts}, exec "
+              f"{res.report.exec_ns} ns, PSNR vs clean {psnr(got, clean):.2f} dB, vs exact "
+              f"{psnr(got, want):.2f} dB (RGB {psnr(got[..., :3], want[..., :3]):.2f}), "
+              f"max abs {err:.3g}")
+        for k, n in bf16_counts.items():
+            counts[k] += n
     return counts, out_main
 
 
@@ -1069,6 +1135,8 @@ def main() -> int:
     replaces = {
         "bilateral": (KERNEL_SOURCE, f"{JAX_STENCILS}:178"),
         "bilateral_guided": (KERNEL_SOURCE, f"{JAX_STENCILS}:178"),
+        "bilateral_bf16": (KERNEL_SOURCE, f"{JAX_STENCILS}:178"),
+        "bilateral_guided_bf16": (KERNEL_SOURCE, f"{JAX_STENCILS}:178"),
         "nlm": (KERNEL_SOURCE, f"{JAX_STENCILS}:467"),
         "nlm_bf16": (KERNEL_SOURCE, f"{JAX_STENCILS}:467"),
         "nlm_hrw": (KERNEL_SOURCE, f"{JAX_STENCILS}:645"),

@@ -42,9 +42,9 @@ _BUILD_TIMEOUT_S = 600
 
 
 def _flags() -> tuple[str, ...]:
-    """NVCC_FLAGS and the kernels' blocks, which ops/stencils.py (the NLM
-    kernels) and ops/fast.py (the grid build and the fused guided kernel)
-    define."""
+    """NVCC_FLAGS and the kernels' blocks, which ops/stencils.py (the
+    bilateral and NLM kernels) and ops/fast.py (the grid build and the fused
+    guided kernel) define."""
     from . import fast, stencils
 
     return NVCC_FLAGS + stencils.nvcc_defines() + fast.nvcc_defines()
@@ -122,9 +122,11 @@ def library() -> ctypes.CDLL:
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     i32p = ctypes.POINTER(i32)
     lib.idf_bilateral.argtypes = [
-        ptr, ptr, ptr, ptr, i32, i32, ptr, i32, f32, f32, i32, i32, i32, i32, ptr,
+        ptr, ptr, ptr, ptr, i32, i32, ptr, i32, f32, f32, i32, i32, i32, i32, i32, ptr, ptr,
     ]
     lib.idf_bilateral.restype = i32
+    lib.idf_bilateral_info.argtypes = [i32, i32, i32, i32, i32, i32, i32, i32p]
+    lib.idf_bilateral_info.restype = i32
     lib.idf_nlm.argtypes = [
         ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, i32, f32, f32, f32, i32, i32, i32,
         ptr, ptr,

@@ -17,6 +17,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -98,6 +99,144 @@ __device__ __forceinline__ float4 col_tap(const float4* row, bool row_ok, int x,
   return __ldg(row + min(max(x, 0), w - 1));
 }
 
+// The exact bilateral's staged block, defined in ops/stencils.py and passed
+// to nvcc as macros by ops/_build.py: a warp owns kBilTileW = 32 * kBilPx
+// neighbouring pixels of one output row, each thread kBilPx of them side by
+// side, and a block of th warps (th <= kBilMaxTileH) owns th such rows.
+constexpr int kBilPx = IDF_BIL_PX;
+constexpr int kBilTileW = 32 * kBilPx;
+constexpr int kBilMaxTileH = IDF_BIL_MAX_TILE_H;
+static_assert(kBilPx % 2 == 1, "an odd stride of 16- or 8-byte pixels spreads a warp's loads "
+                                "over the shared-memory banks");
+
+// A pixel's RGB as the bilateral's bf16 forms stage it: red and green in one
+// bfloat162, blue and a zero in the other.
+struct alignas(8) BilBf16 {
+  __nv_bfloat162 rg;
+  __nv_bfloat162 b0;
+};
+
+__device__ __forceinline__ BilBf16 to_bil_bf16(float4 v) {
+  return {__floats2bfloat162_rn(v.x, v.y), __floats2bfloat162_rn(v.z, 0.f)};
+}
+
+// A value tap as the bf16 forms accumulate it: the bf16 RGB widened, the
+// float32 alpha beside it.
+__device__ __forceinline__ float4 widen(BilBf16 p, float alpha) {
+  return make_float4(__low2float(p.rg), __high2float(p.rg), __low2float(p.b0), alpha);
+}
+
+// The colour distance ||c - t||^2 of the bilateral, as _bilateral_kernel
+// computes it (stencils.py:253-261). Float32 in the operations ptxas emitted
+// for the one-thread-a-pixel loop before any staging existed: dr*dr +
+// round(dg*dg) in one fused multiply-add, the blue term added after its own
+// rounding; the intrinsics pin them, so every instance computes those bits.
+// The blue term is compiled out under blue_bug (a blue weight of 0 added
+// 0 * db^2, exactly 0).
+template <bool BLUE>
+__device__ __forceinline__ float bil_sq_diff(float4 c, float4 t) {
+  const float dr = __fsub_rn(c.x, t.x);
+  const float dg = __fsub_rn(c.y, t.y);
+  float e = __fmaf_rn(dr, dr, __fmul_rn(dg, dg));
+  if constexpr (BLUE) {
+    const float db = __fsub_rn(c.z, t.z);
+    e = __fadd_rn(e, __fmul_rn(db, db));
+  }
+  return e;
+}
+
+// With bf16 taps (cdtype bfloat16): every operation rounds to bf16, in the
+// order (dr*dr + dg*dg) + db*db, and the sum is widened to float32. Red and
+// green go through one bfloat162 operation each, and the sum is lane 0 of
+// the squares added to themselves swapped (bf16 addition commutes); each
+// lane rounds as the scalar operation does.
+template <bool BLUE>
+__device__ __forceinline__ float bil_sq_diff(BilBf16 c, BilBf16 t) {
+  const __nv_bfloat162 d = __hsub2_rn(c.rg, t.rg);
+  const __nv_bfloat162 sq = __hmul2_rn(d, d);
+  __nv_bfloat162 e = __hadd2_rn(sq, __lowhigh2highlow(sq));
+  if constexpr (BLUE) {
+    const __nv_bfloat162 db = __hsub2_rn(c.b0, t.b0);
+    e = __hadd2_rn(e, __hmul2_rn(db, db));
+  }
+  return __low2float(e);
+}
+
+// Two pixels' centres, channel by channel, as the lanes of a bfloat162.
+struct BilPair {
+  __nv_bfloat162 r, g, b;
+};
+
+__device__ __forceinline__ BilPair bil_pair(BilBf16 a, BilBf16 b) {
+  return {__lows2bfloat162(a.rg, b.rg), __highs2bfloat162(a.rg, b.rg),
+          __lows2bfloat162(a.b0, b.b0)};
+}
+
+// The bf16 colour distance of two pixels at once: lane 0 is centre c.x
+// against tap ta, lane 1 centre c.y against tap tb; the same roundings as
+// the scalar form, lane by lane.
+template <bool BLUE>
+__device__ __forceinline__ float2 bil_sq_diff2(const BilPair& c, BilBf16 ta, BilBf16 tb) {
+  const BilPair t = bil_pair(ta, tb);
+  const __nv_bfloat162 dr = __hsub2_rn(c.r, t.r);
+  const __nv_bfloat162 dg = __hsub2_rn(c.g, t.g);
+  __nv_bfloat162 e = __hadd2_rn(__hmul2_rn(dr, dr), __hmul2_rn(dg, dg));
+  if constexpr (BLUE) {
+    const __nv_bfloat162 db = __hsub2_rn(c.b, t.b);
+    e = __hadd2_rn(e, __hmul2_rn(db, db));
+  }
+  return __bfloat1622float2(e);
+}
+
+// exp2f, with its range test taken by the caller where it is known to pass.
+// For x >= -126 exp2f is MUFU.EX2 of x itself (its SASS: FSETP.GEU x,
+// -126, and the halving before and squaring after MUFU.EX2 only below it),
+// which is what ex2.approx.ftz.f32 compiles to: the same bits.
+template <bool IN_RANGE>
+__device__ __forceinline__ float bil_exp2(float x) {
+  if constexpr (IN_RANGE) {
+    float r;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+    return r;
+  } else {
+    return exp2f(x);
+  }
+}
+
+// The rest of a tap, shared by both kernels and all forms: the weight
+//   exp2(sp - ssd * col_coef),  sp = sp_coef * (dy^2 + dx^2),
+// with log2(e) folded into both coefficients, then the weighted value into
+// the accumulators (alpha only where it is accumulated). IN_RANGE: the
+// exponent is known to be -126 or more (bil_exp2).
+template <bool ALPHA, bool IN_RANGE = false>
+__device__ __forceinline__ void bil_accumulate(float4& acc, float& nw, float ssd, float sp,
+                                               float col_coef, float4 v) {
+  const float wgt = bil_exp2<IN_RANGE>(__fmaf_rn(-ssd, col_coef, sp));
+  acc.x = __fmaf_rn(v.x, wgt, acc.x);
+  acc.y = __fmaf_rn(v.y, wgt, acc.y);
+  acc.z = __fmaf_rn(v.z, wgt, acc.z);
+  if constexpr (ALPHA) acc.w = __fmaf_rn(v.w, wgt, acc.w);
+  nw = __fadd_rn(nw, wgt);
+}
+
+// The epilogue of both kernels: alpha from the norm where it is uniform
+// (sum(w * a) == a * sum(w) when alpha is one constant everywhere), the
+// fused normalize (IEEE division, no fast math: x / x is exactly 1), the
+// stores.
+__device__ __forceinline__ void bil_store(float4 acc, float nw, const float4* __restrict__ img,
+                                          float4* __restrict__ out_wc, float* __restrict__ out_nw,
+                                          size_t idx, bool uniform_alpha, bool fuse_normalize) {
+  if (uniform_alpha) acc.w = __fmul_rn(img[idx].w, nw);
+  if (fuse_normalize) {
+    acc.x /= nw;
+    acc.y /= nw;
+    acc.z /= nw;
+    acc.w /= nw;
+  }
+  out_wc[idx] = acc;
+  if (out_nw != nullptr) out_nw[idx] = nw;
+}
+
 // Bilateral over the truncation disk.
 //
 // Replaces image_denoising_filter_tpu/ops/stencils.py:_bilateral_kernel
@@ -105,21 +244,279 @@ __device__ __forceinline__ float4 col_tap(const float4* row, bool row_ok, int x,
 //   exp2(sp_coef * (dy^2 + dx^2) - col_coef * ||c - t||^2)
 // with log2(e) folded into both coefficients; c and t come from the guide
 // when GUIDED, and the values from img. Alpha is accumulated with the
-// RGB-derived weight.
+// RGB-derived weight. With BF16 (TilingConfig.compute_dtype "bfloat16") the
+// colour distance is bil_sq_diff's bf16 form and the accumulated RGB is the
+// tap's RGB rounded to bf16; alpha, weights and sums stay float32.
 //
 // Bound on the H100: at the reference parameters the disk holds 499 taps, so
-// a 1080p frame costs ~1.0 G taps, each one exp2, ~15 FP32 operations and one
-// 16-byte load (two when guided) that hits L1. It is bound by instruction
-// issue, not by device memory: the image is read from DRAM about once.
-// Design: one thread per output pixel in 32x8 blocks, so a warp's tap load
-// is 32 consecutive float4 (512 B) and a block's taps reuse the same L1
-// lines; no shared-memory halo, so no radius can exceed the block's shared
-// memory.
-template <bool GUIDED, bool ZERO>
+// a 1080p frame costs ~1.0 G taps. The least a tap needs is ~12 FP32
+// operations and one exp2 (the spatial term and the loads shared); it is
+// bound by instruction issue, not by device memory, which delivers the image
+// about once. The staged kernel issues 13 instructions a tap (the distance
+// 7: three subtracts, two products, a fused multiply-add and an add; the
+// exponent 1; MUFU.EX2 1; the weighted colour 3, or 4 with alpha; the
+// weight 1) and per step of three taps a load of the column and one of the
+// spatial term, where the direct-load loop issues 25 (exp2f's range test,
+// an int to float conversion, address arithmetic and a 16-byte L1 load a
+// tap). Measured on an H100 80GB HBM3 at 700 W (tools/torch_kernel_ab.py):
+// 0.63 ms at 1080p under uniform alpha, 2.0x its 0.31 ms bound, ~19 issue
+// slots a tap at the 1.98 GHz SM clock; tools/bilateral_probe.py reads 0.05
+// ms of it as staging and stores, 0.04 ms as MUFU.EX2 and 0.32 ms as the
+// colour distance with the exponents it feeds.
+//
+// Design (bilateral_staged_kernel): a block of th warps owns th x kBilTileW
+// output pixels (th from ops/stencils.py:bilateral_tile, 16 where the tile
+// fits). It stages the tile plus the disk's halo in shared memory once, with
+// the border policy applied as it stages (the clamped pixel, or a zero one),
+// so no tap clamps or tests an index: the float32 forms copy whole 16-byte
+// pixels with cp.async, the bf16 forms round RGB to bf16 once as they stage
+// (8 bytes a pixel) and keep alpha as float32 only where it is accumulated.
+// A thread owns kBilPx neighbouring pixels of one row. For each tap row dy
+// it walks dx from -hw to hw: one step loads one new column of the row into
+// a ring of kBilPx registers and the spatial term from a table the block
+// computes once, and evaluates its pixels' taps, each pixel reading its
+// column from the ring. Per pixel the taps come in _circle_runs order (dy
+// ascending, then dx ascending) with the direct-load loop's operations, so
+// the two give the same bits. A warp's load reads columns kBilPx apart,
+// 16 (or 8) bytes each: an odd stride maps a quarter-warp (half-warp) to
+// distinct banks. With bf16 taps pixels 2j and 2j + 1 take their colour
+// distance as one bfloat162 chain, the last pixel with red and green
+// paired. exp2f's range test (x >= -126, three of a tap's issue slots) is
+// taken once a tap row: the block reduces its staged pixels' channel ranges
+// to the largest colour distance any of its taps can have (the taps' own
+// operations on the ranges; each is monotone), and a row whose farthest tap
+// passes with that distance walks with bil_exp2<true>, the others with
+// exp2f.
+struct BilTile {
+  int th, hy, hx;
+  // byte offsets: the value taps (GUIDED: the target's pixels; the weight
+  // source's are at 0), the float32 alpha plane (bf16 forms that accumulate
+  // alpha), the spatial terms ((2 hy + 1) x (2 hx + 1) floats) and th x 6
+  // floats for the block's channel ranges
+  int vals_at, alpha_at, sp_at, range_at;
+};
+// The ints of a tile as the launcher takes them: BilTile's, then the bytes.
+constexpr int kBilTileFields = 8;
+
+template <bool BF16>
+using BilPx = typename std::conditional<BF16, BilBf16, float4>::type;
+
+// One 16-byte pixel into shared memory, or 16 zero bytes (a copy of none).
+__device__ __forceinline__ void cp_async_pixel(float4* dst, const float4* src, bool copy) {
+  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(at), "l"(src),
+               "r"(copy ? 16 : 0));
+}
+
+template <bool GUIDED, bool BF16, bool UA, bool BLUE>
+__global__ void __launch_bounds__(32 * kBilMaxTileH)
+    bilateral_staged_kernel(const float4* __restrict__ img, const float4* __restrict__ guide,
+                            float4* __restrict__ out_wc, float* __restrict__ out_nw, int h,
+                            int w, const Runs runs, float sp_coef, float col_coef,
+                            int zero_border, int fuse_normalize, const BilTile tile) {
+  using Px = BilPx<BF16>;
+  constexpr int N = kBilPx;
+  extern __shared__ __align__(16) unsigned char bil_smem[];
+  Px* wpx = reinterpret_cast<Px*>(bil_smem);
+  Px* vpx = GUIDED ? reinterpret_cast<Px*>(bil_smem + tile.vals_at) : wpx;
+  float* apx = reinterpret_cast<float*>(bil_smem + tile.alpha_at);
+  const int sw = kBilTileW + 2 * tile.hx;
+  const int n_staged = (tile.th + 2 * tile.hy) * sw;
+  const int y0 = blockIdx.y * tile.th;
+  const int x0 = blockIdx.x * kBilTileW;
+
+  // The spatial terms of the disk's square, spw = 2 hx + 1 a row: entry
+  // (dy + hy) * spw + dx + hx is sp_coef * dy^2 + sp_coef * dx^2 as the
+  // direct-load loop computes it (one multiply a row, one fused multiply-add
+  // a tap).
+  float* sp_tab = reinterpret_cast<float*>(bil_smem + tile.sp_at);
+  const int spw = 2 * tile.hx + 1;
+  for (int i = threadIdx.x; i < (2 * tile.hy + 1) * spw; i += blockDim.x) {
+    const int dy = i / spw - tile.hy;
+    const int dx = i % spw - tile.hx;
+    sp_tab[i] = __fmaf_rn(static_cast<float>(dx * dx), sp_coef,
+                          __fmul_rn(sp_coef, static_cast<float>(dy * dy)));
+  }
+  // Staged pixel i is image pixel (y0 - hy + i / sw, x0 - hx + i % sw).
+  const float4* wsrc = GUIDED ? guide : img;
+  for (int i = threadIdx.x; i < n_staged; i += blockDim.x) {
+    const int r = i / sw;
+    const int yy = y0 - tile.hy + r;
+    const int xx = x0 - tile.hx + i - r * sw;
+    const bool inside = !zero_border || (yy >= 0 && yy < h && xx >= 0 && xx < w);
+    const size_t at = static_cast<size_t>(min(max(yy, 0), h - 1)) * w + min(max(xx, 0), w - 1);
+    if constexpr (BF16) {
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 wv = inside ? __ldg(wsrc + at) : zero;
+      wpx[i] = to_bil_bf16(wv);
+      float4 vv = wv;
+      if constexpr (GUIDED) {
+        vv = inside ? __ldg(img + at) : zero;
+        vpx[i] = to_bil_bf16(vv);
+      }
+      if constexpr (!UA) apx[i] = vv.w;
+    } else {
+      cp_async_pixel(wpx + i, wsrc + at, inside);
+      if constexpr (GUIDED) cp_async_pixel(vpx + i, img + at, inside);
+    }
+  }
+  if constexpr (!BF16) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // This thread's pixels: row `row` of the tile, columns N * lane + i; the
+  // staged index of pixel 0's own pixel is `centre`.
+  const int lane = threadIdx.x & 31;
+  const int row = threadIdx.x >> 5;
+  const int centre = (row + tile.hy) * sw + N * lane + tile.hx;
+  Px c[N];
+  float4 acc[N];
+  float nw[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    c[i] = wpx[centre + i];
+    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    nw[i] = 0.f;
+  }
+  // With bf16 taps, pixels 2j and 2j + 1 as the lanes of one bfloat162.
+  BilPair pairs[N / 2];
+  if constexpr (BF16) {
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) pairs[j] = bil_pair(c[2 * j], c[2 * j + 1]);
+  }
+
+  // The largest colour distance of any tap of the block: that of its staged
+  // channel ranges (hi - lo), computed as a tap computes its own.
+  const float inf = __int_as_float(0x7f800000);
+  float4 lo = make_float4(inf, inf, inf, 0.f);
+  float4 hi = make_float4(-inf, -inf, -inf, 0.f);
+  for (int i = threadIdx.x; i < n_staged; i += blockDim.x) {
+    float4 v;
+    if constexpr (BF16) {
+      v = widen(wpx[i], 0.f);
+    } else {
+      v = wpx[i];
+    }
+    lo = make_float4(fminf(lo.x, v.x), fminf(lo.y, v.y), fminf(lo.z, v.z), 0.f);
+    hi = make_float4(fmaxf(hi.x, v.x), fmaxf(hi.y, v.y), fmaxf(hi.z, v.z), 0.f);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) {
+    lo.x = fminf(lo.x, __shfl_xor_sync(0xffffffffu, lo.x, o));
+    lo.y = fminf(lo.y, __shfl_xor_sync(0xffffffffu, lo.y, o));
+    lo.z = fminf(lo.z, __shfl_xor_sync(0xffffffffu, lo.z, o));
+    hi.x = fmaxf(hi.x, __shfl_xor_sync(0xffffffffu, hi.x, o));
+    hi.y = fmaxf(hi.y, __shfl_xor_sync(0xffffffffu, hi.y, o));
+    hi.z = fmaxf(hi.z, __shfl_xor_sync(0xffffffffu, hi.z, o));
+  }
+  float* ranges = reinterpret_cast<float*>(bil_smem + tile.range_at);
+  if (lane == 0) {
+    float* mine = ranges + 6 * row;
+    mine[0] = lo.x, mine[1] = lo.y, mine[2] = lo.z;
+    mine[3] = hi.x, mine[4] = hi.y, mine[5] = hi.z;
+  }
+  __syncthreads();
+  for (int wr = 0; wr < tile.th; ++wr) {
+    const float* theirs = ranges + 6 * wr;
+    lo = make_float4(fminf(lo.x, theirs[0]), fminf(lo.y, theirs[1]), fminf(lo.z, theirs[2]), 0.f);
+    hi = make_float4(fmaxf(hi.x, theirs[3]), fmaxf(hi.y, theirs[4]), fmaxf(hi.z, theirs[5]), 0.f);
+  }
+  float ssd_max;
+  if constexpr (BF16) {
+    ssd_max = bil_sq_diff<BLUE>(to_bil_bf16(hi), to_bil_bf16(lo));
+  } else {
+    ssd_max = bil_sq_diff<BLUE>(hi, lo);
+  }
+
+  for (int r = 0; r < runs.n; ++r) {
+    const int hw = runs.hw[r];
+    const int n_steps = 2 * hw + 1;
+    const int n_groups = n_steps / N;
+    const int rem = n_steps - n_groups * N;
+    const int dy_end = runs.dy0[r] + runs.rows[r];
+    for (int dy = runs.dy0[r]; dy < dy_end; ++dy) {
+      // Step s (dx = s - hw) gives pixel i the staged column first + s + i:
+      // ring slot (s + i) % N; it loads column first + s + N - 1, and the
+      // spatial term sp_row[s].
+      const int first = centre + dy * sw - hw;
+      const float* sp_row = sp_tab + (dy + tile.hy) * spw + tile.hx - hw;
+      auto walk = [&](auto in_range) {
+        constexpr bool kInRange = decltype(in_range)::value;
+        Px ring[N];
+        float4 vring[N];
+        auto load = [&](int slot, int at) {
+          ring[slot] = wpx[at];
+          if constexpr (BF16) {
+            vring[slot] = widen(GUIDED ? vpx[at] : ring[slot], UA ? 0.f : apx[at]);
+          } else if constexpr (GUIDED) {
+            vring[slot] = vpx[at];
+          } else {
+            vring[slot] = ring[slot];
+          }
+        };
+        auto step = [&](int k, int at, float sp) {
+          load((k + N - 1) % N, at);
+          float ssd[N];
+          if constexpr (BF16) {
+#pragma unroll
+            for (int j = 0; j < N / 2; ++j) {
+              const float2 e = bil_sq_diff2<BLUE>(pairs[j], ring[(k + 2 * j) % N],
+                                                  ring[(k + 2 * j + 1) % N]);
+              ssd[2 * j] = e.x;
+              ssd[2 * j + 1] = e.y;
+            }
+            ssd[N - 1] = bil_sq_diff<BLUE>(c[N - 1], ring[(k + N - 1) % N]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < N; ++i) ssd[i] = bil_sq_diff<BLUE>(c[i], ring[(k + i) % N]);
+          }
+#pragma unroll
+          for (int i = 0; i < N; ++i)
+            bil_accumulate<!UA, kInRange>(acc[i], nw[i], ssd[i], sp, col_coef,
+                                          vring[(k + i) % N]);
+        };
+#pragma unroll
+        for (int j = 0; j < N - 1; ++j) load(j, first + j);
+        int at = first + N - 1;
+        const float* sp = sp_row;
+        for (int g = 0; g < n_groups; ++g) {
+#pragma unroll
+          for (int k = 0; k < N; ++k) step(k, at + k, sp[k]);
+          at += N;
+          sp += N;
+        }
+#pragma unroll
+        for (int k = 0; k < N - 1; ++k)
+          if (k < rem) step(k, at + k, sp[k]);
+      };
+      // The row's farthest taps (dx = +-hw) have its least spatial term; with
+      // the block's largest distance their exponent bounds every tap's.
+      if (__fmaf_rn(-ssd_max, col_coef, sp_row[0]) >= -126.f) {
+        walk(std::true_type{});
+      } else {
+        walk(std::false_type{});
+      }
+    }
+  }
+  const int y = y0 + row;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int x = x0 + N * lane + i;
+    if (y < h && x < w)
+      bil_store(acc[i], nw[i], img, out_wc, out_nw, static_cast<size_t>(y) * w + x, UA,
+                fuse_normalize);
+  }
+}
+
+// The direct-load instance: one thread a pixel, every tap loaded from device
+// memory through L1 with the border applied per tap. No shared memory, so
+// it takes every radius of the runs table; bilateral_tile picks it where no
+// staged tile of the radius fits the card's shared memory. The same
+// operations as the staged kernel, tap by tap.
+template <bool GUIDED, bool ZERO, bool BF16>
 __global__ void __launch_bounds__(kBlockX* kBlockY)
     bilateral_kernel(const float4* __restrict__ img, const float4* __restrict__ guide,
                      float4* __restrict__ out_wc, float* __restrict__ out_nw, int h,
-                     int w, const Runs runs, float sp_coef, float col_coef, float blue_w,
+                     int w, const Runs runs, float sp_coef, float col_coef, int blue_bug,
                      int uniform_alpha, int fuse_normalize) {
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
@@ -136,36 +533,24 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
       bool ok;
       const float4* grow = row_ptr<ZERO>(wsrc, y + dy, h, w, ok);
       const float4* vrow = GUIDED ? row_ptr<ZERO>(img, y + dy, h, w, ok) : grow;
-      const float row_term = sp_coef * static_cast<float>(dy * dy);
+      const float row_term = __fmul_rn(sp_coef, static_cast<float>(dy * dy));
       for (int dx = -hw; dx <= hw; ++dx) {
         const float4 g = col_tap<ZERO>(grow, ok, x + dx, w);
-        const float dr = c.x - g.x;
-        const float dg = c.y - g.y;
-        const float db = c.z - g.z;
-        // blue_w is 0 under blue_bug: the blue term then adds exactly 0.
-        const float ssd = dr * dr + dg * dg + blue_w * (db * db);
-        const float wgt =
-            exp2f(row_term + sp_coef * static_cast<float>(dx * dx) - ssd * col_coef);
-        const float4 v = GUIDED ? col_tap<ZERO>(vrow, ok, x + dx, w) : g;
-        acc.x += v.x * wgt;
-        acc.y += v.y * wgt;
-        acc.z += v.z * wgt;
-        acc.w += v.w * wgt;
-        nw += wgt;
+        float4 v = GUIDED ? col_tap<ZERO>(vrow, ok, x + dx, w) : g;
+        float ssd;
+        if constexpr (BF16) {
+          ssd = blue_bug ? bil_sq_diff<false>(to_bil_bf16(c), to_bil_bf16(g))
+                         : bil_sq_diff<true>(to_bil_bf16(c), to_bil_bf16(g));
+          v = widen(to_bil_bf16(v), v.w);
+        } else {
+          ssd = blue_bug ? bil_sq_diff<false>(c, g) : bil_sq_diff<true>(c, g);
+        }
+        const float sp = __fmaf_rn(static_cast<float>(dx * dx), sp_coef, row_term);
+        bil_accumulate<true>(acc, nw, ssd, sp, col_coef, v);
       }
     }
   }
-  // sum(w * a) == a * sum(w) when alpha is one constant everywhere.
-  if (uniform_alpha) acc.w = img[idx].w * nw;
-  if (fuse_normalize) {
-    // IEEE division (no fast math): x / x is exactly 1.
-    acc.x /= nw;
-    acc.y /= nw;
-    acc.z /= nw;
-    acc.w /= nw;
-  }
-  out_wc[idx] = acc;
-  if (out_nw != nullptr) out_nw[idx] = nw;
+  bil_store(acc, nw, img, out_wc, out_nw, idx, uniform_alpha, fuse_normalize);
 }
 
 // The RGB squared difference e = |t - n|^2 of two pixels, in float32, or
@@ -756,6 +1141,39 @@ __global__ void __launch_bounds__(kNormThreads)
   out[i] = d == 0.f ? sentinel : make_float4(v.x / d, v.y / d, v.z / d, v.w / d);
 }
 
+using BilStagedKernel = decltype(&bilateral_staged_kernel<false, false, false, false>);
+
+template <bool GUIDED, bool BF16>
+BilStagedKernel bilateral_staged_kernel_for(int uniform_alpha, int blue_bug) {
+  return uniform_alpha ? (blue_bug ? bilateral_staged_kernel<GUIDED, BF16, true, false>
+                                   : bilateral_staged_kernel<GUIDED, BF16, true, true>)
+                       : (blue_bug ? bilateral_staged_kernel<GUIDED, BF16, false, false>
+                                   : bilateral_staged_kernel<GUIDED, BF16, false, true>);
+}
+
+BilStagedKernel bilateral_staged_kernel_for(bool guided, int bf16_taps, int uniform_alpha,
+                                            int blue_bug) {
+  return guided ? (bf16_taps ? bilateral_staged_kernel_for<true, true>(uniform_alpha, blue_bug)
+                             : bilateral_staged_kernel_for<true, false>(uniform_alpha, blue_bug))
+                : (bf16_taps ? bilateral_staged_kernel_for<false, true>(uniform_alpha, blue_bug)
+                             : bilateral_staged_kernel_for<false, false>(uniform_alpha, blue_bug));
+}
+
+using BilKernel = decltype(&bilateral_kernel<false, false, false>);
+
+template <bool GUIDED>
+BilKernel bilateral_kernel_for(int zero_border, int bf16_taps) {
+  return zero_border ? (bf16_taps ? bilateral_kernel<GUIDED, true, true>
+                                  : bilateral_kernel<GUIDED, true, false>)
+                     : (bf16_taps ? bilateral_kernel<GUIDED, false, true>
+                                  : bilateral_kernel<GUIDED, false, false>);
+}
+
+BilKernel bilateral_kernel_for(bool guided, int zero_border, int bf16_taps) {
+  return guided ? bilateral_kernel_for<true>(zero_border, bf16_taps)
+                : bilateral_kernel_for<false>(zero_border, bf16_taps);
+}
+
 using NlmKernel = decltype(&nlm_kernel<1, false, false>);
 
 template <int P>
@@ -820,41 +1238,108 @@ extern "C" {
 
 // runs: host array of n_runs (dy_start, n_rows, half_width) triples.
 // guide == nullptr selects the plain bilateral; out_nw may be nullptr.
+// bf16_taps selects the bf16 colour distance and bf16-rounded RGB values.
+// tile: host array of kBilTileFields ints from ops/stencils.py:bilateral_tile:
+// th output rows of kBilTileW columns (0: the direct-load instance, which
+// takes no shared memory), the staged halo of hy rows and hx columns, the
+// byte offsets of BilTile and the block's dynamic shared memory in bytes,
+// which must fit the device. The halo must cover every run, and the regions
+// (the weight source's pixels at 0, the value taps when guided, the alpha
+// plane with bf16 taps unless alpha is uniform, the spatial terms, the
+// channel ranges) must not overlap or overrun, else cudaErrorInvalidValue
+// and no launch.
 int idf_bilateral(const void* img, const void* guide, void* out_wc, void* out_nw, int h,
                   int w, const int* runs, int n_runs, float sp_coef, float col_coef,
                   int blue_bug, int zero_border, int uniform_alpha, int fuse_normalize,
-                  void* stream) {
-  if (n_runs < 0 || n_runs > kMaxRuns) return static_cast<int>(cudaErrorInvalidValue);
-  if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+                  int bf16_taps, const int* tile, void* stream) {
+  const cudaError_t invalid = cudaErrorInvalidValue;
+  if (n_runs < 0 || n_runs > kMaxRuns) return static_cast<int>(invalid);
   Runs table;
   table.n = n_runs;
+  int hy = 0, hx = 0;
   for (int i = 0; i < n_runs; ++i) {
-    table.dy0[i] = static_cast<short>(runs[3 * i]);
-    table.rows[i] = static_cast<short>(runs[3 * i + 1]);
-    table.hw[i] = static_cast<short>(runs[3 * i + 2]);
+    const int dy0 = runs[3 * i], rows = runs[3 * i + 1], half = runs[3 * i + 2];
+    if (rows < 0 || half < 0 || dy0 < -kMaxRuns || dy0 + rows > kMaxRuns + 1 || half > kMaxRuns)
+      return static_cast<int>(invalid);
+    table.dy0[i] = static_cast<short>(dy0);
+    table.rows[i] = static_cast<short>(rows);
+    table.hw[i] = static_cast<short>(half);
+    if (rows > 0) hy = std::max(hy, std::max(-dy0, dy0 + rows - 1));
+    hx = std::max(hx, half);
   }
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
+  const BilTile geom{tile[0], tile[1], tile[2], tile[3], tile[4], tile[5], tile[6]};
+  const int shared_bytes = tile[kBilTileFields - 1];
+  const bool guided = guide != nullptr;
+  const bool alpha_plane = bf16_taps && !uniform_alpha;
+  if (geom.th < 0 || geom.th > kBilMaxTileH) return static_cast<int>(invalid);
+  cudaError_t err = cudaSuccess;
+  if (geom.th > 0) {
+    if (geom.hy < hy || geom.hx < hx || geom.hy > kMaxRuns || geom.hx > kMaxRuns)
+      return static_cast<int>(invalid);
+    // The regions in order, each starting where the one before it may end.
+    const int px = bf16_taps ? 8 : 16;
+    const int n = (geom.th + 2 * geom.hy) * (kBilTileW + 2 * geom.hx);
+    int end = px * n;
+    if (guided) {
+      if (geom.vals_at < end || geom.vals_at % px != 0) return static_cast<int>(invalid);
+      end = geom.vals_at + px * n;
+    }
+    if (alpha_plane) {
+      if (geom.alpha_at < end || geom.alpha_at % 4 != 0) return static_cast<int>(invalid);
+      end = geom.alpha_at + 4 * n;
+    }
+    if (geom.sp_at < end || geom.sp_at % 4 != 0) return static_cast<int>(invalid);
+    end = geom.sp_at + 4 * (2 * geom.hy + 1) * (2 * geom.hx + 1);
+    if (geom.range_at < end || geom.range_at % 4 != 0) return static_cast<int>(invalid);
+    end = geom.range_at + 24 * geom.th;
+    if (shared_bytes < end) return static_cast<int>(invalid);
+    int max_bytes = 0;
+    err = idf::max_shared_bytes(&max_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (shared_bytes > max_bytes) return static_cast<int>(invalid);
+  } else if (shared_bytes != 0) {
+    return static_cast<int>(invalid);
+  }
+  if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float4* in = static_cast<const float4*>(img);
   const float4* gd = static_cast<const float4*>(guide);
   float4* o = static_cast<float4*>(out_wc);
   float* onw = static_cast<float*>(out_nw);
-  const float blue_w = blue_bug ? 0.f : 1.f;
-  if (gd != nullptr && zero_border) {
-    bilateral_kernel<true, true><<<grid, block, 0, s>>>(
-        in, gd, o, onw, h, w, table, sp_coef, col_coef, blue_w, uniform_alpha, fuse_normalize);
-  } else if (gd != nullptr) {
-    bilateral_kernel<true, false><<<grid, block, 0, s>>>(
-        in, gd, o, onw, h, w, table, sp_coef, col_coef, blue_w, uniform_alpha, fuse_normalize);
-  } else if (zero_border) {
-    bilateral_kernel<false, true><<<grid, block, 0, s>>>(
-        in, gd, o, onw, h, w, table, sp_coef, col_coef, blue_w, uniform_alpha, fuse_normalize);
-  } else {
-    bilateral_kernel<false, false><<<grid, block, 0, s>>>(
-        in, gd, o, onw, h, w, table, sp_coef, col_coef, blue_w, uniform_alpha, fuse_normalize);
+  if (geom.th == 0) {
+    const dim3 block(kBlockX, kBlockY);
+    const dim3 grid((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
+    const BilKernel kernel = bilateral_kernel_for(guided, zero_border, bf16_taps);
+    kernel<<<grid, block, 0, s>>>(in, gd, o, onw, h, w, table, sp_coef, col_coef, blue_bug,
+                                  uniform_alpha, fuse_normalize);
+    return static_cast<int>(cudaGetLastError());
   }
+  const BilStagedKernel kernel = bilateral_staged_kernel_for(guided, bf16_taps, uniform_alpha,
+                                                             blue_bug);
+  if (shared_bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((w + kBilTileW - 1) / kBilTileW, (h + geom.th - 1) / geom.th);
+  kernel<<<grid, 32 * geom.th, shared_bytes, s>>>(in, gd, o, onw, h, w, table, sp_coef, col_coef,
+                                                  zero_border, fuse_normalize, geom);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bilateral kernel of a form as compiled, and its occupancy: the staged
+// kernel at th warps a block and shared_bytes, or with th == 0 the
+// direct-load instance (kernel_info's).
+int idf_bilateral_info(int guided, int bf16_taps, int uniform_alpha, int blue_bug,
+                       int zero_border, int th, int shared_bytes, int* info) {
+  if (th < 0 || th > kBilMaxTileH) return static_cast<int>(cudaErrorInvalidValue);
+  if (th == 0)
+    return static_cast<int>(idf::kernel_info(
+        reinterpret_cast<const void*>(bilateral_kernel_for(guided, zero_border, bf16_taps)),
+        kBlockX * kBlockY, 0, info));
+  return static_cast<int>(idf::kernel_info(
+      reinterpret_cast<const void*>(
+          bilateral_staged_kernel_for(guided, bf16_taps, uniform_alpha, blue_bug)),
+      32 * th, shared_bytes, info));
 }
 
 // cands: host array of n_cands (dy, dx) pairs; frames: (n_frames, h, w, 4);

@@ -1,6 +1,7 @@
-"""Hand-written CUDA kernels for the exact stencils: bilateral, layer-guided
-cross-bilateral, frame-batched NLM (with float32 or bf16 taps, and with the
-weights at full or at half row resolution) and the normalize epilogue.
+"""Hand-written CUDA kernels for the exact stencils: bilateral and
+layer-guided cross-bilateral (with float32 or bf16 taps), frame-batched NLM
+(with float32 or bf16 taps, and with the weights at full or at half row
+resolution) and the normalize epilogue.
 
 Counterpart of image_denoising_filter_tpu/ops/stencils.py. The kernels are in
 ops/csrc/stencils.cu and are built by ops/_build.py at first use. Beside each
@@ -9,9 +10,9 @@ kernel this module holds:
   * the static tables the kernel iterates, ported from the JAX module:
     `_circle_runs` (the bilateral truncation disk) and `_sdx_steps` (the NLM
     search candidates, with the stride and disk subsets);
-  * the NLM kernels' blocks (compiled into the kernels from here), tiles,
-    staged windows and shared-memory layouts (`nlm_tile`, `hrw_tile`), index
-    arithmetic in pure Python that the CPU tests check;
+  * the kernels' blocks (compiled into the kernels from here), tiles,
+    staged windows and shared-memory layouts (`bilateral_tile`, `nlm_tile`,
+    `hrw_tile`), index arithmetic in pure Python that the CPU tests check;
   * its plain PyTorch version, the same tap set and candidate table as
     whole-image tensor ops (`bilateral_plain`, `nlm_plain`,
     `normalize_plain`);
@@ -75,10 +76,17 @@ HRW_TILE_W = 32
 HRW_TILE_HS = (16, 8, 4, 2)
 HRW_E_PER_THREAD = 2
 HRW_LANES = 6
+# The exact bilateral kernel's staged block: a warp owns BIL_TILE_W
+# neighbouring pixels of one output row, each thread BIL_PX of them side by
+# side (odd: a warp's loads then fall on distinct shared-memory banks), and a
+# block of th warps owns th rows, th one of BIL_TILE_HS.
+BIL_PX = 3
+BIL_TILE_W = 32 * BIL_PX
+BIL_TILE_HS = (16, 8, 4, 2, 1)
 
 
 def nvcc_defines() -> tuple[str, ...]:
-    """The NLM blocks above as the macros stencils.cu is compiled with."""
+    """The blocks above as the macros stencils.cu is compiled with."""
     return (
         f"-DIDF_NLM_THREADS={NLM_THREADS}",
         f"-DIDF_NLM_TILE_W={NLM_TILE_W}",
@@ -90,15 +98,20 @@ def nvcc_defines() -> tuple[str, ...]:
         f"-DIDF_HRW_MAX_TILE_H={max(HRW_TILE_HS)}",
         f"-DIDF_HRW_E_PER_THREAD={HRW_E_PER_THREAD}",
         f"-DIDF_HRW_LANES={HRW_LANES}",
+        f"-DIDF_BIL_PX={BIL_PX}",
+        f"-DIDF_BIL_MAX_TILE_H={max(BIL_TILE_HS)}",
     )
 
 
-#: Kernel launches since the last reset_launches(), by kernel form: "nlm"
-#: with float32 taps, "nlm_bf16" with bf16 taps, "nlm_hrw" and
-#: "nlm_hrw_bf16" the same with the weights at half row resolution; the
-#: turbo grids' kernels (ops/fast.py) count here too.
+#: Kernel launches since the last reset_launches(), by kernel form:
+#: "bilateral" and "bilateral_guided" with float32 taps, "bilateral_bf16" and
+#: "bilateral_guided_bf16" with bf16 taps; "nlm" with float32 taps,
+#: "nlm_bf16" with bf16 taps, "nlm_hrw" and "nlm_hrw_bf16" the same with the
+#: weights at half row resolution; the turbo grids' kernels (ops/fast.py)
+#: count here too.
 launches = {
-    "bilateral": 0, "bilateral_guided": 0, "nlm": 0, "nlm_bf16": 0,
+    "bilateral": 0, "bilateral_guided": 0, "bilateral_bf16": 0, "bilateral_guided_bf16": 0,
+    "nlm": 0, "nlm_bf16": 0,
     "nlm_hrw": 0, "nlm_hrw_bf16": 0, "normalize": 0,
     "pool": 0, "build_grid": 0, "slice_grid": 0, "fused_grid": 0,
     "build_guided_grid": 0, "slice_guided_grid": 0, "fused_guided": 0,
@@ -174,6 +187,101 @@ def nlm_candidates(params: NlmParams) -> list[tuple[int, int]]:
         for sdy, row in zip(sdy_all, _sdx_steps(params))
         for sdx in row
     ]
+
+
+# ---------------------------------------------------------------------------
+# The bilateral kernel's tile
+# ---------------------------------------------------------------------------
+
+
+def disk_halo(runs: list[tuple[int, int, int]]) -> tuple[int, int]:
+    """(rows, columns) the disk of `runs` reaches from its centre: the
+    largest |dy| of a row and the largest half width."""
+    hy = max(max(-dy0, dy0 + n - 1) for dy0, n, _ in runs)
+    return hy, max(hw for _, _, hw in runs)
+
+
+@dataclasses.dataclass(frozen=True)
+class BilateralTile:
+    """One block's geometry in the bilateral kernel. The block owns output
+    rows [y0, y0 + th) and columns [x0, x0 + tw), one warp a row, and stages
+    the image's pixels (y0 - hy + i, x0 - hx + j), i < th + 2 hy, j < tw + 2
+    hx, with the border applied: the disk's halo around the tile. The
+    block's dynamic shared memory (bilateral_layout) holds the weight
+    source's staged pixels at byte 0 (the guide's when guided), from
+    vals_at the target's (guided), from alpha_at the float32 alpha plane
+    (bf16 taps, unless alpha is uniform), from sp_at the disk square's
+    spatial terms ((2 hy + 1) x (2 hx + 1) floats), from range_at th x 6
+    floats where the warps reduce the staged channel ranges; shared_bytes
+    in all. th == 0 is the direct-load instance, which stages nothing:
+    bilateral_tile takes it where no staged tile of the disk fits."""
+
+    th: int
+    tw: int
+    hy: int
+    hx: int
+    vals_at: int
+    alpha_at: int
+    sp_at: int
+    range_at: int
+    shared_bytes: int
+
+    @property
+    def staged(self) -> bool:
+        return self.th > 0
+
+    @property
+    def n_staged(self) -> int:
+        """Staged pixels of one image (0 for the direct-load instance)."""
+        return (self.th + 2 * self.hy) * (self.tw + 2 * self.hx) if self.staged else 0
+
+    def launch_args(self) -> np.ndarray:
+        """The ints idf_bilateral takes (stencils.cu: BilTile, then the bytes)."""
+        return np.asarray(
+            [self.th, self.hy, self.hx, self.vals_at, self.alpha_at, self.sp_at, self.range_at,
+             self.shared_bytes],
+            np.int32,
+        )
+
+
+def bilateral_layout(
+    th: int, hy: int, hx: int, guided: bool, bf16: bool, alpha: bool
+) -> tuple[int, int, int, int, int]:
+    """The bilateral kernel's shared memory, in this order: the weight
+    source's staged pixels, as float4 (16 bytes) or as bf16 RGB (8 bytes)
+    with bf16 taps; when guided the target's, likewise; with bf16 taps and
+    `alpha` (alpha accumulated, not uniform) the target's alpha as float32
+    (4 bytes); the disk square's (2 hy + 1) x (2 hx + 1) spatial terms as
+    float32; th x 6 floats of channel ranges. Returns (vals_at, alpha_at,
+    sp_at, range_at, shared bytes); an offset is 0 where its region is
+    absent."""
+    n = (th + 2 * hy) * (BIL_TILE_W + 2 * hx)
+    px = 8 if bf16 else 16
+    at = px * n
+    vals_at = at if guided else 0
+    at += px * n if guided else 0
+    alpha_at = at if bf16 and alpha else 0
+    at += 4 * n if bf16 and alpha else 0
+    range_at = at + 4 * (2 * hy + 1) * (2 * hx + 1)
+    return vals_at, alpha_at, at, range_at, range_at + 24 * th
+
+
+@functools.lru_cache(maxsize=None)
+def bilateral_tile(
+    params: BilateralParams, guided: bool, bf16: bool, shared_limit: int
+) -> BilateralTile:
+    """The bilateral kernel's tile for these parameters on a card whose
+    blocks may hold `shared_limit` bytes of shared memory (max_shared_bytes):
+    the tallest of BIL_TILE_HS whose staged disk halo fits; where none fits,
+    the direct-load instance (th 0), which reads every tap from device
+    memory and takes any disk of the runs table."""
+    hy, hx = disk_halo(_circle_runs(params.effective_radius, params.sigma_spatial,
+                                    params.truncate_eps))
+    for th in BIL_TILE_HS:
+        *offsets, nbytes = bilateral_layout(th, hy, hx, guided, bf16, not params.uniform_alpha)
+        if nbytes <= shared_limit:
+            return BilateralTile(th, BIL_TILE_W, hy, hx, *offsets, nbytes)
+    return BilateralTile(0, BIL_TILE_W, hy, hx, 0, 0, 0, 0, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -379,20 +487,42 @@ def hrw_tile(params: NlmParams, bf16: bool, shared_limit: int) -> HrwTile:
 # ---------------------------------------------------------------------------
 
 
+def _bilateral_sq_diff_bf16(c: torch.Tensor, t: torch.Tensor, blue_bug: bool) -> torch.Tensor:
+    """The bilateral's colour distance with bf16 taps (stencils.py:252-265
+    with cdtype bfloat16): c and t are bf16 (..., 3); dr*dr + dg*dg, then +
+    db*db unless blue_bug, with a bf16 rounding after every operation,
+    widened to float32."""
+    d = c - t
+    e = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+    if not blue_bug:
+        e = e + d[..., 2] * d[..., 2]
+    return e.float()
+
+
 def bilateral_plain(
     img: torch.Tensor,
     guide: Optional[torch.Tensor],
     params: BilateralParams,
     fuse_normalize: bool,
+    compute_dtype: str = "float32",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The bilateral kernel as tensor ops over the `_circle_runs` disk.
     Weights come from `guide` when given, else from `img`; values from
-    `img`. Returns (out or wc (H,W,4), nw (H,W))."""
+    `img`. compute_dtype "bfloat16" takes the kernel's bf16 taps: the colour
+    distance of the bf16-rounded centre and tap RGB with every operation
+    rounded (`_bilateral_sq_diff_bf16`), and the tap's RGB rounded to bf16 as
+    the accumulated value (stencils.py:220-221, 266-274); alpha, weights and
+    sums stay float32. Returns (out or wc (H,W,4), nw (H,W))."""
     h, w, _ = img.shape
     r = params.effective_radius
+    bf16 = compute_dtype == "bfloat16"
     padded_v = _pad2d(img, r, params.border)
     padded_g = padded_v if guide is None else _pad2d(guide, r, params.border)
     center = (img if guide is None else guide)[..., :3]
+    if bf16:
+        center = center.to(torch.bfloat16)
+        padded_g = padded_g[..., :3].to(torch.bfloat16)
+        padded_v = torch.cat([padded_v[..., :3].to(torch.bfloat16).float(), padded_v[..., 3:]], -1)
     nrgb = 2 if params.blue_bug else 3
     sp_coef = -0.5 / params.sigma_spatial**2 * LOG2E
     col_coef = 0.5 / params.sigma_color**2 * LOG2E
@@ -402,11 +532,14 @@ def bilateral_plain(
         for dy in range(dy0, dy0 + n_rows):
             for dx in range(-hw, hw + 1):
                 tap_g = padded_g[dy + r : dy + r + h, dx + r : dx + r + w]
-                d = center[..., :nrgb] - tap_g[..., :nrgb]
+                if bf16:
+                    ssd = _bilateral_sq_diff_bf16(center, tap_g, params.blue_bug)
+                else:
+                    d = center[..., :nrgb] - tap_g[..., :nrgb]
+                    ssd = (d * d).sum(-1)
                 spatial = float(np.float32(sp_coef * (dy * dy + dx * dx)))
-                wgt = torch.exp2(spatial - (d * d).sum(-1) * col_coef)
-                tap_v = tap_g if guide is None else padded_v[dy + r : dy + r + h, dx + r : dx + r + w]
-                wc += tap_v * wgt[..., None]
+                wgt = torch.exp2(spatial - ssd * col_coef)
+                wc += padded_v[dy + r : dy + r + h, dx + r : dx + r + w] * wgt[..., None]
                 nw += wgt
     if params.uniform_alpha:
         wc[..., 3] = img[..., 3] * nw
@@ -447,9 +580,9 @@ normalize_plain = normalize_eager
 
 
 def _compute_dtype(tiling: Optional[TilingConfig], dtypes: tuple[str, ...]) -> str:
-    """The kernel's tap dtype: float32, or one of `dtypes` the kernel takes.
-    bf16 taps exist for NLM only (the turbo NLM); no path of gpu-denoise
-    runs the bilateral kernels with them."""
+    """The kernel's tap dtype: float32, or one of `dtypes` the kernel takes
+    (TilingConfig.compute_dtype). The bilateral and NLM kernels take bf16
+    taps; any other dtype raises NotImplementedError."""
     dtype = "float32" if tiling is None else tiling.compute_dtype
     if dtype not in dtypes:
         raise NotImplementedError(
@@ -503,16 +636,28 @@ def max_shared_bytes(device: torch.device) -> int:
     return out.value
 
 
-def kernel_info(kernel: str, device: torch.device, params: NlmParams) -> dict:
-    """How the NLM kernel form `kernel` ("nlm", "nlm_bf16", "nlm_hrw" or
-    "nlm_hrw_bf16") runs at `params` on `device`, as compiled: registers and
-    spill (local) bytes a thread, its tile (th x tw) and shared bytes, and
-    the blocks a multiprocessor holds at once."""
+def kernel_info(kernel: str, device: torch.device, params) -> dict:
+    """How the kernel form `kernel` runs at `params` on `device`, as
+    compiled: registers and spill (local) bytes a thread, its tile (th x tw,
+    or "direct" for the bilateral's direct-load instance) and shared bytes,
+    and the blocks a multiprocessor holds at once. The bilateral forms
+    ("bilateral", "bilateral_guided", "bilateral_bf16",
+    "bilateral_guided_bf16") take BilateralParams, the NLM forms ("nlm",
+    "nlm_bf16", "nlm_hrw", "nlm_hrw_bf16") NlmParams."""
     info = (ctypes.c_int * 3)()
     bf16 = kernel.endswith("_bf16")
     zero = int(params.border != BorderPolicy.CLAMP)
     lib = _build.library()
     with torch.cuda.device(device):
+        if kernel.startswith("bilateral"):
+            guided = kernel.startswith("bilateral_guided")
+            tile = bilateral_tile(params, guided, bf16, max_shared_bytes(device))
+            rc = lib.idf_bilateral_info(int(guided), int(bf16), int(params.uniform_alpha),
+                                        int(params.blue_bug), zero, tile.th, tile.shared_bytes,
+                                        info)
+            _raise_on_error(rc, f"{kernel} info")
+            shape = f"{tile.th}x{tile.tw}" if tile.staged else "direct"
+            return info_dict(info, shape, tile.shared_bytes)
         if kernel.startswith("nlm_hrw"):
             tile = hrw_tile(params, bf16, max_shared_bytes(device))
             rc = lib.idf_nlm_hrw_info(zero, int(bf16), tile.shared_bytes, info)
@@ -536,6 +681,7 @@ def _launch_bilateral(
     guide: Optional[torch.Tensor],
     params: BilateralParams,
     fuse_normalize: bool,
+    bf16: bool,
 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     h, w, _ = img.shape
     r = params.effective_radius
@@ -548,6 +694,8 @@ def _launch_bilateral(
     nw = None if fuse_normalize else torch.empty((h, w), dtype=torch.float32, device=img.device)
     lib = _build.library()
     with torch.cuda.device(img.device):
+        tile = bilateral_tile(params, guide is not None, bf16, max_shared_bytes(img.device))
+        geom = tile.launch_args()
         rc = lib.idf_bilateral(
             img.data_ptr(),
             None if guide is None else guide.data_ptr(),
@@ -563,10 +711,13 @@ def _launch_bilateral(
             int(params.border != BorderPolicy.CLAMP),
             int(params.uniform_alpha),
             int(fuse_normalize),
+            int(bf16),
+            geom.ctypes.data,
             _stream(img),
         )
-    _raise_on_error(rc, "bilateral")
-    launches["bilateral" if guide is None else "bilateral_guided"] += 1
+    kernel = ("bilateral" if guide is None else "bilateral_guided") + ("_bf16" if bf16 else "")
+    _raise_on_error(rc, kernel)
+    launches[kernel] += 1
     return out, nw
 
 
@@ -581,12 +732,14 @@ def bilateral(
     tiling: Optional[TilingConfig] = None,
 ) -> torch.Tensor:
     """Bilateral filter with the normalize fused (shaders/bialteral.comp).
-    img: (H, W, 4) float32; returns the filtered (H, W, 4) image."""
-    _compute_dtype(tiling, ("float32",))
+    img: (H, W, 4) float32; returns the filtered (H, W, 4) image.
+    tiling.compute_dtype "bfloat16" takes bf16 taps: the colour distance in
+    bf16 and the accumulated RGB rounded to bf16, everything else float32."""
+    dtype = _compute_dtype(tiling, ("float32", "bfloat16"))
     _check_image(img, "img")
     if not _on_cuda(img):
-        return bilateral_plain(img, None, params, True)[0]
-    return _launch_bilateral(img, None, params, True)[0]
+        return bilateral_plain(img, None, params, True, dtype)[0]
+    return _launch_bilateral(img, None, params, True, dtype == "bfloat16")[0]
 
 
 def cross_bilateral_layers(
@@ -597,14 +750,15 @@ def cross_bilateral_layers(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One layer's cross-bilateral partials (shaders/bialteral_layers.comp):
     weights from `layer`, colours from `target`. Returns (weightColor
-    (H,W,4), normWeight (H,W))."""
-    _compute_dtype(tiling, ("float32",))
+    (H,W,4), normWeight (H,W)). tiling.compute_dtype "bfloat16" takes bf16
+    taps, as `bilateral` does: the layer's and the target's RGB in bf16."""
+    dtype = _compute_dtype(tiling, ("float32", "bfloat16"))
     _check_image(target, "target")
     if layer.shape != target.shape:
         raise ValueError(f"layer {tuple(layer.shape)} != target {tuple(target.shape)}")
     if not _on_cuda(target, layer):
-        return bilateral_plain(target, layer, params, False)
-    return _launch_bilateral(target, layer, params, False)
+        return bilateral_plain(target, layer, params, False, dtype)
+    return _launch_bilateral(target, layer, params, False, dtype == "bfloat16")
 
 
 def nlm_accumulate(

@@ -1,9 +1,9 @@
 """Session: runs one denoising configuration end to end on one device.
 
 Counterpart of image_denoising_filter_tpu/runtime/session.py, the exact
-single-device paths and the turbo modes (`run_turbo` for the bilateral,
-linear and layers configs; `run` with a strided search and bf16 taps, the
-`nlm_tiling`, for the NLM configs): dataset
+single-device paths (with float32 or bf16 taps, the `tiling`) and the turbo
+modes (`run_turbo` for the bilateral, linear and layers configs; `run` with
+a strided search and bf16 taps, the `nlm_tiling`, for the NLM configs): dataset
 discovery -> image loading -> host-to-device upload -> kernels -> readback
 -> flag-encoded save, with the per-run transfer/exec report (the PRINT_TIME
 analog of `ComputeApplication::RunOnGPU`, src/main.cpp:1307-1730). The
@@ -88,6 +88,7 @@ class Session:
         bilateral_params: BilateralParams = BilateralParams(),
         layers_params: LayersParams = LayersParams(),
         nlm_params: NlmParams = NlmParams(),
+        tiling: Optional[TilingConfig] = None,
         output_dir: str = ".",
         clamp_output: bool = False,
         warmup: bool = True,
@@ -101,10 +102,13 @@ class Session:
         self.bilateral_params = bilateral_params
         self.layers_params = layers_params
         self.nlm_params = nlm_params
-        # The NLM kernels' tap dtype: --turbo pairs the stride-2 search with
-        # bf16 taps (TilingConfig(compute_dtype="bfloat16")), as the JAX CLI
-        # does.
-        self.nlm_tiling = nlm_tiling
+        # The tap dtype of the tiled bilateral and layers kernels:
+        # TilingConfig(compute_dtype="bfloat16") takes bf16 taps; the linear
+        # layout ignores it, as in the JAX package.
+        self.tiling = tiling
+        # The NLM kernels' tap dtype, `tiling` unless given: --turbo pairs the
+        # stride-2 search with bf16 taps, as the JAX CLI does.
+        self.nlm_tiling = nlm_tiling if nlm_tiling is not None else tiling
         self.output_dir = output_dir
         self.clamp_output = clamp_output
         # Run each model once before its timed region, so the exec report
@@ -187,7 +191,7 @@ class Session:
             if cfg.nlm:
                 model = NlmDenoiser(nlm_single_params, layout=layout, tiling=self.nlm_tiling)
             else:
-                model = BilateralDenoiser(bilateral_params, layout=layout)
+                model = BilateralDenoiser(bilateral_params, layout=layout, tiling=self.tiling)
             out_dev = self._execute(lambda: model(target_dev), report)
         return self._save(cfg, out_dev, report)
 
@@ -301,7 +305,7 @@ class Session:
     def _run_layers(self, target_dev, ds, report, layout, layers_params):
         """Per-layer accumulate then normalize (src/main.cpp:1608-1624,
         1649-1652). Layers are always LDR (src/main.cpp:1396)."""
-        model = LayerGuidedDenoiser(layers_params, layout=layout)
+        model = LayerGuidedDenoiser(layers_params, layout=layout, tiling=self.tiling)
         layers_host = [self._load(p) for p in ds.layers]
         if not layers_host:
             # No layers: the accumulators stay zero and normalize paints the

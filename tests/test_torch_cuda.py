@@ -845,3 +845,184 @@ def test_fused_guided_launcher_refuses_a_short_layout(cuda):
             geom.ctypes.data, stencils._stream(layer))
         assert rc == want
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The exact bilateral, staged (redesigned) and direct-load, float32 and bf16
+# taps
+# ---------------------------------------------------------------------------
+
+BF16 = TilingConfig(compute_dtype="bfloat16")
+BILATERAL_FORMS = {  # form: (guided, tiling)
+    "bilateral": (False, None), "bilateral_guided": (True, None),
+    "bilateral_bf16": (False, BF16), "bilateral_guided_bf16": (True, BF16),
+}
+
+
+def _bilateral_form(form, params, target, layer):
+    """(kernel outputs, plain outputs) of one bilateral form."""
+    guided, tiling = BILATERAL_FORMS[form]
+    dtype = "float32" if tiling is None else "bfloat16"
+    if guided:
+        got = stencils.cross_bilateral_layers(target, layer, params, tiling)
+        return got, stencils.bilateral_plain(target, layer, params, False, dtype)
+    got = stencils.bilateral(target, params, tiling)
+    return (got,), stencils.bilateral_plain(target, None, params, True, dtype)[:1]
+
+
+def _direct(form, params, target, layer):
+    """The same form through the direct-load instance (a tile of th 0)."""
+    guided, tiling = BILATERAL_FORMS[form]
+    h, w, _ = target.shape
+    runs = np.asarray(stencils._circle_runs(params.effective_radius, params.sigma_spatial,
+                                            params.truncate_eps), np.int32).reshape(-1)
+    out = torch.empty_like(target)
+    nw = torch.empty((h, w), device=target.device) if guided else None
+    rc = stencils._build.library().idf_bilateral(
+        target.data_ptr(), layer.data_ptr() if guided else None, out.data_ptr(),
+        nw.data_ptr() if guided else None, h, w, runs.ctypes.data, runs.size // 3,
+        -0.5 / params.sigma_spatial**2 * stencils.LOG2E, 0.5 / params.sigma_color**2 * stencils.LOG2E,
+        int(params.blue_bug), int(params.border != BorderPolicy.CLAMP), int(params.uniform_alpha),
+        int(not guided), int(tiling is not None), np.zeros(8, np.int32).ctypes.data,
+        stencils._stream(target))
+    assert rc == 0
+    return (out, nw) if guided else (out,)
+
+
+def _check_bilateral_form(form, params, shape, staged):
+    cuda = torch.device("cuda")
+    target, layer = _image(0, cuda, *shape), _image(1, cuda, *shape)
+    if not params.uniform_alpha:
+        target[..., 3] = torch.rand(shape, device=cuda)
+    guided, tiling = BILATERAL_FORMS[form]
+    tile = stencils.bilateral_tile(params, guided, tiling is not None,
+                                   stencils.max_shared_bytes(cuda))
+    assert tile.staged == staged
+    got, want = _bilateral_form(form, params, target, layer)
+    for g, w_ in zip(got, want):
+        _close(g, w_)
+    for g, d in zip(got, _direct(form, params, target, layer)):
+        torch.cuda.synchronize()
+        assert torch.equal(g, d)  # the staged kernel computes the direct loop's taps
+    assert stencils.launches[form] == 1
+
+
+@pytest.mark.parametrize("form", list(BILATERAL_FORMS))
+@pytest.mark.parametrize(
+    "params,shape",
+    [
+        (BilateralParams(radius=3), (29, 37)),
+        (BilateralParams(), (29, 37)),
+        (BilateralParams(border=BorderPolicy.ZERO, blue_bug=True), (40, 5)),
+        (BilateralParams(uniform_alpha=True), (7, 300)),
+        (BilateralParams(radius=5, border=BorderPolicy.ZERO), (1, 200)),
+        (BilateralParams(blue_bug=True, uniform_alpha=True), (97, 131)),
+        (BilateralParams(), (5, 7)),
+        (BilateralParams(border=BorderPolicy.ZERO, uniform_alpha=True), (3, 2)),
+    ],
+    ids=["r3", "reference", "zero_blue_bug_40x5", "ua_7x300", "r5_zero_1x200",
+         "blue_bug_ua_97x131", "below_halo_5x7", "below_halo_zero_ua_3x2"],
+)
+def test_bilateral_kernel_forms_match_plain(cuda, form, params, shape):
+    """Each form against its plain version (the exact tolerance: the bf16
+    forms round as the plain version does) and bit for bit against the
+    direct-load instance: both borders, blue_bug, uniform alpha, odd and
+    ragged sizes, one row, and images smaller than the disk's halo."""
+    _check_bilateral_form(form, params, shape, staged=True)
+
+
+@pytest.mark.parametrize("form", list(BILATERAL_FORMS))
+@pytest.mark.parametrize("radius", range(1, 21))
+def test_bilateral_kernel_forms_at_every_radius(cuda, form, radius):
+    """Radii 1-20 with the full window (truncate_eps 0, the float32 guided
+    form's tile shrinking to 8 rows from radius 20); the truncated disk at
+    the same radius runs in the reference cases."""
+    _check_bilateral_form(form, BilateralParams(radius=radius, truncate_eps=0.0), (19, 23),
+                          staged=True)
+
+
+@pytest.mark.parametrize("form", list(BILATERAL_FORMS))
+@pytest.mark.parametrize("radius", [30, 45, 63])
+def test_bilateral_direct_instance_takes_wide_radii(cuda, form, radius):
+    """Full windows too wide for any staged tile on the H100 take the
+    direct-load instance, by shape alone (tests/test_torch_bilateral_tiles.py:
+    float32 guided above 23, float32 above 37, bf16 with alpha above 44,
+    bf16 guided with alpha above 32); the others stage."""
+    guided, tiling = BILATERAL_FORMS[form]
+    widest = {"bilateral": 37, "bilateral_guided": 23, "bilateral_bf16": 44,
+              "bilateral_guided_bf16": 32}[form]
+    params = BilateralParams(radius=radius, truncate_eps=0.0)
+    _check_bilateral_form(form, params, (9, 11), staged=radius <= widest)
+
+
+@pytest.mark.parametrize("ua", [False, True], ids=["alpha", "uniform_alpha"])
+@pytest.mark.parametrize("form", list(BILATERAL_FORMS))
+def test_bilateral_kernel_info(cuda, form, ua):
+    """The reference tile as compiled: 16 x 96, no spills, two blocks a SM
+    (one for the float32 guided form, 150 KB of staged pixels); the direct
+    instance of a wide radius, no spills either."""
+    params = BilateralParams(uniform_alpha=ua)
+    info = stencils.kernel_info(form, cuda, params)
+    assert info["tile"] == "16x96" and info["spill_bytes"] == 0
+    assert info["blocks_per_sm"] >= (1 if form == "bilateral_guided" else 2)
+    assert 0 < info["registers"] <= 128
+    wide = stencils.kernel_info(form, cuda, BilateralParams(radius=63, truncate_eps=0.0,
+                                                            uniform_alpha=ua))
+    assert wide["tile"] == "direct" and wide["shared_bytes"] == 0
+    assert wide["spill_bytes"] == 0
+
+
+def test_bilateral_launcher_refuses_a_short_or_overlapping_layout(cuda):
+    """The C launcher checks the tile before it launches: a halo a row or a
+    column short of the disk, a target region overlapping the guide's, an
+    alpha plane overlapping the target's, spatial terms overlapping the
+    alpha plane, ranges overlapping the spatial terms, shared bytes short of the layout or beyond the card, more rows
+    than a block takes, and shared bytes for the direct instance are
+    refused with cudaErrorInvalidValue (1)."""
+    img, layer = _image(0, cuda), _image(1, cuda)
+    out, nw = torch.empty_like(img), torch.empty(img.shape[:2], device=cuda)
+    p = BilateralParams()
+    runs = np.asarray(stencils._circle_runs(p.effective_radius, p.sigma_spatial, p.truncate_eps),
+                      np.int32).reshape(-1)
+    tile = stencils.bilateral_tile(p, True, True, stencils.max_shared_bytes(cuda))
+    good = tile.launch_args()
+    bad = []
+    for field, delta in ((1, -1), (2, -1), (3, -8), (4, -4), (5, -4), (6, -4), (7, -4)):
+        geom = good.copy()
+        geom[field] += delta
+        bad.append(geom)
+    for geom in (np.asarray([17, *good[1:]], np.int32),
+                 np.asarray([0, 12, 12, 0, 0, 0, 0, 16], np.int32)):
+        bad.append(geom)
+    over = good.copy()
+    over[7] = stencils.max_shared_bytes(cuda) + 16
+    bad.append(over)
+    lib = stencils._build.library()
+    for geom, want in [(good, 0)] + [(g, 1) for g in bad]:
+        rc = lib.idf_bilateral(img.data_ptr(), layer.data_ptr(), out.data_ptr(), nw.data_ptr(),
+                               29, 37, runs.ctypes.data, runs.size // 3, -0.5, 1.0, 0, 0, 0, 0, 1,
+                               geom.ctypes.data, stencils._stream(img))
+        assert rc == want, geom
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("cfg", GPU_BATTERY[:3], ids=lambda c: c.output_name(False))
+def test_session_with_bf16_taps_on_card_matches_cpu(cuda, tmp_path, cfg):
+    """Session(tiling=bf16): the tiled bilateral and layers configs launch
+    the bf16 forms, whose outputs equal the CPU Session's plain versions at
+    the exact tolerance; the linear layout ignores the tiling."""
+    root = tmp_path / "anim"
+    (root / "RenderElements").mkdir(parents=True)
+    for i in range(3):
+        imageio.save(str(root / f"frame_{i:04d}.png"), _image(i, "cpu").numpy())
+    imageio.save(str(root / "RenderElements" / "albedo_0001.png"), _image(9, "cpu").numpy())
+    target = str(root / "frame_0001.png")
+    params = dict(bilateral_params=BP, layers_params=LP, tiling=BF16)
+    (tmp_path / "gpu").mkdir()
+    (tmp_path / "cpu").mkdir()
+    got = Session(target, device=cuda, output_dir=str(tmp_path / "gpu"), **params).run(cfg)
+    want = Session(target, device="cpu", output_dir=str(tmp_path / "cpu"), **params).run(cfg)
+    np.testing.assert_allclose(got.image, want.image, rtol=1e-4, atol=1e-5)
+    bf16_launches = stencils.launches["bilateral_bf16"] + stencils.launches["bilateral_guided_bf16"]
+    f32_launches = stencils.launches["bilateral"] + stencils.launches["bilateral_guided"]
+    assert f32_launches == 0 and (bf16_launches == 0) == cfg.linear

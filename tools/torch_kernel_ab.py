@@ -35,14 +35,22 @@ frames (seed 0) with the reference parameters:
              albedo layer, as chip_smoke.py's phase 6 runs it
   two_kernel 4K d=2 K=5, d=4 K=5
              the same partials through build_guided_grid + slice_guided_grid
+  bilateral, bilateral_guided (and each with " ua")
+             the exact bilateral with its normalize fused and the layers
+             config's guided partials (the second random frame as the
+             layer), reference parameters (radius 20, disk radius 12), with
+             alpha accumulated and with uniform alpha (the main path's: the
+             frames' alpha is 1)
+  bilateral_bf16, bilateral_guided_bf16 (and each with " ua")
+             the same with bf16 taps, on trees that have them
 
 Each process also hashes the output of every case but the divide (SHA-256
 of its bytes); the summary says for each whether the two sides' outputs are
 equal bit for bit.
 
 This checkout's processes also read the SM clock with nvidia-smi while the
-nlm kernel runs back to back, and turn the nlm time into cycles a tile and
-candidate on each SM. Prints one JSON line a run, the median of each side's
+nlm kernel runs back to back (with --only, the first case it times), and
+turn the nlm time into cycles a tile and candidate on each SM. Prints one JSON line a run, the median of each side's
 two runs and the nvidia-smi line; --out PATH also writes them to PATH as
 JSON.
 """
@@ -168,6 +176,16 @@ def worker(root: str, only: str = "") -> dict:
         **{f"two_kernel {key}": (lambda a=args: two_kernels(*a), 10)
            for key, args in fused_cases.items()},
     }
+    layer = frames[1]
+    for name, bp, lp in (("", cfg.BilateralParams(), cfg.LayersParams()),
+                         (" ua", cfg.BilateralParams(uniform_alpha=True),
+                          cfg.LayersParams(uniform_alpha=True))):
+        forms = [("", None)] + ([("_bf16", bf16)] if hasattr(stencils, "bilateral_tile") else [])
+        for suffix, tiling in forms:
+            cases[f"bilateral{suffix}{name}"] = (
+                lambda p=bp, t=tiling: stencils.bilateral(target, p, t), 10)
+            cases[f"bilateral_guided{suffix}{name}"] = (
+                lambda p=lp, t=tiling: stencils.cross_bilateral_layers(target, layer, p, t), 10)
     out = {"root": root, "digests": {}}
     for name, (fn, reps) in cases.items():
         if not name.startswith(only):
@@ -180,6 +198,10 @@ def worker(root: str, only: str = "") -> dict:
                 digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
             out["digests"][name] = digest.hexdigest()
         out[name] = smoke.median_ms(torch, fn, reps)
+    timed = [name for name in cases if name.startswith(only)]
+    if hasattr(stencils, "nlm_tile") and only and timed:
+        # the SM clock while the first case timed runs
+        out["sm_clock_mhz"] = sm_clock_mhz(torch, cases[timed[0]][0])
     if hasattr(stencils, "nlm_tile") and not only:
         mhz = sm_clock_mhz(torch, cases["nlm"][0])
         tile = stencils.nlm_tile(ref, False, stencils.max_shared_bytes(dev))
@@ -231,6 +253,9 @@ def main() -> int:
     bitwise = {}
     for name in digests["this"][0]:
         seen = {side: {d.get(name) for d in ds} for side, ds in digests.items()}
+        if seen["baseline"] == {None}:
+            print(f"{name:34s} outputs on this side only")
+            continue
         bitwise[name] = seen["baseline"] == seen["this"] and len(seen["this"]) == 1
         print(f"{name:34s} outputs {'equal' if bitwise[name] else 'DIFFER'} bit for bit")
     summary["bit_for_bit"] = bitwise
