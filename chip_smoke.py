@@ -29,11 +29,13 @@ Phases, one line or block each:
                 and the whole grid pipeline against their plain versions, and
                 the fused build+slice kernel against the build and slice
                 kernels bit for bit, at 3840x2160 for (D, K) = (2, 5), (4, 5),
-                (8, 6), and on the 1080p target at each setting of phase 7;
+                (8, 6), on that frame with its RGB scaled into [0, 4] (HDR) at
+                (2, 5), and on the 1080p target at each setting of phase 7;
                 the fused path, grid_pipeline(fused=True), driven at each 4K
                 (D, K) with its launch counts; median times at 4K (2, 5),
-                the build's registers, tile and shared bytes, and both
-                pipelines' Mpix/s at each D;
+                the build's and the fused kernel's registers, tile and shared
+                bytes, both pipelines' Mpix/s at each D, and the fused
+                kernel's time against the build's and the slice's at each D;
   6. guided kernels -- the layer-guided grid's build, slice and fused
                 build+slice against their plain versions (the fused kernel
                 against the two kernels, bit for bit) at 3840x2160 for the
@@ -113,8 +115,14 @@ BEFORE_REDESIGN_MS = {"bilateral": 1.1941, "bilateral_guided": 1.4404,
                       "nlm_hrw": 2.2086, "nlm_hrw_bf16": 3.3669,
                       "build_guided_grid 4K D=2 K=5": 1.7550,
                       "build_guided_grid 1080p D=1": 7.1050,
-                      "build_grid 4K D=2 K=5": 1.5590, "fused_guided 4K D=2 K=5": 0.8898}
+                      "build_grid 4K D=2 K=5": 1.5590, "fused_guided 4K D=2 K=5": 0.8898,
+                      "fused_grid 4K D=2 K=5": 0.6683}
 H4K, W4K = 2160, 3840
+# The HDR case of phase 5: the 4K frame's RGB clipped to [0, 1] and scaled
+# by HDR_SCALE. Its pipeline check is the LDR contract (2 bf16 ulps at values
+# up to 1, at most 1% of pixels beyond 1e-5) scaled by the range, as
+# tests/test_torch_fast.py reads HDR against the JAX package.
+HDR_SCALE = 4.0
 TURBO_CELLS = ((2, 5), (4, 5), (8, 6))  # (D, K): run_turbo's K at each D
 # The turbo battery: D and --sigma-spatial (D=8 is gated in the JAX package
 # only from sigma_s ~5-6 up, hence sigma_s 6 there). At D=1 the bilateral
@@ -739,12 +747,15 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080):
         ok = bool(((got - want).abs() <= tol["atol"] + tol["rtol"] * want.abs()).all())
         check(ok, f"{what}: max abs {float((got - want).abs().max()):.3g} beyond {tol}")
 
+    hdr4k = img4k.clone()
+    hdr4k[..., :3] = hdr4k[..., :3].clamp(0.0, 1.0) * HDR_SCALE
     cells = []  # (label, image, D, K, params)
     for d, levels in TURBO_CELLS:
         cells.append(("4K", img4k, d, levels, cfg.BilateralParams()))
-        if d == 2:  # the other border and uniform alpha, once
+        if d == 2:  # the other border and uniform alpha, once; HDR, once
             cells.append(("4K", img4k, d, levels, cfg.BilateralParams(
                 border=cfg.BorderPolicy.ZERO, uniform_alpha=True)))
+            cells.append(("4K HDR", hdr4k, d, levels, cfg.BilateralParams()))
     for d, sigma_s in TURBO_RUNS:
         if d > 1:
             cells.append(("1080p", img1080, d, turbo_levels(d),
@@ -792,12 +803,14 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080):
         got = fast.bilateral_fast(img, bp, levels, d)
         want = fast.grid_pipeline_plain(img, bp, levels, d)
         torch.cuda.synchronize()
+        scale = HDR_SCALE if label.endswith("HDR") else 1.0
         err = float((got - want).abs().max())
-        loose = float(((got - want).abs() > 1e-5).float().mean())
-        check(err <= 2 * 2.0**-8 and loose <= 0.01,
-              f"pipeline {case}: max abs {err:.3g}, {loose:.3%} of pixels beyond 1e-5")
+        loose = float(((got - want).abs() > 1e-5 * scale).float().mean())
+        check(err <= 2 * 2.0**-8 * scale and loose <= 0.01,
+              f"pipeline {case}: max abs {err:.3g}, {loose:.3%} of pixels beyond "
+              f"{1e-5 * scale:g}")
         print(f"  {'pipeline':10s} {case:36s} max abs {err:.3g} "
-              f"({loose:.4%} of pixels beyond 1e-5)")
+              f"({loose:.4%} of pixels beyond {1e-5 * scale:g})")
         if label == "4K" and d == 2 and not ua:
             timed = {
                 "pool": (lambda a=(img, d, border): fast.pool(*a),
@@ -825,6 +838,7 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080):
 
     mpix = H4K * W4K / 1e6
     bp = cfg.BilateralParams()
+    clamp = cfg.BorderPolicy.CLAMP
     for d, levels in TURBO_CELLS:
         ms = median_ms(torch, lambda: fast.bilateral_fast(img4k, bp, levels, d), 10)
         fused_ms = median_ms(torch, lambda: fast.grid_pipeline(img4k, bp, levels, d, fused=True),
@@ -833,10 +847,27 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080):
         print(f"  pipeline D={d} K={levels} 4K median {ms:.4f} ms = {mpix / ms * 1e3:.1f} Mpix/s, "
               f"fused {fused_ms:.4f} ms = {mpix / fused_ms * 1e3:.1f} Mpix/s "
               f"(plain {plain_ms:.4f} ms = {mpix / plain_ms * 1e3:.1f} Mpix/s)")
+        # The fused kernel against the two kernels it fuses, on one pooled
+        # image and grid range, and as compiled at this D.
+        small = fast.pool(img4k, d, clamp)
+        lmin, step = fast.grid_range(small, levels)
+        taps = fast._grid_taps(bp.sigma_spatial, d)
+        build_args = (small, lmin, step, levels, taps, clamp, 0.5 / bp.sigma_color**2)
+        fused_args = (small, img4k, lmin, step, 1.0 / step, *build_args[3:], d)
+        fused_ms = median_ms(torch, lambda a=fused_args: fast.fused_grid(*a), 10)
+        build_ms = median_ms(torch, lambda a=build_args: fast.build_grid(*a), 10)
+        grid = fast.build_grid(*build_args)
+        slice_ms = median_ms(torch, lambda: fast.slice_grid(img4k, grid, lmin, 1.0 / step, d), 10)
+        print(f"  fused_grid 4K D={d} K={levels} median {fused_ms:.4f} ms against build_grid + "
+              f"slice_grid {build_ms:.4f} + {slice_ms:.4f} = {build_ms + slice_ms:.4f} ms; "
+              f"{json.dumps(fast.fused_grid_info(img4k.device, d, taps.size, clamp))}")
     time_kernels(torch, results, timed, dict.fromkeys(timed, shape), library, "4K D=2 K=5")
     print_redesigned("build_grid 4K D=2 K=5",
-                     fast.build_grid_info(img4k.device, shape["taps"], cfg.BorderPolicy.CLAMP),
+                     fast.build_grid_info(img4k.device, shape["taps"], clamp),
                      results["build_grid"]["ms"])
+    print_redesigned("fused_grid 4K D=2 K=5",
+                     fast.fused_grid_info(img4k.device, 2, shape["taps"], clamp),
+                     results["fused_grid"]["ms"])
     return results, path_counts
 
 

@@ -44,7 +44,7 @@ _BUILD_TIMEOUT_S = 600
 def _flags() -> tuple[str, ...]:
     """NVCC_FLAGS and the kernels' blocks, which ops/stencils.py (the
     bilateral and NLM kernels) and ops/fast.py (the grid build and the fused
-    guided kernel) define."""
+    kernels) define."""
     from . import fast, stencils
 
     return NVCC_FLAGS + stencils.nvcc_defines() + fast.nvcc_defines()
@@ -167,11 +167,12 @@ def library() -> ctypes.CDLL:
     ]
     lib.idf_slice_guided_grid.restype = i32
     lib.idf_fused_grid.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, i32, f32, i32, i32, ptr,
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        i32, i32, i32, i32, i32, ptr, i32, f32, i32, i32, i32, ptr, ptr,
     ]
     lib.idf_fused_grid.restype = i32
-    lib.idf_fused_grid_fits.argtypes = [i32, i32, i32p]
-    lib.idf_fused_grid_fits.restype = i32
+    lib.idf_fused_grid_info.argtypes = [i32, i32, i32, i32p]
+    lib.idf_fused_grid_info.restype = i32
     lib.idf_fused_guided.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, ptr, i32, f32, i32, i32, ptr, ptr,

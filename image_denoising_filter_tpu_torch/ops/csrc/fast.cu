@@ -193,29 +193,6 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
 // The layer-guided grid
 // ---------------------------------------------------------------------------
 
-// The seven fields of one tap of the guided build, under the range weights
-// w_c = exp2(-(l_c - lv_c)^2 * coef) of the layer pixel l, with payload p
-// from the target: num r, g, b, a (alpha under green's weight), den r, g, b.
-// Each field is added to its sum as tap * field, in the plain version's
-// order (fields first, then the tap product).
-__device__ __forceinline__ void add_guided_tap(float (&s)[kGuided], float tap, float4 p,
-                                               float4 l, float lv0, float lv1, float lv2,
-                                               float coef) {
-  const float d0 = l.x - lv0;
-  const float d1 = l.y - lv1;
-  const float d2 = l.z - lv2;
-  const float w0 = exp2f(__fmul_rn(-__fmul_rn(d0, d0), coef));
-  const float w1 = exp2f(__fmul_rn(-__fmul_rn(d1, d1), coef));
-  const float w2 = exp2f(__fmul_rn(-__fmul_rn(d2, d2), coef));
-  s[0] = __fadd_rn(s[0], __fmul_rn(tap, __fmul_rn(w0, p.x)));
-  s[1] = __fadd_rn(s[1], __fmul_rn(tap, __fmul_rn(w1, p.y)));
-  s[2] = __fadd_rn(s[2], __fmul_rn(tap, __fmul_rn(w2, p.z)));
-  s[3] = __fadd_rn(s[3], __fmul_rn(tap, __fmul_rn(w1, p.w)));
-  s[4] = __fadd_rn(s[4], __fmul_rn(tap, w0));
-  s[5] = __fadd_rn(s[5], __fmul_rn(tap, w1));
-  s[6] = __fadd_rn(s[6], __fmul_rn(tap, w2));
-}
-
 __device__ __forceinline__ Bf16x8 pack_guided(const float (&s)[kGuided]) {
   Bf16x8 c;
   c.v[0] = __floats2bfloat162_rn(s[0], s[1]);
@@ -326,41 +303,28 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
   out_nw[3 * idx + 2] = acc[6];
 }
 
-// The fused bilateral kernel's slice tile: 16 x 128 pixels, 256 threads,
-// each thread one column and every second row (kFusedRows pixels).
-constexpr int kFusedTileH = 16;
-constexpr int kFusedTileW = 128;
-constexpr int kFusedThreads = 256;
-constexpr int kFusedRows = kFusedTileH * kFusedTileW / kFusedThreads;
-constexpr int kRowStep = kFusedThreads / kFusedTileW;
 // The blocks below are defined in ops/fast.py and passed to nvcc as macros
 // by ops/_build.py. Room kept beside a fused kernel's dynamic shared memory
 // for its static arrays.
 constexpr size_t kStaticSharedReserve = IDF_STATIC_SHARED_RESERVE;
-// The grid build: kBuildThreads threads (it stages with stage_window), and a
-// vertical-pass thread sums kBuildStrip cell rows.
+// The grid build: kBuildThreads threads, and a vertical-pass thread sums
+// kBuildStrip cell rows.
 constexpr int kBuildThreads = IDF_BUILD_THREADS;
 constexpr int kBuildStrip = IDF_BUILD_STRIP;
-static_assert(kBuildThreads == kFusedThreads, "the build stages its window with stage_window");
-// The fused guided kernel: kFusedThreads threads, at most kGuidedPixels
-// pixels a thread, a vertical-pass thread sums kGuidedStrip cell rows, the
-// cells of kGuidedLevels levels are built before a slice, and the kernel is
-// compiled for kGuidedMinBlocks blocks a multiprocessor.
+// The fused kernels: kFusedThreads threads, and a vertical-pass thread sums
+// kFusedStrip cell rows. The guided kernel: at most kGuidedPixels pixels a
+// thread, the cells of kGuidedLevels levels built before a slice, compiled
+// for kGuidedMinBlocks blocks a multiprocessor; the bilateral kernel:
+// kGridLevels levels, kGridMinBlocks blocks.
+constexpr int kFusedThreads = IDF_FUSED_THREADS;
+constexpr int kFusedStrip = IDF_FUSED_STRIP;
 constexpr int kGuidedPixels = IDF_FUSED_GUIDED_PIXELS;
-constexpr int kGuidedStrip = IDF_FUSED_GUIDED_STRIP;
 constexpr int kGuidedLevels = IDF_FUSED_GUIDED_LEVELS;
 constexpr int kGuidedMinBlocks = IDF_FUSED_GUIDED_MIN_BLOCKS;
-static_assert(IDF_FUSED_GUIDED_THREADS == kFusedThreads, "the fused guided block");
-
-// Shared memory of one fused bilateral block at downsample d with blur
-// radius r: the staged pooled image (float4) over the tile's cells plus the
-// blur halo, the vertical sums of the seven fields, and one level's cells.
-size_t fused_grid_bytes(int d, int r) {
-  const size_t rows = kFusedTileH / d + 2, cols = kFusedTileW / d + 2;
-  const size_t staged = (rows + 2 * r) * (cols + 2 * r) * sizeof(float4);
-  const size_t vsum = (kGuided * rows * (cols + 2 * r) * sizeof(float) + 15) / 16 * 16;
-  return staged + vsum + rows * cols * sizeof(Bf16x4);
-}
+constexpr int kGridLevels = IDF_FUSED_GRID_LEVELS;
+constexpr int kGridMinBlocks = IDF_FUSED_GRID_MIN_BLOCKS;
+// The staging loops and the range-weight planes stride by kFusedThreads.
+static_assert(kBuildThreads == kFusedThreads, "the build and the fused kernels stage alike");
 
 // The cell window of a slice tile of ph x pw pixels from (py0, px0): the
 // cells its pixels' bilinear taps read, clamped to the grid, as (first row,
@@ -380,12 +344,6 @@ __device__ __forceinline__ int4 tile_window(int py0, int px0, int ph, int pw, in
   return make_int4(ay0, ax0, ay1 - ay0 + 1, ax1 - ax0 + 1);
 }
 
-// The fused bilateral block's cell window.
-__device__ __forceinline__ int4 fused_window(int h, int w, int hs, int ws, float inv_d) {
-  return tile_window(blockIdx.y * kFusedTileH, blockIdx.x * kFusedTileW, kFusedTileH,
-                     kFusedTileW, h, w, hs, ws, inv_d);
-}
-
 // Stage a pooled image's window of srows x scols cells from (y0, x0) into
 // shared memory with the build kernels' border rule: edge cells (CLAMP) or
 // zero pixels (ZERO).
@@ -403,41 +361,13 @@ __device__ __forceinline__ void stage_window(const float4* __restrict__ small, f
   }
 }
 
-// Each thread's pixels' t per RGB channel, and the levels [floor(tmin_c),
-// ceil(tmax_c)] that the block's pixels touch over the three channels, as
-// (first, last). The thread's pixel i is (py0 + row_step i, px); one at or
-// below row py_end or outside the image gets t = -2, which no tent reaches.
-// Synchronises the block.
-template <int P>
-__device__ __forceinline__ int2 tile_levels(const float4* __restrict__ guide, int w, int px,
-                                            int py0, int row_step, int py_end,
-                                            const float* __restrict__ lmin,
-                                            const float* __restrict__ inv_step, int levels,
-                                            float (&t)[P][3]) {
+// The block's level range from each thread's (tmin_c, tmax_c): the levels
+// [floor(tmin_c), ceil(tmax_c)] that the block's pixels touch over the three
+// RGB channels, as (first, last). Synchronises the block.
+__device__ __forceinline__ int2 reduce_levels(float (&tmin)[3], float (&tmax)[3], float kmax) {
   __shared__ float red[kFusedThreads / 32][6];
   __shared__ int level_range[2];
   const int tid = threadIdx.x;
-  const float kmax = static_cast<float>(levels - 1);
-  const float lmin0 = lmin[0], lmin1 = lmin[1], lmin2 = lmin[2];
-  const float is0 = inv_step[0], is1 = inv_step[1], is2 = inv_step[2];
-  float tmin[3] = {kmax, kmax, kmax}, tmax[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    const int py = py0 + row_step * i;
-    if (px < w && py < py_end) {
-      const float4 g = guide[static_cast<size_t>(py) * w + px];
-      t[i][0] = clip_t(g.x, lmin0, is0, kmax);
-      t[i][1] = clip_t(g.y, lmin1, is1, kmax);
-      t[i][2] = clip_t(g.z, lmin2, is2, kmax);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        tmin[c] = fminf(tmin[c], t[i][c]);
-        tmax[c] = fmaxf(tmax[c], t[i][c]);
-      }
-    } else {
-      t[i][0] = t[i][1] = t[i][2] = -2.f;  // no tent reaches a level
-    }
-  }
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     for (int off = 16; off > 0; off >>= 1) {
@@ -468,37 +398,63 @@ __device__ __forceinline__ int2 tile_levels(const float4* __restrict__ guide, in
   return make_int2(level_range[0], level_range[1]);
 }
 
-// The fused bilateral block's pixels: one column, every kRowStep-th row.
-__device__ __forceinline__ int2 tile_levels(const float4* __restrict__ guide, int h, int w,
+// The block's level range (reduce_levels) and each thread's pixels' t per
+// RGB channel, t_c = clip((guide_c - lmin_c) * inv_step_c, 0, K - 1). The
+// thread's pixel i is (py0 + row_step i, px), i < P, unrolled; one at or
+// below row py_end or outside the image gets t = -2, which no tent reaches.
+template <int P>
+__device__ __forceinline__ int2 tile_levels(const float4* __restrict__ guide, int w, int px,
+                                            int py0, int row_step, int py_end,
                                             const float* __restrict__ lmin,
                                             const float* __restrict__ inv_step, int levels,
-                                            float (&t)[kFusedRows][3]) {
-  return tile_levels<kFusedRows>(guide, w, blockIdx.x * kFusedTileW + threadIdx.x % kFusedTileW,
-                                 blockIdx.y * kFusedTileH + threadIdx.x / kFusedTileW, kRowStep,
-                                 h, lmin, inv_step, levels, t);
+                                            float (&t)[P][3]) {
+  const float kmax = static_cast<float>(levels - 1);
+  const float lmin0 = lmin[0], lmin1 = lmin[1], lmin2 = lmin[2];
+  const float is0 = inv_step[0], is1 = inv_step[1], is2 = inv_step[2];
+  float tmin[3] = {kmax, kmax, kmax}, tmax[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int py = py0 + row_step * i;
+    if (px < w && py < py_end) {
+      const float4 g = guide[static_cast<size_t>(py) * w + px];
+      t[i][0] = clip_t(g.x, lmin0, is0, kmax);
+      t[i][1] = clip_t(g.y, lmin1, is1, kmax);
+      t[i][2] = clip_t(g.z, lmin2, is2, kmax);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        tmin[c] = fminf(tmin[c], t[i][c]);
+        tmax[c] = fmaxf(tmax[c], t[i][c]);
+      }
+    } else {
+      t[i][0] = t[i][1] = t[i][2] = -2.f;  // no tent reaches a level
+    }
+  }
+  return reduce_levels(tmin, tmax, kmax);
 }
 
-// The vertical blur pass of one level over the staged window: per cell row
-// cy and staged column sx, the seven fields of add_guided_tap summed over
-// the taps of the column (the build kernels' inner loop), weights from the
-// staged layer st_l and payload from the staged st_p (the same image for the
-// bilateral grid). Writes vsum[j * vplane + cy * vstride + sx].
-__device__ __forceinline__ void fused_vertical_pass(const float4* st_p, const float4* st_l,
-                                                    float* vsum, int rows, int scols,
-                                                    int vstride, int vplane, const Taps& taps,
-                                                    float lv0, float lv1, float lv2,
-                                                    float coef) {
-  for (int i = threadIdx.x; i < rows * scols; i += kFusedThreads) {
-    const int cy = i / scols;
-    const int sx = i % scols;
-    float col[kGuided] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int a = 0; a < taps.n; ++a) {
-      const int s = (cy + a) * scols + sx;
-      add_guided_tap(col, taps.t[a], st_p[s], st_l[s], lv0, lv1, lv2, coef);
-    }
+// The block's level range (reduce_levels) where a thread's pixels, (py, px)
+// for py = py0, py0 + row_step, ... below py_end (none where px is outside
+// the image), are too many to unroll.
+__device__ __forceinline__ int2 block_levels(const float4* __restrict__ guide, int w, int px,
+                                             int py0, int row_step, int py_end, float3 lmin,
+                                             float3 inv_step, int levels) {
+  const float kmax = static_cast<float>(levels - 1);
+  float tmin[3] = {kmax, kmax, kmax}, tmax[3] = {0.f, 0.f, 0.f};
+  if (px < w) {
+#pragma unroll 4
+    for (int py = py0; py < py_end; py += row_step) {
+      const float4 g = guide[static_cast<size_t>(py) * w + px];
+      const float t[3] = {clip_t(g.x, lmin.x, inv_step.x, kmax),
+                          clip_t(g.y, lmin.y, inv_step.y, kmax),
+                          clip_t(g.z, lmin.z, inv_step.z, kmax)};
 #pragma unroll
-    for (int j = 0; j < kGuided; ++j) vsum[j * vplane + cy * vstride + sx] = col[j];
+      for (int c = 0; c < 3; ++c) {
+        tmin[c] = fminf(tmin[c], t[c]);
+        tmax[c] = fmaxf(tmax[c], t[c]);
+      }
+    }
   }
+  return reduce_levels(tmin, tmax, kmax);
 }
 
 // The horizontal blur pass of one cell (cy, cx): the weighted sum of the
@@ -517,120 +473,8 @@ __device__ __forceinline__ void fused_horizontal_sums(const float* vsum, int cy,
   }
 }
 
-// Fused bilateral build + slice: one block per 16 x 128-pixel slice tile.
-//
-// Replaces image_denoising_filter_tpu/ops/fast.py:
-// _fused_grid_pipeline_planar. The block stages the pooled image of the
-// cells its pixels' bilinear taps read (with the blur halo) in shared
-// memory, finds the levels the tile's t touch, [floor(tmin_c), ceil(tmax_c)]
-// over the three channels, and for each of them builds that level's cells in
-// shared memory (a vertical then a horizontal blur pass, the range weights
-// shared by the whole tile; num / max(den, 1e-20) rounded to bf16, alpha by
-// green's weights) and adds its tents to the pixels' outputs, which stay in
-// registers. The (K, hs, ws, 4) grid never goes to device memory. Each
-// cell's sums are build_grid_kernel's, in its order, and each pixel's
-// slice_grid_kernel's, so the output equals pool -> build -> slice bit for
-// bit; cells outside the grid are the edge cells (clamped index), as the
-// slice kernel's clamped cell index reads them. The TPU kernel telescopes
-// its tent sum over bf16 level deltas rebased at floor(tmin); this sums the
-// two levels a pixel touches, as the slice kernel does.
-//
-// Bound on the H100: device memory, the image read (16 B a pixel) and the
-// output written (16 B a pixel) beside the pooled image read once. Per
-// level, a tile costs rows x (cols + 2r) x (2r + 1) tap evaluations of
-// 3 exp2: at d = 2, r = 4 about 10 exp2 a pixel and level, an eighth of
-// what a kernel of one thread a cell spends.
-template <bool ZERO, bool UNIFORM_ALPHA>
-__global__ void __launch_bounds__(kFusedThreads)
-    fused_grid_kernel(const float4* __restrict__ small, const float4* __restrict__ img,
-                      const float* __restrict__ lmin, const float* __restrict__ step,
-                      const float* __restrict__ inv_step, const float* __restrict__ alpha,
-                      float4* __restrict__ out, int h, int w, int hs, int ws, int levels,
-                      const Taps taps, float coef, float inv_d, int max_rows, int max_cols) {
-  extern __shared__ float4 smem[];
-  const int r = taps.n / 2;
-  const int4 win = fused_window(h, w, hs, ws, inv_d);
-  const int ay0 = win.x, ax0 = win.y, rows = win.z, cols = win.w;
-  const int scols = cols + 2 * r;
-  const int max_scols = max_cols + 2 * r;
-  float4* staged = smem;
-  float* vsum = reinterpret_cast<float*>(staged + (max_rows + 2 * r) * max_scols);
-  const int vplane = max_rows * max_scols;
-  Bf16x4* cells = reinterpret_cast<Bf16x4*>(vsum + (kGuided * vplane + 3) / 4 * 4);
-  stage_window<ZERO>(small, staged, ay0 - r, ax0 - r, rows + 2 * r, scols, hs, ws);
-  float t[kFusedRows][3];
-  const int2 k_range = tile_levels(img, h, w, lmin, inv_step, levels, t);
-
-  const int px = blockIdx.x * kFusedTileW + threadIdx.x % kFusedTileW;
-  const int py0 = blockIdx.y * kFusedTileH + threadIdx.x / kFusedTileW;
-  const float gx = __fmul_rn(static_cast<float>(px) + 0.5f, inv_d) - 0.5f;
-  const float fx = floorf(gx);
-  const int x0 = min(max(static_cast<int>(fx), 0), ws - 1) - ax0;
-  const int x1 = min(max(static_cast<int>(fx) + 1, 0), ws - 1) - ax0;
-  const float wx = gx - fx;
-
-  float4 acc[kFusedRows];
-#pragma unroll
-  for (int i = 0; i < kFusedRows; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  const float lmin0 = lmin[0], lmin1 = lmin[1], lmin2 = lmin[2];
-  const float step0 = step[0], step1 = step[1], step2 = step[2];
-  for (int k = k_range.x; k <= k_range.y; ++k) {
-    const float kf = static_cast<float>(k);
-    const float lv0 = __fadd_rn(lmin0, __fmul_rn(step0, kf));
-    const float lv1 = __fadd_rn(lmin1, __fmul_rn(step1, kf));
-    const float lv2 = __fadd_rn(lmin2, __fmul_rn(step2, kf));
-    fused_vertical_pass(staged, staged, vsum, rows, scols, max_scols, vplane, taps, lv0, lv1,
-                        lv2, coef);
-    __syncthreads();
-    // Horizontal pass, then build_grid_kernel's normalize and bf16 store.
-    for (int i = threadIdx.x; i < rows * cols; i += kFusedThreads) {
-      float s[kGuided];
-      fused_horizontal_sums(vsum, i / cols, i % cols, max_scols, vplane, taps, s);
-      const float safe1 = fmaxf(s[5], 1e-20f);
-      Bf16x4 cell;
-      cell.lo = __floats2bfloat162_rn(s[0] / fmaxf(s[4], 1e-20f), s[1] / safe1);
-      cell.hi = __floats2bfloat162_rn(s[2] / fmaxf(s[6], 1e-20f),
-                                      UNIFORM_ALPHA ? 0.f : s[3] / safe1);
-      cells[i] = cell;
-    }
-    __syncthreads();
-    // Slice this level into the pixels' outputs (slice_grid_kernel's sums).
-#pragma unroll
-    for (int i = 0; i < kFusedRows; ++i) {
-      const float e0 = fmaxf(1.f - fabsf(t[i][0] - kf), 0.f);
-      const float e1 = fmaxf(1.f - fabsf(t[i][1] - kf), 0.f);
-      const float e2 = fmaxf(1.f - fabsf(t[i][2] - kf), 0.f);
-      if (e0 == 0.f && e1 == 0.f && e2 == 0.f) continue;
-      const int py = py0 + kRowStep * i;
-      const float gy = __fmul_rn(static_cast<float>(py) + 0.5f, inv_d) - 0.5f;
-      const float fy = floorf(gy);
-      const int y0 = min(max(static_cast<int>(fy), 0), hs - 1) - ay0;
-      const int y1 = min(max(static_cast<int>(fy) + 1, 0), hs - 1) - ay0;
-      const float4 row0 = lerp4(load_cell(cells, y0, x0, cols), load_cell(cells, y0, x1, cols), wx);
-      const float4 row1 = lerp4(load_cell(cells, y1, x0, cols), load_cell(cells, y1, x1, cols), wx);
-      const float4 up = lerp4(row0, row1, gy - fy);
-      acc[i].x = __fadd_rn(acc[i].x, __fmul_rn(e0, up.x));
-      acc[i].y = __fadd_rn(acc[i].y, __fmul_rn(e1, up.y));
-      acc[i].z = __fadd_rn(acc[i].z, __fmul_rn(e2, up.z));
-      if (!UNIFORM_ALPHA) acc[i].w = __fadd_rn(acc[i].w, __fmul_rn(e1, up.w));
-    }
-    // The next level's vertical pass overwrites vsum, read above only
-    // before the second barrier; cells are rewritten after its barrier.
-  }
-
-#pragma unroll
-  for (int i = 0; i < kFusedRows; ++i) {
-    const int py = py0 + kRowStep * i;
-    if (px >= w || py >= h) continue;
-    if (UNIFORM_ALPHA) acc[i].w = *alpha;
-    out[static_cast<size_t>(py) * w + px] = acc[i];
-  }
-}
-
 // The range weight exp2(-(l - lv)^2 * coef) of one channel value l at the
-// level centre lv: add_guided_tap's, for a kernel that computes it once a
-// pixel and level.
+// level centre lv, computed once a staged pixel and level.
 __device__ __forceinline__ float range_weight(float l, float lv, float coef) {
   const float d = l - lv;
   return exp2f(__fmul_rn(-__fmul_rn(d, d), coef));
@@ -642,8 +486,11 @@ __device__ __forceinline__ float3 guided_range_weights(float4 l, float3 lv, floa
                      range_weight(l.z, lv.z, coef));
 }
 
-// add_guided_tap with the range weights given: the seven fields of payload p
-// under weights (w0, w1, w2), each added to its sum as tap * field.
+// The seven fields of one tap of a grid build, under the range weights
+// (w0, w1, w2) of the layer pixel, with payload p: num r, g, b, a (alpha
+// under green's weight), den r, g, b. Each field is added to its sum as
+// tap * field, in the plain versions' order (fields first, then the tap
+// product).
 __device__ __forceinline__ void add_guided_fields(float (&s)[kGuided], float tap, float4 p,
                                                   float w0, float w1, float w2) {
   s[0] = __fadd_rn(s[0], __fmul_rn(tap, __fmul_rn(w0, p.x)));
@@ -746,7 +593,7 @@ __device__ __forceinline__ Bf16x4 normalized_cell(const float (&s)[kGuided], boo
 //     image_denoising_filter_tpu/ops/fast.py:_build_guided_grid_pallas.
 // Under ZERO the cells outside the pooled images are zero pixels that keep
 // the range weight exp2(-lv^2 * coef), as the TPU kernels sum their
-// zero-padded tiles. Each cell's products and sums are add_guided_tap's in
+// zero-padded tiles. Each cell's products and sums are add_guided_fields' in
 // its order (the vertical sum of each tap column, then the weighted sum of
 // the columns: the TPU kernels' rows-then-columns banded matmuls), so each
 // grid equals its plain version bit for bit.
@@ -885,7 +732,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // weights a cell; two barriers a level; and a block's steps in series
 // (staging, the guide read, the levels, the slice), which only other
 // blocks on the multiprocessor overlap.
-// Design: the tile (ops/fast.py:fused_guided_tile) is 16 x 64 pixels where
+// Design: the tile (ops/fast.py:fused_tile) is 16 x 64 pixels where
 // its window fits, shrinking as the taps widen; each of the kFusedThreads
 // threads takes one column and every (kFusedThreads / pw)-th row. The
 // window is staged with cp.async while the block reads the guide for its
@@ -894,18 +741,19 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // compiled for kGuidedMinBlocks blocks a multiprocessor. Per level: the
 // vertical pass; barrier; the horizontal pass beside the next level's range
 // weights; barrier. The shared-memory layout (byte offsets in `tile`) is
-// fused_guided_tile's.
-struct FusedGuidedTile {
+// fused_tile's.
+struct FusedTile {
   int ph, pw;      // the slice tile in pixels
   int rows, cols;  // the most cells a tile's window holds
-  // byte offsets: the staged layer, the range weights (three planes), the
-  // vertical sums (seven planes of rows x (cols + 2r)), kGuidedLevels
-  // levels' cells; the staged target is at 0
+  // byte offsets: the staged layer (0 with one staged image, the payload
+  // being the layer), the range weights (three planes), the vertical sums
+  // (seven planes of rows x (cols + 2r)), a batch of levels' cells; the
+  // staged payload (the guided grid's target) is at 0
   int l_at, w_at, v_at, c_at;
 };
-// The ints of a tile as the launcher takes them: FusedGuidedTile's, then the
+// The ints of a tile as the launchers take them: FusedTile's, then the
 // bytes.
-constexpr int kFusedGuidedTileFields = 9;
+constexpr int kFusedTileFields = 9;
 
 template <bool ZERO>
 __global__ void __launch_bounds__(kFusedThreads, kGuidedMinBlocks)
@@ -914,7 +762,7 @@ __global__ void __launch_bounds__(kFusedThreads, kGuidedMinBlocks)
                         const float* __restrict__ step, const float* __restrict__ inv_step,
                         float4* __restrict__ out_wc, float* __restrict__ out_nw, int h, int w,
                         int hs, int ws, int levels, const Taps taps, float coef, float inv_d,
-                        const FusedGuidedTile tile) {
+                        const FusedTile tile) {
   extern __shared__ __align__(16) unsigned char fused_smem[];
   const int r = taps.n / 2;
   const int ty0 = blockIdx.y * tile.ph;
@@ -956,7 +804,7 @@ __global__ void __launch_bounds__(kFusedThreads, kGuidedMinBlocks)
   for (int k0 = k_range.x; k0 <= k_range.y; k0 += kGuidedLevels) {
     const int k1 = min(k0 + kGuidedLevels - 1, k_range.y);
     for (int k = k0; k <= k1; ++k) {
-      vertical_strips<kGuidedStrip>(st_t, wgt, n_st, srows, scols, rows, scols, vsum, vplane,
+      vertical_strips<kFusedStrip>(st_t, wgt, n_st, srows, scols, rows, scols, vsum, vplane,
                                     taps);
       __syncthreads();
       // The horizontal pass into this level's bf16 cells, and the next
@@ -1023,6 +871,142 @@ __global__ void __launch_bounds__(kFusedThreads, kGuidedMinBlocks)
   }
 }
 
+// Fused bilateral build + slice: one block per slice tile of ph x pw pixels.
+//
+// Replaces image_denoising_filter_tpu/ops/fast.py:
+// _fused_grid_pipeline_planar. fused_guided_kernel's design with one staged
+// pooled image, which is payload and layer at once: the block stages the
+// pooled image of the cells its pixels' bilinear taps read (with the blur
+// halo, cp.async) while it reads the guide for its level range, builds each
+// level it touches with build_grid_kernel's passes into normalized bf16
+// cells (normalized_cell, alpha by green's weights), kGridLevels levels at a
+// time, then slices them into its pixels' outputs with slice_grid_kernel's
+// sums (alpha under green's tent, or *alpha under UNIFORM_ALPHA): from
+// zero, or from what the last batch left in the output, in level order. The
+// (K, hs, ws, 4) grid never goes to device memory; the output equals
+// build_grid_kernel -> slice_grid_kernel bit for bit. With read_range = 0
+// (ops/fast.py: at d = 4 and 8, where a tile touches nearly every level) the
+// block builds every level and reads the guide once, in the slice: levels no
+// pixel touches add nothing to any pixel, as in the slice kernel.
+//
+// Bound on the H100: device memory, the image read (16 B a pixel) and the
+// output written (16 B a pixel) beside the pooled image read once: 0.089 ms
+// at 4K, d = 2, K = 5 (chip_smoke.py's kernel_work). Against it, as for
+// fused_guided_kernel: the window's halo cells (10 x 34 built for 8 x 32 at
+// d = 2), the levels a tile touches (nearly all of them on a noisy frame),
+// two barriers a level and a block's steps in series.
+// Design: the tile (ops/fast.py:fused_tile) grows with d, 16 x 64 pixels at
+// d = 2, 32 x 128 at 4 and 32 x 256 at 8, so that its window holds about as
+// many cells at every d; a thread's pixels (4, 16 or 32) are a run-time
+// loop. No pixel's partials live across the build, and the kernel is
+// compiled for kGridMinBlocks blocks a multiprocessor: 64 registers, four
+// blocks (32 warps), which hide more of the block's serial steps than
+// three (tools/fused_tile_sweep.py).
+template <bool ZERO, bool UNIFORM_ALPHA>
+__global__ void __launch_bounds__(kFusedThreads, kGridMinBlocks)
+    fused_grid_kernel(const float4* __restrict__ small, const float4* __restrict__ guide,
+                      const float* __restrict__ lmin, const float* __restrict__ step,
+                      const float* __restrict__ inv_step, const float* __restrict__ alpha,
+                      float4* __restrict__ out, int h, int w, int hs, int ws, int levels,
+                      const Taps taps, float coef, float inv_d, const FusedTile tile,
+                      int read_range) {
+  extern __shared__ __align__(16) unsigned char grid_smem[];
+  const int r = taps.n / 2;
+  const int ty0 = blockIdx.y * tile.ph;
+  const int tx0 = blockIdx.x * tile.pw;
+  const int4 win = tile_window(ty0, tx0, tile.ph, tile.pw, h, w, hs, ws, inv_d);
+  const int ay0 = win.x, ax0 = win.y, rows = win.z, cols = win.w;
+  const int srows = rows + 2 * r;
+  const int scols = cols + 2 * r;
+  const int n_st = srows * scols;
+  const int vplane = rows * scols;
+  float4* staged = reinterpret_cast<float4*>(grid_smem);
+  float* wgt = reinterpret_cast<float*>(grid_smem + tile.w_at);
+  float* vsum = reinterpret_cast<float*>(grid_smem + tile.v_at);
+  Bf16x4* cells = reinterpret_cast<Bf16x4*>(grid_smem + tile.c_at);
+
+  // Stage the pooled window with the build kernel's border rule, and
+  // meanwhile read the guide for the tile's level range.
+  stage_window_async<ZERO>(small, staged, ay0 - r, ax0 - r, srows, scols, hs, ws);
+  const int px = tx0 + threadIdx.x % tile.pw;
+  const int py0 = ty0 + threadIdx.x / tile.pw;
+  const int row_step = kFusedThreads / tile.pw;
+  const int py_end = min(ty0 + tile.ph, h);
+  const float3 lmin3 = make_float3(lmin[0], lmin[1], lmin[2]);
+  const float3 inv3 = make_float3(inv_step[0], inv_step[1], inv_step[2]);
+  const int2 k_range = read_range
+                           ? block_levels(guide, w, px, py0, row_step, py_end, lmin3, inv3, levels)
+                           : make_int2(0, levels - 1);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const float3 step3 = make_float3(step[0], step[1], step[2]);
+  range_weight_planes(staged, wgt, n_st, level_centres(lmin3, step3, k_range.x), coef);
+  __syncthreads();
+  const int n_cells = rows * cols;
+  for (int k0 = k_range.x; k0 <= k_range.y; k0 += kGridLevels) {
+    const int k1 = min(k0 + kGridLevels - 1, k_range.y);
+    for (int k = k0; k <= k1; ++k) {
+      vertical_strips<kFusedStrip>(staged, wgt, n_st, srows, scols, rows, scols, vsum, vplane,
+                                   taps);
+      __syncthreads();
+      // The horizontal pass into this level's cells, and the next level's
+      // range weights (this level's vertical pass read the planes before the
+      // barrier above).
+      Bf16x4* level = cells + (k - k0) * n_cells;
+      for (int i = threadIdx.x; i < n_cells; i += kFusedThreads) {
+        float sum[kGuided];
+        fused_horizontal_sums(vsum, i / cols, i % cols, scols, vplane, taps, sum);
+        level[i] = normalized_cell(sum, UNIFORM_ALPHA);
+      }
+      if (k < k_range.y)
+        range_weight_planes(staged, wgt, n_st, level_centres(lmin3, step3, k + 1), coef);
+      __syncthreads();
+    }
+    // Slice levels k0 .. k1 into the pixels' outputs. The next batch's
+    // horizontal pass overwrites the cells only after its vertical pass's
+    // barrier.
+    if (px >= w) continue;
+    const float kmax = static_cast<float>(levels - 1);
+    const float gx = __fmul_rn(static_cast<float>(px) + 0.5f, inv_d) - 0.5f;
+    const float fx = floorf(gx);
+    const int x0 = min(max(static_cast<int>(fx), 0), ws - 1) - ax0;
+    const int x1 = min(max(static_cast<int>(fx) + 1, 0), ws - 1) - ax0;
+    const float wx = gx - fx;
+#pragma unroll 4
+    for (int py = py0; py < py_end; py += row_step) {
+      const size_t idx = static_cast<size_t>(py) * w + px;
+      const float4 g = guide[idx];
+      const float t0 = clip_t(g.x, lmin3.x, inv3.x, kmax);
+      const float t1 = clip_t(g.y, lmin3.y, inv3.y, kmax);
+      const float t2 = clip_t(g.z, lmin3.z, inv3.z, kmax);
+      const float gy = __fmul_rn(static_cast<float>(py) + 0.5f, inv_d) - 0.5f;
+      const float fy = floorf(gy);
+      const int y0 = min(max(static_cast<int>(fy), 0), hs - 1) - ay0;
+      const int y1 = min(max(static_cast<int>(fy) + 1, 0), hs - 1) - ay0;
+      const float wy = gy - fy;
+      float4 acc = k0 > k_range.x ? out[idx] : make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int k = k0; k <= k1; ++k) {
+        const float kf = static_cast<float>(k);
+        const float e0 = fmaxf(1.f - fabsf(t0 - kf), 0.f);
+        const float e1 = fmaxf(1.f - fabsf(t1 - kf), 0.f);
+        const float e2 = fmaxf(1.f - fabsf(t2 - kf), 0.f);
+        if (e0 == 0.f && e1 == 0.f && e2 == 0.f) continue;
+        const Bf16x4* lv = cells + (k - k0) * n_cells;
+        const float4 row0 = lerp4(load_cell(lv, y0, x0, cols), load_cell(lv, y0, x1, cols), wx);
+        const float4 row1 = lerp4(load_cell(lv, y1, x0, cols), load_cell(lv, y1, x1, cols), wx);
+        const float4 up = lerp4(row0, row1, wy);
+        acc.x = __fadd_rn(acc.x, __fmul_rn(e0, up.x));
+        acc.y = __fadd_rn(acc.y, __fmul_rn(e1, up.y));
+        acc.z = __fadd_rn(acc.z, __fmul_rn(e2, up.z));
+        if (!UNIFORM_ALPHA) acc.w = __fadd_rn(acc.w, __fmul_rn(e1, up.w));
+      }
+      if (UNIFORM_ALPHA) acc.w = *alpha;
+      out[idx] = acc;
+    }
+  }
+}
+
 dim3 grid_for(int w, int h) {
   return dim3((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
 }
@@ -1039,12 +1023,6 @@ cudaError_t shared_fits(size_t bytes, size_t reserve, bool* fits) {
 
 // Whether n_taps is a tap count the kernels take: odd, at most kMaxTaps.
 bool taps_ok(int n_taps) { return n_taps > 0 && n_taps <= kMaxTaps && n_taps % 2 == 1; }
-
-// Whether n_taps and d (dividing the slice tile) are arguments the fused
-// bilateral kernel takes.
-bool fused_args_ok(int d, int n_taps) {
-  return taps_ok(n_taps) && d > 0 && kFusedTileH % d == 0 && kFusedTileW % d == 0;
-}
 
 // The blur taps as the kernels take them, by value.
 Taps tap_table(const float* taps, int n_taps) {
@@ -1100,23 +1078,50 @@ int launch_build(const void* small_p, const void* small_l, const void* lmin, con
   return static_cast<int>(cudaGetLastError());
 }
 
-// Whether a fused guided tile for downsample d and blur radius r is one
-// fused_guided_kernel takes: its threads cover the tile (each one column and
-// up to kGuidedPixels rows), d divides it, its rows x cols cells hold every
-// tile's window (ph / d + 2 rows, ph + 1 at d = 1; columns alike), and the
-// staged target at 0, the staged layer, the weight planes, the vertical sums
-// and kGuidedLevels levels' cells lie back to back within `bytes`.
-bool fused_guided_tile_ok(const FusedGuidedTile& t, int d, int r, int bytes) {
-  if (t.ph < 1 || t.pw < 1 || t.pw > kFusedThreads || kFusedThreads % t.pw != 0 ||
-      kFusedThreads / t.pw * kGuidedPixels < t.ph || d < 1 || t.ph % d != 0 || t.pw % d != 0)
+// Whether a fused tile for downsample d and blur radius r is one the fused
+// kernels take: its threads cover the tile (each one column and every
+// (kFusedThreads / pw)-th row; the guided kernel's at most kGuidedPixels
+// rows), d divides it, its rows x cols cells hold every tile's window
+// (ph / d + 2 rows, ph + 1 at d = 1; columns alike), and the staged payload
+// at 0, the staged layer (guided), the weight planes, the vertical sums and
+// a batch of levels' cells lie back to back within `bytes`.
+bool fused_tile_ok(const FusedTile& t, bool guided, int d, int r, int bytes) {
+  if (t.ph < 1 || t.pw < 1 || t.pw > kFusedThreads || kFusedThreads % t.pw != 0 || d < 1 ||
+      t.ph % d != 0 || t.pw % d != 0 || (guided && kFusedThreads / t.pw * kGuidedPixels < t.ph))
     return false;
   const int halo = d == 1 ? 1 : 2;
   if (t.rows < t.ph / d + halo || t.cols < t.pw / d + halo) return false;
   const int n_st = (t.rows + 2 * r) * (t.cols + 2 * r);
-  return t.l_at >= 16 * n_st && t.l_at % 16 == 0 && t.w_at >= t.l_at + 16 * n_st &&
-         t.v_at >= t.w_at + 12 * n_st && t.v_at % 4 == 0 &&
+  const bool staged = guided ? t.l_at >= 16 * n_st && t.l_at % 16 == 0 &&
+                                   t.w_at >= t.l_at + 16 * n_st
+                             : t.l_at == 0 && t.w_at >= 16 * n_st;
+  const int cell_bytes = guided ? sizeof(Bf16x8) : sizeof(Bf16x4);
+  const int batch = guided ? kGuidedLevels : kGridLevels;
+  return staged && t.w_at % 4 == 0 && t.v_at >= t.w_at + 12 * n_st && t.v_at % 4 == 0 &&
          t.c_at >= t.v_at + 4 * kGuided * t.rows * (t.cols + 2 * r) && t.c_at % 16 == 0 &&
-         bytes >= t.c_at + static_cast<int>(sizeof(Bf16x8)) * kGuidedLevels * t.rows * t.cols;
+         bytes >= t.c_at + cell_bytes * batch * t.rows * t.cols;
+}
+
+// A fused launch's checks and shared-memory opt-in: the tile's ints as a
+// FusedTile and its bytes; cudaErrorInvalidValue where fused_tile_ok refuses
+// them or they do not fit the device beside the kernel's static arrays.
+cudaError_t fused_prologue(const void* kernel, const int* tile, bool guided, int d, int n_taps,
+                           int levels, FusedTile* geom, int* bytes) {
+  if (!taps_ok(n_taps) || levels <= 0) return cudaErrorInvalidValue;
+  *geom = FusedTile{tile[0], tile[1], tile[2], tile[3], tile[4], tile[5], tile[6], tile[7]};
+  *bytes = tile[kFusedTileFields - 1];
+  if (!fused_tile_ok(*geom, guided, d, n_taps / 2, *bytes)) return cudaErrorInvalidValue;
+  bool fits = false;
+  const cudaError_t err = opt_in(kernel, *bytes, kStaticSharedReserve, &fits);
+  if (err != cudaSuccess) return err;
+  return fits ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The fused bilateral kernel of a border and an alpha form.
+auto fused_grid_instance(int zero_border, bool uniform_alpha) {
+  if (zero_border)
+    return uniform_alpha ? fused_grid_kernel<true, true> : fused_grid_kernel<true, false>;
+  return uniform_alpha ? fused_grid_kernel<false, true> : fused_grid_kernel<false, false>;
 }
 
 }  // namespace
@@ -1230,70 +1235,58 @@ int idf_slice_guided_grid(const void* guide, const void* grid, const void* lmin,
 
 // The fused bilateral build + slice: the inputs of idf_build_grid and
 // idf_slice_grid (step and inv_step both), with img the slice's guide, and
-// its output. d must divide the 16 x 128 slice tile (1, 2, 4, 8); the window
-// must fit the block's shared memory (idf_fused_grid_fits).
+// its output. tile: host array of kFusedTileFields ints from
+// ops/fast.py:fused_tile with one staged image: the slice tile, its cell
+// window, the byte offsets of FusedTile (l_at 0), the block's dynamic shared
+// memory in bytes, which must fit the device beside the kernel's static
+// arrays; a tile the kernel cannot take (fused_tile_ok: short, overlapping,
+// or one that stages a second image) is refused (cudaErrorInvalidValue, no
+// launch). read_range: 1 reads each tile's level range from the guide, 0
+// builds every level.
 int idf_fused_grid(const void* small, const void* img, const void* lmin, const void* step,
                    const void* inv_step, const void* alpha, void* out, int h, int w, int hs,
                    int ws, int levels, const float* taps, int n_taps, float coef, int d,
-                   int zero_border, void* stream) {
-  if (!fused_args_ok(d, n_taps) || levels <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
-  const size_t bytes = fused_grid_bytes(d, n_taps / 2);
-  const bool ua = alpha != nullptr;
-  auto kernel = zero_border ? (ua ? fused_grid_kernel<true, true> : fused_grid_kernel<true, false>)
-                            : (ua ? fused_grid_kernel<false, true> : fused_grid_kernel<false, false>);
-  bool fits = false;
-  const cudaError_t err = opt_in(reinterpret_cast<const void*>(kernel), static_cast<int>(bytes),
-                                 kStaticSharedReserve, &fits);
+                   int zero_border, int read_range, const int* tile, void* stream) {
+  auto kernel = fused_grid_instance(zero_border, alpha != nullptr);
+  FusedTile geom;
+  int shared_bytes = 0;
+  const cudaError_t err = fused_prologue(reinterpret_cast<const void*>(kernel), tile, false, d,
+                                         n_taps, levels, &geom, &shared_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!fits) return static_cast<int>(cudaErrorInvalidValue);
-  const Taps table = tap_table(taps, n_taps);
-  const dim3 grid((w + kFusedTileW - 1) / kFusedTileW, (h + kFusedTileH - 1) / kFusedTileH);
-  kernel<<<grid, kFusedThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  if (read_range != 0 && read_range != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid((w + geom.pw - 1) / geom.pw, (h + geom.ph - 1) / geom.ph);
+  kernel<<<grid, kFusedThreads, shared_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(small), static_cast<const float4*>(img),
       static_cast<const float*>(lmin), static_cast<const float*>(step),
       static_cast<const float*>(inv_step), static_cast<const float*>(alpha),
-      static_cast<float4*>(out), h, w, hs, ws, levels, table, coef, 1.f / static_cast<float>(d),
-      kFusedTileH / d + 2, kFusedTileW / d + 2);
+      static_cast<float4*>(out), h, w, hs, ws, levels, tap_table(taps, n_taps), coef,
+      1.f / static_cast<float>(d), geom, read_range);
   return static_cast<int>(cudaGetLastError());
 }
 
-// *fits = 1 if idf_fused_grid takes downsample d with n_taps blur taps on
-// the current device (its window fits a block's shared memory), else 0.
-int idf_fused_grid_fits(int d, int n_taps, int* fits) {
-  *fits = 0;
-  if (!fused_args_ok(d, n_taps)) return static_cast<int>(cudaSuccess);
-  bool ok = false;
-  const cudaError_t err = shared_fits(fused_grid_bytes(d, n_taps / 2), kStaticSharedReserve, &ok);
-  *fits = ok ? 1 : 0;
-  return static_cast<int>(err);
+// The fused bilateral kernel of a border and an alpha form as compiled, and
+// its occupancy at shared_bytes a block (kernel_info's).
+int idf_fused_grid_info(int zero_border, int uniform_alpha, int shared_bytes, int* info) {
+  auto kernel = fused_grid_instance(zero_border, uniform_alpha);
+  return static_cast<int>(idf::kernel_info(reinterpret_cast<const void*>(kernel), kFusedThreads,
+                                           shared_bytes, info));
 }
 
 // The fused guided build + slice: the inputs of idf_build_guided_grid and
 // idf_slice_guided_grid (step and inv_step both), the same outputs. tile:
-// host array of kFusedGuidedTileFields ints from
-// ops/fast.py:fused_guided_tile: the slice tile, its cell window, the byte
-// offsets of FusedGuidedTile, the block's dynamic shared memory in bytes,
-// which must fit the device beside the kernel's static arrays; a tile the
-// kernel cannot take (fused_guided_tile_ok) is refused
-// (cudaErrorInvalidValue, no launch).
+// as idf_fused_grid's, from ops/fast.py:fused_tile with two staged images.
 int idf_fused_guided(const void* small_t, const void* small_l, const void* guide,
                      const void* lmin, const void* step, const void* inv_step, void* out_wc,
                      void* out_nw, int h, int w, int hs, int ws, int levels, const float* taps,
                      int n_taps, float coef, int d, int zero_border, const int* tile,
                      void* stream) {
-  const cudaError_t invalid = cudaErrorInvalidValue;
-  if (!taps_ok(n_taps) || levels <= 0) return static_cast<int>(invalid);
-  const FusedGuidedTile geom{tile[0], tile[1], tile[2], tile[3], tile[4],
-                             tile[5], tile[6], tile[7]};
-  const int shared_bytes = tile[kFusedGuidedTileFields - 1];
-  if (!fused_guided_tile_ok(geom, d, n_taps / 2, shared_bytes)) return static_cast<int>(invalid);
   auto kernel = zero_border ? fused_guided_kernel<true> : fused_guided_kernel<false>;
-  bool fits = false;
-  const cudaError_t err = opt_in(reinterpret_cast<const void*>(kernel), shared_bytes,
-                                 kStaticSharedReserve, &fits);
+  FusedTile geom;
+  int shared_bytes = 0;
+  const cudaError_t err = fused_prologue(reinterpret_cast<const void*>(kernel), tile, true, d,
+                                         n_taps, levels, &geom, &shared_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!fits) return static_cast<int>(invalid);
   if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
   const dim3 grid((w + geom.pw - 1) / geom.pw, (h + geom.ph - 1) / geom.ph);
   kernel<<<grid, kFusedThreads, shared_bytes, static_cast<cudaStream_t>(stream)>>>(

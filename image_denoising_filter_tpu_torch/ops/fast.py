@@ -20,9 +20,9 @@ use. Beside them this module holds:
     `slice_grid_plain`, `fused_grid_plain`, `build_guided_grid_plain`,
     `slice_guided_grid_plain`, `fused_guided_plain`): whole-image tensor ops
     with the kernel's bf16 roundings, taps, summation order and lerp formula;
-  * the grid build kernel's and the fused guided kernel's blocks, tiles,
-    staged windows and shared-memory layouts (`build_tile`,
-    `fused_guided_tile`), in pure Python that the CPU tests check;
+  * the grid build kernel's and the fused kernels' blocks, tiles, staged
+    windows and shared-memory layouts (`build_tile`, `fused_tile`), in pure
+    Python that the CPU tests check;
   * launch counts, in `ops.stencils.launches` beside the exact kernels'.
 
 Layouts: images (H, W, 4) float32; the pooled image (hs, ws, 4) float32 with
@@ -85,19 +85,39 @@ BUILD_STRIP = 4
 BUILD_TILES = (
     (16, 32), (8, 32), (4, 32), (2, 32), (1, 32), (1, 16), (1, 8), (1, 4), (1, 2), (1, 1),
 )
-# The fused guided kernel's block, likewise: FUSED_GUIDED_THREADS threads own
-# a slice tile of pixels, the first of FUSED_GUIDED_TILES (rows, columns)
-# whose window fits, each thread one column and at most FUSED_GUIDED_PIXELS
-# rows of it; a vertical-pass thread sums FUSED_GUIDED_STRIP cell rows; the
-# block builds FUSED_GUIDED_LEVELS levels' cells (the main path's K at d = 2
-# and 4) before it slices them; the kernel is compiled for
-# FUSED_GUIDED_MIN_BLOCKS blocks a multiprocessor.
-FUSED_GUIDED_THREADS = 256
+# The fused kernels' blocks (the guided and the bilateral grid share the
+# tile helper, fused_tile, and the build passes), likewise: FUSED_THREADS
+# threads own a slice tile of pixels, each thread one column and every
+# (FUSED_THREADS / pw)-th row of it; a vertical-pass thread sums FUSED_STRIP
+# cell rows.
+#   - The guided kernel takes the first of FUSED_GUIDED_TILES (rows,
+#     columns) that d divides and whose window fits, at most
+#     FUSED_GUIDED_PIXELS rows a thread; it builds FUSED_GUIDED_LEVELS
+#     levels' cells (the main path's K at d = 2 and 4) before it slices
+#     them, and is compiled for FUSED_GUIDED_MIN_BLOCKS blocks a
+#     multiprocessor.
+#   - The bilateral kernel takes the first of FUSED_GRID_TILES[d], whose
+#     tiles hold about as many cells at every d (so the blur halo does not
+#     dominate at d = 8); it builds FUSED_GRID_LEVELS levels (every K of the
+#     main path) before it slices them, is compiled for FUSED_GRID_MIN_BLOCKS
+#     blocks a multiprocessor (64 registers), and reads each tile's level
+#     range from the guide at the d of FUSED_GRID_RANGE_DOWNSAMPLES; at the
+#     others, where a tile of the larger pixel tiles touches nearly every
+#     level anyway, it builds every level and reads the guide once.
+FUSED_THREADS = 256
+FUSED_STRIP = 2
 FUSED_GUIDED_PIXELS = 4
-FUSED_GUIDED_STRIP = 2
 FUSED_GUIDED_LEVELS = 5
 FUSED_GUIDED_MIN_BLOCKS = 3
 FUSED_GUIDED_TILES = ((16, 64), (16, 32), (8, 32))
+FUSED_GRID_LEVELS = 6
+FUSED_GRID_MIN_BLOCKS = 4
+FUSED_GRID_RANGE_DOWNSAMPLES = (2,)
+FUSED_GRID_TILES = {
+    2: ((16, 64), (8, 64), (8, 32)),
+    4: ((32, 128), (16, 128), (16, 64)),
+    8: ((32, 256), (16, 256), (16, 128)),
+}
 #: Shared memory a fused kernel keeps beside its window for its static arrays.
 STATIC_SHARED_RESERVE = 1024
 
@@ -106,11 +126,13 @@ def nvcc_defines() -> tuple[str, ...]:
     """The blocks above as the macros fast.cu is compiled with."""
     return (f"-DIDF_BUILD_THREADS={BUILD_THREADS}",
             f"-DIDF_BUILD_STRIP={BUILD_STRIP}",
-            f"-DIDF_FUSED_GUIDED_THREADS={FUSED_GUIDED_THREADS}",
+            f"-DIDF_FUSED_THREADS={FUSED_THREADS}",
+            f"-DIDF_FUSED_STRIP={FUSED_STRIP}",
             f"-DIDF_FUSED_GUIDED_PIXELS={FUSED_GUIDED_PIXELS}",
-            f"-DIDF_FUSED_GUIDED_STRIP={FUSED_GUIDED_STRIP}",
-            f"-DIDF_FUSED_GUIDED_LEVELS={FUSED_GUIDED_LEVELS}",
             f"-DIDF_FUSED_GUIDED_MIN_BLOCKS={FUSED_GUIDED_MIN_BLOCKS}",
+            f"-DIDF_FUSED_GRID_MIN_BLOCKS={FUSED_GRID_MIN_BLOCKS}",
+            f"-DIDF_FUSED_GUIDED_LEVELS={FUSED_GUIDED_LEVELS}",
+            f"-DIDF_FUSED_GRID_LEVELS={FUSED_GRID_LEVELS}",
             f"-DIDF_STATIC_SHARED_RESERVE={STATIC_SHARED_RESERVE}")
 
 
@@ -431,10 +453,12 @@ def build_tile(n_taps: int, shared_limit: int, n_images: int) -> BuildTile:
     )
 
 
-def _kernel_info(fn: str, device: torch.device, zero: bool, shared_bytes: int, tile: str) -> dict:
+def _kernel_info(fn: str, device: torch.device, shared_bytes: int, tile: str, *flags) -> dict:
+    """The info function fn of the kernel library, which takes the instance's
+    flags (the border's first), then the shared bytes."""
     info = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
-        rc = getattr(_build.library(), fn)(int(zero), shared_bytes, info)
+        rc = getattr(_build.library(), fn)(*map(int, flags), shared_bytes, info)
     _raise_on_error(rc, fn)
     return info_dict(info, tile, shared_bytes)
 
@@ -447,28 +471,31 @@ def build_grid_info(device: torch.device, n_taps: int, border: str, guided: bool
     for the NLM kernels)."""
     tile = build_tile(n_taps, max_shared_bytes(device), 2 if guided else 1)
     fn = "idf_build_guided_grid_info" if guided else "idf_build_grid_info"
-    return _kernel_info(fn, device, border != BorderPolicy.CLAMP, tile.shared_bytes,
-                        f"{tile.th}x{tile.tw}")
+    return _kernel_info(fn, device, tile.shared_bytes, f"{tile.th}x{tile.tw}",
+                        border != BorderPolicy.CLAMP)
 
 
 @dataclasses.dataclass(frozen=True)
-class FusedGuidedTile:
-    """One block's geometry in the fused guided kernel (fast.cu:
-    fused_guided_kernel) at downsample d with blur radius r. The block owns
-    the slice tile of ph x pw pixels from (by ph, bx pw); thread i takes
-    column i % pw and rows i // pw + k (FUSED_GUIDED_THREADS // pw), k <
-    FUSED_GUIDED_PIXELS. Its pixels' bilinear taps read a window of at most
-    rows x cols cells (tile_window), which the block builds at each level
-    it touches from the pooled target and layer staged over the window plus
-    the blur halo r ((rows + 2r) x (cols + 2r) pixels at most). The dynamic
-    shared memory (fused_guided_layout) holds the staged target as float4 at
-    byte 0, and from l_at, w_at, v_at and c_at the staged layer (float4),
-    its three range-weight planes, the seven vertical-sum planes (rows x
-    (cols + 2r) floats each) and FUSED_GUIDED_LEVELS levels' cells (16 bytes
-    each); shared_bytes in all."""
+class FusedTile:
+    """One block's geometry in the fused kernels (fast.cu:
+    fused_guided_kernel, fused_grid_kernel) at downsample d with blur radius
+    r and n_images staged pooled images (2: the guided kernel's target and
+    layer; 1: the bilateral kernel's image, payload and layer at once). The
+    block owns the slice tile of ph x pw pixels from (by ph, bx pw); thread i
+    takes column i % pw and rows i // pw + k (FUSED_THREADS // pw), k = 0,
+    1, ... inside the tile. Its pixels' bilinear taps read a window of at
+    most rows x cols cells (tile_window), which the block builds at each
+    level it touches from the pooled images staged over the window plus the
+    blur halo r ((rows + 2r) x (cols + 2r) pixels at most). The dynamic shared memory (fused_layout)
+    holds the staged payload as float4 at byte 0, and from l_at, w_at, v_at
+    and c_at the staged layer (float4; l_at = 0 with one image), its three
+    range-weight planes, the seven vertical-sum planes (rows x (cols + 2r)
+    floats each) and a batch of levels' cells (fused_cells); shared_bytes in
+    all."""
 
     d: int
     r: int
+    n_images: int
     ph: int
     pw: int
     rows: int
@@ -488,13 +515,13 @@ class FusedGuidedTile:
         return self.cols + 2 * self.r
 
     def launch_args(self) -> np.ndarray:
-        """The ints idf_fused_guided takes (fast.cu: FusedGuidedTile, then
-        the bytes)."""
+        """The ints idf_fused_grid and idf_fused_guided take (fast.cu:
+        FusedTile, then the bytes)."""
         return np.asarray([self.ph, self.pw, self.rows, self.cols, self.l_at, self.w_at,
                            self.v_at, self.c_at, self.shared_bytes], np.int32)
 
 
-def fused_guided_window(ph: int, pw: int, d: int) -> tuple[int, int]:
+def fused_window(ph: int, pw: int, d: int) -> tuple[int, int]:
     """The most cells (rows, columns) the bilinear taps of one ph x pw slice
     tile read at downsample d (d dividing both): pixel y reads cells
     floor((y + 0.5)/d - 0.5) and the next, so a tile from a multiple of d
@@ -503,36 +530,57 @@ def fused_guided_window(ph: int, pw: int, d: int) -> tuple[int, int]:
     return ph // d + halo, pw // d + halo
 
 
-def fused_guided_layout(ph: int, pw: int, d: int, r: int) -> tuple[int, ...]:
-    """The fused guided kernel's shared memory, in this order: the staged
-    target and layer, float4 each over the window plus the halo; the range
+def fused_cells(n_images: int) -> tuple[int, int]:
+    """(bytes a cell, levels a batch) of the fused kernel with n_images
+    staged images: the guided grid's 16-byte cells (pack_guided),
+    FUSED_GUIDED_LEVELS of them; the bilateral grid's 8-byte normalized cells,
+    FUSED_GRID_LEVELS."""
+    return (16, FUSED_GUIDED_LEVELS) if n_images == 2 else (8, FUSED_GRID_LEVELS)
+
+
+def fused_layout(ph: int, pw: int, d: int, r: int, n_images: int) -> tuple[int, ...]:
+    """The fused kernels' shared memory, in this order: the n_images staged
+    pooled images, float4 each over the window plus the halo; the range
     weights, three float planes of it; the vertical sums, seven float planes
-    of rows x (cols + 2r); FUSED_GUIDED_LEVELS levels' cells, 16 bytes each.
-    Returns (rows, cols, l_at, w_at, v_at, c_at, shared bytes)."""
-    rows, cols = fused_guided_window(ph, pw, d)
+    of rows x (cols + 2r); a batch of levels' cells (fused_cells), from a
+    16-byte boundary. Returns (rows, cols, l_at, w_at, v_at, c_at, shared
+    bytes), l_at = 0 with one image."""
+    if n_images not in (1, 2):
+        raise ValueError(f"the fused kernels stage 1 or 2 images, got {n_images}")
+    rows, cols = fused_window(ph, pw, d)
     n_staged = (rows + 2 * r) * (cols + 2 * r)
-    l_at = 16 * n_staged
-    w_at = l_at + 16 * n_staged
+    l_at = 16 * n_staged if n_images == 2 else 0
+    w_at = 16 * n_staged * n_images
     v_at = w_at + 12 * n_staged
     c_at = -(-(v_at + 4 * 7 * rows * (cols + 2 * r)) // 16) * 16
-    return rows, cols, l_at, w_at, v_at, c_at, c_at + 16 * FUSED_GUIDED_LEVELS * rows * cols
+    cell_bytes, levels = fused_cells(n_images)
+    return rows, cols, l_at, w_at, v_at, c_at, c_at + cell_bytes * levels * rows * cols
+
+
+def fused_tiles(d: int, n_images: int) -> tuple[tuple[int, int], ...]:
+    """The slice tiles (ph, pw) the fused kernel with n_images staged images
+    tries at downsample d, largest first: FUSED_GUIDED_TILES that d divides,
+    or FUSED_GRID_TILES[d] (none at a d the bilateral grid does not take)."""
+    if n_images == 2:
+        return tuple(t for t in FUSED_GUIDED_TILES if d >= 1 and t[0] % d == 0 and t[1] % d == 0)
+    return FUSED_GRID_TILES.get(d, ())
 
 
 @functools.lru_cache(maxsize=None)
-def fused_guided_tile(d: int, n_taps: int, shared_limit: int) -> FusedGuidedTile:
-    """The fused guided kernel's tile at downsample d with n_taps (odd) blur
-    taps on a card whose blocks may hold `shared_limit` bytes of shared
-    memory: the first of FUSED_GUIDED_TILES that d divides and whose window
-    fits beside STATIC_SHARED_RESERVE; ValueError where none does."""
-    r = _odd_taps(n_taps, "the fused guided kernel")
-    for ph, pw in FUSED_GUIDED_TILES:
-        if d < 1 or ph % d or pw % d:
-            continue
-        layout = fused_guided_layout(ph, pw, d, r)
+def fused_tile(d: int, n_taps: int, shared_limit: int, n_images: int) -> FusedTile:
+    """The fused kernel's tile at downsample d with n_taps (odd) blur taps and
+    n_images staged images (1: the bilateral grid, 2: the guided grid) on a
+    card whose blocks may hold `shared_limit` bytes of shared memory: the
+    first of fused_tiles(d, n_images) whose window fits beside
+    STATIC_SHARED_RESERVE; ValueError where none does."""
+    kind = "guided" if n_images == 2 else "grid"
+    r = _odd_taps(n_taps, f"the fused {kind} kernel")
+    for ph, pw in fused_tiles(d, n_images):
+        layout = fused_layout(ph, pw, d, r, n_images)
         if layout[-1] + STATIC_SHARED_RESERVE <= shared_limit:
-            return FusedGuidedTile(d, r, ph, pw, *layout)
+            return FusedTile(d, r, n_images, ph, pw, *layout)
     raise ValueError(
-        f"no fused guided tile at d = {d} fits {n_taps} blur taps in {shared_limit} bytes of "
+        f"no fused {kind} tile at d = {d} fits {n_taps} blur taps in {shared_limit} bytes of "
         "shared memory"
     )
 
@@ -540,9 +588,18 @@ def fused_guided_tile(d: int, n_taps: int, shared_limit: int) -> FusedGuidedTile
 def fused_guided_info(device: torch.device, d: int, n_taps: int, border: str) -> dict:
     """build_grid_info of the fused guided kernel at downsample d; its tile
     in pixels."""
-    tile = fused_guided_tile(d, n_taps, max_shared_bytes(device))
-    return _kernel_info("idf_fused_guided_info", device, border != BorderPolicy.CLAMP,
-                        tile.shared_bytes, f"{tile.ph}x{tile.pw}")
+    tile = fused_tile(d, n_taps, max_shared_bytes(device), 2)
+    return _kernel_info("idf_fused_guided_info", device, tile.shared_bytes,
+                        f"{tile.ph}x{tile.pw}", border != BorderPolicy.CLAMP)
+
+
+def fused_grid_info(device: torch.device, d: int, n_taps: int, border: str,
+                    uniform_alpha: bool = False) -> dict:
+    """build_grid_info of the fused bilateral kernel at downsample d (its
+    instance with uniform alpha when asked); its tile in pixels."""
+    tile = fused_tile(d, n_taps, max_shared_bytes(device), 1)
+    return _kernel_info("idf_fused_grid_info", device, tile.shared_bytes, f"{tile.ph}x{tile.pw}",
+                        border != BorderPolicy.CLAMP, uniform_alpha)
 
 
 # ---------------------------------------------------------------------------
@@ -792,27 +849,40 @@ def slice_guided_grid(
     return wc, nw
 
 
-def fused_guided_fits(d: int, n_taps: int, device: torch.device) -> bool:
-    """Whether the fused guided kernel takes downsample d with n_taps blur
-    taps on the CUDA device: some tile's window (fused_guided_tile) fits a
-    block's shared memory there."""
+def _fused_fits(d: int, n_taps: int, device: torch.device, n_images: int) -> bool:
     try:
-        fused_guided_tile(d, n_taps, max_shared_bytes(device))
+        fused_tile(d, n_taps, max_shared_bytes(device), n_images)
     except ValueError:
         return False
     return True
 
 
+def fused_guided_fits(d: int, n_taps: int, device: torch.device) -> bool:
+    """Whether the fused guided kernel takes downsample d with n_taps blur
+    taps on the CUDA device: some tile's window (fused_tile) fits a block's
+    shared memory there."""
+    return _fused_fits(d, n_taps, device, 2)
+
+
 def fused_grid_fits(d: int, n_taps: int, device: torch.device) -> bool:
     """Whether the fused bilateral kernel takes downsample d with n_taps blur
-    taps on the CUDA device: its window (one staged pooled image, the blur
-    sums, one level's cells) fits a block's shared memory there. Asks the
-    kernel library, which queries the device."""
-    fits = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        rc = _build.library().idf_fused_grid_fits(d, n_taps, ctypes.byref(fits))
-    _raise_on_error(rc, "fused_grid_fits")
-    return bool(fits.value)
+    taps on the CUDA device: some tile's window (fused_tile, one staged
+    pooled image) fits a block's shared memory there."""
+    return _fused_fits(d, n_taps, device, 1)
+
+
+def _fused_launch_args(d: int, n_taps: int, device: torch.device, n_images: int,
+                       two_kernels: str) -> np.ndarray:
+    """The fused kernel's tile as its launcher takes it; ValueError naming
+    the two kernels to use where no tile fits."""
+    try:
+        return fused_tile(d, n_taps, max_shared_bytes(device), n_images).launch_args()
+    except ValueError as e:
+        kind = "guided" if n_images == 2 else "grid"
+        raise ValueError(
+            f"the fused {kind} kernel's window at d = {d} with {n_taps} blur taps exceeds a "
+            f"block's shared memory on this device: use {two_kernels}"
+        ) from e
 
 
 def fused_grid(
@@ -833,7 +903,9 @@ def fused_grid(
     and of slice_grid (img the slice's guide; alpha_val, one float32, is the
     output alpha under uniform alpha), the same (H, W, 4) float32 output.
     Each cell's sums keep the two kernels' order, so the output equals
-    theirs."""
+    theirs. On the card the tile is fused_tile(d, ...); at the d of
+    FUSED_GRID_RANGE_DOWNSAMPLES each tile builds only the levels its pixels
+    touch."""
     _check_image(small, "small")
     _check_image(img, "img")
     _check_downsample(d)
@@ -852,11 +924,7 @@ def fused_grid(
         return fused_grid_plain(
             small, img, lmin, step, inv_step, levels, taps, border, inv2sc, d, alpha_val
         )
-    if not fused_grid_fits(d, taps.size, img.device):
-        raise ValueError(
-            f"the fused grid kernel's window at d = {d} with {taps.size} blur taps exceeds "
-            "a block's shared memory on this device: use build_grid and slice_grid"
-        )
+    geom = _fused_launch_args(d, taps.size, img.device, 1, "build_grid and slice_grid")
     out = torch.empty_like(img)
     lib = _build.library()
     with torch.cuda.device(img.device):
@@ -864,7 +932,8 @@ def fused_grid(
             small.data_ptr(), img.data_ptr(), lmin.data_ptr(), step.data_ptr(),
             inv_step.data_ptr(), None if alpha_val is None else alpha_val.data_ptr(),
             out.data_ptr(), h, w, hs, ws, levels, taps.ctypes.data, taps.size,
-            inv2sc * LOG2E, d, int(border != BorderPolicy.CLAMP), _stream(img),
+            inv2sc * LOG2E, d, int(border != BorderPolicy.CLAMP),
+            int(d in FUSED_GRID_RANGE_DOWNSAMPLES), geom.ctypes.data, _stream(img),
         )
     _raise_on_error(rc, "fused_grid")
     launches["fused_grid"] += 1
@@ -900,14 +969,8 @@ def fused_guided(
         return fused_guided_plain(
             small_t, small_l, guide, lmin, step, inv_step, levels, taps, border, inv2sc, d
         )
-    try:
-        geom = fused_guided_tile(d, taps.size, max_shared_bytes(guide.device)).launch_args()
-    except ValueError as e:
-        raise ValueError(
-            f"the fused guided kernel's window at d = {d} with {taps.size} blur taps "
-            "exceeds a block's shared memory on this device: use the two guided kernels "
-            "(build_guided_grid, slice_guided_grid)"
-        ) from e
+    geom = _fused_launch_args(d, taps.size, guide.device, 2,
+                              "the two guided kernels (build_guided_grid, slice_guided_grid)")
     wc = torch.empty_like(guide)
     nw = torch.empty((h, w, 3), dtype=torch.float32, device=guide.device)
     lib = _build.library()

@@ -545,9 +545,17 @@ def test_fused_grid_kernel_equals_the_two_kernels(cuda, d, border, ua, shape):
 def test_fused_grid_shared_memory(cuda, d, n_taps, fits):
     """The fused bilateral kernel stages one pooled image: its window fits a
     block's shared memory on the H100 for every tap table it takes at d = 2,
-    4 and 8; more taps than its table, or a d that does not divide the
-    slice tile, it does not take."""
+    4 and 8; more taps than its table, or a d it has no tile for, it does
+    not take. The answer is the Python tile rule's (fast.fused_tile with the
+    device's opt-in limit)."""
     assert fast.fused_grid_fits(d, n_taps, cuda) == fits
+    limit = stencils.max_shared_bytes(cuda)
+    if fits:
+        assert fast.fused_tile(d, n_taps, limit, 1).shared_bytes + fast.STATIC_SHARED_RESERVE <= (
+            limit)
+    else:
+        with pytest.raises(ValueError):
+            fast.fused_tile(d, n_taps, limit, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -831,7 +839,7 @@ def test_fused_guided_launcher_refuses_a_short_layout(cuda):
     _, layer, small_t, small_l, lmin, step, taps = _guided_inputs(2)
     wc = torch.empty_like(layer)
     nw = torch.empty((*layer.shape[:2], 3), device=cuda)
-    tile = fast.fused_guided_tile(2, taps.size, stencils.max_shared_bytes(layer.device))
+    tile = fast.fused_tile(2, taps.size, stencils.max_shared_bytes(layer.device), 2)
     short_bytes, short_rows = tile.launch_args(), tile.launch_args()
     short_bytes[-1] -= 16
     short_rows[2] -= 1  # rows
@@ -843,6 +851,95 @@ def test_fused_guided_launcher_refuses_a_short_layout(cuda):
             step.data_ptr(), (1.0 / step).data_ptr(), wc.data_ptr(), nw.data_ptr(), h, w,
             small_t.shape[0], small_t.shape[1], 5, taps.ctypes.data, taps.size, 1.0, 2, 0,
             geom.ctypes.data, stencils._stream(layer))
+        assert rc == want
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The redesigned fused bilateral grid kernel
+# ---------------------------------------------------------------------------
+
+GRID_SHAPES = [(29, 37), (61, 300), (97, 131), (7, 9), (300, 61), (1, 200)]
+
+
+@pytest.mark.parametrize("n_taps", range(1, fast.MAX_TAPS, 2))
+def test_fused_grid_kernel_equals_build_and_slice_at_every_table(cuda, n_taps):
+    """Every odd tap table from 1 to 63, cycling through d = 2, 4, 8, both
+    borders, uniform alpha on and off and ragged images (below one tile, at
+    it and beyond it, one row): the fused kernel's output equals the build
+    kernel's grid sliced by the slice kernel, bit for bit."""
+    i = n_taps // 2
+    d = fast.DOWNSAMPLES[i % 3]
+    border = (BorderPolicy.CLAMP, BorderPolicy.ZERO)[i % 2]
+    ua = i % 4 >= 2
+    img = _image(i, cuda, *GRID_SHAPES[i % len(GRID_SHAPES)])
+    small = fast.pool(img, d, border)
+    lmin, step = fast.grid_range(small, 6)
+    taps = fast._gauss_taps(max(0.5, n_taps / 8.0), n_taps // 2)
+    alpha = img[0, 0, 3] if ua else None
+    grid = fast.build_grid(small, lmin, step, 6, taps, border, 12.5, ua)
+    two = fast.slice_grid(img, grid, lmin, 1.0 / step, d, alpha)
+    got = fast.fused_grid(small, img, lmin, step, 1.0 / step, 6, taps, border, 12.5, d, alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(got, two)
+    assert stencils.launches["fused_grid"] == 1
+
+
+@pytest.mark.parametrize("levels", [2, 7, 13])
+def test_fused_grid_kernel_levels_in_batches(cuda, levels):
+    """More levels than a batch (FUSED_GRID_LEVELS): the first batch leaves
+    its partials in the output and the next adds to them in level order,
+    bit for bit the slice kernel's sum; on an HDR image (RGB up to 4)."""
+    img = _image(3, cuda, 97, 131)
+    img[..., :3] *= 4.0
+    small = fast.pool(img, 2, BorderPolicy.CLAMP)
+    lmin, step = fast.grid_range(small, levels)
+    taps = fast._grid_taps(2.0, 2)
+    grid = fast.build_grid(small, lmin, step, levels, taps, BorderPolicy.CLAMP, 12.5)
+    two = fast.slice_grid(img, grid, lmin, 1.0 / step, 2)
+    got = fast.fused_grid(small, img, lmin, step, 1.0 / step, levels, taps, BorderPolicy.CLAMP,
+                          12.5, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, two)
+
+
+@pytest.mark.parametrize("d,n_taps,ua,tile", [(2, 9, False, "16x64"), (2, 9, True, "16x64"),
+                                              (4, 5, False, "32x128"), (8, 7, False, "32x256"),
+                                              (2, 63, False, "8x64")])
+def test_fused_grid_kernel_info(cuda, d, n_taps, ua, tile):
+    """The fused bilateral kernel launches without spills, four blocks a
+    multiprocessor at the main path's settings (it is compiled for
+    FUSED_GRID_MIN_BLOCKS), on the tile fast.fused_tile gives it at each d."""
+    info = fast.fused_grid_info(cuda, d, n_taps, BorderPolicy.CLAMP, ua)
+    assert info["tile"] == tile and info["spill_bytes"] == 0
+    assert info["blocks_per_sm"] >= (fast.FUSED_GRID_MIN_BLOCKS if n_taps <= 9 else 1)
+    assert 0 < info["registers"] <= 255
+    assert info["shared_bytes"] == fast.fused_tile(d, n_taps, stencils.max_shared_bytes(cuda),
+                                                   1).shared_bytes
+
+
+def test_fused_grid_launcher_refuses_a_short_or_overlapping_layout(cuda):
+    """The fused bilateral launcher refuses a tile whose cells overrun its
+    shared bytes, whose window is one row short of what the tile's pixels
+    read, whose weight planes overlap the staged image, or that stages a
+    second image (cudaErrorInvalidValue, 1)."""
+    img = _image(0, cuda)
+    small, lmin, step, taps = _grid_inputs(img, 2)
+    out = torch.empty_like(img)
+    tile = fast.fused_tile(2, taps.size, stencils.max_shared_bytes(cuda), 1)
+    short_bytes, short_rows, overlap = (tile.launch_args() for _ in range(3))
+    short_bytes[-1] -= 8
+    short_rows[2] -= 1  # rows
+    overlap[5] -= 16  # w_at
+    two = fast.fused_tile(2, taps.size, stencils.max_shared_bytes(cuda), 2).launch_args()
+    lib = stencils._build.library()
+    h, w = img.shape[:2]
+    for geom, want in ((tile.launch_args(), 0), (short_bytes, 1), (short_rows, 1), (overlap, 1),
+                       (two, 1)):
+        rc = lib.idf_fused_grid(
+            small.data_ptr(), img.data_ptr(), lmin.data_ptr(), step.data_ptr(),
+            (1.0 / step).data_ptr(), None, out.data_ptr(), h, w, small.shape[0], small.shape[1],
+            5, taps.ctypes.data, taps.size, 1.0, 2, 0, 1, geom.ctypes.data, stencils._stream(img))
         assert rc == want
     torch.cuda.synchronize()
 

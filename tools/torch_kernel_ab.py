@@ -30,6 +30,11 @@ frames (seed 0) with the reference parameters:
   build_grid 4K d=2 K=5, d=4 K=5, d=8 s6 K=6
              the bilateral grid build of chip_smoke.py's noisy 3840x2160
              frame pooled at d (9, 5 and, at sigma_s 6, 7 blur taps)
+  fused_grid 4K d=2 K=5, d=4 K=5, d=8 s6 K=6
+             the fused bilateral build + slice of that frame at the same
+             settings, as grid_pipeline(fused=True) runs it
+  two_kernel_grid 4K d=2 K=5, d=4 K=5, d=8 s6 K=6
+             the same output through build_grid + slice_grid
   fused_guided 4K d=2 K=5, d=4 K=5
              the fused guided build + slice of that frame (target) and its
              albedo layer, as chip_smoke.py's phase 6 runs it
@@ -100,7 +105,7 @@ def sm_clock_mhz(torch, fn, seconds: float = 2.0) -> float:
     return statistics.median(readings[1:-1] if len(readings) > 2 else readings)
 
 
-def worker(root: str, only: str = "") -> dict:
+def worker(root: str, only: tuple = ("",)) -> dict:
     import numpy as np
     import torch
 
@@ -141,17 +146,23 @@ def worker(root: str, only: str = "") -> dict:
     noisy = torch.from_numpy(noisy).to(dev)
     albedo = torch.from_numpy(np.ascontiguousarray(np.clip(layers["albedo"], 0, 1))).to(dev)
     clamp = cfg.BorderPolicy.CLAMP
-    grid_cases, fused_cases = {}, {}
+    grid_cases, fused_grid_cases, fused_cases = {}, {}, {}
     for key, d, levels, sigma_s in (("4K d=2 K=5", 2, 5, 2.0), ("4K d=4 K=5", 4, 5, 2.0),
                                     ("4K d=8 s6 K=6", 8, 6, 6.0)):
         small = fast.pool_plain(noisy, d, clamp)
         grid_cases[key] = (small, *fast.grid_range(small, levels), levels,
                            fast._grid_taps(sigma_s, d), clamp, 12.5)
+        lmin, step = grid_cases[key][1:3]
+        fused_grid_cases[key] = (small, noisy, lmin, step, 1.0 / step, *grid_cases[key][3:], d)
         if d in (2, 4):
             small_l = fast.pool_plain(albedo, d, clamp)
             lmin, step = fast.grid_range(small_l, levels)
             fused_cases[key] = (small, small_l, albedo, lmin, step, 1.0 / step, levels,
                                 fast._grid_taps(sigma_s, d), clamp, 12.5, d)
+
+    def two_kernel_grid(small, img, lmin, step, inv_step, levels, taps, border, inv2sc, d):
+        grid = fast.build_grid(small, lmin, step, levels, taps, border, inv2sc)
+        return fast.slice_grid(img, grid, lmin, inv_step, d)
 
     def two_kernels(small_t, small_l, guide, lmin, step, inv_step, levels, taps, border,
                     inv2sc, d):
@@ -171,6 +182,10 @@ def worker(root: str, only: str = "") -> dict:
            for key, args in guided.items()},
         **{f"build_grid {key}": (lambda a=args: fast.build_grid(*a), 10)
            for key, args in grid_cases.items()},
+        **{f"fused_grid {key}": (lambda a=args: fast.fused_grid(*a), 10)
+           for key, args in fused_grid_cases.items()},
+        **{f"two_kernel_grid {key}": (lambda a=args: two_kernel_grid(*a), 10)
+           for key, args in fused_grid_cases.items()},
         **{f"fused_guided {key}": (lambda a=args: fast.fused_guided(*a), 10)
            for key, args in fused_cases.items()},
         **{f"two_kernel {key}": (lambda a=args: two_kernels(*a), 10)
@@ -199,10 +214,10 @@ def worker(root: str, only: str = "") -> dict:
             out["digests"][name] = digest.hexdigest()
         out[name] = smoke.median_ms(torch, fn, reps)
     timed = [name for name in cases if name.startswith(only)]
-    if hasattr(stencils, "nlm_tile") and only and timed:
+    if hasattr(stencils, "nlm_tile") and only != ("",) and timed:
         # the SM clock while the first case timed runs
         out["sm_clock_mhz"] = sm_clock_mhz(torch, cases[timed[0]][0])
-    if hasattr(stencils, "nlm_tile") and not only:
+    if hasattr(stencils, "nlm_tile") and only == ("",):
         mhz = sm_clock_mhz(torch, cases["nlm"][0])
         tile = stencils.nlm_tile(ref, False, stencils.max_shared_bytes(dev))
         tiles = -(-H // tile.th) * -(-W // tile.tw)
@@ -217,11 +232,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", help="root of the other checkout")
     ap.add_argument("--out", help="write the runs and medians to this JSON file")
-    ap.add_argument("--only", default="", help="time only the cases whose name starts so")
+    ap.add_argument("--only", default="",
+                    help="time only the cases whose name starts with one of these "
+                         "comma-separated prefixes")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(os.path.abspath(args.worker), args.only)))
+        print(json.dumps(worker(os.path.abspath(args.worker), tuple(args.only.split(",")))))
         return 0
     if not args.baseline:
         ap.error("--baseline is required")
