@@ -50,7 +50,17 @@ Phases, one line or block each:
                 --weights-halfres, the grid configs (bilateral, linear,
                 layers) at D = 1, 4 and 8 (sigma_s 6), the launch counts of
                 each run, and the PSNR of each output against the clean
-                render and against phase 4's exact output of its config.
+                render and against phase 4's exact output of its config;
+  8. CPU configs, parity, profile, content -- the render generator on the
+                card at 3840x2160 against the host's; the parity reading,
+                the bilateral kernel at the CPU path's parameters against the
+                CPU bilateral oracle over interior RGB (at least 59 dB), on
+                bench.py's 96x128 uniform frame and on a 270x480 crop of the
+                card's render with the battery's noise; `gpu-denoise --configs
+                cpu1,cpu8` on that crop (no kernel launch); the six device
+                configs through `gpu-denoise --profile`, the trace's kernel
+                events against the run's launch counts, and each config's
+                host ms, device busy ms and busy share.
 Then one JSON line with every kernel's launches, error, times and bound, the
 nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -162,6 +172,18 @@ PEAK_BF16_FLOPS_S = 133.8e12
 # --turbo 2, once with the half-row weights.
 NLM_CONFIGS = ("nlm", "multiframe", "overlap")
 NLM_RUNS = ((), ("--weights-halfres",))
+# Phase 8. The parity gate against the CPU bilateral (BASELINE.md:15); the
+# frame of the CPU configs and of the second parity reading, a crop of the
+# card's 4K render; the device generator against the host's
+# (tests/test_content.py's bound); in a --profile trace, the kernels counted
+# against the launch counts that each name sums, and the event categories
+# whose intervals make a config's device busy time.
+PARITY_GATE_DB = 59.0
+CPU_CROP = (270, 480)
+CONTENT_TOL = 2e-6
+PROFILE_KERNELS = {"bilateral_staged_kernel": ("bilateral", "bilateral_guided"),
+                   "nlm_kernel": ("nlm",), "normalize_kernel": ("normalize",)}
+DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 # The port's modules this script drives; none may load jax or the JAX
@@ -171,9 +193,12 @@ PORT_MODULES = (
     "image_denoising_filter_tpu_torch.config",
     "image_denoising_filter_tpu_torch.ops._build",
     "image_denoising_filter_tpu_torch.ops.fast",
+    "image_denoising_filter_tpu_torch.ops.reference",
     "image_denoising_filter_tpu_torch.ops.stencils",
     "image_denoising_filter_tpu_torch.runtime",
+    "image_denoising_filter_tpu_torch.utils.content",
     "image_denoising_filter_tpu_torch.utils.imageio",
+    "image_denoising_filter_tpu_torch.utils.native",
 )
 
 
@@ -584,7 +609,8 @@ def phase_battery(cfg, stencils, cli, imageio, Session, anim, root):
     out_batch = os.path.join(root, "out_batch")
 
     stencils.reset_launches()
-    rc, text, err = run_cli(cli, [target, "--device", "cuda", "--clamp", "--output-dir", out_main])
+    rc, text, err = run_cli(cli, [target, "--device", "cuda", "--clamp", "--configs",
+                                  ",".join(cli.CONFIG_KEYS), "--output-dir", out_main])
     counts = dict(stencils.launches)
     check(rc == 0, f"gpu-denoise failed ({rc}): {err.strip()}")
     print(f"  gpu-denoise, six configs: kernel launches {counts}")
@@ -1106,6 +1132,168 @@ def phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir):
     return totals
 
 
+def busy_ms(intervals) -> float:
+    """The length of the union of (start, end) intervals in microseconds, in
+    milliseconds."""
+    total, reach = 0.0, -math.inf
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total / 1e3
+
+
+def read_trace(path: str, keys) -> tuple[dict, list]:
+    """A Chrome trace of torch.profiler: ({key: (start, end) of its one
+    span}, [device events: kernels, copies and fills]), times in
+    microseconds."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name") in keys:
+            check(e["name"] not in spans, f"trace: two spans named {e['name']}")
+            spans[e["name"]] = (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+    return spans, [e for e in events if e.get("cat") in DEVICE_EVENTS]
+
+
+def phase_cpu_parity_profile(torch, cfg, stencils, cli, imageio, content, reference, native,
+                             kernels, anim, root, exact_dir):
+    """Phase 8: the card's render against the host's; the parity reading on
+    two frames (the bilateral kernel also against its plain version, into
+    kernels); the CPU configs through gpu-denoise on the crop; the six device
+    configs through gpu-denoise --profile, their outputs equal to phase 4's
+    files. Returns the launch counts of the profiled run."""
+    h, w = CPU_CROP
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render = content.synthetic_render_device(H4K, W4K, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    gen_ms = median_ms(torch, lambda: content.synthetic_render_device(H4K, W4K, seed=1,
+                                                                       device="cuda"), 3)
+    t0 = time.perf_counter()
+    host = content.synthetic_render(H4K, W4K, seed=1)
+    host_s = time.perf_counter() - t0
+    got = render.cpu().numpy()
+    err = float(np.abs(got - host).max())
+    check(got.shape == host.shape and err < CONTENT_TOL,
+          f"synthetic_render_device 4K: max abs {err:.3g} from the host's, bound {CONTENT_TOL}")
+    check(bool((got[..., 3] == 1.0).all()) and 0.0 <= got.min() and got.max() <= 1.0,
+          "synthetic_render_device 4K: alpha not 1 or values outside [0, 1]")
+    print(f"  synthetic_render_device {W4K}x{H4K} seed 1: max abs {err:.3g} from the host's; "
+          f"first call {first_s:.3f} s, then median {gen_ms:.4f} ms of device time "
+          f"(host numpy {host_s:.3f} s)")
+
+    # The parity reading, as bench.py:1104-1119 takes it.
+    cp = cfg.CpuBilateralParams()
+    kp = cfg.BilateralParams(radius=cp.radius, sigma_spatial=cp.sigma_spatial,
+                             sigma_color=cp.sigma_color, blue_bug=cp.blue_bug)
+    r = cp.radius
+    interior = (slice(r, -r), slice(r, -r), slice(0, 3))
+    oracle = "native" if native.available() else "NumPy"
+    rng = np.random.default_rng(SEED)
+    uniform = rng.uniform(0, 1, (96, 128, 4)).astype(np.float32)
+    y0, x0 = (H4K - h) // 2, (W4K - w) // 2
+    crop = got[y0 : y0 + h, x0 : x0 + w].copy()
+    crop[..., :3] = np.clip(crop[..., :3] + rng.normal(0, NOISE, (h, w, 3)).astype(np.float32),
+                            0.0, 1.0)
+    frames = {"uniform 96x128": uniform, f"render crop {w}x{h} + noise": crop}
+    stencils.reset_launches()
+    outs = {name: stencils.bilateral(torch.from_numpy(img).to("cuda"), kp)
+            for name, img in frames.items()}
+    parity_counts = {k: n for k, n in stencils.launches.items() if n}
+    check(parity_counts == {"bilateral": 2}, f"parity readings: launches {parity_counts}")
+    for name, img in frames.items():
+        plain = stencils.bilateral_plain(torch.from_numpy(img).to("cuda"), None, kp, True)[0]
+        torch.cuda.synchronize()
+        diff = (outs[name] - plain).abs()
+        abs_err = float(diff.max())
+        check(bool((diff <= TOL_BILATERAL["atol"] + TOL_BILATERAL["rtol"] * plain.abs()).all()),
+              f"bilateral at the CPU parameters, {name}: max abs {abs_err:.3g} from plain")
+        kernels["bilateral"]["max_abs_err"] = max(kernels["bilateral"]["max_abs_err"], abs_err)
+        t0 = time.perf_counter()
+        want = (native.cpu_bilateral(img, cp, 8) if oracle == "native"
+                else reference.cpu_bilateral_reference(img, cp))
+        oracle_s = time.perf_counter() - t0
+        db = reference.psnr(outs[name].cpu().numpy()[interior], want[interior])
+        check(db >= PARITY_GATE_DB, f"parity {name}: {db:.2f} dB < {PARITY_GATE_DB} dB")
+        print(f"  parity vs the CPU bilateral ({oracle} oracle, {oracle_s:.2f} s), {name}: "
+              f"{db:.2f} dB over interior RGB (gate {PARITY_GATE_DB:g}); max abs {abs_err:.3g} "
+              "from plain")
+    target = torch.from_numpy(anim["frames"][TARGET_FRAME]).to("cuda")
+    ms = median_ms(torch, lambda: stencils.bilateral(target, kp), 10)
+    cpu_bound = bound(*kernel_work("bilateral", H * W, disk=disk_taps(stencils, kp)))
+    print(f"  parity readings: launches {parity_counts}; bilateral_staged_kernel at the CPU "
+          f"parameters {json.dumps(stencils.kernel_info('bilateral', target.device, kp))}, "
+          f"{W}x{H} median {ms:.4f} ms (bound {cpu_bound['bound_ms']:.4f} ms by "
+          f"{cpu_bound['bound_by']}; at the reference parameters {kernels['bilateral']['ms']:.4f} ms)")
+
+    # The CPU configs on the crop, as a user runs them.
+    small = os.path.join(root, "cpu", "frame_0000.png")
+    os.makedirs(os.path.dirname(small))
+    imageio.save(small, crop)
+    out_cpu = os.path.join(root, "out_cpu")
+    stencils.reset_launches()
+    rc, text, err = run_cli(cli, [small, "--device", "cuda", "--configs", "cpu1,cpu8",
+                                  "--output-dir", out_cpu])
+    cpu_counts = {k: n for k, n in stencils.launches.items() if n}
+    check(rc == 0, f"gpu-denoise --configs cpu1,cpu8 failed ({rc}): {err.strip()}")
+    check(not cpu_counts, f"the CPU configs launched kernels: {cpu_counts}")
+    secs = re.findall(r"Time taken: (\S+) sec", text)
+    check(len(secs) == 2, f"the CPU configs printed {len(secs)} 'Time taken:' lines")
+    out, _ = imageio.load(os.path.join(out_cpu, "output-cpu.png"))
+    inside = np.zeros((h, w), bool)
+    inside[r : h - r + 1, r : w - r + 1] = True
+    check(out.shape == (h, w, 4) and bool((out[~inside] == 0.0).all())
+          and bool((out[inside][:, 3] == 1.0).all()),
+          "output-cpu.png: shape, a border not zero or alpha not 1 inside")
+    print(f"  gpu-denoise --configs cpu1,cpu8 on {w}x{h} ({oracle} oracle): cpu1 {secs[0]} s, "
+          f"cpu8 {secs[1]} s; no launch; output-cpu.png zero in its {r}-pixel border")
+
+    # The six device configs under the profiler.
+    prof_dir = os.path.join(root, "prof")
+    out_prof = os.path.join(root, "out_prof")
+    stencils.reset_launches()
+    t0 = time.perf_counter()
+    rc, text, err = run_cli(cli, [anim["target"], "--device", "cuda", "--clamp", "--configs",
+                                  ",".join(cli.CONFIG_KEYS), "--profile", prof_dir,
+                                  "--output-dir", out_prof])
+    prof_s = time.perf_counter() - t0
+    counts = dict(stencils.launches)
+    check(rc == 0, f"gpu-denoise --profile failed ({rc}): {err.strip()}")
+    check(f"profile trace written to {prof_dir}" in text, "gpu-denoise --profile: no trace line")
+    trace = os.path.join(prof_dir, cli.TRACE_NAME)
+    t0 = time.perf_counter()
+    spans, device = read_trace(trace, cli.CONFIG_KEYS)
+    parse_s = time.perf_counter() - t0
+    check(sorted(spans) == sorted(cli.CONFIG_KEYS), f"trace spans {sorted(spans)}")
+    for name, keys in PROFILE_KERNELS.items():
+        events = sum(e["cat"] == "kernel" and name in e["name"] for e in device)
+        launched = sum(counts[k] for k in keys)
+        check(launched > 0 and events == launched,
+              f"trace: {events} {name} events for {launched} launches of {keys}")
+        print(f"  trace: {events} {name} events = launches of {'+'.join(keys)}")
+    print(f"  gpu-denoise --profile, six configs: {prof_s:.2f} s, trace "
+          f"{os.path.getsize(trace) / 1e6:.2f} MB, {len(device)} device events, parsed in "
+          f"{parse_s:.2f} s; launches { {k: n for k, n in counts.items() if n} }")
+    for key in cli.CONFIG_KEYS:
+        start, end = spans[key]
+        busy = busy_ms((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+                       for e in device if start <= float(e["ts"]) < end)
+        host_ms = (end - start) / 1e3
+        print(f"    {key:10s} span {host_ms:.3f} ms on the host, device busy {busy:.3f} ms "
+              f"({busy / host_ms:.2%})")
+    names = sorted(os.listdir(exact_dir))
+    check(sorted(os.listdir(out_prof)) == names, f"--profile wrote {sorted(os.listdir(out_prof))}")
+    for name in names:
+        with open(os.path.join(exact_dir, name), "rb") as a, \
+                open(os.path.join(out_prof, name), "rb") as b:
+            check(a.read() == b.read(), f"--profile: {name} differs from phase 4's")
+    print(f"  --profile outputs equal phase 4's {len(names)} files byte for byte")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1115,21 +1303,21 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from image_denoising_filter_tpu_torch import cli
     from image_denoising_filter_tpu_torch import config as cfg
-    from image_denoising_filter_tpu_torch.utils import imageio
-    from image_denoising_filter_tpu_torch.ops import _build, fast, stencils
+    from image_denoising_filter_tpu_torch.utils import content, imageio, native
+    from image_denoising_filter_tpu_torch.ops import _build, fast, reference, stencils
     from image_denoising_filter_tpu_torch.runtime import Session
 
     check_no_jax()
     render_frame = load_render_frame()
     smi = nvidia_smi_line()
-    print(f"[1/7] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
+    print(f"[1/8] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
 
     t0 = time.perf_counter()
     lib_path, log = _build.build()
     build_s = time.perf_counter() - t0
-    print(f"[2/7] build: {build_s:.2f} s -> {os.path.relpath(lib_path, REPO)}")
+    print(f"[2/8] build: {build_s:.2f} s -> {os.path.relpath(lib_path, REPO)}")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip())
@@ -1137,17 +1325,17 @@ def main() -> int:
     root = scratch_dir()
     try:
         anim = write_animation(imageio, render_frame, root)
-        print(f"[3/7] kernels vs plain versions at {W}x{H}")
+        print(f"[3/8] kernels vs plain versions at {W}x{H}")
         kernels = phase_kernels(torch, stencils, cfg, anim["frames"], anim["layer"])
-        print(f"[4/7] battery through gpu-denoise --device cuda ({N_FRAMES} frames + 3 layers)")
+        print(f"[4/8] battery through gpu-denoise --device cuda ({N_FRAMES} frames + 3 layers)")
         counts, exact_dir = phase_battery(cfg, stencils, cli, imageio, Session, anim, root)
-        print(f"[5/7] turbo grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
+        print(f"[5/8] turbo grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
         noisy_4k, layers_4k = render_frame(0.5, H4K, W4K, np.random.default_rng(SEED),
                                            noise=NOISE)
         turbo_kernels_results, fused_counts = phase_turbo_kernels(
             torch, fast, stencils, cfg, noisy_4k, anim["frames"][TARGET_FRAME])
         kernels.update(turbo_kernels_results)
-        print(f"[6/7] guided grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
+        print(f"[6/8] guided grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
         images = {
             "4K": (noisy_4k, np.clip(layers_4k["albedo"], 0, 1)),
             "1080p": (anim["frames"][TARGET_FRAME], anim["layer"]),
@@ -1157,8 +1345,15 @@ def main() -> int:
         del noisy_4k, layers_4k
         kernels.update(phase_guided_kernels(torch, fast, cfg, images))
         del images
-        print("[7/7] turbo battery through gpu-denoise --turbo D --device cuda")
+        print("[7/8] turbo battery through gpu-denoise --turbo D --device cuda")
         totals = phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir)
+        print("[8/8] CPU configs, parity, profile, content")
+        t0 = time.perf_counter()
+        profiled = phase_cpu_parity_profile(torch, cfg, stencils, cli, imageio, content,
+                                            reference, native, kernels, anim, root, exact_dir)
+        print(f"  phase 8: {time.perf_counter() - t0:.1f} s")
+        for k, n in profiled.items():
+            totals[k] += n
     finally:
         shutil.rmtree(root, ignore_errors=True)
     check_no_jax()

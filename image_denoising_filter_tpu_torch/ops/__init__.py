@@ -12,7 +12,11 @@
     versions and launch counts, and `normalize_layers_fast`;
   * `eager.*` -- whole-image tensor ops: the linear-layout config, and the
     bilateral grid's lattice path (`bilateral_fast_eager`, the turbo mode at
-    downsample 1).
+    downsample 1);
+  * `reference` -- the NumPy oracles of every kernel, the CPU bilateral
+    (`cpu_bilateral_reference`, the cpu1/cpu8 configs where the native
+    library is not built) and `psnr`/`ssim`: a copy of the JAX package's
+    ops/reference.py.
 """
 
 from .eager import (  # noqa: F401

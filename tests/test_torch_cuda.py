@@ -1,10 +1,14 @@
 """The CUDA kernels on the card, at small shapes: each wrapper's kernel
 against its plain version on the same device, the launch counts, the input
-checks the kernels depend on, and one Session run on the card.
+checks the kernels depend on, and one Session run on the card; the parity
+reading at the CPU path's parameters, the render generator on the card, and
+the kernel events of a `gpu-denoise --profile` trace.
 
 These tests need an NVIDIA GPU and nvcc; without a card they skip. On the
 machine with the card: python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -14,14 +18,15 @@ from image_denoising_filter_tpu_torch.config import (
     GPU_BATTERY,
     BilateralParams,
     BorderPolicy,
+    CpuBilateralParams,
     LayersParams,
     NlmParams,
     NormalizeParams,
     TilingConfig,
 )
-from image_denoising_filter_tpu_torch.ops import fast, stencils
+from image_denoising_filter_tpu_torch.ops import fast, reference, stencils
 from image_denoising_filter_tpu_torch.runtime import Session
-from image_denoising_filter_tpu_torch.utils import imageio
+from image_denoising_filter_tpu_torch.utils import content, imageio
 
 pytestmark = pytest.mark.cuda
 
@@ -1123,3 +1128,66 @@ def test_session_with_bf16_taps_on_card_matches_cpu(cuda, tmp_path, cfg):
     bf16_launches = stencils.launches["bilateral_bf16"] + stencils.launches["bilateral_guided_bf16"]
     f32_launches = stencils.launches["bilateral"] + stencils.launches["bilateral_guided"]
     assert f32_launches == 0 and (bf16_launches == 0) == cfg.linear
+
+
+# The parity reading (BASELINE.md:15) on the card: the bilateral kernel at the
+# CPU path's parameters (radius 10, sigma_s 10, the full 21x21 window, the
+# blue term compiled out) against the NumPy CPU oracle.
+CPU_PARAMS = CpuBilateralParams()
+CPU_KERNEL_PARAMS = BilateralParams(radius=CPU_PARAMS.radius,
+                                    sigma_spatial=CPU_PARAMS.sigma_spatial,
+                                    sigma_color=CPU_PARAMS.sigma_color,
+                                    blue_bug=CPU_PARAMS.blue_bug)
+
+
+@pytest.mark.parametrize("h,w", [(48, 64), (97, 131), (1, 200)])
+def test_bilateral_kernel_parity_at_cpu_params(cuda, h, w):
+    """At least 59 dB over RGB against the oracle: over the whole frame
+    against the oracle without its zeroed border, and over the interior
+    against the CPU path's own frame where the image has one (not 1x200);
+    within the exact tolerance of the plain version."""
+    img = np.random.default_rng(h * w).uniform(0, 1, (h, w, 4)).astype(np.float32)
+    x = torch.from_numpy(img).to(cuda)
+    got = stencils.bilateral(x, CPU_KERNEL_PARAMS)
+    assert stencils.launches["bilateral"] == 1
+    _close(got, stencils.bilateral_plain(x, None, CPU_KERNEL_PARAMS, True)[0])
+    got = got.cpu().numpy()
+    whole = reference.cpu_bilateral_reference(
+        img, dataclasses.replace(CPU_PARAMS, skip_border=False))
+    assert reference.psnr(got[..., :3], whole[..., :3]) >= 59.0
+    r = CPU_PARAMS.radius
+    if h > 2 * r and w > 2 * r:
+        interior = (slice(r, -r), slice(r, -r), slice(0, 3))
+        want = reference.cpu_bilateral_reference(img, CPU_PARAMS)
+        assert reference.psnr(got[interior], want[interior]) >= 59.0
+
+
+@pytest.mark.parametrize("h,w,seed", [(96, 160, 1), (120, 200, 25), (1080, 1920, 0)])
+def test_synthetic_render_device_on_card_matches_host(cuda, h, w, seed):
+    dev = content.synthetic_render_device(h, w, seed, device=cuda)
+    assert dev.device.type == "cuda" and dev.dtype == torch.float32
+    host = content.synthetic_render(h, w, seed)
+    assert float(np.abs(dev.cpu().numpy() - host).max()) < 2e-6
+
+
+def test_cli_profile_on_card_sees_every_nlm_launch(cuda, tmp_path):
+    """gpu-denoise --profile DIR on the card: the trace holds one nlm_kernel
+    event a launch, and the span of the config."""
+    import json
+
+    from image_denoising_filter_tpu_torch import cli
+
+    root = tmp_path / "anim"
+    root.mkdir()
+    imageio.save(str(root / "frame_0000.png"), _image(0, "cpu").numpy())
+    prof = tmp_path / "prof"
+    rc = cli.main([str(root / "frame_0000.png"), "--device", "cuda", "--configs", "nlm",
+                   "--search-radius", "2", "--patch-radius", "1", "--output-dir",
+                   str(tmp_path / "out"), "--profile", str(prof)])
+    assert rc == 0
+    with open(prof / cli.TRACE_NAME) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "nlm_kernel" in e["name"]]
+    assert stencils.launches["nlm"] > 0
+    assert len(kernels) == stencils.launches["nlm"]
+    assert [e["name"] for e in events if e.get("cat") == "user_annotation"] == ["nlm"]

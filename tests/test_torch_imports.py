@@ -20,8 +20,10 @@ MODULES = [
     "image_denoising_filter_tpu_torch.ops._build",
     "image_denoising_filter_tpu_torch.ops.eager",
     "image_denoising_filter_tpu_torch.ops.fast",
+    "image_denoising_filter_tpu_torch.ops.reference",
     "image_denoising_filter_tpu_torch.ops.stencils",
     "image_denoising_filter_tpu_torch.utils",
+    "image_denoising_filter_tpu_torch.utils.content",
     "image_denoising_filter_tpu_torch.utils.dataset",
     "image_denoising_filter_tpu_torch.utils.imageio",
     "image_denoising_filter_tpu_torch.utils.native",
@@ -35,6 +37,7 @@ NO_TORCH = (
     "image_denoising_filter_tpu_torch",
     "image_denoising_filter_tpu_torch.config",
     "image_denoising_filter_tpu_torch.utils",
+    "image_denoising_filter_tpu_torch.utils.content",
     "image_denoising_filter_tpu_torch.utils.dataset",
     "image_denoising_filter_tpu_torch.utils.imageio",
     "image_denoising_filter_tpu_torch.utils.native",

@@ -260,8 +260,12 @@ def test_cli_runs_battery_on_cpu(tmp_path, capsys):
     for cfg in GPU_BATTERY:
         img, _ = imageio.load(os.path.join(out, cfg.output_name(False)))
         assert img.shape == (24, 32, 4)
+    assert os.path.exists(os.path.join(out, "output-cpu.png"))
     text = capsys.readouterr().out
     assert text.count("execution time:") == 6
+    # all: the CPU configs cpu1 and cpu8 after the six device configs
+    assert text.count("Time taken:") == 2
+    assert text.rindex("execution time:") < text.index("bilateral filter on cpu (1 thread)")
     assert all(n == 0 for n in stencils.launches.values())  # plain versions on the CPU
 
 
@@ -289,8 +293,10 @@ def test_cli_device_cuda_without_card_fails(tmp_path, capsys):
     assert not os.listdir(out)
 
 
-@pytest.mark.parametrize("configs", ["cpu1", "bilateral,cpu8", "tiled"])
+@pytest.mark.parametrize("configs", ["tiled"])
 def test_cli_refuses_configs_not_ported(tmp_path, configs, capsys):
+    """An unknown config key is an error (the CPU configs cpu1 and cpu8 run:
+    tests/test_torch_cpu_path.py)."""
     target = _make_anim(tmp_path / "anim", n_frames=1, with_layers=False)
     rc = cli.main([target, "--device", "cpu", "--output-dir", str(tmp_path), "--configs", configs])
     assert rc == 1

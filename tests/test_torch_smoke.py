@@ -1,5 +1,7 @@
 """chip_smoke.py's arithmetic and its turbo run list, without a card: the
-work each kernel's bound counts, and the runs turbo_battery makes."""
+work each kernel's bound counts, the runs turbo_battery makes, and the
+trace reading of phase 8 (the union of device intervals, the config
+spans)."""
 
 import importlib.util
 import os
@@ -124,3 +126,39 @@ def test_turbo_battery_makes_the_smokes_runs():
     for *_, readings in runs:
         for out, db_clean, db_exact, db_rgb in readings.values():
             assert db_clean == db_exact == db_rgb == pytest.approx(40.0)
+
+
+@pytest.mark.parametrize("intervals,want", [
+    ([], 0.0),
+    ([(0.0, 1000.0)], 1.0),
+    ([(0.0, 1000.0), (500.0, 1500.0)], 1.5),  # overlapping
+    ([(0.0, 1000.0), (2000.0, 2500.0)], 1.5),  # disjoint
+    ([(100.0, 200.0), (0.0, 1000.0), (900.0, 900.0)], 1.0),  # nested, unsorted, empty
+])
+def test_busy_ms_is_the_union_of_the_intervals(intervals, want):
+    assert smoke.busy_ms(intervals) == pytest.approx(want)
+
+
+def test_read_trace_finds_the_config_spans(tmp_path):
+    """The spans and device events phase 8 reads, from a trace gpu-denoise
+    --profile writes on the CPU (no device events there)."""
+    import json
+
+    from image_denoising_filter_tpu_torch import cli
+    from image_denoising_filter_tpu_torch.utils import imageio
+
+    target = str(tmp_path / "frame_0000.png")
+    imageio.save(target, np.random.default_rng(0).uniform(0, 1, (12, 16, 4)).astype(np.float32))
+    prof = tmp_path / "prof"
+    assert cli.main([target, "--device", "cpu", "--output-dir", str(tmp_path / "out"),
+                     "--configs", "linear,cpu1", "--radius", "2", "--profile", str(prof)]) == 0
+    spans, device = smoke.read_trace(str(prof / cli.TRACE_NAME), ("linear", "cpu1", "nlm"))
+    assert sorted(spans) == ["cpu1", "linear"] and device == []
+    (a0, a1), (b0, b1) = spans["linear"], spans["cpu1"]
+    assert a0 < a1 <= b0 < b1  # cpu1 runs after the device configs
+    with open(prof / cli.TRACE_NAME) as f:
+        trace = json.load(f)
+    trace["traceEvents"].append({"ph": "X", "cat": "kernel", "name": "void k()", "ts": a0,
+                                 "dur": 1.0})
+    (prof / "t.json").write_text(json.dumps(trace))
+    assert [e["name"] for e in smoke.read_trace(str(prof / "t.json"), ())[1]] == ["void k()"]
