@@ -60,7 +60,20 @@ Phases, one line or block each:
                 cpu1,cpu8` on that crop (no kernel launch); the six device
                 configs through `gpu-denoise --profile`, the trace's kernel
                 events against the run's launch counts, and each config's
-                host ms, device busy ms and busy share.
+                host ms, device busy ms and busy share;
+  9. sharded -- gpu-denoise --mesh on four ranks that share the card over
+                gloo: the six configs on 1x4 (every file phase 4's byte for
+                byte) and on 2x2 (the spatial configs phase 4's, the
+                multiframe ones within 1 LSB: the SUM over 'frame' regroups
+                the frames' partials); --turbo 2 --weights-halfres on 1x4
+                (phase 7's files); --turbo 4 on 1x4 (bilateral_fast on the
+                same row-padded frame); the slab slice kernels with offsets
+                at 4K D=2 against the whole slice and their plain versions;
+                the HDR 4K frame through the sharded turbo grid against the
+                single-device pipeline; parallel.dryrun on four ranks. Each
+                run's rank-0 transfer and exec times and its launch counts
+                summed over the ranks; four ranks on one card show the
+                overhead of the transport, not scaling.
 Then one JSON line with every kernel's launches, error, times and bound, the
 nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -195,6 +208,8 @@ PORT_MODULES = (
     "image_denoising_filter_tpu_torch.ops.fast",
     "image_denoising_filter_tpu_torch.ops.reference",
     "image_denoising_filter_tpu_torch.ops.stencils",
+    "image_denoising_filter_tpu_torch.parallel.dryrun",
+    "image_denoising_filter_tpu_torch.parallel.launch",
     "image_denoising_filter_tpu_torch.runtime",
     "image_denoising_filter_tpu_torch.utils.content",
     "image_denoising_filter_tpu_torch.utils.imageio",
@@ -1294,6 +1309,196 @@ def phase_cpu_parity_profile(torch, cfg, stencils, cli, imageio, content, refere
     return counts
 
 
+def sum_counts(stencils, rank_counts) -> dict:
+    """Launch counts summed over the ranks' dicts."""
+    total = dict.fromkeys(stencils.launches, 0)
+    for counts in rank_counts:
+        for k, n in counts.items():
+            total[k] += n
+    return total
+
+
+def same_bytes(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def phase_sharded(torch, cfg, stencils, fast, cli, imageio, launch, dryrun, anim, root,
+                  exact_dir, smi):
+    """Phase 9: gpu-denoise --mesh on four ranks that share the card over
+    gloo. The exact battery on 1x4 and 2x2 against phase 4's files, the
+    sharded turbo against phase 7's files or the single-device pipeline on
+    the same padded frame; the slab slice kernels against their plain
+    versions with offsets; the HDR frame of phase 5 through the sharded turbo
+    grid; the dry run. Each run's launch counts are summed over its ranks,
+    read just after it. Returns the launch counts of all of them, summed."""
+    names = output_names(cli, cfg)
+    target = anim["target"]
+    totals = dict.fromkeys(stencils.launches, 0)
+    gloo = ("--dist-backend", "gloo")
+
+    def run(what, argv):
+        t0 = time.perf_counter()
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc, rank_counts = cli.run(argv)
+        check(rc == 0, f"{what} failed ({rc}): {err.getvalue().strip()[-2000:]}")
+        counts = sum_counts(stencils, rank_counts)
+        check(len(rank_counts) == 4, f"{what}: {len(rank_counts)} ranks")
+        for k, n in counts.items():
+            totals[k] += n
+        reports = re.findall(r"transfer time: (\d+)ns; execution time: (\d+)ns", out.getvalue())
+        print(f"  {what}: {time.perf_counter() - t0:.1f} s, launches summed over 4 ranks "
+              f"{ {k: n for k, n in counts.items() if n} }")
+        return counts, reports
+
+    def print_reports(keys, reports):
+        check(len(reports) == len(keys), f"{len(reports)} timing reports for {len(keys)} configs")
+        for key, (tr, ex) in zip(keys, reports):
+            print(f"    {key:10s} rank 0 transfer {int(tr):>11d} ns  exec {int(ex):>11d} ns "
+                  f"({smi}; 4 ranks on one card: overhead, not scaling)")
+
+    keys = cli.CONFIG_KEYS
+    # 1-2. the exact battery on 1x4 and on 2x2
+    for mesh in ("1x4", "2x2"):
+        out_dir = os.path.join(root, f"mesh{mesh}")
+        counts, reports = run(f"gpu-denoise --mesh {mesh} (six configs)",
+                              [target, "--device", "cuda", "--clamp", "--configs", ",".join(keys),
+                               "--mesh", mesh, *gloo, "--output-dir", out_dir])
+        print_reports(keys, reports)
+        for key in keys:
+            got, want = os.path.join(out_dir, names[key]), os.path.join(exact_dir, names[key])
+            if mesh == "1x4" or key not in ("multiframe", "overlap"):
+                check(same_bytes(got, want), f"--mesh {mesh} {key}: differs from phase 4's file")
+            else:  # the SUM over 'frame' regroups the frames' partials
+                lsb = float(np.abs(imageio.load(got)[0] - imageio.load(want)[0]).max()) * 255
+                check(lsb <= 1.0 + 1e-3, f"--mesh {mesh} {key}: {lsb:.1f} LSB from phase 4's")
+                print(f"    {key}: within {lsb:.0f} LSB of phase 4's file")
+        # The split path: three launches a band and call (the warm-up and the
+        # timed call) of the bilateral (#1), of each layer's guided bilateral,
+        # and of the single-frame NLM (#2) beside the multiframe NLM's
+        # frame-batched launches; normalize (#4) once a band and call.
+        calls = 2 * 4
+        check(counts["bilateral"] == 3 * calls and counts["bilateral_guided"] == 3 * 3 * calls,
+              f"--mesh {mesh}: bilateral launches {counts['bilateral']}, guided "
+              f"{counts['bilateral_guided']}, expected {3 * calls} and {9 * calls}")
+        check(counts["nlm"] > 3 * calls and counts["normalize"] >= 2 * calls,
+              f"--mesh {mesh}: nlm {counts['nlm']}, normalize {counts['normalize']}")
+        print(f"    every file {'equal to' if mesh == '1x4' else 'within the bounds of'} phase 4's; "
+              "the split path launched 3 kernels a band and call")
+
+    # 3. --turbo 2 (and the half-row NLM) on 1x4: 270 rows a band, no padding
+    out_dir = os.path.join(root, "mesh_turbo2")
+    tkeys = ("bilateral", "layers", "linear", "nlm")
+    counts, reports = run("gpu-denoise --turbo 2 --weights-halfres --mesh 1x4",
+                          [target, "--device", "cuda", "--clamp", "--turbo", "2",
+                           "--weights-halfres", "--configs", ",".join(tkeys), "--mesh", "1x4",
+                           *gloo, "--output-dir", out_dir])
+    print_reports(tkeys, reports)
+    for key in tkeys:
+        phase7 = os.path.join(root, "turbo2_nlm_hrw" if key == "nlm" else "turbo2_bilateral")
+        check(same_bytes(os.path.join(out_dir, names[key]), os.path.join(phase7, names[key])),
+              f"--turbo 2 --mesh 1x4 {key}: differs from phase 7's file")
+    for kernel in ("pool", "build_grid", "slice_grid", "build_guided_grid", "slice_guided_grid",
+                   "nlm_hrw_bf16", "normalize"):
+        check(counts[kernel] > 0, f"--turbo 2 --mesh 1x4 launched no {kernel}")
+    check(counts["fused_guided"] == 0 and counts["fused_grid"] == 0,
+          "the sharded turbo launched a fused kernel")
+    print("    bilateral, linear, layers and the half-row NLM equal phase 7's files")
+
+    # 4. --turbo 4 on 1x4: bands of ceil_4(max(ceil(H/4), 4 (ceil(13/4) + 1)))
+    # rows, 272 at 1080p (Session._turbo_pad_rows), edge padded
+    out_dir = os.path.join(root, "mesh_turbo4")
+    counts, reports = run("gpu-denoise --turbo 4 --mesh 1x4",
+                          [target, "--device", "cuda", "--clamp", "--turbo", "4", "--configs",
+                           "bilateral", "--mesh", "1x4", *gloo, "--output-dir", out_dir])
+    print_reports(("bilateral",), reports)
+    loaded = imageio.load(target)[0]
+    rg = -(-cfg.BilateralParams().effective_radius // 4)
+    band_rows = -(-max(-(-H // 4), 4 * (rg + 1)) // 4) * 4
+    padded = np.pad(loaded, ((0, 4 * band_rows - H), (0, 0), (0, 0)), mode="edge")
+    want = fast.bilateral_fast(torch.from_numpy(padded).to("cuda"), cfg.BilateralParams(),
+                               turbo_levels(4), 4)[:H].cpu().numpy()
+    got = imageio.load(os.path.join(out_dir, names["bilateral"]))[0]
+    check(np.array_equal(got, imageio.to_float(imageio.quantize(want, clamp=True))),
+          "--turbo 4 --mesh 1x4: differs from bilateral_fast on the padded frame")
+    print(f"    equal to bilateral_fast on the same edge-padded {4 * band_rows}-row frame")
+
+    # 6. the slab slice kernels with offsets at 4K D=2, and the HDR frame
+    noisy_4k = anim["noisy_4k"]
+    img = torch.from_numpy(noisy_4k).to("cuda")
+    d, levels, bp = 2, turbo_levels(2), cfg.BilateralParams()
+    small = fast.pool(img, d)
+    lmin, step = fast.grid_range(small, levels)
+    taps = fast._grid_taps(bp.sigma_spatial, d)
+    grid = fast.build_grid(small, lmin, step, levels, taps, bp.border, 0.5 / bp.sigma_color**2)
+    ggrid = fast.build_guided_grid(small, small, lmin, step, levels, taps, bp.border,
+                                   0.5 / bp.sigma_color**2)
+    whole = fast.slice_grid(img, grid, lmin, 1.0 / step, d)
+    gwhole = fast.slice_guided_grid(img, ggrid, lmin, 1.0 / step, d)
+    rows, hs = H4K // 4, H4K // d
+    for i in (0, 1, 3):
+        band = img[i * rows : (i + 1) * rows].contiguous()
+        lo = max(i * rows // d - 1, 0)
+        off = (i * rows, hs, lo)
+        slab = grid[:, lo : min((i + 1) * rows // d + 1, hs)].contiguous()
+        got = fast.slice_grid(band, slab, lmin, 1.0 / step, d, None, *off)
+        want = fast.slice_grid_plain(band, slab, lmin, 1.0 / step, d, None, off)
+        torch.cuda.synchronize()
+        check(torch.equal(got, whole[i * rows : (i + 1) * rows]),
+              f"slice_grid slab band {i}: differs from the whole slice's rows")
+        ok = bool(((got - want).abs() <= TOL_SLICE["atol"] + TOL_SLICE["rtol"] * want.abs()).all())
+        check(ok, f"slice_grid slab band {i}: beyond {TOL_SLICE} of its plain version")
+        gslab = ggrid[:, lo : min((i + 1) * rows // d + 1, hs)].contiguous()
+        got = fast.slice_guided_grid(band, gslab, lmin, 1.0 / step, d, *off)
+        want = fast.slice_guided_grid_plain(band, gslab, lmin, 1.0 / step, d, off)
+        for g, w_, part in zip(got, want, gwhole):
+            check(torch.equal(g, part[i * rows : (i + 1) * rows]),
+                  f"slice_guided_grid slab band {i}: differs from the whole slice's rows")
+            ok = bool(((g - w_).abs() <= TOL_SLICE["atol"] + TOL_SLICE["rtol"] * w_.abs()).all())
+            check(ok, f"slice_guided_grid slab band {i}: beyond {TOL_SLICE} of its plain version")
+        if i == 1:
+            slab_ms = median_ms(torch, lambda: fast.slice_grid(band, slab, lmin, 1.0 / step, d,
+                                                               None, *off), 10)
+    print(f"  slab slices at 4K D=2, bands 0, 1 and 3 of 4 (offsets y_off, hs_all, gy_off): "
+          f"the whole slice's rows bit for bit, within {TOL_SLICE} of the plain versions; "
+          f"slice_grid on band 1 median {slab_ms:.4f} ms ({smi})")
+    del whole, gwhole, grid, ggrid
+    hdr = noisy_4k.copy()
+    hdr[..., :3] = np.clip(hdr[..., :3], 0.0, 1.0) * HDR_SCALE
+    cases = [{"name": "hdr", "kind": "bilateral_fast", "inputs": {"img": hdr},
+              "kw": {"params": bp, "levels": levels, "downsample": d}}]
+    out_dir = os.path.join(root, "hdr_sharded")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    rank_counts = launch.run_ranks(4, dryrun.run_cases, cases, out_dir, (1, 4), "cuda",
+                                   backend="gloo", device_type="cuda", timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    counts = sum_counts(stencils, rank_counts)
+    for k, n in counts.items():
+        totals[k] += n
+    (got,) = dryrun.load_outputs(out_dir, "hdr")
+    want = fast.bilateral_fast(torch.from_numpy(hdr).to("cuda"), bp, levels, d).cpu().numpy()
+    check(got.shape == (H4K, W4K, 4) and np.isfinite(got).all(), "HDR sharded turbo: output")
+    check(np.array_equal(got, want), f"HDR sharded turbo 4K D=2 at 1x4: max abs "
+                                     f"{np.abs(got - want).max():.3g} from the single-device")
+    print(f"  HDR 4K (RGB in [0, {HDR_SCALE:g}]) through spatial_bilateral_fast at 1x4: equal to "
+          f"the single-device pipeline bit for bit ({time.perf_counter() - t0:.1f} s, the "
+          f"ranks {ranks_s:.1f} s; launches {sum(counts.values())})")
+
+    # 7. the dry run on four ranks of the card
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        counts = dryrun.dryrun(4, "cuda", "gloo")
+    for k, n in counts.items():
+        totals[k] += n
+    for line in out.getvalue().splitlines():
+        print("  " + line)
+    print(f"  parallel.dryrun --ranks 4 --device cuda: {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -1305,19 +1510,20 @@ def main() -> int:
     from image_denoising_filter_tpu_torch import config as cfg
     from image_denoising_filter_tpu_torch.utils import content, imageio, native
     from image_denoising_filter_tpu_torch.ops import _build, fast, reference, stencils
+    from image_denoising_filter_tpu_torch.parallel import dryrun, launch
     from image_denoising_filter_tpu_torch.runtime import Session
 
     check_no_jax()
     render_frame = load_render_frame()
     smi = nvidia_smi_line()
-    print(f"[1/8] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
+    print(f"[1/9] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
 
     t0 = time.perf_counter()
     lib_path, log = _build.build()
     build_s = time.perf_counter() - t0
-    print(f"[2/8] build: {build_s:.2f} s -> {os.path.relpath(lib_path, REPO)}")
+    print(f"[2/9] build: {build_s:.2f} s -> {os.path.relpath(lib_path, REPO)}")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip())
@@ -1325,34 +1531,42 @@ def main() -> int:
     root = scratch_dir()
     try:
         anim = write_animation(imageio, render_frame, root)
-        print(f"[3/8] kernels vs plain versions at {W}x{H}")
+        print(f"[3/9] kernels vs plain versions at {W}x{H}")
         kernels = phase_kernels(torch, stencils, cfg, anim["frames"], anim["layer"])
-        print(f"[4/8] battery through gpu-denoise --device cuda ({N_FRAMES} frames + 3 layers)")
+        print(f"[4/9] battery through gpu-denoise --device cuda ({N_FRAMES} frames + 3 layers)")
         counts, exact_dir = phase_battery(cfg, stencils, cli, imageio, Session, anim, root)
-        print(f"[5/8] turbo grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
+        print(f"[5/9] turbo grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
         noisy_4k, layers_4k = render_frame(0.5, H4K, W4K, np.random.default_rng(SEED),
                                            noise=NOISE)
         turbo_kernels_results, fused_counts = phase_turbo_kernels(
             torch, fast, stencils, cfg, noisy_4k, anim["frames"][TARGET_FRAME])
         kernels.update(turbo_kernels_results)
-        print(f"[6/8] guided grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
+        print(f"[6/9] guided grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
         images = {
             "4K": (noisy_4k, np.clip(layers_4k["albedo"], 0, 1)),
             "1080p": (anim["frames"][TARGET_FRAME], anim["layer"]),
         }
         images = {k: tuple(torch.from_numpy(np.ascontiguousarray(x)).to("cuda") for x in v)
                   for k, v in images.items()}
-        del noisy_4k, layers_4k
+        anim["noisy_4k"] = noisy_4k
+        del layers_4k
         kernels.update(phase_guided_kernels(torch, fast, cfg, images))
         del images
-        print("[7/8] turbo battery through gpu-denoise --turbo D --device cuda")
+        print("[7/9] turbo battery through gpu-denoise --turbo D --device cuda")
         totals = phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir)
-        print("[8/8] CPU configs, parity, profile, content")
+        print("[8/9] CPU configs, parity, profile, content")
         t0 = time.perf_counter()
         profiled = phase_cpu_parity_profile(torch, cfg, stencils, cli, imageio, content,
                                             reference, native, kernels, anim, root, exact_dir)
         print(f"  phase 8: {time.perf_counter() - t0:.1f} s")
         for k, n in profiled.items():
+            totals[k] += n
+        print("[9/9] sharded: gpu-denoise --mesh on 4 ranks sharing the card over gloo")
+        t0 = time.perf_counter()
+        sharded = phase_sharded(torch, cfg, stencils, fast, cli, imageio, launch, dryrun, anim,
+                                root, exact_dir, smi)
+        print(f"  phase 9: {time.perf_counter() - t0:.1f} s")
+        for k, n in sharded.items():
             totals[k] += n
     finally:
         shutil.rmtree(root, ignore_errors=True)

@@ -14,16 +14,26 @@ stride-2 search and bf16 taps (Session.run); `--weights-halfres` adds the
 NLM weights at half row resolution to them. `--profile DIR` writes one
 torch.profiler trace of the whole battery into DIR, each config in a span
 named after its key.
+
+`--mesh FxY` runs the device configs on F * Y ranks of torch.distributed
+(frame data parallelism x spatial row sharding, parallel/): under torchrun
+each process is one rank; otherwise gpu-denoise spawns the ranks itself
+(parallel.launch.run_ranks). `--dist-backend` picks NCCL (one rank a card,
+the default on CUDA) or gloo (the CPU's, and several ranks on one card).
+Rank 0 alone prints and writes the files; the CPU configs run on rank 0.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import os
 import sys
 
 import torch
+
+import torch.distributed as dist
 
 from .config import (
     GPU_BATTERY,
@@ -33,6 +43,8 @@ from .config import (
     RunConfig,
     TilingConfig,
 )
+from .ops import stencils
+from .parallel import launch
 from .runtime.session import Session
 from .utils import dataset as dataset_mod
 from .utils.timing import Timer, print_cpu_time
@@ -84,7 +96,17 @@ def _write_trace(prof: torch.profiler.profile, out_dir: str) -> None:
         raise RuntimeError(f"the profiler wrote no trace to {path}")
 
 
-def main(argv: list[str] | None = None) -> int:
+def parse_mesh(text: str) -> tuple[int, int]:
+    """'FxY' -> (F, Y), as tpu-denoise reads --mesh (JAX cli.py:163-166);
+    ValueError unless both are positive integers."""
+    f, y = text.lower().split("x")
+    shape = (int(f), int(y))
+    if min(shape) < 1:
+        raise ValueError(f"mesh axes must be at least 1, got {text!r}")
+    return shape
+
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="gpu-denoise",
         description="CUDA image denoising battery "
@@ -166,19 +188,83 @@ def main(argv: list[str] | None = None) -> int:
         "the half-row NLM kernel; requires --turbo (stride-2 search) and "
         "patch radius 3",
     )
-    args = ap.parse_args(argv)
+    ap.add_argument(
+        "--mesh", default=None, metavar="FxY",
+        help="multi-device mesh, e.g. 2x4 = 2-way frame data parallelism x 4-way "
+        "spatial row sharding, one torch.distributed rank each (default: one device)",
+    )
+    ap.add_argument(
+        "--dist-backend", default=None, choices=launch.BACKENDS,
+        help="torch.distributed backend of --mesh (default: nccl with --device cuda, "
+        "which takes one rank a card; gloo with --device cpu, or to run several ranks "
+        "on one card)",
+    )
+    return ap
 
+
+def run(argv: list[str] | None = None) -> tuple[int, list[dict]]:
+    """gpu-denoise: returns its exit code and each rank's kernel launch
+    counts (stencils.launches after the battery; one dict, this process's,
+    without --mesh)."""
+    args = _parser().parse_args(argv)
     keys = (*CONFIG_KEYS, *CPU_CONFIGS)
     sel = keys if args.configs == "all" else tuple(args.configs.split(","))
     for key in sel:
         if key not in keys:
             print(f"error: unknown config {key!r} (choose from {','.join(keys)})",
                   file=sys.stderr)
-            return 1
+            return 1, []
     if args.weights_halfres and not args.turbo:
         print("--weights-halfres requires --turbo (stride-2 search)", file=sys.stderr)
-        return 1
+        return 1, []
+    if not args.mesh:
+        return _battery(args, sel, None), [dict(stencils.launches)]
+    try:
+        mesh_shape = parse_mesh(args.mesh)
+        device_type = torch.device(args.device).type
+        backend = args.dist_backend or launch.default_backend(device_type)
+        world = mesh_shape[0] * mesh_shape[1]
+        if launch.under_torchrun():
+            launch.init_from_env(backend, device_type)
+            try:
+                if int(os.environ["WORLD_SIZE"]) != world:
+                    raise ValueError(f"--mesh {args.mesh} needs {world} ranks, torchrun "
+                                     f"started {os.environ['WORLD_SIZE']}")
+                quiet = dist.get_rank() != 0
+                with open(os.devnull, "w") as null, contextlib.redirect_stdout(
+                        null) if quiet else contextlib.nullcontext():
+                    return _battery(args, sel, mesh_shape), [dict(stencils.launches)]
+            finally:
+                dist.destroy_process_group()
+        results = launch.run_ranks(world, _battery_rank, args, sel, mesh_shape,
+                                   backend=backend, device_type=device_type)
+    except Exception as e:  # a refused mesh, backend or device, or a failed rank
+        print(f"error: {e}", file=sys.stderr)
+        return 1, []
+    rc, text, _ = results[0]
+    print(text, end="")
+    return rc, [counts for _, _, counts in results]
 
+
+def _battery_rank(args: argparse.Namespace, sel: tuple, mesh_shape: tuple) -> tuple:
+    """One spawned rank of a --mesh run: the battery, with its output kept
+    for rank 0 to hand back. Returns (exit code, rank 0's stdout, this
+    rank's launch counts)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = _battery(args, sel, mesh_shape)
+    return rc, out.getvalue() if dist.get_rank() == 0 else "", dict(stencils.launches)
+
+
+def main(argv: list[str] | None = None) -> int:
+    return run(argv)[0]
+
+
+def _battery(args: argparse.Namespace, sel: tuple, mesh_shape: tuple | None) -> int:
+    """The selected configs for each target, on this process's device, or as
+    one rank of mesh_shape's mesh (the CPU configs then on rank 0 alone)."""
+    lead = mesh_shape is None or dist.get_rank() == 0
+    device = args.device if mesh_shape is None else torch.device(args.device).type
     try:
         targets = [args.image]
         if args.all_frames:
@@ -208,9 +294,10 @@ def main(argv: list[str] | None = None) -> int:
         )
         frame_cache: dict = {}
         os.makedirs(args.output_dir, exist_ok=True)
-        if args.profile:
-            os.makedirs(args.profile, exist_ok=True)
-        with _profiler(args.device) if args.profile else contextlib.nullcontext() as prof:
+        profile = args.profile if lead else None
+        if profile:
+            os.makedirs(profile, exist_ok=True)
+        with _profiler(device) if profile else contextlib.nullcontext() as prof:
             for target in targets:
                 out_dir = args.output_dir
                 if args.all_frames:
@@ -220,7 +307,7 @@ def main(argv: list[str] | None = None) -> int:
                     print(f"=== frame {stem} ===")
                 session = Session(
                     target,
-                    device=args.device,
+                    device=device,
                     bilateral_params=bp,
                     layers_params=lp,
                     nlm_params=nlp,
@@ -231,6 +318,7 @@ def main(argv: list[str] | None = None) -> int:
                     batch_frames=args.batch_frames,
                     # The turbo NLM pairs the stride-2 search with bf16 taps.
                     nlm_tiling=TilingConfig(compute_dtype="bfloat16") if args.turbo else None,
+                    mesh_shape=mesh_shape,
                 )
                 for cfg, key in zip(GPU_BATTERY, CONFIG_KEYS):
                     if key not in sel:
@@ -246,7 +334,7 @@ def main(argv: list[str] | None = None) -> int:
                     print(f"\toutput: {result.output_path}")
                     result.report.print()
                 for key, threads in CPU_CONFIGS.items():
-                    if key not in sel:
+                    if key not in sel or not lead:
                         continue
                     print(f"<<<--- bilateral filter on cpu ({threads} thread"
                           f"{'s' if threads > 1 else ''}) --->>>")
@@ -256,9 +344,11 @@ def main(argv: list[str] | None = None) -> int:
                     print(f"\toutput: {path}")
                     print_cpu_time(timer)
         if prof is not None:
-            _write_trace(prof, args.profile)
-            print(f"\tprofile trace written to {args.profile}")
+            _write_trace(prof, profile)
+            print(f"\tprofile trace written to {profile}")
     except Exception as e:  # main.cpp:1948-1991 catches and reports
+        if mesh_shape is not None:
+            raise  # a rank that returned would leave its peers in a collective
         print(f"error: {e}", file=sys.stderr)
         return 1
     return 0

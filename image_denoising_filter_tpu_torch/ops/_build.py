@@ -153,7 +153,7 @@ def library() -> ctypes.CDLL:
     lib.idf_build_grid_info.argtypes = [i32, i32, i32p]
     lib.idf_build_grid_info.restype = i32
     lib.idf_slice_grid.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr,
+        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr,
     ]
     lib.idf_slice_grid.restype = i32
     lib.idf_build_guided_grid.argtypes = [
@@ -163,7 +163,7 @@ def library() -> ctypes.CDLL:
     lib.idf_build_guided_grid_info.argtypes = [i32, i32, i32p]
     lib.idf_build_guided_grid_info.restype = i32
     lib.idf_slice_guided_grid.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr,
+        ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr,
     ]
     lib.idf_slice_guided_grid.restype = i32
     lib.idf_fused_grid.argtypes = [

@@ -142,12 +142,22 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
 // of four 8-byte cells per pixel, served by L1. Design: one thread per pixel
 // in 32x8 blocks; the bilinear taps are computed in closed form, so no
 // matrix and no padded grid exist.
+//
+// Slab form, for the sharded turbo (image_denoising_filter_tpu/parallel/
+// spatial.py:280-311): the guide is a band of rows whose first row is the
+// image's row y_cell_off * d, and the grid holds hs of the image's hs_all
+// grid rows, from grid row gy_off. The cell row is the image's,
+// floor(gy) + y_cell_off clamped to [0, hs_all - 1], taken relative to the
+// slab; gy and its weight stay the band's, which is exact because the band
+// starts on a multiple of d. y_cell_off = gy_off = 0 with hs_all = hs is the
+// whole-image slice.
 template <bool UNIFORM_ALPHA>
 __global__ void __launch_bounds__(kBlockX* kBlockY)
     slice_grid_kernel(const float4* __restrict__ guide, const Bf16x4* __restrict__ grid,
                       const float* __restrict__ lmin, const float* __restrict__ inv_step,
                       const float* __restrict__ alpha, float4* __restrict__ out, int h,
-                      int w, int hs, int ws, int levels, float inv_d) {
+                      int w, int hs, int ws, int levels, float inv_d, int y_cell_off,
+                      int hs_all, int gy_off) {
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   if (x >= w || y >= h) return;
@@ -164,8 +174,9 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
   const float fx = floorf(gx);
   const float wy = gy - fy;
   const float wx = gx - fx;
-  const int y0 = min(max(static_cast<int>(fy), 0), hs - 1);
-  const int y1 = min(max(static_cast<int>(fy) + 1, 0), hs - 1);
+  const int cy = static_cast<int>(fy) + y_cell_off;
+  const int y0 = min(max(cy, 0), hs_all - 1) - gy_off;
+  const int y1 = min(max(cy + 1, 0), hs_all - 1) - gy_off;
   const int x0 = min(max(static_cast<int>(fx), 0), ws - 1);
   const int x1 = min(max(static_cast<int>(fx) + 1, 0), ws - 1);
   const size_t plane = static_cast<size_t>(hs) * ws;
@@ -262,12 +273,14 @@ __device__ __forceinline__ float clip_t(float v, float lmin, float inv_step, flo
 // Bound on the H100: device memory. 16 B of layer read and 28 B of partials
 // written per pixel, and the grid (166 MB at 4K, d=2, K=5) read about once;
 // at most two levels of four 16-byte cells per pixel, served by L1. Design:
-// one thread per pixel in 32x8 blocks, closed-form bilinear taps.
+// one thread per pixel in 32x8 blocks, closed-form bilinear taps. The slab
+// form (y_cell_off, hs_all, gy_off) is slice_grid_kernel's.
 __global__ void __launch_bounds__(kBlockX* kBlockY)
     slice_guided_grid_kernel(const float4* __restrict__ guide, const Bf16x8* __restrict__ grid,
                              const float* __restrict__ lmin, const float* __restrict__ inv_step,
                              float4* __restrict__ out_wc, float* __restrict__ out_nw, int h,
-                             int w, int hs, int ws, int levels, float inv_d) {
+                             int w, int hs, int ws, int levels, float inv_d, int y_cell_off,
+                             int hs_all, int gy_off) {
   const int x = blockIdx.x * kBlockX + threadIdx.x;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   if (x >= w || y >= h) return;
@@ -281,8 +294,9 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
   const float gx = __fmul_rn(static_cast<float>(x) + 0.5f, inv_d) - 0.5f;
   const float fy = floorf(gy);
   const float fx = floorf(gx);
-  const int y0 = min(max(static_cast<int>(fy), 0), hs - 1);
-  const int y1 = min(max(static_cast<int>(fy) + 1, 0), hs - 1);
+  const int cy = static_cast<int>(fy) + y_cell_off;
+  const int y0 = min(max(cy, 0), hs_all - 1) - gy_off;
+  const int y1 = min(max(cy + 1, 0), hs_all - 1) - gy_off;
   const int x0 = min(max(static_cast<int>(fx), 0), ws - 1);
   const int x1 = min(max(static_cast<int>(fx) + 1, 0), ws - 1);
   const size_t plane = static_cast<size_t>(hs) * ws;
@@ -1011,6 +1025,14 @@ dim3 grid_for(int w, int h) {
   return dim3((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
 }
 
+// The slab form's arguments of the slice kernels: a band that starts on a
+// multiple of d, and a slab of hs rows that starts inside the image's
+// hs_all grid rows (or one row above them, a row the clamp never reads).
+bool slab_ok(int y_off, int d, int hs, int hs_all, int gy_off) {
+  return y_off >= 0 && y_off % d == 0 && hs > 0 && hs_all > 0 && gy_off >= -1 &&
+         gy_off < hs_all;
+}
+
 // Whether `bytes` of dynamic shared memory, beside `reserve` bytes of a
 // kernel's static arrays, fit the current device's opt-in shared memory per
 // block.
@@ -1171,11 +1193,17 @@ int idf_build_grid_info(int zero_border, int shared_bytes, int* info) {
 
 // guide: (h, w, 4) float32 (its RGB guides the tents); grid: (levels, hs, ws,
 // 4) bf16; lmin, inv_step: device arrays of 3 floats; alpha: device float,
-// or nullptr for the full alpha slice; out: (h, w, 4) float32.
+// or nullptr for the full alpha slice; out: (h, w, 4) float32. y_off, hs_all,
+// gy_off: the slab form (slice_grid_kernel), the guide's first row in the
+// image (a multiple of d), the image's grid rows, the grid's first row among
+// them; 0, hs, 0 for the whole image. ops/fast.py:check_slab checks that
+// the grid holds every row the band reads.
 int idf_slice_grid(const void* guide, const void* grid, const void* lmin, const void* inv_step,
                    const void* alpha, void* out, int h, int w, int hs, int ws, int levels, int d,
-                   void* stream) {
-  if (d <= 0 || levels <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                   int y_off, int hs_all, int gy_off, void* stream) {
+  if (d <= 0 || levels <= 0 || !slab_ok(y_off, d, hs, hs_all, gy_off)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
   const dim3 block(kBlockX, kBlockY);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1187,11 +1215,11 @@ int idf_slice_grid(const void* guide, const void* grid, const void* lmin, const 
   float4* o = static_cast<float4*>(out);
   const float inv_d = 1.f / static_cast<float>(d);
   if (a != nullptr) {
-    slice_grid_kernel<true><<<grid_for(w, h), block, 0, s>>>(gd, g, lm, is, a, o, h, w, hs, ws,
-                                                             levels, inv_d);
+    slice_grid_kernel<true><<<grid_for(w, h), block, 0, s>>>(
+        gd, g, lm, is, a, o, h, w, hs, ws, levels, inv_d, y_off / d, hs_all, gy_off);
   } else {
-    slice_grid_kernel<false><<<grid_for(w, h), block, 0, s>>>(gd, g, lm, is, a, o, h, w, hs, ws,
-                                                              levels, inv_d);
+    slice_grid_kernel<false><<<grid_for(w, h), block, 0, s>>>(
+        gd, g, lm, is, a, o, h, w, hs, ws, levels, inv_d, y_off / d, hs_all, gy_off);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1218,18 +1246,22 @@ int idf_build_guided_grid_info(int zero_border, int shared_bytes, int* info) {
 
 // guide: (h, w, 4) float32 full-resolution layer; grid: (levels, hs, ws, 8)
 // bf16; lmin, inv_step: device arrays of 3 floats; out_wc: (h, w, 4) and
-// out_nw: (h, w, 3) float32.
+// out_nw: (h, w, 3) float32. y_off, hs_all, gy_off: the slab form, as
+// idf_slice_grid's.
 int idf_slice_guided_grid(const void* guide, const void* grid, const void* lmin,
                           const void* inv_step, void* out_wc, void* out_nw, int h, int w, int hs,
-                          int ws, int levels, int d, void* stream) {
-  if (d <= 0 || levels <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                          int ws, int levels, int d, int y_off, int hs_all, int gy_off,
+                          void* stream) {
+  if (d <= 0 || levels <= 0 || !slab_ok(y_off, d, hs, hs_all, gy_off)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
   slice_guided_grid_kernel<<<grid_for(w, h), dim3(kBlockX, kBlockY), 0,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(guide), static_cast<const Bf16x8*>(grid),
       static_cast<const float*>(lmin), static_cast<const float*>(inv_step),
       static_cast<float4*>(out_wc), static_cast<float*>(out_nw), h, w, hs, ws, levels,
-      1.f / static_cast<float>(d));
+      1.f / static_cast<float>(d), y_off / d, hs_all, gy_off);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -178,20 +178,23 @@ def _upsample_matrix(d: int, n_in: int, n_out: int) -> np.ndarray:
     return u
 
 
-def _bilinear_up(g: torch.Tensor, d: int, h: int, w: int) -> torch.Tensor:
+def _bilinear_up(g: torch.Tensor, d: int, h: int, w: int, slab=None) -> torch.Tensor:
     """Bilinear upsample of (hs, ws, C) grid cells to (h, w) samples over the
     edge-replicated grid: along W first, then along H, each as
-    a * (1 - wt) + b * wt (the slice kernel's order)."""
+    a * (1 - wt) + b * wt (the slice kernel's order). slab = (y_off, hs_all,
+    gy_off) slices a band against a slab of grid rows (check_slab)."""
     hs, ws = g.shape[:2]
+    y_off, hs_all, gy_off = (0, hs, 0) if slab is None else slab
 
-    def taps(n_out, n_in):
+    def taps(n_out, n_in, cell_off=0, first=0):
         f, wt = _bilinear_taps(d, n_out)
-        i0 = torch.from_numpy(np.clip(f, 0, n_in - 1)).to(g.device)
-        i1 = torch.from_numpy(np.clip(f + 1, 0, n_in - 1)).to(g.device)
+        f = f + cell_off
+        i0 = torch.from_numpy(np.clip(f, 0, n_in - 1) - first).to(g.device)
+        i1 = torch.from_numpy(np.clip(f + 1, 0, n_in - 1) - first).to(g.device)
         wt = torch.from_numpy(wt).to(g.device)
         return i0, i1, wt
 
-    y0, y1, wy = taps(h, hs)
+    y0, y1, wy = taps(h, hs_all, y_off // d, gy_off)
     x0, x1, wx = taps(w, ws)
     wx = wx[:, None]
     gx = g[:, x0] * (1.0 - wx) + g[:, x1] * wx  # (hs, w, C)
@@ -259,10 +262,12 @@ def slice_grid_plain(
     inv_step: torch.Tensor,
     d: int,
     alpha_val: Optional[torch.Tensor] = None,
+    slab: Optional[tuple[int, int, int]] = None,
 ) -> torch.Tensor:
     """The slice kernel as tensor ops: per level, the tent weight of each
     pixel's t_c times the bilinearly upsampled level, summed in level order.
-    Alpha takes green's tent, or the constant alpha_val (uniform alpha)."""
+    Alpha takes green's tent, or the constant alpha_val (uniform alpha).
+    slab = (y_off, hs_all, gy_off): the kernel's slab form (slice_grid)."""
     h, w, _ = guide.shape
     levels = grid.shape[0]
     t = ((guide[..., :3] - lmin) * inv_step).clamp(0.0, levels - 1.0)
@@ -270,7 +275,7 @@ def slice_grid_plain(
     acc = torch.zeros((h, w, 4), dtype=torch.float32, device=guide.device)
     for k in range(levels):
         tent = (1.0 - (t - k).abs()).clamp_min(0.0)
-        acc = acc + tent * _bilinear_up(grid[k].float(), d, h, w)
+        acc = acc + tent * _bilinear_up(grid[k].float(), d, h, w, slab)
     if alpha_val is not None:
         acc[..., 3] = alpha_val
     return acc
@@ -313,12 +318,13 @@ def slice_guided_grid_plain(
     lmin: torch.Tensor,
     inv_step: torch.Tensor,
     d: int,
+    slab: Optional[tuple[int, int, int]] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The guided slice kernel as tensor ops: t_c = clip((guide_c - lmin_c)
     inv_step_c, 0, K-1) from the full-resolution layer, and per level the
     tent weight of t times the bilinearly upsampled (edge-replicated) level,
     summed in level order; alpha's numerator rides green's t. Returns the
-    partials (wc (H, W, 4), nw (H, W, 3))."""
+    partials (wc (H, W, 4), nw (H, W, 3)). slab: as slice_grid_plain's."""
     h, w, _ = guide.shape
     levels = grid.shape[0]
     t = ((guide[..., :3] - lmin) * inv_step).clamp(0.0, levels - 1.0)
@@ -326,7 +332,7 @@ def slice_guided_grid_plain(
     acc = torch.zeros((h, w, GUIDED_PLANES), dtype=torch.float32, device=guide.device)
     for k in range(levels):
         tent = (1.0 - (t - k).abs()).clamp_min(0.0)
-        acc = acc + tent * _bilinear_up(grid[k].float(), d, h, w)
+        acc = acc + tent * _bilinear_up(grid[k].float(), d, h, w, slab)
     return acc[..., :4].contiguous(), acc[..., 4:7].contiguous()
 
 
@@ -642,6 +648,31 @@ def _check_grid(grid: torch.Tensor, shape: tuple, device: torch.device) -> None:
         raise ValueError("the CUDA kernels take contiguous tensors")
 
 
+def check_slab(h: int, d: int, slab_rows: int, y_off: int, hs_all: Optional[int],
+               gy_off: int) -> tuple[int, int, int]:
+    """The slab form of the slice kernels: a band of h rows that starts at
+    the image's row y_off (a multiple of d), sliced against slab_rows of the
+    image's hs_all grid rows from grid row gy_off. hs_all None is the whole
+    image (y_off = gy_off = 0, hs_all = slab_rows = ceil(h/d)). Raises unless
+    the slab holds every grid row, clamped to [0, hs_all), that the band's
+    bilinear taps read. Returns (y_off, hs_all, gy_off)."""
+    if hs_all is None:
+        if y_off or gy_off:
+            raise ValueError("a band's y_off and gy_off need the image's grid rows hs_all")
+        return 0, slab_rows, 0
+    if y_off < 0 or y_off % d:
+        raise ValueError(f"a band starts on a multiple of d={d}, got y_off={y_off}")
+    f, _ = _bilinear_taps(d, h)
+    first = int(np.clip(f[0] + y_off // d, 0, hs_all - 1))
+    last = int(np.clip(f[-1] + 1 + y_off // d, 0, hs_all - 1))
+    if first < gy_off or last >= gy_off + slab_rows:
+        raise ValueError(
+            f"grid rows [{gy_off}, {gy_off + slab_rows}) miss rows [{first}, {last}] that "
+            f"the band at row {y_off} reads"
+        )
+    return y_off, hs_all, gy_off
+
+
 def grid_to_planes(grid: torch.Tensor, uniform_alpha: bool) -> torch.Tensor:
     """(K, hs, ws, 4) -> the JAX package's level-major (nc*K, hs, ws) planes,
     nc = 3 under uniform alpha (fast.py:_build_grid_pallas's output)."""
@@ -727,12 +758,19 @@ def slice_grid(
     inv_step: torch.Tensor,
     d: int,
     alpha_val: Optional[torch.Tensor] = None,
+    y_off: int = 0,
+    hs_all: Optional[int] = None,
+    gy_off: int = 0,
 ) -> torch.Tensor:
     """Slice the grid at full resolution (fast.py:_slice_grid_pallas with
     pad_edge=True): guide (H, W, 4) float32, whose RGB places each pixel
     between levels; grid (K, ceil(H/d), ceil(W/d), 4) bfloat16; lmin and
     inv_step (3,) float32. alpha_val (one float32) is the output alpha under
-    uniform alpha; None slices the grid's alpha. Returns (H, W, 4) float32."""
+    uniform alpha; None slices the grid's alpha. Returns (H, W, 4) float32.
+    With hs_all given, guide is a band of the image from row y_off and grid a
+    slab of the image's hs_all grid rows from row gy_off (check_slab; the
+    sharded turbo's slice, parallel/spatial.py:280-311 of the JAX package):
+    the output equals the whole-image slice's rows of the band."""
     _check_image(guide, "guide")
     _check_downsample(d)
     _check_range(lmin, inv_step)
@@ -741,17 +779,19 @@ def slice_grid(
     alpha = () if alpha_val is None else (alpha_val,)
     on_cuda = _on_cuda(guide, lmin, inv_step, *alpha)
     h, w, _ = guide.shape
-    hs, ws = -(-h // d), -(-w // d)
+    hs = -(-h // d) if hs_all is None else grid.shape[1]
+    ws = -(-w // d)
     _check_grid(grid, (hs, ws, 4), guide.device)
+    slab = check_slab(h, d, hs, y_off, hs_all, gy_off)
     if not on_cuda:
-        return slice_grid_plain(guide, grid, lmin, inv_step, d, alpha_val)
+        return slice_grid_plain(guide, grid, lmin, inv_step, d, alpha_val, slab)
     out = torch.empty_like(guide)
     lib = _build.library()
     with torch.cuda.device(guide.device):
         rc = lib.idf_slice_grid(
             guide.data_ptr(), grid.data_ptr(), lmin.data_ptr(), inv_step.data_ptr(),
             None if alpha_val is None else alpha_val.data_ptr(), out.data_ptr(),
-            h, w, hs, ws, grid.shape[0], d, _stream(guide),
+            h, w, hs, ws, grid.shape[0], d, *slab, _stream(guide),
         )
     _raise_on_error(rc, "slice_grid")
     launches["slice_grid"] += 1
@@ -821,28 +861,36 @@ def slice_guided_grid(
     lmin: torch.Tensor,
     inv_step: torch.Tensor,
     d: int,
+    y_off: int = 0,
+    hs_all: Optional[int] = None,
+    gy_off: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Slice the guided grid at full resolution (fast.py:
     _slice_guided_grid_pallas with pad_edge=True): guide (H, W, 4) float32,
     the full-resolution layer whose RGB places each pixel between levels;
     grid (K, ceil(H/d), ceil(W/d), 8) bfloat16; lmin and inv_step (3,)
-    float32. Returns the partials (wc (H, W, 4), nw (H, W, 3)) float32."""
+    float32. Returns the partials (wc (H, W, 4), nw (H, W, 3)) float32.
+    y_off, hs_all, gy_off: a band against a slab of grid rows, as
+    slice_grid's."""
     _check_image(guide, "guide")
     _check_downsample(d, GUIDED_DOWNSAMPLES)
     _check_range(lmin, inv_step)
     on_cuda = _on_cuda(guide, lmin, inv_step)
     h, w, _ = guide.shape
-    hs, ws = -(-h // d), -(-w // d)
+    hs = -(-h // d) if hs_all is None else grid.shape[1]
+    ws = -(-w // d)
     _check_grid(grid, (hs, ws, GUIDED_PLANES), guide.device)
+    slab = check_slab(h, d, hs, y_off, hs_all, gy_off)
     if not on_cuda:
-        return slice_guided_grid_plain(guide, grid, lmin, inv_step, d)
+        return slice_guided_grid_plain(guide, grid, lmin, inv_step, d, slab)
     wc = torch.empty_like(guide)
     nw = torch.empty((h, w, 3), dtype=torch.float32, device=guide.device)
     lib = _build.library()
     with torch.cuda.device(guide.device):
         rc = lib.idf_slice_guided_grid(
             guide.data_ptr(), grid.data_ptr(), lmin.data_ptr(), inv_step.data_ptr(),
-            wc.data_ptr(), nw.data_ptr(), h, w, hs, ws, grid.shape[0], d, _stream(guide),
+            wc.data_ptr(), nw.data_ptr(), h, w, hs, ws, grid.shape[0], d, *slab,
+            _stream(guide),
         )
     _raise_on_error(rc, "slice_guided_grid")
     launches["slice_guided_grid"] += 1

@@ -1,15 +1,24 @@
-"""Session: runs one denoising configuration end to end on one device.
+"""Session: runs one denoising configuration end to end, on one device or
+on a mesh of ranks.
 
 Counterpart of image_denoising_filter_tpu/runtime/session.py, the exact
-single-device paths (with float32 or bf16 taps, the `tiling`) and the turbo
-modes (`run_turbo` for the bilateral, linear and layers configs; `run` with
-a strided search and bf16 taps, the `nlm_tiling`, for the NLM configs): dataset
+paths (with float32 or bf16 taps, the `tiling`) and the turbo modes
+(`run_turbo` for the bilateral, linear and layers configs; `run` with a
+strided search and bf16 taps, the `nlm_tiling`, for the NLM configs): dataset
 discovery -> image loading -> host-to-device upload -> kernels -> readback
 -> flag-encoded save, with the per-run transfer/exec report (the PRINT_TIME
 analog of `ComputeApplication::RunOnGPU`, src/main.cpp:1307-1730); and the
 CPU bilateral of the cpu1/cpu8 configs (`run_cpu`, RunOnCPU). The device is
 an explicit argument; a CUDA device without a card is an error, never a
 quiet run on the CPU.
+
+With `mesh_shape=(F, Y)` every rank of an initialised torch.distributed
+process group of F * Y ranks runs the same Session (parallel/): each decodes
+the input and keeps its band of rows, the kernels run on the bands with halo
+exchange over 'y' and the temporal NLM's frames split over 'frame', the
+output is gathered over 'y' into every rank's RunResult.image, and global
+rank 0 alone writes the file. Its exec time ends with a synchronize and a
+barrier, so rank 0's report covers the slowest rank.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import (
     BilateralParams,
@@ -43,7 +53,19 @@ from ..models.denoiser import (
     NlmDenoiser,
     TemporalNlmDenoiser,
 )
-from ..ops import _build, fast, reference, stencils
+from ..ops import _build, eager, fast, reference, stencils
+from ..parallel import (
+    gather_rows,
+    make_mesh,
+    shard_rows,
+    spatial_bilateral,
+    spatial_bilateral_fast,
+    spatial_cross_bilateral_layers,
+    spatial_cross_bilateral_layers_fast,
+    spatial_nlm_accumulate,
+)
+from ..parallel.mesh import FRAME_AXIS
+from ..parallel.spatial import _all_reduce, temporal_nlm_local_partials
 from .prefetch import FramePrefetcher
 
 
@@ -77,8 +99,9 @@ class RunResult:
 
 
 class Session:
-    """Runs RunConfigs against one target image on one device (re-usable
-    across configs, like the reference app object re-running RunOnGPU)."""
+    """Runs RunConfigs against one target image on one device, or on a mesh
+    of ranks (re-usable across configs, like the reference app object
+    re-running RunOnGPU)."""
 
     _FRAME_CACHE_MAX = 32  # decoded frames kept when a cache dict is shared
 
@@ -98,9 +121,14 @@ class Session:
         frame_cache: Optional[dict] = None,
         batch_frames: bool = False,
         nlm_tiling: Optional[TilingConfig] = None,
+        mesh_shape: Optional[tuple[int, int]] = None,
     ) -> None:
         self.target = target
         self.device = _open_device(device)
+        # (frame, y) mesh of the process group's ranks: rows shard over 'y'
+        # with halo exchange, multiframe NLM partials sum over 'frame'. None
+        # is one device (the reference's deviceId 0, src/main.cpp:1321).
+        self.mesh = make_mesh(mesh_shape, self.device.type) if mesh_shape else None
         self.bilateral_params = bilateral_params
         self.layers_params = layers_params
         self.nlm_params = nlm_params
@@ -132,9 +160,12 @@ class Session:
         self.is_hdr = imageio.is_hdr_path(target)
 
     def _fence(self) -> None:
-        """Wait for the device: kernels launch asynchronously on CUDA."""
+        """Wait for the device: kernels launch asynchronously on CUDA. On a
+        mesh, then wait for every rank."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if self.mesh is not None:
+            dist.barrier()
 
     def _upload(self, host: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(host, np.float32)).to(self.device)
@@ -180,6 +211,11 @@ class Session:
         layers_params = _with_ua(self.layers_params)
         nlm_single_params = self.nlm_params if cfg.multiframe else _with_ua(self.nlm_params)
 
+        if self.mesh is not None:
+            out_band = self._run_sharded(target_host, ds, report, cfg, bilateral_params,
+                                         layers_params, nlm_single_params)
+            return self._save(cfg, out_band, report, target_host.shape[0])
+
         with report.transfer():
             target_dev = self._upload(target_host)
 
@@ -208,14 +244,161 @@ class Session:
             self._fence()
         return out
 
-    def _save(self, cfg: RunConfig, out_dev: torch.Tensor, report: TimingReport) -> RunResult:
+    def _save(self, cfg: RunConfig, out_dev: torch.Tensor, report: TimingReport,
+              rows: Optional[int] = None) -> RunResult:
         """Read the output back (timed as transfer) and save it under the
-        config's flag-encoded name."""
+        config's flag-encoded name. On a mesh out_dev is this rank's band:
+        the bands are gathered over 'y' first and cropped to the image's
+        `rows`, and only global rank 0 writes."""
         with report.transfer():
+            if self.mesh is not None:
+                out_dev = gather_rows(out_dev, self.mesh)[:rows]
             out_host = out_dev.cpu().numpy()
         path = os.path.join(self.output_dir, cfg.output_name(self.is_hdr))
-        imageio.save(path, out_host, hdr=self.is_hdr, clamp=self.clamp_output)
+        if self.mesh is None or dist.get_rank() == 0:
+            imageio.save(path, out_host, hdr=self.is_hdr, clamp=self.clamp_output)
         return RunResult(config=cfg, output_path=path, image=out_host, report=report)
+
+    # -- the mesh paths -----------------------------------------------------
+
+    def _row_padding(self, h: int, halo: int, border: str) -> tuple[int, str]:
+        """(rows to add, numpy pad mode) so that H divides by the 'y' size and
+        every band holds at least `halo` rows (a band cannot source a halo
+        larger than itself). Edge rows under CLAMP, zeros under ZERO: the
+        border's own taps. JAX session.py:236-244."""
+        n_y = self.mesh.size(1)
+        rows = max(-(-h // n_y), halo)
+        return rows * n_y - h, "edge" if border == BorderPolicy.CLAMP else "constant"
+
+    def _pad_rows(self, img: np.ndarray, halo: int, border: str) -> np.ndarray:
+        """img row-padded per _row_padding; the output is cropped back."""
+        ph, mode = self._row_padding(img.shape[0], halo, border)
+        return np.pad(img, ((0, ph), (0, 0), (0, 0)), mode=mode) if ph else img
+
+    def _turbo_pad_rows(self, img: np.ndarray, radius: int, d: int, border: str) -> np.ndarray:
+        """The sharded turbo's row padding (JAX session.py:606-620): bands of
+        ceil_d(max(ceil(H/Y), d (rg + 1))) rows, rg = ceil(radius/d), so that
+        they divide by d and hold the pooled halo."""
+        n_y = self.mesh.size(1)
+        rg = max(1, -(-radius // d))
+        rows = max(-(-img.shape[0] // n_y), d * (rg + 1))
+        rows = -(-rows // d) * d
+        ph = rows * n_y - img.shape[0]
+        mode = "edge" if border == BorderPolicy.CLAMP else "constant"
+        return np.pad(img, ((0, ph), (0, 0), (0, 0)), mode=mode) if ph else img
+
+    def _upload_band(self, padded: np.ndarray) -> torch.Tensor:
+        """This rank's band of a row-padded host image, on the device."""
+        return self._upload(shard_rows(padded, self.mesh))
+
+    @staticmethod
+    def _normalize(wc: torch.Tensor, nw: torch.Tensor, linear: bool) -> torch.Tensor:
+        """The two-pass families' normalize: the kernel, or tensor ops on the
+        linear layout (models/denoiser.py:_Normalizing)."""
+        return eager.normalize_eager(wc, nw) if linear else stencils.normalize(wc, nw)
+
+    def _run_sharded(self, target_host, ds, report, cfg, bp, lp, nlm_single) -> torch.Tensor:
+        """The exact configs on the mesh (JAX session.py:254-310): rows over
+        'y' with halo exchange, the multiframe NLM's frames over 'frame'.
+        The linear configs shard the linear layout over the same mesh.
+        Returns this rank's output band, row padding included."""
+        linear = cfg.linear
+        if cfg.use_layers:
+            halo, border = lp.effective_radius, lp.border
+        elif cfg.nlm:
+            # nlm_single is self.nlm_params for the multiframe configs
+            halo, border = nlm_single.halo, nlm_single.border
+        else:
+            halo, border = bp.effective_radius, bp.border
+        with report.transfer():
+            tgt = self._upload_band(self._pad_rows(target_host, halo, border))
+        if cfg.nlm and cfg.multiframe:
+            # The overlap loop never filters the last uploaded frame
+            # (src/main.cpp:1554-1572), as in _run_multiframe.
+            paths = list(ds.frames)
+            if cfg.overlap and len(paths) > 1:
+                paths = paths[:-1]
+            return self._run_sharded_temporal(tgt, paths, report, halo, border, cfg)
+        mesh = self.mesh
+        if cfg.use_layers:
+            layers_host = [self._pad_rows(self._load(p), halo, border) for p in ds.layers]
+            with report.transfer():
+                layers = [self._upload_band(x) for x in layers_host]
+
+            def run():
+                wc = torch.zeros(tgt.shape, dtype=torch.float32, device=self.device)
+                nw = torch.zeros(tgt.shape[:2], dtype=torch.float32, device=self.device)
+                for layer in layers:
+                    pwc, pnw = spatial_cross_bilateral_layers(tgt, layer, lp, mesh, self.tiling,
+                                                              linear)
+                    wc = wc + pwc
+                    nw = nw + pnw
+                return self._normalize(wc, nw, linear)
+        elif cfg.nlm:
+            def run():
+                wc, nw = spatial_nlm_accumulate(tgt, tgt, nlm_single, mesh, self.nlm_tiling,
+                                                linear)
+                return self._normalize(wc, nw, linear)
+        else:
+            def run():
+                return spatial_bilateral(tgt, bp, mesh, self.tiling, linear)
+        return self._execute(run, report)
+
+    def _run_sharded_temporal(self, tgt, paths, report, halo, border, cfg) -> torch.Tensor:
+        """Streamed multi-device temporal NLM (JAX session.py:312-377): the
+        frames go in chunks of the 'frame' size, rank (f, y) taking frame f
+        of each chunk (a masked zero frame where the chunk is short), and
+        decoding only that frame. The next chunk's frame is decoded and
+        uploaded while the current chunk's kernel runs. Each rank sums its
+        frames' partials; one SUM over 'frame' at the end, then normalize.
+        The uniform-alpha rule of the per-frame loop holds per frame
+        (_run_multiframe; the overlap loop keeps the user's setting)."""
+        params = self.nlm_params
+        fast_ok = (border == BorderPolicy.CLAMP and not params.uniform_alpha
+                   and not cfg.overlap)
+        fast_params = dataclasses.replace(params, uniform_alpha=True)
+        n_f = self.mesh.size(0)
+        f_idx = self.mesh.get_local_rank(FRAME_AXIS)
+        linear = cfg.linear
+        mesh = self.mesh
+
+        def upload_chunk(chunk):
+            if f_idx >= len(chunk):
+                return torch.zeros_like(tgt)[None], 0.0, params
+            host = self._load(chunk[f_idx])
+            a = host[..., 3]
+            fparams = fast_params if fast_ok and a.min() == a.max() else params
+            padded = self._pad_rows(host, halo, border)
+            with report.transfer():
+                frame = self._upload_band(padded)[None]
+            return frame, 1.0, fparams
+
+        def partials(frames, valid, fparams):
+            v = torch.full((1,), valid, dtype=torch.float32, device=self.device)
+            return temporal_nlm_local_partials(tgt, frames, fparams, mesh, self.nlm_tiling, v,
+                                               linear)
+
+        if self.warmup:
+            partials(tgt[None], 1.0, params)
+            self._fence()
+        chunks = [paths[i : i + n_f] for i in range(0, len(paths), n_f)]
+        pending = upload_chunk(chunks[0]) if chunks else None
+        wc = torch.zeros(tgt.shape, dtype=torch.float32, device=self.device)
+        nw = torch.zeros(tgt.shape[:2], dtype=torch.float32, device=self.device)
+        bar = ProgressBar(label="frames")
+        with report.execute():
+            for ci in range(len(chunks)):
+                pwc, pnw = partials(*pending)
+                if ci + 1 < len(chunks):
+                    pending = upload_chunk(chunks[ci + 1])
+                wc, nw = (pwc, pnw) if ci == 0 else (wc + pwc, nw + pnw)
+                bar.progress(min((ci + 1) * n_f, len(paths)), len(paths))
+            bar.finish()
+            wc = _all_reduce(wc, dist.ReduceOp.SUM, mesh, FRAME_AXIS)
+            nw = _all_reduce(nw, dist.ReduceOp.SUM, mesh, FRAME_AXIS)
+            out = self._normalize(wc, nw, linear)
+            self._fence()
+        return out
 
     def run_turbo(
         self, cfg: RunConfig, levels: Optional[int] = None, downsample: int = 2
@@ -227,8 +410,10 @@ class Session:
         parameters as given (no uniform-alpha switch). levels=None resolves
         to K=5 at downsample 2 and 4, K=6 otherwise, for both families. The
         NLM configs have no grid: their turbo form is `run` with a stride-2
-        search and bf16 taps (nlm_tiling). Single device: the sharded turbo
-        waits for ROADMAP.md queue A item 10."""
+        search and bf16 taps (nlm_tiling). On a mesh the rows are padded to
+        bands that divide by the downsample and hold the pooled halo, and the
+        grids are built and sliced band by band (parallel/spatial.py); the
+        bilateral grid takes downsample 2, 4 or 8 there (its kernels)."""
         if cfg.nlm:
             raise ValueError(
                 "the NLM configs have no grid mode: turbo NLM runs through run() "
@@ -251,9 +436,18 @@ class Session:
 
         report = TimingReport()
         target_host = self._load(self.target)
+        bp = self.bilateral_params
+        if self.mesh is not None:
+            d = max(1, downsample)
+            padded = self._turbo_pad_rows(target_host, bp.effective_radius, d, bp.border)
+            with report.transfer():
+                band = self._upload_band(padded)
+            out_band = self._execute(
+                lambda: spatial_bilateral_fast(band, bp, self.mesh, levels, downsample), report
+            )
+            return self._save(cfg, out_band, report, target_host.shape[0])
         with report.transfer():
             target_dev = self._upload(target_host)
-        bp = self.bilateral_params
         out_dev = self._execute(
             lambda: fast.bilateral_fast(target_dev, bp, levels, downsample), report
         )
@@ -268,29 +462,49 @@ class Session:
         report = TimingReport()
         ds = dataset_mod.discover(self.target, multiframe=False, use_layers=True)
         target_host = self._load(ds.target)
-        with report.transfer():
-            target_dev = self._upload(target_host)
         layers_host = [self._load(p) for p in ds.layers]
-        layers_dev = []
-        if layers_host:
-            with report.transfer():
-                layers_dev = self._upload(np.stack(layers_host))
-                self._fence()
         lp = self.layers_params
+        rows = target_host.shape[0]
+        if self.mesh is not None:
+            # The bilateral turbo's row rule (JAX session.py:665-697).
+            d = max(1, downsample)
+            target_host, *layers_host = [
+                self._turbo_pad_rows(x, lp.effective_radius, d, lp.border)
+                for x in [target_host, *layers_host]
+            ]
+            with report.transfer():
+                target_dev = self._upload_band(target_host)
+                layers_dev = [self._upload_band(x) for x in layers_host]
+
+            def partials(layer_dev):
+                return spatial_cross_bilateral_layers_fast(
+                    target_dev, layer_dev, lp, self.mesh, levels, downsample
+                )
+        else:
+            with report.transfer():
+                target_dev = self._upload(target_host)
+            layers_dev = []
+            if layers_host:
+                with report.transfer():
+                    layers_dev = self._upload(np.stack(layers_host))
+                    self._fence()
+
+            def partials(layer_dev):
+                return fast.cross_bilateral_layers_fast(
+                    target_dev, layer_dev, lp, levels, downsample
+                )
 
         def run():
             h, w, _ = target_dev.shape
             wc = torch.zeros((h, w, 4), dtype=torch.float32, device=self.device)
             nw = torch.zeros((h, w, 3), dtype=torch.float32, device=self.device)
             for layer_dev in layers_dev:
-                pwc, pnw = fast.cross_bilateral_layers_fast(
-                    target_dev, layer_dev, lp, levels, downsample
-                )
+                pwc, pnw = partials(layer_dev)
                 wc += pwc
                 nw += pnw
             return fast.normalize_layers_fast(wc, nw)
 
-        return self._save(cfg, self._execute(run, report), report)
+        return self._save(cfg, self._execute(run, report), report, rows)
 
     def _dump_weights(self, wc: torch.Tensor, nw: torch.Tensor) -> None:
         wc = wc.cpu().numpy()

@@ -365,6 +365,97 @@ def test_slice_guided_grid_kernel_matches_plain(cuda, d):
     assert stencils.launches["slice_guided_grid"] == 1
 
 
+def _slab_of(grid, gy_off, rows):
+    """Grid rows [gy_off, gy_off + rows) of a whole-image grid; a row above
+    the image (gy_off = -1) is NaN, which the slice must never read."""
+    slab = torch.full((grid.shape[0], rows) + tuple(grid.shape[2:]), float("nan"),
+                      dtype=grid.dtype, device=grid.device)
+    lo, hi = max(gy_off, 0), min(gy_off + rows, grid.shape[1])
+    slab[:, lo - gy_off : hi - gy_off] = grid[:, lo:hi]
+    return slab
+
+
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_slice_kernels_whole_image_offsets_change_nothing(cuda, d):
+    """The slab arguments (0, hs, 0) are the whole-image slice, bit for bit."""
+    img = _image(0, cuda)
+    small, lmin, step, taps = _grid_inputs(img, d)
+    grid = fast.build_grid_plain(small, lmin, step, 5, taps, BorderPolicy.CLAMP, 12.5)
+    hs = grid.shape[1]
+    want = fast.slice_grid(img, grid, lmin, 1.0 / step, d)
+    got = fast.slice_grid(img, grid, lmin, 1.0 / step, d, None, 0, hs, 0)
+    assert torch.equal(got, want)
+    _, layer, small_t, small_l, lmin, step, taps = _guided_inputs(d)
+    ggrid = fast.build_guided_grid_plain(small_t, small_l, lmin, step, 5, taps,
+                                         BorderPolicy.CLAMP, 12.5)
+    want = fast.slice_guided_grid(layer, ggrid, lmin, 1.0 / step, d)
+    got = fast.slice_guided_grid(layer, ggrid, lmin, 1.0 / step, d, 0, ggrid.shape[1], 0)
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+    assert stencils.launches["slice_grid"] == stencils.launches["slice_guided_grid"] == 2
+
+
+@pytest.mark.parametrize("ua", [False, True])
+@pytest.mark.parametrize("d", [2, 4])
+def test_slice_kernels_on_a_slab_equal_the_whole_slice(cuda, d, ua):
+    """Each band of a 4-way row split, sliced against its slab of rows_s + 2
+    grid rows (the sharded turbo's), equals the whole-image slice's rows bit
+    for bit, the outermost bands included (their row above or below the
+    image is NaN and unread), and the plain slab slice to its tolerance."""
+    h, w = 16 * d, 37
+    img = _image(0, cuda, h, w)
+    small, lmin, step, taps = _grid_inputs(img, d)
+    grid = fast.build_grid_plain(small, lmin, step, 5, taps, BorderPolicy.CLAMP, 12.5, ua)
+    alpha = img[0, 0, 3] if ua else None
+    whole = fast.slice_grid(img, grid, lmin, 1.0 / step, d, alpha)
+    _, layer, small_t, small_l, glmin, gstep, gtaps = _guided_inputs(d, h=h, w=w)
+    ggrid = fast.build_guided_grid_plain(small_t, small_l, glmin, gstep, 5, gtaps,
+                                         BorderPolicy.CLAMP, 12.5)
+    gwhole = fast.slice_guided_grid(layer, ggrid, glmin, 1.0 / gstep, d)
+    rows, hs = h // 4, h // d
+    for i in range(4):
+        band = slice(i * rows, (i + 1) * rows)
+        offsets = (i * rows, hs, i * rows // d - 1)
+        slab = _slab_of(grid, offsets[2], rows // d + 2)
+        args = (img[band].contiguous(), slab, lmin, 1.0 / step, d, alpha)
+        got = fast.slice_grid(*args, *offsets)
+        assert torch.equal(got, whole[band]), f"band {i}"
+        _close(got, fast.slice_grid_plain(*args, offsets), rtol=1e-5, atol=1e-6)
+        gslab = _slab_of(ggrid, offsets[2], rows // d + 2)
+        gargs = (layer[band].contiguous(), gslab, glmin, 1.0 / gstep, d)
+        got = fast.slice_guided_grid(*gargs, *offsets)
+        assert all(torch.equal(g, w_[band]) for g, w_ in zip(got, gwhole)), f"band {i}"
+        for g, w_ in zip(got, fast.slice_guided_grid_plain(*gargs, offsets)):
+            _close(g, w_, rtol=1e-5, atol=1e-6)
+    assert stencils.launches["slice_grid"] == stencils.launches["slice_guided_grid"] == 5
+
+
+def test_slice_launchers_refuse_a_band_off_the_lattice(cuda):
+    """y_off must be a multiple of d (the wrapper raises before the C
+    launcher, which refuses it too)."""
+    img = _image(0, cuda, 32, 37)
+    small, lmin, step, taps = _grid_inputs(img, 2)
+    grid = fast.build_grid_plain(small, lmin, step, 5, taps, BorderPolicy.CLAMP, 12.5)
+    with pytest.raises(ValueError):
+        fast.slice_grid(img[:8].contiguous(), grid[:, :6].contiguous(), lmin, 1.0 / step, 2,
+                        None, 1, 16, 0)
+    with pytest.raises(ValueError):  # the slab misses rows the band reads
+        fast.slice_grid(img[8:16].contiguous(), grid[:, :4].contiguous(), lmin, 1.0 / step,
+                        2, None, 8, 16, 0)
+    assert stencils.launches["slice_grid"] == 0
+
+
+def test_sharded_dryrun_on_card(cuda):
+    """parallel.dryrun on four ranks sharing the card over gloo: the
+    temporal NLM, bilateral and layers against the oracles, the turbo grids
+    bit for bit the single-device pipelines."""
+    from image_denoising_filter_tpu_torch.parallel import dryrun
+
+    counts = dryrun.dryrun(4, "cuda", "gloo")
+    for kernel in ("bilateral", "bilateral_guided", "nlm", "nlm_hrw", "normalize", "pool",
+                   "build_grid", "slice_grid", "build_guided_grid", "slice_guided_grid"):
+        assert counts[kernel] > 0, kernel
+
+
 @pytest.mark.parametrize(
     "d,border,shape",
     [(2, BorderPolicy.CLAMP, (29, 37)), (2, BorderPolicy.ZERO, (61, 300)),

@@ -22,6 +22,11 @@ MODULES = [
     "image_denoising_filter_tpu_torch.ops.fast",
     "image_denoising_filter_tpu_torch.ops.reference",
     "image_denoising_filter_tpu_torch.ops.stencils",
+    "image_denoising_filter_tpu_torch.parallel",
+    "image_denoising_filter_tpu_torch.parallel.dryrun",
+    "image_denoising_filter_tpu_torch.parallel.launch",
+    "image_denoising_filter_tpu_torch.parallel.mesh",
+    "image_denoising_filter_tpu_torch.parallel.spatial",
     "image_denoising_filter_tpu_torch.utils",
     "image_denoising_filter_tpu_torch.utils.content",
     "image_denoising_filter_tpu_torch.utils.dataset",
