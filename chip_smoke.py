@@ -74,6 +74,21 @@ Phases, one line or block each:
                 run's rank-0 transfer and exec times and its launch counts
                 summed over the ranks; four ranks on one card show the
                 overhead of the transport, not scaling.
+ 10. HDR    -- a 1080p EXR animation (render_frame(hdr=True): noise below 0,
+                the emissive ceiling above 4; fireflies in the target; LDR PNG
+                layers) written and read back, the EXR codec that ran timed a
+                frame, and the native codec held to the Python one where
+                `make -C native` builds; every kernel in every form against
+                its plain version on HDR frames (1080p, and a 4K HDR render
+                for the grids at each (D, K)), the staged bilateral's walks,
+                HDR times beside the LDR ones; then gpu-denoise on the HDR
+                target: the exact battery against the plain versions on the
+                card, the bilateral and layers configs with bf16 taps,
+                --turbo 2 (the NLM configs again with --weights-halfres),
+                --turbo 8 --sigma-spatial 6 and --turbo 1 layers, each output
+                a float32 EXR read against the exact output and gated at the
+                JAX package's reading (JAX_HDR_READINGS_DB); --all-frames over
+                the animation, each output byte for byte a single-target run.
 Then one JSON line with every kernel's launches, error, times and bound, the
 nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -197,6 +212,39 @@ CONTENT_TOL = 2e-6
 PROFILE_KERNELS = {"bilateral_staged_kernel": ("bilateral", "bilateral_guided"),
                    "nlm_kernel": ("nlm",), "normalize_kernel": ("normalize",)}
 DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
+# Phase 10, HDR. The animation: render_frame(hdr=True) frames with RGB
+# unclipped (the noise below 0, the emissive ceiling at 4 and above), and in
+# the target frame a seeded HDR_FIREFLY_SHARE of the pixels with RGB times
+# HDR_FIREFLY_GAIN, as fireflies; the layers LDR PNG, as
+# tools/make_dataset.py writes them.
+HDR_FIREFLY_SHARE = 0.0005
+HDR_FIREFLY_GAIN = 50.0
+# gpu-denoise's runs of phase 10 after the exact battery, each (name, flags,
+# configs): the turbo modes as phase 7 runs them, on the HDR target.
+HDR_TURBO_RUNS = (
+    ("turbo 2", ("--turbo", "2"), ("bilateral", "layers", "linear", "nlm", "multiframe",
+                                   "overlap")),
+    ("turbo 2 half-row", ("--turbo", "2", "--weights-halfres"), NLM_CONFIGS),
+    ("turbo 8", ("--turbo", "8", "--sigma-spatial", "6"), ("bilateral", "layers", "linear")),
+    ("turbo 1", ("--turbo", "1"), ("layers",)),
+)
+# The JAX package's readings of each approximate output against the exact
+# output of its config (the grid configs against the exact tiled
+# bilateral) on phase 10's target: dB over RGB, the exact output's largest
+# RGB value the peak (tools/hdr_jax_reading.py: tpu-denoise and the JAX
+# Session on the CPU, its Pallas kernels in interpret mode; the bilateral
+# grid through its Pallas pipeline, which tpu-denoise runs on its chip). Each
+# port reading is gated at the JAX package's less HDR_GATE_MARGIN_DB.
+JAX_HDR_READINGS_DB = {
+    "bf16 bilateral": 103.4119, "bf16 layers": 92.1951,
+    "turbo 2 bilateral": 45.0386, "turbo 2 layers": 50.9923, "turbo 2 linear": 45.0386,
+    "turbo 2 nlm": 92.5413, "turbo 2 multiframe": 94.7206, "turbo 2 overlap": 94.1288,
+    "turbo 2 half-row nlm": 75.7141, "turbo 2 half-row multiframe": 78.4433,
+    "turbo 2 half-row overlap": 77.5545,
+    "turbo 8 bilateral": 46.7575, "turbo 8 layers": 39.4342, "turbo 8 linear": 46.7575,
+    "turbo 1 layers": 72.5516,
+}
+HDR_GATE_MARGIN_DB = 0.05
 
 
 # The port's modules this script drives; none may load jax or the JAX
@@ -413,9 +461,18 @@ def scratch_dir() -> str:
     raise SmokeError("no scratch directory without a '.' in its path")
 
 
-def phase_kernels(torch, stencils, cfg, frames_np, layer_np):
+def scaled(tol: dict, scale: float) -> dict:
+    """A tolerance whose absolute part grows with the content's range."""
+    return dict(rtol=tol["rtol"], atol=tol["atol"] * scale)
+
+
+def phase_kernels(torch, stencils, cfg, frames_np, layer_np, scale: float = 1.0,
+                  where: str = "1080p"):
     """Each kernel against its plain version on the card, at the main path's
-    shapes. Returns {kernel: {max_abs_err, ms, plain_ms}}."""
+    shapes, with the absolute tolerances times `scale` (max |RGB| of HDR
+    content, 1 for LDR). Returns {kernel: {max_abs_err, ms, plain_ms}}; the
+    LDR call (scale 1) also times the frame-batched NLM and prints the
+    redesigned kernels' launch shapes."""
     dev = torch.device("cuda")
     target = torch.from_numpy(frames_np[TARGET_FRAME]).to(dev)
     layer = torch.from_numpy(layer_np).to(dev)
@@ -429,6 +486,7 @@ def phase_kernels(torch, stencils, cfg, frames_np, layer_np):
         else:
             pairs = [(got, want)]
         worst_abs = worst_rel = 0.0
+        tol = None if tol is None else scaled(tol, scale)
         for g, w in pairs:
             torch.cuda.synchronize()
             check(bool(torch.isfinite(g).all()), f"{kernel} {case}: non-finite output")
@@ -552,7 +610,9 @@ def phase_kernels(torch, stencils, cfg, frames_np, layer_np):
     }
     nw0_b = nw0[..., None]
     library = {"normalize": lambda: wc6 / nw0_b}  # the divide without the sentinel
-    time_kernels(torch, results, timings, shapes, library, "1080p")
+    time_kernels(torch, results, timings, shapes, library, where)
+    if scale != 1.0:
+        return results
     f6 = median_ms(torch, lambda: stencils.nlm_accumulate_frames(target, frames6, np_), 5)
     f6p = median_ms(torch, lambda: stencils.nlm_plain(target, frames6, np_), 2)
     print(f"  nlm F=6 (batched temporal) 1080p median {f6:.4f} ms (plain {f6p:.4f} ms; "
@@ -611,6 +671,63 @@ def write_animation(imageio, render_frame, root: str) -> dict:
         "layer": layer,
         "clean": clean,
     }
+
+
+def write_hdr_animation(imageio, render_frame, root: str) -> dict:
+    """Phase 10's 1080p EXR animation (HDR_* above) and its layers, saved
+    with `imageio` (either package's). Returns the target's path, the
+    frames as written (float32 EXR is lossless), the target's albedo layer
+    as loaded and the number of fireflies."""
+    anim = os.path.join(root, "hdr")
+    layers_dir = os.path.join(anim, "RenderElements")
+    os.makedirs(layers_dir)
+    rng = np.random.default_rng(SEED)
+    frames, layer, n_fire = [], None, 0
+    for i in range(N_FRAMES):
+        noisy, layers = render_frame(i / (N_FRAMES - 1), H, W, rng, noise=NOISE, hdr=True)
+        if i == TARGET_FRAME:
+            n_fire = round(HDR_FIREFLY_SHARE * H * W)
+            fire = np.random.default_rng(SEED + 1).choice(H * W, n_fire, replace=False)
+            noisy.reshape(-1, 4)[fire, :3] *= np.float32(HDR_FIREFLY_GAIN)
+        imageio.save(os.path.join(anim, f"Animation01_HDR_{i:04d}.exr"), noisy)
+        frames.append(noisy)
+        for name, img in layers.items():
+            lpath = os.path.join(layers_dir, f"{name}_{i:04d}.png")
+            imageio.save(lpath, np.clip(img, 0, 1))
+            if name == "albedo" and i == TARGET_FRAME:
+                layer = imageio.load(lpath)[0]
+    return {"target": os.path.join(anim, f"Animation01_HDR_{TARGET_FRAME:04d}.exr"),
+            "frames": frames, "layer": layer, "fireflies": n_fire}
+
+
+def psnr_peak(a: np.ndarray, b: np.ndarray, peak: float) -> float:
+    """PSNR over RGB with `peak` as the signal's peak: HDR content has no
+    fixed white."""
+    mse = float(np.mean((a[..., :3].astype(np.float64) - b[..., :3].astype(np.float64)) ** 2))
+    return math.inf if mse == 0.0 else 10.0 * math.log10(peak * peak / mse)
+
+
+def exr_channels(path: str) -> dict:
+    """{channel: pixel type} of an OpenEXR file's header (0 UINT, 1 HALF, 2
+    FLOAT)."""
+    with open(path, "rb") as f:
+        data = f.read(1 << 16)
+    pos = 8  # magic and version
+    while data[pos] != 0:
+        end = data.index(b"\0", pos)
+        name = data[pos:end].decode()
+        pos = data.index(b"\0", end + 1) + 1  # past the type name
+        size = int.from_bytes(data[pos : pos + 4], "little")
+        pos += 4
+        if name == "channels":
+            body, q, chans = data[pos : pos + size], 0, {}
+            while body[q] != 0:
+                e = body.index(b"\0", q)
+                chans[body[q:e].decode()] = int.from_bytes(body[e + 1 : e + 5], "little")
+                q = e + 17  # type, pLinear, 3 reserved bytes, x and y sampling
+            return chans
+        pos += size
+    raise SmokeError(f"{path}: no channels attribute")
 
 
 def phase_battery(cfg, stencils, cli, imageio, Session, anim, root):
@@ -763,19 +880,23 @@ def check_bf16_close(torch, got, want, what: str) -> None:
           f"{what}: {ulps} bf16 ulps apart, {flipped:.3%} of cells differ")
 
 
-def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080):
+def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: bool = False):
     """The grid kernels and the pipeline against their plain versions, and
     the fused kernel against the build and slice kernels bit for bit: at 4K
     for each (D, K) of TURBO_CELLS, and on the 1080p target at each setting
     of the turbo battery. Drives the fused path, grid_pipeline(fused=True),
     at each 4K cell, its launch counts read just after each call. Returns
     ({kernel: {max_abs_err, ms, plain_ms, ...}}, the fused path's summed
-    launch counts) and prints both pipelines' Mpix/s at each D at 4K."""
+    launch counts) and prints both pipelines' Mpix/s at each D at 4K. With
+    hdr the frames are HDR content (phase 10): the same cells, the
+    tolerances scaled by each frame's max |RGB|, the kernels timed at 4K D=2
+    K=5; no fused path and no pipeline rates."""
     img4k = torch.from_numpy(frame_4k).to("cuda")
     img1080 = torch.from_numpy(frame_1080).to("cuda")
     results = {k: {"max_abs_err": 0.0}
                for k in ("pool", "build_grid", "slice_grid", "fused_grid")}
     path_counts = dict.fromkeys(stencils.launches, 0)
+    tag = " HDR" if hdr else ""
 
     def note(kernel, case, got, want):
         torch.cuda.synchronize()
@@ -788,18 +909,19 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080):
         ok = bool(((got - want).abs() <= tol["atol"] + tol["rtol"] * want.abs()).all())
         check(ok, f"{what}: max abs {float((got - want).abs().max()):.3g} beyond {tol}")
 
-    hdr4k = img4k.clone()
-    hdr4k[..., :3] = hdr4k[..., :3].clamp(0.0, 1.0) * HDR_SCALE
     cells = []  # (label, image, D, K, params)
     for d, levels in TURBO_CELLS:
-        cells.append(("4K", img4k, d, levels, cfg.BilateralParams()))
-        if d == 2:  # the other border and uniform alpha, once; HDR, once
-            cells.append(("4K", img4k, d, levels, cfg.BilateralParams(
+        cells.append(("4K" + tag, img4k, d, levels, cfg.BilateralParams()))
+        if d == 2:  # the other border and uniform alpha, once
+            cells.append(("4K" + tag, img4k, d, levels, cfg.BilateralParams(
                 border=cfg.BorderPolicy.ZERO, uniform_alpha=True)))
-            cells.append(("4K HDR", hdr4k, d, levels, cfg.BilateralParams()))
+        if d == 2 and not hdr:  # RGB clipped to [0, 1] and scaled, once
+            hdr4k = img4k.clone()
+            hdr4k[..., :3] = hdr4k[..., :3].clamp(0.0, 1.0) * HDR_SCALE
+            cells.append(("4K x4", hdr4k, d, levels, cfg.BilateralParams()))
     for d, sigma_s in TURBO_RUNS:
         if d > 1:
-            cells.append(("1080p", img1080, d, turbo_levels(d),
+            cells.append(("1080p" + tag, img1080, d, turbo_levels(d),
                           cfg.BilateralParams(sigma_spatial=sigma_s)))
 
     timed = {}
@@ -822,7 +944,8 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080):
         want = fast.slice_grid_plain(*slice_args)
         got = fast.slice_grid(*slice_args)
         note("slice_grid", case, got, want)
-        close(got, want, TOL_SLICE, f"slice_grid {case}")
+        close(got, want, scaled(TOL_SLICE, max(1.0, float(img[..., :3].abs().max()))),
+              f"slice_grid {case}")
         fused_args = (small, img, lmin, step, 1.0 / step, *build_args[3:7], d, slice_args[5])
         got = fast.fused_grid(*fused_args)
         two = fast.slice_grid(img, fast.build_grid(*build_args), *slice_args[2:])
@@ -844,7 +967,7 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080):
         got = fast.bilateral_fast(img, bp, levels, d)
         want = fast.grid_pipeline_plain(img, bp, levels, d)
         torch.cuda.synchronize()
-        scale = HDR_SCALE if label.endswith("HDR") else 1.0
+        scale = max(1.0, float(img[..., :3].abs().max()))
         err = float((got - want).abs().max())
         loose = float(((got - want).abs() > 1e-5 * scale).float().mean())
         check(err <= 2 * 2.0**-8 * scale and loose <= 0.01,
@@ -852,7 +975,7 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080):
               f"{1e-5 * scale:g}")
         print(f"  {'pipeline':10s} {case:36s} max abs {err:.3g} "
               f"({loose:.4%} of pixels beyond {1e-5 * scale:g})")
-        if label == "4K" and d == 2 and not ua:
+        if label == "4K" + tag and d == 2 and not ua:
             timed = {
                 "pool": (lambda a=(img, d, border): fast.pool(*a),
                          lambda a=(img, d, border): fast.pool_plain(*a)),
@@ -877,6 +1000,10 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080):
             library = {"pool": lambda a=(nchw, d): torch.nn.functional.avg_pool2d(*a),
                        "slice_grid": sample}
 
+    where = f"4K{tag} D=2 K=5"
+    if hdr:
+        time_kernels(torch, results, timed, dict.fromkeys(timed, shape), library, where)
+        return results, path_counts
     mpix = H4K * W4K / 1e6
     bp = cfg.BilateralParams()
     clamp = cfg.BorderPolicy.CLAMP
@@ -902,7 +1029,7 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080):
         print(f"  fused_grid 4K D={d} K={levels} median {fused_ms:.4f} ms against build_grid + "
               f"slice_grid {build_ms:.4f} + {slice_ms:.4f} = {build_ms + slice_ms:.4f} ms; "
               f"{json.dumps(fast.fused_grid_info(img4k.device, d, taps.size, clamp))}")
-    time_kernels(torch, results, timed, dict.fromkeys(timed, shape), library, "4K D=2 K=5")
+    time_kernels(torch, results, timed, dict.fromkeys(timed, shape), library, where)
     print_redesigned("build_grid 4K D=2 K=5",
                      fast.build_grid_info(img4k.device, shape["taps"], clamp),
                      results["build_grid"]["ms"])
@@ -927,17 +1054,20 @@ def time_kernels(torch, results, timed, shapes, library, where: str) -> None:
               f"bound {res['bound_ms']:.4f} ms by {res['bound_by']}, library {lib})")
 
 
-def phase_guided_kernels(torch, fast, cfg, images):
+def phase_guided_kernels(torch, fast, cfg, images, hdr: bool = False):
     """The guided grid's kernels against their plain versions: the build at
     the stored-grid bf16 contract, the slice at TOL_SLICE on the plain grid,
     and the fused kernel bit for bit against the two kernels, at 4K for each
     (D, K) of TURBO_CELLS (ZERO border once) and on the 1080p albedo layer at
     each setting of the turbo battery. images: {"4K" | "1080p": (target,
-    layer)} on the card. Returns {kernel: {max_abs_err, ms, ...}}."""
+    layer)} on the card. Returns {kernel: {max_abs_err, ms, ...}}. With hdr
+    the targets are HDR content (phase 10), the slice's absolute tolerance
+    times the target's max |RGB|; the kernels are timed at 4K D=2 K=5 only."""
     kernels = ("build_guided_grid", "slice_guided_grid", "fused_guided")
     results = {k: {"max_abs_err": 0.0} for k in kernels}
     clamp, zero = cfg.BorderPolicy.CLAMP, cfg.BorderPolicy.ZERO
     inv2sc = 0.5 / cfg.LayersParams().sigma_color**2
+    tag = " HDR" if hdr else ""
 
     def note(kernel, case, got, want):
         torch.cuda.synchronize()
@@ -959,6 +1089,8 @@ def phase_guided_kernels(torch, fast, cfg, images):
     timed, fused_vs_two = {}, {}
     for label, d, levels, sigma_s, border in cells:
         target, layer = images[label]
+        label += tag
+        tol = scaled(TOL_SLICE, max(1.0, float(target[..., :3].abs().max())))
         case = f"{label} D={d} K={levels} {border} sigma_s {sigma_s:g}"
         small_t = fast.pool_plain(target, d, border)
         small_l = fast.pool_plain(layer, d, border)
@@ -974,7 +1106,7 @@ def phase_guided_kernels(torch, fast, cfg, images):
         got = fast.slice_guided_grid(*slice_args)
         note("slice_guided_grid", case, got, want)
         for g, w in zip(got, want):
-            ok = bool(((g - w).abs() <= TOL_SLICE["atol"] + TOL_SLICE["rtol"] * w.abs()).all())
+            ok = bool(((g - w).abs() <= tol["atol"] + tol["rtol"] * w.abs()).all())
             check(ok, f"slice_guided_grid {case}: max abs {float((g - w).abs().max()):.3g}")
         fused_args = (small_t, small_l, layer, lmin, step, 1.0 / step, levels, taps, border,
                       inv2sc, d)
@@ -992,7 +1124,7 @@ def phase_guided_kernels(torch, fast, cfg, images):
             main_build = build_args  # the main path's --turbo 1 build
         if label == "4K" and d in (2, 4) and border == clamp:
             fused_vs_two[d] = (fused_args, build_args, slice_args[2:])
-        if label == "4K" and d == 2 and border == clamp:
+        if label == "4K" + tag and d == 2 and border == clamp:
             timed = {
                 "build_guided_grid": (lambda a=build_args: fast.build_guided_grid(*a),
                                       lambda a=build_args: fast.build_guided_grid_plain(*a)),
@@ -1013,7 +1145,9 @@ def phase_guided_kernels(torch, fast, cfg, images):
                           for p, v in planes(sample()).items())
             print(f"  grid_sample yardstick vs slice_guided_grid {case}: max abs {lib_err:.3g}")
             library = {"slice_guided_grid": sample}
-    time_kernels(torch, results, timed, dict.fromkeys(timed, shape), library, "4K D=2 K=5")
+    time_kernels(torch, results, timed, dict.fromkeys(timed, shape), library, f"4K{tag} D=2 K=5")
+    if hdr:
+        return results
     # The guided build at the main path's --turbo 1 shape, and as compiled.
     small_t, _, _, _, levels, taps, border, _ = main_build
     d1 = {"ms": median_ms(torch, lambda: fast.build_guided_grid(*main_build), 10),
@@ -1499,6 +1633,350 @@ def phase_sharded(torch, cfg, stencils, fast, cli, imageio, launch, dryrun, anim
     return totals
 
 
+def start_native_build(root: str):
+    """`make -C native` into root/, started in the background (the native
+    codec: g++ with OpenMP and zlib). Returns (the process or None, the
+    library's path, why it could not start)."""
+    lib = os.path.join(root, "libidf_native.so")
+    try:
+        proc = subprocess.Popen(["make", "-s", "-C", os.path.join(REPO, "native"), f"LIB={lib}"],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        return None, lib, f"make did not start: {e}"
+    return proc, lib, ""
+
+
+def native_codec_check(paths) -> None:
+    """In a child process whose IDF_NATIVE_LIB names a built native library:
+    each EXR of `paths` decoded by the native codec against the Python one,
+    the native encode of it decoded again, and the frames through the native
+    frame loader (the overlap loop's decode path). Prints one JSON line:
+    whether every array is equal, the median ms of a decode and an encode."""
+    from image_denoising_filter_tpu_torch.utils import exr, imageio, native
+
+    check(imageio.codec() == "native", "IDF_NATIVE_LIB did not load the native codec")
+    equal, dec, enc = True, [], []
+    for path in paths:
+        with open(path, "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        got = native.exr_decode(data)
+        dec.append(time.perf_counter() - t0)
+        want = exr.decode(data)
+        t0 = time.perf_counter()
+        blob = native.exr_encode(got)
+        enc.append(time.perf_counter() - t0)
+        equal = equal and np.array_equal(got, want) and np.array_equal(exr.decode(blob), want)
+    loader = native.FrameLoader(paths)
+    try:
+        for path, got in zip(paths, loader):
+            equal = equal and np.array_equal(got, imageio.load(path)[0])
+    finally:
+        loader.close()
+    print(json.dumps({"equal": bool(equal), "decode_ms": 1e3 * statistics.median(dec),
+                      "encode_ms": 1e3 * statistics.median(enc)}))
+
+
+def finish_native_check(proc, lib: str, why: str, paths) -> str:
+    """Wait for the native build; where it built, run native_codec_check in a
+    child process on `paths` and fail on any difference. Returns the line to
+    print."""
+    if proc is None:
+        return f"native codec: not built ({why})"
+    out, _ = proc.communicate(timeout=300)
+    if proc.returncode != 0 or not os.path.exists(lib):
+        lines = (out or "").strip().splitlines() or [""]
+        first = next((line for line in lines if "error" in line), lines[-1])
+        return (f"native codec: make -C native failed (rc {proc.returncode}: {first.strip()}); "
+                "the Python codec ran")
+    env = dict(os.environ, IDF_NATIVE_LIB=lib)
+    res = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                          "chip_smoke.native_codec_check(sys.argv[1:])", *paths],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"native codec check failed: {res.stderr.strip()[-2000:]}")
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    check(got["equal"], "the native codec's arrays differ from the Python codec's")
+    return (f"native codec (make -C native built it): every frame decodes to the Python "
+            f"codec's arrays, its encodes decode back, the frame loader agrees; decode "
+            f"{got['decode_ms']:.1f} ms, encode {got['encode_ms']:.1f} ms per 1080p frame "
+            f"(median of {len(paths)})")
+
+
+def check_hdr_output(path: str, what: str) -> np.ndarray:
+    """A phase-10 output: a float32 EXR (A, B, G, R, each FLOAT: no 8-bit
+    cast, alpha kept) of the frame's shape, finite. Returns it as loaded;
+    the caller holds its values, alpha included, to what was computed."""
+    from image_denoising_filter_tpu_torch.utils import imageio
+
+    chans = exr_channels(path)
+    check(chans == {c: 2 for c in "ABGR"}, f"{what}: EXR channels {chans}, not float32 RGBA")
+    out, hdr = imageio.load(path)
+    check(hdr and out.shape == (H, W, 4) and bool(np.isfinite(out).all()),
+          f"{what}: shape {out.shape} or non-finite values")
+    return out
+
+
+def hdr_gate(name: str, got: np.ndarray, exact: np.ndarray) -> str:
+    """Read `got` against `exact` (psnr_peak, the exact output's largest RGB
+    value the peak) and gate the reading at the JAX package's less
+    HDR_GATE_MARGIN_DB. Returns the reading as printed."""
+    peak = float(exact[..., :3].max())
+    db = psnr_peak(got, exact, peak)
+    check(name in JAX_HDR_READINGS_DB, f"no JAX reading for {name}")
+    gate = JAX_HDR_READINGS_DB[name] - HDR_GATE_MARGIN_DB
+    check(db >= gate, f"{name}: {db:.4f} dB vs exact < {gate:.4f} dB (the JAX package's "
+                      f"{JAX_HDR_READINGS_DB[name]} less {HDR_GATE_MARGIN_DB})")
+    return (f"{db:.4f} dB vs exact over RGB (peak {peak:.4f}; JAX {JAX_HDR_READINGS_DB[name]}, "
+            f"gate {gate:.4f})")
+
+
+def exact_plain(torch, cfg, stencils, imageio, dataset, target: str) -> dict:
+    """The exact battery's outputs through the plain versions on the card, on
+    the frames as gpu-denoise loads them, with the parameters its Session
+    takes (uniform alpha where the target's alpha is one constant, per frame
+    in the streamed multiframe loop, never in the overlap loop)."""
+    dev = "cuda"
+
+    def load(path):
+        return torch.from_numpy(imageio.load(path)[0]).to(dev)
+
+    t = load(target)
+    ua = bool(t[..., 3].min() == t[..., 3].max())
+    bp = cfg.BilateralParams(uniform_alpha=ua)
+    lp = cfg.LayersParams(uniform_alpha=ua)
+    norm = cfg.NormalizeParams()
+    out = {"bilateral": stencils.bilateral_plain(t, None, bp, True)[0]}
+    out["linear"] = out["bilateral"]
+    wc = torch.zeros_like(t)
+    nw = torch.zeros(t.shape[:2], device=dev)
+    for path in dataset.discover(target, use_layers=True).layers:
+        pwc, pnw = stencils.bilateral_plain(t, load(path), lp, False)
+        wc, nw = wc + pwc, nw + pnw
+    out["layers"] = stencils.normalize_plain(wc, nw, norm)
+    out["nlm"] = stencils.normalize_plain(
+        *stencils.nlm_plain(t, t[None], cfg.NlmParams(uniform_alpha=ua)), norm)
+    frames = [load(p) for p in dataset.discover(target, multiframe=True, max_frames=None).frames]
+    wc = torch.zeros_like(t)
+    nw = torch.zeros(t.shape[:2], device=dev)
+    for f in frames:
+        fua = bool(f[..., 3].min() == f[..., 3].max())
+        pwc, pnw = stencils.nlm_plain(t, f[None], cfg.NlmParams(uniform_alpha=fua))
+        wc, nw = wc + pwc, nw + pnw
+    out["multiframe"] = stencils.normalize_plain(wc, nw, norm)
+    # the overlap loop: at most max_frames frames, the last one never filtered
+    overlap = frames[: cfg.GPU_BATTERY[5].max_frames][:-1]
+    out["overlap"] = stencils.normalize_plain(
+        *stencils.nlm_plain(t, torch.stack(overlap), cfg.NlmParams()), norm)
+    torch.cuda.synchronize()
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def phase_hdr(torch, cfg, stencils, fast, cli, imageio, dataset, Session, render_frame, root,
+              ldr_frames, ldr_kernels, smi):
+    """Phase 10: HDR. The EXR animation (HDR_*) written and read back, the
+    EXR codec timed; every kernel, in every form, against its plain version
+    on its HDR frame (1080p and 4K, the grid kernels at each (D, K)), with
+    the staged bilateral's walks; then gpu-denoise on the card: the exact
+    battery against the plain versions on the same frames, the bilateral
+    and layers configs with bf16 taps (Session(tiling=...)), the turbo runs
+    of HDR_TURBO_RUNS, each gated at the JAX package's reading, and
+    --all-frames over the animation against single-target runs, byte for
+    byte; the native codec where `make -C native` builds. Returns (the HDR
+    kernel results, the summed launch counts of the runs)."""
+    dev = torch.device("cuda")
+    totals = dict.fromkeys(stencils.launches, 0)
+    names = {k: c.output_name(True) for k, c in zip(cli.CONFIG_KEYS, cfg.GPU_BATTERY)}
+    proc, lib, why = start_native_build(root)
+    try:
+        t0 = time.perf_counter()
+        anim = write_hdr_animation(imageio, render_frame, root)
+        target = anim["target"]
+        paths = sorted(os.path.join(os.path.dirname(target), f)
+                       for f in os.listdir(os.path.dirname(target)) if f.endswith(".exr"))
+        dec = []
+        for path, want in zip(paths, anim["frames"]):
+            t1 = time.perf_counter()
+            got = imageio.load(path)[0]
+            dec.append(time.perf_counter() - t1)
+            check(np.array_equal(got, want), f"{path}: read back differs from the frame written")
+        frames = anim["frames"]
+        enc = []
+        for i in range(2):
+            t1 = time.perf_counter()
+            imageio.save(os.path.join(root, f"encode_{i}.exr"), frames[TARGET_FRAME])
+            enc.append(time.perf_counter() - t1)
+        rgb = frames[TARGET_FRAME][..., :3]
+        scale = float(np.abs(rgb).max())
+        print(f"  {N_FRAMES} EXR frames + PNG layers written in {time.perf_counter() - t0:.1f} s; "
+              f"target RGB in [{float(rgb.min()):.4f}, {scale:.4f}], {anim['fireflies']} "
+              f"fireflies; every frame reads back bit for bit")
+        print(f"  EXR codec that ran: {imageio.codec()}; decode {1e3 * statistics.median(dec):.1f} "
+              f"ms (median of {len(dec)}), float32 ZIP encode {1e3 * statistics.median(enc):.1f} "
+              f"ms (median of {len(enc)}) per 1080p frame ({smi})")
+
+        # Kernels against their plain versions on the HDR frames.
+        t0 = time.perf_counter()
+        results = phase_kernels(torch, stencils, cfg, frames, anim["layer"], scale, "1080p HDR")
+        bp = cfg.BilateralParams()
+        for form, bf16 in (("bilateral", False), ("bilateral_bf16", True)):
+            tile = stencils.bilateral_tile(bp, False, bf16, stencils.max_shared_bytes(dev))
+            walks = {}
+            for label, img in (("LDR", ldr_frames[TARGET_FRAME]), ("HDR", frames[TARGET_FRAME])):
+                walks[label] = stencils.bilateral_walks(torch.from_numpy(img).to(dev), bp, bf16,
+                                                        tile)
+            print(f"  {form} walks (tile {tile.th}x{tile.tw}, {walks['LDR']['blocks']} blocks, "
+                  f"{walks['LDR']['rows']} tap rows): exp2f on {walks['LDR']['rows_exp2f']} rows "
+                  f"of {walks['LDR']['blocks_exp2f']} blocks on the LDR target, "
+                  f"{walks['HDR']['rows_exp2f']} rows of {walks['HDR']['blocks_exp2f']} blocks on "
+                  f"the HDR one; median {ldr_kernels[form]['ms']:.4f} ms LDR, "
+                  f"{results[form]['ms']:.4f} ms HDR")
+        lp = cfg.LayersParams()
+        layer_walks = stencils.bilateral_walks(
+            torch.from_numpy(anim["layer"]).to(dev), lp, False,
+            stencils.bilateral_tile(lp, True, False, stencils.max_shared_bytes(dev)))
+        print(f"  bilateral_guided walks on the albedo guide (LDR): exp2f on "
+              f"{layer_walks['rows_exp2f']} of {layer_walks['rows']} tap rows")
+        noisy_4k, layers_4k = render_frame(0.5, H4K, W4K, np.random.default_rng(SEED), noise=NOISE,
+                                           hdr=True)
+        print(f"  4K HDR frame: RGB in [{float(noisy_4k[..., :3].min()):.4f}, "
+              f"{float(noisy_4k[..., :3].max()):.4f}]")
+        grid_results, _ = phase_turbo_kernels(torch, fast, stencils, cfg, noisy_4k,
+                                              frames[TARGET_FRAME], hdr=True)
+        results.update(grid_results)
+        images = {"4K": (noisy_4k, np.clip(layers_4k["albedo"], 0, 1)),
+                  "1080p": (frames[TARGET_FRAME], anim["layer"])}
+        images = {k: tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in v)
+                  for k, v in images.items()}
+        del layers_4k
+        results.update(phase_guided_kernels(torch, fast, cfg, images, hdr=True))
+        del images
+        for kernel, res in results.items():
+            print(f"  {kernel:21s} median {ldr_kernels[kernel]['ms']:.4f} ms LDR, "
+                  f"{res['ms']:.4f} ms HDR ({smi})")
+        print(f"  kernels on HDR content: {time.perf_counter() - t0:.1f} s")
+
+        def run(what, argv, expected):
+            stencils.reset_launches()
+            rc, text, err = run_cli(cli, [*argv, "--device", "cuda"])
+            counts = dict(stencils.launches)
+            check(rc == 0, f"{what} failed ({rc}): {err.strip()}")
+            check(all(counts[k] > 0 for k in expected) and
+                  all(n == 0 for k, n in counts.items() if k not in expected),
+                  f"{what}: launches {counts}, expected {sorted(expected)}")
+            for k, n in counts.items():
+                totals[k] += n
+            print(f"  {what}: launches { {k: n for k, n in counts.items() if n} }")
+            return re.findall(r"transfer time: (\d+)ns; execution time: (\d+)ns", text)
+
+        def report(keys, reports):
+            check(len(reports) == len(keys), f"{len(reports)} timing reports for {keys}")
+            return dict(zip([k for k in cli.CONFIG_KEYS if k in keys], reports))
+
+        # The exact battery, against the plain versions on the same frames.
+        t0 = time.perf_counter()
+        six = cli.CONFIG_KEYS
+        out_exact = os.path.join(root, "hdr_exact")
+        reports = report(six, run("gpu-denoise <HDR target> (six configs)",
+                                  [target, "--configs", ",".join(six), "--output-dir", out_exact],
+                                  {"bilateral", "bilateral_guided", "nlm", "normalize"}))
+        plain = exact_plain(torch, cfg, stencils, imageio, dataset, target)
+        exact = {}
+        for key in six:
+            exact[key] = check_hdr_output(os.path.join(out_exact, names[key]), f"exact {key}")
+            tol = scaled(TOL_NLM if key in NLM_CONFIGS else TOL_BILATERAL, scale)
+            err = float(np.abs(exact[key] - plain[key]).max())
+            check(bool(np.all(np.abs(exact[key] - plain[key])
+                              <= tol["atol"] + tol["rtol"] * np.abs(plain[key]))),
+                  f"exact {key}: max abs {err:.3g} from the plain versions, beyond {tol}")
+            tr, ex = reports[key]
+            print(f"    {key:10s} transfer {int(tr):>11d} ns  exec {int(ex):>11d} ns  max abs "
+                  f"{err:.3g} from the plain versions (tolerance {tol})")
+        del plain
+        peak = float(exact["bilateral"][..., :3].max())
+        print(f"  exact battery: {time.perf_counter() - t0:.1f} s; float32 EXR, alpha kept")
+
+        # bf16 taps, as a library caller runs them.
+        out_bf16 = os.path.join(root, "hdr_bf16")
+        os.makedirs(out_bf16)
+        tiled = Session(target, device="cuda", output_dir=out_bf16,
+                        tiling=cfg.TilingConfig(compute_dtype="bfloat16"))
+        for key, run_cfg, kernel in (("bilateral", cfg.GPU_BATTERY[0], "bilateral_bf16"),
+                                     ("layers", cfg.GPU_BATTERY[1], "bilateral_guided_bf16")):
+            stencils.reset_launches()
+            res = tiled.run(run_cfg)
+            counts = {k: n for k, n in stencils.launches.items() if n}
+            check(counts.get(kernel, 0) > 0 and not counts.get(kernel[:-5]),
+                  f"Session(tiling=bf16) {key}: launches {counts}")
+            for k, n in counts.items():
+                totals[k] += n
+            got = check_hdr_output(res.output_path, f"bf16 {key}")
+            check(np.array_equal(got, res.image), f"bf16 {key}: the file differs from the result")
+            reading = hdr_gate(f"bf16 {key}", got, exact[key])
+            print(f"    Session(tiling=bf16) {key}: launches {counts}, exec "
+                  f"{res.report.exec_ns} ns, transfer {res.report.transfer_ns} ns, {reading}")
+
+        # The turbo modes.
+        target_dev = torch.from_numpy(frames[TARGET_FRAME]).to(dev)
+        for name, flags, keys in HDR_TURBO_RUNS:
+            d = int(flags[1])
+            expected = set()
+            for nlm in (False, True):
+                if any((k in NLM_CONFIGS) == nlm for k in keys):
+                    expected |= turbo_kernels(d, nlm, flags)
+            out_dir = os.path.join(root, f"hdr_{name.replace(' ', '_')}")
+            reports = report(keys, run(f"gpu-denoise <HDR target> {' '.join(flags)} --configs "
+                                       f"{','.join(keys)}",
+                                       [target, *flags, "--configs", ",".join(keys),
+                                        "--output-dir", out_dir], expected))
+            for key in keys:
+                got = check_hdr_output(os.path.join(out_dir, names[key]), f"{name} {key}")
+                if key in ("bilateral", "linear"):  # the grid pipeline phase 10 checked
+                    bp = cfg.BilateralParams(sigma_spatial=float(flags[-1]) if
+                                             "--sigma-spatial" in flags else 2.0)
+                    want = fast.bilateral_fast(target_dev, bp, turbo_levels(d), d)
+                    check(np.array_equal(got, want.cpu().numpy()),
+                          f"{name} {key}: differs from bilateral_fast on the loaded target")
+                reading = hdr_gate(f"{name} {key}", got,
+                                   exact["bilateral" if key == "linear" else key])
+                tr, ex = reports[key]
+                print(f"    {key:10s} transfer {int(tr):>11d} ns  exec {int(ex):>11d} ns  "
+                      f"{reading}")
+        del exact
+
+        # --all-frames, the serving loop, against single-target runs.
+        t0 = time.perf_counter()
+        keys = ("bilateral", "nlm")
+        out_all = os.path.join(root, "hdr_all")
+        run("gpu-denoise <HDR animation> --all-frames --configs bilateral,nlm",
+            [target, "--all-frames", "--configs", ",".join(keys), "--output-dir", out_all],
+            {"bilateral", "nlm", "normalize"})
+        stems = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+        check(sorted(os.listdir(out_all)) == stems,
+              f"--all-frames wrote {sorted(os.listdir(out_all))}")
+        for path, stem in zip(paths, stems):
+            single = out_exact
+            if path != target:
+                single = os.path.join(root, f"hdr_single_{stem}")
+                run(f"gpu-denoise {stem}.exr --configs bilateral,nlm",
+                    [path, "--configs", ",".join(keys), "--output-dir", single],
+                    {"bilateral", "nlm", "normalize"})
+            got_names = sorted(os.listdir(os.path.join(out_all, stem)))
+            check(got_names == sorted(names[k] for k in keys), f"--all-frames {stem}: {got_names}")
+            for key in keys:
+                got = os.path.join(out_all, stem, names[key])
+                check_hdr_output(got, f"--all-frames {stem} {key}")
+                check(same_bytes(got, os.path.join(single, names[key])),
+                      f"--all-frames {stem} {key}: differs from the single-target run")
+        print(f"  --all-frames over {len(paths)} frames: every output equals its single-target "
+              f"run byte for byte ({time.perf_counter() - t0:.1f} s)")
+        print("  " + finish_native_check(proc, lib, why, paths))
+        return results, totals
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def main() -> int:
     import torch
 
@@ -1508,7 +1986,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from image_denoising_filter_tpu_torch import cli
     from image_denoising_filter_tpu_torch import config as cfg
-    from image_denoising_filter_tpu_torch.utils import content, imageio, native
+    from image_denoising_filter_tpu_torch.utils import content, dataset, imageio, native
     from image_denoising_filter_tpu_torch.ops import _build, fast, reference, stencils
     from image_denoising_filter_tpu_torch.parallel import dryrun, launch
     from image_denoising_filter_tpu_torch.runtime import Session
@@ -1516,14 +1994,14 @@ def main() -> int:
     check_no_jax()
     render_frame = load_render_frame()
     smi = nvidia_smi_line()
-    print(f"[1/9] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
+    print(f"[1/10] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
 
     t0 = time.perf_counter()
     lib_path, log = _build.build()
     build_s = time.perf_counter() - t0
-    print(f"[2/9] build: {build_s:.2f} s -> {os.path.relpath(lib_path, REPO)}")
+    print(f"[2/10] build: {build_s:.2f} s -> {os.path.relpath(lib_path, REPO)}")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip())
@@ -1531,17 +2009,17 @@ def main() -> int:
     root = scratch_dir()
     try:
         anim = write_animation(imageio, render_frame, root)
-        print(f"[3/9] kernels vs plain versions at {W}x{H}")
+        print(f"[3/10] kernels vs plain versions at {W}x{H}")
         kernels = phase_kernels(torch, stencils, cfg, anim["frames"], anim["layer"])
-        print(f"[4/9] battery through gpu-denoise --device cuda ({N_FRAMES} frames + 3 layers)")
+        print(f"[4/10] battery through gpu-denoise --device cuda ({N_FRAMES} frames + 3 layers)")
         counts, exact_dir = phase_battery(cfg, stencils, cli, imageio, Session, anim, root)
-        print(f"[5/9] turbo grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
+        print(f"[5/10] turbo grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
         noisy_4k, layers_4k = render_frame(0.5, H4K, W4K, np.random.default_rng(SEED),
                                            noise=NOISE)
         turbo_kernels_results, fused_counts = phase_turbo_kernels(
             torch, fast, stencils, cfg, noisy_4k, anim["frames"][TARGET_FRAME])
         kernels.update(turbo_kernels_results)
-        print(f"[6/9] guided grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
+        print(f"[6/10] guided grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
         images = {
             "4K": (noisy_4k, np.clip(layers_4k["albedo"], 0, 1)),
             "1080p": (anim["frames"][TARGET_FRAME], anim["layer"]),
@@ -1552,21 +2030,28 @@ def main() -> int:
         del layers_4k
         kernels.update(phase_guided_kernels(torch, fast, cfg, images))
         del images
-        print("[7/9] turbo battery through gpu-denoise --turbo D --device cuda")
+        print("[7/10] turbo battery through gpu-denoise --turbo D --device cuda")
         totals = phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir)
-        print("[8/9] CPU configs, parity, profile, content")
+        print("[8/10] CPU configs, parity, profile, content")
         t0 = time.perf_counter()
         profiled = phase_cpu_parity_profile(torch, cfg, stencils, cli, imageio, content,
                                             reference, native, kernels, anim, root, exact_dir)
         print(f"  phase 8: {time.perf_counter() - t0:.1f} s")
         for k, n in profiled.items():
             totals[k] += n
-        print("[9/9] sharded: gpu-denoise --mesh on 4 ranks sharing the card over gloo")
+        print("[9/10] sharded: gpu-denoise --mesh on 4 ranks sharing the card over gloo")
         t0 = time.perf_counter()
         sharded = phase_sharded(torch, cfg, stencils, fast, cli, imageio, launch, dryrun, anim,
                                 root, exact_dir, smi)
         print(f"  phase 9: {time.perf_counter() - t0:.1f} s")
         for k, n in sharded.items():
+            totals[k] += n
+        print("[10/10] HDR: an EXR animation through the kernels and gpu-denoise --device cuda")
+        t0 = time.perf_counter()
+        _, hdr_counts = phase_hdr(torch, cfg, stencils, fast, cli, imageio, dataset, Session,
+                                  render_frame, root, anim["frames"], kernels, smi)
+        print(f"  phase 10: {time.perf_counter() - t0:.1f} s")
+        for k, n in hdr_counts.items():
             totals[k] += n
     finally:
         shutil.rmtree(root, ignore_errors=True)

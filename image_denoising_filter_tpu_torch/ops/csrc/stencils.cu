@@ -106,6 +106,8 @@ __device__ __forceinline__ float4 col_tap(const float4* row, bool row_ok, int x,
 constexpr int kBilPx = IDF_BIL_PX;
 constexpr int kBilTileW = 32 * kBilPx;
 constexpr int kBilMaxTileH = IDF_BIL_MAX_TILE_H;
+// exp2f's range test passes from this exponent up (bil_exp2).
+constexpr float kBilExp2Min = IDF_BIL_EXP2_MIN;
 static_assert(kBilPx % 2 == 1, "an odd stride of 16- or 8-byte pixels spreads a warp's loads "
                                 "over the shared-memory banks");
 
@@ -489,8 +491,10 @@ __global__ void __launch_bounds__(32 * kBilMaxTileH)
           if (k < rem) step(k, at + k, sp[k]);
       };
       // The row's farthest taps (dx = +-hw) have its least spatial term; with
-      // the block's largest distance their exponent bounds every tap's.
-      if (__fmaf_rn(-ssd_max, col_coef, sp_row[0]) >= -126.f) {
+      // the block's largest distance their exponent bounds every tap's
+      // (ops/stencils.py:bilateral_row_walks mirrors the test). An infinite
+      // range makes the bound -inf: the row takes exp2f.
+      if (__fmaf_rn(-ssd_max, col_coef, sp_row[0]) >= kBilExp2Min) {
         walk(std::true_type{});
       } else {
         walk(std::false_type{});

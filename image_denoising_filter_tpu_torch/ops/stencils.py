@@ -83,6 +83,10 @@ HRW_LANES = 6
 BIL_PX = 3
 BIL_TILE_W = 32 * BIL_PX
 BIL_TILE_HS = (16, 8, 4, 2, 1)
+# exp2f's range test: from this exponent up, exp2f is MUFU.EX2 of the
+# exponent itself, ex2.approx.ftz.f32, which the staged bilateral takes for
+# a tap row whose block cannot reach below it (bilateral_row_walks).
+BIL_EXP2_MIN = -126.0
 
 
 def nvcc_defines() -> tuple[str, ...]:
@@ -100,6 +104,7 @@ def nvcc_defines() -> tuple[str, ...]:
         f"-DIDF_HRW_LANES={HRW_LANES}",
         f"-DIDF_BIL_PX={BIL_PX}",
         f"-DIDF_BIL_MAX_TILE_H={max(BIL_TILE_HS)}",
+        f"-DIDF_BIL_EXP2_MIN={BIL_EXP2_MIN!r}f",
     )
 
 
@@ -282,6 +287,82 @@ def bilateral_tile(
         if nbytes <= shared_limit:
             return BilateralTile(th, BIL_TILE_W, hy, hx, *offsets, nbytes)
     return BilateralTile(0, BIL_TILE_W, hy, hx, 0, 0, 0, 0, 0)
+
+
+def bilateral_ssd_max(lo: torch.Tensor, hi: torch.Tensor, blue_bug: bool,
+                      bf16: bool) -> torch.Tensor:
+    """The largest colour distance any tap of a staged block can have, from
+    the block's channel ranges lo and hi ((..., 3) float32): the kernel's
+    ssd_max, its tap's own operations on hi - lo. With bf16 taps every
+    operation rounds to bf16 (`_bilateral_sq_diff_bf16`); in float32 dr*dr
+    + dg*dg is one fused multiply-add (emulated in float64: the product is
+    exact there) and db*db is added after its own rounding unless blue_bug.
+    Each operation is monotone in the ranges, so no tap's distance exceeds
+    the result."""
+    if bf16:
+        return _bilateral_sq_diff_bf16(hi.to(torch.bfloat16), lo.to(torch.bfloat16), blue_bug)
+    d = hi - lo
+    dr = d[..., 0].double()
+    e = (dr * dr + (d[..., 1] * d[..., 1]).double()).float()
+    return e if blue_bug else e + d[..., 2] * d[..., 2]
+
+
+def bilateral_row_walks(ssd_max: torch.Tensor, params: BilateralParams) -> torch.Tensor:
+    """For blocks whose largest colour distance is ssd_max (any shape), which
+    tap rows of the disk (its `_circle_runs` rows, in order; the last axis)
+    the staged kernel walks with ex2.approx.ftz.f32, the others with exp2f:
+    the farthest tap of a row (dx = +-hw, the row's least spatial term, as
+    the kernel's table holds it) must keep its exponent sp - ssd_max *
+    col_coef at BIL_EXP2_MIN or above. The fused multiply-add is emulated in
+    float64 and rounded to float32 once more, which moves the test only at
+    a tie. An infinite or NaN distance fails every row."""
+    sp_coef = np.float32(-0.5 / params.sigma_spatial**2 * LOG2E)
+    col_coef = np.float32(0.5 / params.sigma_color**2 * LOG2E)
+    far = []
+    for dy0, n_rows, hw in _circle_runs(params.effective_radius, params.sigma_spatial,
+                                        params.truncate_eps):
+        for dy in range(dy0, dy0 + n_rows):
+            row = np.float32(sp_coef * np.float32(dy * dy))
+            far.append(np.float32(float(hw * hw) * float(sp_coef) + float(row)))
+    far = torch.tensor(np.asarray(far, np.float64), device=ssd_max.device)
+    x = (far - ssd_max.double()[..., None] * float(col_coef)).float()
+    return x >= BIL_EXP2_MIN
+
+
+def bilateral_walks(guide: torch.Tensor, params: BilateralParams, bf16: bool,
+                    tile: BilateralTile) -> dict:
+    """How one launch of the staged kernel with `tile` walks the tap rows of
+    `guide`, its weight source (the image, or the layer of a guided call):
+    each block reduces its staged pixels (the tile and the disk's halo, the
+    border applied; RGB, rounded to bf16 with bf16 taps) to channel ranges,
+    as the kernel does (fminf and fmaxf pass NaN by), and each tap row takes
+    `bilateral_row_walks`' verdict. Returns the blocks, the tap rows of all
+    blocks, those walked with exp2f, and the blocks with at least one such
+    row."""
+    if not tile.staged:
+        raise ValueError("the direct-load instance stages no block: every tap takes exp2f")
+    h, w, _ = guide.shape
+    nby, nbx = -(-h // tile.th), -(-w // tile.tw)
+    dev = guide.device
+    ys = torch.arange(-tile.hy, nby * tile.th + tile.hy, device=dev)
+    xs = torch.arange(-tile.hx, nbx * tile.tw + tile.hx, device=dev)
+    staged = guide[..., :3][ys.clamp(0, h - 1)][:, xs.clamp(0, w - 1)]
+    if params.border != BorderPolicy.CLAMP:
+        inside = ((ys >= 0) & (ys < h))[:, None] & ((xs >= 0) & (xs < w))[None]
+        staged = torch.where(inside[..., None], staged, torch.zeros((), device=dev))
+    if bf16:
+        staged = staged.to(torch.bfloat16).float()
+    window = dict(kernel_size=(tile.th + 2 * tile.hy, tile.tw + 2 * tile.hx),
+                  stride=(tile.th, tile.tw))
+    planes = staged.permute(2, 0, 1)[None]
+    inf = dict(posinf=math.inf, neginf=-math.inf)
+    hi = torch.nn.functional.max_pool2d(planes.nan_to_num(-math.inf, **inf), **window)
+    lo = -torch.nn.functional.max_pool2d(-planes.nan_to_num(math.inf, **inf), **window)
+    ssd_max = bilateral_ssd_max(lo[0].permute(1, 2, 0), hi[0].permute(1, 2, 0),
+                                params.blue_bug, bf16)
+    slow = ~bilateral_row_walks(ssd_max, params)
+    return {"blocks": nby * nbx, "rows": slow.numel(), "rows_exp2f": int(slow.sum()),
+            "blocks_exp2f": int(slow.any(-1).sum())}
 
 
 # ---------------------------------------------------------------------------

@@ -69,6 +69,13 @@ def _write_exr(path: str, rgba: np.ndarray) -> None:
     _exr.write(path, rgba)
 
 
+def codec() -> str:
+    """The codec load and save run in this process: "native" (the native
+    library, built by `make -C native`; a file it cannot decode falls back to
+    the Python codec) or "python" (utils/png.py and utils/exr.py)."""
+    return "native" if _HAVE_NATIVE else "python"
+
+
 def is_hdr_path(path: str) -> bool:
     """`.exr` extension => HDR (src/main.cpp:1380)."""
     return os.path.splitext(path)[1] == ".exr"

@@ -1148,6 +1148,46 @@ def test_bilateral_direct_instance_takes_wide_radii(cuda, form, radius):
     _check_bilateral_form(form, params, (9, 11), staged=radius <= widest)
 
 
+def _hdr_image(device, h=61, w=131, inf=False):
+    """HDR content: noise below 0, a bright patch of 5 beside 0.3, and
+    fireflies (RGB times 50); with `inf` one infinite green value."""
+    rng = np.random.default_rng(7)
+    img = rng.normal(0.3, 0.1, (h, w, 4)).astype(np.float32)
+    img[: h // 4, w // 3 : 2 * w // 3, :3] += 4.7
+    img.reshape(-1, 4)[rng.choice(h * w, 12, replace=False), :3] *= 50.0
+    img[..., 3] = rng.uniform(0.5, 1.0, (h, w))
+    if inf:
+        img[h // 2, w // 2, 1] = np.inf
+    return torch.from_numpy(img).to(device)
+
+
+@pytest.mark.parametrize("inf", [False, True], ids=["hdr", "hdr_inf"])
+@pytest.mark.parametrize("form", list(BILATERAL_FORMS))
+def test_bilateral_kernel_forms_on_hdr_blocks(cuda, form, inf):
+    """On HDR content most blocks fail the range test and walk their tap rows
+    with exp2f (stencils.bilateral_walks); the output is still the
+    direct-load instance's bit for bit (NaN where an infinite tap meets a
+    zero weight, in both) and, where finite, the plain version's at the
+    exact tolerance scaled by max |RGB|."""
+    params = BilateralParams()
+    guided, tiling = BILATERAL_FORMS[form]
+    target = _hdr_image(cuda, inf=inf)
+    layer = _image(1, cuda, *target.shape[:2])
+    tile = stencils.bilateral_tile(params, guided, tiling is not None,
+                                   stencils.max_shared_bytes(cuda))
+    walks = stencils.bilateral_walks(layer if guided else target, params, tiling is not None, tile)
+    assert (walks["rows_exp2f"] > 0) != guided  # the guide of the guided forms is LDR
+    got, want = _bilateral_form(form, params, target, layer)
+    for g, d in zip(got, _direct(form, params, target, layer)):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(g, d, rtol=0, atol=0, equal_nan=True)
+    scale = float(target[..., :3][torch.isfinite(target[..., :3])].abs().max())
+    for g, w_ in zip(got, want):
+        finite = torch.isfinite(w_)
+        assert torch.equal(finite, torch.isfinite(g))
+        _close(g[finite], w_[finite], atol=1e-5 * scale)
+
+
 @pytest.mark.parametrize("ua", [False, True], ids=["alpha", "uniform_alpha"])
 @pytest.mark.parametrize("form", list(BILATERAL_FORMS))
 def test_bilateral_kernel_info(cuda, form, ua):
