@@ -9,7 +9,9 @@ toolkit:
 Phases, one line or block each:
   1. device  -- the card, as nvidia-smi gives its name and power limit;
   2. build   -- the kernels compiled from ops/csrc with nvcc, one process
-                per source, all at once;
+                per source, all at once, and beside them the native host
+                library (native/idf_native.cpp with g++ and OpenMP,
+                utils/native.ensure());
   3. kernels -- each exact-battery CUDA kernel, the bilateral kernel's
                 two forms with bf16 taps, the NLM kernel with the turbo
                 NLM's bf16 taps and stride-2 search, and the half-row NLM
@@ -57,7 +59,9 @@ Phases, one line or block each:
                 CPU bilateral oracle over interior RGB (at least 59 dB), on
                 bench.py's 96x128 uniform frame and on a 270x480 crop of the
                 card's render with the battery's noise; `gpu-denoise --configs
-                cpu1,cpu8` on that crop (no kernel launch); the six device
+                cpu1,cpu8` on that crop (the native OpenMP oracle, no kernel
+                launch, output-cpu.png within 1 LSB of the NumPy oracle's
+                on the crop); the six device
                 configs through `gpu-denoise --profile`, the trace's kernel
                 events against the run's launch counts, and each config's
                 host ms, device busy ms and busy share;
@@ -76,9 +80,9 @@ Phases, one line or block each:
                 overhead of the transport, not scaling.
  10. HDR    -- a 1080p EXR animation (render_frame(hdr=True): noise below 0,
                 the emissive ceiling above 4; fireflies in the target; LDR PNG
-                layers) written and read back, the EXR codec that ran timed a
-                frame, and the native codec held to the Python one where
-                `make -C native` builds; every kernel in every form against
+                layers) written and read back, the EXR codec that ran (the
+                native one) timed a frame, and held to the Python codec;
+                every kernel in every form against
                 its plain version on HDR frames (1080p, and a 4K HDR render
                 for the grids at each (D, K)), the staged bilateral's walks,
                 HDR times beside the LDR ones; then gpu-denoise on the HDR
@@ -88,7 +92,22 @@ Phases, one line or block each:
                 --turbo 8 --sigma-spatial 6 and --turbo 1 layers, each output
                 a float32 EXR read against the exact output and gated at the
                 JAX package's reading (JAX_HDR_READINGS_DB); --all-frames over
-                the animation, each output byte for byte a single-target run.
+                the animation, each output byte for byte a single-target run;
+ 11. host runtime -- the native library's build route, compiler, libgomp,
+                idf_num_threads() and os.cpu_count(); the default run,
+                `gpu-denoise <1080p target> --device cuda --clamp` with no
+                --configs (the six device configs, then cpu1 and cpu8): the
+                six files phase 4's byte for byte, output-cpu.png's border,
+                alpha and parity reading against the bilateral kernel at the
+                CPU parameters, cpu1 and cpu8 seconds and the OpenMP
+                filter's own on 1 and 8 threads; the overlap config on
+                the native frame loader (PNG and EXR targets), its output
+                phase 4's (phase 10's) and its exec ns beside theirs, and the
+                frame streaming's host time on the native loader against the
+                Python codec on the loop's thread; --all-frames over the LDR
+                animation against single-target runs; the six exact configs
+                on the EXR target through --mesh 1x4 over gloo, each output
+                phase 10's array for array.
 Then one JSON line with every kernel's launches, error, times and bound, the
 nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -100,6 +119,7 @@ The script imports no JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import importlib.util
@@ -245,6 +265,15 @@ JAX_HDR_READINGS_DB = {
     "turbo 1 layers": 72.5516,
 }
 HDR_GATE_MARGIN_DB = 0.05
+# Phase 11. The native library's build routes (utils/native.py), and the
+# least speed-up of the OpenMP CPU bilateral on 8 threads over 1 (the cpu8
+# and cpu1 configs' filter) at 1080p on a host of at least CPU8_MIN_CORES
+# cores.
+NATIVE_ROUTES = {"a": "native/Makefile's command",
+                 "b": "-fopenmp -c, then libgomp linked by path",
+                 "c": "the port's omp.h, -fopenmp -c, then libgomp linked by path"}
+CPU8_MIN_SPEEDUP = 3.0
+CPU8_MIN_CORES = 8
 
 
 # The port's modules this script drives; none may load jax or the JAX
@@ -734,7 +763,8 @@ def phase_battery(cfg, stencils, cli, imageio, Session, anim, root):
     """Drive gpu-denoise on the card, check the run's launches and outputs;
     then the half-row NLM with float32 taps through Session.run, as a
     library caller runs it. Returns the launch counts of the six-config run
-    and of the Session run, summed, and the exact outputs' directory."""
+    and of the Session run, summed, the exact outputs' directory and the
+    six configs' exec ns."""
     target, clean = anim["target"], anim["clean"]
     out_main = os.path.join(root, "out")
     out_linear = os.path.join(root, "out_linear")
@@ -765,6 +795,7 @@ def phase_battery(cfg, stencils, cli, imageio, Session, anim, root):
     print(f"  noisy target PSNR vs clean render: {noisy_psnr:.2f} dB")
     keys = ("bilateral", "layers", "linear", "nlm", "multiframe", "overlap")
     config_psnr = {}
+    exec_ns = {key: int(ex) for key, (_, ex) in zip(keys, reports)}
     for key, run_cfg, (tr, ex) in zip(keys, cfg.GPU_BATTERY, reports):
         out, _ = imageio.load(os.path.join(out_main, run_cfg.output_name(False)))
         check(out.shape == (H, W, 4), f"{key}: output shape {out.shape}")
@@ -863,7 +894,7 @@ def phase_battery(cfg, stencils, cli, imageio, Session, anim, root):
               f"max abs {err:.3g}")
         for k, n in bf16_counts.items():
             counts[k] += n
-    return counts, out_main
+    return counts, out_main, exec_ns
 
 
 def check_bf16_close(torch, got, want, what: str) -> None:
@@ -1340,7 +1371,8 @@ def phase_cpu_parity_profile(torch, cfg, stencils, cli, imageio, content, refere
                              sigma_color=cp.sigma_color, blue_bug=cp.blue_bug)
     r = cp.radius
     interior = (slice(r, -r), slice(r, -r), slice(0, 3))
-    oracle = "native" if native.available() else "NumPy"
+    check(native.available(), "phase 8: no native library loaded")
+    oracle = "native"
     rng = np.random.default_rng(SEED)
     uniform = rng.uniform(0, 1, (96, 128, 4)).astype(np.float32)
     y0, x0 = (H4K - h) // 2, (W4K - w) // 2
@@ -1362,8 +1394,7 @@ def phase_cpu_parity_profile(torch, cfg, stencils, cli, imageio, content, refere
               f"bilateral at the CPU parameters, {name}: max abs {abs_err:.3g} from plain")
         kernels["bilateral"]["max_abs_err"] = max(kernels["bilateral"]["max_abs_err"], abs_err)
         t0 = time.perf_counter()
-        want = (native.cpu_bilateral(img, cp, 8) if oracle == "native"
-                else reference.cpu_bilateral_reference(img, cp))
+        want = native.cpu_bilateral(img, cp, 8)
         oracle_s = time.perf_counter() - t0
         db = reference.psnr(outs[name].cpu().numpy()[interior], want[interior])
         check(db >= PARITY_GATE_DB, f"parity {name}: {db:.2f} dB < {PARITY_GATE_DB} dB")
@@ -1397,8 +1428,14 @@ def phase_cpu_parity_profile(torch, cfg, stencils, cli, imageio, content, refere
     check(out.shape == (h, w, 4) and bool((out[~inside] == 0.0).all())
           and bool((out[inside][:, 3] == 1.0).all()),
           "output-cpu.png: shape, a border not zero or alpha not 1 inside")
+    t0 = time.perf_counter()
+    numpy_out = reference.cpu_bilateral_reference(imageio.load(small)[0], cp)
+    numpy_s = time.perf_counter() - t0
+    lsb = 255.0 * float(np.abs(out - imageio.to_float(imageio.quantize(numpy_out))).max())
+    check(lsb <= 1.0 + 1e-3, f"output-cpu.png: {lsb:.1f} LSB from the NumPy oracle's")
     print(f"  gpu-denoise --configs cpu1,cpu8 on {w}x{h} ({oracle} oracle): cpu1 {secs[0]} s, "
-          f"cpu8 {secs[1]} s; no launch; output-cpu.png zero in its {r}-pixel border")
+          f"cpu8 {secs[1]} s; no launch; output-cpu.png zero in its {r}-pixel border, within "
+          f"{lsb:.0f} LSB of the NumPy oracle's ({numpy_s:.2f} s on one thread)")
 
     # The six device configs under the profiler.
     prof_dir = os.path.join(root, "prof")
@@ -1633,29 +1670,17 @@ def phase_sharded(torch, cfg, stencils, fast, cli, imageio, launch, dryrun, anim
     return totals
 
 
-def start_native_build(root: str):
-    """`make -C native` into root/, started in the background (the native
-    codec: g++ with OpenMP and zlib). Returns (the process or None, the
-    library's path, why it could not start)."""
-    lib = os.path.join(root, "libidf_native.so")
-    try:
-        proc = subprocess.Popen(["make", "-s", "-C", os.path.join(REPO, "native"), f"LIB={lib}"],
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    except OSError as e:
-        return None, lib, f"make did not start: {e}"
-    return proc, lib, ""
+def native_codec_check(native, imageio, paths) -> str:
+    """Each EXR of `paths` decoded by the native codec against the Python
+    one, the native encode of it decoded again, and the frames through the
+    native frame loader (the overlap loop's decode path) against
+    imageio.load. Fails on any difference, or where load and save do not
+    run the native codec. Returns the line to print."""
+    from image_denoising_filter_tpu_torch.utils import exr
 
-
-def native_codec_check(paths) -> None:
-    """In a child process whose IDF_NATIVE_LIB names a built native library:
-    each EXR of `paths` decoded by the native codec against the Python one,
-    the native encode of it decoded again, and the frames through the native
-    frame loader (the overlap loop's decode path). Prints one JSON line:
-    whether every array is equal, the median ms of a decode and an encode."""
-    from image_denoising_filter_tpu_torch.utils import exr, imageio, native
-
-    check(imageio.codec() == "native", "IDF_NATIVE_LIB did not load the native codec")
-    equal, dec, enc = True, [], []
+    check(native.available() and imageio.codec() == "native",
+          "the native codec is not the one load and save run")
+    dec, enc = [], []
     for path in paths:
         with open(path, "rb") as f:
             data = f.read()
@@ -1666,40 +1691,235 @@ def native_codec_check(paths) -> None:
         t0 = time.perf_counter()
         blob = native.exr_encode(got)
         enc.append(time.perf_counter() - t0)
-        equal = equal and np.array_equal(got, want) and np.array_equal(exr.decode(blob), want)
+        check(np.array_equal(got, want), f"{path}: the native decode differs from the Python one")
+        check(np.array_equal(exr.decode(blob), want), f"{path}: the native encode decodes otherwise")
     loader = native.FrameLoader(paths)
     try:
         for path, got in zip(paths, loader):
-            equal = equal and np.array_equal(got, imageio.load(path)[0])
+            check(np.array_equal(got, imageio.load(path)[0]),
+                  f"{path}: the frame loader's array differs from imageio.load's")
     finally:
         loader.close()
-    print(json.dumps({"equal": bool(equal), "decode_ms": 1e3 * statistics.median(dec),
-                      "encode_ms": 1e3 * statistics.median(enc)}))
+    return (f"native codec: every frame decodes to the Python codec's arrays, its encodes "
+            f"decode back, the frame loader agrees; decode {1e3 * statistics.median(dec):.1f} ms, "
+            f"encode {1e3 * statistics.median(enc):.1f} ms per 1080p frame (median of "
+            f"{len(paths)})")
 
 
-def finish_native_check(proc, lib: str, why: str, paths) -> str:
-    """Wait for the native build; where it built, run native_codec_check in a
-    child process on `paths` and fail on any difference. Returns the line to
-    print."""
-    if proc is None:
-        return f"native codec: not built ({why})"
-    out, _ = proc.communicate(timeout=300)
-    if proc.returncode != 0 or not os.path.exists(lib):
-        lines = (out or "").strip().splitlines() or [""]
-        first = next((line for line in lines if "error" in line), lines[-1])
-        return (f"native codec: make -C native failed (rc {proc.returncode}: {first.strip()}); "
-                "the Python codec ran")
-    env = dict(os.environ, IDF_NATIVE_LIB=lib)
-    res = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
-                          "chip_smoke.native_codec_check(sys.argv[1:])", *paths],
-                         cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
-    check(res.returncode == 0, f"native codec check failed: {res.stderr.strip()[-2000:]}")
-    got = json.loads(res.stdout.strip().splitlines()[-1])
-    check(got["equal"], "the native codec's arrays differ from the Python codec's")
-    return (f"native codec (make -C native built it): every frame decodes to the Python "
-            f"codec's arrays, its encodes decode back, the frame loader agrees; decode "
-            f"{got['decode_ms']:.1f} ms, encode {got['encode_ms']:.1f} ms per 1080p frame "
-            f"(median of {len(paths)})")
+def mapped_libgomp() -> list:
+    """The libgomp files this process has mapped (one OpenMP runtime is
+    shared by everything that needs libgomp.so.1)."""
+    with open("/proc/self/maps") as f:
+        return sorted({line.split()[-1] for line in f if "libgomp" in line})
+
+
+def stream_ms(torch, FramePrefetcher, paths, loader, native_paths: bool) -> tuple[float, str]:
+    """Host ms to stream `paths` to the card through FramePrefetcher as the
+    overlap loop does (depth 2), the construction included: decoding on
+    the native loader's threads, or `loader` on this thread. Returns the ms
+    and the loader that ran."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = FramePrefetcher(paths, loader, "cuda", depth=2, native_paths=native_paths)
+    for _ in frames:
+        pass
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), frames.loader
+
+
+def phase_host_runtime(torch, cfg, stencils, cli, imageio, dataset, native, reference, Session,
+                       anim, hdr, root, exact_dir, exec4, hdr_dir, hdr_exec, smi):
+    """Phase 11: the native host library on the card's machine. Its build
+    (route, compiler, libgomp, threads); the default gpu-denoise run (all
+    eight configs) against phase 4's files and the parity gate; the overlap
+    config on the native frame loader against phase 4's and phase 10's
+    files, with the streaming's host time on both loaders; --all-frames
+    over the LDR animation; the exact configs on the EXR target through
+    --mesh 1x4. Returns the launch counts of the runs, summed."""
+    from image_denoising_filter_tpu_torch.runtime import FramePrefetcher
+    from image_denoising_filter_tpu_torch.utils import exr, png
+
+    totals = dict.fromkeys(stencils.launches, 0)
+
+    def add(counts):
+        for k, n in counts.items():
+            totals[k] += n
+
+    # 1. the build
+    info = native.ensure()
+    cores = os.cpu_count() or 1
+    check(info.route in NATIVE_ROUTES, f"the native library came from {info.route}, "
+                                       "not the port's build")
+    check(info.openmp, f"{info.path}: no OpenMP")
+    check(info.threads >= min(CPU8_MIN_CORES, cores),
+          f"idf_num_threads() {info.threads} on {cores} cores")
+    print(f"  native library: route {info.route} ({NATIVE_ROUTES[info.route]}), "
+          f"{info.build_s:.2f} s of g++ ({info.compiler}) -> {os.path.relpath(info.path, REPO)}")
+    refused = [line.strip() for line in info.log.splitlines()
+               if "libgomp.spec" in line or "omp.h" in line]
+    if refused:
+        print(f"    route a refused: {refused[0]}")
+    print(f"    libgomp linked {info.libgomp}; mapped {', '.join(mapped_libgomp())}; "
+          f"idf_num_threads() {info.threads}, os.cpu_count() {cores}")
+
+    # 2. the default run: the six device configs, then cpu1 and cpu8
+    names = output_names(cli, cfg)
+    target = anim["target"]
+    out_default = os.path.join(root, "out_default")
+    stencils.reset_launches()
+    t0 = time.perf_counter()
+    rc, text, err = run_cli(cli, [target, "--device", "cuda", "--clamp", "--output-dir",
+                                  out_default])
+    run_s = time.perf_counter() - t0
+    counts = dict(stencils.launches)
+    check(rc == 0, f"gpu-denoise <target> (default configs) failed ({rc}): {err.strip()}")
+    check(all(counts[k] > 0 for k in ("bilateral", "bilateral_guided", "nlm", "normalize")),
+          f"the default run: launches {counts}")
+    add(counts)
+    banners = [text.find(b) for b in ("multiframe NLM with copy/compute overlap",
+                                      "bilateral filter on cpu (1 thread)",
+                                      "bilateral filter on cpu (8 threads)")]
+    check(-1 < banners[0] < banners[1] < banners[2], "the default run: configs missing or "
+                                                     "out of order")
+    reports = re.findall(r"transfer time: (\d+)ns; execution time: (\d+)ns", text)
+    secs = [float(x) for x in re.findall(r"Time taken: (\S+) sec", text)]
+    check(len(reports) == 6 and len(secs) == 2,
+          f"the default run: {len(reports)} timing reports, {len(secs)} 'Time taken:' lines")
+    check(sorted(os.listdir(out_default)) == sorted([*names.values(), "output-cpu.png"]),
+          f"the default run wrote {sorted(os.listdir(out_default))}")
+    for key in cli.CONFIG_KEYS:
+        check(same_bytes(os.path.join(out_default, names[key]), os.path.join(exact_dir, names[key])),
+              f"the default run: {key} differs from phase 4's file")
+    print(f"  gpu-denoise <{W}x{H} target> --device cuda --clamp (no --configs): {run_s:.1f} s, "
+          f"launches { {k: n for k, n in counts.items() if n} }; the six device files equal "
+          "phase 4's byte for byte")
+    for key, (tr, ex) in zip(cli.CONFIG_KEYS, reports):
+        print(f"    {key:10s} transfer {int(tr):>11d} ns  exec {int(ex):>11d} ns "
+              f"(phase 4: exec {exec4[key]} ns)")
+    cp = cfg.CpuBilateralParams()
+    kp = cfg.BilateralParams(radius=cp.radius, sigma_spatial=cp.sigma_spatial,
+                             sigma_color=cp.sigma_color, blue_bug=cp.blue_bug)
+    r = cp.radius
+    out = imageio.load(os.path.join(out_default, "output-cpu.png"))[0]
+    inside = np.zeros((H, W), bool)
+    inside[r : H - r + 1, r : W - r + 1] = True
+    check(out.shape == (H, W, 4) and bool((out[~inside] == 0.0).all())
+          and bool((out[inside][:, 3] == 1.0).all()),
+          "the default run's output-cpu.png: shape, a border not zero or alpha not 1 inside")
+    frame = imageio.load(target)[0]
+    kernel = stencils.bilateral(torch.from_numpy(frame).to("cuda"), kp).cpu().numpy()
+    interior = (slice(r, -r), slice(r, -r), slice(0, 3))
+    db_file = reference.psnr(out[interior],
+                             imageio.to_float(imageio.quantize(kernel, clamp=True))[interior])
+    db_float = reference.psnr(kernel[interior], native.cpu_bilateral(frame, cp, 8)[interior])
+    check(min(db_file, db_float) >= PARITY_GATE_DB,
+          f"the default run's parity: file {db_file:.2f} dB, float {db_float:.2f} dB "
+          f"< {PARITY_GATE_DB} dB")
+    filter_s = {}
+    for n in (1, 8):
+        t0 = time.perf_counter()
+        native.cpu_bilateral(frame, cp, n)
+        filter_s[n] = time.perf_counter() - t0
+    speedup = filter_s[1] / filter_s[8]
+    if cores >= CPU8_MIN_CORES:
+        check(speedup >= CPU8_MIN_SPEEDUP, f"the CPU bilateral on 8 threads {filter_s[8]:.3f} s "
+                                           f"is {speedup:.2f}x 1 thread's {filter_s[1]:.3f} s, "
+                                           f"below {CPU8_MIN_SPEEDUP}x")
+    print(f"    cpu1 {secs[0]:.3f} s, cpu8 {secs[1]:.3f} s ({secs[0] / secs[1]:.2f}x; load, filter "
+          f"and save at {W}x{H}); the filter alone {filter_s[1]:.3f} s on 1 thread, "
+          f"{filter_s[8]:.3f} s on 8 ({speedup:.2f}x; {cores} host cores; {smi})")
+    print(f"    output-cpu.png zero in its {r}-pixel border, "
+          f"alpha 1 inside; parity against the bilateral kernel at the CPU parameters over "
+          f"interior RGB: {db_file:.2f} dB file to file (the kernel's output written as the run "
+          f"writes it), {db_float:.2f} dB as floats (gate {PARITY_GATE_DB:g})")
+
+    # 3. the overlap config on the native frame loader, PNG and EXR
+    overlap = cfg.GPU_BATTERY[5]
+    for label, tgt, ref_dir, ref_exec, is_hdr, codec in (
+            ("PNG", target, exact_dir, exec4["overlap"], False,
+             lambda p: imageio.to_float(png.read(p))),
+            ("EXR", hdr["target"], hdr_dir, hdr_exec["overlap"], True, exr.read)):
+        out_dir = os.path.join(root, f"overlap_{label}")
+        os.makedirs(out_dir)
+        stencils.reset_launches()
+        res = Session(tgt, device="cuda", output_dir=out_dir, clamp_output=not is_hdr).run(overlap)
+        counts = {k: n for k, n in stencils.launches.items() if n}
+        add(counts)
+        check(res.frame_loader == "native", f"overlap {label}: the {res.frame_loader} loader ran")
+        want = os.path.join(ref_dir, overlap.output_name(is_hdr))
+        if is_hdr:
+            check(np.array_equal(check_hdr_output(res.output_path, "overlap EXR"),
+                                 imageio.load(want)[0]), "overlap EXR: differs from phase 10's")
+        else:
+            check(same_bytes(res.output_path, want), "overlap PNG: differs from phase 4's file")
+        ds = dataset.discover(tgt, multiframe=True, max_frames=overlap.max_frames)
+        frames = ds.frames[:-1]  # the frames the overlap loop streams
+        py_ms, py_loader = stream_ms(torch, FramePrefetcher, frames, codec, False)
+        nat_ms, nat_loader = stream_ms(torch, FramePrefetcher, frames, codec, True)
+        check((py_loader, nat_loader) == ("python", "native"), "stream_ms: loaders")
+        print(f"  overlap on the {label} animation: frame loader {res.frame_loader}, launches "
+              f"{counts}, exec {res.report.exec_ns} ns, transfer {res.report.transfer_ns} ns "
+              f"(phase {10 if is_hdr else 4}'s gpu-denoise run: exec {ref_exec} ns); output equals "
+              f"phase {10 if is_hdr else 4}'s; streaming {len(frames)} frames: {nat_ms:.1f} ms on "
+              f"the native loader, {py_ms:.1f} ms with the Python codec on the loop's thread")
+
+    # 4. --all-frames over the LDR animation against single-target runs
+    keys = ("bilateral", "nlm")
+    out_all = os.path.join(root, "ldr_all")
+    argv = ["--device", "cuda", "--clamp", "--configs", ",".join(keys)]
+    t0 = time.perf_counter()
+    stencils.reset_launches()
+    rc, _, err = run_cli(cli, [target, "--all-frames", *argv, "--output-dir", out_all])
+    check(rc == 0, f"gpu-denoise --all-frames failed ({rc}): {err.strip()}")
+    add(stencils.launches)
+    adir = os.path.dirname(target)
+    paths = sorted(os.path.join(adir, f) for f in os.listdir(adir) if f.endswith(".png"))
+    stems = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+    check(sorted(os.listdir(out_all)) == stems, f"--all-frames wrote {sorted(os.listdir(out_all))}")
+    for path, stem in zip(paths, stems):
+        single = exact_dir
+        if path != target:
+            single = os.path.join(root, f"ldr_single_{stem}")
+            stencils.reset_launches()
+            rc, _, err = run_cli(cli, [path, *argv, "--output-dir", single])
+            check(rc == 0, f"gpu-denoise {stem}.png failed ({rc}): {err.strip()}")
+            add(stencils.launches)
+        for key in keys:
+            got = imageio.load(os.path.join(out_all, stem, names[key]))[0]
+            check(np.array_equal(got, imageio.load(os.path.join(single, names[key]))[0]),
+                  f"--all-frames {stem} {key}: differs from the single-target run")
+    print(f"  --all-frames over {len(paths)} LDR frames ({imageio.codec()} codec): every output "
+          f"decodes to its single-target run's arrays ({time.perf_counter() - t0:.1f} s)")
+
+    # 5. the exact configs on the EXR target through --mesh 1x4 over gloo
+    six = cli.CONFIG_KEYS
+    hnames = {k: c.output_name(True) for k, c in zip(six, cfg.GPU_BATTERY)}
+    out_mesh = os.path.join(root, "hdr_mesh1x4")
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc, rank_counts = cli.run([hdr["target"], "--device", "cuda", "--configs", ",".join(six),
+                                   "--mesh", "1x4", "--dist-backend", "gloo",
+                                   "--output-dir", out_mesh])
+    check(rc == 0, f"gpu-denoise <HDR target> --mesh 1x4 failed ({rc}): "
+                   f"{err.getvalue().strip()[-2000:]}")
+    check(len(rank_counts) == 4, f"--mesh 1x4: {len(rank_counts)} ranks")
+    counts = sum_counts(stencils, rank_counts)
+    add(counts)
+    reports = re.findall(r"transfer time: (\d+)ns; execution time: (\d+)ns", out.getvalue())
+    check(len(reports) == len(six), f"--mesh 1x4 on HDR: {len(reports)} timing reports")
+    for key in six:
+        got = check_hdr_output(os.path.join(out_mesh, hnames[key]), f"--mesh 1x4 HDR {key}")
+        check(np.array_equal(got, imageio.load(os.path.join(hdr_dir, hnames[key]))[0]),
+              f"--mesh 1x4 HDR {key}: differs from phase 10's single-device output")
+    print(f"  gpu-denoise <HDR target> --mesh 1x4 --dist-backend gloo (six configs): "
+          f"{time.perf_counter() - t0:.1f} s, launches summed over 4 ranks "
+          f"{ {k: n for k, n in counts.items() if n} }; every EXR equals phase 10's array for "
+          "array")
+    for key, (tr, ex) in zip(six, reports):
+        print(f"    {key:10s} rank 0 transfer {int(tr):>11d} ns  exec {int(ex):>11d} ns "
+              f"(phase 10 single device: exec {hdr_exec[key]} ns; {smi})")
+    return totals
 
 
 def check_hdr_output(path: str, what: str) -> np.ndarray:
@@ -1771,8 +1991,8 @@ def exact_plain(torch, cfg, stencils, imageio, dataset, target: str) -> dict:
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
-def phase_hdr(torch, cfg, stencils, fast, cli, imageio, dataset, Session, render_frame, root,
-              ldr_frames, ldr_kernels, smi):
+def phase_hdr(torch, cfg, stencils, fast, cli, imageio, dataset, native, Session, render_frame,
+              root, ldr_frames, ldr_kernels, smi):
     """Phase 10: HDR. The EXR animation (HDR_*) written and read back, the
     EXR codec timed; every kernel, in every form, against its plain version
     on its HDR frame (1080p and 4K, the grid kernels at each (D, K)), with
@@ -1781,200 +2001,197 @@ def phase_hdr(torch, cfg, stencils, fast, cli, imageio, dataset, Session, render
     and layers configs with bf16 taps (Session(tiling=...)), the turbo runs
     of HDR_TURBO_RUNS, each gated at the JAX package's reading, and
     --all-frames over the animation against single-target runs, byte for
-    byte; the native codec where `make -C native` builds. Returns (the HDR
-    kernel results, the summed launch counts of the runs)."""
+    byte; the native codec against the Python one. Returns (the HDR kernel
+    results, the summed launch counts of the runs, the animation and the
+    exact battery's directory and exec ns)."""
     dev = torch.device("cuda")
     totals = dict.fromkeys(stencils.launches, 0)
     names = {k: c.output_name(True) for k, c in zip(cli.CONFIG_KEYS, cfg.GPU_BATTERY)}
-    proc, lib, why = start_native_build(root)
-    try:
-        t0 = time.perf_counter()
-        anim = write_hdr_animation(imageio, render_frame, root)
-        target = anim["target"]
-        paths = sorted(os.path.join(os.path.dirname(target), f)
-                       for f in os.listdir(os.path.dirname(target)) if f.endswith(".exr"))
-        dec = []
-        for path, want in zip(paths, anim["frames"]):
-            t1 = time.perf_counter()
-            got = imageio.load(path)[0]
-            dec.append(time.perf_counter() - t1)
-            check(np.array_equal(got, want), f"{path}: read back differs from the frame written")
-        frames = anim["frames"]
-        enc = []
-        for i in range(2):
-            t1 = time.perf_counter()
-            imageio.save(os.path.join(root, f"encode_{i}.exr"), frames[TARGET_FRAME])
-            enc.append(time.perf_counter() - t1)
-        rgb = frames[TARGET_FRAME][..., :3]
-        scale = float(np.abs(rgb).max())
-        print(f"  {N_FRAMES} EXR frames + PNG layers written in {time.perf_counter() - t0:.1f} s; "
-              f"target RGB in [{float(rgb.min()):.4f}, {scale:.4f}], {anim['fireflies']} "
-              f"fireflies; every frame reads back bit for bit")
-        print(f"  EXR codec that ran: {imageio.codec()}; decode {1e3 * statistics.median(dec):.1f} "
-              f"ms (median of {len(dec)}), float32 ZIP encode {1e3 * statistics.median(enc):.1f} "
-              f"ms (median of {len(enc)}) per 1080p frame ({smi})")
+    t0 = time.perf_counter()
+    anim = write_hdr_animation(imageio, render_frame, root)
+    target = anim["target"]
+    paths = sorted(os.path.join(os.path.dirname(target), f)
+                   for f in os.listdir(os.path.dirname(target)) if f.endswith(".exr"))
+    dec = []
+    for path, want in zip(paths, anim["frames"]):
+        t1 = time.perf_counter()
+        got = imageio.load(path)[0]
+        dec.append(time.perf_counter() - t1)
+        check(np.array_equal(got, want), f"{path}: read back differs from the frame written")
+    frames = anim["frames"]
+    enc = []
+    for i in range(2):
+        t1 = time.perf_counter()
+        imageio.save(os.path.join(root, f"encode_{i}.exr"), frames[TARGET_FRAME])
+        enc.append(time.perf_counter() - t1)
+    rgb = frames[TARGET_FRAME][..., :3]
+    scale = float(np.abs(rgb).max())
+    print(f"  {N_FRAMES} EXR frames + PNG layers written in {time.perf_counter() - t0:.1f} s; "
+          f"target RGB in [{float(rgb.min()):.4f}, {scale:.4f}], {anim['fireflies']} "
+          f"fireflies; every frame reads back bit for bit")
+    check(imageio.codec() == "native", f"phase 10: the {imageio.codec()} codec ran")
+    print(f"  EXR codec that ran: {imageio.codec()}; decode {1e3 * statistics.median(dec):.1f} "
+          f"ms (median of {len(dec)}), float32 ZIP encode {1e3 * statistics.median(enc):.1f} "
+          f"ms (median of {len(enc)}) per 1080p frame ({smi})")
 
-        # Kernels against their plain versions on the HDR frames.
-        t0 = time.perf_counter()
-        results = phase_kernels(torch, stencils, cfg, frames, anim["layer"], scale, "1080p HDR")
-        bp = cfg.BilateralParams()
-        for form, bf16 in (("bilateral", False), ("bilateral_bf16", True)):
-            tile = stencils.bilateral_tile(bp, False, bf16, stencils.max_shared_bytes(dev))
-            walks = {}
-            for label, img in (("LDR", ldr_frames[TARGET_FRAME]), ("HDR", frames[TARGET_FRAME])):
-                walks[label] = stencils.bilateral_walks(torch.from_numpy(img).to(dev), bp, bf16,
-                                                        tile)
-            print(f"  {form} walks (tile {tile.th}x{tile.tw}, {walks['LDR']['blocks']} blocks, "
-                  f"{walks['LDR']['rows']} tap rows): exp2f on {walks['LDR']['rows_exp2f']} rows "
-                  f"of {walks['LDR']['blocks_exp2f']} blocks on the LDR target, "
-                  f"{walks['HDR']['rows_exp2f']} rows of {walks['HDR']['blocks_exp2f']} blocks on "
-                  f"the HDR one; median {ldr_kernels[form]['ms']:.4f} ms LDR, "
-                  f"{results[form]['ms']:.4f} ms HDR")
-        lp = cfg.LayersParams()
-        layer_walks = stencils.bilateral_walks(
-            torch.from_numpy(anim["layer"]).to(dev), lp, False,
-            stencils.bilateral_tile(lp, True, False, stencils.max_shared_bytes(dev)))
-        print(f"  bilateral_guided walks on the albedo guide (LDR): exp2f on "
-              f"{layer_walks['rows_exp2f']} of {layer_walks['rows']} tap rows")
-        noisy_4k, layers_4k = render_frame(0.5, H4K, W4K, np.random.default_rng(SEED), noise=NOISE,
-                                           hdr=True)
-        print(f"  4K HDR frame: RGB in [{float(noisy_4k[..., :3].min()):.4f}, "
-              f"{float(noisy_4k[..., :3].max()):.4f}]")
-        grid_results, _ = phase_turbo_kernels(torch, fast, stencils, cfg, noisy_4k,
-                                              frames[TARGET_FRAME], hdr=True)
-        results.update(grid_results)
-        images = {"4K": (noisy_4k, np.clip(layers_4k["albedo"], 0, 1)),
-                  "1080p": (frames[TARGET_FRAME], anim["layer"])}
-        images = {k: tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in v)
-                  for k, v in images.items()}
-        del layers_4k
-        results.update(phase_guided_kernels(torch, fast, cfg, images, hdr=True))
-        del images
-        for kernel, res in results.items():
-            print(f"  {kernel:21s} median {ldr_kernels[kernel]['ms']:.4f} ms LDR, "
-                  f"{res['ms']:.4f} ms HDR ({smi})")
-        print(f"  kernels on HDR content: {time.perf_counter() - t0:.1f} s")
+    # Kernels against their plain versions on the HDR frames.
+    t0 = time.perf_counter()
+    results = phase_kernels(torch, stencils, cfg, frames, anim["layer"], scale, "1080p HDR")
+    bp = cfg.BilateralParams()
+    for form, bf16 in (("bilateral", False), ("bilateral_bf16", True)):
+        tile = stencils.bilateral_tile(bp, False, bf16, stencils.max_shared_bytes(dev))
+        walks = {}
+        for label, img in (("LDR", ldr_frames[TARGET_FRAME]), ("HDR", frames[TARGET_FRAME])):
+            walks[label] = stencils.bilateral_walks(torch.from_numpy(img).to(dev), bp, bf16,
+                                                    tile)
+        print(f"  {form} walks (tile {tile.th}x{tile.tw}, {walks['LDR']['blocks']} blocks, "
+              f"{walks['LDR']['rows']} tap rows): exp2f on {walks['LDR']['rows_exp2f']} rows "
+              f"of {walks['LDR']['blocks_exp2f']} blocks on the LDR target, "
+              f"{walks['HDR']['rows_exp2f']} rows of {walks['HDR']['blocks_exp2f']} blocks on "
+              f"the HDR one; median {ldr_kernels[form]['ms']:.4f} ms LDR, "
+              f"{results[form]['ms']:.4f} ms HDR")
+    lp = cfg.LayersParams()
+    layer_walks = stencils.bilateral_walks(
+        torch.from_numpy(anim["layer"]).to(dev), lp, False,
+        stencils.bilateral_tile(lp, True, False, stencils.max_shared_bytes(dev)))
+    print(f"  bilateral_guided walks on the albedo guide (LDR): exp2f on "
+          f"{layer_walks['rows_exp2f']} of {layer_walks['rows']} tap rows")
+    noisy_4k, layers_4k = render_frame(0.5, H4K, W4K, np.random.default_rng(SEED), noise=NOISE,
+                                       hdr=True)
+    print(f"  4K HDR frame: RGB in [{float(noisy_4k[..., :3].min()):.4f}, "
+          f"{float(noisy_4k[..., :3].max()):.4f}]")
+    grid_results, _ = phase_turbo_kernels(torch, fast, stencils, cfg, noisy_4k,
+                                          frames[TARGET_FRAME], hdr=True)
+    results.update(grid_results)
+    images = {"4K": (noisy_4k, np.clip(layers_4k["albedo"], 0, 1)),
+              "1080p": (frames[TARGET_FRAME], anim["layer"])}
+    images = {k: tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in v)
+              for k, v in images.items()}
+    del layers_4k
+    results.update(phase_guided_kernels(torch, fast, cfg, images, hdr=True))
+    del images
+    for kernel, res in results.items():
+        print(f"  {kernel:21s} median {ldr_kernels[kernel]['ms']:.4f} ms LDR, "
+              f"{res['ms']:.4f} ms HDR ({smi})")
+    print(f"  kernels on HDR content: {time.perf_counter() - t0:.1f} s")
 
-        def run(what, argv, expected):
-            stencils.reset_launches()
-            rc, text, err = run_cli(cli, [*argv, "--device", "cuda"])
-            counts = dict(stencils.launches)
-            check(rc == 0, f"{what} failed ({rc}): {err.strip()}")
-            check(all(counts[k] > 0 for k in expected) and
-                  all(n == 0 for k, n in counts.items() if k not in expected),
-                  f"{what}: launches {counts}, expected {sorted(expected)}")
-            for k, n in counts.items():
-                totals[k] += n
-            print(f"  {what}: launches { {k: n for k, n in counts.items() if n} }")
-            return re.findall(r"transfer time: (\d+)ns; execution time: (\d+)ns", text)
+    def run(what, argv, expected):
+        stencils.reset_launches()
+        rc, text, err = run_cli(cli, [*argv, "--device", "cuda"])
+        counts = dict(stencils.launches)
+        check(rc == 0, f"{what} failed ({rc}): {err.strip()}")
+        check(all(counts[k] > 0 for k in expected) and
+              all(n == 0 for k, n in counts.items() if k not in expected),
+              f"{what}: launches {counts}, expected {sorted(expected)}")
+        for k, n in counts.items():
+            totals[k] += n
+        print(f"  {what}: launches { {k: n for k, n in counts.items() if n} }")
+        return re.findall(r"transfer time: (\d+)ns; execution time: (\d+)ns", text)
 
-        def report(keys, reports):
-            check(len(reports) == len(keys), f"{len(reports)} timing reports for {keys}")
-            return dict(zip([k for k in cli.CONFIG_KEYS if k in keys], reports))
+    def report(keys, reports):
+        check(len(reports) == len(keys), f"{len(reports)} timing reports for {keys}")
+        return dict(zip([k for k in cli.CONFIG_KEYS if k in keys], reports))
 
-        # The exact battery, against the plain versions on the same frames.
-        t0 = time.perf_counter()
-        six = cli.CONFIG_KEYS
-        out_exact = os.path.join(root, "hdr_exact")
-        reports = report(six, run("gpu-denoise <HDR target> (six configs)",
-                                  [target, "--configs", ",".join(six), "--output-dir", out_exact],
-                                  {"bilateral", "bilateral_guided", "nlm", "normalize"}))
-        plain = exact_plain(torch, cfg, stencils, imageio, dataset, target)
-        exact = {}
-        for key in six:
-            exact[key] = check_hdr_output(os.path.join(out_exact, names[key]), f"exact {key}")
-            tol = scaled(TOL_NLM if key in NLM_CONFIGS else TOL_BILATERAL, scale)
-            err = float(np.abs(exact[key] - plain[key]).max())
-            check(bool(np.all(np.abs(exact[key] - plain[key])
-                              <= tol["atol"] + tol["rtol"] * np.abs(plain[key]))),
-                  f"exact {key}: max abs {err:.3g} from the plain versions, beyond {tol}")
+    # The exact battery, against the plain versions on the same frames.
+    t0 = time.perf_counter()
+    six = cli.CONFIG_KEYS
+    out_exact = os.path.join(root, "hdr_exact")
+    reports = report(six, run("gpu-denoise <HDR target> (six configs)",
+                              [target, "--configs", ",".join(six), "--output-dir", out_exact],
+                              {"bilateral", "bilateral_guided", "nlm", "normalize"}))
+    exact_exec_ns = {key: int(ex) for key, (_, ex) in reports.items()}
+    plain = exact_plain(torch, cfg, stencils, imageio, dataset, target)
+    exact = {}
+    for key in six:
+        exact[key] = check_hdr_output(os.path.join(out_exact, names[key]), f"exact {key}")
+        tol = scaled(TOL_NLM if key in NLM_CONFIGS else TOL_BILATERAL, scale)
+        err = float(np.abs(exact[key] - plain[key]).max())
+        check(bool(np.all(np.abs(exact[key] - plain[key])
+                          <= tol["atol"] + tol["rtol"] * np.abs(plain[key]))),
+              f"exact {key}: max abs {err:.3g} from the plain versions, beyond {tol}")
+        tr, ex = reports[key]
+        print(f"    {key:10s} transfer {int(tr):>11d} ns  exec {int(ex):>11d} ns  max abs "
+              f"{err:.3g} from the plain versions (tolerance {tol})")
+    del plain
+    peak = float(exact["bilateral"][..., :3].max())
+    print(f"  exact battery: {time.perf_counter() - t0:.1f} s; float32 EXR, alpha kept")
+
+    # bf16 taps, as a library caller runs them.
+    out_bf16 = os.path.join(root, "hdr_bf16")
+    os.makedirs(out_bf16)
+    tiled = Session(target, device="cuda", output_dir=out_bf16,
+                    tiling=cfg.TilingConfig(compute_dtype="bfloat16"))
+    for key, run_cfg, kernel in (("bilateral", cfg.GPU_BATTERY[0], "bilateral_bf16"),
+                                 ("layers", cfg.GPU_BATTERY[1], "bilateral_guided_bf16")):
+        stencils.reset_launches()
+        res = tiled.run(run_cfg)
+        counts = {k: n for k, n in stencils.launches.items() if n}
+        check(counts.get(kernel, 0) > 0 and not counts.get(kernel[:-5]),
+              f"Session(tiling=bf16) {key}: launches {counts}")
+        for k, n in counts.items():
+            totals[k] += n
+        got = check_hdr_output(res.output_path, f"bf16 {key}")
+        check(np.array_equal(got, res.image), f"bf16 {key}: the file differs from the result")
+        reading = hdr_gate(f"bf16 {key}", got, exact[key])
+        print(f"    Session(tiling=bf16) {key}: launches {counts}, exec "
+              f"{res.report.exec_ns} ns, transfer {res.report.transfer_ns} ns, {reading}")
+
+    # The turbo modes.
+    target_dev = torch.from_numpy(frames[TARGET_FRAME]).to(dev)
+    for name, flags, keys in HDR_TURBO_RUNS:
+        d = int(flags[1])
+        expected = set()
+        for nlm in (False, True):
+            if any((k in NLM_CONFIGS) == nlm for k in keys):
+                expected |= turbo_kernels(d, nlm, flags)
+        out_dir = os.path.join(root, f"hdr_{name.replace(' ', '_')}")
+        reports = report(keys, run(f"gpu-denoise <HDR target> {' '.join(flags)} --configs "
+                                   f"{','.join(keys)}",
+                                   [target, *flags, "--configs", ",".join(keys),
+                                    "--output-dir", out_dir], expected))
+        for key in keys:
+            got = check_hdr_output(os.path.join(out_dir, names[key]), f"{name} {key}")
+            if key in ("bilateral", "linear"):  # the grid pipeline phase 10 checked
+                bp = cfg.BilateralParams(sigma_spatial=float(flags[-1]) if
+                                         "--sigma-spatial" in flags else 2.0)
+                want = fast.bilateral_fast(target_dev, bp, turbo_levels(d), d)
+                check(np.array_equal(got, want.cpu().numpy()),
+                      f"{name} {key}: differs from bilateral_fast on the loaded target")
+            reading = hdr_gate(f"{name} {key}", got,
+                               exact["bilateral" if key == "linear" else key])
             tr, ex = reports[key]
-            print(f"    {key:10s} transfer {int(tr):>11d} ns  exec {int(ex):>11d} ns  max abs "
-                  f"{err:.3g} from the plain versions (tolerance {tol})")
-        del plain
-        peak = float(exact["bilateral"][..., :3].max())
-        print(f"  exact battery: {time.perf_counter() - t0:.1f} s; float32 EXR, alpha kept")
+            print(f"    {key:10s} transfer {int(tr):>11d} ns  exec {int(ex):>11d} ns  "
+                  f"{reading}")
+    del exact
 
-        # bf16 taps, as a library caller runs them.
-        out_bf16 = os.path.join(root, "hdr_bf16")
-        os.makedirs(out_bf16)
-        tiled = Session(target, device="cuda", output_dir=out_bf16,
-                        tiling=cfg.TilingConfig(compute_dtype="bfloat16"))
-        for key, run_cfg, kernel in (("bilateral", cfg.GPU_BATTERY[0], "bilateral_bf16"),
-                                     ("layers", cfg.GPU_BATTERY[1], "bilateral_guided_bf16")):
-            stencils.reset_launches()
-            res = tiled.run(run_cfg)
-            counts = {k: n for k, n in stencils.launches.items() if n}
-            check(counts.get(kernel, 0) > 0 and not counts.get(kernel[:-5]),
-                  f"Session(tiling=bf16) {key}: launches {counts}")
-            for k, n in counts.items():
-                totals[k] += n
-            got = check_hdr_output(res.output_path, f"bf16 {key}")
-            check(np.array_equal(got, res.image), f"bf16 {key}: the file differs from the result")
-            reading = hdr_gate(f"bf16 {key}", got, exact[key])
-            print(f"    Session(tiling=bf16) {key}: launches {counts}, exec "
-                  f"{res.report.exec_ns} ns, transfer {res.report.transfer_ns} ns, {reading}")
-
-        # The turbo modes.
-        target_dev = torch.from_numpy(frames[TARGET_FRAME]).to(dev)
-        for name, flags, keys in HDR_TURBO_RUNS:
-            d = int(flags[1])
-            expected = set()
-            for nlm in (False, True):
-                if any((k in NLM_CONFIGS) == nlm for k in keys):
-                    expected |= turbo_kernels(d, nlm, flags)
-            out_dir = os.path.join(root, f"hdr_{name.replace(' ', '_')}")
-            reports = report(keys, run(f"gpu-denoise <HDR target> {' '.join(flags)} --configs "
-                                       f"{','.join(keys)}",
-                                       [target, *flags, "--configs", ",".join(keys),
-                                        "--output-dir", out_dir], expected))
-            for key in keys:
-                got = check_hdr_output(os.path.join(out_dir, names[key]), f"{name} {key}")
-                if key in ("bilateral", "linear"):  # the grid pipeline phase 10 checked
-                    bp = cfg.BilateralParams(sigma_spatial=float(flags[-1]) if
-                                             "--sigma-spatial" in flags else 2.0)
-                    want = fast.bilateral_fast(target_dev, bp, turbo_levels(d), d)
-                    check(np.array_equal(got, want.cpu().numpy()),
-                          f"{name} {key}: differs from bilateral_fast on the loaded target")
-                reading = hdr_gate(f"{name} {key}", got,
-                                   exact["bilateral" if key == "linear" else key])
-                tr, ex = reports[key]
-                print(f"    {key:10s} transfer {int(tr):>11d} ns  exec {int(ex):>11d} ns  "
-                      f"{reading}")
-        del exact
-
-        # --all-frames, the serving loop, against single-target runs.
-        t0 = time.perf_counter()
-        keys = ("bilateral", "nlm")
-        out_all = os.path.join(root, "hdr_all")
-        run("gpu-denoise <HDR animation> --all-frames --configs bilateral,nlm",
-            [target, "--all-frames", "--configs", ",".join(keys), "--output-dir", out_all],
-            {"bilateral", "nlm", "normalize"})
-        stems = [os.path.splitext(os.path.basename(p))[0] for p in paths]
-        check(sorted(os.listdir(out_all)) == stems,
-              f"--all-frames wrote {sorted(os.listdir(out_all))}")
-        for path, stem in zip(paths, stems):
-            single = out_exact
-            if path != target:
-                single = os.path.join(root, f"hdr_single_{stem}")
-                run(f"gpu-denoise {stem}.exr --configs bilateral,nlm",
-                    [path, "--configs", ",".join(keys), "--output-dir", single],
-                    {"bilateral", "nlm", "normalize"})
-            got_names = sorted(os.listdir(os.path.join(out_all, stem)))
-            check(got_names == sorted(names[k] for k in keys), f"--all-frames {stem}: {got_names}")
-            for key in keys:
-                got = os.path.join(out_all, stem, names[key])
-                check_hdr_output(got, f"--all-frames {stem} {key}")
-                check(same_bytes(got, os.path.join(single, names[key])),
-                      f"--all-frames {stem} {key}: differs from the single-target run")
-        print(f"  --all-frames over {len(paths)} frames: every output equals its single-target "
-              f"run byte for byte ({time.perf_counter() - t0:.1f} s)")
-        print("  " + finish_native_check(proc, lib, why, paths))
-        return results, totals
-    finally:
-        if proc is not None and proc.poll() is None:
-            proc.kill()
-            proc.wait()
+    # --all-frames, the serving loop, against single-target runs.
+    t0 = time.perf_counter()
+    keys = ("bilateral", "nlm")
+    out_all = os.path.join(root, "hdr_all")
+    run("gpu-denoise <HDR animation> --all-frames --configs bilateral,nlm",
+        [target, "--all-frames", "--configs", ",".join(keys), "--output-dir", out_all],
+        {"bilateral", "nlm", "normalize"})
+    stems = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+    check(sorted(os.listdir(out_all)) == stems,
+          f"--all-frames wrote {sorted(os.listdir(out_all))}")
+    for path, stem in zip(paths, stems):
+        single = out_exact
+        if path != target:
+            single = os.path.join(root, f"hdr_single_{stem}")
+            run(f"gpu-denoise {stem}.exr --configs bilateral,nlm",
+                [path, "--configs", ",".join(keys), "--output-dir", single],
+                {"bilateral", "nlm", "normalize"})
+        got_names = sorted(os.listdir(os.path.join(out_all, stem)))
+        check(got_names == sorted(names[k] for k in keys), f"--all-frames {stem}: {got_names}")
+        for key in keys:
+            got = os.path.join(out_all, stem, names[key])
+            check_hdr_output(got, f"--all-frames {stem} {key}")
+            check(same_bytes(got, os.path.join(single, names[key])),
+                  f"--all-frames {stem} {key}: differs from the single-target run")
+    print(f"  --all-frames over {len(paths)} frames: every output equals its single-target "
+          f"run byte for byte ({time.perf_counter() - t0:.1f} s)")
+    print("  " + native_codec_check(native, imageio, paths))
+    return results, totals, anim, out_exact, exact_exec_ns
 
 
 def main() -> int:
@@ -1994,14 +2211,18 @@ def main() -> int:
     check_no_jax()
     render_frame = load_render_frame()
     smi = nvidia_smi_line()
-    print(f"[1/10] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
+    print(f"[1/11] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
 
     t0 = time.perf_counter()
-    lib_path, log = _build.build()
-    build_s = time.perf_counter() - t0
-    print(f"[2/10] build: {build_s:.2f} s -> {os.path.relpath(lib_path, REPO)}")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native_build = pool.submit(native.ensure)  # g++ beside nvcc
+        lib_path, log = _build.build()
+        build_s = time.perf_counter() - t0
+        native_info = native_build.result()
+    print(f"[2/11] build: {build_s:.2f} s -> {os.path.relpath(lib_path, REPO)}; native host "
+          f"library: route {native_info.route}, {native_info.build_s:.2f} s of g++ beside it")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip())
@@ -2009,17 +2230,17 @@ def main() -> int:
     root = scratch_dir()
     try:
         anim = write_animation(imageio, render_frame, root)
-        print(f"[3/10] kernels vs plain versions at {W}x{H}")
+        print(f"[3/11] kernels vs plain versions at {W}x{H}")
         kernels = phase_kernels(torch, stencils, cfg, anim["frames"], anim["layer"])
-        print(f"[4/10] battery through gpu-denoise --device cuda ({N_FRAMES} frames + 3 layers)")
-        counts, exact_dir = phase_battery(cfg, stencils, cli, imageio, Session, anim, root)
-        print(f"[5/10] turbo grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
+        print(f"[4/11] battery through gpu-denoise --device cuda ({N_FRAMES} frames + 3 layers)")
+        counts, exact_dir, exec4 = phase_battery(cfg, stencils, cli, imageio, Session, anim, root)
+        print(f"[5/11] turbo grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
         noisy_4k, layers_4k = render_frame(0.5, H4K, W4K, np.random.default_rng(SEED),
                                            noise=NOISE)
         turbo_kernels_results, fused_counts = phase_turbo_kernels(
             torch, fast, stencils, cfg, noisy_4k, anim["frames"][TARGET_FRAME])
         kernels.update(turbo_kernels_results)
-        print(f"[6/10] guided grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
+        print(f"[6/11] guided grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
         images = {
             "4K": (noisy_4k, np.clip(layers_4k["albedo"], 0, 1)),
             "1080p": (anim["frames"][TARGET_FRAME], anim["layer"]),
@@ -2030,28 +2251,38 @@ def main() -> int:
         del layers_4k
         kernels.update(phase_guided_kernels(torch, fast, cfg, images))
         del images
-        print("[7/10] turbo battery through gpu-denoise --turbo D --device cuda")
+        print("[7/11] turbo battery through gpu-denoise --turbo D --device cuda")
         totals = phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir)
-        print("[8/10] CPU configs, parity, profile, content")
+        print("[8/11] CPU configs, parity, profile, content")
         t0 = time.perf_counter()
         profiled = phase_cpu_parity_profile(torch, cfg, stencils, cli, imageio, content,
                                             reference, native, kernels, anim, root, exact_dir)
         print(f"  phase 8: {time.perf_counter() - t0:.1f} s")
         for k, n in profiled.items():
             totals[k] += n
-        print("[9/10] sharded: gpu-denoise --mesh on 4 ranks sharing the card over gloo")
+        print("[9/11] sharded: gpu-denoise --mesh on 4 ranks sharing the card over gloo")
         t0 = time.perf_counter()
         sharded = phase_sharded(torch, cfg, stencils, fast, cli, imageio, launch, dryrun, anim,
                                 root, exact_dir, smi)
         print(f"  phase 9: {time.perf_counter() - t0:.1f} s")
         for k, n in sharded.items():
             totals[k] += n
-        print("[10/10] HDR: an EXR animation through the kernels and gpu-denoise --device cuda")
+        print("[10/11] HDR: an EXR animation through the kernels and gpu-denoise --device cuda")
         t0 = time.perf_counter()
-        _, hdr_counts = phase_hdr(torch, cfg, stencils, fast, cli, imageio, dataset, Session,
-                                  render_frame, root, anim["frames"], kernels, smi)
+        _, hdr_counts, hdr, hdr_dir, hdr_exec = phase_hdr(
+            torch, cfg, stencils, fast, cli, imageio, dataset, native, Session, render_frame, root,
+            anim["frames"], kernels, smi)
         print(f"  phase 10: {time.perf_counter() - t0:.1f} s")
         for k, n in hdr_counts.items():
+            totals[k] += n
+        print("[11/11] host runtime: the native library, the default run, the native frame "
+              "loader, --all-frames, --mesh 1x4 on HDR")
+        t0 = time.perf_counter()
+        host_counts = phase_host_runtime(torch, cfg, stencils, cli, imageio, dataset, native,
+                                         reference, Session, anim, hdr, root, exact_dir, exec4,
+                                         hdr_dir, hdr_exec, smi)
+        print(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+        for k, n in host_counts.items():
             totals[k] += n
     finally:
         shutil.rmtree(root, ignore_errors=True)

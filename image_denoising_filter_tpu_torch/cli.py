@@ -21,6 +21,13 @@ each process is one rank; otherwise gpu-denoise spawns the ranks itself
 (parallel.launch.run_ranks). `--dist-backend` picks NCCL (one rank a card,
 the default on CUDA) or gloo (the CPU's, and several ranks on one card).
 Rank 0 alone prints and writes the files; the CPU configs run on rank 0.
+
+With `--device cuda` the Session builds (or loads) the native host library
+(utils/native.py) before the first config, outside every timed region: cpu1
+and cpu8 run the OpenMP CPU bilateral on 1 and 8 threads, the overlap config
+decodes its frames on the library's threads, and load and save use its C++
+codecs. A failed build exits 1 with the compiler's message, as a missing
+nvcc does.
 """
 
 from __future__ import annotations

@@ -9,9 +9,10 @@ waits with a deadline: when a rank fails, or the deadline passes, every rank
 is killed and the failure is raised with the failing rank's traceback.
 
 Rank r runs on `cuda:{r % device_count}` (several ranks may share one card
-over gloo; NCCL takes one rank a card) or on the CPU. The CUDA kernels are
-compiled once before the spawn; under torchrun rank 0 builds them while the
-others wait at a barrier, so no two processes build into the same directory.
+over gloo; NCCL takes one rank a card) or on the CPU. The CUDA kernels and
+the native host library (utils/native.py) are compiled once before the
+spawn; under torchrun rank 0 builds them while the others wait at a barrier,
+so no two processes build into the same directory.
 
 `fn` is pickled by its import path, so it is a module-level function of an
 importable module; the ranks import neither the caller's test files nor JAX.
@@ -73,17 +74,21 @@ def _device_for(rank: int, device_type: str) -> torch.device:
 
 
 def _load_kernels(device_type: str, rank: int) -> None:
-    """Rank 0 builds (or loads) the kernel library; the others load it after
-    a barrier."""
+    """Rank 0 builds (or loads) the kernel library and the native host
+    library; the others load them after a barrier, so that no two ranks
+    run nvcc or g++ on one build."""
     if device_type != "cuda":
         return
     from ..ops import _build
+    from ..utils import native
 
     if rank == 0:
         _build.library()
+        native.ensure()
     dist.barrier()
     if rank != 0:
         _build.library()
+        native.ensure()
 
 
 def init_rank(backend: str, device_type: str, rank: int, world: int, init_method: str,
@@ -152,8 +157,10 @@ def run_ranks(world: int, fn: Callable, *args: Any, backend: Optional[str] = Non
     check_backend(backend, device_type, world)
     if device_type == "cuda":
         from ..ops import _build
+        from ..utils import native
 
         _build.build()  # compiled once here, loaded by every rank
+        native.ensure()
     with tempfile.TemporaryDirectory(prefix="idf_ranks_") as store_dir:
         ctx = torch.multiprocessing.start_processes(
             _rank_main,

@@ -16,6 +16,7 @@ from typing import Callable, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from ..utils import native
 from ..utils.timing import TimingReport
 
 
@@ -26,6 +27,12 @@ class FramePrefetcher:
     array. Uploads are timed into `report.transfer` when a TimingReport is
     given (the upload issue; on CUDA the copy itself runs asynchronously).
     On a CPU device the frames are plain host tensors.
+
+    native_paths: the items are file paths, decoded ahead of use on the
+    native library's C++ worker threads (utils/native.FrameLoader). On a
+    CUDA device that loader or an error; on a CPU device without a native
+    library, `loader` on this thread. `loader` says which ran: "native" or
+    "python".
     """
 
     def __init__(
@@ -46,15 +53,14 @@ class FramePrefetcher:
             torch.cuda.Stream(self._device) if self._device.type == "cuda" else None
         )
         self._native = None
+        self.loader = "python"
         if native_paths:
-            # items are file paths: decode them on the native library's C++
-            # worker threads ahead of use, when the library is built.
             try:
-                from ..utils.native import FrameLoader
-
-                self._native = FrameLoader(self._items, lookahead=self._depth + 2)
+                self._native = native.FrameLoader(self._items, lookahead=self._depth + 2)
+                self.loader = "native"
             except (ImportError, OSError):
-                self._native = None
+                if self._device.type == "cuda":
+                    raise
 
     def _host(self, idx: int) -> np.ndarray:
         if self._native is not None:

@@ -10,7 +10,12 @@ discovery -> image loading -> host-to-device upload -> kernels -> readback
 analog of `ComputeApplication::RunOnGPU`, src/main.cpp:1307-1730); and the
 CPU bilateral of the cpu1/cpu8 configs (`run_cpu`, RunOnCPU). The device is
 an explicit argument; a CUDA device without a card is an error, never a
-quiet run on the CPU.
+quiet run on the CPU. On a CUDA device the Session also loads the native
+host library (utils/native.py: the OpenMP CPU bilateral, the C++ codecs and
+the threaded frame loader), building it at first use, and a failed build is
+an error: the cpu8 config, the overlap config's frame loader and the codecs
+never fall back to their single-threaded Python forms there. On a CPU device
+they do where no library is built, as in the JAX package.
 
 With `mesh_shape=(F, Y)` every rank of an initialised torch.distributed
 process group of F * Y ranks runs the same Session (parallel/): each decodes
@@ -41,7 +46,7 @@ from ..config import (
     TilingConfig,
 )
 from ..utils import dataset as dataset_mod
-from ..utils import imageio
+from ..utils import imageio, native
 from ..utils.progress import ProgressBar
 from ..utils.timing import Timer, TimingReport
 
@@ -72,8 +77,10 @@ from .prefetch import FramePrefetcher
 def _open_device(device: torch.device | str) -> torch.device:
     """Resolve and initialise the device, so that runtime start-up (the
     analog of vk_utils::CreateInstance/CreateLogicalDevice, outside the
-    reference's timed range) and the kernels' first-use build are not
-    counted in the first run's transfer or exec time."""
+    reference's timed range) and the first-use builds of the kernels and
+    of the native host library are not counted in the first run's transfer
+    or exec time. On a CUDA device a native library without OpenMP, or a
+    failed build of one, raises native.NativeBuildError."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -84,6 +91,7 @@ def _open_device(device: torch.device | str) -> torch.device:
         torch.cuda.init()
         torch.zeros(1, device=device).add_(1.0)
         _build.library()
+        native.ensure()
         torch.cuda.synchronize(device)
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}: use cuda or cpu")
@@ -96,6 +104,10 @@ class RunResult:
     output_path: str
     image: np.ndarray
     report: TimingReport
+    # The overlap config's frame loader (FramePrefetcher.loader): "native"
+    # (the native library's decode threads) or "python" (each frame decoded
+    # on the loop's thread); None for the other configs.
+    frame_loader: Optional[str] = None
 
 
 class Session:
@@ -224,7 +236,8 @@ class Session:
         if cfg.use_layers:
             out_dev = self._run_layers(target_dev, ds, report, layout, layers_params)
         elif cfg.nlm and cfg.multiframe:
-            out_dev = self._run_multiframe(target_dev, ds, report, layout, cfg)
+            out_dev, frame_loader = self._run_multiframe(target_dev, ds, report, layout, cfg)
+            return self._save(cfg, out_dev, report, frame_loader=frame_loader)
         else:
             if cfg.nlm:
                 model = NlmDenoiser(nlm_single_params, layout=layout, tiling=self.nlm_tiling)
@@ -245,7 +258,7 @@ class Session:
         return out
 
     def _save(self, cfg: RunConfig, out_dev: torch.Tensor, report: TimingReport,
-              rows: Optional[int] = None) -> RunResult:
+              rows: Optional[int] = None, frame_loader: Optional[str] = None) -> RunResult:
         """Read the output back (timed as transfer) and save it under the
         config's flag-encoded name. On a mesh out_dev is this rank's band:
         the bands are gathered over 'y' first and cropped to the image's
@@ -257,7 +270,8 @@ class Session:
         path = os.path.join(self.output_dir, cfg.output_name(self.is_hdr))
         if self.mesh is None or dist.get_rank() == 0:
             imageio.save(path, out_host, hdr=self.is_hdr, clamp=self.clamp_output)
-        return RunResult(config=cfg, output_path=path, image=out_host, report=report)
+        return RunResult(config=cfg, output_path=path, image=out_host, report=report,
+                         frame_loader=frame_loader)
 
     # -- the mesh paths -----------------------------------------------------
 
@@ -544,7 +558,8 @@ class Session:
         overlap=True streams frames through the double-buffered prefetcher
         (the copy/compute overlap); otherwise frames upload then compute one
         by one like the reference's non-overlapped loop, or as frame-batched
-        launches with batch_frames."""
+        launches with batch_frames. Returns the output and the overlap
+        loop's frame loader (None for the other loops)."""
         model = TemporalNlmDenoiser(self.nlm_params, layout=layout, tiling=self.nlm_tiling)
         # Per-frame uniform-alpha fast path (non-overlap loops, where the
         # host frame is at hand): each frame's partial is exact on its own,
@@ -597,6 +612,7 @@ class Session:
                     self._dump_weights(carry[0], carry[1])
                 out = model.finalize(carry)
                 self._fence()
+            return out, frames.loader
         elif self.batch_frames:
             # Stacked upload + frame-batched launch, chunked at ~1.5 GB of
             # stacked frames to bound peak host and device memory; chunk
@@ -655,25 +671,27 @@ class Session:
             with report.execute():
                 out = model.finalize(carry)
                 self._fence()
-        return out
+        return out, None
 
     # -- CPU-path equivalent ------------------------------------------------
 
     def run_cpu(self, num_threads: int = 1) -> tuple[str, float]:
         """The CPU bilateral reference (RunOnCPU, src/main.cpp:1732-1921):
         window 10, sigma_s 10, sigma_c 0.2, blue-channel bug, zeroed border,
-        output-cpu.{png,exr}. Uses the native OpenMP oracle when built, else
-        the NumPy oracle (num_threads honored by the native path). A host
-        run by definition: it touches no device, whatever `device` is.
-        Returns the output path and the seconds of load, filter and save."""
+        output-cpu.{png,exr}. Runs the native OpenMP oracle on num_threads
+        threads; on a CPU device without a native library, the NumPy oracle
+        (one thread, whatever num_threads says), and on a CUDA device never:
+        there the library was built with the Session. A host run by
+        definition: it touches no device, whatever `device` is. Returns the
+        output path and the seconds of load, filter and save."""
         timer = Timer()
         img, is_hdr = imageio.load(self.target)
         params = CpuBilateralParams()
         try:
-            from ..utils.native import cpu_bilateral as native_bilateral
-
-            out = native_bilateral(img, params, num_threads)
+            out = native.cpu_bilateral(img, params, num_threads)
         except (ImportError, OSError):
+            if self.device.type == "cuda":
+                raise
             out = reference.cpu_bilateral_reference(img, params)
         name = "output-cpu" + (".exr" if is_hdr else ".png")
         path = os.path.join(self.output_dir, name)

@@ -16,19 +16,12 @@ import os
 import numpy as np
 
 from . import exr as _exr
+from . import native as _native
 from . import png as _png
-
-try:  # native C++ codecs (lodepng/tinyexr role); Python codecs are the fallback
-    from . import native as _native
-
-    _HAVE_NATIVE = _native.available()
-except Exception:  # pragma: no cover - loader edge cases
-    _native = None
-    _HAVE_NATIVE = False
 
 
 def _read_png(path: str) -> np.ndarray:
-    if _HAVE_NATIVE:
+    if _native.available():
         with open(path, "rb") as f:
             data = f.read()
         try:
@@ -41,7 +34,7 @@ def _read_png(path: str) -> np.ndarray:
 
 
 def _write_png(path: str, rgba: np.ndarray) -> None:
-    if _HAVE_NATIVE:
+    if _native.available():
         with open(path, "wb") as f:
             f.write(_native.png_encode(np.ascontiguousarray(rgba, np.uint8)))
         return
@@ -49,7 +42,7 @@ def _write_png(path: str, rgba: np.ndarray) -> None:
 
 
 def _read_exr(path: str) -> np.ndarray:
-    if _HAVE_NATIVE:
+    if _native.available():
         with open(path, "rb") as f:
             data = f.read()
         try:
@@ -62,7 +55,7 @@ def _read_exr(path: str) -> np.ndarray:
 
 
 def _write_exr(path: str, rgba: np.ndarray) -> None:
-    if _HAVE_NATIVE:
+    if _native.available():
         with open(path, "wb") as f:
             f.write(_native.exr_encode(np.ascontiguousarray(rgba, np.float32)))
         return
@@ -70,10 +63,12 @@ def _write_exr(path: str, rgba: np.ndarray) -> None:
 
 
 def codec() -> str:
-    """The codec load and save run in this process: "native" (the native
-    library, built by `make -C native`; a file it cannot decode falls back to
-    the Python codec) or "python" (utils/png.py and utils/exr.py)."""
-    return "native" if _HAVE_NATIVE else "python"
+    """The codec load and save run in this process: "native" (the C++ codecs
+    (lodepng/tinyexr role) of the native library that utils/native.py loaded
+    or found; a file they cannot decode falls back to the Python codec) or
+    "python" (utils/png.py and utils/exr.py). Read at each call, so load and
+    save take the library that native.ensure() builds from then on."""
+    return "native" if _native.available() else "python"
 
 
 def is_hdr_path(path: str) -> bool:

@@ -9,6 +9,7 @@ machine with the card: python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -1322,3 +1323,55 @@ def test_cli_profile_on_card_sees_every_nlm_launch(cuda, tmp_path):
     assert stencils.launches["nlm"] > 0
     assert len(kernels) == stencils.launches["nlm"]
     assert [e["name"] for e in events if e.get("cat") == "user_annotation"] == ["nlm"]
+
+
+def test_cuda_session_builds_the_native_library_and_streams_on_its_loader(cuda, tmp_path):
+    """A Session on the card loads the native host library with OpenMP
+    (building it where none is found); the overlap config's frames come
+    from the native FrameLoader, and its output equals the CPU Session's."""
+    from image_denoising_filter_tpu_torch.utils import native
+
+    root = tmp_path / "anim"
+    root.mkdir()
+    for i in range(4):
+        imageio.save(str(root / f"frame_{i:04d}.png"), _image(i, "cpu").numpy())
+    target = str(root / "frame_0001.png")
+    (tmp_path / "gpu").mkdir()
+    (tmp_path / "cpu").mkdir()
+    session = Session(target, device=cuda, output_dir=str(tmp_path / "gpu"), nlm_params=NP_)
+    info = native.ensure()
+    assert info.openmp and info.threads >= 1 and imageio.codec() == "native"
+    overlap = GPU_BATTERY[5]
+    got = session.run(overlap)
+    assert got.frame_loader == "native" and stencils.launches["nlm"] > 0
+    want = Session(target, device="cpu", output_dir=str(tmp_path / "cpu"),
+                   nlm_params=NP_).run(overlap)
+    _close(torch.from_numpy(got.image), torch.from_numpy(want.image), **TOL_NLM)
+
+
+def test_gpu_denoise_on_card_fails_when_the_native_build_fails(cuda, tmp_path):
+    """With the build made to fail (CXX=/bin/false: a compiler of its own
+    build hash, so no cached library) and no library given, gpu-denoise
+    --device cuda exits 1 and names the compiler instead of running the
+    Python codec, loader or oracle."""
+    import subprocess
+    import sys
+
+    from image_denoising_filter_tpu_torch.utils import native
+
+    if native.MAKE_LIB.exists():
+        pytest.skip(f"{native.MAKE_LIB} (make -C native) is found before any build")
+    root = tmp_path / "anim"
+    root.mkdir()
+    imageio.save(str(root / "frame_0000.png"), _image(0, "cpu").numpy())
+    env = {k: v for k, v in os.environ.items() if k != "IDF_NATIVE_LIB"}
+    env["CXX"] = "/bin/false"
+    res = subprocess.run(
+        [sys.executable, "-m", "image_denoising_filter_tpu_torch.cli",
+         str(root / "frame_0000.png"), "--device", "cuda", "--configs", "cpu1",
+         "--output-dir", str(tmp_path / "out")],
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))), env=env,
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 1, res.stdout + res.stderr
+    assert "error:" in res.stderr and "/bin/false" in res.stderr
+    assert not (tmp_path / "out" / "output-cpu.png").exists()

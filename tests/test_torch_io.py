@@ -240,10 +240,10 @@ def test_load_save_dispatch_matches_jax(tmp_path, rng, ext):
 
 def test_codec_names_the_codec_that_runs(monkeypatch):
     """codec() says which codec load and save run: the native library where
-    it loaded, else the Python codecs."""
-    monkeypatch.setattr(imageio, "_HAVE_NATIVE", False)
+    it loaded or was found, else the Python codecs; read at each call."""
+    monkeypatch.setattr(imageio._native, "available", lambda: False)
     assert imageio.codec() == "python"
-    monkeypatch.setattr(imageio, "_HAVE_NATIVE", True)
+    monkeypatch.setattr(imageio._native, "available", lambda: True)
     assert imageio.codec() == "native"
 
 
