@@ -32,9 +32,13 @@ Phases, one line or block each:
                 the fused build+slice kernel against the build and slice
                 kernels bit for bit, at 3840x2160 for (D, K) = (2, 5), (4, 5),
                 (8, 6), on that frame with its RGB scaled into [0, 4] (HDR) at
-                (2, 5), and on the 1080p target at each setting of phase 7;
-                the fused path, grid_pipeline(fused=True), driven at each 4K
-                (D, K) with its launch counts; median times at 4K (2, 5),
+                (2, 5), and on the 1080p target at each setting of phase 7
+                and at D=1 sigma_s 6; at D=1 (the sharded --turbo 1's form:
+                17 and 49 taps, timed at 17) the target also cut into the
+                four bands of a 1x4 mesh, each pooled, and sliced in the slab
+                form, against its plain version; the fused path,
+                grid_pipeline(fused=True), driven at each 4K (D, K) with its
+                launch counts; median times at 4K (2, 5),
                 the build's and the fused kernel's registers, tile and shared
                 bytes, both pipelines' Mpix/s at each D, and the fused
                 kernel's time against the build's and the slice's at each D;
@@ -71,7 +75,12 @@ Phases, one line or block each:
                 multiframe ones within 1 LSB: the SUM over 'frame' regroups
                 the frames' partials); --turbo 2 --weights-halfres on 1x4
                 (phase 7's files); --turbo 4 on 1x4 (bilateral_fast on the
-                same row-padded frame); the slab slice kernels with offsets
+                same row-padded frame); --turbo 1 on 1x4 (bilateral, linear,
+                layers: the bilateral grid's kernels at D=1 band by band,
+                byte for byte the single-device two-kernel pipeline on the
+                same row-padded frame, layers phase 7's file, the dB against
+                the exact bilateral gated at the JAX package's reading); the
+                slab slice kernels with offsets
                 at 4K D=2 against the whole slice and their plain versions;
                 the HDR 4K frame through the sharded turbo grid against the
                 single-device pipeline; parallel.dryrun on four ranks. Each
@@ -91,7 +100,8 @@ Phases, one line or block each:
                 --turbo 2 (the NLM configs again with --weights-halfres),
                 --turbo 8 --sigma-spatial 6 and --turbo 1 layers, each output
                 a float32 EXR read against the exact output and gated at the
-                JAX package's reading (JAX_HDR_READINGS_DB); --all-frames over
+                JAX package's reading (JAX_HDR_READINGS_DB); --turbo 1 --mesh
+                1x4 as phase 9 runs it, on the EXR target; --all-frames over
                 the animation, each output byte for byte a single-target run;
  11. host runtime -- the native library's build route, compiler, libgomp,
                 idf_num_threads() and os.cpu_count(); the default run,
@@ -184,10 +194,15 @@ HDR_SCALE = 4.0
 TURBO_CELLS = ((2, 5), (4, 5), (8, 6))  # (D, K): run_turbo's K at each D
 # The turbo battery: D and --sigma-spatial (D=8 is gated in the JAX package
 # only from sigma_s ~5-6 up, hence sigma_s 6 there). At D=1 the bilateral
-# grid is the eager lattice, which launches no kernel, and the guided grid
-# runs its two kernels. Phases 5 and 6 also hold the kernels to their plain
+# grid is the eager lattice on one device, which launches no kernel (on a
+# mesh, phase 9, its kernels at D=1), and the guided grid runs its two
+# kernels. Phases 5 and 6 also hold the kernels to their plain
 # versions at each of these settings on the same 1080p target.
 TURBO_RUNS = ((1, 2.0), (2, 2.0), (4, 2.0), (8, 6.0))
+# The bilateral grid's build and slice kernels at D=1, as the sharded
+# --turbo 1 runs them: their own entries of the kernels line, timed and
+# counted apart from the D > 1 forms.
+D1_NAMES = ("build_grid_d1", "slice_grid_d1")
 # PSNR of the D=2 turbo output against the exact tiled bilateral: the repo's
 # 40 dB gate (bench.py:51, tests/test_fast.py:28).
 TURBO_GATE_DB = 40.0
@@ -265,6 +280,15 @@ JAX_HDR_READINGS_DB = {
     "turbo 1 layers": 72.5516,
 }
 HDR_GATE_MARGIN_DB = 0.05
+# The sharded --turbo 1 (the bilateral grid's kernels at D=1 band by band,
+# phases 9 and 10): the JAX package's reading of its bilateral output
+# against its exact tiled bilateral on each 1080p target, read as the smoke
+# reads the port's (tools/turbo1_mesh_jax_reading.py: tpu-denoise --turbo 1
+# --mesh 1x4 on four virtual CPU devices, its Pallas kernels in interpret
+# mode): the PNG target over RGB of the 8-bit files, the EXR target with
+# psnr_peak. The port's reading is gated at it less the margin.
+JAX_TURBO1_MESH_READINGS_DB = {"1080p": 47.0676, "1080p HDR": 44.5734}
+TURBO1_MESH_GATE_MARGIN_DB = 0.05
 # Phase 11. The native library's build routes (utils/native.py), and the
 # least speed-up of the OpenMP CPU bilateral on 8 threads over 1 (the cpu8
 # and cpu1 configs' filter) at 1080p on a host of at least CPU8_MIN_CORES
@@ -408,7 +432,11 @@ def kernel_work(name: str, pixels: int, cells: int = 0, levels: int = 0, taps: i
     channels 12, then 4 channels x 2 levels x (tent 4, bilinear 9, add 2))
     and 222 for the guided grid (7 planes). The fused kernels read the
     pooled images and the guide and write the slice's output: their grid
-    never goes to device memory."""
+    never goes to device memory. At D = 1 (the "_d1" names, cells =
+    pixels) the build does the same work, and the slice reads each pixel's
+    own cell (wy = wx = 0) at 2 of the K levels of each of its 4 planes,
+    16 B a pixel, and does 60 operations a pixel (the t of 3 channels 12,
+    then 4 channels x 2 levels x (tent 4, add 2))."""
     grid = levels * cells
     blur = 28 * taps
     fcp = frames * cands * pixels
@@ -428,6 +456,8 @@ def kernel_work(name: str, pixels: int, cells: int = 0, levels: int = 0, taps: i
         "pool": (16 * pixels + 16 * cells, 8 * pixels),
         "build_grid": (16 * cells + 8 * grid, build),
         "slice_grid": (32 * pixels + 8 * grid, 132 * pixels),
+        "build_grid_d1": (16 * cells + 8 * grid, build),
+        "slice_grid_d1": (48 * pixels, 60 * pixels),
         "build_guided_grid": (32 * cells + 14 * grid, grid * (16 + blur)),
         "slice_guided_grid": (44 * pixels + 14 * grid, 222 * pixels),
         "fused_guided": (32 * cells + 44 * pixels, grid * (16 + blur) + 222 * pixels),
@@ -911,6 +941,54 @@ def check_bf16_close(torch, got, want, what: str) -> None:
           f"{what}: {ulps} bf16 ulps apart, {flipped:.3%} of cells differ")
 
 
+def pipeline_check(torch, case: str, got, want, img) -> None:
+    """A grid pipeline against its plain version: within 2 bf16 ulps of the
+    frame's max |RGB|, at most 1% of pixels beyond 1e-5 of it (the build's
+    bf16 flips through the slice)."""
+    torch.cuda.synchronize()
+    scale = max(1.0, float(img[..., :3].abs().max()))
+    err = float((got - want).abs().max())
+    loose = float(((got - want).abs() > 1e-5 * scale).float().mean())
+    check(err <= 2 * 2.0**-8 * scale and loose <= 0.01,
+          f"pipeline {case}: max abs {err:.3g}, {loose:.3%} of pixels beyond {1e-5 * scale:g}")
+    print(f"  {'pipeline':10s} {case:36s} max abs {err:.3g} "
+          f"({loose:.4%} of pixels beyond {1e-5 * scale:g})")
+
+
+def mesh_bands(torch, fast, note, close, case: str, slice_args, border, whole, tol) -> float:
+    """The D = 1 grid kernels on the four bands of a 1x4 mesh, as
+    spatial_bilateral_fast gives them: each band pooled against its plain
+    version at TOL_POOL, and sliced in the slab form (its rows of the grid
+    and one of each neighbour, the offsets y_off, hs_all, gy_off) against its
+    plain version at tol and against the whole slice's rows bit for bit.
+    Returns band 1's slab slice median ms."""
+    img, grid, lmin, inv_step, d, alpha = slice_args
+    h = img.shape[0]
+    rows = h // 4
+    pooled, pooled_plain, sliced, sliced_plain = [], [], [], []
+    for i in range(4):
+        band = img[i * rows : (i + 1) * rows].contiguous()
+        pooled.append(fast.pool(band, d, border))
+        pooled_plain.append(fast.pool_plain(band, d, border))
+        lo = max(i * rows - 1, 0)
+        off = (i * rows, h, lo)
+        slab = grid[:, lo : min((i + 1) * rows + 1, h)].contiguous()
+        sliced.append(fast.slice_grid(band, slab, lmin, inv_step, d, alpha, *off))
+        sliced_plain.append(fast.slice_grid_plain(band, slab, lmin, inv_step, d, alpha, off))
+        check(torch.equal(sliced[-1], whole[i * rows : (i + 1) * rows]),
+              f"slice_grid {case} slab band {i}: differs from the whole slice's rows")
+        if i == 1:
+            slab_ms = median_ms(torch, lambda: fast.slice_grid(band, slab, lmin, inv_step, d,
+                                                               alpha, *off), 10)
+    got, want = torch.cat(pooled), torch.cat(pooled_plain)
+    note("pool", f"{case} 1x4 bands", got, want)
+    close(got, want, TOL_POOL, f"pool {case} 1x4 bands")
+    got, want = torch.cat(sliced), torch.cat(sliced_plain)
+    note(D1_NAMES[1], f"{case} 1x4 slabs", got, want)
+    close(got, want, tol, f"slice_grid {case} 1x4 slabs")
+    return slab_ms
+
+
 def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: bool = False):
     """The grid kernels and the pipeline against their plain versions, and
     the fused kernel against the build and slice kernels bit for bit: at 4K
@@ -918,14 +996,20 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: b
     of the turbo battery. Drives the fused path, grid_pipeline(fused=True),
     at each 4K cell, its launch counts read just after each call. Returns
     ({kernel: {max_abs_err, ms, plain_ms, ...}}, the fused path's summed
-    launch counts) and prints both pipelines' Mpix/s at each D at 4K. With
-    hdr the frames are HDR content (phase 10): the same cells, the
-    tolerances scaled by each frame's max |RGB|, the kernels timed at 4K D=2
-    K=5; no fused path and no pipeline rates."""
+    launch counts) and prints both pipelines' Mpix/s at each D at 4K. At
+    D = 1 (the 1080p target at sigma_s 2 and 6: 17 and 49 taps) the build
+    and slice are recorded under their "_d1" names and timed there, and in
+    place of the fused kernel, which D = 1 never runs, the target is cut
+    into the four bands of a 1x4 mesh as the sharded --turbo 1 cuts it: each
+    band pooled against its plain version, and sliced in the slab form, the
+    whole slice's rows bit for bit. With hdr the frames are HDR content
+    (phase 10): the same cells, the tolerances scaled by each frame's max
+    |RGB|, the kernels timed at 4K D=2 K=5 and 1080p D=1 K=6; no fused path
+    and no pipeline rates."""
     img4k = torch.from_numpy(frame_4k).to("cuda")
     img1080 = torch.from_numpy(frame_1080).to("cuda")
     results = {k: {"max_abs_err": 0.0}
-               for k in ("pool", "build_grid", "slice_grid", "fused_grid")}
+               for k in ("pool", "build_grid", "slice_grid", "fused_grid", *D1_NAMES)}
     path_counts = dict.fromkeys(stencils.launches, 0)
     tag = " HDR" if hdr else ""
 
@@ -934,7 +1018,7 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: b
         check(bool(torch.isfinite(got.float()).all()), f"{kernel} {case}: non-finite output")
         err = float((got.float() - want.float()).abs().max())
         results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
-        print(f"  {kernel:10s} {case:36s} max abs {err:.3g}")
+        print(f"  {kernel:13s} {case:36s} max abs {err:.3g}")
 
     def close(got, want, tol, what):
         ok = bool(((got - want).abs() <= tol["atol"] + tol["rtol"] * want.abs()).all())
@@ -951,15 +1035,19 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: b
             hdr4k[..., :3] = hdr4k[..., :3].clamp(0.0, 1.0) * HDR_SCALE
             cells.append(("4K x4", hdr4k, d, levels, cfg.BilateralParams()))
     for d, sigma_s in TURBO_RUNS:
-        if d > 1:
-            cells.append(("1080p" + tag, img1080, d, turbo_levels(d),
-                          cfg.BilateralParams(sigma_spatial=sigma_s)))
+        cells.append(("1080p" + tag, img1080, d, turbo_levels(d),
+                      cfg.BilateralParams(sigma_spatial=sigma_s)))
+    # D=1 again at sigma_s 6: the 49-tap build (--turbo 1 --sigma-spatial 6)
+    cells.append(("1080p" + tag, img1080, 1, turbo_levels(1),
+                  cfg.BilateralParams(sigma_spatial=6.0)))
 
-    timed = {}
+    timed, shapes, library = {}, {}, {}
+    timed_d1, shapes_d1, library_d1 = {}, {}, {}
     for label, img, d, levels, bp in cells:
         border, ua = bp.border, bp.uniform_alpha
         case = (f"{label} D={d} K={levels} {border} sigma_s {bp.sigma_spatial:g}"
                 f"{' ua' if ua else ''}")
+        build_name, slice_name = D1_NAMES if d == 1 else ("build_grid", "slice_grid")
         small = fast.pool_plain(img, d, border)
         got = fast.pool(img, d, border)
         note("pool", case, got, small)
@@ -969,43 +1057,62 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: b
                       border, 0.5 / bp.sigma_color**2, ua)
         grid = fast.build_grid_plain(*build_args)
         got = fast.build_grid(*build_args)
-        note("build_grid", case, got, grid)
+        note(build_name, case, got, grid)
         check_bf16_close(torch, got, grid, f"build_grid {case}")
         slice_args = (img, grid, lmin, 1.0 / step, d, img[0, 0, 3] if ua else None)
         want = fast.slice_grid_plain(*slice_args)
         got = fast.slice_grid(*slice_args)
-        note("slice_grid", case, got, want)
-        close(got, want, scaled(TOL_SLICE, max(1.0, float(img[..., :3].abs().max()))),
-              f"slice_grid {case}")
-        fused_args = (small, img, lmin, step, 1.0 / step, *build_args[3:7], d, slice_args[5])
-        got = fast.fused_grid(*fused_args)
-        two = fast.slice_grid(img, fast.build_grid(*build_args), *slice_args[2:])
-        torch.cuda.synchronize()
-        check(torch.equal(got, two), f"fused_grid {case}: differs from the build and slice kernels")
-        # against its plain version, the composition of the two plain
-        # versions (`want`): the build's bf16 flips through the slice
-        note("fused_grid", case, got, want)
-        if label == "4K":  # the fused path, as a caller drives it
-            stencils.reset_launches()
-            fused_out = fast.grid_pipeline(img, bp, levels, d, fused=True)
-            counts = {k: n for k, n in stencils.launches.items() if n}
-            check(counts == {"pool": 1, "fused_grid": 1},
-                  f"grid_pipeline(fused=True) {case}: launches {counts}")
-            for k, n in counts.items():
-                path_counts[k] += n
-            check(torch.equal(fused_out, fast.bilateral_fast(img, bp, levels, d)),
-                  f"grid_pipeline(fused=True) {case}: differs from bilateral_fast")
-        got = fast.bilateral_fast(img, bp, levels, d)
+        note(slice_name, case, got, want)
+        tol_slice = scaled(TOL_SLICE, max(1.0, float(img[..., :3].abs().max())))
+        close(got, want, tol_slice, f"slice_grid {case}")
+        if d == 1:
+            slab_ms = mesh_bands(torch, fast, note, close, case, slice_args, border, got,
+                                 tol_slice)
+            n_taps = len(build_args[4])
+            build_ms = median_ms(torch, lambda a=build_args: fast.build_grid(*a), 10)
+            info = fast.build_grid_info(img.device, n_taps, border)
+            print(f"  build_grid {case}: {n_taps} taps, bit for bit the plain version: "
+                  f"{bool(torch.equal(fast.build_grid(*build_args), grid))}, median "
+                  f"{build_ms:.4f} ms; {json.dumps(info)}; slab band 1 median {slab_ms:.4f} ms")
+            if bp.sigma_spatial == 2.0:
+                timed_d1 = {
+                    build_name: (lambda a=build_args: fast.build_grid(*a),
+                                 lambda a=build_args: fast.build_grid_plain(*a)),
+                    slice_name: (lambda a=slice_args: fast.slice_grid(*a),
+                                 lambda a=slice_args: fast.slice_grid_plain(*a)),
+                }
+                pixels = img.shape[0] * img.shape[1]
+                shapes_d1 = dict.fromkeys(timed_d1, dict(pixels=pixels, cells=pixels,
+                                                         levels=levels, taps=n_taps))
+                sample, planes = grid_sample_slice(torch, grid, img, lmin, 1.0 / step, d,
+                                                   [(0,), (1, 3), (2,)])
+                lib_err = max(float((v - got[..., p]).abs().max())
+                              for p, v in planes(sample()).items())
+                print(f"  grid_sample yardstick vs slice_grid {case}: max abs {lib_err:.3g}")
+                library_d1 = {slice_name: sample}
+        else:
+            fused_args = (small, img, lmin, step, 1.0 / step, *build_args[3:7], d, slice_args[5])
+            got = fast.fused_grid(*fused_args)
+            two = fast.slice_grid(img, fast.build_grid(*build_args), *slice_args[2:])
+            torch.cuda.synchronize()
+            check(torch.equal(got, two),
+                  f"fused_grid {case}: differs from the build and slice kernels")
+            # against its plain version, the composition of the two plain
+            # versions (`want`): the build's bf16 flips through the slice
+            note("fused_grid", case, got, want)
+            if label == "4K":  # the fused path, as a caller drives it
+                stencils.reset_launches()
+                fused_out = fast.grid_pipeline(img, bp, levels, d, fused=True)
+                counts = {k: n for k, n in stencils.launches.items() if n}
+                check(counts == {"pool": 1, "fused_grid": 1},
+                      f"grid_pipeline(fused=True) {case}: launches {counts}")
+                for k, n in counts.items():
+                    path_counts[k] += n
+                check(torch.equal(fused_out, fast.bilateral_fast(img, bp, levels, d)),
+                      f"grid_pipeline(fused=True) {case}: differs from bilateral_fast")
+        got = fast.grid_pipeline(img, bp, levels, d)
         want = fast.grid_pipeline_plain(img, bp, levels, d)
-        torch.cuda.synchronize()
-        scale = max(1.0, float(img[..., :3].abs().max()))
-        err = float((got - want).abs().max())
-        loose = float(((got - want).abs() > 1e-5 * scale).float().mean())
-        check(err <= 2 * 2.0**-8 * scale and loose <= 0.01,
-              f"pipeline {case}: max abs {err:.3g}, {loose:.3%} of pixels beyond "
-              f"{1e-5 * scale:g}")
-        print(f"  {'pipeline':10s} {case:36s} max abs {err:.3g} "
-              f"({loose:.4%} of pixels beyond {1e-5 * scale:g})")
+        pipeline_check(torch, case, got, want, img)
         if label == "4K" + tag and d == 2 and not ua:
             timed = {
                 "pool": (lambda a=(img, d, border): fast.pool(*a),
@@ -1019,6 +1126,7 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: b
             }
             shape = dict(pixels=img.shape[0] * img.shape[1], cells=small.shape[0] * small.shape[1],
                          levels=levels, taps=len(build_args[4]))
+            shapes = dict.fromkeys(timed, shape)
             # The library yardsticks: one avg_pool2d over the image as NCHW;
             # one trilinear grid_sample (alpha under green's t).
             nchw = img.permute(2, 0, 1)[None].contiguous()
@@ -1031,9 +1139,11 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: b
             library = {"pool": lambda a=(nchw, d): torch.nn.functional.avg_pool2d(*a),
                        "slice_grid": sample}
 
+    time_kernels(torch, results, timed_d1, shapes_d1, library_d1,
+                 f"1080p{tag} D=1 K={turbo_levels(1)}")
     where = f"4K{tag} D=2 K=5"
     if hdr:
-        time_kernels(torch, results, timed, dict.fromkeys(timed, shape), library, where)
+        time_kernels(torch, results, timed, shapes, library, where)
         return results, path_counts
     mpix = H4K * W4K / 1e6
     bp = cfg.BilateralParams()
@@ -1060,7 +1170,7 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: b
         print(f"  fused_grid 4K D={d} K={levels} median {fused_ms:.4f} ms against build_grid + "
               f"slice_grid {build_ms:.4f} + {slice_ms:.4f} = {build_ms + slice_ms:.4f} ms; "
               f"{json.dumps(fast.fused_grid_info(img4k.device, d, taps.size, clamp))}")
-    time_kernels(torch, results, timed, dict.fromkeys(timed, shape), library, where)
+    time_kernels(torch, results, timed, shapes, library, where)
     print_redesigned("build_grid 4K D=2 K=5",
                      fast.build_grid_info(img4k.device, shape["taps"], clamp),
                      results["build_grid"]["ms"])
@@ -1209,7 +1319,8 @@ def phase_guided_kernels(torch, fast, cfg, images, hdr: bool = False):
 
 
 # Kernels each turbo run may launch, and must: the grid configs through the
-# bilateral grid (pool, build, slice; D=1 is the eager lattice) and the
+# bilateral grid (pool, build, slice; D=1 is the eager lattice on one
+# device) and the
 # guided grid (fused at D = 2 and 4, the guided build and slice at D = 1 and
 # 8, beside the pool); the NLM configs through the bf16 NLM, or with
 # --weights-halfres the bf16 half-row NLM, and normalize.
@@ -1494,18 +1605,128 @@ def same_bytes(a: str, b: str) -> bool:
         return fa.read() == fb.read()
 
 
-def phase_sharded(torch, cfg, stencils, fast, cli, imageio, launch, dryrun, anim, root,
-                  exact_dir, smi):
+def turbo1_mesh_gate(label: str, got: np.ndarray, exact: np.ndarray, hdr: bool) -> str:
+    """The sharded --turbo 1 bilateral output read against the exact tiled
+    bilateral's (RGB of the 8-bit files, or psnr_peak on EXR) and gated at
+    the JAX package's reading less TURBO1_MESH_GATE_MARGIN_DB. Returns the
+    reading as printed."""
+    db = (psnr_peak(got, exact, float(exact[..., :3].max())) if hdr
+          else psnr(got[..., :3], exact[..., :3]))
+    jax_db = JAX_TURBO1_MESH_READINGS_DB[label]
+    gate = jax_db - TURBO1_MESH_GATE_MARGIN_DB
+    check(db >= gate, f"--turbo 1 --mesh 1x4 {label} bilateral: {db:.4f} dB vs exact < "
+                      f"{gate:.4f} dB (the JAX package's {jax_db} less "
+                      f"{TURBO1_MESH_GATE_MARGIN_DB})")
+    return f"{db:.4f} dB vs exact over RGB (JAX {jax_db}, gate {gate:.4f})"
+
+
+def as_d1(counts: dict, n: int | None = None) -> dict:
+    """counts with n launches (all of them where None) of the bilateral
+    grid's build and slice moved to their D = 1 names (D1_NAMES), so that
+    each launch is counted once, under the form that ran."""
+    out = dict(counts)
+    for name, d1 in zip(("build_grid", "slice_grid"), D1_NAMES):
+        moved = out[name] if n is None else n
+        check(out[name] >= moved, f"{name}: {out[name]} launches, {moved} of them at D = 1")
+        out[name] -= moved
+        out[d1] = out.get(d1, 0) + moved
+    return out
+
+
+def check_mesh_turbo(torch, fast, cfg, imageio, turbo_pad_rows, target: str, got: str, root: str,
+                     d: int, pipeline, hdr: bool, what: str) -> int:
+    """The bilateral file (got) of gpu-denoise <target> --turbo d --mesh 1x4
+    against pipeline(padded, bp, K, d) on one device: the frame row-padded as
+    the sharded Session pads it (turbo_pad_rows over 4 bands), the output
+    cropped to the frame and saved as gpu-denoise saves it, byte for byte on
+    PNG (--clamp), array for array on EXR. Returns the padded frame's rows."""
+    bp = cfg.BilateralParams()
+    padded = turbo_pad_rows(imageio.load(target)[0], 4, bp.effective_radius, d, bp.border)
+    want = pipeline(torch.from_numpy(padded).to("cuda"), bp, turbo_levels(d),
+                    d)[:H].cpu().numpy()
+    if hdr:
+        same = np.array_equal(imageio.load(got)[0], want)
+    else:
+        want_path = os.path.join(root, f"pipeline_d{d}_{os.path.basename(got)}")
+        imageio.save(want_path, want, clamp=True)
+        same = same_bytes(got, want_path)
+    check(same, f"{what}: differs from {pipeline.__name__}(..., {d}) on the padded frame")
+    return padded.shape[0]
+
+
+def turbo1_mesh(torch, cfg, stencils, fast, cli, imageio, turbo_pad_rows, target: str, root: str,
+                label: str, layers_file: str, exact_file: str, lattice_file: str | None,
+                hdr: bool, smi: str) -> dict:
+    """gpu-denoise <target> --turbo 1 --mesh 1x4 over gloo with the
+    bilateral, linear and layers configs: the bilateral grid's kernels at
+    D = 1 on each rank's band. The bilateral file is the single-device
+    two-kernel pipeline grid_pipeline(padded, bp, 6, 1) on the row-padded
+    frame (check_mesh_turbo), the linear file its bytes; the layers file is
+    the single-device --turbo 1 run's (layers_file); pool, build_grid and
+    slice_grid launch on the ranks beside the guided kernels, no other
+    kernel; the bilateral file's reading against exact_file is gated
+    (turbo1_mesh_gate), the one-device lattice's (lattice_file, where given)
+    printed beside it. Returns the launch counts summed over the ranks, the
+    bilateral grid's build and slice under their D = 1 names."""
+    names = {k: c.output_name(hdr) for k, c in zip(cli.CONFIG_KEYS, cfg.GPU_BATTERY)}
+    keys = ("bilateral", "layers", "linear")  # gpu-denoise's order
+    out_dir = os.path.join(root, f"mesh_turbo1_{'hdr' if hdr else 'ldr'}")
+    what = f"gpu-denoise <{label} target> --turbo 1 --mesh 1x4"
+    t0 = time.perf_counter()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc, rank_counts = cli.run([target, "--device", "cuda", *(() if hdr else ("--clamp",)),
+                                   "--turbo", "1", "--configs", ",".join(keys), "--mesh", "1x4",
+                                   "--dist-backend", "gloo", "--output-dir", out_dir])
+    check(rc == 0, f"{what} failed ({rc}): {err.getvalue().strip()[-2000:]}")
+    check(len(rank_counts) == 4, f"{what}: {len(rank_counts)} ranks")
+    counts = sum_counts(stencils, rank_counts)
+    expected = {"pool", "build_grid", "slice_grid", "build_guided_grid", "slice_guided_grid"}
+    check(all(counts[k] > 0 for k in expected)
+          and all(n == 0 for k, n in counts.items() if k not in expected),
+          f"{what}: launches {counts}, expected {sorted(expected)}")
+    counts = as_d1(counts)
+    print(f"  {what}: {time.perf_counter() - t0:.1f} s, launches summed over 4 ranks "
+          f"{ {k: n for k, n in counts.items() if n} }")
+    reports = re.findall(r"transfer time: (\d+)ns; execution time: (\d+)ns", out.getvalue())
+    check(len(reports) == len(keys), f"{what}: {len(reports)} timing reports")
+    for key, (tr, ex) in zip(keys, reports):
+        print(f"    {key:10s} rank 0 transfer {int(tr):>11d} ns  exec {int(ex):>11d} ns "
+              f"({smi}; 4 ranks on one card: overhead, not scaling)")
+    got = {key: os.path.join(out_dir, names[key]) for key in keys}
+    rows = check_mesh_turbo(torch, fast, cfg, imageio, turbo_pad_rows, target, got["bilateral"],
+                            root, 1, fast.grid_pipeline, hdr, f"{what} bilateral")
+    check(same_bytes(got["bilateral"], got["linear"]), f"{what}: bilateral and linear differ")
+    if hdr:
+        same = np.array_equal(imageio.load(got["layers"])[0], imageio.load(layers_file)[0])
+    else:
+        same = same_bytes(got["layers"], layers_file)
+    check(same, f"{what} layers: differs from the single-device --turbo 1 file")
+    exact = imageio.load(exact_file)[0]
+    reading = turbo1_mesh_gate(label, imageio.load(got["bilateral"])[0], exact, hdr)
+    if lattice_file is not None:
+        lattice = imageio.load(lattice_file)[0]
+        reading += f"; the one-device lattice {psnr(lattice[..., :3], exact[..., :3]):.4f} dB"
+    print(f"    bilateral and linear: grid_pipeline(..., 1) on the edge-padded {rows}-row frame "
+          f"{'array for array' if hdr else 'byte for byte'}; layers the single-device "
+          f"--turbo 1 file's; {reading}")
+    return counts
+
+
+def phase_sharded(torch, cfg, stencils, fast, cli, imageio, launch, dryrun, turbo_pad_rows, anim,
+                  root, exact_dir, smi):
     """Phase 9: gpu-denoise --mesh on four ranks that share the card over
     gloo. The exact battery on 1x4 and 2x2 against phase 4's files, the
     sharded turbo against phase 7's files or the single-device pipeline on
-    the same padded frame; the slab slice kernels against their plain
-    versions with offsets; the HDR frame of phase 5 through the sharded turbo
-    grid; the dry run. Each run's launch counts are summed over its ranks,
-    read just after it. Returns the launch counts of all of them, summed."""
+    the same padded frame (check_mesh_turbo; --turbo 1 in turbo1_mesh); the
+    slab slice kernels against their plain versions with offsets; the HDR
+    frame of phase 5 through the sharded turbo grid; the dry run. Each run's
+    launch counts are summed over its ranks, read just after it. Returns the
+    launch counts of all of them, summed, the bilateral grid's build and
+    slice at D = 1 under their D1_NAMES."""
     names = output_names(cli, cfg)
     target = anim["target"]
-    totals = dict.fromkeys(stencils.launches, 0)
+    totals = dict.fromkeys((*stencils.launches, *D1_NAMES), 0)
     gloo = ("--dist-backend", "gloo")
 
     def run(what, argv):
@@ -1584,16 +1805,20 @@ def phase_sharded(torch, cfg, stencils, fast, cli, imageio, launch, dryrun, anim
                           [target, "--device", "cuda", "--clamp", "--turbo", "4", "--configs",
                            "bilateral", "--mesh", "1x4", *gloo, "--output-dir", out_dir])
     print_reports(("bilateral",), reports)
-    loaded = imageio.load(target)[0]
-    rg = -(-cfg.BilateralParams().effective_radius // 4)
-    band_rows = -(-max(-(-H // 4), 4 * (rg + 1)) // 4) * 4
-    padded = np.pad(loaded, ((0, 4 * band_rows - H), (0, 0), (0, 0)), mode="edge")
-    want = fast.bilateral_fast(torch.from_numpy(padded).to("cuda"), cfg.BilateralParams(),
-                               turbo_levels(4), 4)[:H].cpu().numpy()
-    got = imageio.load(os.path.join(out_dir, names["bilateral"]))[0]
-    check(np.array_equal(got, imageio.to_float(imageio.quantize(want, clamp=True))),
-          "--turbo 4 --mesh 1x4: differs from bilateral_fast on the padded frame")
-    print(f"    equal to bilateral_fast on the same edge-padded {4 * band_rows}-row frame")
+    rows = check_mesh_turbo(torch, fast, cfg, imageio, turbo_pad_rows, target,
+                            os.path.join(out_dir, names["bilateral"]), root, 4,
+                            fast.bilateral_fast, False, "--turbo 4 --mesh 1x4")
+    print(f"    equal to bilateral_fast on the same edge-padded {rows}-row frame, byte for byte")
+
+    # 5. --turbo 1 on 1x4: the bilateral grid's kernels at D = 1 band by band
+    # (270 rows a band, no padding at 1080p; phase 5 held them to their plain
+    # versions on these bands)
+    counts = turbo1_mesh(torch, cfg, stencils, fast, cli, imageio, turbo_pad_rows, target, root,
+                         "1080p", os.path.join(root, "turbo1_bilateral", names["layers"]),
+                         os.path.join(exact_dir, names["bilateral"]),
+                         os.path.join(root, "turbo1_bilateral", names["bilateral"]), False, smi)
+    for k, n in counts.items():
+        totals[k] += n
 
     # 6. the slab slice kernels with offsets at 4K D=2, and the HDR frame
     noisy_4k = anim["noisy_4k"]
@@ -1662,7 +1887,10 @@ def phase_sharded(torch, cfg, stencils, fast, cli, imageio, launch, dryrun, anim
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         counts = dryrun.dryrun(4, "cuda", "gloo")
-    for k, n in counts.items():
+    # its D = 1 bilateral grid builds and slices once a rank
+    n_d1 = sum(c["kind"] == "bilateral_fast" and c["kw"]["downsample"] == 1
+               for c in dryrun.dryrun_cases(4)[0])
+    for k, n in as_d1(counts, 4 * n_d1).items():
         totals[k] += n
     for line in out.getvalue().splitlines():
         print("  " + line)
@@ -1992,20 +2220,21 @@ def exact_plain(torch, cfg, stencils, imageio, dataset, target: str) -> dict:
 
 
 def phase_hdr(torch, cfg, stencils, fast, cli, imageio, dataset, native, Session, render_frame,
-              root, ldr_frames, ldr_kernels, smi):
+              turbo_pad_rows, root, ldr_frames, ldr_kernels, smi):
     """Phase 10: HDR. The EXR animation (HDR_*) written and read back, the
     EXR codec timed; every kernel, in every form, against its plain version
     on its HDR frame (1080p and 4K, the grid kernels at each (D, K)), with
     the staged bilateral's walks; then gpu-denoise on the card: the exact
     battery against the plain versions on the same frames, the bilateral
     and layers configs with bf16 taps (Session(tiling=...)), the turbo runs
-    of HDR_TURBO_RUNS, each gated at the JAX package's reading, and
+    of HDR_TURBO_RUNS, each gated at the JAX package's reading, --turbo 1
+    --mesh 1x4 (turbo1_mesh), and
     --all-frames over the animation against single-target runs, byte for
     byte; the native codec against the Python one. Returns (the HDR kernel
     results, the summed launch counts of the runs, the animation and the
     exact battery's directory and exec ns)."""
     dev = torch.device("cuda")
-    totals = dict.fromkeys(stencils.launches, 0)
+    totals = dict.fromkeys((*stencils.launches, *D1_NAMES), 0)
     names = {k: c.output_name(True) for k, c in zip(cli.CONFIG_KEYS, cfg.GPU_BATTERY)}
     t0 = time.perf_counter()
     anim = write_hdr_animation(imageio, render_frame, root)
@@ -2163,6 +2392,11 @@ def phase_hdr(torch, cfg, stencils, fast, cli, imageio, dataset, native, Session
             print(f"    {key:10s} transfer {int(tr):>11d} ns  exec {int(ex):>11d} ns  "
                   f"{reading}")
     del exact
+    counts = turbo1_mesh(torch, cfg, stencils, fast, cli, imageio, turbo_pad_rows, target, root,
+                         "1080p HDR", os.path.join(root, "hdr_turbo_1", names["layers"]),
+                         os.path.join(out_exact, names["bilateral"]), None, True, smi)
+    for k, n in counts.items():
+        totals[k] += n
 
     # --all-frames, the serving loop, against single-target runs.
     t0 = time.perf_counter()
@@ -2207,6 +2441,7 @@ def main() -> int:
     from image_denoising_filter_tpu_torch.ops import _build, fast, reference, stencils
     from image_denoising_filter_tpu_torch.parallel import dryrun, launch
     from image_denoising_filter_tpu_torch.runtime import Session
+    from image_denoising_filter_tpu_torch.runtime.session import turbo_pad_rows
 
     check_no_jax()
     render_frame = load_render_frame()
@@ -2252,7 +2487,8 @@ def main() -> int:
         kernels.update(phase_guided_kernels(torch, fast, cfg, images))
         del images
         print("[7/11] turbo battery through gpu-denoise --turbo D --device cuda")
-        totals = phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir)
+        totals = {**phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir),
+                  **dict.fromkeys(D1_NAMES, 0)}
         print("[8/11] CPU configs, parity, profile, content")
         t0 = time.perf_counter()
         profiled = phase_cpu_parity_profile(torch, cfg, stencils, cli, imageio, content,
@@ -2262,16 +2498,16 @@ def main() -> int:
             totals[k] += n
         print("[9/11] sharded: gpu-denoise --mesh on 4 ranks sharing the card over gloo")
         t0 = time.perf_counter()
-        sharded = phase_sharded(torch, cfg, stencils, fast, cli, imageio, launch, dryrun, anim,
-                                root, exact_dir, smi)
+        sharded = phase_sharded(torch, cfg, stencils, fast, cli, imageio, launch, dryrun,
+                                turbo_pad_rows, anim, root, exact_dir, smi)
         print(f"  phase 9: {time.perf_counter() - t0:.1f} s")
         for k, n in sharded.items():
             totals[k] += n
         print("[10/11] HDR: an EXR animation through the kernels and gpu-denoise --device cuda")
         t0 = time.perf_counter()
         _, hdr_counts, hdr, hdr_dir, hdr_exec = phase_hdr(
-            torch, cfg, stencils, fast, cli, imageio, dataset, native, Session, render_frame, root,
-            anim["frames"], kernels, smi)
+            torch, cfg, stencils, fast, cli, imageio, dataset, native, Session, render_frame,
+            turbo_pad_rows, root, anim["frames"], kernels, smi)
         print(f"  phase 10: {time.perf_counter() - t0:.1f} s")
         for k, n in hdr_counts.items():
             totals[k] += n
@@ -2301,6 +2537,10 @@ def main() -> int:
         "pool": (FAST_SOURCE, f"{JAX_FAST}:83"),
         "build_grid": (FAST_SOURCE, f"{JAX_FAST}:1018"),
         "slice_grid": (FAST_SOURCE, f"{JAX_FAST}:502"),
+        # the same two kernels at D = 1, as the sharded --turbo 1 runs them
+        # (phases 9 and 10) and the dry run's D = 1 case
+        "build_grid_d1": (FAST_SOURCE, f"{JAX_FAST}:1018"),
+        "slice_grid_d1": (FAST_SOURCE, f"{JAX_FAST}:502"),
         "fused_grid": (FAST_SOURCE, f"{JAX_FAST}:730"),
         "build_guided_grid": (FAST_SOURCE, f"{JAX_FAST}:1269"),
         "slice_guided_grid": (FAST_SOURCE, f"{JAX_FAST}:1372"),
@@ -2309,7 +2549,7 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": where,
-         "launches": counts[name] + fused_counts[name] + totals[name],
+         "launches": counts.get(name, 0) + fused_counts.get(name, 0) + totals[name],
          **{k: kernels[name][k] for k in keys}}
         for name, (source, where) in replaces.items()
     ]}

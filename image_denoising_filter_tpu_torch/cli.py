@@ -21,6 +21,8 @@ each process is one rank; otherwise gpu-denoise spawns the ranks itself
 (parallel.launch.run_ranks). `--dist-backend` picks NCCL (one rank a card,
 the default on CUDA) or gloo (the CPU's, and several ranks on one card).
 Rank 0 alone prints and writes the files; the CPU configs run on rank 0.
+Under `--turbo 1` a mesh runs the bilateral grid's kernels at D = 1 (as
+tpu-denoise does there), where one device runs the whole-image lattice.
 
 With `--device cuda` the Session builds (or loads) the native host library
 (utils/native.py) before the first config, outside every timed region: cpu1
@@ -163,8 +165,9 @@ def _parser() -> argparse.ArgumentParser:
         "--turbo", type=int, default=0, metavar="D", choices=[0, 1, 2, 4, 8],
         help="approximate speed mode for every config (0 = exact kernels): the "
         "bilateral and linear configs run the per-channel bilateral grid with "
-        "spatial reduction D (D = 1 is the whole-image lattice, D = 2, 4, 8 the "
-        "grid kernels), the layers config the layer-guided grid (the fused "
+        "spatial reduction D (D = 1 is the whole-image lattice on one device "
+        "and the grid kernels band by band under --mesh, D = 2, 4, 8 the grid "
+        "kernels), the layers config the layer-guided grid (the fused "
         "kernel at D = 2 and 4, the guided build and slice at D = 1 and 8), "
         "the NLM configs a stride-2 search (49 of 196 candidates) with bf16 "
         "taps. Under --turbo the 'linear' config runs the same grid pipeline "

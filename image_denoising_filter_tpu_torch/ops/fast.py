@@ -68,11 +68,11 @@ from .stencils import (
 
 # Table size the build kernel takes by value (fast.cu: kMaxTaps).
 MAX_TAPS = 64
-#: Grid downsamples the bilateral grid's kernels take; 1 is the eager lattice.
-DOWNSAMPLES = (2, 4, 8)
-#: Downsamples of the guided grid, and of the pool it runs: the JAX package
-#: runs its Pallas kernels at d = 1 too (a bf16 round trip of every value).
-GUIDED_DOWNSAMPLES = (1, 2, 4, 8)
+#: Downsamples of the pool, the build and slice kernels of both grids and the
+#: fused guided kernel: the JAX package runs its Pallas kernels at d = 1 too
+#: (the pool a bf16 round trip of every value), the bilateral grid's on a
+#: mesh only (one device takes the eager lattice there, bilateral_fast).
+DOWNSAMPLES = (1, 2, 4, 8)
 #: Guided grid planes per level: num r, g, b, a; den r, g, b; one zero pad.
 GUIDED_PLANES = 8
 # The grid build kernels' block (one body for the bilateral and the guided
@@ -118,6 +118,9 @@ FUSED_GRID_TILES = {
     4: ((32, 128), (16, 128), (16, 64)),
     8: ((32, 256), (16, 256), (16, 128)),
 }
+#: Downsamples of the fused bilateral kernel: the JAX package never fuses at
+#: d = 1 (nor on a mesh).
+FUSED_GRID_DOWNSAMPLES = tuple(FUSED_GRID_TILES)
 #: Shared memory a fused kernel keeps beside its window for its static arrays.
 STATIC_SHARED_RESERVE = 1024
 
@@ -615,11 +618,7 @@ def fused_grid_info(device: torch.device, d: int, n_taps: int, border: str,
 
 def _check_downsample(d: int, allowed: tuple = DOWNSAMPLES) -> None:
     if d not in allowed:
-        raise ValueError(
-            f"the grid kernels take downsample d in {allowed}, got {d} "
-            "(the bilateral grid's d = 1 is the eager lattice, "
-            "ops.eager.bilateral_fast_eager)"
-        )
+        raise ValueError(f"the grid kernels take downsample d in {allowed}, got {d}")
 
 
 def _check_taps(taps: np.ndarray) -> np.ndarray:
@@ -695,10 +694,10 @@ def grid_from_planes(planes: torch.Tensor, uniform_alpha: bool) -> torch.Tensor:
 def pool(img: torch.Tensor, d: int, border: str = BorderPolicy.CLAMP) -> torch.Tensor:
     """d x d mean pool with bf16 operands (fast.py:_pool_pallas), the input
     padded to multiples of d by `border`. img: (H, W, 4) float32; returns
-    (ceil(H/d), ceil(W/d), 4) float32. At d = 1 (the guided grid's) it is a
-    bf16 round trip of every value."""
+    (ceil(H/d), ceil(W/d), 4) float32. At d = 1 it is a bf16 round trip of
+    every value."""
     _check_image(img, "img")
-    _check_downsample(d, GUIDED_DOWNSAMPLES)
+    _check_downsample(d)
     if not _on_cuda(img):
         return pool_plain(img, d, border)
     h, w, _ = img.shape
@@ -873,7 +872,7 @@ def slice_guided_grid(
     y_off, hs_all, gy_off: a band against a slab of grid rows, as
     slice_grid's."""
     _check_image(guide, "guide")
-    _check_downsample(d, GUIDED_DOWNSAMPLES)
+    _check_downsample(d)
     _check_range(lmin, inv_step)
     on_cuda = _on_cuda(guide, lmin, inv_step)
     h, w, _ = guide.shape
@@ -956,7 +955,7 @@ def fused_grid(
     touch."""
     _check_image(small, "small")
     _check_image(img, "img")
-    _check_downsample(d)
+    _check_downsample(d, FUSED_GRID_DOWNSAMPLES)
     _check_range(lmin, step, inv_step)
     if levels < 2:
         raise ValueError(f"the grid needs at least 2 levels, got {levels}")
@@ -1007,7 +1006,7 @@ def fused_guided(
     the two kernels' order, so the output equals theirs."""
     taps = _check_guided_inputs(small_t, small_l, lmin, step, levels, taps)
     _check_image(guide, "guide")
-    _check_downsample(d, GUIDED_DOWNSAMPLES)
+    _check_downsample(d)
     _check_range(inv_step)
     h, w, _ = guide.shape
     hs, ws = -(-h // d), -(-w // d)
@@ -1067,7 +1066,8 @@ def _build_and_slice(small, img, lmin, step, inv_step, levels, taps, border, inv
 
 def default_fused(d: int) -> bool:
     """The reference's dispatch (fast.py:_default_fused): the build and the
-    slice kernels at every d; the fused kernel only when asked for."""
+    slice kernels at every d; the fused kernel only when asked for, and
+    never at d = 1 (FUSED_GRID_DOWNSAMPLES)."""
     return False
 
 
@@ -1081,9 +1081,10 @@ def grid_pipeline(
     """Pool -> grid range -> build -> slice (fast.py:_grid_pipeline_planar
     with pad_free=False). The grid range stays on the device. Under uniform
     alpha the output alpha is img[0, 0, 3]. fused=True runs the build and
-    the slice as the fused kernel (fused_grid; raises on the card where its
-    window does not fit), which gives the same output; None takes
-    default_fused(d)."""
+    the slice as the fused kernel (fused_grid; raises at d = 1 and on the
+    card where its window does not fit), which gives the same output; None
+    takes default_fused(d). At d = 1 this is the sharded turbo's pipeline
+    (parallel/spatial.py:spatial_bilateral_fast) on one device."""
     if fused is None:
         fused = default_fused(d)
     return _pipeline(img, params, levels, d, pool, fused_grid if fused else _build_and_slice)
@@ -1106,7 +1107,9 @@ def bilateral_fast(
     (fast.py:bilateral_fast). img: (H, W, 4) float32; levels = K intensity
     levels; downsample = the grid's spatial reduction d. d in {2, 4, 8} runs
     the three kernels (their plain versions for a CPU tensor); d = 1 is the
-    eager lattice, as the JAX package runs it with XLA on every backend."""
+    eager lattice, as the JAX package runs it with XLA on every backend on
+    one device (on a mesh both packages run the kernels at d = 1:
+    grid_pipeline(..., 1), parallel/spatial.py)."""
     _check_image(img, "img")
     d = max(1, downsample)
     if d == 1:

@@ -9,7 +9,8 @@ temporal NLM at the full reference parameters (s=7, p=3, h=0.5; frames over
 'frame' with one masked padding frame, rows over 'y' with the interior/edge
 split), the same with the half-row weights, the sharded bilateral and the
 sharded layers, each against its NumPy oracle (ops/reference.py), and the
-sharded turbo grids against the single-device pipeline on the same device,
+sharded turbo grids (the bilateral grid at d = 2 and 1, the guided grid at
+d = 2) against the single-device pipeline on the same device,
 then prints one line per path. --device cuda runs the ranks on the card
 (several ranks share one card over --dist-backend gloo). Any disagreement
 raises and exits non-zero.
@@ -176,6 +177,8 @@ def dryrun_cases(ranks: int, rows_per_shard: int = 32, width: int = 128, seed: i
          "kw": {"params": LayersParams(radius=6)}},
         {"name": "bilateral_fast", "kind": "bilateral_fast", "inputs": {"img": target},
          "kw": {"params": BilateralParams(), "levels": 8, "downsample": 2}},
+        {"name": "bilateral_fast_d1", "kind": "bilateral_fast", "inputs": {"img": target},
+         "kw": {"params": BilateralParams(), "levels": 6, "downsample": 1}},
         {"name": "layers_fast", "kind": "layers_fast",
          "inputs": {"target": target, "layer": layer},
          "kw": {"params": LayersParams(), "levels": 6, "downsample": 2}},
@@ -239,6 +242,7 @@ def dryrun(ranks: int, device_type: str, backend: Optional[str] = None,
     print(f"dryrun sharded layers OK: max|err| {err:.2e} vs oracle")
     single = {
         "bilateral_fast": (fast.bilateral_fast(dev["target"], BilateralParams(), 8, 2),),
+        "bilateral_fast_d1": (fast.grid_pipeline(dev["target"], BilateralParams(), 6, 1),),
         "layers_fast": fast.cross_bilateral_layers_fast(dev["target"], dev["layer"],
                                                         LayersParams(), 6, 2),
     }

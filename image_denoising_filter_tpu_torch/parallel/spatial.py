@@ -441,7 +441,9 @@ def spatial_bilateral_fast(
     image's grid rows: the outermost bands read the edge rows as the
     single-device slice does). Build + slice, never the fused kernel: the
     seam needs the grid. The output equals the single-device pipeline's rows
-    on the same (row-padded) image bit for bit. d in (2, 4, 8)."""
+    on the same (row-padded) image bit for bit (fast.grid_pipeline, which at
+    d = 1 is not what fast.bilateral_fast runs: one device takes the eager
+    lattice there). d in (1, 2, 4, 8)."""
     rows = local.shape[0]
     d = max(1, downsample)
     fast._check_downsample(d)
@@ -478,7 +480,7 @@ def spatial_cross_bilateral_layers_fast(
         params = LayersParams()
     rows = target.shape[0]
     d = max(1, downsample)
-    fast._check_downsample(d, fast.GUIDED_DOWNSAMPLES)
+    fast._check_downsample(d)
     taps, halo_s = _grid_geometry(rows, d, params.sigma_spatial, "layers")
     _, idx, n = _axis(mesh, SPATIAL_AXIS)
     rows_s = rows // d

@@ -74,6 +74,18 @@ from ..parallel.spatial import _all_reduce, temporal_nlm_local_partials
 from .prefetch import FramePrefetcher
 
 
+def turbo_pad_rows(img: np.ndarray, n_y: int, radius: int, d: int, border: str) -> np.ndarray:
+    """The sharded turbo's row padding (JAX session.py:606-620) for n_y
+    bands over 'y': bands of ceil_d(max(ceil(H/Y), d (rg + 1))) rows,
+    rg = ceil(radius/d), so that they divide by d and hold the pooled halo."""
+    rg = max(1, -(-radius // d))
+    rows = max(-(-img.shape[0] // n_y), d * (rg + 1))
+    rows = -(-rows // d) * d
+    ph = rows * n_y - img.shape[0]
+    mode = "edge" if border == BorderPolicy.CLAMP else "constant"
+    return np.pad(img, ((0, ph), (0, 0), (0, 0)), mode=mode) if ph else img
+
+
 def _open_device(device: torch.device | str) -> torch.device:
     """Resolve and initialise the device, so that runtime start-up (the
     analog of vk_utils::CreateInstance/CreateLogicalDevice, outside the
@@ -289,18 +301,6 @@ class Session:
         ph, mode = self._row_padding(img.shape[0], halo, border)
         return np.pad(img, ((0, ph), (0, 0), (0, 0)), mode=mode) if ph else img
 
-    def _turbo_pad_rows(self, img: np.ndarray, radius: int, d: int, border: str) -> np.ndarray:
-        """The sharded turbo's row padding (JAX session.py:606-620): bands of
-        ceil_d(max(ceil(H/Y), d (rg + 1))) rows, rg = ceil(radius/d), so that
-        they divide by d and hold the pooled halo."""
-        n_y = self.mesh.size(1)
-        rg = max(1, -(-radius // d))
-        rows = max(-(-img.shape[0] // n_y), d * (rg + 1))
-        rows = -(-rows // d) * d
-        ph = rows * n_y - img.shape[0]
-        mode = "edge" if border == BorderPolicy.CLAMP else "constant"
-        return np.pad(img, ((0, ph), (0, 0), (0, 0)), mode=mode) if ph else img
-
     def _upload_band(self, padded: np.ndarray) -> torch.Tensor:
         """This rank's band of a row-padded host image, on the device."""
         return self._upload(shard_rows(padded, self.mesh))
@@ -426,8 +426,9 @@ class Session:
         NLM configs have no grid: their turbo form is `run` with a stride-2
         search and bf16 taps (nlm_tiling). On a mesh the rows are padded to
         bands that divide by the downsample and hold the pooled halo, and the
-        grids are built and sliced band by band (parallel/spatial.py); the
-        bilateral grid takes downsample 2, 4 or 8 there (its kernels)."""
+        grids are built and sliced band by band (parallel/spatial.py), at
+        downsample 1 too: the bilateral grid's kernels, not the eager lattice
+        that one device runs at d = 1, as in the JAX package."""
         if cfg.nlm:
             raise ValueError(
                 "the NLM configs have no grid mode: turbo NLM runs through run() "
@@ -453,7 +454,8 @@ class Session:
         bp = self.bilateral_params
         if self.mesh is not None:
             d = max(1, downsample)
-            padded = self._turbo_pad_rows(target_host, bp.effective_radius, d, bp.border)
+            padded = turbo_pad_rows(target_host, self.mesh.size(1), bp.effective_radius, d,
+                                    bp.border)
             with report.transfer():
                 band = self._upload_band(padded)
             out_band = self._execute(
@@ -483,7 +485,7 @@ class Session:
             # The bilateral turbo's row rule (JAX session.py:665-697).
             d = max(1, downsample)
             target_host, *layers_host = [
-                self._turbo_pad_rows(x, lp.effective_radius, d, lp.border)
+                turbo_pad_rows(x, self.mesh.size(1), lp.effective_radius, d, lp.border)
                 for x in [target_host, *layers_host]
             ]
             with report.transfer():

@@ -80,7 +80,7 @@ def _check_cols(ws, x0, tile, border):
 
 
 @pytest.mark.parametrize("border", [BorderPolicy.CLAMP, BorderPolicy.ZERO])
-@pytest.mark.parametrize("d", fast.GUIDED_DOWNSAMPLES)
+@pytest.mark.parametrize("d", fast.DOWNSAMPLES)
 def test_window_holds_every_tap(d, border):
     """Every odd tap count of the kernel's table, at each downsample of the
     guided grid, over grids below, at and above one tile in each axis."""
@@ -209,15 +209,18 @@ def test_one_image_shared_bytes_match_the_layout(n_taps):
 
 def test_one_image_tiles_on_the_h100():
     """The bilateral build's tap counts on the main path (d = 2 and 4 at
-    sigma_s 2: 9 and 5 taps; d = 8 at sigma_s 2 and 6: 3 and 7) take the
-    16 x 32 tile, at 9 taps in 44,800 bytes against the guided build's
-    60,160; the widest table, 63 taps, takes 8 x 32 cells, where the guided
-    build takes one row of 16."""
-    for sigma_s, d, n_taps in ((2.0, 2, 9), (2.0, 4, 5), (2.0, 8, 3), (6.0, 8, 7)):
+    sigma_s 2: 9 and 5 taps; d = 8 at sigma_s 2 and 6: 3 and 7; the sharded
+    d = 1 at sigma_s 2 and 6: 17 and 49) take the 16 x 32 tile, at 9 taps in
+    44,800 bytes against the guided build's 60,160, at 49 in 179,200; the
+    widest table, 63 taps, takes 8 x 32 cells, where the guided build takes
+    one row of 16."""
+    for sigma_s, d, n_taps in ((2.0, 2, 9), (2.0, 4, 5), (2.0, 8, 3), (6.0, 8, 7),
+                               (2.0, 1, 17), (6.0, 1, 49)):
         assert fast._grid_taps(sigma_s, d).size == n_taps
         tile = fast.build_tile(n_taps, H100_SHARED_OPTIN, 1)
         assert (tile.th, tile.tw) == (16, 32)
     assert fast.build_tile(9, H100_SHARED_OPTIN, 1).shared_bytes == 44800
+    assert fast.build_tile(49, H100_SHARED_OPTIN, 1).shared_bytes == 179200
     widest = fast.build_tile(63, H100_SHARED_OPTIN, 1)
     assert (widest.th, widest.tw, widest.shared_bytes) == (8, 32, 205296)
 

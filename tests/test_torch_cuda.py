@@ -224,7 +224,7 @@ def test_pool_kernel_matches_plain(cuda, d, border):
 
 @pytest.mark.parametrize("ua", [False, True])
 @pytest.mark.parametrize("border", [BorderPolicy.CLAMP, BorderPolicy.ZERO])
-@pytest.mark.parametrize("d", [2, 4, 8])
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
 def test_build_grid_kernel_matches_plain(cuda, d, border, ua):
     small, lmin, step, taps = _grid_inputs(_image(0, cuda), d, border)
     args = (small, lmin, step, 5, taps, border, 12.5, ua)
@@ -245,7 +245,7 @@ def test_build_grid_kernel_matches_plain_at_sigma_s_6(cuda):
 
 
 @pytest.mark.parametrize("ua", [False, True])
-@pytest.mark.parametrize("d", [2, 4, 8])
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
 def test_slice_grid_kernel_matches_plain(cuda, d, ua):
     img = _image(0, cuda)
     small, lmin, step, taps = _grid_inputs(img, d)
@@ -267,6 +267,23 @@ def test_turbo_pipeline_on_card_matches_plain(cuda, d):
         "pool": 1, "build_grid": 1, "slice_grid": 1}
 
 
+@pytest.mark.parametrize("sigma_s", [2.0, 6.0])
+def test_grid_pipeline_at_d1_on_card_matches_plain(cuda, sigma_s):
+    """The sharded turbo's pipeline at d = 1 on one device (17 blur taps at
+    sigma_s 2, 49 at 6): the three kernels, within a build flip of the
+    plain pipeline; bilateral_fast at d = 1 stays the eager lattice and
+    launches none of them."""
+    img = _image(0, cuda, 61, 83)
+    bp = BilateralParams(sigma_spatial=sigma_s)
+    got = fast.grid_pipeline(img, bp, 6, 1)
+    _close(got, fast.grid_pipeline_plain(img, bp, 6, 1), rtol=0, atol=2 * 2.0**-8)
+    counts = {k: stencils.launches[k] for k in ("pool", "build_grid", "slice_grid", "fused_grid")}
+    assert counts == {"pool": 1, "build_grid": 1, "slice_grid": 1, "fused_grid": 0}
+    stencils.reset_launches()
+    fast.bilateral_fast(img, bp, 6, 1)
+    assert all(n == 0 for n in stencils.launches.values())
+
+
 def test_grid_kernels_refuse_what_they_cannot_take(cuda):
     img = _image(0, cuda)
     small, lmin, step, taps = _grid_inputs(img, 2)
@@ -278,8 +295,11 @@ def test_grid_kernels_refuse_what_they_cannot_take(cuda):
     with pytest.raises(ValueError):  # more taps than the kernel's table
         fast.build_grid(small, lmin, step, 5, np.ones(65, np.float32) / 65,
                         BorderPolicy.CLAMP, 12.5)
-    with pytest.raises(ValueError):  # d outside {2, 4, 8}
+    with pytest.raises(ValueError):  # d outside {1, 2, 4, 8}
         fast.pool(img, 3)
+    with pytest.raises(ValueError):  # no fused bilateral kernel at d = 1
+        fast.fused_grid(img, img, lmin, step, 1.0 / step, 5, fast._grid_taps(2.0, 1),
+                        BorderPolicy.CLAMP, 12.5, 1)
     with pytest.raises(ValueError):  # not contiguous
         fast.slice_grid(img, grid.transpose(1, 2).contiguous().transpose(1, 2), lmin,
                         1.0 / step, 2)
@@ -376,7 +396,7 @@ def _slab_of(grid, gy_off, rows):
     return slab
 
 
-@pytest.mark.parametrize("d", [2, 4, 8])
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
 def test_slice_kernels_whole_image_offsets_change_nothing(cuda, d):
     """The slab arguments (0, hs, 0) are the whole-image slice, bit for bit."""
     img = _image(0, cuda)
@@ -396,7 +416,7 @@ def test_slice_kernels_whole_image_offsets_change_nothing(cuda, d):
 
 
 @pytest.mark.parametrize("ua", [False, True])
-@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("d", [1, 2, 4])
 def test_slice_kernels_on_a_slab_equal_the_whole_slice(cuda, d, ua):
     """Each band of a 4-way row split, sliced against its slab of rows_s + 2
     grid rows (the sharded turbo's), equals the whole-image slice's rows bit
@@ -835,8 +855,10 @@ def test_build_guided_grid_launcher_refuses_a_short_layout(cuda):
     "d,sigma_s,n_taps,border,shape",
     [(2, 2.0, 9, BorderPolicy.CLAMP, (97, 131)), (2, 2.0, 9, BorderPolicy.ZERO, (61, 300)),
      (4, 2.0, 5, BorderPolicy.CLAMP, (7, 9)), (8, 6.0, 7, BorderPolicy.ZERO, (300, 61)),
-     (2, 15.1, 63, BorderPolicy.CLAMP, (29, 70)), (2, 15.1, 63, BorderPolicy.ZERO, (61, 83))],
-    ids=["d2", "d2_zero", "d4_below_a_tile", "d8_7taps_zero", "d2_63taps", "d2_63taps_zero"],
+     (2, 15.1, 63, BorderPolicy.CLAMP, (29, 70)), (2, 15.1, 63, BorderPolicy.ZERO, (61, 83)),
+     (1, 2.0, 17, BorderPolicy.CLAMP, (97, 131)), (1, 6.0, 49, BorderPolicy.ZERO, (61, 83))],
+    ids=["d2", "d2_zero", "d4_below_a_tile", "d8_7taps_zero", "d2_63taps", "d2_63taps_zero",
+         "d1_17taps", "d1_49taps_zero"],
 )
 def test_build_grid_kernel_equals_plain_bit_for_bit(cuda, d, sigma_s, n_taps, border, shape, ua):
     """The bilateral build shares the guided build's body with one staged
@@ -966,7 +988,7 @@ def test_fused_grid_kernel_equals_build_and_slice_at_every_table(cuda, n_taps):
     it and beyond it, one row): the fused kernel's output equals the build
     kernel's grid sliced by the slice kernel, bit for bit."""
     i = n_taps // 2
-    d = fast.DOWNSAMPLES[i % 3]
+    d = fast.FUSED_GRID_DOWNSAMPLES[i % 3]
     border = (BorderPolicy.CLAMP, BorderPolicy.ZERO)[i % 2]
     ua = i % 4 >= 2
     img = _image(i, cuda, *GRID_SHAPES[i % len(GRID_SHAPES)])

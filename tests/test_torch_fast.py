@@ -67,10 +67,24 @@ CASES = [
     (8, ZERO, False, (97, 131), 2.0),
     (8, CLAMP, False, (97, 131), 6.0),
 ]
-IDS = [
-    f"d{d}-{b}-{'ua' if ua else 'a'}-{h}x{w}" + (f"-s{s:g}" if s != 2.0 else "")
-    for d, b, ua, (h, w), s in CASES
+# The sharded turbo's d = 1 (gpu-denoise --turbo 1 --mesh): the Pallas
+# kernels at 17 taps (sigma_s 2) and 49 (sigma_s 6); one device runs the
+# eager lattice at d = 1, so only the stages and grid_pipeline take these.
+D1_CASES = [
+    (1, CLAMP, False, (64, 48), 2.0),
+    (1, ZERO, True, (40, 56), 6.0),
 ]
+
+
+def _ids(cases):
+    return [
+        f"d{d}-{b}-{'ua' if ua else 'a'}-{h}x{w}" + (f"-s{s:g}" if s != 2.0 else "")
+        for d, b, ua, (h, w), s in cases
+    ]
+
+
+IDS = _ids(CASES)
+STAGE_CASES, STAGE_IDS = CASES + D1_CASES, IDS + _ids(D1_CASES)
 
 
 def _image(shape, uniform_alpha, hdr=False):
@@ -232,14 +246,14 @@ def test_stages_are_the_grid_pipeline():
     )
 
 
-@pytest.mark.parametrize("d,border,ua,shape,sigma_s", CASES, ids=IDS)
+@pytest.mark.parametrize("d,border,ua,shape,sigma_s", STAGE_CASES, ids=STAGE_IDS)
 def test_pool_plain_matches_pallas(d, border, ua, shape, sigma_s):
     case = _jax_case(d, border, ua, shape, sigma_s)
     got = fast.pool(_t(case["img"]), d, border)
     np.testing.assert_allclose(got.numpy(), case["small"], rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("d,border,ua,shape,sigma_s", CASES, ids=IDS)
+@pytest.mark.parametrize("d,border,ua,shape,sigma_s", STAGE_CASES, ids=STAGE_IDS)
 def test_build_grid_plain_matches_pallas(d, border, ua, shape, sigma_s):
     """On the same pooled input, lmin and step; under ZERO the padded cells
     are zero pixels that keep their range weight."""
@@ -258,7 +272,7 @@ def test_build_grid_plain_matches_pallas(d, border, ua, shape, sigma_s):
     assert torch.equal(fast.grid_to_planes(fast.grid_from_planes(planes, ua), ua), planes)
 
 
-@pytest.mark.parametrize("d,border,ua,shape,sigma_s", CASES, ids=IDS)
+@pytest.mark.parametrize("d,border,ua,shape,sigma_s", STAGE_CASES, ids=STAGE_IDS)
 def test_slice_grid_plain_matches_pallas(d, border, ua, shape, sigma_s):
     """On the same bf16 grid (the pipeline's output is _slice_grid_pallas,
     pad_edge=True, of exactly this grid): the port's tent sum plus the
@@ -307,6 +321,48 @@ def test_fused_grid_is_off_by_default():
     the build and the slice."""
     for d in (2, 4, 8):
         assert fast.default_fused(d) is False and jfast._default_fused(d) is False
+
+
+@pytest.mark.parametrize("d,border,ua,shape,sigma_s", D1_CASES, ids=_ids(D1_CASES))
+def test_grid_pipeline_d1_matches_pallas_pipeline(d, border, ua, shape, sigma_s):
+    """The two-kernel pipeline at d = 1 (the sharded turbo's on one device)
+    against the JAX package's _grid_pipeline_planar(..., 1): with the
+    reference's delta rounding added back, within 1e-6 at every pixel whose
+    cell no level of the two grids stores differently, and within one
+    stored-grid bf16 ulp (2^-8) where the grid contract let a cell flip (a
+    pixel at d = 1 reads its own cell; the next one with weight 0)."""
+    case = _jax_case(d, border, ua, shape, sigma_s)
+    img = _t(case["img"])
+    bp = BilateralParams(border=border, uniform_alpha=ua, sigma_spatial=sigma_s)
+    got = fast.grid_pipeline(img, bp, K, 1)
+    assert torch.equal(got, fast.grid_pipeline_plain(img, bp, K, 1))
+    small = fast.pool(img, 1, border)
+    lmin, step = fast.grid_range(small, K)
+    grid = fast.build_grid(small, lmin, step, K, fast._grid_taps(sigma_s, 1), border, INV2SC, ua)
+    planar = jnp.transpose(jnp.asarray(case["img"]), (2, 0, 1))
+    want = _hwc(jfast._grid_pipeline_planar(planar, jax_params(bp), K, 1))
+    np.testing.assert_array_equal(want, case["out"])
+    diff = np.abs((got + _delta_rounding(img, grid, lmin, 1.0 / step, 1, ua)).numpy() - want)
+    planes = fast.grid_to_planes(grid, ua).float().numpy()
+    flipped = (planes != case["grid"].astype(np.float32)).any(0)
+    assert flipped.mean() <= 1e-2
+    scale = _scale(case["img"])
+    assert diff[~flipped].max() <= 1e-6 * scale, diff[~flipped].max()
+    assert diff.max() <= 2.0**-8 * scale, diff.max()
+
+
+def test_bilateral_fast_d1_stays_the_eager_lattice(monkeypatch):
+    """One device at d = 1 runs the eager lattice, as the JAX package runs
+    its XLA lattice there (fast.py:211-216): no grid wrapper is called, and
+    the output is not the d = 1 grid pipeline's."""
+    img = _t(_image((40, 56), False))
+    bp = BilateralParams()
+    for name in ("pool", "build_grid", "slice_grid", "fused_grid"):
+        monkeypatch.setattr(fast, name, lambda *a, _n=name, **k: pytest.fail(f"{_n} called"))
+    got = fast.bilateral_fast(img, bp, K, 1)
+    assert torch.equal(got, bilateral_fast_eager(img, bp, K, 1))
+    monkeypatch.undo()
+    assert not torch.equal(got, fast.grid_pipeline(img, bp, K, 1))
 
 
 def test_bilateral_fast_hdr_matches_grid_pipeline():
@@ -375,7 +431,7 @@ def test_grid_wrappers_check_inputs():
     lmin = small[..., :3].amin((0, 1))
     step = torch.full((3,), 0.25)
     taps = fast._grid_taps(2.0, 2)
-    with pytest.raises(ValueError):  # the kernels take d in {2, 4, 8}
+    with pytest.raises(ValueError):  # the kernels take d in {1, 2, 4, 8}
         fast.pool(img, 3)
     with pytest.raises(TypeError):
         fast.pool(img.double(), 2)
@@ -403,8 +459,8 @@ def test_fused_grid_checks_inputs():
     args = (small, img, lmin, step, 1.0 / step, K, taps, CLAMP, INV2SC)
     with pytest.raises(ValueError):  # pooled at another d
         fast.fused_grid(*args, 4)
-    with pytest.raises(ValueError):  # d outside {2, 4, 8}
-        fast.fused_grid(small, img, lmin, step, 1.0 / step, K, taps, CLAMP, INV2SC, 1)
+    with pytest.raises(ValueError, match=r"\(2, 4, 8\)"):  # no fused kernel at d = 1
+        fast.fused_grid(fast.pool(img, 1), img, lmin, step, 1.0 / step, K, taps, CLAMP, INV2SC, 1)
     with pytest.raises(ValueError):  # uniform alpha is one constant
         fast.fused_grid(*args, 2, img[0, :2, 3])
     with pytest.raises(ValueError):

@@ -27,7 +27,7 @@ THREADS = fast.FUSED_THREADS
 STRIP = fast.FUSED_STRIP
 ODD_TAPS = range(1, fast.MAX_TAPS, 2)
 # (staged images, downsample): the guided kernel's d, the bilateral's
-KERNELS = [(2, d) for d in fast.GUIDED_DOWNSAMPLES] + [(1, d) for d in fast.DOWNSAMPLES]
+KERNELS = [(2, d) for d in fast.DOWNSAMPLES] + [(1, d) for d in fast.FUSED_GRID_DOWNSAMPLES]
 KERNEL_IDS = [f"{'guided' if n == 2 else 'grid'}-d{d}" for n, d in KERNELS]
 ALL_TILES = sorted(set(fast.FUSED_GUIDED_TILES).union(*fast.FUSED_GRID_TILES.values()))
 
@@ -191,7 +191,7 @@ def test_fits_never_narrows(n_images):
     it fits now, at every downsample and odd tap count: for the guided
     kernel 43 taps at d = 2 and every table at d = 4 among them; for the
     bilateral kernel every table at d = 2, 4 and 8."""
-    downsamples = fast.GUIDED_DOWNSAMPLES if n_images == 2 else fast.DOWNSAMPLES
+    downsamples = fast.DOWNSAMPLES if n_images == 2 else fast.FUSED_GRID_DOWNSAMPLES
     for d in downsamples:
         for n_taps in ODD_TAPS:
             if _fits_before(d, n_taps, n_images):
@@ -200,7 +200,7 @@ def test_fits_never_narrows(n_images):
         assert max(n for n in ODD_TAPS if _fits_before(2, n, 2)) == 43
         assert all(_fits_before(4, n, 2) for n in ODD_TAPS)
     else:
-        assert all(_fits_before(d, n, 1) for d in fast.DOWNSAMPLES for n in ODD_TAPS)
+        assert all(_fits_before(d, n, 1) for d in fast.FUSED_GRID_DOWNSAMPLES for n in ODD_TAPS)
 
 
 def test_tiles_on_the_h100():
@@ -218,7 +218,7 @@ def test_tiles_on_the_h100():
     assert fast._grid_taps(12.0, 2).size == 49
     wide = fast.fused_tile(2, 49, H100_SHARED_OPTIN, 2)
     assert (wide.ph, wide.pw) == (16, 32)
-    widest = {d: max(n for n in ODD_TAPS if _fits(d, n, 2)) for d in fast.GUIDED_DOWNSAMPLES}
+    widest = {d: max(n for n in ODD_TAPS if _fits(d, n, 2)) for d in fast.DOWNSAMPLES}
     assert widest == {1: 45, 2: 57, 4: 63, 8: 63}
 
 
@@ -237,7 +237,7 @@ def test_grid_tiles_on_the_h100():
         assert ((tile.ph, tile.pw), (tile.rows, tile.cols)) == (pixels, cells)
         assert tile.shared_bytes <= 49248
     assert fast.fused_tile(2, 9, H100_SHARED_OPTIN, 1).shared_bytes == 49248
-    assert all(_fits(d, n, 1) for d in fast.DOWNSAMPLES for n in ODD_TAPS)
+    assert all(_fits(d, n, 1) for d in fast.FUSED_GRID_DOWNSAMPLES for n in ODD_TAPS)
     for d, pixels in ((2, (8, 64)), (4, (16, 128)), (8, (32, 256))):
         tile = fast.fused_tile(d, 63, H100_SHARED_OPTIN, 1)
         assert (tile.ph, tile.pw) == pixels
@@ -277,7 +277,7 @@ def test_tiles_shrink_in_area(n_images, d):
     (1, 2, 0), (1, 2, 8), (1, 2, 65), (1, 3, 9), (1, 1, 9), (1, 16, 9)])
 def test_arguments_the_kernel_does_not_take_are_refused(d, n_taps, n_images):
     """Even, empty or too wide tap tables, and a downsample for which the
-    kernel has no tile (d = 1 is the bilateral grid's eager lattice)."""
+    kernel has no tile (the fused bilateral kernel none at d = 1)."""
     with pytest.raises(ValueError):
         fast.fused_tile(d, n_taps, H100_SHARED_OPTIN, n_images)
 

@@ -78,6 +78,15 @@ def _turbo_frame(root):
     return target
 
 
+def _short_frame(root):
+    """20 rows: on 1x2 at d = 1 the row rule pads to two bands of 13
+    (d (rg + 1), rg = 12 at sigma_s 2)."""
+    os.makedirs(root, exist_ok=True)
+    target = f"{root}/short_0000.png"
+    imageio.save(target, np.random.default_rng(3).uniform(0, 1, (20, 64, 4)).astype(np.float32))
+    return target
+
+
 def _streams(root):
     """7 frames of 64x32 over a 2-wide 'frame' axis: 4 chunks, one padded."""
     os.makedirs(root, exist_ok=True)
@@ -108,6 +117,8 @@ def _cases(base):
          {"layers_params": LayersParams()}, {"levels": 6, "downsample": 2}),
         ("turbo_d4", (1, 4), anim, "run_turbo", RunConfig(),
          {"bilateral_params": BilateralParams()}, {"levels": 5, "downsample": 4}),
+        ("turbo_d1", (1, 2), _short_frame(f"{base}/short"), "run_turbo", RunConfig(),
+         {"bilateral_params": BilateralParams()}, {"downsample": 1}),
     ]
     return {c[0]: c for c in cases}
 
@@ -238,6 +249,26 @@ def test_sharded_session_turbo_d4_pads_each_band(sharded):
     np.testing.assert_array_equal(got, want)
 
 
+def test_sharded_session_turbo_d1(sharded, tmp_path):
+    """--turbo 1 on a mesh: 20 rows padded to two bands of 13, the grid
+    kernels at d = 1 (K = 6) band by band, cropped: bit for bit the
+    single-device two-kernel pipeline grid_pipeline(..., 1) on the same
+    padded frame, not the eager lattice one device runs at d = 1; the JAX
+    sharded Session meets it at the stored-grid bf16 contract."""
+    from test_sharding import _assert_bf16_grid_close
+    from test_torch_sharding import _grid_delta_rounding
+
+    got, case = sharded("turbo_d1")
+    bp = BilateralParams()
+    assert got.shape == (20, 64, 4)
+    want = _padded_single(case[2], 26, lambda x: fast.grid_pipeline(x, bp, 6, 1))
+    np.testing.assert_array_equal(got, want)
+    lattice = _single(case, tmp_path)
+    assert not np.array_equal(got, lattice)
+    delta = _padded_single(case[2], 26, lambda x: _grid_delta_rounding(x, bp, 6, 1))
+    _assert_bf16_grid_close(got + delta, _jax_sharded(case, tmp_path))
+
+
 def test_sharded_session_turbo_layers(sharded):
     """The turbo layers on a mesh (2 bands of 24 rows, no padding): each
     layer's banded guided grid, accumulated and normalized, equals the
@@ -275,6 +306,28 @@ def test_cli_mesh_writes_the_single_device_files(tmp_path, capsys):
     assert len(names) == 6 and names == sorted(os.listdir(tmp_path / "mesh"))
     for name in names:
         assert filecmp.cmp(tmp_path / "single" / name, tmp_path / "mesh" / name, shallow=False)
+
+
+def test_cli_mesh_turbo1_writes_the_d1_pipeline_files(tmp_path, capsys):
+    """gpu-denoise --turbo 1 --mesh 1x2 runs bilateral and linear through the
+    d = 1 grid kernels on both ranks: each file is the single-device
+    grid_pipeline(..., 1) on the row-padded frame, cropped and saved, byte
+    for byte."""
+    target = _short_frame(str(tmp_path / "short"))
+    out = tmp_path / "mesh"
+    rc, counts = cli.run([target, "--device", "cpu", "--turbo", "1", "--mesh", "1x2",
+                          "--dist-backend", "gloo", "--configs", "bilateral,linear",
+                          "--output-dir", str(out)])
+    assert rc == 0 and len(counts) == 2
+    assert capsys.readouterr().out.count("execution time:") == 2
+    want = _padded_single(target, 26, lambda x: fast.grid_pipeline(x, BilateralParams(), 6, 1))
+    ref_dir = tmp_path / "want"
+    ref_dir.mkdir()
+    for cfg in (GPU_BATTERY[0], GPU_BATTERY[2]):
+        name = cfg.output_name(False)
+        imageio.save(str(ref_dir / name), want)
+        assert filecmp.cmp(ref_dir / name, out / name, shallow=False), name
+    assert sorted(os.listdir(out)) == sorted(os.listdir(ref_dir))
 
 
 @pytest.mark.parametrize("argv,message", [

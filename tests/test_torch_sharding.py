@@ -101,6 +101,14 @@ CASES = [
           params=BilateralParams(), levels=8, downsample=4),
     _case("fast_zero", (1, 2), "bilateral_fast", {"img": _frame(3, 64, 48)},
           params=BilateralParams(border=BorderPolicy.ZERO), levels=8, downsample=2),
+    _case("fast_1x2_d1", (1, 2), "bilateral_fast", {"img": _frame(2, 128, 48)},
+          params=BilateralParams(), levels=8, downsample=1),
+    _case("fast_1x4_d1", (1, 4), "bilateral_fast", {"img": _frame(2, 128, 48)},
+          params=BilateralParams(), levels=8, downsample=1),
+    _case("fast_zero_d1", (1, 4), "bilateral_fast", {"img": _frame(2, 128, 48)},
+          params=BilateralParams(border=BorderPolicy.ZERO), levels=8, downsample=1),
+    _case("fast_1x2_d1_s6", (1, 2), "bilateral_fast", {"img": _frame(2, 128, 48)},
+          params=BilateralParams(sigma_spatial=6.0), levels=8, downsample=1),
     _case("nlm", (1, 4), "nlm", {"target": _frame(0), "neighbour": _frame(1)}, params=NP_),
     _case("linear_1x2", (1, 2), "bilateral", {"img": _frame(3)}, params=BP, linear=True),
     _case("linear_1x4", (1, 4), "bilateral", {"img": _frame(3)}, params=BP, linear=True),
@@ -134,6 +142,9 @@ CASES = [
     _case("hrw_one_y", (4, 1), "nlm", {"target": _frame(0, h=68), "neighbour": _frame(1, h=68)},
           params=_hrw()),
     _case("short_band", (1, 4), "bilateral", {"img": _frame(5, h=8)}, True, params=BP),
+    # 16 rows a band under the 25-row pooled halo of the d = 1 grid at sigma_s 6
+    _case("fast_d1_short_band", (1, 4), "bilateral_fast", {"img": _frame(2, 64, 48)}, True,
+          params=BilateralParams(sigma_spatial=6.0), levels=8, downsample=1),
 ]
 MESH_OF = {name: mesh for name, mesh, _ in CASES}
 
@@ -411,9 +422,14 @@ def _grid_delta_rounding(img, params, levels, d):
 
 
 def _check_fast(got, img, params, n_y, levels, d):
+    """The sharded grid against the single-device two-kernel pipeline, bit
+    for bit (at d = 1 that is grid_pipeline, not bilateral_fast: one device
+    runs the eager lattice there), and against the JAX sharded grid."""
     from test_sharding import _assert_bf16_grid_close
 
-    single = fast.bilateral_fast(_t(img), params, levels, d)
+    single = fast.grid_pipeline(_t(img), params, levels, d)
+    if d > 1:
+        assert torch.equal(single, fast.bilateral_fast(_t(img), params, levels, d))
     np.testing.assert_array_equal(got, single.numpy())
     want = jpar.spatial_bilateral_fast(img, jax_params(params), _jmesh((1, n_y)), levels, d)
     with_delta = single + _grid_delta_rounding(_t(img), params, levels, d)
@@ -433,6 +449,38 @@ def test_spatial_bilateral_fast_matches_single_device(outputs, n_y, d):
 def test_spatial_bilateral_fast_zero_border(outputs):
     (got,) = outputs("fast_zero")
     _check_fast(got, _frame(3, h=64, w=48), BilateralParams(border=BorderPolicy.ZERO), 2, 8, 2)
+
+
+@pytest.mark.parametrize("name,n_y,border", [("fast_1x2_d1", 2, BorderPolicy.CLAMP),
+                                             ("fast_1x4_d1", 4, BorderPolicy.CLAMP),
+                                             ("fast_zero_d1", 4, BorderPolicy.ZERO)])
+def test_spatial_bilateral_fast_d1_matches_single_device(outputs, name, n_y, border):
+    """The sharded grid at d = 1 (gpu-denoise --turbo 1 --mesh; 17 blur taps,
+    a 9-row pooled halo): the single-device pipeline grid_pipeline(..., 1)
+    bit for bit, and the JAX package's spatial_bilateral_fast(d=1), which
+    runs its Pallas kernels at d = 1, at the stored-grid bf16 contract."""
+    (got,) = outputs(name)
+    _check_fast(got, _frame(2, h=128, w=48), BilateralParams(border=border), n_y, 8, 1)
+
+
+def test_spatial_bilateral_fast_d1_wide_blur(outputs):
+    """sigma_s 6 at d = 1: 49 taps and a 25-row pooled halo, which 64-row
+    bands hold; bit for bit the single-device pipeline."""
+    (got,) = outputs("fast_1x2_d1_s6")
+    params = BilateralParams(sigma_spatial=6.0)
+    assert spatial._grid_geometry(64, 1, 6.0, "bilateral")[1] == 25
+    single = fast.grid_pipeline(_t(_frame(2, h=128, w=48)), params, 8, 1)
+    np.testing.assert_array_equal(got, single.numpy())
+
+
+def test_spatial_bilateral_fast_d1_short_band_raises_as_jax_does(outputs):
+    """Bands of 16 rows under the 25-row halo of sigma_s 6 at d = 1: the port
+    raises, and so does the JAX package's sharded grid (its halo exchange
+    refuses a shard shorter than the halo)."""
+    assert "25-row halo" in outputs("fast_d1_short_band")
+    params = jax_params(BilateralParams(sigma_spatial=6.0))
+    with pytest.raises(ValueError, match="25-row halo"):
+        jpar.spatial_bilateral_fast(_frame(2, 64, 48), params, _jmesh((1, 4)), 8, 1)
 
 
 @pytest.mark.parametrize("n_y", [2, 4])
@@ -490,7 +538,7 @@ def _slab_of(grid, gy_off, rows):
 
 
 @pytest.mark.parametrize("border", [BorderPolicy.CLAMP, BorderPolicy.ZERO])
-@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("d", [1, 2, 4])
 def test_slab_slice_equals_the_whole_slice(d, border):
     """Each band of a 4-way split sliced against its slab of rows_s + 2 grid
     rows (y_off, hs_all, gy_off) equals the whole-image slice's rows bit for

@@ -88,6 +88,47 @@ def test_nlm_hrw_bf16_bound_counts_its_half_rows():
     assert f32_only[1] == f32 + bf16
 
 
+def test_slice_grid_d1_reads_each_pixels_own_cell():
+    """At D = 1 the slice reads one cell a pixel (wy = wx = 0) at 2 of the K
+    levels of each of its 4 bf16 planes: 16 B beside the image's 32, fewer
+    than the whole grid's 8 K; and it drops the bilinear term (60
+    operations a pixel against 132). 1080p, K = 6: 0.0297 ms by bytes,
+    where reading the whole grid would take 0.0495."""
+    d1 = smoke.kernel_work("slice_grid_d1", PIXELS, cells=PIXELS, levels=6)
+    assert d1 == (48 * PIXELS, 60 * PIXELS)
+    whole = smoke.kernel_work("slice_grid", PIXELS, cells=PIXELS, levels=6)
+    assert whole == (80 * PIXELS, 132 * PIXELS)
+    b = smoke.bound(*d1)
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(0.0297, abs=5e-5)
+    assert smoke.bound(*whole)["bound_ms"] == pytest.approx(0.0495, abs=5e-5)
+
+
+@pytest.mark.parametrize("taps", [17, 49])
+def test_build_grid_d1_is_the_build_at_full_resolution(taps):
+    shape = dict(pixels=PIXELS, cells=PIXELS, levels=6, taps=taps)
+    assert smoke.kernel_work("build_grid_d1", **shape) == smoke.kernel_work("build_grid", **shape)
+
+
+@pytest.mark.parametrize("n", [None, 0, 4])
+def test_as_d1_counts_each_launch_once(n):
+    """as_d1 moves n launches (all where None) of the bilateral grid's build
+    and slice to their D = 1 names and leaves the total as it was."""
+    counts = {"pool": 3, "build_grid": 10, "slice_grid": 10, "build_guided_grid": 2}
+    got = smoke.as_d1(counts, n)
+    moved = 10 if n is None else n
+    assert got["build_grid_d1"] == got["slice_grid_d1"] == moved
+    assert got["build_grid"] == got["slice_grid"] == 10 - moved
+    assert got["pool"] == 3 and got["build_guided_grid"] == 2
+    assert sum(got.values()) == sum(counts.values())
+    assert counts["build_grid"] == 10  # the caller's counts stay
+
+
+def test_as_d1_refuses_more_launches_than_ran():
+    with pytest.raises(RuntimeError):
+        smoke.as_d1({"build_grid": 3, "slice_grid": 3}, 4)
+
+
 def test_turbo_battery_makes_the_smokes_runs():
     """Grid configs at every D of TURBO_RUNS, the NLM configs at D = 2 only,
     once more with --weights-halfres;
