@@ -34,9 +34,10 @@ Phases, one line or block each:
                 (8, 6), on that frame with its RGB scaled into [0, 4] (HDR) at
                 (2, 5), and on the 1080p target at each setting of phase 7
                 and at D=1 sigma_s 6; at D=1 (the sharded --turbo 1's form:
-                17 and 49 taps, timed at 17) the target also cut into the
-                four bands of a 1x4 mesh, each pooled, and sliced in the slab
-                form, against its plain version; the fused path,
+                17 and 49 taps, timed at 17) the slice bit for bit its plain
+                version, and the target also cut into the four bands of a
+                1x4 mesh, each pooled, and sliced in the slab form, bit for
+                bit its plain version; the fused path,
                 grid_pipeline(fused=True), driven at each 4K (D, K) with its
                 launch counts; median times at 4K (2, 5),
                 the build's and the fused kernel's registers, tile and shared
@@ -47,8 +48,10 @@ Phases, one line or block each:
                 against the two kernels, bit for bit) at 3840x2160 for the
                 same (D, K) and on the 1080p albedo layer at each setting of
                 phase 7, with median times at 4K (2, 5), and the guided
-                build's also at the main path's --turbo 1 shape (1080p, D=1,
-                K=6, 17 taps); the guided build's and the fused kernel's
+                build's and slice's also at the main path's --turbo 1 shape
+                (1080p, D=1, K=6, 17 taps), where the slice is held to its
+                plain version bit for bit, whole and on the four slab bands
+                of a 1x4 mesh; the guided build's and the fused kernel's
                 registers, tile and shared bytes; the fused kernel's time
                 against the two kernels' at 4K (2, 5) and (4, 5);
   7. turbo battery -- `gpu-denoise --turbo D` on the 1080p target: every
@@ -118,7 +121,9 @@ Phases, one line or block each:
                 animation against single-target runs; the six exact configs
                 on the EXR target through --mesh 1x4 over gloo, each output
                 phase 10's array for array.
-Then one JSON line with every kernel's launches, error, times and bound, the
+Then the SHA-256 of the .png and .exr files the phases wrote, a line for
+each directory (two runs' files compare byte for byte by these lines), one
+JSON line with every kernel's launches, error, times and bound, the
 nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -132,6 +137,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import functools
+import hashlib
 import importlib.util
 import io
 import json
@@ -184,7 +190,7 @@ BEFORE_REDESIGN_MS = {"bilateral": 1.1941, "bilateral_guided": 1.4404,
                       "build_guided_grid 4K D=2 K=5": 1.7550,
                       "build_guided_grid 1080p D=1": 7.1050,
                       "build_grid 4K D=2 K=5": 1.5590, "fused_guided 4K D=2 K=5": 0.8898,
-                      "fused_grid 4K D=2 K=5": 0.6683}
+                      "fused_grid 4K D=2 K=5": 0.6683, "slice_grid 1080p D=1 K=6": 0.0647}
 H4K, W4K = 2160, 3840
 # The HDR case of phase 5: the 4K frame's RGB clipped to [0, 1] and scaled
 # by HDR_SCALE. Its pipeline check is the LDR contract (2 bf16 ulps at values
@@ -199,10 +205,13 @@ TURBO_CELLS = ((2, 5), (4, 5), (8, 6))  # (D, K): run_turbo's K at each D
 # kernels. Phases 5 and 6 also hold the kernels to their plain
 # versions at each of these settings on the same 1080p target.
 TURBO_RUNS = ((1, 2.0), (2, 2.0), (4, 2.0), (8, 6.0))
-# The bilateral grid's build and slice kernels at D=1, as the sharded
-# --turbo 1 runs them: their own entries of the kernels line, timed and
-# counted apart from the D > 1 forms.
-D1_NAMES = ("build_grid_d1", "slice_grid_d1")
+# The grid kernels at D=1, as --turbo 1 runs them (the bilateral grid's build
+# and slice on a mesh, the guided slice for the layers on one device and on a
+# mesh): their own entries of the kernels line, timed and counted apart from
+# the D > 1 forms.
+D1_FORMS = {"build_grid": "build_grid_d1", "slice_grid": "slice_grid_d1",
+            "slice_guided_grid": "slice_guided_grid_d1"}
+D1_NAMES = tuple(D1_FORMS.values())
 # PSNR of the D=2 turbo output against the exact tiled bilateral: the repo's
 # 40 dB gate (bench.py:51, tests/test_fast.py:28).
 TURBO_GATE_DB = 40.0
@@ -436,7 +445,11 @@ def kernel_work(name: str, pixels: int, cells: int = 0, levels: int = 0, taps: i
     pixels) the build does the same work, and the slice reads each pixel's
     own cell (wy = wx = 0) at 2 of the K levels of each of its 4 planes,
     16 B a pixel, and does 60 operations a pixel (the t of 3 channels 12,
-    then 4 channels x 2 levels x (tent 4, add 2))."""
+    then 4 channels x 2 levels x (tent 4, add 2)); the guided slice reads
+    the layer (16 B), writes wc and nw (16 + 12 B) and reads each pixel's
+    own cell at 2 of the K levels of each of its 7 planes (28 B): 72 B a
+    pixel, and 96 operations (the t 12, then 7 planes x 2 levels x (tent 4,
+    add 2))."""
     grid = levels * cells
     blur = 28 * taps
     fcp = frames * cands * pixels
@@ -460,6 +473,7 @@ def kernel_work(name: str, pixels: int, cells: int = 0, levels: int = 0, taps: i
         "slice_grid_d1": (48 * pixels, 60 * pixels),
         "build_guided_grid": (32 * cells + 14 * grid, grid * (16 + blur)),
         "slice_guided_grid": (44 * pixels + 14 * grid, 222 * pixels),
+        "slice_guided_grid_d1": (72 * pixels, 96 * pixels),
         "fused_guided": (32 * cells + 44 * pixels, grid * (16 + blur) + 222 * pixels),
     }[name]
 
@@ -500,6 +514,53 @@ def grid_sample_slice(torch, grid, guide, lmin, inv_step, d: int, groups):
         return {p: out[n, c, 0] for n, group in enumerate(groups) for c, p in enumerate(group)}
 
     return call, planes
+
+
+def own_cell_reads(torch, guide, lmin, inv_step, levels: int, cell_bytes: int) -> str:
+    """What a d = 1 slice's grid reads on this guide: the levels whose tent
+    is nonzero for some RGB channel of a pixel (floor(t), and floor(t) + 1
+    where t is not whole), their mean count a pixel, and the 32-byte sectors
+    of the (K, H, W, planes) grid those cells fill (cell_bytes each), in MB
+    and bytes a pixel: the grid traffic the data needs at the memory's
+    granularity, where kernel_work counts 2 bytes a plane and level."""
+    h, w, _ = guide.shape
+    t = ((guide[..., :3] - lmin) * inv_step).clamp(0.0, levels - 1.0)
+    lo = t.floor()
+    up = t > lo
+    per_sector = 32 // cell_bytes
+    touched, sectors = 0, 0
+    for k in range(levels):
+        need = ((lo == k) | (up & (lo + 1 == k))).any(-1)
+        touched += int(need.sum())
+        pad = (-w) % per_sector
+        need = torch.nn.functional.pad(need, (0, pad)).view(h, -1, per_sector).any(-1)
+        sectors += int(need.sum())
+    return (f"{touched / (h * w):.3f} levels a pixel, {32 * sectors / 1e6:.1f} MB of 32-byte "
+            f"grid sectors ({32 * sectors / (h * w):.2f} B a pixel)")
+
+
+def output_digests(root: str) -> list[str]:
+    """One line a directory under root (files at its top under "."), and
+    one for all of them: how many .png and .exr files it holds and the
+    SHA-256 of their relative paths and bytes in sorted order, so that two
+    runs' files compare byte for byte by their lines."""
+    groups = {}
+    for dirpath, dirnames, filenames in os.walk(root):
+        dirnames.sort()
+        for name in sorted(filenames):
+            if name.endswith((".png", ".exr")):
+                rel = os.path.relpath(os.path.join(dirpath, name), root)
+                groups.setdefault(rel.split(os.sep)[0] if os.sep in rel else ".", []).append(rel)
+    total, lines = hashlib.sha256(), []
+    for group, rels in sorted(groups.items()):
+        digest = hashlib.sha256()
+        for rel in rels:
+            with open(os.path.join(root, rel), "rb") as f:
+                data = hashlib.sha256(f.read()).digest()
+            for h in (digest, total):
+                h.update(rel.encode() + data)
+        lines.append(f"{group}: {len(rels)} files, sha256 {digest.hexdigest()[:16]}")
+    return lines + [f"all output files: sha256 {total.hexdigest()}"]
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -955,13 +1016,13 @@ def pipeline_check(torch, case: str, got, want, img) -> None:
           f"({loose:.4%} of pixels beyond {1e-5 * scale:g})")
 
 
-def mesh_bands(torch, fast, note, close, case: str, slice_args, border, whole, tol) -> float:
+def mesh_bands(torch, fast, note, close, case: str, slice_args, border, whole) -> float:
     """The D = 1 grid kernels on the four bands of a 1x4 mesh, as
     spatial_bilateral_fast gives them: each band pooled against its plain
     version at TOL_POOL, and sliced in the slab form (its rows of the grid
     and one of each neighbour, the offsets y_off, hs_all, gy_off) against its
-    plain version at tol and against the whole slice's rows bit for bit.
-    Returns band 1's slab slice median ms."""
+    plain version and against the whole slice's rows, bit for bit. Returns
+    band 1's slab slice median ms."""
     img, grid, lmin, inv_step, d, alpha = slice_args
     h = img.shape[0]
     rows = h // 4
@@ -984,9 +1045,36 @@ def mesh_bands(torch, fast, note, close, case: str, slice_args, border, whole, t
     note("pool", f"{case} 1x4 bands", got, want)
     close(got, want, TOL_POOL, f"pool {case} 1x4 bands")
     got, want = torch.cat(sliced), torch.cat(sliced_plain)
-    note(D1_NAMES[1], f"{case} 1x4 slabs", got, want)
-    close(got, want, tol, f"slice_grid {case} 1x4 slabs")
+    note("slice_grid_d1", f"{case} 1x4 slabs", got, want)
+    check(torch.equal(got, want), f"slice_grid {case} 1x4 slabs: not bit for bit the plain version")
     return slab_ms
+
+
+def guided_bands(torch, fast, note, case: str, slice_args, whole) -> None:
+    """The guided slice at D = 1 on the four bands of a 1x4 mesh, as
+    spatial_cross_bilateral_layers_fast gives them: each band sliced in the
+    slab form (its rows of the grid and one of each neighbour, the offsets
+    y_off, hs_all, gy_off) against its plain version and against the whole
+    slice's rows, bit for bit."""
+    layer, grid, lmin, inv_step, d = slice_args
+    h = layer.shape[0]
+    rows = h // 4
+    sliced, sliced_plain = [], []
+    for i in range(4):
+        band = layer[i * rows : (i + 1) * rows].contiguous()
+        lo = max(i * rows - 1, 0)
+        off = (i * rows, h, lo)
+        slab = grid[:, lo : min((i + 1) * rows + 1, h)].contiguous()
+        sliced.append(fast.slice_guided_grid(band, slab, lmin, inv_step, d, *off))
+        sliced_plain.append(fast.slice_guided_grid_plain(band, slab, lmin, inv_step, d, off))
+        for g, part in zip(sliced[-1], whole):
+            check(torch.equal(g, part[i * rows : (i + 1) * rows]),
+                  f"slice_guided_grid {case} slab band {i}: differs from the whole slice's rows")
+    got = tuple(torch.cat(parts) for parts in zip(*sliced))
+    want = tuple(torch.cat(parts) for parts in zip(*sliced_plain))
+    note("slice_guided_grid_d1", f"{case} 1x4 slabs", got, want)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"slice_guided_grid {case} 1x4 slabs: not bit for bit the plain version")
 
 
 def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: bool = False):
@@ -1009,7 +1097,8 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: b
     img4k = torch.from_numpy(frame_4k).to("cuda")
     img1080 = torch.from_numpy(frame_1080).to("cuda")
     results = {k: {"max_abs_err": 0.0}
-               for k in ("pool", "build_grid", "slice_grid", "fused_grid", *D1_NAMES)}
+               for k in ("pool", "build_grid", "slice_grid", "fused_grid", "build_grid_d1",
+                         "slice_grid_d1")}
     path_counts = dict.fromkeys(stencils.launches, 0)
     tag = " HDR" if hdr else ""
 
@@ -1047,7 +1136,8 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: b
         border, ua = bp.border, bp.uniform_alpha
         case = (f"{label} D={d} K={levels} {border} sigma_s {bp.sigma_spatial:g}"
                 f"{' ua' if ua else ''}")
-        build_name, slice_name = D1_NAMES if d == 1 else ("build_grid", "slice_grid")
+        build_name, slice_name = (D1_FORMS[k] if d == 1 else k for k in ("build_grid",
+                                                                          "slice_grid"))
         small = fast.pool_plain(img, d, border)
         got = fast.pool(img, d, border)
         note("pool", case, got, small)
@@ -1063,11 +1153,9 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: b
         want = fast.slice_grid_plain(*slice_args)
         got = fast.slice_grid(*slice_args)
         note(slice_name, case, got, want)
-        tol_slice = scaled(TOL_SLICE, max(1.0, float(img[..., :3].abs().max())))
-        close(got, want, tol_slice, f"slice_grid {case}")
-        if d == 1:
-            slab_ms = mesh_bands(torch, fast, note, close, case, slice_args, border, got,
-                                 tol_slice)
+        if d == 1:  # the own cell at the touched levels, in level order: bit for bit
+            check(torch.equal(got, want), f"slice_grid {case}: not bit for bit the plain version")
+            slab_ms = mesh_bands(torch, fast, note, close, case, slice_args, border, got)
             n_taps = len(build_args[4])
             build_ms = median_ms(torch, lambda a=build_args: fast.build_grid(*a), 10)
             info = fast.build_grid_info(img.device, n_taps, border)
@@ -1090,7 +1178,11 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: b
                               for p, v in planes(sample()).items())
                 print(f"  grid_sample yardstick vs slice_grid {case}: max abs {lib_err:.3g}")
                 library_d1 = {slice_name: sample}
+                print(f"  slice_grid {case} reads "
+                      f"{own_cell_reads(torch, img, lmin, 1.0 / step, levels, 8)}")
         else:
+            close(got, want, scaled(TOL_SLICE, max(1.0, float(img[..., :3].abs().max()))),
+                  f"slice_grid {case}")
             fused_args = (small, img, lmin, step, 1.0 / step, *build_args[3:7], d, slice_args[5])
             got = fast.fused_grid(*fused_args)
             two = fast.slice_grid(img, fast.build_grid(*build_args), *slice_args[2:])
@@ -1141,6 +1233,10 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: b
 
     time_kernels(torch, results, timed_d1, shapes_d1, library_d1,
                  f"1080p{tag} D=1 K={turbo_levels(1)}")
+    if not hdr:
+        key = f"slice_grid 1080p D=1 K={turbo_levels(1)}"
+        print(f"  {key}: median {results['slice_grid_d1']['ms']:.4f} ms, before the redesign "
+              f"{BEFORE_REDESIGN_MS[key]} ms")
     where = f"4K{tag} D=2 K=5"
     if hdr:
         time_kernels(torch, results, timed, shapes, library, where)
@@ -1200,11 +1296,15 @@ def phase_guided_kernels(torch, fast, cfg, images, hdr: bool = False):
     the stored-grid bf16 contract, the slice at TOL_SLICE on the plain grid,
     and the fused kernel bit for bit against the two kernels, at 4K for each
     (D, K) of TURBO_CELLS (ZERO border once) and on the 1080p albedo layer at
-    each setting of the turbo battery. images: {"4K" | "1080p": (target,
-    layer)} on the card. Returns {kernel: {max_abs_err, ms, ...}}. With hdr
-    the targets are HDR content (phase 10), the slice's absolute tolerance
-    times the target's max |RGB|; the kernels are timed at 4K D=2 K=5 only."""
-    kernels = ("build_guided_grid", "slice_guided_grid", "fused_guided")
+    each setting of the turbo battery. At D = 1 (the --turbo 1 layers'
+    form, recorded under slice_guided_grid_d1) the slice is held to its plain
+    version bit for bit, on the whole layer and in the slab form on the four
+    bands of a 1x4 mesh, each band the whole slice's rows. images: {"4K" |
+    "1080p": (target, layer)} on the card. Returns {kernel: {max_abs_err,
+    ms, ...}}. With hdr the targets are HDR content (phase 10), the slice's
+    absolute tolerance times the target's max |RGB|; the kernels are timed
+    at 4K D=2 K=5 and the D = 1 slice at 1080p D=1 K=6 only."""
+    kernels = ("build_guided_grid", "slice_guided_grid", "slice_guided_grid_d1", "fused_guided")
     results = {k: {"max_abs_err": 0.0} for k in kernels}
     clamp, zero = cfg.BorderPolicy.CLAMP, cfg.BorderPolicy.ZERO
     inv2sc = 0.5 / cfg.LayersParams().sigma_color**2
@@ -1219,6 +1319,18 @@ def phase_guided_kernels(torch, fast, cfg, images, hdr: bool = False):
         results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
         print(f"  {kernel:17s} {case:34s} max abs {err:.3g}")
 
+    def yardstick(case, grid, layer, lmin, step, d, sliced):
+        """The slice's library yardstick: one trilinear grid_sample over the
+        planes of each channel (alpha's numerator under green's t), its
+        distance from the kernel's output printed."""
+        sample, planes = grid_sample_slice(torch, grid, layer, lmin, 1.0 / step, d,
+                                           [(0, 4), (1, 3, 5), (2, 6)])
+        kernel_out = torch.cat(sliced, -1)
+        lib_err = max(float((v - kernel_out[..., p]).abs().max())
+                      for p, v in planes(sample()).items())
+        print(f"  grid_sample yardstick vs slice_guided_grid {case}: max abs {lib_err:.3g}")
+        return sample
+
     cells = []  # (label, D, K, sigma_s, border)
     for d, levels in TURBO_CELLS:
         cells.append(("4K", d, levels, 2.0, clamp))
@@ -1227,7 +1339,7 @@ def phase_guided_kernels(torch, fast, cfg, images, hdr: bool = False):
     for d, sigma_s in TURBO_RUNS:
         cells.append(("1080p", d, turbo_levels(d), sigma_s, clamp))
 
-    timed, fused_vs_two = {}, {}
+    timed, fused_vs_two, timed_d1 = {}, {}, {}
     for label, d, levels, sigma_s, border in cells:
         target, layer = images[label]
         label += tag
@@ -1244,11 +1356,18 @@ def phase_guided_kernels(torch, fast, cfg, images, hdr: bool = False):
         check_bf16_close(torch, got, grid, f"build_guided_grid {case}")
         slice_args = (layer, grid, lmin, 1.0 / step, d)
         want = fast.slice_guided_grid_plain(*slice_args)
-        got = fast.slice_guided_grid(*slice_args)
-        note("slice_guided_grid", case, got, want)
-        for g, w in zip(got, want):
-            ok = bool(((g - w).abs() <= tol["atol"] + tol["rtol"] * w.abs()).all())
-            check(ok, f"slice_guided_grid {case}: max abs {float((g - w).abs().max()):.3g}")
+        sliced = fast.slice_guided_grid(*slice_args)
+        slice_name = "slice_guided_grid_d1" if d == 1 else "slice_guided_grid"
+        note(slice_name, case, sliced, want)
+        for g, w in zip(sliced, want):
+            if d == 1:
+                check(torch.equal(g, w), f"slice_guided_grid {case}: max abs "
+                                         f"{float((g - w).abs().max()):.3g}, not bit for bit")
+            else:
+                ok = bool(((g - w).abs() <= tol["atol"] + tol["rtol"] * w.abs()).all())
+                check(ok, f"slice_guided_grid {case}: max abs {float((g - w).abs().max()):.3g}")
+        if d == 1:
+            guided_bands(torch, fast, note, case, slice_args, sliced)
         fused_args = (small_t, small_l, layer, lmin, step, 1.0 / step, levels, taps, border,
                       inv2sc, d)
         if fast.fused_guided_fits(d, taps.size, layer.device):
@@ -1261,8 +1380,15 @@ def phase_guided_kernels(torch, fast, cfg, images, hdr: bool = False):
             # against its plain version, the composition of the two plain
             # versions (`want`): the build's bf16 flips through the slice
             note("fused_guided", case, got, want)
-        if label == "1080p" and d == 1:
+        if label == "1080p" + tag and d == 1:
             main_build = build_args  # the main path's --turbo 1 build
+            timed_d1 = {slice_name: (lambda a=slice_args: fast.slice_guided_grid(*a),
+                                     lambda a=slice_args: fast.slice_guided_grid_plain(*a))}
+            pixels = layer.shape[0] * layer.shape[1]
+            shape_d1 = dict(pixels=pixels, cells=pixels, levels=levels)
+            sample_d1 = yardstick(case, grid, layer, lmin, step, d, sliced)
+            print(f"  slice_guided_grid {case} reads "
+                  f"{own_cell_reads(torch, layer, lmin, 1.0 / step, levels, 16)}")
         if label == "4K" and d in (2, 4) and border == clamp:
             fused_vs_two[d] = (fused_args, build_args, slice_args[2:])
         if label == "4K" + tag and d == 2 and border == clamp:
@@ -1277,16 +1403,10 @@ def phase_guided_kernels(torch, fast, cfg, images, hdr: bool = False):
             shape = dict(pixels=layer.shape[0] * layer.shape[1],
                          cells=small_t.shape[0] * small_t.shape[1], levels=levels,
                          taps=taps.size)
-            # The slice's library yardstick: one trilinear grid_sample over
-            # the planes of each channel (alpha's numerator under green's t).
-            sample, planes = grid_sample_slice(torch, grid, layer, lmin, 1.0 / step, d,
-                                               [(0, 4), (1, 3, 5), (2, 6)])
-            kernel_out = torch.cat(fast.slice_guided_grid(*slice_args), -1)
-            lib_err = max(float((v - kernel_out[..., p]).abs().max())
-                          for p, v in planes(sample()).items())
-            print(f"  grid_sample yardstick vs slice_guided_grid {case}: max abs {lib_err:.3g}")
-            library = {"slice_guided_grid": sample}
+            library = {"slice_guided_grid": yardstick(case, grid, layer, lmin, step, d, sliced)}
     time_kernels(torch, results, timed, dict.fromkeys(timed, shape), library, f"4K{tag} D=2 K=5")
+    time_kernels(torch, results, timed_d1, dict.fromkeys(timed_d1, shape_d1),
+                 dict.fromkeys(timed_d1, sample_d1), f"1080p{tag} D=1 K={shape_d1['levels']}")
     if hdr:
         return results
     # The guided build at the main path's --turbo 1 shape, and as compiled.
@@ -1320,14 +1440,15 @@ def phase_guided_kernels(torch, fast, cfg, images, hdr: bool = False):
 
 # Kernels each turbo run may launch, and must: the grid configs through the
 # bilateral grid (pool, build, slice; D=1 is the eager lattice on one
-# device) and the
-# guided grid (fused at D = 2 and 4, the guided build and slice at D = 1 and
-# 8, beside the pool); the NLM configs through the bf16 NLM, or with
+# device) and the guided grid (fused at D = 2 and 4, the guided build and
+# slice at D = 1 and 8, the slice under its D = 1 name there, beside the
+# pool); the NLM configs through the bf16 NLM, or with
 # --weights-halfres the bf16 half-row NLM, and normalize.
 def turbo_kernels(d: int, nlm: bool, flags: tuple = ()) -> set:
     if nlm:
         return {"nlm_hrw_bf16" if "--weights-halfres" in flags else "nlm_bf16", "normalize"}
-    guided = {"fused_guided"} if d in (2, 4) else {"build_guided_grid", "slice_guided_grid"}
+    guided = {"fused_guided"} if d in (2, 4) else {
+        "build_guided_grid", "slice_guided_grid_d1" if d == 1 else "slice_guided_grid"}
     return {"pool"} | guided | ({"build_grid", "slice_grid"} if d > 1 else set())
 
 
@@ -1370,7 +1491,8 @@ def phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir):
     """gpu-denoise --turbo D on the card (turbo_battery), each run's launch
     counts read just after it; checks every output against the clean render
     and phase 4's exact output of its config, with the gates at D = 2.
-    Returns the summed launch counts."""
+    Returns the summed launch counts, the D = 1 runs' guided slice under its
+    D = 1 name."""
     names = output_names(cli, cfg)
     exact = {k: imageio.load(os.path.join(exact_dir, names[k]))[0]
              for k in ("bilateral", "layers") + NLM_CONFIGS}
@@ -1379,13 +1501,15 @@ def phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir):
     gates = {"bilateral": (TURBO_GATE_DB, 4), "layers": (TURBO_LAYERS_GATE_DB, 3),
              "nlm": (TURBO_NLM_GATE_DB, 3)}
     hrw_gates = {"nlm": (TURBO_HRW_GATE_DB, 3)}
-    totals = dict.fromkeys(stencils.launches, 0)
+    totals = dict.fromkeys((*stencils.launches, *D1_NAMES), 0)
     counts = {}
 
     def run(argv):
         stencils.reset_launches()
         result = run_cli(cli, argv)
-        counts.update(stencils.launches)
+        d = int(argv[argv.index("--turbo") + 1])
+        counts.clear()
+        counts.update(as_d1(stencils.launches) if d == 1 else stencils.launches)
         return result
 
     for d, sigma_s, keys, flags, text, readings in turbo_battery(cli, cfg, imageio, anim, root,
@@ -1620,15 +1744,18 @@ def turbo1_mesh_gate(label: str, got: np.ndarray, exact: np.ndarray, hdr: bool) 
     return f"{db:.4f} dB vs exact over RGB (JAX {jax_db}, gate {gate:.4f})"
 
 
-def as_d1(counts: dict, n: int | None = None) -> dict:
+def as_d1(counts: dict, n: int | None = None, n_guided: int | None = None) -> dict:
     """counts with n launches (all of them where None) of the bilateral
-    grid's build and slice moved to their D = 1 names (D1_NAMES), so that
-    each launch is counted once, under the form that ran."""
+    grid's build and slice, and n_guided (likewise) of the guided slice,
+    moved to their D = 1 names (D1_FORMS), so that each launch is counted
+    once, under the form that ran."""
     out = dict(counts)
-    for name, d1 in zip(("build_grid", "slice_grid"), D1_NAMES):
-        moved = out[name] if n is None else n
-        check(out[name] >= moved, f"{name}: {out[name]} launches, {moved} of them at D = 1")
-        out[name] -= moved
+    for name, d1 in D1_FORMS.items():
+        ran = out.get(name, 0)
+        moved = n_guided if name == "slice_guided_grid" else n
+        moved = ran if moved is None else moved
+        check(ran >= moved, f"{name}: {ran} launches, {moved} of them at D = 1")
+        out[name] = ran - moved
         out[d1] = out.get(d1, 0) + moved
     return out
 
@@ -1887,10 +2014,12 @@ def phase_sharded(torch, cfg, stencils, fast, cli, imageio, launch, dryrun, turb
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         counts = dryrun.dryrun(4, "cuda", "gloo")
-    # its D = 1 bilateral grid builds and slices once a rank
-    n_d1 = sum(c["kind"] == "bilateral_fast" and c["kw"]["downsample"] == 1
-               for c in dryrun.dryrun_cases(4)[0])
-    for k, n in as_d1(counts, 4 * n_d1).items():
+    # its D = 1 bilateral grid builds and slices once a rank, and its D = 1
+    # guided grid slices once a rank
+    cases = dryrun.dryrun_cases(4)[0]
+    n_d1 = {kind: 4 * sum(c["kind"] == kind and c["kw"]["downsample"] == 1 for c in cases)
+            for kind in ("bilateral_fast", "layers_fast")}
+    for k, n in as_d1(counts, n_d1["bilateral_fast"], n_d1["layers_fast"]).items():
         totals[k] += n
     for line in out.getvalue().splitlines():
         print("  " + line)
@@ -2307,7 +2436,8 @@ def phase_hdr(torch, cfg, stencils, fast, cli, imageio, dataset, native, Session
     def run(what, argv, expected):
         stencils.reset_launches()
         rc, text, err = run_cli(cli, [*argv, "--device", "cuda"])
-        counts = dict(stencils.launches)
+        d1 = "--turbo" in argv and argv[argv.index("--turbo") + 1] == "1"
+        counts = as_d1(stencils.launches) if d1 else dict(stencils.launches)
         check(rc == 0, f"{what} failed ({rc}): {err.strip()}")
         check(all(counts[k] > 0 for k in expected) and
               all(n == 0 for k, n in counts.items() if k not in expected),
@@ -2487,8 +2617,7 @@ def main() -> int:
         kernels.update(phase_guided_kernels(torch, fast, cfg, images))
         del images
         print("[7/11] turbo battery through gpu-denoise --turbo D --device cuda")
-        totals = {**phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir),
-                  **dict.fromkeys(D1_NAMES, 0)}
+        totals = phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir)
         print("[8/11] CPU configs, parity, profile, content")
         t0 = time.perf_counter()
         profiled = phase_cpu_parity_profile(torch, cfg, stencils, cli, imageio, content,
@@ -2520,6 +2649,9 @@ def main() -> int:
         print(f"  phase 11: {time.perf_counter() - t0:.1f} s")
         for k, n in host_counts.items():
             totals[k] += n
+        print("output files of phases 3-11, by directory:")
+        for line in output_digests(root):
+            print("  " + line)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     check_no_jax()
@@ -2544,6 +2676,8 @@ def main() -> int:
         "fused_grid": (FAST_SOURCE, f"{JAX_FAST}:730"),
         "build_guided_grid": (FAST_SOURCE, f"{JAX_FAST}:1269"),
         "slice_guided_grid": (FAST_SOURCE, f"{JAX_FAST}:1372"),
+        # at D = 1, as --turbo 1 runs it for the layers (phases 7, 9, 10)
+        "slice_guided_grid_d1": (FAST_SOURCE, f"{JAX_FAST}:1372"),
         "fused_guided": (FAST_SOURCE, f"{JAX_FAST}:1516"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -156,6 +156,8 @@ def library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr,
     ]
     lib.idf_slice_grid.restype = i32
+    lib.idf_slice_grid_bilinear.argtypes = lib.idf_slice_grid.argtypes
+    lib.idf_slice_grid_bilinear.restype = i32
     lib.idf_build_guided_grid.argtypes = [
         ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, f32, i32, ptr, ptr,
     ]

@@ -317,6 +317,93 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
   out_nw[3 * idx + 2] = acc[6];
 }
 
+// ---------------------------------------------------------------------------
+// The bilateral grid's slice at d = 1
+// ---------------------------------------------------------------------------
+
+// One RGB channel's levels at d = 1: its tent is nonzero at floor(t) and
+// floor(t) + 1 only (t in [0, K-1]). lo = floor(t), its tent 1 - frac(t) > 0;
+// hi = lo + 1 clamped to K - 1, its tent zero where t is whole or lo is the
+// last level. Both tents are the d >= 2 kernels' expression.
+struct Levels {
+  int lo, hi;
+  float e_lo, e_hi;
+};
+
+__device__ __forceinline__ Levels channel_levels(float t, int levels) {
+  Levels v;
+  v.lo = static_cast<int>(t);  // t >= 0: truncation is floor
+  v.hi = min(v.lo + 1, levels - 1);
+  v.e_lo = fmaxf(1.f - fabsf(t - static_cast<float>(v.lo)), 0.f);
+  v.e_hi = v.lo + 1 < levels ? fmaxf(1.f - fabsf(t - static_cast<float>(v.lo + 1)), 0.f) : 0.f;
+  return v;
+}
+
+// One channel's slice from its own cell's values at its two levels, summed
+// from +0 in level order; a zero tent adds nothing (a finite cell gives +-0,
+// and the sum never holds -0).
+__device__ __forceinline__ float sum_levels(const Levels& v, float at_lo, float at_hi) {
+  float acc = __fadd_rn(0.f, __fmul_rn(v.e_lo, at_lo));
+  if (v.e_hi != 0.f) acc = __fadd_rn(acc, __fmul_rn(v.e_hi, at_hi));
+  return acc;
+}
+
+// Grid slice at d = 1: slice_grid_kernel's output where gy = y and gx = x,
+// so the bilinear taps fall on the pixel's own cell with weights wy = wx = 0.
+//
+// Replaces image_denoising_filter_tpu/ops/fast.py:_slice_grid_pallas (502)
+// as image_denoising_filter_tpu/parallel/spatial.py:spatial_bilateral_fast
+// runs it at d = 1 (the sharded --turbo 1). Each channel's sum is its own
+// cell at its two levels (channel_levels), in ascending order from +0. On a
+// finite grid, which a finite frame always gives (build_grid clamps the
+// normaliser to at least 1e-20), that is slice_grid_kernel's (and
+// slice_grid_plain's) sum bit for bit: there a corner enters as b * 0 = +-0
+// and the own cell as a * 1 = a, and the levels where the channel's tent is
+// zero add +-0 to a sum that is never -0. On a non-finite grid the two
+// differ where this kernel does not read a cell the others weigh by zero
+// (0 * inf = NaN): a cell beside the pixel's own, or its own cell at a level
+// that only another channel's tent touches (slice_grid_plain sums every
+// level, so any level's).
+//
+// Bound on the H100: device memory, 48 B a pixel: the guide read (16 B),
+// the output written (16 B) and the own cell at 2 of the K levels (16 B);
+// the grid (K x 8 B a pixel, 99.5 MB at 1080p, K = 6) does not fit the 50 MB
+// L2. slice_grid_kernel walks the levels one after another, each level's
+// loads waiting on the last, so a thread has one level's bytes in flight.
+// Design: a thread takes one pixel, reads its guide, then issues all six
+// cell loads (the lo and hi cell of each RGB channel; repeats served by L1)
+// before it uses the first. Alpha rides green's levels; under uniform alpha
+// it is the constant *alpha. The slab form is slice_grid_kernel's: the cell
+// row is clamp(y + y_off, 0, hs_all - 1) - gy_off, the column x.
+template <bool UNIFORM_ALPHA>
+__global__ void __launch_bounds__(kBlockX* kBlockY)
+    slice_grid_d1_kernel(const float4* __restrict__ guide, const Bf16x4* __restrict__ grid,
+                         const float* __restrict__ lmin, const float* __restrict__ inv_step,
+                         const float* __restrict__ alpha, float4* __restrict__ out, int h,
+                         int w, int hs, int levels, int y_off, int hs_all, int gy_off) {
+  const int y = blockIdx.y * kBlockY + threadIdx.y;
+  const int x = blockIdx.x * kBlockX + threadIdx.x;
+  if (y >= h || x >= w) return;
+  const float kmax = static_cast<float>(levels - 1);
+  const size_t idx = static_cast<size_t>(y) * w + x;
+  const size_t plane = static_cast<size_t>(hs) * w;
+  const Bf16x4* own =
+      grid + static_cast<size_t>(min(max(y + y_off, 0), hs_all - 1) - gy_off) * w + x;
+  const float4 g = guide[idx];
+  const Levels r = channel_levels(clip_t(g.x, lmin[0], inv_step[0], kmax), levels);
+  const Levels gr = channel_levels(clip_t(g.y, lmin[1], inv_step[1], kmax), levels);
+  const Levels b = channel_levels(clip_t(g.z, lmin[2], inv_step[2], kmax), levels);
+  const Bf16x4 r_lo = own[r.lo * plane], r_hi = own[r.hi * plane];
+  const Bf16x4 g_lo = own[gr.lo * plane], g_hi = own[gr.hi * plane];
+  const Bf16x4 b_lo = own[b.lo * plane], b_hi = own[b.hi * plane];
+  float4 acc;  // r: lo.x, g: lo.y, b: hi.x, a: hi.y
+  acc.x = sum_levels(r, __low2float(r_lo.lo), __low2float(r_hi.lo));
+  acc.y = sum_levels(gr, __high2float(g_lo.lo), __high2float(g_hi.lo));
+  acc.z = sum_levels(b, __low2float(b_lo.hi), __low2float(b_hi.hi));
+  acc.w = UNIFORM_ALPHA ? *alpha : sum_levels(gr, __high2float(g_lo.hi), __high2float(g_hi.hi));
+  out[idx] = acc;
+}
+
 // The blocks below are defined in ops/fast.py and passed to nvcc as macros
 // by ops/_build.py. Room kept beside a fused kernel's dynamic shared memory
 // for its static arrays.
@@ -1146,6 +1233,46 @@ auto fused_grid_instance(int zero_border, bool uniform_alpha) {
   return uniform_alpha ? fused_grid_kernel<false, true> : fused_grid_kernel<false, false>;
 }
 
+// The bilateral slice's launcher: own_cell (d == 1 only, so ws == w)
+// launches slice_grid_d1_kernel, else slice_grid_kernel, which takes every d.
+int launch_slice_grid(const void* guide, const void* grid, const void* lmin, const void* inv_step,
+                      const void* alpha, void* out, int h, int w, int hs, int ws, int levels,
+                      int d, int y_off, int hs_all, int gy_off, bool own_cell, void* stream) {
+  if (d <= 0 || levels <= 0 || !slab_ok(y_off, d, hs, hs_all, gy_off) ||
+      (own_cell && (d != 1 || ws != w))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+  const dim3 block(kBlockX, kBlockY);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float4* gd = static_cast<const float4*>(guide);
+  const Bf16x4* g = static_cast<const Bf16x4*>(grid);
+  const float* lm = static_cast<const float*>(lmin);
+  const float* is = static_cast<const float*>(inv_step);
+  const float* a = static_cast<const float*>(alpha);
+  float4* o = static_cast<float4*>(out);
+  if (own_cell) {  // d == 1: ws == w, the cell row y + y_off
+    const dim3 blocks = grid_for(w, h);
+    if (a != nullptr) {
+      slice_grid_d1_kernel<true><<<blocks, block, 0, s>>>(gd, g, lm, is, a, o, h, w, hs, levels,
+                                                            y_off, hs_all, gy_off);
+    } else {
+      slice_grid_d1_kernel<false><<<blocks, block, 0, s>>>(gd, g, lm, is, a, o, h, w, hs,
+                                                             levels, y_off, hs_all, gy_off);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const float inv_d = 1.f / static_cast<float>(d);
+  if (a != nullptr) {
+    slice_grid_kernel<true><<<grid_for(w, h), block, 0, s>>>(
+        gd, g, lm, is, a, o, h, w, hs, ws, levels, inv_d, y_off / d, hs_all, gy_off);
+  } else {
+    slice_grid_kernel<false><<<grid_for(w, h), block, 0, s>>>(
+        gd, g, lm, is, a, o, h, w, hs, ws, levels, inv_d, y_off / d, hs_all, gy_off);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1197,31 +1324,24 @@ int idf_build_grid_info(int zero_border, int shared_bytes, int* info) {
 // gy_off: the slab form (slice_grid_kernel), the guide's first row in the
 // image (a multiple of d), the image's grid rows, the grid's first row among
 // them; 0, hs, 0 for the whole image. ops/fast.py:check_slab checks that
-// the grid holds every row the band reads.
+// the grid holds every row the band reads. d = 1 launches
+// slice_grid_d1_kernel, any other d slice_grid_kernel.
 int idf_slice_grid(const void* guide, const void* grid, const void* lmin, const void* inv_step,
                    const void* alpha, void* out, int h, int w, int hs, int ws, int levels, int d,
                    int y_off, int hs_all, int gy_off, void* stream) {
-  if (d <= 0 || levels <= 0 || !slab_ok(y_off, d, hs, hs_all, gy_off)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
-  const dim3 block(kBlockX, kBlockY);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float4* gd = static_cast<const float4*>(guide);
-  const Bf16x4* g = static_cast<const Bf16x4*>(grid);
-  const float* lm = static_cast<const float*>(lmin);
-  const float* is = static_cast<const float*>(inv_step);
-  const float* a = static_cast<const float*>(alpha);
-  float4* o = static_cast<float4*>(out);
-  const float inv_d = 1.f / static_cast<float>(d);
-  if (a != nullptr) {
-    slice_grid_kernel<true><<<grid_for(w, h), block, 0, s>>>(
-        gd, g, lm, is, a, o, h, w, hs, ws, levels, inv_d, y_off / d, hs_all, gy_off);
-  } else {
-    slice_grid_kernel<false><<<grid_for(w, h), block, 0, s>>>(
-        gd, g, lm, is, a, o, h, w, hs, ws, levels, inv_d, y_off / d, hs_all, gy_off);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_slice_grid(guide, grid, lmin, inv_step, alpha, out, h, w, hs, ws, levels, d,
+                           y_off, hs_all, gy_off, d == 1, stream);
+}
+
+// idf_slice_grid's arguments, through slice_grid_kernel at every d: the
+// bilinear form at d = 1, whose bytes the card tests hold
+// slice_grid_d1_kernel to. The port's wrappers never call it.
+int idf_slice_grid_bilinear(const void* guide, const void* grid, const void* lmin,
+                            const void* inv_step, const void* alpha, void* out, int h, int w,
+                            int hs, int ws, int levels, int d, int y_off, int hs_all,
+                            int gy_off, void* stream) {
+  return launch_slice_grid(guide, grid, lmin, inv_step, alpha, out, h, w, hs, ws, levels, d,
+                           y_off, hs_all, gy_off, false, stream);
 }
 
 // small_t, small_l: (hs, ws, 4) float32 pooled target and layer; lmin, step:

@@ -465,6 +465,181 @@ def test_slice_launchers_refuse_a_band_off_the_lattice(cuda):
     assert stencils.launches["slice_grid"] == 0
 
 
+# ---------------------------------------------------------------------------
+# The two slices at d = 1: the bilateral grid's own-cell instance, and the
+# guided slice's one kernel. The instance is held to its plain version and
+# also to the bilinear kernel's bytes (idf_slice_grid_bilinear): the plain
+# version is PyTorch's arithmetic, while the bilinear kernel is what wrote
+# every --turbo 1 --mesh file before the instance existed, so the second
+# comparison shows those files unchanged on the ragged widths, short heights
+# and slab bands that tools/torch_kernel_ab.py's 1080p case does not reach.
+# ---------------------------------------------------------------------------
+
+
+def _bilinear(guide, grid, lmin, inv_step, d, alpha, slab=None):
+    """slice_grid's launch through idf_slice_grid_bilinear: slice_grid_kernel,
+    the d >= 2 kernel, at any d."""
+    h, w, _ = guide.shape
+    levels, hs, ws, _ = grid.shape
+    y_off, hs_all, gy_off = (0, hs, 0) if slab is None else slab
+    out = torch.empty_like(guide)
+    rc = stencils._build.library().idf_slice_grid_bilinear(
+        guide.data_ptr(), grid.data_ptr(), lmin.data_ptr(), inv_step.data_ptr(),
+        None if alpha is None else alpha.data_ptr(), out.data_ptr(), h, w, hs, ws, levels, d,
+        y_off, hs_all, gy_off, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return out
+
+
+def _same_bits(a, b):
+    """torch.equal on the float32 words: -0.0 and +0.0 differ."""
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _d1_frame(seed, device, h, w, hdr):
+    """A frame whose RGB spans [0, 1], or [-5, 40] (HDR), its first pixel at
+    the range's low end and its last at the high end."""
+    img = _image(seed, device, h, w)
+    if hdr:
+        img[..., :3] = img[..., :3] * 45.0 - 5.0
+    img[0, 0, :3] = img[..., :3].amin((0, 1))
+    img[-1, -1, :3] = img[..., :3].amax((0, 1))
+    return img
+
+
+D1_SHAPES = [(1, 1), (1, 31), (9, 33), (9, 37), (1, 97), (9, 64), (29, 37)]
+
+
+@pytest.mark.parametrize("hdr", [False, True], ids=["ldr", "hdr"])
+@pytest.mark.parametrize("ua", [False, True])
+@pytest.mark.parametrize("h,w", D1_SHAPES)
+def test_slice_grid_d1_instance_is_plain_and_bilinear_bit_for_bit(cuda, h, w, ua, hdr):
+    """slice_grid at d = 1 launches the own-cell instance: its plain version
+    bit for bit, and the bilinear kernel's bytes at d = 1 (widths 1, 31, 33
+    and others no 32-thread block row divides; heights 1 and 9)."""
+    img = _d1_frame(0, cuda, h, w, hdr)
+    small, lmin, step, taps = _grid_inputs(img, 1, levels=6)
+    grid = fast.build_grid_plain(small, lmin, step, 6, taps, BorderPolicy.CLAMP, 12.5, ua)
+    args = (img, grid, lmin, 1.0 / step, 1, img[0, 0, 3] if ua else None)
+    got = fast.slice_grid(*args)
+    assert stencils.launches["slice_grid"] == 1
+    assert _same_bits(got, fast.slice_grid_plain(*args))
+    assert _same_bits(got, _bilinear(*args))
+
+
+@pytest.mark.parametrize("hdr", [False, True], ids=["ldr", "hdr"])
+@pytest.mark.parametrize("h,w", D1_SHAPES)
+def test_slice_guided_grid_at_d1_is_plain_bit_for_bit(cuda, h, w, hdr):
+    target, layer = _d1_frame(0, cuda, h, w, hdr), _d1_frame(1, cuda, h, w, hdr)
+    small_t = fast.pool_plain(target, 1, BorderPolicy.CLAMP)
+    small_l = fast.pool_plain(layer, 1, BorderPolicy.CLAMP)
+    lmin, step = fast.grid_range(small_l, 6)
+    grid = fast.build_guided_grid_plain(small_t, small_l, lmin, step, 6, fast._grid_taps(2.0, 1),
+                                        BorderPolicy.CLAMP, 12.5)
+    args = (layer, grid, lmin, 1.0 / step, 1)
+    got = fast.slice_guided_grid(*args)
+    assert stencils.launches["slice_guided_grid"] == 1
+    assert all(_same_bits(g, p) for g, p in zip(got, fast.slice_guided_grid_plain(*args)))
+
+
+@pytest.mark.parametrize("levels", [2, 8])
+def test_slices_at_d1_on_a_negative_zero_grid(cuda, levels):
+    """K = 2 and 8 on a random bf16 grid N(0, 3) with -0.0 cells, the guide
+    at t = 0, K - 1, whole levels and beyond both ends: the bilateral
+    instance its plain version and the bilinear kernel bit for bit, the
+    guided slice its plain version."""
+    rng = np.random.default_rng(levels)
+    img = _image(2, cuda, 9, 37)
+    lmin = torch.zeros(3, device=cuda)
+    inv_step = torch.full((3,), float(levels - 1), device=cuda)
+    img[0, :8, :3] = torch.tensor([0.0, 1.0, 0.5, -1.0, 2.0, 0.25, 1.0 / (levels - 1), 0.75],
+                                  device=cuda)[:, None]
+    for planes in (4, 8):
+        cells = rng.normal(0, 3, (levels, 9, 37, planes)).astype(np.float32)
+        cells[:, ::3, ::4] = -0.0
+        grid = torch.from_numpy(cells).to(cuda).to(torch.bfloat16)
+        if planes == 4:
+            args = (img, grid, lmin, inv_step, 1, None)
+            got = fast.slice_grid(*args)
+            assert _same_bits(got, fast.slice_grid_plain(*args))
+            assert _same_bits(got, _bilinear(*args))
+        else:
+            args = (img, grid, lmin, inv_step, 1)
+            got, want = fast.slice_guided_grid(*args), fast.slice_guided_grid_plain(*args)
+            assert all(_same_bits(g, w_) for g, w_ in zip(got, want))
+
+
+def test_slice_grid_d1_instance_reads_no_level_its_tents_skip(cuda):
+    """Where the two kernels differ: on a grid with non-finite cells. A cell
+    at a level no channel's tent touches, or a channel's plane at a level
+    only another channel's tent touches, enters the sums over levels as
+    0 * inf = NaN (slice_grid_plain every level, the bilinear kernel the
+    levels any channel touches); the instance never reads it, so its output
+    is the finite grid's. A finite frame builds a finite grid (the build
+    clamps its normaliser), so no path of the port meets this."""
+    levels = 6
+    img = _image(3, cuda, 9, 37)
+    img[..., :3] = torch.tensor([0.1, 0.7, 0.8], device=cuda)  # t = 0.5, 3.5, 4
+    lmin = torch.zeros(3, device=cuda)
+    inv_step = torch.full((3,), float(levels - 1), device=cuda)
+    cells = np.random.default_rng(3).normal(0, 3, (levels, 9, 37, 4)).astype(np.float32)
+    finite = torch.from_numpy(cells).to(cuda).to(torch.bfloat16)
+    grid = finite.clone()
+    grid[2] = float("inf")  # no channel's level
+    grid[3, ..., 0] = float("inf")  # red's plane at green's level
+    args = (lmin, inv_step, 1, None)
+    got = fast.slice_grid(img, grid, *args)
+    assert _same_bits(got, fast.slice_grid_plain(img, finite, *args))
+    assert fast.slice_grid_plain(img, grid, *args).isnan().all()
+    old = _bilinear(img, grid, *args)
+    assert old[..., 0].isnan().all() and _same_bits(old[..., 1:], got[..., 1:])
+
+
+@pytest.mark.parametrize("ua", [False, True])
+def test_slices_at_d1_on_four_slab_bands(cuda, ua):
+    """The slab form at d = 1 on the four bands of a 1x4 split (y_off, hs_all,
+    gy_off as the sharded turbo gives them): each band of the bilateral grid
+    the plain slab slice and the bilinear kernel's bit for bit, each band of
+    the guided grid its plain slab slice."""
+    h, w = 36, 37
+    img = _d1_frame(0, cuda, h, w, True)
+    small, lmin, step, taps = _grid_inputs(img, 1, levels=6)
+    grid = fast.build_grid_plain(small, lmin, step, 6, taps, BorderPolicy.CLAMP, 12.5, ua)
+    alpha = img[0, 0, 3] if ua else None
+    _, layer, small_t, small_l, glmin, gstep, gtaps = _guided_inputs(1, levels=6, h=h, w=w)
+    ggrid = fast.build_guided_grid_plain(small_t, small_l, glmin, gstep, 6, gtaps,
+                                         BorderPolicy.CLAMP, 12.5)
+    rows = h // 4
+    for i in range(4):
+        band = slice(i * rows, (i + 1) * rows)
+        offsets = (i * rows, h, i * rows - 1)
+        args = (img[band].contiguous(), _slab_of(grid, offsets[2], rows + 2), lmin, 1.0 / step,
+                1, alpha)
+        got = fast.slice_grid(*args, *offsets)
+        assert _same_bits(got, fast.slice_grid_plain(*args, offsets)), f"band {i}"
+        assert _same_bits(got, _bilinear(*args, slab=offsets)), f"band {i}"
+        gargs = (layer[band].contiguous(), _slab_of(ggrid, offsets[2], rows + 2), glmin,
+                 1.0 / gstep, 1)
+        got = fast.slice_guided_grid(*gargs, *offsets)
+        want = fast.slice_guided_grid_plain(*gargs, offsets)
+        assert all(_same_bits(g, w_) for g, w_ in zip(got, want)), f"band {i}"
+    assert stencils.launches["slice_grid"] == stencils.launches["slice_guided_grid"] == 4
+
+
+def test_slice_grid_d1_launcher_refuses_a_grid_of_another_width(cuda):
+    """The own-cell instance takes ws == w (d = 1); the C launcher refuses a
+    grid whose width is not the image's, so a caller that bypasses the
+    wrapper's checks gets an error, not a read past the grid."""
+    img = _image(0, cuda, 9, 37)
+    small, lmin, step, taps = _grid_inputs(img, 1, levels=6)
+    grid = fast.build_grid_plain(small, lmin, step, 6, taps, BorderPolicy.CLAMP, 12.5)
+    out, inv_step = torch.empty_like(img), 1.0 / step
+    rc = stencils._build.library().idf_slice_grid(
+        img.data_ptr(), grid.data_ptr(), lmin.data_ptr(), inv_step.data_ptr(), None,
+        out.data_ptr(), 9, 37, 9, 36, 6, 1, 0, 9, 0, torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+
+
 def test_sharded_dryrun_on_card(cuda):
     """parallel.dryrun on four ranks sharing the card over gloo: the
     temporal NLM, bilateral and layers against the oracles, the turbo grids

@@ -129,6 +129,46 @@ def test_as_d1_refuses_more_launches_than_ran():
         smoke.as_d1({"build_grid": 3, "slice_grid": 3}, 4)
 
 
+def test_slice_guided_grid_d1_reads_each_pixels_own_cell():
+    """At D = 1 the guided slice reads the layer (16 B), writes wc and nw (16
+    + 12 B) and reads each pixel's own cell at 2 of the K levels of its 7
+    planes (28 B): 72 B a pixel; 96 operations (the t 12, then 7 planes x 2
+    levels x (tent 4, add 2)). 1080p, K = 6: 0.0446 ms by bytes."""
+    d1 = smoke.kernel_work("slice_guided_grid_d1", PIXELS, cells=PIXELS, levels=6)
+    assert d1 == (72 * PIXELS, 96 * PIXELS)
+    b = smoke.bound(*d1)
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(0.0446, abs=5e-5)
+
+
+@pytest.mark.parametrize("n_guided", [None, 0, 3])
+def test_as_d1_moves_the_guided_slice_apart(n_guided):
+    """as_d1 moves n_guided launches (all where None) of the guided slice to
+    slice_guided_grid_d1, beside the bilateral grid's, and leaves the total
+    and the guided build as they were."""
+    counts = {"pool": 9, "build_grid": 4, "slice_grid": 4, "build_guided_grid": 6,
+              "slice_guided_grid": 6}
+    got = smoke.as_d1(counts, 2, n_guided)
+    moved = 6 if n_guided is None else n_guided
+    assert got["slice_guided_grid_d1"] == moved and got["slice_guided_grid"] == 6 - moved
+    assert got["build_grid_d1"] == got["slice_grid_d1"] == 2
+    assert got["build_guided_grid"] == 6
+    assert sum(got.values()) == sum(counts.values())
+    with pytest.raises(RuntimeError):
+        smoke.as_d1(counts, 0, 7)
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_turbo_kernels_name_the_d1_guided_slice(d):
+    """A --turbo 1 grid run launches the guided slice under its D = 1 name,
+    the other D under its own; the NLM runs launch no grid kernel."""
+    got = smoke.turbo_kernels(d, False)
+    assert ("slice_guided_grid_d1" in got) == (d == 1)
+    assert ("slice_guided_grid" in got) == (d == 8)
+    assert set(smoke.D1_NAMES) == {"build_grid_d1", "slice_grid_d1", "slice_guided_grid_d1"}
+    assert not {n for n in smoke.turbo_kernels(d, True) if "grid" in n}
+
+
 def test_turbo_battery_makes_the_smokes_runs():
     """Grid configs at every D of TURBO_RUNS, the NLM configs at D = 2 only,
     once more with --weights-halfres;

@@ -40,6 +40,16 @@ frames (seed 0) with the reference parameters:
              albedo layer, as chip_smoke.py's phase 6 runs it
   two_kernel 4K d=2 K=5, d=4 K=5
              the same partials through build_guided_grid + slice_guided_grid
+  slice_grid 1080p d=1 K=6, 4K d=2 K=5
+             the bilateral grid's slice alone, on a grid that
+             build_grid_plain makes (the same bytes on both sides, whatever
+             their build kernels): chip_smoke.py's render at 1920x1080
+             (t=0.5, seed 0) at d=1 (the sharded --turbo 1's form, 17 taps),
+             and its noisy 3840x2160 frame at d=2 (9 taps)
+  slice_guided 1080p d=1 K=6, 4K d=2 K=5
+             the guided slice alone, likewise on a build_guided_grid_plain
+             grid, each frame the target and its albedo the layer (d=1: the
+             --turbo 1 layers' form)
   bilateral, bilateral_guided (and each with " ua")
              the exact bilateral with its normalize fused and the layers
              config's guided partials (the second random frame as the
@@ -52,6 +62,11 @@ frames (seed 0) with the reference parameters:
 Each process also hashes the output of every case but the divide (SHA-256
 of its bytes); the summary says for each whether the two sides' outputs are
 equal bit for bit.
+
+The pool kernel has no case: no redesign has touched it. One would need
+only the frame (pool(noisy, d, clamp) at 4K d=2, 4, 8 and on the 1080p
+render at d=1, the d=1 pool being a bf16 round trip) and, to time the
+kernel and not the cache, a frame larger than L2 at each d.
 
 This checkout's processes also read the SM clock with nvidia-smi while the
 nlm kernel runs back to back (with --only, the first case it times), and
@@ -160,6 +175,26 @@ def worker(root: str, only: tuple = ("",)) -> dict:
             fused_cases[key] = (small, small_l, albedo, lmin, step, 1.0 / step, levels,
                                 fast._grid_taps(sigma_s, d), clamp, 12.5, d)
 
+    # The slices alone, on plain-built grids: (guide, grid, lmin, inv_step, d)
+    slice_cases, slice_guided_cases = {}, {}
+    frame_1080, layers_1080 = smoke.load_render_frame()(0.5, H, W,
+                                                        np.random.default_rng(smoke.SEED),
+                                                        noise=smoke.NOISE)
+    frame_1080 = torch.from_numpy(frame_1080).to(dev)
+    albedo_1080 = torch.from_numpy(
+        np.ascontiguousarray(np.clip(layers_1080["albedo"], 0, 1))).to(dev)
+    for key, img, layer, d, levels in (("1080p d=1 K=6", frame_1080, albedo_1080, 1, 6),
+                                       ("4K d=2 K=5", noisy, albedo, 2, 5)):
+        taps = fast._grid_taps(2.0, d)
+        small = fast.pool_plain(img, d, clamp)
+        lmin, step = fast.grid_range(small, levels)
+        grid = fast.build_grid_plain(small, lmin, step, levels, taps, clamp, 12.5)
+        slice_cases[key] = (img, grid, lmin, 1.0 / step, d)
+        small_l = fast.pool_plain(layer, d, clamp)
+        lmin, step = fast.grid_range(small_l, levels)
+        grid = fast.build_guided_grid_plain(small, small_l, lmin, step, levels, taps, clamp, 12.5)
+        slice_guided_cases[key] = (layer, grid, lmin, 1.0 / step, d)
+
     def two_kernel_grid(small, img, lmin, step, inv_step, levels, taps, border, inv2sc, d):
         grid = fast.build_grid(small, lmin, step, levels, taps, border, inv2sc)
         return fast.slice_grid(img, grid, lmin, inv_step, d)
@@ -190,6 +225,10 @@ def worker(root: str, only: tuple = ("",)) -> dict:
            for key, args in fused_cases.items()},
         **{f"two_kernel {key}": (lambda a=args: two_kernels(*a), 10)
            for key, args in fused_cases.items()},
+        **{f"slice_grid {key}": (lambda a=args: fast.slice_grid(*a), 10)
+           for key, args in slice_cases.items()},
+        **{f"slice_guided {key}": (lambda a=args: fast.slice_guided_grid(*a), 10)
+           for key, args in slice_guided_cases.items()},
     }
     layer = frames[1]
     for name, bp, lp in (("", cfg.BilateralParams(), cfg.LayersParams()),
