@@ -188,7 +188,11 @@ BEFORE_REDESIGN_MS = {"bilateral": 1.1941, "bilateral_guided": 1.4404,
                       "nlm": 16.0932, "nlm_bf16": 5.2365, "nlm F=6": 96.5862,
                       "nlm_hrw": 2.2086, "nlm_hrw_bf16": 3.3669,
                       "build_guided_grid 4K D=2 K=5": 1.7550,
-                      "build_guided_grid 1080p D=1": 7.1050,
+                      # the d = 1 builds: this smoke on the commit before
+                      # their redesign (PERF.md section 6)
+                      "build_guided_grid 1080p D=1 17 taps": 0.8504,
+                      "build_grid 1080p D=1 17 taps": 0.7392,
+                      "build_grid 1080p D=1 49 taps": 5.6959,
                       "build_grid 4K D=2 K=5": 1.5590, "fused_guided 4K D=2 K=5": 0.8898,
                       "fused_grid 4K D=2 K=5": 0.6683, "slice_grid 1080p D=1 K=6": 0.0647}
 H4K, W4K = 2160, 3840
@@ -206,12 +210,13 @@ TURBO_CELLS = ((2, 5), (4, 5), (8, 6))  # (D, K): run_turbo's K at each D
 # versions at each of these settings on the same 1080p target.
 TURBO_RUNS = ((1, 2.0), (2, 2.0), (4, 2.0), (8, 6.0))
 # The grid kernels at D=1, as --turbo 1 runs them (the bilateral grid's build
-# and slice on a mesh, the guided slice for the layers on one device and on a
-# mesh): their own entries of the kernels line, timed and counted apart from
-# the D > 1 forms.
+# and slice on a mesh, the guided build and slice for the layers on one device
+# and on a mesh): their own entries of the kernels line, timed and counted
+# apart from the D > 1 forms. The wrappers count each launch at D = 1 under
+# these names (ops/stencils.py:launches).
 D1_FORMS = {"build_grid": "build_grid_d1", "slice_grid": "slice_grid_d1",
+            "build_guided_grid": "build_guided_grid_d1",
             "slice_guided_grid": "slice_guided_grid_d1"}
-D1_NAMES = tuple(D1_FORMS.values())
 # PSNR of the D=2 turbo output against the exact tiled bilateral: the repo's
 # 40 dB gate (bench.py:51, tests/test_fast.py:28).
 TURBO_GATE_DB = 40.0
@@ -472,6 +477,7 @@ def kernel_work(name: str, pixels: int, cells: int = 0, levels: int = 0, taps: i
         "build_grid_d1": (16 * cells + 8 * grid, build),
         "slice_grid_d1": (48 * pixels, 60 * pixels),
         "build_guided_grid": (32 * cells + 14 * grid, grid * (16 + blur)),
+        "build_guided_grid_d1": (32 * cells + 14 * grid, grid * (16 + blur)),
         "slice_guided_grid": (44 * pixels + 14 * grid, 222 * pixels),
         "slice_guided_grid_d1": (72 * pixels, 96 * pixels),
         "fused_guided": (32 * cells + 44 * pixels, grid * (16 + blur) + 222 * pixels),
@@ -1016,21 +1022,77 @@ def pipeline_check(torch, case: str, got, want, img) -> None:
           f"({loose:.4%} of pixels beyond {1e-5 * scale:g})")
 
 
-def mesh_bands(torch, fast, note, close, case: str, slice_args, border, whole) -> float:
+# The non-finite frame of phases 5 and 6: one +inf, one -inf and one NaN
+# value, each (row, column, channel) of the 1080p target (or layer).
+NONFINITE_VALUES = ((100, 200, 0, float("inf")), (500, 900, 1, float("-inf")),
+                    (800, 1500, 2, float("nan")))
+
+
+def nonfinite_frame(img):
+    """A copy of img with NONFINITE_VALUES written in."""
+    out = img.clone()
+    for y, x, c, v in NONFINITE_VALUES:
+        out[y, x, c] = v
+    return out
+
+
+def same_nonfinite(torch, what: str, got, want) -> str:
+    """A kernel's bf16 grid against its plain version's on a non-finite
+    frame: the same positions of NaN, +inf and -inf, and every other value
+    bit for bit (NaN payloads may differ). Fails otherwise; returns the
+    counts as printed."""
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    kinds = {"NaN": torch.isnan, "+inf": torch.isposinf, "-inf": torch.isneginf}
+    counts = {k: (int(f(g).sum()), int(f(w).sum()), int((f(g) != f(w)).sum()))
+              for k, f in kinds.items()}
+    finite = torch.isfinite(g) & torch.isfinite(w)
+    bits = int((got.view(torch.int16)[finite] != want.view(torch.int16)[finite]).sum())
+    check(all(c[2] == 0 for c in counts.values()) and bits == 0,
+          f"{what}: non-finite positions (kernel, plain, differing) {counts}, {bits} finite "
+          f"values differ in their bits")
+    return (f"{what}: " + ", ".join(f"{k} at {c[0]} values" for k, c in counts.items())
+            + f" in both, {int(finite.sum())} finite values bit for bit")
+
+
+def band_ext(torch, fast, small, i: int, rows: int, halo: int, border: str):
+    """Band i of rows pooled rows of a 1x4 mesh, extended by halo rows on
+    each side as parallel/spatial.py extends it (its neighbours' rows, the
+    edge row (CLAMP) or zero rows (ZERO) beyond the image)."""
+    idx = torch.arange(i * rows - halo, (i + 1) * rows + halo, device=small.device)
+    ext = small[idx.clamp(0, small.shape[0] - 1)]
+    if border != fast.BorderPolicy.CLAMP:
+        ext[(idx < 0) | (idx >= small.shape[0])] = 0.0
+    return ext.contiguous()
+
+
+def mesh_bands(torch, fast, note, close, case: str, slice_args, border, whole, build_args,
+               whole_grid) -> float:
     """The D = 1 grid kernels on the four bands of a 1x4 mesh, as
     spatial_bilateral_fast gives them: each band pooled against its plain
-    version at TOL_POOL, and sliced in the slab form (its rows of the grid
-    and one of each neighbour, the offsets y_off, hs_all, gy_off) against its
-    plain version and against the whole slice's rows, bit for bit. Returns
-    band 1's slab slice median ms."""
+    version at TOL_POOL, its pooled rows and halo_s = r + 1 of each
+    neighbour (band_ext) built against its plain version and its rows
+    against the whole grid's, and sliced in the slab form (its rows of the
+    grid and one of each neighbour, the offsets y_off, hs_all, gy_off)
+    against its plain version and against the whole slice's rows, bit for
+    bit. Returns band 1's slab slice median ms."""
     img, grid, lmin, inv_step, d, alpha = slice_args
+    small, rest = build_args[0], build_args[1:]
+    halo = len(build_args[4]) // 2 + 1
     h = img.shape[0]
     rows = h // 4
-    pooled, pooled_plain, sliced, sliced_plain = [], [], [], []
+    pooled, pooled_plain, sliced, sliced_plain, built = [], [], [], [], []
     for i in range(4):
         band = img[i * rows : (i + 1) * rows].contiguous()
         pooled.append(fast.pool(band, d, border))
         pooled_plain.append(fast.pool_plain(band, d, border))
+        ext = band_ext(torch, fast, small, i, rows, halo, border)
+        got = fast.build_grid(ext, *rest, d=d)
+        check(torch.equal(got, fast.build_grid_plain(ext, *rest)),
+              f"build_grid {case} band {i}: not bit for bit the plain version")
+        check(torch.equal(got[:, halo : halo + rows], whole_grid[:, i * rows : (i + 1) * rows]),
+              f"build_grid {case} band {i}: differs from the whole grid's rows")
+        built.append(got[:, halo : halo + rows])
         lo = max(i * rows - 1, 0)
         off = (i * rows, h, lo)
         slab = grid[:, lo : min((i + 1) * rows + 1, h)].contiguous()
@@ -1044,23 +1106,37 @@ def mesh_bands(torch, fast, note, close, case: str, slice_args, border, whole) -
     got, want = torch.cat(pooled), torch.cat(pooled_plain)
     note("pool", f"{case} 1x4 bands", got, want)
     close(got, want, TOL_POOL, f"pool {case} 1x4 bands")
+    note("build_grid_d1", f"{case} 1x4 bands", torch.cat(built, 1), whole_grid)
     got, want = torch.cat(sliced), torch.cat(sliced_plain)
     note("slice_grid_d1", f"{case} 1x4 slabs", got, want)
     check(torch.equal(got, want), f"slice_grid {case} 1x4 slabs: not bit for bit the plain version")
     return slab_ms
 
 
-def guided_bands(torch, fast, note, case: str, slice_args, whole) -> None:
-    """The guided slice at D = 1 on the four bands of a 1x4 mesh, as
-    spatial_cross_bilateral_layers_fast gives them: each band sliced in the
-    slab form (its rows of the grid and one of each neighbour, the offsets
-    y_off, hs_all, gy_off) against its plain version and against the whole
-    slice's rows, bit for bit."""
+def guided_bands(torch, fast, note, case: str, slice_args, whole, build_args) -> None:
+    """The guided grid's kernels at D = 1 on the four bands of a 1x4 mesh,
+    as spatial_cross_bilateral_layers_fast gives them: each band's pooled
+    target and layer with halo_s = r + 1 rows of each neighbour (band_ext)
+    built against its plain version and its rows against the whole grid's;
+    each band sliced in the slab form (its rows of the grid and one of each
+    neighbour, the offsets y_off, hs_all, gy_off) against its plain version
+    and against the whole slice's rows, bit for bit."""
     layer, grid, lmin, inv_step, d = slice_args
+    small_t, small_l, rest = build_args[0], build_args[1], build_args[2:]
+    border = build_args[6]
+    halo = len(build_args[5]) // 2 + 1
     h = layer.shape[0]
     rows = h // 4
-    sliced, sliced_plain = [], []
+    sliced, sliced_plain, built = [], [], []
     for i in range(4):
+        ext = (band_ext(torch, fast, small_t, i, rows, halo, border),
+               band_ext(torch, fast, small_l, i, rows, halo, border))
+        got = fast.build_guided_grid(*ext, *rest, d=d)
+        check(torch.equal(got, fast.build_guided_grid_plain(*ext, *rest)),
+              f"build_guided_grid {case} band {i}: not bit for bit the plain version")
+        check(torch.equal(got[:, halo : halo + rows], grid[:, i * rows : (i + 1) * rows]),
+              f"build_guided_grid {case} band {i}: differs from the whole grid's rows")
+        built.append(got[:, halo : halo + rows])
         band = layer[i * rows : (i + 1) * rows].contiguous()
         lo = max(i * rows - 1, 0)
         off = (i * rows, h, lo)
@@ -1075,6 +1151,7 @@ def guided_bands(torch, fast, note, case: str, slice_args, whole) -> None:
     note("slice_guided_grid_d1", f"{case} 1x4 slabs", got, want)
     check(all(torch.equal(g, w) for g, w in zip(got, want)),
           f"slice_guided_grid {case} 1x4 slabs: not bit for bit the plain version")
+    note("build_guided_grid_d1", f"{case} 1x4 bands", (torch.cat(built, 1),), (grid,))
 
 
 def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: bool = False):
@@ -1146,25 +1223,43 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: b
         build_args = (small, lmin, step, levels, fast._grid_taps(bp.sigma_spatial, d),
                       border, 0.5 / bp.sigma_color**2, ua)
         grid = fast.build_grid_plain(*build_args)
-        got = fast.build_grid(*build_args)
+        got = fast.build_grid(*build_args, d=d)
         note(build_name, case, got, grid)
         check_bf16_close(torch, got, grid, f"build_grid {case}")
+        if d == 1:  # the d = 1 body keeps the plain version's order: bit for bit
+            check(torch.equal(got, grid), f"build_grid {case}: not bit for bit the plain version")
         slice_args = (img, grid, lmin, 1.0 / step, d, img[0, 0, 3] if ua else None)
         want = fast.slice_grid_plain(*slice_args)
         got = fast.slice_grid(*slice_args)
         note(slice_name, case, got, want)
         if d == 1:  # the own cell at the touched levels, in level order: bit for bit
             check(torch.equal(got, want), f"slice_grid {case}: not bit for bit the plain version")
-            slab_ms = mesh_bands(torch, fast, note, close, case, slice_args, border, got)
+            slab_ms = mesh_bands(torch, fast, note, close, case, slice_args, border, got,
+                                 build_args, grid)
             n_taps = len(build_args[4])
-            build_ms = median_ms(torch, lambda a=build_args: fast.build_grid(*a), 10)
-            info = fast.build_grid_info(img.device, n_taps, border)
-            print(f"  build_grid {case}: {n_taps} taps, bit for bit the plain version: "
-                  f"{bool(torch.equal(fast.build_grid(*build_args), grid))}, median "
-                  f"{build_ms:.4f} ms; {json.dumps(info)}; slab band 1 median {slab_ms:.4f} ms")
+            build_ms = median_ms(torch, lambda a=build_args: fast.build_grid(*a, d=1), 10)
+            info = fast.build_d1_info(img.device, n_taps, border)
+            print(f"  build_grid {case}: {n_taps} taps, bit for bit the plain version (whole "
+                  f"and 1x4 bands), median {build_ms:.4f} ms; slab band 1 median "
+                  f"{slab_ms:.4f} ms")
+            if not hdr:
+                print_redesigned(f"build_grid 1080p D=1 {n_taps} taps", info, build_ms)
+            else:
+                print(f"  build_grid_d1 {json.dumps(info)}")
+            if bp.sigma_spatial == 2.0 and not hdr:
+                # The non-finite frame, pooled, built on the finite frame's
+                # grid range and on its own (a channel whose range is not
+                # finite: every level NaN, queue C of ROADMAP.md)
+                small_nf = fast.pool(nonfinite_frame(img), 1, border)
+                for rng in ((lmin, step), fast.grid_range(small_nf, levels)):
+                    args = (small_nf, *rng, *build_args[3:])
+                    print("  " + same_nonfinite(
+                        torch, f"build_grid_d1 non-finite frame, range "
+                               f"{'finite' if bool(torch.isfinite(rng[1]).all()) else 'not finite'}",
+                        fast.build_grid(*args, d=1), fast.build_grid_plain(*args)))
             if bp.sigma_spatial == 2.0:
                 timed_d1 = {
-                    build_name: (lambda a=build_args: fast.build_grid(*a),
+                    build_name: (lambda a=build_args: fast.build_grid(*a, d=1),
                                  lambda a=build_args: fast.build_grid_plain(*a)),
                     slice_name: (lambda a=slice_args: fast.slice_grid(*a),
                                  lambda a=slice_args: fast.slice_grid_plain(*a)),
@@ -1185,7 +1280,7 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: b
                   f"slice_grid {case}")
             fused_args = (small, img, lmin, step, 1.0 / step, *build_args[3:7], d, slice_args[5])
             got = fast.fused_grid(*fused_args)
-            two = fast.slice_grid(img, fast.build_grid(*build_args), *slice_args[2:])
+            two = fast.slice_grid(img, fast.build_grid(*build_args, d=d), *slice_args[2:])
             torch.cuda.synchronize()
             check(torch.equal(got, two),
                   f"fused_grid {case}: differs from the build and slice kernels")
@@ -1209,7 +1304,7 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: b
             timed = {
                 "pool": (lambda a=(img, d, border): fast.pool(*a),
                          lambda a=(img, d, border): fast.pool_plain(*a)),
-                "build_grid": (lambda a=build_args: fast.build_grid(*a),
+                "build_grid": (lambda a=build_args: fast.build_grid(*a, d=2),
                                lambda a=build_args: fast.build_grid_plain(*a)),
                 "slice_grid": (lambda a=slice_args: fast.slice_grid(*a),
                                lambda a=slice_args: fast.slice_grid_plain(*a)),
@@ -1260,8 +1355,8 @@ def phase_turbo_kernels(torch, fast, stencils, cfg, frame_4k, frame_1080, hdr: b
         build_args = (small, lmin, step, levels, taps, clamp, 0.5 / bp.sigma_color**2)
         fused_args = (small, img4k, lmin, step, 1.0 / step, *build_args[3:], d)
         fused_ms = median_ms(torch, lambda a=fused_args: fast.fused_grid(*a), 10)
-        build_ms = median_ms(torch, lambda a=build_args: fast.build_grid(*a), 10)
-        grid = fast.build_grid(*build_args)
+        build_ms = median_ms(torch, lambda a=build_args: fast.build_grid(*a, d=d), 10)
+        grid = fast.build_grid(*build_args, d=d)
         slice_ms = median_ms(torch, lambda: fast.slice_grid(img4k, grid, lmin, 1.0 / step, d), 10)
         print(f"  fused_grid 4K D={d} K={levels} median {fused_ms:.4f} ms against build_grid + "
               f"slice_grid {build_ms:.4f} + {slice_ms:.4f} = {build_ms + slice_ms:.4f} ms; "
@@ -1304,7 +1399,8 @@ def phase_guided_kernels(torch, fast, cfg, images, hdr: bool = False):
     ms, ...}}. With hdr the targets are HDR content (phase 10), the slice's
     absolute tolerance times the target's max |RGB|; the kernels are timed
     at 4K D=2 K=5 and the D = 1 slice at 1080p D=1 K=6 only."""
-    kernels = ("build_guided_grid", "slice_guided_grid", "slice_guided_grid_d1", "fused_guided")
+    kernels = ("build_guided_grid", "slice_guided_grid", "build_guided_grid_d1",
+               "slice_guided_grid_d1", "fused_guided")
     results = {k: {"max_abs_err": 0.0} for k in kernels}
     clamp, zero = cfg.BorderPolicy.CLAMP, cfg.BorderPolicy.ZERO
     inv2sc = 0.5 / cfg.LayersParams().sigma_color**2
@@ -1351,9 +1447,13 @@ def phase_guided_kernels(torch, fast, cfg, images, hdr: bool = False):
         taps = fast._grid_taps(sigma_s, d)
         build_args = (small_t, small_l, lmin, step, levels, taps, border, inv2sc)
         grid = fast.build_guided_grid_plain(*build_args)
-        got = fast.build_guided_grid(*build_args)
-        note("build_guided_grid", case, (got,), (grid,))
+        got = fast.build_guided_grid(*build_args, d=d)
+        build_name = "build_guided_grid_d1" if d == 1 else "build_guided_grid"
+        note(build_name, case, (got,), (grid,))
         check_bf16_close(torch, got, grid, f"build_guided_grid {case}")
+        if d == 1:  # the d = 1 body keeps the plain version's order: bit for bit
+            check(torch.equal(got, grid),
+                  f"build_guided_grid {case}: not bit for bit the plain version")
         slice_args = (layer, grid, lmin, 1.0 / step, d)
         want = fast.slice_guided_grid_plain(*slice_args)
         sliced = fast.slice_guided_grid(*slice_args)
@@ -1367,12 +1467,12 @@ def phase_guided_kernels(torch, fast, cfg, images, hdr: bool = False):
                 ok = bool(((g - w).abs() <= tol["atol"] + tol["rtol"] * w.abs()).all())
                 check(ok, f"slice_guided_grid {case}: max abs {float((g - w).abs().max()):.3g}")
         if d == 1:
-            guided_bands(torch, fast, note, case, slice_args, sliced)
+            guided_bands(torch, fast, note, case, slice_args, sliced, build_args)
         fused_args = (small_t, small_l, layer, lmin, step, 1.0 / step, levels, taps, border,
                       inv2sc, d)
         if fast.fused_guided_fits(d, taps.size, layer.device):
             got = fast.fused_guided(*fused_args)
-            two = fast.slice_guided_grid(layer, fast.build_guided_grid(*build_args), lmin,
+            two = fast.slice_guided_grid(layer, fast.build_guided_grid(*build_args, d=d), lmin,
                                          1.0 / step, d)
             torch.cuda.synchronize()
             check(all(torch.equal(g, t) for g, t in zip(got, two)),
@@ -1382,10 +1482,23 @@ def phase_guided_kernels(torch, fast, cfg, images, hdr: bool = False):
             note("fused_guided", case, got, want)
         if label == "1080p" + tag and d == 1:
             main_build = build_args  # the main path's --turbo 1 build
-            timed_d1 = {slice_name: (lambda a=slice_args: fast.slice_guided_grid(*a),
+            timed_d1 = {build_name: (lambda a=build_args: fast.build_guided_grid(*a, d=1),
+                                     lambda a=build_args: fast.build_guided_grid_plain(*a)),
+                        slice_name: (lambda a=slice_args: fast.slice_guided_grid(*a),
                                      lambda a=slice_args: fast.slice_guided_grid_plain(*a))}
+            if not hdr:
+                # the non-finite target and layer, pooled, on the finite
+                # frames' grid range and on the layer's own
+                small_nf = tuple(fast.pool(nonfinite_frame(x), 1, border)
+                                 for x in (target, layer))
+                for rng in ((lmin, step), fast.grid_range(small_nf[1], levels)):
+                    args = (*small_nf, *rng, *build_args[4:])
+                    print("  " + same_nonfinite(
+                        torch, f"build_guided_grid_d1 non-finite frames, range "
+                               f"{'finite' if bool(torch.isfinite(rng[1]).all()) else 'not finite'}",
+                        fast.build_guided_grid(*args, d=1), fast.build_guided_grid_plain(*args)))
             pixels = layer.shape[0] * layer.shape[1]
-            shape_d1 = dict(pixels=pixels, cells=pixels, levels=levels)
+            shape_d1 = dict(pixels=pixels, cells=pixels, levels=levels, taps=taps.size)
             sample_d1 = yardstick(case, grid, layer, lmin, step, d, sliced)
             print(f"  slice_guided_grid {case} reads "
                   f"{own_cell_reads(torch, layer, lmin, 1.0 / step, levels, 16)}")
@@ -1393,7 +1506,7 @@ def phase_guided_kernels(torch, fast, cfg, images, hdr: bool = False):
             fused_vs_two[d] = (fused_args, build_args, slice_args[2:])
         if label == "4K" + tag and d == 2 and border == clamp:
             timed = {
-                "build_guided_grid": (lambda a=build_args: fast.build_guided_grid(*a),
+                "build_guided_grid": (lambda a=build_args: fast.build_guided_grid(*a, d=2),
                                       lambda a=build_args: fast.build_guided_grid_plain(*a)),
                 "slice_guided_grid": (lambda a=slice_args: fast.slice_guided_grid(*a),
                                       lambda a=slice_args: fast.slice_guided_grid_plain(*a)),
@@ -1406,21 +1519,20 @@ def phase_guided_kernels(torch, fast, cfg, images, hdr: bool = False):
             library = {"slice_guided_grid": yardstick(case, grid, layer, lmin, step, d, sliced)}
     time_kernels(torch, results, timed, dict.fromkeys(timed, shape), library, f"4K{tag} D=2 K=5")
     time_kernels(torch, results, timed_d1, dict.fromkeys(timed_d1, shape_d1),
-                 dict.fromkeys(timed_d1, sample_d1), f"1080p{tag} D=1 K={shape_d1['levels']}")
-    if hdr:
-        return results
-    # The guided build at the main path's --turbo 1 shape, and as compiled.
+                 {k: sample_d1 for k in timed_d1 if k.startswith("slice")},
+                 f"1080p{tag} D=1 K={shape_d1['levels']}")
     small_t, _, _, _, levels, taps, border, _ = main_build
-    d1 = {"ms": median_ms(torch, lambda: fast.build_guided_grid(*main_build), 10),
-          "plain_ms": median_ms(torch, lambda: fast.build_guided_grid_plain(*main_build), 3),
-          **bound(*kernel_work("build_guided_grid", 0, cells=small_t.shape[0] * small_t.shape[1],
-                               levels=levels, taps=taps.size))}
-    print(f"  build_guided_grid 1080p D=1 K={levels} ({taps.size} taps) median {d1['ms']:.4f} ms "
-          f"(plain {d1['plain_ms']:.4f} ms, bound {d1['bound_ms']:.4f} ms by {d1['bound_by']})")
-    for where, n_taps, ms in (("4K D=2 K=5", shape["taps"], results["build_guided_grid"]["ms"]),
-                              ("1080p D=1", taps.size, d1["ms"])):
-        print_redesigned(f"build_guided_grid {where}",
-                         fast.build_grid_info(small_t.device, n_taps, border, guided=True), ms)
+    info = fast.build_d1_info(small_t.device, taps.size, border, guided=True)
+    if hdr:
+        print(f"  build_guided_grid_d1 {json.dumps(info)}")
+        return results
+    # The guided builds as compiled, the d = 1 body at the main path's
+    # --turbo 1 shape.
+    print_redesigned("build_guided_grid 4K D=2 K=5",
+                     fast.build_grid_info(small_t.device, shape["taps"], border, guided=True),
+                     results["build_guided_grid"]["ms"])
+    print_redesigned(f"build_guided_grid 1080p D=1 {taps.size} taps", info,
+                     results["build_guided_grid_d1"]["ms"])
     print_redesigned("fused_guided 4K D=2 K=5",
                      fast.fused_guided_info(small_t.device, 2, shape["taps"], clamp),
                      results["fused_guided"]["ms"])
@@ -1429,8 +1541,8 @@ def phase_guided_kernels(torch, fast, cfg, images, hdr: bool = False):
     for d, (fused_args, build_args, slice_rest) in sorted(fused_vs_two.items()):
         layer = fused_args[2]
         fused_ms = median_ms(torch, lambda a=fused_args: fast.fused_guided(*a), 10)
-        build_ms = median_ms(torch, lambda a=build_args: fast.build_guided_grid(*a), 10)
-        grid = fast.build_guided_grid(*build_args)
+        build_ms = median_ms(torch, lambda a=build_args: fast.build_guided_grid(*a, d=d), 10)
+        grid = fast.build_guided_grid(*build_args, d=d)
         slice_ms = median_ms(torch, lambda: fast.slice_guided_grid(layer, grid, *slice_rest), 10)
         print(f"  fused_guided 4K D={d} K={build_args[4]} median {fused_ms:.4f} ms against "
               f"build_guided_grid + slice_guided_grid {build_ms:.4f} + {slice_ms:.4f} = "
@@ -1441,14 +1553,14 @@ def phase_guided_kernels(torch, fast, cfg, images, hdr: bool = False):
 # Kernels each turbo run may launch, and must: the grid configs through the
 # bilateral grid (pool, build, slice; D=1 is the eager lattice on one
 # device) and the guided grid (fused at D = 2 and 4, the guided build and
-# slice at D = 1 and 8, the slice under its D = 1 name there, beside the
-# pool); the NLM configs through the bf16 NLM, or with
-# --weights-halfres the bf16 half-row NLM, and normalize.
+# slice at D = 1 and 8, under their D = 1 names there, beside the pool);
+# the NLM configs through the bf16 NLM, or with --weights-halfres the bf16
+# half-row NLM, and normalize.
 def turbo_kernels(d: int, nlm: bool, flags: tuple = ()) -> set:
     if nlm:
         return {"nlm_hrw_bf16" if "--weights-halfres" in flags else "nlm_bf16", "normalize"}
     guided = {"fused_guided"} if d in (2, 4) else {
-        "build_guided_grid", "slice_guided_grid_d1" if d == 1 else "slice_guided_grid"}
+        D1_FORMS[k] if d == 1 else k for k in ("build_guided_grid", "slice_guided_grid")}
     return {"pool"} | guided | ({"build_grid", "slice_grid"} if d > 1 else set())
 
 
@@ -1491,8 +1603,7 @@ def phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir):
     """gpu-denoise --turbo D on the card (turbo_battery), each run's launch
     counts read just after it; checks every output against the clean render
     and phase 4's exact output of its config, with the gates at D = 2.
-    Returns the summed launch counts, the D = 1 runs' guided slice under its
-    D = 1 name."""
+    Returns the summed launch counts."""
     names = output_names(cli, cfg)
     exact = {k: imageio.load(os.path.join(exact_dir, names[k]))[0]
              for k in ("bilateral", "layers") + NLM_CONFIGS}
@@ -1501,15 +1612,14 @@ def phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir):
     gates = {"bilateral": (TURBO_GATE_DB, 4), "layers": (TURBO_LAYERS_GATE_DB, 3),
              "nlm": (TURBO_NLM_GATE_DB, 3)}
     hrw_gates = {"nlm": (TURBO_HRW_GATE_DB, 3)}
-    totals = dict.fromkeys((*stencils.launches, *D1_NAMES), 0)
+    totals = dict.fromkeys(stencils.launches, 0)
     counts = {}
 
     def run(argv):
         stencils.reset_launches()
         result = run_cli(cli, argv)
-        d = int(argv[argv.index("--turbo") + 1])
         counts.clear()
-        counts.update(as_d1(stencils.launches) if d == 1 else stencils.launches)
+        counts.update(stencils.launches)
         return result
 
     for d, sigma_s, keys, flags, text, readings in turbo_battery(cli, cfg, imageio, anim, root,
@@ -1744,22 +1854,6 @@ def turbo1_mesh_gate(label: str, got: np.ndarray, exact: np.ndarray, hdr: bool) 
     return f"{db:.4f} dB vs exact over RGB (JAX {jax_db}, gate {gate:.4f})"
 
 
-def as_d1(counts: dict, n: int | None = None, n_guided: int | None = None) -> dict:
-    """counts with n launches (all of them where None) of the bilateral
-    grid's build and slice, and n_guided (likewise) of the guided slice,
-    moved to their D = 1 names (D1_FORMS), so that each launch is counted
-    once, under the form that ran."""
-    out = dict(counts)
-    for name, d1 in D1_FORMS.items():
-        ran = out.get(name, 0)
-        moved = n_guided if name == "slice_guided_grid" else n
-        moved = ran if moved is None else moved
-        check(ran >= moved, f"{name}: {ran} launches, {moved} of them at D = 1")
-        out[name] = ran - moved
-        out[d1] = out.get(d1, 0) + moved
-    return out
-
-
 def check_mesh_turbo(torch, fast, cfg, imageio, turbo_pad_rows, target: str, got: str, root: str,
                      d: int, pipeline, hdr: bool, what: str) -> int:
     """The bilateral file (got) of gpu-denoise <target> --turbo d --mesh 1x4
@@ -1791,10 +1885,10 @@ def turbo1_mesh(torch, cfg, stencils, fast, cli, imageio, turbo_pad_rows, target
     frame (check_mesh_turbo), the linear file its bytes; the layers file is
     the single-device --turbo 1 run's (layers_file); pool, build_grid and
     slice_grid launch on the ranks beside the guided kernels, no other
-    kernel; the bilateral file's reading against exact_file is gated
-    (turbo1_mesh_gate), the one-device lattice's (lattice_file, where given)
-    printed beside it. Returns the launch counts summed over the ranks, the
-    bilateral grid's build and slice under their D = 1 names."""
+    kernel, each under its D = 1 name; the bilateral file's reading against
+    exact_file is gated (turbo1_mesh_gate), the one-device lattice's
+    (lattice_file, where given) printed beside it. Returns the launch counts
+    summed over the ranks."""
     names = {k: c.output_name(hdr) for k, c in zip(cli.CONFIG_KEYS, cfg.GPU_BATTERY)}
     keys = ("bilateral", "layers", "linear")  # gpu-denoise's order
     out_dir = os.path.join(root, f"mesh_turbo1_{'hdr' if hdr else 'ldr'}")
@@ -1808,11 +1902,10 @@ def turbo1_mesh(torch, cfg, stencils, fast, cli, imageio, turbo_pad_rows, target
     check(rc == 0, f"{what} failed ({rc}): {err.getvalue().strip()[-2000:]}")
     check(len(rank_counts) == 4, f"{what}: {len(rank_counts)} ranks")
     counts = sum_counts(stencils, rank_counts)
-    expected = {"pool", "build_grid", "slice_grid", "build_guided_grid", "slice_guided_grid"}
+    expected = {"pool", *D1_FORMS.values()}
     check(all(counts[k] > 0 for k in expected)
           and all(n == 0 for k, n in counts.items() if k not in expected),
           f"{what}: launches {counts}, expected {sorted(expected)}")
-    counts = as_d1(counts)
     print(f"  {what}: {time.perf_counter() - t0:.1f} s, launches summed over 4 ranks "
           f"{ {k: n for k, n in counts.items() if n} }")
     reports = re.findall(r"transfer time: (\d+)ns; execution time: (\d+)ns", out.getvalue())
@@ -1849,11 +1942,10 @@ def phase_sharded(torch, cfg, stencils, fast, cli, imageio, launch, dryrun, turb
     slab slice kernels against their plain versions with offsets; the HDR
     frame of phase 5 through the sharded turbo grid; the dry run. Each run's
     launch counts are summed over its ranks, read just after it. Returns the
-    launch counts of all of them, summed, the bilateral grid's build and
-    slice at D = 1 under their D1_NAMES."""
+    launch counts of all of them, summed."""
     names = output_names(cli, cfg)
     target = anim["target"]
-    totals = dict.fromkeys((*stencils.launches, *D1_NAMES), 0)
+    totals = dict.fromkeys(stencils.launches, 0)
     gloo = ("--dist-backend", "gloo")
 
     def run(what, argv):
@@ -1954,9 +2046,10 @@ def phase_sharded(torch, cfg, stencils, fast, cli, imageio, launch, dryrun, turb
     small = fast.pool(img, d)
     lmin, step = fast.grid_range(small, levels)
     taps = fast._grid_taps(bp.sigma_spatial, d)
-    grid = fast.build_grid(small, lmin, step, levels, taps, bp.border, 0.5 / bp.sigma_color**2)
+    grid = fast.build_grid(small, lmin, step, levels, taps, bp.border, 0.5 / bp.sigma_color**2,
+                           d=d)
     ggrid = fast.build_guided_grid(small, small, lmin, step, levels, taps, bp.border,
-                                   0.5 / bp.sigma_color**2)
+                                   0.5 / bp.sigma_color**2, d=d)
     whole = fast.slice_grid(img, grid, lmin, 1.0 / step, d)
     gwhole = fast.slice_guided_grid(img, ggrid, lmin, 1.0 / step, d)
     rows, hs = H4K // 4, H4K // d
@@ -2014,12 +2107,7 @@ def phase_sharded(torch, cfg, stencils, fast, cli, imageio, launch, dryrun, turb
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         counts = dryrun.dryrun(4, "cuda", "gloo")
-    # its D = 1 bilateral grid builds and slices once a rank, and its D = 1
-    # guided grid slices once a rank
-    cases = dryrun.dryrun_cases(4)[0]
-    n_d1 = {kind: 4 * sum(c["kind"] == kind and c["kw"]["downsample"] == 1 for c in cases)
-            for kind in ("bilateral_fast", "layers_fast")}
-    for k, n in as_d1(counts, n_d1["bilateral_fast"], n_d1["layers_fast"]).items():
+    for k, n in counts.items():
         totals[k] += n
     for line in out.getvalue().splitlines():
         print("  " + line)
@@ -2363,7 +2451,7 @@ def phase_hdr(torch, cfg, stencils, fast, cli, imageio, dataset, native, Session
     results, the summed launch counts of the runs, the animation and the
     exact battery's directory and exec ns)."""
     dev = torch.device("cuda")
-    totals = dict.fromkeys((*stencils.launches, *D1_NAMES), 0)
+    totals = dict.fromkeys(stencils.launches, 0)
     names = {k: c.output_name(True) for k, c in zip(cli.CONFIG_KEYS, cfg.GPU_BATTERY)}
     t0 = time.perf_counter()
     anim = write_hdr_animation(imageio, render_frame, root)
@@ -2436,8 +2524,7 @@ def phase_hdr(torch, cfg, stencils, fast, cli, imageio, dataset, native, Session
     def run(what, argv, expected):
         stencils.reset_launches()
         rc, text, err = run_cli(cli, [*argv, "--device", "cuda"])
-        d1 = "--turbo" in argv and argv[argv.index("--turbo") + 1] == "1"
-        counts = as_d1(stencils.launches) if d1 else dict(stencils.launches)
+        counts = dict(stencils.launches)
         check(rc == 0, f"{what} failed ({rc}): {err.strip()}")
         check(all(counts[k] > 0 for k in expected) and
               all(n == 0 for k, n in counts.items() if k not in expected),
@@ -2676,7 +2763,8 @@ def main() -> int:
         "fused_grid": (FAST_SOURCE, f"{JAX_FAST}:730"),
         "build_guided_grid": (FAST_SOURCE, f"{JAX_FAST}:1269"),
         "slice_guided_grid": (FAST_SOURCE, f"{JAX_FAST}:1372"),
-        # at D = 1, as --turbo 1 runs it for the layers (phases 7, 9, 10)
+        # at D = 1, as --turbo 1 runs them for the layers (phases 7, 9, 10)
+        "build_guided_grid_d1": (FAST_SOURCE, f"{JAX_FAST}:1269"),
         "slice_guided_grid_d1": (FAST_SOURCE, f"{JAX_FAST}:1372"),
         "fused_guided": (FAST_SOURCE, f"{JAX_FAST}:1516"),
     }

@@ -152,6 +152,10 @@ def library() -> ctypes.CDLL:
     lib.idf_build_grid.restype = i32
     lib.idf_build_grid_info.argtypes = [i32, i32, i32p]
     lib.idf_build_grid_info.restype = i32
+    lib.idf_build_grid_d1.argtypes = lib.idf_build_grid.argtypes
+    lib.idf_build_grid_d1.restype = i32
+    lib.idf_build_grid_d1_info.argtypes = [i32, i32, i32p]
+    lib.idf_build_grid_d1_info.restype = i32
     lib.idf_slice_grid.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr,
     ]
@@ -164,6 +168,10 @@ def library() -> ctypes.CDLL:
     lib.idf_build_guided_grid.restype = i32
     lib.idf_build_guided_grid_info.argtypes = [i32, i32, i32p]
     lib.idf_build_guided_grid_info.restype = i32
+    lib.idf_build_guided_grid_d1.argtypes = lib.idf_build_guided_grid.argtypes
+    lib.idf_build_guided_grid_d1.restype = i32
+    lib.idf_build_guided_grid_d1_info.argtypes = [i32, i32, i32p]
+    lib.idf_build_guided_grid_d1_info.restype = i32
     lib.idf_slice_guided_grid.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr,
     ]

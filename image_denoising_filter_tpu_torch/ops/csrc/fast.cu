@@ -31,6 +31,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <type_traits>
+
 // Device queries, defined in stencils.cu.
 namespace idf {
 cudaError_t max_shared_bytes(int* bytes);
@@ -697,7 +700,8 @@ __device__ __forceinline__ Bf16x4 normalized_cell(const float (&s)[kGuided], boo
 // zero-padded tiles. Each cell's products and sums are add_guided_fields' in
 // its order (the vertical sum of each tap column, then the weighted sum of
 // the columns: the TPU kernels' rows-then-columns banded matmuls), so each
-// grid equals its plain version bit for bit.
+// grid equals its plain version bit for bit. The wrappers launch it at d >=
+// 2; at d = 1 they launch build_grid_d1_kernel, the same grid.
 //
 // Bound on the H100, at 4K, d = 2, K = 5, 9 taps (chip_smoke.py's
 // kernel_work): device memory for the guided grid, the two pooled images
@@ -805,6 +809,435 @@ __device__ __forceinline__ void stage_window_async(const float4* __restrict__ sm
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The grid build at d = 1
+// ---------------------------------------------------------------------------
+
+// The blocks of the d = 1 build, defined in ops/fast.py like the others: a
+// vertical-pass thread sums kD1Rows cell rows of one staged column; a
+// horizontal-pass thread sums kD1Cells neighbouring cells of one row (one
+// float4 of each vertical-sum row a load); the taps sit in shared memory in
+// kD1TapSlots floats, the table and the zeros the passes' tap windows read
+// past its end; a block has kD1Threads threads.
+constexpr int kD1Rows = IDF_BUILD_D1_ROWS;
+constexpr int kD1Cells = 4;
+constexpr int kD1TapSlots = IDF_BUILD_D1_TAP_SLOTS;
+constexpr int kD1Threads = IDF_BUILD_D1_THREADS;
+static_assert(kD1TapSlots >= kMaxTaps + kD1Rows && kD1TapSlots >= kMaxTaps + 8 &&
+                  kD1TapSlots % 4 == 0,
+              "the tap slots hold every tap window's reads");
+
+// The grid build at d = 1, one body for both grids (GUIDED as in
+// build_grid_kernel), which it computes bit for bit: each cell's seven
+// sums are add_guided_fields' in its order, the vertical sum of each tap
+// column, then the weighted sum of the columns. Replaces, at d = 1 (the
+// sharded --turbo 1 bilateral grid; the --turbo 1 layers' guided grid),
+// image_denoising_filter_tpu/ops/fast.py:_build_grid_pallas and
+// :_build_guided_grid_pallas, as build_grid_kernel does at d >= 2.
+//
+// Bound on the H100 at 1080p, K = 6 (chip_smoke.py's kernel_work): the
+// blur's 28 operations a tap, cell and level (7 fields, two passes, one
+// multiply-add each), 0.09 ms at 17 taps, 0.26 ms at 49. Each cell keeps
+// its products and sums apart (__fmul_rn, __fadd_rn), so each counted
+// operation is one issue slot: the floor under that order is about twice
+// the bound. At d = 1 there is a cell a pixel and the blur is wide: a 2-D
+// tile of build_grid_kernel stages (th + 2r)(tw + 2r) / (th tw) pixels a
+// cell (3.0 at 17 taps, 10.0 at 49) and evaluates three range weights for
+// each, sums 1.5x (2.5x) the vertical work for the halo columns, forms each
+// w * p product at every tap that reads it, and at 49 taps holds one block
+// a multiprocessor.
+// Design: the grid is cut into bands of tw cell columns (ops/fast.py:
+// build_d1_tile) and each band into strips of groups * kD1Rows cell rows;
+// the launcher starts as many blocks as the card holds at once, and each
+// walks an equal run of strips, band by band, down each band. A ring of 2r
+// + (strip rows) staged rows of the pooled image(s) (tw + 2r columns, the
+// build's border rule) holds what a strip reads; each staged row is copied
+// in once a band walk (cp.async), the next strip's rows while the last
+// level of this one runs its horizontal pass, into the slots of rows no
+// later strip reads (or, where the walk moves to the next band, the whole
+// ring). Only the tw + 2r columns carry halo, and no block waits on a last
+// partial wave. Per strip and level, with two barriers:
+//   1. the vertical pass: thread (group g, staged column sx) computes each
+//      pixel of its n + kD1Rows - 1 staged rows' three range weights and
+//      four products w * p once (d1_fields), adds them to its kD1Rows cell
+//      rows at their taps (14 operations a tap), and writes the seven sums
+//      to shared memory;
+//   2. the horizontal pass: a thread sums kD1Cells neighbouring cells of a
+//      row from float4 loads of the vertical sums (each load feeds every
+//      cell it reaches) and stores them, a warp's stores along ws: the
+//      bilateral grid's 8-byte cells straight to the grid; the guided
+//      grid's 16-byte cells through shared memory, which the next level's
+//      vertical pass (or the block's end) first copies out, each store
+//      instruction on consecutive cells (stored straight, a thread's four
+//      16-byte cells put a store instruction's lanes 64 bytes apart).
+// The tile and the shared-memory layout (byte offsets in `tile`) are
+// build_d1_tile's.
+struct BuildD1Tile {
+  int tw;       // cell columns of the band, a multiple of kD1Cells
+  int groups;   // vertical-pass thread groups: a strip is groups * kD1Rows cell rows
+  // byte offsets: the staged layer's ring (0 with one staged image: the
+  // payload is the layer), the vertical sums (seven planes of the strip's
+  // rows x vstride), the guided strip's cells (rows x tw, d1_swizzle'd;
+  // none for the bilateral grid), the taps; the staged payload's ring is at 0
+  int l_at, v_at, o_at, t_at;
+};
+// The ints of a tile as the launcher takes them: BuildD1Tile's, then the bytes.
+constexpr int kBuildD1TileFields = 7;
+
+// Where cell u (row-major in the strip's rows x tw) sits in the guided
+// grid's staged cells: within its 128-byte group of G cells (G = 128 / the
+// cell's bytes), at u ^ (its group's index mod G), so that both the
+// horizontal pass's stores (kD1Cells neighbouring cells a thread) and the
+// copy out (one cell a thread, a row at a time) meet no bank twice in a
+// wavefront.
+template <int G>
+__device__ __forceinline__ int d1_swizzle(int u) {
+  return u ^ ((u / G) & (G - 1));
+}
+
+// Copy a strip's staged cells (rows x tw, d1_swizzle'd) of level k, rows y
+// .. y + rows - 1 and columns x0 .. x0 + cols - 1 of the grid, to the grid:
+// one cell a thread, consecutive threads on consecutive cells of a row.
+template <typename Cell>
+__device__ __forceinline__ void d1_copy_out(const Cell* cells, Cell* grid, int k, int y, int x0,
+                                            int rows, int cols, int tw, int hs, int ws) {
+  constexpr int kG = 128 / sizeof(Cell);
+  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+    const int cy = i / cols;
+    const int cx = i - cy * cols;
+    grid[(static_cast<size_t>(k) * hs + y + cy) * ws + x0 + cx] =
+        cells[d1_swizzle<kG>(cy * tw + cx)];
+  }
+}
+
+// A vertical-sum row's stride: tw + 2r columns, rounded up so that every
+// float4 load of the horizontal pass lies in its row.
+__host__ __device__ __forceinline__ int d1_vstride(int tw, int r) { return (tw + 2 * r + 3) & ~3; }
+
+// Stage n_rows rows of a pooled image from row row0, columns x0 ..
+// x0 + scols - 1, into the ring's slots (row - ring_row0) % ring_rows with
+// asynchronous copies and the build's border rule: edge cells (CLAMP) or
+// zero pixels (ZERO, a copy of no bytes, which fills zeros). Lands by
+// cp_async_wait_all().
+template <bool ZERO>
+__device__ __forceinline__ void stage_ring_rows(const float4* __restrict__ small, float4* ring,
+                                                int row0, int n_rows, int x0, int scols,
+                                                int ring_row0, int ring_rows, int hs, int ws) {
+  for (int i = threadIdx.x; i < n_rows * scols; i += blockDim.x) {
+    const int dy = i / scols;
+    const int sx = i - dy * scols;
+    const int yy = row0 + dy;
+    const int xx = x0 + sx;
+    const bool inside = !ZERO || (yy >= 0 && yy < hs && xx >= 0 && xx < ws);
+    const float4* src =
+        small + static_cast<size_t>(min(max(yy, 0), hs - 1)) * ws + min(max(xx, 0), ws - 1);
+    float4* dst = ring + ((yy - ring_row0) % ring_rows) * scols + sx;
+    const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(at), "l"(src),
+                 "r"(inside ? 16 : 0));
+  }
+}
+
+// The seven fields of one staged pixel at one level (add_guided_fields'):
+// num r, g, b, a as w * p, alpha under green's weight, then den r, g, b.
+__device__ __forceinline__ void d1_fields(float4 p, float4 l, float3 lv, float coef,
+                                          float (&f)[kGuided]) {
+  const float3 w = guided_range_weights(l, lv, coef);
+  f[0] = __fmul_rn(w.x, p.x);
+  f[1] = __fmul_rn(w.y, p.y);
+  f[2] = __fmul_rn(w.z, p.z);
+  f[3] = __fmul_rn(w.y, p.w);
+  f[4] = w.x;
+  f[5] = w.y;
+  f[6] = w.z;
+}
+
+// One staged row i (i = 0 at the group's first row, r rows above its first
+// cell row) of the vertical pass, software-pipelined: f holds row i's
+// fields, p and l row i + 1's pixel. Computes row i + 1's fields and loads
+// row i + 2's pixel (from ring slot `slot`, which then advances; rows past
+// the walk's end are read and never used) ahead of adding f to cell row j
+// as tap i - j (tap[j] holds taps[i - j] after the shift), so that the
+// loads' and the exp2s' latency hides behind the adds. TAKE says which
+// cell rows j take the row, so that no add is issued for one that does not:
+// every row (kAllRows); j <= t (kRowsUpTo, the walk's first kD1Rows - 1
+// rows, t = i); j > t (kRowsAbove, its last kD1Rows - 1, t = i - n); those
+// with i - j in [0, n) (kRowsInTable, any n).
+enum D1Take { kAllRows, kRowsUpTo, kRowsAbove, kRowsInTable };
+
+template <bool GUIDED, D1Take TAKE>
+__device__ __forceinline__ void d1_vertical_row(const float4* ring_p, const float4* ring_l,
+                                                int& slot, int ring_rows, int scols, int sx,
+                                                const float* s_taps, int i, int t, int n,
+                                                float3 lv, float coef, float (&tap)[kD1Rows],
+                                                float (&acc)[kD1Rows][kGuided],
+                                                float (&f)[kGuided], float4& p, float4& l) {
+  float next[kGuided];
+  d1_fields(p, l, lv, coef, next);
+  p = ring_p[slot * scols + sx];
+  l = GUIDED ? ring_l[slot * scols + sx] : p;
+  if (++slot == ring_rows) slot = 0;
+#pragma unroll
+  for (int j = kD1Rows - 1; j > 0; --j) tap[j] = tap[j - 1];
+  tap[0] = s_taps[i];
+#pragma unroll
+  for (int j = 0; j < kD1Rows; ++j) {
+    const bool take = TAKE == kAllRows    ? true
+                      : TAKE == kRowsUpTo ? j <= t
+                      : TAKE == kRowsAbove ? j > t
+                                           : i - j >= 0 && i - j < n;
+    if (take) {
+#pragma unroll
+      for (int q = 0; q < kGuided; ++q) acc[j][q] = __fadd_rn(acc[j][q], __fmul_rn(tap[j], f[q]));
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kGuided; ++q) f[q] = next[q];
+}
+
+// The vertical pass of one level for one thread: staged column sx, cell
+// rows vrow0 .. vrow0 + kD1Rows - 1 of the strip, whose staged rows start
+// at ring slot `slot`. Writes vsum[q * v_plane + row * vstride + sx].
+template <bool GUIDED>
+__device__ __forceinline__ void d1_vertical(const float4* ring_p, const float4* ring_l,
+                                            int ring_rows, int scols, int sx, int slot,
+                                            const float* s_taps, int n, float3 lv, float coef,
+                                            float* vsum, int vrow0, int vstride, int v_plane) {
+  float acc[kD1Rows][kGuided];
+  float tap[kD1Rows];
+#pragma unroll
+  for (int j = 0; j < kD1Rows; ++j) {
+    tap[j] = 0.f;
+#pragma unroll
+    for (int q = 0; q < kGuided; ++q) acc[j][q] = 0.f;
+  }
+  // The pipeline's first stage: row 0's fields, row 1's pixel.
+  float f[kGuided];
+  float4 p = ring_p[slot * scols + sx];
+  float4 l = GUIDED ? ring_l[slot * scols + sx] : p;
+  if (++slot == ring_rows) slot = 0;
+  d1_fields(p, l, lv, coef, f);
+  p = ring_p[slot * scols + sx];
+  l = GUIDED ? ring_l[slot * scols + sx] : p;
+  if (++slot == ring_rows) slot = 0;
+  if (n >= kD1Rows - 1) {
+    // rows 0 .. kD1Rows - 2 reach the first cell rows only, rows n .. n +
+    // kD1Rows - 2 the last ones; the rows between reach them all
+#pragma unroll
+    for (int t = 0; t < kD1Rows - 1; ++t)
+      d1_vertical_row<GUIDED, kRowsUpTo>(ring_p, ring_l, slot, ring_rows, scols, sx, s_taps, t,
+                                         t, n, lv, coef, tap, acc, f, p, l);
+    for (int i = kD1Rows - 1; i < n; ++i)
+      d1_vertical_row<GUIDED, kAllRows>(ring_p, ring_l, slot, ring_rows, scols, sx, s_taps, i,
+                                        0, n, lv, coef, tap, acc, f, p, l);
+#pragma unroll
+    for (int t = 0; t < kD1Rows - 1; ++t)
+      d1_vertical_row<GUIDED, kRowsAbove>(ring_p, ring_l, slot, ring_rows, scols, sx, s_taps,
+                                          n + t, t, n, lv, coef, tap, acc, f, p, l);
+  } else {
+    for (int i = 0; i < n + kD1Rows - 1; ++i)
+      d1_vertical_row<GUIDED, kRowsInTable>(ring_p, ring_l, slot, ring_rows, scols, sx, s_taps,
+                                            i, 0, n, lv, coef, tap, acc, f, p, l);
+  }
+#pragma unroll
+  for (int j = 0; j < kD1Rows; ++j)
+#pragma unroll
+    for (int q = 0; q < kGuided; ++q) vsum[q * v_plane + (vrow0 + j) * vstride + sx] = acc[j][q];
+}
+
+// One float4 column chunk m of the horizontal pass, software-pipelined: v
+// holds the chunk's vertical sums (columns cx0 + 4m .. cx0 + 4m + 3 of a
+// row, one float4 a plane), and is refilled with chunk m + 1's (the last
+// chunk's again at the end) ahead of adding them to cell cx0 + c as tap 4m
+// + e - c, in tap order. t8 slides to taps 4m - 4 .. 4m + 3. A cell takes
+// the chunk's column e where DMIN <= e - c <= DMAX (the taps in [0, n) of
+// the first chunk, the middle ones, and the last one or two at n = 1 or 3
+// mod 4), or, with CHECK, where its tap 4m + e - c is in [0, n): no add is
+// issued for a tap outside the table.
+template <int DMIN, int DMAX, bool CHECK>
+__device__ __forceinline__ void d1_horizontal_chunk(const float* row, int v_plane,
+                                                    const float* s_taps, int m, int chunks,
+                                                    int n, float (&t8)[8],
+                                                    float4 (&v)[kGuided],
+                                                    float (&out)[kD1Cells][kGuided]) {
+  const float4 t4 = *reinterpret_cast<const float4*>(s_taps + 4 * m);
+  t8[0] = t8[4];
+  t8[1] = t8[5];
+  t8[2] = t8[6];
+  t8[3] = t8[7];
+  t8[4] = t4.x;
+  t8[5] = t4.y;
+  t8[6] = t4.z;
+  t8[7] = t4.w;
+  const int ahead = 4 * min(m + 1, chunks - 1);
+  float4 next[kGuided];
+#pragma unroll
+  for (int q = 0; q < kGuided; ++q)
+    next[q] = *reinterpret_cast<const float4*>(row + q * v_plane + ahead);
+#pragma unroll
+  for (int q = 0; q < kGuided; ++q) {
+    const float e4[4] = {v[q].x, v[q].y, v[q].z, v[q].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int c = 0; c < kD1Cells; ++c) {
+        const int b = 4 * m + e - c;
+        if (CHECK ? b >= 0 && b < n : DMIN <= e - c && e - c <= DMAX)
+          out[c][q] = __fadd_rn(out[c][q], __fmul_rn(t8[4 + e - c], e4[e]));
+      }
+    }
+    v[q] = next[q];
+  }
+}
+
+template <bool ZERO, bool GUIDED>
+__global__ void __launch_bounds__(kD1Threads)
+    build_grid_d1_kernel(const float4* __restrict__ small_p, const float4* __restrict__ small_l,
+                         const float* __restrict__ lmin, const float* __restrict__ step,
+                         void* __restrict__ grid, int hs, int ws, int levels, const Taps taps,
+                         float coef, const BuildD1Tile tile, int uniform_alpha) {
+  extern __shared__ __align__(16) unsigned char d1_smem[];
+  const int n = taps.n;
+  const int r = n / 2;
+  const int rows = tile.groups * kD1Rows;  // cell rows of a strip
+  const int ring_rows = 2 * r + rows;
+  const int scols = tile.tw + 2 * r;
+  const int vstride = d1_vstride(tile.tw, r);
+  const int v_plane = rows * vstride;
+  float4* ring_p = reinterpret_cast<float4*>(d1_smem);
+  float4* ring_l = GUIDED ? reinterpret_cast<float4*>(d1_smem + tile.l_at) : ring_p;
+  float* vsum = reinterpret_cast<float*>(d1_smem + tile.v_at);
+  using Cell = std::conditional_t<GUIDED, Bf16x8, Bf16x4>;
+  constexpr int kG = 128 / sizeof(Cell);
+  Cell* cells = reinterpret_cast<Cell*>(d1_smem + tile.o_at);
+  Cell* out_grid = static_cast<Cell*>(grid);
+  float* s_taps = reinterpret_cast<float*>(d1_smem + tile.t_at);
+  // The block's run of work items, strip s of band b being item b *
+  // strips + s: an equal share of them, in order.
+  const int strips = (hs + rows - 1) / rows;
+  const long long items = static_cast<long long>((ws + tile.tw - 1) / tile.tw) * strips;
+  const int begin = static_cast<int>(items * blockIdx.x / gridDim.x);
+  const int end = static_cast<int>(items * (blockIdx.x + 1) / gridDim.x);
+  if (begin >= end) return;
+  for (int i = threadIdx.x; i < kD1TapSlots; i += blockDim.x) s_taps[i] = i < n ? taps.t[i] : 0.f;
+  // The staged row of ring slot 0 of this band walk: a row's slot is
+  // (row - ring_row0) % ring_rows.
+  int ring_row0 = (begin % strips) * rows - r;
+  stage_ring_rows<ZERO>(small_p, ring_p, ring_row0, ring_rows, (begin / strips) * tile.tw - r,
+                        scols, ring_row0, ring_rows, hs, ws);
+  if (GUIDED)
+    stage_ring_rows<ZERO>(small_l, ring_l, ring_row0, ring_rows, (begin / strips) * tile.tw - r,
+                          scols, ring_row0, ring_rows, hs, ws);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const float3 lmin3 = make_float3(lmin[0], lmin[1], lmin[2]);
+  const float3 step3 = make_float3(step[0], step[1], step[2]);
+  const int group = threadIdx.x / scols;  // the vertical pass's thread (group, sx)
+  const int sx = threadIdx.x - group * scols;
+  const int groups_x = tile.tw / kD1Cells;
+  // The staged cells still to copy out: level pend_k (-1: none) of the
+  // strip at (pend_y, pend_x0), pend_rows x pend_cols cells.
+  int pend_k = -1, pend_y = 0, pend_x0 = 0, pend_rows = 0, pend_cols = 0;
+  for (int item = begin; item < end; ++item) {
+    const int band = item / strips;
+    const int y = (item - band * strips) * rows;
+    const int x0 = band * tile.tw;
+    const int rows_in = min(rows, hs - y);
+    const int cols = min(tile.tw, ws - x0);
+    int next_row0 = ring_row0;
+    for (int k = 0; k < levels; ++k) {
+      const float3 lv = level_centres(lmin3, step3, k);
+      // 1. The vertical pass. The last level's horizontal pass read vsum
+      // before the barrier that ended it, and staged its cells, which go
+      // out first.
+      if (GUIDED && pend_k >= 0)
+        d1_copy_out(cells, out_grid, pend_k, pend_y, pend_x0, pend_rows, pend_cols, tile.tw, hs,
+                    ws);
+      if (group < tile.groups)
+        d1_vertical<GUIDED>(ring_p, ring_l, ring_rows, scols, sx,
+                            (y - r + group * kD1Rows - ring_row0) % ring_rows, s_taps, n, lv,
+                            coef, vsum, group * kD1Rows, vstride, v_plane);
+      __syncthreads();
+      // Nothing reads the ring again in this item: the next item's rows go
+      // in while the horizontal pass runs. Down the band, its new rows, into
+      // the slots of this strip's first rows, which no later strip reads;
+      // at the next band, the whole ring from a new origin.
+      const bool last = k == levels - 1;
+      if (last && item + 1 < end) {
+        const int next_band = (item + 1) / strips;
+        const int next_y = (item + 1 - next_band * strips) * rows;
+        const bool down = next_band == band;
+        if (!down) next_row0 = next_y - r;
+        const int from = down ? y + rows + r : next_row0;
+        const int count = down ? rows : ring_rows;
+        stage_ring_rows<ZERO>(small_p, ring_p, from, count, next_band * tile.tw - r, scols,
+                              next_row0, ring_rows, hs, ws);
+        if (GUIDED)
+          stage_ring_rows<ZERO>(small_l, ring_l, from, count, next_band * tile.tw - r, scols,
+                                next_row0, ring_rows, hs, ws);
+      }
+      // 2. The horizontal pass and the stores.
+      for (int task = threadIdx.x; task < rows_in * groups_x; task += blockDim.x) {
+        const int cy = task / groups_x;
+        const int cx0 = (task - cy * groups_x) * kD1Cells;
+        const float* row = vsum + cy * vstride + cx0;
+        float out[kD1Cells][kGuided];
+#pragma unroll
+        for (int c = 0; c < kD1Cells; ++c)
+#pragma unroll
+          for (int q = 0; q < kGuided; ++q) out[c][q] = 0.f;
+        // t8: taps 4m - 4 .. 4m + 3; a cell's last tap is read by chunk
+        // (n + kD1Cells - 2) / 4: for n = 4a + 1 chunks 1 .. a - 1 take every
+        // tap and chunk a the first of its column; for n = 4a + 3 chunk a
+        // three, a + 1 one
+        float t8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        const int chunks = (n + kD1Cells + 2) / 4;
+        const int a = n / 4;
+        float4 v[kGuided];  // the pipeline's first stage: chunk 0's sums
+#pragma unroll
+        for (int q = 0; q < kGuided; ++q) v[q] = *reinterpret_cast<const float4*>(row + q * v_plane);
+        if (n < 4) {
+          for (int m = 0; m < chunks; ++m)
+            d1_horizontal_chunk<0, 0, true>(row, v_plane, s_taps, m, chunks, n, t8, v, out);
+        } else {
+          d1_horizontal_chunk<0, 3, false>(row, v_plane, s_taps, 0, chunks, n, t8, v, out);
+          for (int m = 1; m < a; ++m)
+            d1_horizontal_chunk<-3, 3, false>(row, v_plane, s_taps, m, chunks, n, t8, v, out);
+          if (n % 4 == 1) {
+            d1_horizontal_chunk<-3, 0, false>(row, v_plane, s_taps, a, chunks, n, t8, v, out);
+          } else {
+            d1_horizontal_chunk<-3, 2, false>(row, v_plane, s_taps, a, chunks, n, t8, v, out);
+            d1_horizontal_chunk<-3, -2, false>(row, v_plane, s_taps, a + 1, chunks, n, t8, v,
+                                               out);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < kD1Cells; ++c) {
+          if constexpr (GUIDED) {
+            cells[d1_swizzle<kG>(cy * tile.tw + cx0 + c)] = pack_guided(out[c]);
+          } else if (cx0 + c < cols) {
+            out_grid[(static_cast<size_t>(k) * hs + y + cy) * ws + x0 + cx0 + c] =
+                normalized_cell(out[c], uniform_alpha);
+          }
+        }
+      }
+      pend_k = k;
+      pend_y = y;
+      pend_x0 = x0;
+      pend_rows = rows_in;
+      pend_cols = cols;
+      if (last) cp_async_wait_all();
+      // The next level's vertical pass writes vsum and copies the cells
+      // out; the next item reads the rows that just landed.
+      __syncthreads();
+    }
+    ring_row0 = next_row0;
+  }
+  if (GUIDED)
+    d1_copy_out(cells, out_grid, pend_k, pend_y, pend_x0, pend_rows, pend_cols, tile.tw, hs, ws);
 }
 
 // Fused guided build + slice: one block per slice tile of ph x pw pixels.
@@ -1187,6 +1620,71 @@ int launch_build(const void* small_p, const void* small_l, const void* lmin, con
   return static_cast<int>(cudaGetLastError());
 }
 
+// Whether a d = 1 build tile for blur radius r lays out what
+// build_grid_d1_kernel indexes: the block's threads cover the vertical
+// pass's groups x (tw + 2r) columns, and the payload's ring at 0, the
+// layer's ring (two images) after it, the vertical sums, the strip's cells
+// and the taps lie back to back, 16-byte aligned, within `bytes`.
+bool build_d1_tile_ok(const BuildD1Tile& t, bool guided, int r, int bytes) {
+  const int scols = t.tw + 2 * r;
+  if (t.tw < kD1Cells || t.tw % kD1Cells != 0 || t.groups < 1 || t.groups * scols > kD1Threads)
+    return false;
+  const int ring = 16 * (2 * r + t.groups * kD1Rows) * scols;
+  const bool staged = guided ? t.l_at >= ring && t.l_at % 16 == 0 && t.v_at >= t.l_at + ring
+                             : t.l_at == 0 && t.v_at >= ring;
+  const int rows = t.groups * kD1Rows;
+  return staged && t.v_at % 16 == 0 &&
+         t.o_at >= t.v_at + 4 * kGuided * rows * d1_vstride(t.tw, r) && t.o_at % 16 == 0 &&
+         t.t_at >= t.o_at + (guided ? 16 * rows * t.tw : 0) && t.t_at % 16 == 0 &&
+         bytes >= t.t_at + 4 * kD1TapSlots;
+}
+
+template <bool GUIDED>
+int launch_build_d1(const void* small_p, const void* small_l, const void* lmin, const void* step,
+                    void* grid, int hs, int ws, int levels, const float* taps, int n_taps,
+                    float coef, int zero_border, int uniform_alpha, const int* tile,
+                    void* stream) {
+  const cudaError_t invalid = cudaErrorInvalidValue;
+  if (!taps_ok(n_taps) || levels <= 0) return static_cast<int>(invalid);
+  const BuildD1Tile geom{tile[0], tile[1], tile[2], tile[3], tile[4], tile[5]};
+  const int shared_bytes = tile[kBuildD1TileFields - 1];
+  if (!build_d1_tile_ok(geom, GUIDED, n_taps / 2, shared_bytes)) return static_cast<int>(invalid);
+  auto kernel =
+      zero_border ? build_grid_d1_kernel<true, GUIDED> : build_grid_d1_kernel<false, GUIDED>;
+  bool fits = false;
+  const cudaError_t err = opt_in(reinterpret_cast<const void*>(kernel), shared_bytes, 0, &fits);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!fits) return static_cast<int>(invalid);
+  if (hs <= 0 || ws <= 0) return static_cast<int>(cudaSuccess);
+  // As many blocks as the card holds at once, at most one a work item.
+  int per_sm = 0, sms = 0, device = 0;
+  cudaError_t q = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, reinterpret_cast<const void*>(kernel), kD1Threads, shared_bytes);
+  if (q == cudaSuccess) q = cudaGetDevice(&device);
+  if (q == cudaSuccess) q = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (q != cudaSuccess) return static_cast<int>(q);
+  if (per_sm < 1) return static_cast<int>(invalid);
+  const long long items = static_cast<long long>((ws + geom.tw - 1) / geom.tw) *
+                          ((hs + geom.groups * kD1Rows - 1) / (geom.groups * kD1Rows));
+  const int blocks = static_cast<int>(std::min<long long>(items, 1LL * per_sm * sms));
+  kernel<<<blocks, kD1Threads, shared_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(small_p), static_cast<const float4*>(small_l),
+      static_cast<const float*>(lmin), static_cast<const float*>(step), grid, hs, ws, levels,
+      tap_table(taps, n_taps), coef, geom, uniform_alpha);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The d = 1 build kernel of a grid and a border as compiled, and its
+// occupancy at shared_bytes a block (kernel_info's).
+int build_d1_info(bool guided, int zero_border, int shared_bytes, int* info) {
+  const void* kernel =
+      guided ? (zero_border ? reinterpret_cast<const void*>(build_grid_d1_kernel<true, true>)
+                            : reinterpret_cast<const void*>(build_grid_d1_kernel<false, true>))
+             : (zero_border ? reinterpret_cast<const void*>(build_grid_d1_kernel<true, false>)
+                            : reinterpret_cast<const void*>(build_grid_d1_kernel<false, false>));
+  return static_cast<int>(idf::kernel_info(kernel, kD1Threads, shared_bytes, info));
+}
+
 // Whether a fused tile for downsample d and blur radius r is one the fused
 // kernels take: its threads cover the tile (each one column and every
 // (kFusedThreads / pw)-th row; the guided kernel's at most kGuidedPixels
@@ -1318,6 +1816,24 @@ int idf_build_grid_info(int zero_border, int shared_bytes, int* info) {
       idf::kernel_info(reinterpret_cast<const void*>(kernel), kBuildThreads, shared_bytes, info));
 }
 
+// idf_build_grid's inputs at d = 1, through build_grid_d1_kernel. tile: host
+// array of kBuildD1TileFields ints from ops/fast.py:build_d1_tile with one
+// staged image: BuildD1Tile's (l_at 0), then the block's dynamic shared
+// memory in bytes, which must fit the device; a tile the kernel cannot take
+// (build_d1_tile_ok) is refused (cudaErrorInvalidValue, no launch).
+int idf_build_grid_d1(const void* small, const void* lmin, const void* step, void* grid, int hs,
+                      int ws, int levels, const float* taps, int n_taps, float coef,
+                      int zero_border, int uniform_alpha, const int* tile, void* stream) {
+  return launch_build_d1<false>(small, small, lmin, step, grid, hs, ws, levels, taps, n_taps,
+                                coef, zero_border, uniform_alpha, tile, stream);
+}
+
+// The bilateral d = 1 build kernel of a border as compiled, and its
+// occupancy at shared_bytes a block (kernel_info's).
+int idf_build_grid_d1_info(int zero_border, int shared_bytes, int* info) {
+  return build_d1_info(false, zero_border, shared_bytes, info);
+}
+
 // guide: (h, w, 4) float32 (its RGB guides the tents); grid: (levels, hs, ws,
 // 4) bf16; lmin, inv_step: device arrays of 3 floats; alpha: device float,
 // or nullptr for the full alpha slice; out: (h, w, 4) float32. y_off, hs_all,
@@ -1362,6 +1878,23 @@ int idf_build_guided_grid_info(int zero_border, int shared_bytes, int* info) {
   auto kernel = zero_border ? build_grid_kernel<true, true> : build_grid_kernel<false, true>;
   return static_cast<int>(
       idf::kernel_info(reinterpret_cast<const void*>(kernel), kBuildThreads, shared_bytes, info));
+}
+
+// idf_build_guided_grid's inputs at d = 1, through build_grid_d1_kernel.
+// tile: as idf_build_grid_d1's, from ops/fast.py:build_d1_tile with two
+// staged images.
+int idf_build_guided_grid_d1(const void* small_t, const void* small_l, const void* lmin,
+                             const void* step, void* grid, int hs, int ws, int levels,
+                             const float* taps, int n_taps, float coef, int zero_border,
+                             const int* tile, void* stream) {
+  return launch_build_d1<true>(small_t, small_l, lmin, step, grid, hs, ws, levels, taps, n_taps,
+                               coef, zero_border, 0, tile, stream);
+}
+
+// The guided d = 1 build kernel of a border as compiled, and its occupancy
+// at shared_bytes a block (kernel_info's).
+int idf_build_guided_grid_d1_info(int zero_border, int shared_bytes, int* info) {
+  return build_d1_info(true, zero_border, shared_bytes, info);
 }
 
 // guide: (h, w, 4) float32 full-resolution layer; grid: (levels, hs, ws, 8)

@@ -20,9 +20,10 @@ use. Beside them this module holds:
     `slice_grid_plain`, `fused_grid_plain`, `build_guided_grid_plain`,
     `slice_guided_grid_plain`, `fused_guided_plain`): whole-image tensor ops
     with the kernel's bf16 roundings, taps, summation order and lerp formula;
-  * the grid build kernel's and the fused kernels' blocks, tiles, staged
-    windows and shared-memory layouts (`build_tile`, `fused_tile`), in pure
-    Python that the CPU tests check;
+  * the grid build kernels' and the fused kernels' blocks, tiles, staged
+    windows and shared-memory layouts (`build_tile`; `build_d1_tile` for the
+    build at d = 1, its own body; `fused_tile`), in pure Python that the CPU
+    tests check;
   * launch counts, in `ops.stencils.launches` beside the exact kernels'.
 
 Layouts: images (H, W, 4) float32; the pooled image (hs, ws, 4) float32 with
@@ -85,6 +86,28 @@ BUILD_STRIP = 4
 BUILD_TILES = (
     (16, 32), (8, 32), (4, 32), (2, 32), (1, 32), (1, 16), (1, 8), (1, 4), (1, 2), (1, 1),
 )
+# The grid build at d = 1 (one body for both grids, build_d1_tile): the grid
+# is cut into bands of cell columns and strips of groups x BUILD_D1_ROWS cell
+# rows, and each block walks an equal run of strips down the bands, keeping
+# the rows a strip reads in a ring. A block has BUILD_D1_THREADS threads.
+# BUILD_D1_TILES are (staged columns, groups), tried in order: the band is
+# the staged columns less the blur halo 2r, rounded down to a multiple of
+# BUILD_D1_CELLS (a horizontal-pass thread's cells); the vertical pass takes
+# staged columns x groups of the threads, one a staged column and group,
+# each summing BUILD_D1_ROWS cell rows, and the horizontal pass all of
+# them. The first tile with two blocks a multiprocessor is taken, else the
+# first with one. The taps sit in BUILD_D1_TAP_SLOTS floats of shared
+# memory, what the passes' tap windows read.
+BUILD_D1_ROWS = 8
+BUILD_D1_CELLS = 4
+BUILD_D1_TILES = ((128, 2), (128, 1), (96, 2), (96, 1), (64, 4), (64, 2), (64, 1), (32, 1),
+                  (80, 1))
+BUILD_D1_TAP_SLOTS = -(-(MAX_TAPS + max(BUILD_D1_ROWS, 8)) // 4) * 4
+BUILD_D1_THREADS = 256
+#: Shared memory the card keeps for itself beside each resident block's
+#: dynamic bytes (CUDA's reserved shared memory a block, 1 KB on sm_90): a
+#: multiprocessor holds (opt-in limit + this) // (bytes + this) blocks.
+SHARED_BLOCK_RESERVE = 1024
 # The fused kernels' blocks (the guided and the bilateral grid share the
 # tile helper, fused_tile, and the build passes), likewise: FUSED_THREADS
 # threads own a slice tile of pixels, each thread one column and every
@@ -129,6 +152,9 @@ def nvcc_defines() -> tuple[str, ...]:
     """The blocks above as the macros fast.cu is compiled with."""
     return (f"-DIDF_BUILD_THREADS={BUILD_THREADS}",
             f"-DIDF_BUILD_STRIP={BUILD_STRIP}",
+            f"-DIDF_BUILD_D1_ROWS={BUILD_D1_ROWS}",
+            f"-DIDF_BUILD_D1_TAP_SLOTS={BUILD_D1_TAP_SLOTS}",
+            f"-DIDF_BUILD_D1_THREADS={BUILD_D1_THREADS}",
             f"-DIDF_FUSED_THREADS={FUSED_THREADS}",
             f"-DIDF_FUSED_STRIP={FUSED_STRIP}",
             f"-DIDF_FUSED_GUIDED_PIXELS={FUSED_GUIDED_PIXELS}",
@@ -485,6 +511,126 @@ def build_grid_info(device: torch.device, n_taps: int, border: str, guided: bool
 
 
 @dataclasses.dataclass(frozen=True)
+class BuildD1Tile:
+    """One block's geometry in the grid build at d = 1 (fast.cu:
+    build_grid_d1_kernel). The grid is cut into bands of tw cell columns and
+    strips of rows = groups * BUILD_D1_ROWS cell rows (a work item: strip s
+    of band b, item b * strips + s); the launcher starts as many blocks as
+    the card holds at once, and each walks an equal run of items in order.
+    Its ring of ring_rows = 2r + rows staged rows (r = the blur radius)
+    holds staged row y - r + i (y the strip's first cell row, i < ring_rows)
+    of the n_images pooled images at columns x0 - r + j, j < scols = tw +
+    2r (x0 the band's first), under the build's border rule, in slot (y - r
+    + i - (y0 - r)) % ring_rows, y0 the first strip the block walks in that
+    band: cell (y, x)'s tap (a, b) reads staged row y - r + a, column x - x0
+    + b.
+    The vertical pass's thread (group g, staged column j) sums cell rows
+    g * BUILD_D1_ROWS + i of the strip; a horizontal-pass thread
+    BUILD_D1_CELLS cells of one row. The block's dynamic shared memory
+    (build_d1_layout) holds the payload's ring as float4 at byte 0, and from
+    the byte offsets l_at, v_at and t_at the layer's ring (l_at = 0 with one
+    image, the payload being the layer), the seven vertical-sum planes
+    (rows x vstride floats each) and the taps (BUILD_D1_TAP_SLOTS floats),
+    and from o_at the guided strip's cells of one level (rows x tw, 16
+    bytes a cell) on their way out (none for the bilateral grid, whose
+    8-byte cells go straight out); shared_bytes in all."""
+
+    tw: int
+    groups: int
+    r: int
+    n_images: int
+    l_at: int
+    v_at: int
+    o_at: int
+    t_at: int
+    shared_bytes: int
+
+    @property
+    def rows(self) -> int:
+        return self.groups * BUILD_D1_ROWS
+
+    @property
+    def ring_rows(self) -> int:
+        return 2 * self.r + self.rows
+
+    @property
+    def scols(self) -> int:
+        return self.tw + 2 * self.r
+
+    @property
+    def vstride(self) -> int:
+        """A vertical-sum row's floats: scols rounded up to a multiple of 4,
+        so that each float4 load of the horizontal pass lies in its row."""
+        return -(-self.scols // 4) * 4
+
+    def blocks_per_sm(self, shared_limit: int) -> int:
+        """Blocks a multiprocessor holds at once by shared memory, on a card
+        whose blocks may hold shared_limit bytes (the opt-in limit)."""
+        return (shared_limit + SHARED_BLOCK_RESERVE) // (self.shared_bytes + SHARED_BLOCK_RESERVE)
+
+    def launch_args(self) -> np.ndarray:
+        """The ints idf_build_grid_d1 and idf_build_guided_grid_d1 take
+        (fast.cu: BuildD1Tile, then the bytes)."""
+        return np.asarray([self.tw, self.groups, self.l_at, self.v_at, self.o_at, self.t_at,
+                           self.shared_bytes], np.int32)
+
+
+def build_d1_layout(tw: int, groups: int, r: int,
+                    n_images: int) -> tuple[int, int, int, int, int]:
+    """The d = 1 build kernel's shared memory, in this order, each region
+    16-byte aligned: the n_images rings of 2r + groups * BUILD_D1_ROWS
+    staged rows of tw + 2r float4 pixels; the vertical sums, seven float
+    planes of the strip's rows x vstride; with two images the strip's
+    cells (rows x tw, 16 bytes a cell); the taps. Returns (l_at, v_at,
+    o_at, t_at, shared bytes), l_at = 0 and t_at = o_at with one image."""
+    if n_images not in (1, 2):
+        raise ValueError(f"the grid build stages 1 or 2 images, got {n_images}")
+    rows = groups * BUILD_D1_ROWS
+    ring = 16 * (2 * r + rows) * (tw + 2 * r)
+    l_at = ring if n_images == 2 else 0
+    v_at = ring * n_images
+    o_at = v_at + 4 * 7 * rows * (-(-(tw + 2 * r) // 4) * 4)
+    t_at = o_at + (16 * rows * tw if n_images == 2 else 0)
+    return l_at, v_at, o_at, t_at, t_at + 4 * BUILD_D1_TAP_SLOTS
+
+
+@functools.lru_cache(maxsize=None)
+def build_d1_tile(n_taps: int, shared_limit: int, n_images: int) -> BuildD1Tile:
+    """The d = 1 grid build kernel's tile for n_taps (odd) blur taps and
+    n_images staged images (1: the bilateral grid, 2: the guided grid) on a
+    card whose blocks may hold `shared_limit` bytes of shared memory: the
+    first of BUILD_D1_TILES whose band holds a horizontal-pass thread's
+    cells, whose vertical pass's threads (staged columns x groups) a block
+    of BUILD_D1_THREADS holds and whose layout leaves two blocks a
+    multiprocessor, else the first that leaves one; ValueError where none
+    fits."""
+    r = _odd_taps(n_taps, "the grid build")
+    for blocks in (2, 1):
+        for cols, groups in BUILD_D1_TILES:
+            tw = (cols - 2 * r) // BUILD_D1_CELLS * BUILD_D1_CELLS
+            if tw < BUILD_D1_CELLS or cols * groups > BUILD_D1_THREADS:
+                continue
+            *offsets, nbytes = build_d1_layout(tw, groups, r, n_images)
+            tile = BuildD1Tile(tw, groups, r, n_images, *offsets, nbytes)
+            if tile.blocks_per_sm(shared_limit) >= blocks:
+                return tile
+    raise ValueError(
+        f"no d = 1 grid build tile fits {n_taps} blur taps in {shared_limit} bytes of shared "
+        "memory"
+    )
+
+
+def build_d1_info(device: torch.device, n_taps: int, border: str, guided: bool = False) -> dict:
+    """build_grid_info of the d = 1 build kernel: registers and spill bytes
+    a thread, its tile (tw cell columns x the strip's rows) and shared
+    bytes, and the blocks a multiprocessor holds at once."""
+    tile = build_d1_tile(n_taps, max_shared_bytes(device), 2 if guided else 1)
+    fn = "idf_build_guided_grid_d1_info" if guided else "idf_build_grid_d1_info"
+    return _kernel_info(fn, device, tile.shared_bytes,
+                        f"{tile.tw}x{tile.rows}", border != BorderPolicy.CLAMP)
+
+
+@dataclasses.dataclass(frozen=True)
 class FusedTile:
     """One block's geometry in the fused kernels (fast.cu:
     fused_guided_kernel, fused_grid_kernel) at downsample d with blur radius
@@ -722,12 +868,18 @@ def build_grid(
     border: str,
     inv2sc: float,
     uniform_alpha: bool = False,
+    *,
+    d: int,
 ) -> torch.Tensor:
     """Per-channel bilateral grid of the pooled image (fast.py:
     _build_grid_pallas, legacy layout): small (hs, ws, 4) float32, the grid
     range lmin and step ((3,) float32, on small's device), K = levels,
-    the odd blur taps. Returns the (K, hs, ws, 4) bfloat16 grid."""
+    the odd blur taps, d the downsample small was pooled at. Returns the
+    (K, hs, ws, 4) bfloat16 grid. On the card d = 1 launches the d = 1 body
+    (build_grid_d1_kernel, counted as "build_grid_d1"), any other d
+    build_grid_kernel: the same grid."""
     _check_image(small, "small")
+    _check_downsample(d)
     _check_range(lmin, step)
     if levels < 2:
         raise ValueError(f"the grid needs at least 2 levels, got {levels}")
@@ -736,17 +888,19 @@ def build_grid(
         return build_grid_plain(small, lmin, step, levels, taps, border, inv2sc, uniform_alpha)
     hs, ws, _ = small.shape
     grid = torch.empty((levels, hs, ws, 4), dtype=torch.bfloat16, device=small.device)
-    geom = build_tile(taps.size, max_shared_bytes(small.device), 1).launch_args()
+    tile_fn, fn, name = ((build_d1_tile, "idf_build_grid_d1", "build_grid_d1") if d == 1
+                         else (build_tile, "idf_build_grid", "build_grid"))
+    geom = tile_fn(taps.size, max_shared_bytes(small.device), 1).launch_args()
     lib = _build.library()
     with torch.cuda.device(small.device):
-        rc = lib.idf_build_grid(
+        rc = getattr(lib, fn)(
             small.data_ptr(), lmin.data_ptr(), step.data_ptr(), grid.data_ptr(),
             hs, ws, levels, taps.ctypes.data, taps.size, inv2sc * LOG2E,
             int(border != BorderPolicy.CLAMP), int(uniform_alpha), geom.ctypes.data,
             _stream(small),
         )
-    _raise_on_error(rc, "build_grid")
-    launches["build_grid"] += 1
+    _raise_on_error(rc, name)
+    launches[name] += 1
     return grid
 
 
@@ -769,7 +923,8 @@ def slice_grid(
     With hs_all given, guide is a band of the image from row y_off and grid a
     slab of the image's hs_all grid rows from row gy_off (check_slab; the
     sharded turbo's slice, parallel/spatial.py:280-311 of the JAX package):
-    the output equals the whole-image slice's rows of the band."""
+    the output equals the whole-image slice's rows of the band. On the card
+    d = 1 launches slice_grid_d1_kernel, counted as "slice_grid_d1"."""
     _check_image(guide, "guide")
     _check_downsample(d)
     _check_range(lmin, inv_step)
@@ -793,7 +948,7 @@ def slice_grid(
             h, w, hs, ws, grid.shape[0], d, *slab, _stream(guide),
         )
     _raise_on_error(rc, "slice_grid")
-    launches["slice_grid"] += 1
+    launches["slice_grid_d1" if d == 1 else "slice_grid"] += 1
     return out
 
 
@@ -830,27 +985,34 @@ def build_guided_grid(
     taps: np.ndarray,
     border: str,
     inv2sc: float,
+    *,
+    d: int,
 ) -> torch.Tensor:
     """Unnormalized guided grid (fast.py:_build_guided_grid_pallas): range
     weights from the pooled layer small_l, payload from the pooled target
     small_t (both (hs, ws, 4) float32), the grid range lmin and step ((3,)
-    float32, on their device), K = levels, the odd blur taps. Returns the
-    (K, hs, ws, 8) bfloat16 grid."""
+    float32, on their device), K = levels, the odd blur taps, d the
+    downsample both were pooled at. Returns the (K, hs, ws, 8) bfloat16
+    grid. On the card d = 1 launches the d = 1 body (counted as
+    "build_guided_grid_d1"), any other d build_grid_kernel: the same grid."""
     taps = _check_guided_inputs(small_t, small_l, lmin, step, levels, taps)
+    _check_downsample(d)
     if not _on_cuda(small_t, small_l, lmin, step):
         return build_guided_grid_plain(small_t, small_l, lmin, step, levels, taps, border, inv2sc)
     hs, ws, _ = small_t.shape
     grid = torch.empty((levels, hs, ws, GUIDED_PLANES), dtype=torch.bfloat16, device=small_t.device)
-    geom = build_tile(taps.size, max_shared_bytes(small_t.device), 2).launch_args()
+    tile_fn, fn, name = ((build_d1_tile, "idf_build_guided_grid_d1", "build_guided_grid_d1")
+                         if d == 1 else (build_tile, "idf_build_guided_grid", "build_guided_grid"))
+    geom = tile_fn(taps.size, max_shared_bytes(small_t.device), 2).launch_args()
     lib = _build.library()
     with torch.cuda.device(small_t.device):
-        rc = lib.idf_build_guided_grid(
+        rc = getattr(lib, fn)(
             small_t.data_ptr(), small_l.data_ptr(), lmin.data_ptr(), step.data_ptr(),
             grid.data_ptr(), hs, ws, levels, taps.ctypes.data, taps.size, inv2sc * LOG2E,
             int(border != BorderPolicy.CLAMP), geom.ctypes.data, _stream(small_t),
         )
-    _raise_on_error(rc, "build_guided_grid")
-    launches["build_guided_grid"] += 1
+    _raise_on_error(rc, name)
+    launches[name] += 1
     return grid
 
 
@@ -870,7 +1032,8 @@ def slice_guided_grid(
     grid (K, ceil(H/d), ceil(W/d), 8) bfloat16; lmin and inv_step (3,)
     float32. Returns the partials (wc (H, W, 4), nw (H, W, 3)) float32.
     y_off, hs_all, gy_off: a band against a slab of grid rows, as
-    slice_grid's."""
+    slice_grid's. On the card a launch at d = 1 counts as
+    "slice_guided_grid_d1"."""
     _check_image(guide, "guide")
     _check_downsample(d)
     _check_range(lmin, inv_step)
@@ -892,7 +1055,7 @@ def slice_guided_grid(
             _stream(guide),
         )
     _raise_on_error(rc, "slice_guided_grid")
-    launches["slice_guided_grid"] += 1
+    launches["slice_guided_grid_d1" if d == 1 else "slice_guided_grid"] += 1
     return wc, nw
 
 
@@ -1060,7 +1223,7 @@ def _pipeline(img, params, levels, d, pool_fn, grid_fn) -> torch.Tensor:
 def _build_and_slice(small, img, lmin, step, inv_step, levels, taps, border, inv2sc, d,
                      alpha_val=None) -> torch.Tensor:
     """fused_grid's function through the build and the slice kernels."""
-    grid = build_grid(small, lmin, step, levels, taps, border, inv2sc, alpha_val is not None)
+    grid = build_grid(small, lmin, step, levels, taps, border, inv2sc, alpha_val is not None, d=d)
     return slice_grid(img, grid, lmin, inv_step, d, alpha_val)
 
 
@@ -1166,7 +1329,8 @@ def cross_bilateral_layers_fast(
             small_t, small_l, layer, lmin, step, 1.0 / step, levels, taps, params.border,
             inv2sc, d,
         )
-    grid = build_guided_grid(small_t, small_l, lmin, step, levels, taps, params.border, inv2sc)
+    grid = build_guided_grid(small_t, small_l, lmin, step, levels, taps, params.border, inv2sc,
+                             d=d)
     return slice_guided_grid(layer, grid, lmin, 1.0 / step, d)
 
 

@@ -113,13 +113,17 @@ def nvcc_defines() -> tuple[str, ...]:
 #: "bilateral_guided_bf16" with bf16 taps; "nlm" with float32 taps,
 #: "nlm_bf16" with bf16 taps, "nlm_hrw" and "nlm_hrw_bf16" the same with the
 #: weights at half row resolution; the turbo grids' kernels (ops/fast.py)
-#: count here too.
+#: count here too, each grid build and slice at d = 1 (the sharded --turbo
+#: 1's bilateral grid, the --turbo 1 layers' guided grid) under its own
+#: "_d1" name, so that each launch counts once under the form that ran.
 launches = {
     "bilateral": 0, "bilateral_guided": 0, "bilateral_bf16": 0, "bilateral_guided_bf16": 0,
     "nlm": 0, "nlm_bf16": 0,
     "nlm_hrw": 0, "nlm_hrw_bf16": 0, "normalize": 0,
     "pool": 0, "build_grid": 0, "slice_grid": 0, "fused_grid": 0,
     "build_guided_grid": 0, "slice_guided_grid": 0, "fused_guided": 0,
+    "build_grid_d1": 0, "slice_grid_d1": 0, "build_guided_grid_d1": 0,
+    "slice_guided_grid_d1": 0,
 }
 
 

@@ -454,7 +454,7 @@ def spatial_bilateral_fast(
     lmin, step = _grid_range(small, levels, mesh)
     small_ext = _exchange_halo(small, halo_s, params.border, mesh)
     grid = fast.build_grid(small_ext, lmin, step, levels, taps, params.border,
-                           0.5 / (params.sigma_color**2), params.uniform_alpha)
+                           0.5 / (params.sigma_color**2), params.uniform_alpha, d=d)
     return fast.slice_grid(
         local, _slab(grid, halo_s, rows_s), lmin, 1.0 / step, d,
         local[0, 0, 3] if params.uniform_alpha else None,
@@ -489,7 +489,7 @@ def spatial_cross_bilateral_layers_fast(
     lmin, step = _grid_range(small_l, levels, mesh)
     small_t_ext, small_l_ext = _extend([small_t, small_l], halo_s, params.border, mesh)
     grid = fast.build_guided_grid(small_t_ext, small_l_ext, lmin, step, levels, taps,
-                                  params.border, 0.5 / (params.sigma_color**2))
+                                  params.border, 0.5 / (params.sigma_color**2), d=d)
     return fast.slice_guided_grid(
         layer, _slab(grid, halo_s, rows_s), lmin, 1.0 / step, d,
         y_off=idx * rows, hs_all=n * rows_s, gy_off=idx * rows_s - 1,

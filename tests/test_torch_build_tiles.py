@@ -15,6 +15,7 @@ checked over all its offsets at once.
 
 import numpy as np
 import pytest
+import torch
 
 from image_denoising_filter_tpu_torch.config import BorderPolicy
 from image_denoising_filter_tpu_torch.ops import fast
@@ -254,3 +255,227 @@ def test_build_layout_takes_one_or_two_images(n_images):
 def test_taps_beyond_the_table_are_refused(n_taps):
     with pytest.raises(ValueError, match="odd number of blur taps up to 64"):
         fast.build_tile(n_taps, H100_SHARED_OPTIN, 1)
+
+
+# ---------------------------------------------------------------------------
+# The grid build at d = 1 (fast.build_d1_tile; fast.cu: build_grid_d1_kernel)
+# ---------------------------------------------------------------------------
+
+H100_BLOCK_RESERVE = 1024  # the card's shared memory a resident block keeps
+
+
+@pytest.mark.parametrize("n_taps,n_images,blocks", [(17, 1, 2), (17, 2, 2), (49, 1, 2),
+                                                    (49, 2, 1)])
+def test_d1_tiles_on_the_h100(n_taps, n_images, blocks):
+    """The main path's d = 1 builds (sigma_s 2: 17 taps, both grids; the
+    sharded --turbo 1 --sigma-spatial 6: 49 taps, the bilateral grid) fit a
+    block's shared memory with two blocks a multiprocessor; the guided grid
+    at 49 taps, two staged rings of 56 rows, with one. A block's threads
+    cover the vertical pass's columns in each of its groups."""
+    tile = fast.build_d1_tile(n_taps, H100_SHARED_OPTIN, n_images)
+    assert tile.shared_bytes <= H100_SHARED_OPTIN
+    assert tile.blocks_per_sm(H100_SHARED_OPTIN) == blocks
+    assert (H100_SHARED_OPTIN + H100_BLOCK_RESERVE) // (
+        tile.shared_bytes + H100_BLOCK_RESERVE) == blocks
+    assert fast.BUILD_D1_THREADS % 32 == 0
+    assert fast.BUILD_D1_THREADS >= tile.groups * tile.scols
+    assert tile.tw % fast.BUILD_D1_CELLS == 0 and tile.tw >= fast.BUILD_D1_CELLS
+    assert tile.ring_rows == n_taps - 1 + tile.rows
+
+
+@pytest.mark.parametrize("n_images", [1, 2])
+@pytest.mark.parametrize("n_taps", ODD_TAPS)
+def test_d1_layout_back_to_back_and_aligned(n_taps, n_images):
+    """The rings (float4), the seven vertical-sum planes, the strip's cells
+    and the taps lie back to back, each 16-byte aligned for its 16-byte
+    loads, sized for what
+    the kernel indexes: a vertical-sum row holds every column the horizontal
+    pass's float4 loads reach, the taps every index its tap windows read."""
+    tile = fast.build_d1_tile(n_taps, H100_SHARED_OPTIN, n_images)
+    ring = 16 * tile.ring_rows * tile.scols
+    regions = [("payload ring", 0, ring), ("layer ring", tile.l_at, ring if n_images == 2 else 0),
+               ("vertical sums", tile.v_at, 28 * tile.rows * tile.vstride),
+               ("cells", tile.o_at, 16 * tile.rows * tile.tw if n_images == 2 else 0),
+               ("taps", tile.t_at, 4 * fast.BUILD_D1_TAP_SLOTS)]
+    end = 0
+    for name, at, size in regions:
+        if size:
+            assert at == end and at % 16 == 0, name
+            end = at + size
+    assert tile.l_at == (ring if n_images == 2 else 0) and tile.shared_bytes == end
+    assert fast.build_d1_layout(tile.tw, tile.groups, tile.r, n_images) == (
+        tile.l_at, tile.v_at, tile.o_at, tile.t_at, tile.shared_bytes)
+    assert list(tile.launch_args()) == [tile.tw, tile.groups, tile.l_at, tile.v_at, tile.o_at,
+                                        tile.t_at, tile.shared_bytes]
+    # the horizontal pass: cells cx0 .. cx0 + 3 (cx0 <= tw - 4) load float4
+    # chunks m < (n + 6) // 4 of their row from column cx0 + 4m
+    chunks = (n_taps + 6) // 4
+    assert tile.tw - 4 + 4 * chunks <= tile.vstride and tile.vstride % 4 == 0
+    assert 4 * chunks <= fast.BUILD_D1_TAP_SLOTS  # and their tap windows
+    assert n_taps + fast.BUILD_D1_ROWS - 1 <= fast.BUILD_D1_TAP_SLOTS  # the vertical's
+    assert tile.blocks_per_sm(H100_SHARED_OPTIN) >= 1
+
+
+def test_d1_tile_takes_two_blocks_before_one():
+    """Where a tile of BUILD_D1_TILES leaves two blocks a multiprocessor,
+    build_d1_tile takes the first such; where none does, the first that
+    leaves one; and below any tile's bytes it refuses."""
+    for n_taps in ODD_TAPS:
+        for n_images in (1, 2):
+            tile = fast.build_d1_tile(n_taps, H100_SHARED_OPTIN, n_images)
+            fits = []
+            for cols, groups in fast.BUILD_D1_TILES:
+                tw = (cols - (n_taps - 1)) // 4 * 4
+                if tw >= 4 and cols * groups <= fast.BUILD_D1_THREADS:
+                    nbytes = fast.build_d1_layout(tw, groups, n_taps // 2, n_images)[-1]
+                    fits.append(((tw, groups), (H100_SHARED_OPTIN + H100_BLOCK_RESERVE)
+                                 // (nbytes + H100_BLOCK_RESERVE)))
+            want = next((t for t, b in fits if b >= 2), None) or next(t for t, b in fits if b)
+            assert (tile.tw, tile.groups) == want
+    with pytest.raises(ValueError, match="no d = 1 grid build tile fits"):
+        fast.build_d1_tile(17, 4096, 1)
+
+
+def _staged_rows(img, rows, x0, scols, r, border):
+    """Rows `rows` of a pooled image at columns x0 - r .. x0 - r + scols - 1
+    under the build's border rule, as stage_ring_rows copies them."""
+    hs, ws = img.shape[:2]
+    ys = torch.as_tensor(rows)
+    xs = torch.arange(x0 - r, x0 - r + scols)
+    out = img[ys.clamp(0, hs - 1)][:, xs.clamp(0, ws - 1)].clone()
+    if border != BorderPolicy.CLAMP:
+        out[(ys < 0) | (ys >= hs)] = 0.0
+        out[:, (xs < 0) | (xs >= ws)] = 0.0
+    return out
+
+
+def _walk_d1(tile, blocks, small_p, small_l, lmin, step, levels, taps, border, inv2sc, guided,
+             ua):
+    """build_grid_d1_kernel in torch, at its index arithmetic: `blocks`
+    blocks, each its equal run of work items (strip s of band b is item b *
+    strips + s), its ring slots (unstaged slots NaN) restaged whole where
+    its walk moves to a new band, the vertical pass's groups and tap
+    windows, the horizontal pass's float4 chunks (each read within the
+    vertical-sum row's stride), the products and sums in the kernel's
+    order, each one float32 rounding."""
+    n, r, rows_r = taps.size, taps.size // 2, fast.BUILD_D1_ROWS
+    hs, ws = small_p.shape[:2]
+    rows, ring_rows, scols, vstride = tile.rows, tile.ring_rows, tile.scols, tile.vstride
+    strips = -(-hs // rows)
+    items = -(-ws // tile.tw) * strips
+    coef = torch.tensor(np.float32(inv2sc * 1.4426950408889634))
+    s_taps = torch.zeros(fast.BUILD_D1_TAP_SLOTS)
+    s_taps[:n] = torch.from_numpy(taps)
+    grid = torch.full((levels, hs, ws, 8 if guided else 4), float("nan"))
+    for block in range(blocks):
+        begin, end = items * block // blocks, items * (block + 1) // blocks
+        if begin >= end:
+            continue
+        ring = torch.full((2, ring_rows, scols, 4), float("nan"))
+
+        def stage(row0, n_rows, x0, origin):
+            for i, img in enumerate((small_p, small_l)):
+                got = _staged_rows(img, list(range(row0, row0 + n_rows)), x0, scols, r, border)
+                for dy in range(n_rows):
+                    ring[i, (row0 + dy - origin) % ring_rows] = got[dy]
+
+        ring_row0 = (begin % strips) * rows - r
+        stage(ring_row0, ring_rows, (begin // strips) * tile.tw, ring_row0)
+        for item in range(begin, end):
+            band, y = item // strips, (item % strips) * rows
+            x0 = band * tile.tw
+            rows_in, cols = min(rows, hs - y), min(tile.tw, ws - x0)
+            next_row0 = ring_row0
+            for k in range(levels):
+                lv = lmin + step * float(k)
+                vsum = torch.full((7, rows, vstride), float("nan"))
+                for g in range(tile.groups):
+                    slot = (y - r + g * rows_r - ring_row0) % ring_rows
+                    acc = torch.zeros((rows_r, 7, scols))
+                    window = torch.zeros(rows_r)
+                    for i in range(n + rows_r - 1):
+                        p, l = ring[0, slot], ring[1 if guided else 0, slot]
+                        slot = (slot + 1) % ring_rows
+                        window = torch.cat([s_taps[i : i + 1], window[:-1]])
+                        dc = l[:, :3] - lv
+                        w = torch.exp2(-(dc * dc) * coef)
+                        f = torch.stack([w[:, 0] * p[:, 0], w[:, 1] * p[:, 1],
+                                         w[:, 2] * p[:, 2], w[:, 1] * p[:, 3],
+                                         w[:, 0], w[:, 1], w[:, 2]])
+                        for j in range(rows_r):
+                            if 0 <= i - j < n:
+                                acc[j] = acc[j] + window[j] * f
+                    vsum[:, g * rows_r : (g + 1) * rows_r, :scols] = acc.transpose(0, 1)
+                if k == levels - 1 and item + 1 < end:
+                    next_band, next_y = (item + 1) // strips, ((item + 1) % strips) * rows
+                    if next_band == band:
+                        stage(y + rows + r, rows, x0, ring_row0)
+                    else:
+                        next_row0 = next_y - r
+                        stage(next_row0, ring_rows, next_band * tile.tw, next_row0)
+                cx0 = torch.arange(0, tile.tw, fast.BUILD_D1_CELLS)
+                out = torch.zeros((rows_in, len(cx0), 4, 7))
+                t8 = torch.zeros(8)
+                for m in range((n + 6) // 4):
+                    t8 = torch.cat([t8[4:], s_taps[4 * m : 4 * m + 4]])
+                    for e in range(4):
+                        col = cx0 + 4 * m + e
+                        assert int(col.max()) < vstride  # the float4 lies in its row
+                        v = vsum[:, :rows_in, col].permute(1, 2, 0)  # (rows_in, groups, 7)
+                        for c in range(4):
+                            if 0 <= 4 * m + e - c < n:
+                                out[:, :, c] = out[:, :, c] + t8[4 + e - c] * v
+                cells = out.reshape(rows_in, -1, 7)[:, :cols]
+                if guided:
+                    cell = torch.cat([cells, torch.zeros_like(cells[..., :1])], -1)
+                else:
+                    den = cells[..., 4:].clamp_min(1e-20)
+                    alpha = (torch.zeros_like(den[..., :1]) if ua
+                             else cells[..., 3:4] / den[..., 1:2])
+                    cell = torch.cat([cells[..., :3] / den, alpha], -1)
+                grid[k, y : y + rows_in, x0 : x0 + cols] = cell.to(torch.bfloat16).float()
+            ring_row0 = next_row0
+    return grid.to(torch.bfloat16)
+
+
+D1_WALKS = [  # n_taps, n_images, border, (hs, ws), tw, groups, blocks
+    (5, 1, BorderPolicy.CLAMP, (37, 21), 8, 1, 2),
+    (5, 2, BorderPolicy.ZERO, (29, 19), 4, 2, 3),
+    (17, 1, BorderPolicy.ZERO, (45, 30), 12, 1, 4),
+    (17, 2, BorderPolicy.CLAMP, (40, 23), 8, 2, 1),
+    (3, 1, BorderPolicy.CLAMP, (9, 13), 4, 1, 5),
+    (1, 2, BorderPolicy.ZERO, (11, 9), 4, 1, 2),
+    (9, 2, BorderPolicy.CLAMP, (33, 17), 8, 1, 99),
+    (49, 1, BorderPolicy.CLAMP, (41, 10), 8, 1, 3),
+]
+
+
+@pytest.mark.parametrize("n_taps,n_images,border,shape,tw,groups,blocks,ua",
+                         [(*w, False) for w in D1_WALKS]
+                         + [(*w, True) for w in D1_WALKS if w[1] == 1])
+def test_d1_walk_is_the_plain_build_bit_for_bit(n_taps, n_images, border, shape, tw, groups,
+                                                blocks, ua):
+    """The d = 1 body's walk (_walk_d1) on small grids, with tiles and
+    block counts that make a block wrap its ring down a band, move to the
+    next band within its run, start mid-band, end on a ragged strip and
+    band, or walk one strip (more blocks than items), with 1 to 49 taps,
+    fewer than and more than a thread's rows: the plain build's grid bit for
+    bit, both grids, both borders; the bilateral grid with uniform alpha
+    too."""
+    rng = np.random.default_rng(n_taps + 7 * n_images)
+    small_p = torch.from_numpy(rng.uniform(-0.2, 1.5, (*shape, 4)).astype(np.float32))
+    small_l = torch.from_numpy(rng.uniform(0.0, 1.0, (*shape, 4)).astype(np.float32))
+    if n_images == 1:
+        small_l = small_p
+    lmin, step = fast.grid_range(small_l, 3)
+    taps = fast._gauss_taps(max(0.5, n_taps / 6.0), n_taps // 2)
+    r = n_taps // 2
+    tile = fast.BuildD1Tile(tw, groups, r, n_images,
+                            *fast.build_d1_layout(tw, groups, r, n_images))
+    got = _walk_d1(tile, blocks, small_p, small_l, lmin, step, 3, taps, border, 0.3,
+                   n_images == 2, ua)
+    if n_images == 2:
+        want = fast.build_guided_grid_plain(small_p, small_l, lmin, step, 3, taps, border, 0.3)
+    else:
+        want = fast.build_grid_plain(small_p, lmin, step, 3, taps, border, 0.3, ua)
+    assert torch.equal(got, want)

@@ -228,8 +228,8 @@ def test_pool_kernel_matches_plain(cuda, d, border):
 def test_build_grid_kernel_matches_plain(cuda, d, border, ua):
     small, lmin, step, taps = _grid_inputs(_image(0, cuda), d, border)
     args = (small, lmin, step, 5, taps, border, 12.5, ua)
-    _assert_bf16_close(fast.build_grid(*args), fast.build_grid_plain(*args))
-    assert stencils.launches["build_grid"] == 1
+    _assert_bf16_close(fast.build_grid(*args, d=d), fast.build_grid_plain(*args))
+    assert stencils.launches[_form("build_grid", d)] == 1
 
 
 def test_build_grid_kernel_matches_plain_at_sigma_s_6(cuda):
@@ -240,7 +240,7 @@ def test_build_grid_kernel_matches_plain_at_sigma_s_6(cuda):
     taps = fast._grid_taps(6.0, 8)
     assert taps.size == 7
     args = (small, *fast.grid_range(small, 6), 6, taps, BorderPolicy.CLAMP, 12.5)
-    _assert_bf16_close(fast.build_grid(*args), fast.build_grid_plain(*args))
+    _assert_bf16_close(fast.build_grid(*args, d=8), fast.build_grid_plain(*args))
     assert stencils.launches["build_grid"] == 1
 
 
@@ -252,7 +252,7 @@ def test_slice_grid_kernel_matches_plain(cuda, d, ua):
     grid = fast.build_grid_plain(small, lmin, step, 5, taps, BorderPolicy.CLAMP, 12.5, ua)
     args = (img, grid, lmin, 1.0 / step, d, img[0, 0, 3] if ua else None)
     _close(fast.slice_grid(*args), fast.slice_grid_plain(*args), rtol=1e-5, atol=1e-6)
-    assert stencils.launches["slice_grid"] == 1
+    assert stencils.launches[_form("slice_grid", d)] == 1
 
 
 @pytest.mark.parametrize("d", [2, 4, 8])
@@ -277,8 +277,8 @@ def test_grid_pipeline_at_d1_on_card_matches_plain(cuda, sigma_s):
     bp = BilateralParams(sigma_spatial=sigma_s)
     got = fast.grid_pipeline(img, bp, 6, 1)
     _close(got, fast.grid_pipeline_plain(img, bp, 6, 1), rtol=0, atol=2 * 2.0**-8)
-    counts = {k: stencils.launches[k] for k in ("pool", "build_grid", "slice_grid", "fused_grid")}
-    assert counts == {"pool": 1, "build_grid": 1, "slice_grid": 1, "fused_grid": 0}
+    counts = {k: n for k, n in stencils.launches.items() if n}
+    assert counts == {"pool": 1, "build_grid_d1": 1, "slice_grid_d1": 1}
     stencils.reset_launches()
     fast.bilateral_fast(img, bp, 6, 1)
     assert all(n == 0 for n in stencils.launches.values())
@@ -294,7 +294,7 @@ def test_grid_kernels_refuse_what_they_cannot_take(cuda):
         fast.pool(img.half(), 2)
     with pytest.raises(ValueError):  # more taps than the kernel's table
         fast.build_grid(small, lmin, step, 5, np.ones(65, np.float32) / 65,
-                        BorderPolicy.CLAMP, 12.5)
+                        BorderPolicy.CLAMP, 12.5, d=2)
     with pytest.raises(ValueError):  # d outside {1, 2, 4, 8}
         fast.pool(img, 3)
     with pytest.raises(ValueError):  # no fused bilateral kernel at d = 1
@@ -370,8 +370,8 @@ def test_pool_kernel_at_d1_is_a_bf16_round_trip(cuda):
 def test_build_guided_grid_kernel_matches_plain(cuda, d, border):
     _, _, small_t, small_l, lmin, step, taps = _guided_inputs(d, border)
     args = (small_t, small_l, lmin, step, 5, taps, border, 12.5)
-    _assert_bf16_close(fast.build_guided_grid(*args), fast.build_guided_grid_plain(*args))
-    assert stencils.launches["build_guided_grid"] == 1
+    _assert_bf16_close(fast.build_guided_grid(*args, d=d), fast.build_guided_grid_plain(*args))
+    assert stencils.launches[_form("build_guided_grid", d)] == 1
 
 
 @pytest.mark.parametrize("d", [1, 2, 4, 8])
@@ -383,7 +383,13 @@ def test_slice_guided_grid_kernel_matches_plain(cuda, d):
     want = fast.slice_guided_grid_plain(layer, grid, lmin, 1.0 / step, d)
     for g, w_ in zip(got, want):
         _close(g, w_, rtol=1e-5, atol=1e-6)
-    assert stencils.launches["slice_guided_grid"] == 1
+    assert stencils.launches[_form("slice_guided_grid", d)] == 1
+
+
+def _form(kernel, d):
+    """The launch count name of a grid kernel at downsample d: the wrappers
+    count d = 1 under "<kernel>_d1"."""
+    return f"{kernel}_d1" if d == 1 else kernel
 
 
 def _slab_of(grid, gy_off, rows):
@@ -412,7 +418,8 @@ def test_slice_kernels_whole_image_offsets_change_nothing(cuda, d):
     want = fast.slice_guided_grid(layer, ggrid, lmin, 1.0 / step, d)
     got = fast.slice_guided_grid(layer, ggrid, lmin, 1.0 / step, d, 0, ggrid.shape[1], 0)
     assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
-    assert stencils.launches["slice_grid"] == stencils.launches["slice_guided_grid"] == 2
+    assert stencils.launches[_form("slice_grid", d)] == 2
+    assert stencils.launches[_form("slice_guided_grid", d)] == 2
 
 
 @pytest.mark.parametrize("ua", [False, True])
@@ -447,7 +454,8 @@ def test_slice_kernels_on_a_slab_equal_the_whole_slice(cuda, d, ua):
         assert all(torch.equal(g, w_[band]) for g, w_ in zip(got, gwhole)), f"band {i}"
         for g, w_ in zip(got, fast.slice_guided_grid_plain(*gargs, offsets)):
             _close(g, w_, rtol=1e-5, atol=1e-6)
-    assert stencils.launches["slice_grid"] == stencils.launches["slice_guided_grid"] == 5
+    assert stencils.launches[_form("slice_grid", d)] == 5
+    assert stencils.launches[_form("slice_guided_grid", d)] == 5
 
 
 def test_slice_launchers_refuse_a_band_off_the_lattice(cuda):
@@ -522,7 +530,7 @@ def test_slice_grid_d1_instance_is_plain_and_bilinear_bit_for_bit(cuda, h, w, ua
     grid = fast.build_grid_plain(small, lmin, step, 6, taps, BorderPolicy.CLAMP, 12.5, ua)
     args = (img, grid, lmin, 1.0 / step, 1, img[0, 0, 3] if ua else None)
     got = fast.slice_grid(*args)
-    assert stencils.launches["slice_grid"] == 1
+    assert stencils.launches["slice_grid_d1"] == 1
     assert _same_bits(got, fast.slice_grid_plain(*args))
     assert _same_bits(got, _bilinear(*args))
 
@@ -538,7 +546,7 @@ def test_slice_guided_grid_at_d1_is_plain_bit_for_bit(cuda, h, w, hdr):
                                         BorderPolicy.CLAMP, 12.5)
     args = (layer, grid, lmin, 1.0 / step, 1)
     got = fast.slice_guided_grid(*args)
-    assert stencils.launches["slice_guided_grid"] == 1
+    assert stencils.launches["slice_guided_grid_d1"] == 1
     assert all(_same_bits(g, p) for g, p in zip(got, fast.slice_guided_grid_plain(*args)))
 
 
@@ -623,7 +631,7 @@ def test_slices_at_d1_on_four_slab_bands(cuda, ua):
         got = fast.slice_guided_grid(*gargs, *offsets)
         want = fast.slice_guided_grid_plain(*gargs, offsets)
         assert all(_same_bits(g, w_) for g, w_ in zip(got, want)), f"band {i}"
-    assert stencils.launches["slice_grid"] == stencils.launches["slice_guided_grid"] == 4
+    assert stencils.launches["slice_grid_d1"] == stencils.launches["slice_guided_grid_d1"] == 4
 
 
 def test_slice_grid_d1_launcher_refuses_a_grid_of_another_width(cuda):
@@ -662,7 +670,7 @@ def test_fused_guided_kernel_equals_the_two_kernels(cuda, d, border, shape):
     slice kernel's: the fused kernel equals the two kernels bit for bit, on
     several tiles and ragged edges."""
     _, layer, small_t, small_l, lmin, step, taps = _guided_inputs(d, border, 6, 2.0, *shape)
-    grid = fast.build_guided_grid(small_t, small_l, lmin, step, 6, taps, border, 12.5)
+    grid = fast.build_guided_grid(small_t, small_l, lmin, step, 6, taps, border, 12.5, d=d)
     two = fast.slice_guided_grid(layer, grid, lmin, 1.0 / step, d)
     got = fast.fused_guided(small_t, small_l, layer, lmin, step, 1.0 / step, 6, taps, border,
                             12.5, d)
@@ -684,7 +692,8 @@ def test_turbo_layers_on_card_match_plain(cuda, d):
         # a build flip (2 bf16 ulps of cells up to ~1) through the convex slice
         _close(g, w_, rtol=0, atol=2 * 2.0**-8)
     fused = stencils.launches["fused_guided"]
-    two = (stencils.launches["build_guided_grid"], stencils.launches["slice_guided_grid"])
+    two = (stencils.launches[_form("build_guided_grid", d)],
+           stencils.launches[_form("slice_guided_grid", d)])
     assert (fused, two) == ((1, (0, 0)) if d in (2, 4) else (0, (1, 1)))
     assert stencils.launches["pool"] == 2
 
@@ -969,10 +978,10 @@ def test_build_guided_grid_kernel_equals_plain_bit_for_bit(cuda, d, sigma_s, n_t
     _, _, small_t, small_l, lmin, step, taps = _guided_inputs(d, border, 6, sigma_s, *shape)
     assert taps.size == n_taps
     args = (small_t, small_l, lmin, step, 6, taps, border, 12.5)
-    got = fast.build_guided_grid(*args)
+    got = fast.build_guided_grid(*args, d=d)
     torch.cuda.synchronize()
     assert torch.equal(got, fast.build_guided_grid_plain(*args))
-    assert stencils.launches["build_guided_grid"] == 1
+    assert stencils.launches[_form("build_guided_grid", d)] == 1
 
 
 @pytest.mark.parametrize("n_taps,tile", [(9, "16x32"), (17, "16x32"), (63, "1x16")])
@@ -1046,11 +1055,11 @@ def test_build_grid_kernel_equals_plain_bit_for_bit(cuda, d, sigma_s, n_taps, bo
     taps = fast._grid_taps(sigma_s, d)
     assert taps.size == n_taps
     args = (small, *fast.grid_range(small, 6), 6, taps, border, 12.5, ua)
-    got = fast.build_grid(*args)
+    got = fast.build_grid(*args, d=d)
     torch.cuda.synchronize()
     assert torch.equal(got, fast.build_grid_plain(*args))
     assert not ua or bool((got[..., 3] == 0).all())
-    assert stencils.launches["build_grid"] == 1
+    assert stencils.launches[_form("build_grid", d)] == 1
 
 
 @pytest.mark.parametrize("border", [BorderPolicy.CLAMP, BorderPolicy.ZERO])
@@ -1058,7 +1067,7 @@ def test_build_grid_kernel_at_one_tap(cuda, border):
     """A one-tap table (no blur, halo 0): each cell normalized on its own."""
     small = fast.pool_plain(_image(0, cuda, 40, 70), 2, border)
     args = (small, *fast.grid_range(small, 5), 5, np.ones(1, np.float32), border, 12.5)
-    got = fast.build_grid(*args)
+    got = fast.build_grid(*args, d=2)
     torch.cuda.synchronize()
     assert torch.equal(got, fast.build_grid_plain(*args))
 
@@ -1107,7 +1116,7 @@ def test_fused_guided_kernel_equals_the_two_kernels_at_wide_tables(cuda, d, sigm
     now takes: the fused kernel equals the two kernels bit for bit."""
     _, layer, small_t, small_l, lmin, step, taps = _guided_inputs(d, border, 6, sigma_s, *shape)
     assert taps.size == n_taps
-    grid = fast.build_guided_grid(small_t, small_l, lmin, step, 6, taps, border, 12.5)
+    grid = fast.build_guided_grid(small_t, small_l, lmin, step, 6, taps, border, 12.5, d=d)
     two = fast.slice_guided_grid(layer, grid, lmin, 1.0 / step, d)
     got = fast.fused_guided(small_t, small_l, layer, lmin, step, 1.0 / step, 6, taps, border,
                             12.5, d)
@@ -1171,7 +1180,7 @@ def test_fused_grid_kernel_equals_build_and_slice_at_every_table(cuda, n_taps):
     lmin, step = fast.grid_range(small, 6)
     taps = fast._gauss_taps(max(0.5, n_taps / 8.0), n_taps // 2)
     alpha = img[0, 0, 3] if ua else None
-    grid = fast.build_grid(small, lmin, step, 6, taps, border, 12.5, ua)
+    grid = fast.build_grid(small, lmin, step, 6, taps, border, 12.5, ua, d=d)
     two = fast.slice_grid(img, grid, lmin, 1.0 / step, d, alpha)
     got = fast.fused_grid(small, img, lmin, step, 1.0 / step, 6, taps, border, 12.5, d, alpha)
     torch.cuda.synchronize()
@@ -1189,7 +1198,7 @@ def test_fused_grid_kernel_levels_in_batches(cuda, levels):
     small = fast.pool(img, 2, BorderPolicy.CLAMP)
     lmin, step = fast.grid_range(small, levels)
     taps = fast._grid_taps(2.0, 2)
-    grid = fast.build_grid(small, lmin, step, levels, taps, BorderPolicy.CLAMP, 12.5)
+    grid = fast.build_grid(small, lmin, step, levels, taps, BorderPolicy.CLAMP, 12.5, d=2)
     two = fast.slice_grid(img, grid, lmin, 1.0 / step, 2)
     got = fast.fused_grid(small, img, lmin, step, 1.0 / step, levels, taps, BorderPolicy.CLAMP,
                           12.5, 2)
@@ -1572,3 +1581,131 @@ def test_gpu_denoise_on_card_fails_when_the_native_build_fails(cuda, tmp_path):
     assert res.returncode == 1, res.stdout + res.stderr
     assert "error:" in res.stderr and "/bin/false" in res.stderr
     assert not (tmp_path / "out" / "output-cpu.png").exists()
+
+
+# ---------------------------------------------------------------------------
+# The grid build at d = 1: build_grid_d1_kernel, one body for both grids,
+# which the wrappers launch at d = 1 (counted as build_grid_d1 and
+# build_guided_grid_d1). It keeps the plain versions' products and sum
+# order, so each grid is the plain version's bit for bit.
+# ---------------------------------------------------------------------------
+
+D1_BUILD_SHAPES = [(1, 1), (1, 97), (7, 300), (300, 7), (61, 83), (97, 131), (270, 1920)]
+
+
+def _d1_build_args(guided, seed, h, w, n_taps, border, ua=False, hdr=False):
+    """The pooled frame(s) at d = 1 (a bf16 round trip), their grid range,
+    K = 6 and a table of n_taps Gaussian taps."""
+    frames = [_d1_frame(seed + i, "cuda", h, w, hdr) for i in range(2 if guided else 1)]
+    small = [fast.pool_plain(f, 1, border) for f in frames]
+    lmin, step = fast.grid_range(small[-1], 6)
+    taps = fast._gauss_taps(max(0.5, n_taps / 8.0), n_taps // 2)
+    tail = (6, taps, border, 12.5) + (() if guided else (ua,))
+    return (*small, lmin, step, *tail)
+
+
+@pytest.mark.parametrize("h,w", D1_BUILD_SHAPES)
+@pytest.mark.parametrize("n_taps,border,ua,hdr", [
+    (17, BorderPolicy.CLAMP, False, False), (17, BorderPolicy.ZERO, True, True),
+    (49, BorderPolicy.CLAMP, True, False), (49, BorderPolicy.ZERO, False, True),
+    (1, BorderPolicy.CLAMP, False, True), (5, BorderPolicy.ZERO, False, False),
+    (63, BorderPolicy.CLAMP, False, False)],
+    ids=["17", "17_zero_ua_hdr", "49_ua", "49_zero_hdr", "1_hdr", "5_zero", "63"])
+def test_build_grid_d1_kernel_equals_plain_bit_for_bit(cuda, h, w, n_taps, border, ua, hdr):
+    """The bilateral grid at d = 1 (the sharded --turbo 1's build): grids of
+    one cell, one row or column, ragged against the band, the ring and the
+    strips; 1 to 63 taps, the ring wider than the image; both borders,
+    uniform alpha, HDR values."""
+    args = _d1_build_args(False, 0, h, w, n_taps, border, ua, hdr)
+    got = fast.build_grid(*args, d=1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fast.build_grid_plain(*args))
+    assert stencils.launches["build_grid_d1"] == 1 and stencils.launches["build_grid"] == 0
+
+
+@pytest.mark.parametrize("h,w", D1_BUILD_SHAPES)
+@pytest.mark.parametrize("n_taps,border,hdr", [
+    (17, BorderPolicy.CLAMP, False), (17, BorderPolicy.ZERO, True),
+    (49, BorderPolicy.CLAMP, True), (3, BorderPolicy.ZERO, False),
+    (63, BorderPolicy.CLAMP, False)],
+    ids=["17", "17_zero_hdr", "49_hdr", "3_zero", "63"])
+def test_build_guided_grid_d1_kernel_equals_plain_bit_for_bit(cuda, h, w, n_taps, border, hdr):
+    """The guided grid at d = 1 (the --turbo 1 layers' build), likewise; at
+    49 and 63 taps on the tile of one block a multiprocessor."""
+    args = _d1_build_args(True, 2, h, w, n_taps, border, hdr=hdr)
+    got = fast.build_guided_grid(*args, d=1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fast.build_guided_grid_plain(*args))
+    assert stencils.launches["build_guided_grid_d1"] == 1
+    assert stencils.launches["build_guided_grid"] == 0
+
+
+@pytest.mark.parametrize("guided", [False, True], ids=["bilateral", "guided"])
+def test_build_d1_kernels_on_a_non_finite_frame(cuda, guided):
+    """One +inf, one -inf and one NaN value in the frame(s): the kernel's
+    non-finite cells are the plain version's, NaN, +inf and -inf apart, and
+    every other cell is its bits; on the finite frame's grid range and on
+    the frame's own (not finite)."""
+    args = _d1_build_args(guided, 4, 61, 83, 17, BorderPolicy.CLAMP)
+    n_small = 2 if guided else 1
+    small = []
+    for s in args[:n_small]:
+        s = s.clone()
+        s[10, 20, 0], s[30, 40, 1], s[50, 60, 2] = float("inf"), float("-inf"), float("nan")
+        small.append(s)
+    build = fast.build_guided_grid if guided else fast.build_grid
+    plain = fast.build_guided_grid_plain if guided else fast.build_grid_plain
+    for rng in (args[n_small : n_small + 2], fast.grid_range(small[-1], 6)):
+        a = (*small, *rng, *args[n_small + 2 :])
+        got, want = build(*a, d=1), plain(*a)
+        torch.cuda.synchronize()
+        for f in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(f(got.float()), f(want.float()))
+        finite = torch.isfinite(got.float())
+        assert bool((~finite).any())
+        assert torch.equal(got.view(torch.int16)[finite], want.view(torch.int16)[finite])
+
+
+@pytest.mark.parametrize("guided,n_taps,blocks", [(False, 17, 2), (True, 17, 2),
+                                                  (False, 49, 2), (True, 49, 1)])
+def test_build_d1_kernel_info(cuda, guided, n_taps, blocks):
+    """The d = 1 body's tiles launch: registers without spills, and the
+    blocks a multiprocessor build_d1_tile counts (two at the main path's tap
+    counts, one for the guided grid at 49 taps)."""
+    info = fast.build_d1_info(cuda, n_taps, BorderPolicy.CLAMP, guided=guided)
+    tile = fast.build_d1_tile(n_taps, stencils.max_shared_bytes(cuda), 2 if guided else 1)
+    assert info["spill_bytes"] == 0 and 0 < info["registers"] <= 255
+    assert info["blocks_per_sm"] == tile.blocks_per_sm(stencils.max_shared_bytes(cuda)) == blocks
+    assert info["shared_bytes"] == tile.shared_bytes
+
+
+def test_build_d1_launchers_refuse_a_tile_they_cannot_take(cuda):
+    """The d = 1 launchers refuse a layout whose taps overrun the block's
+    shared memory, more vertical-pass groups than the block's threads
+    cover, or a bilateral tile that stages a second image
+    (cudaErrorInvalidValue, 1)."""
+    small, lmin, step, _, taps = _d1_build_args(False, 0, 61, 83, 17, BorderPolicy.CLAMP)[:5]
+    grid = torch.empty((6, 61, 83, 4), dtype=torch.bfloat16, device=cuda)
+    limit = stencils.max_shared_bytes(small.device)
+    tile = fast.build_d1_tile(taps.size, limit, 1)
+    short, few, two = tile.launch_args(), tile.launch_args(), fast.build_d1_tile(taps.size, limit, 2)
+    short[-1] -= 4  # shared bytes
+    few[1] = 3  # groups: 3 x the staged columns > the block's threads
+    lib = stencils._build.library()
+    for geom, want in ((tile.launch_args(), 0), (short, 1), (few, 1), (two.launch_args(), 1)):
+        rc = lib.idf_build_grid_d1(
+            small.data_ptr(), lmin.data_ptr(), step.data_ptr(), grid.data_ptr(), 61, 83, 6,
+            taps.ctypes.data, taps.size, 1.0, 0, 0, geom.ctypes.data, stencils._stream(small))
+        assert rc == want
+
+
+def test_build_d1_body_equals_build_grid_kernel(cuda):
+    """At d = 1 the wrappers launch the d = 1 body and at d = 2 the 2-D body
+    on the same pooled image: the same grid, the one bit for bit the other,
+    each under its own count."""
+    args = _d1_build_args(False, 6, 97, 131, 17, BorderPolicy.CLAMP)
+    assert torch.equal(fast.build_grid(*args, d=1), fast.build_grid(*args, d=2))
+    gargs = _d1_build_args(True, 6, 97, 131, 17, BorderPolicy.ZERO)
+    assert torch.equal(fast.build_guided_grid(*gargs, d=1), fast.build_guided_grid(*gargs, d=2))
+    assert {k: n for k, n in stencils.launches.items() if n} == {
+        "build_grid_d1": 1, "build_grid": 1, "build_guided_grid_d1": 1, "build_guided_grid": 1}

@@ -262,7 +262,7 @@ def test_build_grid_plain_matches_pallas(d, border, ua, shape, sigma_s):
     case = _jax_case(d, border, ua, shape, sigma_s)
     grid = fast.build_grid(
         _t(case["small"]), _t(case["lmin"]), _t(case["step"]), K,
-        fast._grid_taps(sigma_s, d), border, INV2SC, ua,
+        fast._grid_taps(sigma_s, d), border, INV2SC, ua, d=d,
     )
     assert grid.dtype == torch.bfloat16 and grid.shape == (K, *case["small"].shape)
     got = fast.grid_to_planes(grid, ua).float().numpy()
@@ -338,7 +338,8 @@ def test_grid_pipeline_d1_matches_pallas_pipeline(d, border, ua, shape, sigma_s)
     assert torch.equal(got, fast.grid_pipeline_plain(img, bp, K, 1))
     small = fast.pool(img, 1, border)
     lmin, step = fast.grid_range(small, K)
-    grid = fast.build_grid(small, lmin, step, K, fast._grid_taps(sigma_s, 1), border, INV2SC, ua)
+    grid = fast.build_grid(small, lmin, step, K, fast._grid_taps(sigma_s, 1), border, INV2SC, ua,
+                           d=1)
     planar = jnp.transpose(jnp.asarray(case["img"]), (2, 0, 1))
     want = _hwc(jfast._grid_pipeline_planar(planar, jax_params(bp), K, 1))
     np.testing.assert_array_equal(want, case["out"])
@@ -436,12 +437,12 @@ def test_grid_wrappers_check_inputs():
     with pytest.raises(TypeError):
         fast.pool(img.double(), 2)
     with pytest.raises(ValueError):  # more taps than the kernel's table
-        fast.build_grid(small, lmin, step, K, np.ones(65, np.float32) / 65, CLAMP, INV2SC)
+        fast.build_grid(small, lmin, step, K, np.ones(65, np.float32) / 65, CLAMP, INV2SC, d=2)
     with pytest.raises(ValueError):
-        fast.build_grid(small, lmin, step, 1, taps, CLAMP, INV2SC)
+        fast.build_grid(small, lmin, step, 1, taps, CLAMP, INV2SC, d=2)
     with pytest.raises(ValueError):
-        fast.build_grid(small, lmin[:2], step, K, taps, CLAMP, INV2SC)
-    grid = fast.build_grid(small, lmin, step, K, taps, CLAMP, INV2SC)
+        fast.build_grid(small, lmin[:2], step, K, taps, CLAMP, INV2SC, d=2)
+    grid = fast.build_grid(small, lmin, step, K, taps, CLAMP, INV2SC, d=2)
     with pytest.raises(TypeError):
         fast.slice_grid(img, grid.float(), lmin, 1.0 / step, 2)
     with pytest.raises(ValueError):  # grid of another image size
@@ -548,3 +549,52 @@ def test_cli_turbo_rejects_other_downsamples(tmp_path):
     with pytest.raises(SystemExit) as exc:
         cli.main([str(tmp_path / "x.png"), "--device", "cpu", "--turbo", "3"])
     assert exc.value.code == 2
+
+
+def test_builds_take_the_downsample_they_dispatch_by():
+    """Both builds take d as a required keyword: on the card d = 1 launches
+    the d = 1 body and every other d the 2-D one, so a call without d
+    raises, as one outside DOWNSAMPLES does; on a CPU tensor every d runs
+    the same plain version."""
+    img = _t(_image((24, 40), False))
+    small = fast.pool(img, 1)
+    lmin, step = fast.grid_range(small, K)
+    taps = fast._grid_taps(2.0, 1)
+    with pytest.raises(TypeError, match="'d'"):
+        fast.build_grid(small, lmin, step, K, taps, CLAMP, INV2SC)
+    with pytest.raises(TypeError, match="'d'"):
+        fast.build_guided_grid(small, small, lmin, step, K, taps, CLAMP, INV2SC)
+    with pytest.raises(ValueError, match="downsample"):
+        fast.build_grid(small, lmin, step, K, taps, CLAMP, INV2SC, d=3)
+    with pytest.raises(ValueError, match="downsample"):
+        fast.build_guided_grid(small, small, lmin, step, K, taps, CLAMP, INV2SC, d=3)
+    for d in fast.DOWNSAMPLES:
+        assert torch.equal(fast.build_grid(small, lmin, step, K, taps, CLAMP, INV2SC, d=d),
+                           fast.build_grid_plain(small, lmin, step, K, taps, CLAMP, INV2SC))
+        assert torch.equal(
+            fast.build_guided_grid(small, small, lmin, step, K, taps, CLAMP, INV2SC, d=d),
+            fast.build_guided_grid_plain(small, small, lmin, step, K, taps, CLAMP, INV2SC))
+
+
+@pytest.mark.parametrize("d", fast.DOWNSAMPLES)
+def test_pipelines_pass_their_downsample_to_the_builds(d, monkeypatch):
+    """grid_pipeline (the build and slice kernels) and
+    cross_bilateral_layers_fast (the two guided kernels) hand their own d
+    to the builds, which pick the card's body by it."""
+    from image_denoising_filter_tpu_torch.config import LayersParams
+
+    seen = []
+    build_grid, build_guided_grid = fast.build_grid, fast.build_guided_grid
+
+    def spy(name, fn):
+        def call(*args, d, **kwargs):
+            seen.append((name, d))
+            return fn(*args, d=d, **kwargs)
+        return call
+
+    monkeypatch.setattr(fast, "build_grid", spy("grid", build_grid))
+    monkeypatch.setattr(fast, "build_guided_grid", spy("guided", build_guided_grid))
+    img = _t(_image((24, 40), False))
+    fast.grid_pipeline(img, BilateralParams(), K, d)
+    fast.cross_bilateral_layers_fast(img, img, LayersParams(), K, d, fused=False)
+    assert seen == [("grid", d), ("guided", d)]

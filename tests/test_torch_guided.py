@@ -190,7 +190,7 @@ def test_build_guided_grid_plain_matches_pallas(d, border, shape):
 
     case = _jax_case(d, border, shape)
     grid = fast.build_guided_grid(
-        *_port_inputs(case), K, fast._grid_taps(2.0, d), border, INV2SC
+        *_port_inputs(case), K, fast._grid_taps(2.0, d), border, INV2SC, d=d
     )
     hs, ws = case["small_t"].shape[:2]
     assert grid.dtype == torch.bfloat16 and grid.shape == (K, hs, ws, fast.GUIDED_PLANES)
@@ -231,7 +231,7 @@ def test_fused_guided_plain_matches_pallas(d, border, shape):
     taps = fast._grid_taps(2.0, d)
     wc, nw = fast.fused_guided(small_t, small_l, layer, lmin, step, 1.0 / step, K, taps,
                                border, INV2SC, d)
-    grid = fast.build_guided_grid(small_t, small_l, lmin, step, K, taps, border, INV2SC)
+    grid = fast.build_guided_grid(small_t, small_l, lmin, step, K, taps, border, INV2SC, d=d)
     two = fast.slice_guided_grid(layer, grid, lmin, 1.0 / step, d)
     assert torch.equal(wc, two[0]) and torch.equal(nw, two[1])
     got = torch.cat([wc, nw], -1) + _delta_rounding(layer, grid, lmin, 1.0 / step, d)
@@ -256,7 +256,7 @@ def test_cross_bilateral_layers_fast_matches_jax(d, border, shape):
     small_t, small_l = fast.pool(target, d, border), fast.pool(layer, d, border)
     lmin, step = fast.grid_range(small_l, K)
     grid = fast.build_guided_grid(small_t, small_l, lmin, step, K, fast._grid_taps(2.0, d),
-                                  border, INV2SC)
+                                  border, INV2SC, d=d)
     got = torch.cat([wc, nw], -1) + _delta_rounding(layer, grid, lmin, 1.0 / step, d)
     _assert_bf16_grid_close(got.numpy(), want)
 
@@ -284,13 +284,13 @@ def test_guided_wrappers_check_inputs():
     lmin, step = fast.grid_range(small_l, K)
     taps = fast._grid_taps(2.0, 2)
     with pytest.raises(ValueError):  # the pools must match
-        fast.build_guided_grid(small_t, small_l[:-1], lmin, step, K, taps, CLAMP, INV2SC)
+        fast.build_guided_grid(small_t, small_l[:-1], lmin, step, K, taps, CLAMP, INV2SC, d=2)
     with pytest.raises(ValueError):
-        fast.build_guided_grid(small_t, small_l, lmin, step, 1, taps, CLAMP, INV2SC)
+        fast.build_guided_grid(small_t, small_l, lmin, step, 1, taps, CLAMP, INV2SC, d=2)
     with pytest.raises(ValueError):  # more taps than the kernel's table
         fast.build_guided_grid(small_t, small_l, lmin, step, K, np.ones(65, np.float32) / 65,
-                               CLAMP, INV2SC)
-    grid = fast.build_guided_grid(small_t, small_l, lmin, step, K, taps, CLAMP, INV2SC)
+                               CLAMP, INV2SC, d=2)
+    grid = fast.build_guided_grid(small_t, small_l, lmin, step, K, taps, CLAMP, INV2SC, d=2)
     with pytest.raises(TypeError):
         fast.slice_guided_grid(layer, grid.float(), lmin, 1.0 / step, 2)
     with pytest.raises(ValueError):  # a bilateral grid is not a guided one
@@ -306,7 +306,7 @@ def test_guided_wrappers_check_inputs():
     taps1 = fast._grid_taps(2.0, 1)
     got = fast.fused_guided(target, layer, layer, lmin, step, 1.0 / step, K, taps1, CLAMP,
                             INV2SC, 1)
-    grid = fast.build_guided_grid(target, layer, lmin, step, K, taps1, CLAMP, INV2SC)
+    grid = fast.build_guided_grid(target, layer, lmin, step, K, taps1, CLAMP, INV2SC, d=1)
     want = fast.slice_guided_grid(layer, grid, lmin, 1.0 / step, 1)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
@@ -336,6 +336,6 @@ def test_cross_bilateral_layers_fast_at_wide_sigma_matches_jax(border):
         small_t, small_l = fast.pool(target, d, border), fast.pool(layer, d, border)
         lmin, step = fast.grid_range(small_l, K)
         grid = fast.build_guided_grid(small_t, small_l, lmin, step, K, fast._grid_taps(12.0, d),
-                                      border, INV2SC)
+                                      border, INV2SC, d=d)
         got = torch.cat([wc, nw], -1) + _delta_rounding(layer, grid, lmin, 1.0 / step, d)
         _assert_bf16_grid_close(got.numpy(), want)

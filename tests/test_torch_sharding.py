@@ -417,7 +417,7 @@ def _grid_delta_rounding(img, params, levels, d):
     small = fast.pool(img, d, params.border)
     lmin, step = fast.grid_range(small, levels)
     grid = fast.build_grid(small, lmin, step, levels, fast._grid_taps(params.sigma_spatial, d),
-                           params.border, 0.5 / params.sigma_color**2)
+                           params.border, 0.5 / params.sigma_color**2, d=d)
     return _delta_rounding(img, grid, lmin, 1.0 / step, d, False)
 
 
@@ -503,7 +503,7 @@ def test_spatial_layers_fast_matches_single_device(outputs, n_y):
     small_t, small_l = fast.pool(tgt, 2), fast.pool(layer, 2)
     lmin, step = fast.grid_range(small_l, 8)
     grid = fast.build_guided_grid(small_t, small_l, lmin, step, 8, fast._grid_taps(2.0, 2),
-                                  params.border, 0.5 / params.sigma_color**2)
+                                  params.border, 0.5 / params.sigma_color**2, d=2)
     partials = torch.cat(single, -1) + _delta_rounding(layer, grid, lmin, 1.0 / step, 2)
     out = fast.normalize_layers_fast(partials[..., :4], partials[..., 4:]).numpy()
     _assert_bf16_grid_close(out, want, ulps=4)
@@ -550,8 +550,8 @@ def test_slab_slice_equals_the_whole_slice(d, border):
     small, small_l = fast.pool(img, d, border), fast.pool(layer, d, border)
     lmin, step = fast.grid_range(small, 5)
     taps = fast._grid_taps(2.0, d)
-    grid = fast.build_grid(small, lmin, step, 5, taps, border, 12.5)
-    ggrid = fast.build_guided_grid(small, small_l, lmin, step, 5, taps, border, 12.5)
+    grid = fast.build_grid(small, lmin, step, 5, taps, border, 12.5, d=d)
+    ggrid = fast.build_guided_grid(small, small_l, lmin, step, 5, taps, border, 12.5, d=d)
     whole = fast.slice_grid(img, grid, lmin, 1.0 / step, d)
     gwhole = fast.slice_guided_grid(layer, ggrid, lmin, 1.0 / step, d)
     hs = h // d
@@ -573,7 +573,7 @@ def test_slab_slice_refuses_what_it_cannot_read():
     small = fast.pool(img, 2)
     lmin, step = fast.grid_range(small, 5)
     grid = fast.build_grid(small, lmin, step, 5, fast._grid_taps(2.0, 2), BorderPolicy.CLAMP,
-                           12.5)
+                           12.5, d=2)
     band = img[8:16]
     with pytest.raises(ValueError, match="multiple of d"):
         fast.slice_grid(band, grid[:, 3:9], lmin, 1.0 / step, 2, None, 9, 16, 3)

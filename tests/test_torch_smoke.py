@@ -110,23 +110,31 @@ def test_build_grid_d1_is_the_build_at_full_resolution(taps):
     assert smoke.kernel_work("build_grid_d1", **shape) == smoke.kernel_work("build_grid", **shape)
 
 
-@pytest.mark.parametrize("n", [None, 0, 4])
-def test_as_d1_counts_each_launch_once(n):
-    """as_d1 moves n launches (all where None) of the bilateral grid's build
-    and slice to their D = 1 names and leaves the total as it was."""
-    counts = {"pool": 3, "build_grid": 10, "slice_grid": 10, "build_guided_grid": 2}
-    got = smoke.as_d1(counts, n)
-    moved = 10 if n is None else n
-    assert got["build_grid_d1"] == got["slice_grid_d1"] == moved
-    assert got["build_grid"] == got["slice_grid"] == 10 - moved
-    assert got["pool"] == 3 and got["build_guided_grid"] == 2
-    assert sum(got.values()) == sum(counts.values())
-    assert counts["build_grid"] == 10  # the caller's counts stay
+@pytest.mark.parametrize("taps", [17, 49])
+def test_build_guided_grid_d1_is_the_guided_build_at_full_resolution(taps):
+    shape = dict(pixels=PIXELS, cells=PIXELS, levels=6, taps=taps)
+    assert (smoke.kernel_work("build_guided_grid_d1", **shape)
+            == smoke.kernel_work("build_guided_grid", **shape))
 
 
-def test_as_d1_refuses_more_launches_than_ran():
-    with pytest.raises(RuntimeError):
-        smoke.as_d1({"build_grid": 3, "slice_grid": 3}, 4)
+def test_d1_forms_are_launch_counters():
+    """Each D = 1 form the kernels line lists is a counter the wrappers add
+    to (ops/stencils.py:launches), and every D = 1 counter is one of them."""
+    from image_denoising_filter_tpu_torch.ops import stencils
+
+    d1 = {k for k in stencils.launches if k.endswith("_d1")}
+    assert set(smoke.D1_FORMS.values()) == d1
+    assert all(k in stencils.launches for k in smoke.D1_FORMS)
+
+
+def test_nonfinite_frame_holds_one_of_each():
+    import torch
+
+    img = torch.zeros((1080, 1920, 4))
+    out = smoke.nonfinite_frame(img)
+    assert int(torch.isposinf(out).sum()) == int(torch.isneginf(out).sum()) == 1
+    assert int(torch.isnan(out).sum()) == 1
+    assert bool((img == 0).all())  # the input stays as it was
 
 
 def test_slice_guided_grid_d1_reads_each_pixels_own_cell():
@@ -141,31 +149,18 @@ def test_slice_guided_grid_d1_reads_each_pixels_own_cell():
     assert b["bound_ms"] == pytest.approx(0.0446, abs=5e-5)
 
 
-@pytest.mark.parametrize("n_guided", [None, 0, 3])
-def test_as_d1_moves_the_guided_slice_apart(n_guided):
-    """as_d1 moves n_guided launches (all where None) of the guided slice to
-    slice_guided_grid_d1, beside the bilateral grid's, and leaves the total
-    and the guided build as they were."""
-    counts = {"pool": 9, "build_grid": 4, "slice_grid": 4, "build_guided_grid": 6,
-              "slice_guided_grid": 6}
-    got = smoke.as_d1(counts, 2, n_guided)
-    moved = 6 if n_guided is None else n_guided
-    assert got["slice_guided_grid_d1"] == moved and got["slice_guided_grid"] == 6 - moved
-    assert got["build_grid_d1"] == got["slice_grid_d1"] == 2
-    assert got["build_guided_grid"] == 6
-    assert sum(got.values()) == sum(counts.values())
-    with pytest.raises(RuntimeError):
-        smoke.as_d1(counts, 0, 7)
-
-
 @pytest.mark.parametrize("d", [1, 2, 4, 8])
 def test_turbo_kernels_name_the_d1_guided_slice(d):
-    """A --turbo 1 grid run launches the guided slice under its D = 1 name,
-    the other D under its own; the NLM runs launch no grid kernel."""
+    """A --turbo 1 grid run launches the guided build and slice under their
+    D = 1 names (the bilateral grid is the eager lattice there), the other D
+    under their own; the NLM runs launch no grid kernel."""
     got = smoke.turbo_kernels(d, False)
-    assert ("slice_guided_grid_d1" in got) == (d == 1)
-    assert ("slice_guided_grid" in got) == (d == 8)
-    assert set(smoke.D1_NAMES) == {"build_grid_d1", "slice_grid_d1", "slice_guided_grid_d1"}
+    assert ("slice_guided_grid_d1" in got) == ("build_guided_grid_d1" in got) == (d == 1)
+    assert ("slice_guided_grid" in got) == ("build_guided_grid" in got) == (d == 8)
+    assert set(smoke.D1_FORMS.values()) == {"build_grid_d1", "slice_grid_d1",
+                                            "build_guided_grid_d1", "slice_guided_grid_d1"}
+    assert not {n for n in got if n.endswith("_d1")} - {"build_guided_grid_d1",
+                                                        "slice_guided_grid_d1"}
     assert not {n for n in smoke.turbo_kernels(d, True) if "grid" in n}
 
 

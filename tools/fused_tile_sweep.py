@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Time the fused kernels with other blocks than ops/fast.py gives them.
+"""Time the fused kernels and the d = 1 build with other blocks than
+ops/fast.py gives them.
 
     python3 tools/fused_tile_sweep.py [--variants as_is,d2_12x64] [--only fused_grid]
+    python3 tools/fused_tile_sweep.py --variants as_is,d1_rows4 \
+        --only "build_grid 1080p d=1,build_guided 1080p d=1"
 
 On the card, from the repository root. Copies the port into
-build/sweep_<variant>/ with some of the fused kernels' block constants of
+build/sweep_<variant>/ with some of the kernels' block constants of
 ops/fast.py replaced (the kernel reads them as macros, the tile helper as
-Python), times each copy with tools/torch_kernel_ab.py's worker (the
-fused_grid and fused_guided cases at 4K on chip_smoke.py's frame) in turns,
-twice, and prints each variant's medians and the nvidia-smi line. Every
-variant computes the same outputs: each case's SHA-256 must agree across
-the variants, or the sweep fails.
+Python), times each copy with tools/torch_kernel_ab.py's worker (by default
+the fused_grid and fused_guided cases at 4K on chip_smoke.py's frame) in
+turns, twice, and prints each variant's medians and the nvidia-smi line.
+Every variant computes the same outputs: each case's SHA-256 must agree
+across the variants, or the sweep fails.
 
 Variants (name: the text of ops/fast.py replaced):
   as_is             the port as it is
@@ -26,6 +29,14 @@ Variants (name: the text of ops/fast.py replaced):
   grid_range_all    the bilateral kernel reads its tiles' level range at every
                     d (the port: at d = 2 only, every level built at 4 and 8)
   strip4            a vertical-pass thread sums 4 cell rows (both kernels)
+  d1_rows4          the d = 1 build: a vertical-pass thread sums 4 cell rows
+                    (the port: 8)
+  d1_rows4_groups2  ... 4 cell rows, the tiles' thread groups doubled (the
+                    same strip heights as the port's, twice the threads)
+  d1_rows2_groups4  ... 2 cell rows, the tiles' thread groups quadrupled
+  d1_64x2_first     the d = 1 build takes 64 staged columns in 2 thread
+                    groups first, where it fits two blocks a multiprocessor
+  d1_96x1_first     ... 96 staged columns in one group first
 """
 
 from __future__ import annotations
@@ -60,6 +71,19 @@ VARIANTS = {
     "grid_range_all": (("FUSED_GRID_RANGE_DOWNSAMPLES = (2,)\n",
                         "FUSED_GRID_RANGE_DOWNSAMPLES = (2, 4, 8)\n"),),
     "strip4": (("FUSED_STRIP = 2\n", "FUSED_STRIP = 4\n"),),
+    "d1_rows4": (("BUILD_D1_ROWS = 8\n", "BUILD_D1_ROWS = 4\n"),),
+    "d1_rows4_groups2": (("BUILD_D1_ROWS = 8\n", "BUILD_D1_ROWS = 4\n"),
+                         ("BUILD_D1_TILES = ((128, 2), (128, 1), (96, 2), (96, 1), (64, 4), (64, 2), "
+                          "(64, 1), (32, 1),\n                  (80, 1))",
+                          "BUILD_D1_TILES = ((128, 4), (128, 2), (96, 4), (96, 2), (64, 8), (64, 4), "
+                          "(64, 2), (32, 2), (80, 2))")),
+    "d1_rows2_groups4": (("BUILD_D1_ROWS = 8\n", "BUILD_D1_ROWS = 2\n"),
+                         ("BUILD_D1_TILES = ((128, 2), (128, 1), (96, 2), (96, 1), (64, 4), (64, 2), "
+                          "(64, 1), (32, 1),\n                  (80, 1))",
+                          "BUILD_D1_TILES = ((128, 8), (128, 4), (96, 8), (96, 4), (64, 16), (64, 8), "
+                          "(64, 4), (32, 4), (80, 2))")),
+    "d1_64x2_first": (("BUILD_D1_TILES = (", "BUILD_D1_TILES = ((64, 2), "),),
+    "d1_96x1_first": (("BUILD_D1_TILES = (", "BUILD_D1_TILES = ((96, 1), "),),
 }
 
 

@@ -27,9 +27,17 @@ frames (seed 0) with the reference parameters:
   build_guided 1080p d=1 K=6
              the same at the main path's --turbo 1 shape: 1920x1080 at d=1
              (17 blur taps), 6 levels
+  build_guided 1080p d=1 K=6 HDR
+             the same on an HDR render at 1920x1080 (t=0.5, seed 0) with
+             chip_smoke.py's fireflies, and its albedo layer, as phase 10
+             builds its target
   build_grid 4K d=2 K=5, d=4 K=5, d=8 s6 K=6
              the bilateral grid build of chip_smoke.py's noisy 3840x2160
              frame pooled at d (9, 5 and, at sigma_s 6, 7 blur taps)
+  build_grid 1080p d=1 K=6, d=1 s6 K=6
+             the bilateral grid build of chip_smoke.py's 1920x1080 render
+             at d=1 (the sharded --turbo 1's form), 17 and, at sigma_s 6, 49
+             blur taps
   fused_grid 4K d=2 K=5, d=4 K=5, d=8 s6 K=6
              the fused bilateral build + slice of that frame at the same
              settings, as grid_pipeline(fused=True) runs it
@@ -80,6 +88,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import importlib.util
+import inspect
 import json
 import os
 import statistics
@@ -149,13 +158,20 @@ def worker(root: str, only: tuple = ("",)) -> dict:
                        np.where(xx > W / 2, 0.8, 0.2), np.ones((H, W))], -1)
     smooth[..., :3] += rng.normal(0, 0.05, (H, W, 3))
     smooth = torch.from_numpy(np.clip(smooth, 0, 1).astype(np.float32)).to(dev)
+    # The builds take the downsample on trees whose wrappers have it (the
+    # d = 1 body's dispatch)
+    takes_d = "d" in inspect.signature(fast.build_grid).parameters
+
+    def downsample(d):
+        return {"d": d} if takes_d else {}
+
     guided = {}
     for key, h, w, d, levels in (("4K d=2 K=5", 2160, 3840, 2, 5), ("1080p d=1 K=6", H, W, 1, 6)):
         imgs = torch.from_numpy(rng.uniform(0, 1, (2, h, w, 4)).astype(np.float32)).to(dev)
         small_t = fast.pool_plain(imgs[0], d, cfg.BorderPolicy.CLAMP)
         small_l = fast.pool_plain(imgs[1], d, cfg.BorderPolicy.CLAMP)
-        guided[key] = (small_t, small_l, *fast.grid_range(small_l, levels), levels,
-                       fast._grid_taps(2.0, d), cfg.BorderPolicy.CLAMP, 12.5)
+        guided[key] = ((small_t, small_l, *fast.grid_range(small_l, levels), levels,
+                        fast._grid_taps(2.0, d), cfg.BorderPolicy.CLAMP, 12.5), d)
     noisy, layers = smoke.load_render_frame()(0.5, 2160, 3840, np.random.default_rng(smoke.SEED),
                                               noise=smoke.NOISE)
     noisy = torch.from_numpy(noisy).to(dev)
@@ -165,10 +181,11 @@ def worker(root: str, only: tuple = ("",)) -> dict:
     for key, d, levels, sigma_s in (("4K d=2 K=5", 2, 5, 2.0), ("4K d=4 K=5", 4, 5, 2.0),
                                     ("4K d=8 s6 K=6", 8, 6, 6.0)):
         small = fast.pool_plain(noisy, d, clamp)
-        grid_cases[key] = (small, *fast.grid_range(small, levels), levels,
-                           fast._grid_taps(sigma_s, d), clamp, 12.5)
-        lmin, step = grid_cases[key][1:3]
-        fused_grid_cases[key] = (small, noisy, lmin, step, 1.0 / step, *grid_cases[key][3:], d)
+        grid_cases[key] = ((small, *fast.grid_range(small, levels), levels,
+                            fast._grid_taps(sigma_s, d), clamp, 12.5), d)
+        lmin, step = grid_cases[key][0][1:3]
+        fused_grid_cases[key] = (small, noisy, lmin, step, 1.0 / step, *grid_cases[key][0][3:],
+                                 d)
         if d in (2, 4):
             small_l = fast.pool_plain(albedo, d, clamp)
             lmin, step = fast.grid_range(small_l, levels)
@@ -183,6 +200,20 @@ def worker(root: str, only: tuple = ("",)) -> dict:
     frame_1080 = torch.from_numpy(frame_1080).to(dev)
     albedo_1080 = torch.from_numpy(
         np.ascontiguousarray(np.clip(layers_1080["albedo"], 0, 1))).to(dev)
+    small = fast.pool_plain(frame_1080, 1, clamp)
+    for key, sigma_s in (("1080p d=1 K=6", 2.0), ("1080p d=1 s6 K=6", 6.0)):
+        grid_cases[key] = ((small, *fast.grid_range(small, 6), 6, fast._grid_taps(sigma_s, 1),
+                            clamp, 12.5), 1)
+    hdr_1080, hdr_layers = smoke.load_render_frame()(0.5, H, W, np.random.default_rng(smoke.SEED),
+                                                     noise=smoke.NOISE, hdr=True)
+    fire = np.random.default_rng(smoke.SEED + 1).choice(
+        H * W, round(smoke.HDR_FIREFLY_SHARE * H * W), replace=False)
+    hdr_1080.reshape(-1, 4)[fire, :3] *= np.float32(smoke.HDR_FIREFLY_GAIN)
+    small_t = fast.pool_plain(torch.from_numpy(hdr_1080).to(dev), 1, clamp)
+    small_l = fast.pool_plain(torch.from_numpy(
+        np.ascontiguousarray(np.clip(hdr_layers["albedo"], 0, 1))).to(dev), 1, clamp)
+    guided["1080p d=1 K=6 HDR"] = ((small_t, small_l, *fast.grid_range(small_l, 6), 6,
+                                    fast._grid_taps(2.0, 1), clamp, 12.5), 1)
     for key, img, layer, d, levels in (("1080p d=1 K=6", frame_1080, albedo_1080, 1, 6),
                                        ("4K d=2 K=5", noisy, albedo, 2, 5)):
         taps = fast._grid_taps(2.0, d)
@@ -196,12 +227,13 @@ def worker(root: str, only: tuple = ("",)) -> dict:
         slice_guided_cases[key] = (layer, grid, lmin, 1.0 / step, d)
 
     def two_kernel_grid(small, img, lmin, step, inv_step, levels, taps, border, inv2sc, d):
-        grid = fast.build_grid(small, lmin, step, levels, taps, border, inv2sc)
+        grid = fast.build_grid(small, lmin, step, levels, taps, border, inv2sc, **downsample(d))
         return fast.slice_grid(img, grid, lmin, inv_step, d)
 
     def two_kernels(small_t, small_l, guide, lmin, step, inv_step, levels, taps, border,
                     inv2sc, d):
-        grid = fast.build_guided_grid(small_t, small_l, lmin, step, levels, taps, border, inv2sc)
+        grid = fast.build_guided_grid(small_t, small_l, lmin, step, levels, taps, border, inv2sc,
+                                      **downsample(d))
         return fast.slice_guided_grid(guide, grid, lmin, inv_step, d)
 
     cases = {
@@ -213,10 +245,11 @@ def worker(root: str, only: tuple = ("",)) -> dict:
         "divide": (lambda: wc / nw_b, 50),
         "nlm_hrw": (lambda: stencils.nlm_accumulate(smooth, smooth, hrw), 10),
         "nlm_hrw_bf16": (lambda: stencils.nlm_accumulate(smooth, smooth, hrw, bf16), 10),
-        **{f"build_guided {key}": (lambda a=args: fast.build_guided_grid(*a), 10)
-           for key, args in guided.items()},
-        **{f"build_grid {key}": (lambda a=args: fast.build_grid(*a), 10)
-           for key, args in grid_cases.items()},
+        **{f"build_guided {key}": (lambda a=args, d=d: fast.build_guided_grid(*a, **downsample(d)),
+                                   10)
+           for key, (args, d) in guided.items()},
+        **{f"build_grid {key}": (lambda a=args, d=d: fast.build_grid(*a, **downsample(d)), 10)
+           for key, (args, d) in grid_cases.items()},
         **{f"fused_grid {key}": (lambda a=args: fast.fused_grid(*a), 10)
            for key, args in fused_grid_cases.items()},
         **{f"two_kernel_grid {key}": (lambda a=args: two_kernel_grid(*a), 10)

@@ -154,14 +154,14 @@ def main() -> int:
         lmin, step = fast.grid_range(small_l, levels)
         inv2sc = 0.5 / lp.sigma_color**2
         grid = fast.build_guided_grid(small_t, small_l, lmin, step, levels, taps, lp.border,
-                                      inv2sc)
+                                      inv2sc, d=d)
         wc, nw = fast.slice_guided_grid(layers[0], grid, lmin, 1.0 / step, d)
         stages = {
             "pool x2": lambda: (fast.pool(target, d, lp.border),
                                 fast.pool(layers[0], d, lp.border)),
             "grid_range": lambda: fast.grid_range(small_l, levels),
             "build_guided_grid": lambda: fast.build_guided_grid(
-                small_t, small_l, lmin, step, levels, taps, lp.border, inv2sc),
+                small_t, small_l, lmin, step, levels, taps, lp.border, inv2sc, d=d),
             "slice_guided_grid": lambda: fast.slice_guided_grid(layers[0], grid, lmin,
                                                                 1.0 / step, d),
             "normalize_layers_fast": lambda: fast.normalize_layers_fast(wc, nw),
