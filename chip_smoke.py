@@ -121,6 +121,21 @@ Phases, one line or block each:
                 animation against single-target runs; the six exact configs
                 on the EXR target through --mesh 1x4 over gloo, each output
                 phase 10's array for array.
+ 12. non-finite -- every kernel form on the kernels line against its plain
+                version on frames with +inf, -inf and NaN (NaNs in bands 0
+                and 2 of a 1x4 mesh; at 1080p and, for the grids, 4K): the
+                same NaN, +inf and -inf positions, every value finite in both
+                at the kernel's tolerance, each grid on its frame's own range,
+                the sharded range of a 1x4 mesh and a finite frame's, the d = 1
+                slab bands, the fused kernels bit for bit the two kernels, the
+                d = 1 slice's own-cell read where it parts from its plain
+                version (ROADMAP.md queue C); then phase 10's EXR animation
+                with NaN in the target's bands 0 and 2, in a neighbour frame,
+                and +inf in the albedo layer, through gpu-denoise: the exact
+                battery, --turbo 1, 2, 2 --weights-halfres, and --turbo 1 and
+                2 on --mesh 1x4, each output held to the JAX package's reading
+                (JAX_NONFINITE_READINGS: counts and positions, or inside the
+                boxes its tiles spread over; dB against exact).
 Then the SHA-256 of the .png and .exr files the phases wrote, a line for
 each directory (two runs' files compare byte for byte by these lines), one
 JSON line with every kernel's launches, error, times and bound, the
@@ -303,6 +318,121 @@ HDR_GATE_MARGIN_DB = 0.05
 # psnr_peak. The port's reading is gated at it less the margin.
 JAX_TURBO1_MESH_READINGS_DB = {"1080p": 47.0676, "1080p HDR": 44.5734}
 TURBO1_MESH_GATE_MARGIN_DB = 0.05
+# Phase 12, non-finite frames. normalize on partials with non-finite values,
+# held to 1 ulp as phase 3 holds it.
+TOL_NORMALIZE = dict(rtol=2.4e-7, atol=0.0)
+# The half-row NLM with bf16 taps against its plain version where the
+# neighbour frame is not the target: the kernel sums a cell's squared
+# differences in another order, and where that moves a bf16 weight across a
+# rounding boundary its partials move by that weight's last bit (2^-8 of
+# it): on the 1080p target and the frame before it 13 of 10.4 million values
+# leave TOL_NLM, by at most 7.2e-4 of their value, finite frames and
+# non-finite ones alike (measured on one H100; phase 3's F = 1 pairs the
+# target with itself, where none does; ROADMAP.md queue C). Such
+# values, at most HRW_BF16_FLIPS[0] of them, are held within
+# HRW_BF16_FLIPS[1] of their value.
+HRW_BF16_FLIPS = (1e-5, 2.0**-9)
+# The animation: phase 10's, with NaN in bands 0 and 2 of a 1x4 mesh in the
+# target (green and blue), NaN in a neighbour frame, and +inf in the target's
+# albedo layer (an EXR there, as a depth or emission layer's background):
+# (row, column, channel, value) at 1080p.
+NONFINITE_ANIMATION = {
+    "frames": {TARGET_FRAME: ((150, 600, 1, float("nan")), (800, 1500, 2, float("nan"))),
+               2: ((400, 1000, 0, float("nan")),)},
+    "albedo": ((700, 300, 0, float("inf")),),
+}
+GRID_CONFIGS = ("bilateral", "layers", "linear")
+# gpu-denoise's runs of phase 12, each (name, flags, configs); the JAX
+# package's runs drop --dist-backend.
+NONFINITE_RUNS = (
+    ("exact", (), ("bilateral", "layers", "linear", "nlm", "multiframe", "overlap")),
+    ("turbo 1", ("--turbo", "1"), GRID_CONFIGS),
+    ("turbo 2", ("--turbo", "2"), ("bilateral", "layers", "linear", "nlm", "multiframe",
+                                   "overlap")),
+    ("turbo 2 half-row", ("--turbo", "2", "--weights-halfres"), NLM_CONFIGS),
+    ("mesh turbo 1", ("--turbo", "1", "--mesh", "1x4", "--dist-backend", "gloo"), GRID_CONFIGS),
+    ("mesh turbo 2", ("--turbo", "2", "--mesh", "1x4", "--dist-backend", "gloo"), GRID_CONFIGS),
+)
+# The JAX package's readings of phase 12's outputs (nonfinite_reading;
+# tools/nonfinite_jax_reading.py: tpu-denoise on the CPU, its Pallas kernels
+# in interpret mode, the mesh on four virtual CPU devices; the single-device
+# turbo bilateral grid through its Pallas pipeline, which tpu-denoise runs on
+# its chip). An entry with "boxes" is one where the JAX package's banded
+# matmuls (pool, build, slice) spread a non-finite value over their tile:
+# the boxes bound its non-finite values, channel by channel, and box whole a
+# channel whose grid range takes the animation's +inf (the port's range keeps
+# it: the channel is NaN, as on one device; the JAX package's sharded range
+# drops it, its pool's matmul having made it NaN).
+JAX_NONFINITE_READINGS = {
+    'exact bilateral': {'counts': [[998, 0, 0], [998, 0, 0], [998, 0, 0], [998, 0, 0]],
+        'digest': 'f822a38b60e55744', 'db': None},
+    'exact layers': {'counts': [[1, 0, 0], [500, 0, 0], [500, 0, 0], [1, 0, 0]], 'digest':
+        '180d759512b5b812', 'db': None},
+    'exact linear': {'counts': [[1250, 0, 0], [1250, 0, 0], [1250, 0, 0], [1250, 0, 0]],
+        'digest': '05bc91209c5684ce', 'db': None},
+    'exact nlm': {'counts': [[722, 0, 0], [722, 0, 0], [722, 0, 0], [722, 0, 0]], 'digest':
+        'cf6ed24d6a61d212', 'db': None},
+    'exact multiframe': {'counts': [[1083, 0, 0], [1083, 0, 0], [1083, 0, 0], [1083, 0, 0]],
+        'digest': 'c10e37ed80e99c50', 'db': None},
+    'exact overlap': {'counts': [[1083, 0, 0], [1083, 0, 0], [1083, 0, 0], [1083, 0, 0]],
+        'digest': 'c10e37ed80e99c50', 'db': None},
+    'turbo 1 bilateral': {'counts': [[0, 0, 0], [2073600, 0, 0], [2073600, 0, 0], [2073600, 0,
+        0]], 'digest': 'b6fbf33d617621cc', 'db': 44.6068},
+    'turbo 1 layers': {'counts': [[2073600, 0, 0], [983040, 0, 0], [1090560, 0, 0], [0, 0, 0]],
+        'digest': 'e9ff491782baffb3', 'db': 73.43, 'boxes': [[0, 0, 1080, 0, 1920], [1, 0, 512,
+        0, 1920], [2, 512, 1080, 0, 1920], [0, 0, 1080, 0, 1920]]},
+    'turbo 1 linear': {'counts': [[0, 0, 0], [2073600, 0, 0], [2073600, 0, 0], [2073600, 0,
+        0]], 'digest': 'b6fbf33d617621cc', 'db': 44.6068},
+    'turbo 2 bilateral': {'counts': [[0, 0, 0], [2073600, 0, 0], [2073600, 0, 0], [2073600, 0,
+        0]], 'digest': 'b6fbf33d617621cc', 'db': 44.7135},
+    'turbo 2 layers': {'counts': [[2073600, 0, 0], [983040, 0, 0], [1090560, 0, 0], [0, 0, 0]],
+        'digest': 'e9ff491782baffb3', 'db': 51.0951, 'boxes': [[0, 0, 1080, 0, 1920], [1, 0,
+        512, 0, 1920], [2, 512, 1080, 0, 1920], [0, 0, 1080, 0, 1920]]},
+    'turbo 2 linear': {'counts': [[0, 0, 0], [2073600, 0, 0], [2073600, 0, 0], [2073600, 0,
+        0]], 'digest': 'b6fbf33d617621cc', 'db': 44.7135},
+    'turbo 2 nlm': {'counts': [[648, 0, 0], [648, 0, 0], [648, 0, 0], [648, 0, 0]], 'digest':
+        'de42723837991708', 'db': 92.5414},
+    'turbo 2 multiframe': {'counts': [[972, 0, 0], [972, 0, 0], [972, 0, 0], [972, 0, 0]],
+        'digest': 'b4442d69d26024e9', 'db': 94.7206},
+    'turbo 2 overlap': {'counts': [[972, 0, 0], [972, 0, 0], [972, 0, 0], [972, 0, 0]],
+        'digest': 'b4442d69d26024e9', 'db': 94.1287},
+    'turbo 2 half-row nlm': {'counts': [[4608, 0, 0], [4608, 0, 0], [4608, 0, 0], [4608, 0,
+        0]], 'digest': 'f760bf5498c1f882', 'db': 75.7131, 'boxes': [[0, 128, 256, 592, 610],
+        [0, 768, 896, 1492, 1510], [1, 128, 256, 592, 610], [1, 768, 896, 1492, 1510], [2, 128,
+        256, 592, 610], [2, 768, 896, 1492, 1510], [3, 128, 256, 592, 610], [3, 768, 896, 1492,
+        1510]]},
+    'turbo 2 half-row multiframe': {'counts': [[6912, 0, 0], [6912, 0, 0], [6912, 0, 0], [6912,
+        0, 0]], 'digest': '85037d87005acdda', 'db': 78.442, 'boxes': [[0, 128, 256, 592, 610],
+        [0, 384, 512, 992, 1010], [0, 768, 896, 1492, 1510], [1, 128, 256, 592, 610], [1, 384,
+        512, 992, 1010], [1, 768, 896, 1492, 1510], [2, 128, 256, 592, 610], [2, 384, 512, 992,
+        1010], [2, 768, 896, 1492, 1510], [3, 128, 256, 592, 610], [3, 384, 512, 992, 1010],
+        [3, 768, 896, 1492, 1510]]},
+    'turbo 2 half-row overlap': {'counts': [[6912, 0, 0], [6912, 0, 0], [6912, 0, 0], [6912, 0,
+        0]], 'digest': '85037d87005acdda', 'db': 77.5528, 'boxes': [[0, 128, 256, 592, 610],
+        [0, 384, 512, 992, 1010], [0, 768, 896, 1492, 1510], [1, 128, 256, 592, 610], [1, 384,
+        512, 992, 1010], [1, 768, 896, 1492, 1510], [2, 128, 256, 592, 610], [2, 384, 512, 992,
+        1010], [2, 768, 896, 1492, 1510], [3, 128, 256, 592, 610], [3, 384, 512, 992, 1010],
+        [3, 768, 896, 1492, 1510]]},
+    'mesh turbo 1 bilateral': {'counts': [[0, 0, 0], [518400, 0, 0], [1009920, 0, 0], [518400,
+        0, 0]], 'digest': 'a6ae7cb3b6b8d9a7', 'db': 44.8797, 'boxes': [[1, 0, 270, 0, 1920],
+        [2, 540, 1066, 0, 1920], [3, 0, 270, 0, 1920]]},
+    'mesh turbo 1 layers': {'counts': [[1036800, 0, 0], [518400, 0, 0], [1009920, 0, 0], [0, 0,
+        0]], 'digest': '215eecea7414ae2e', 'db': 72.2644, 'boxes': [[0, 270, 810, 0, 1920], [1,
+        0, 270, 0, 1920], [2, 540, 1066, 0, 1920], [0, 0, 1080, 0, 1920]]},
+    'mesh turbo 1 linear': {'counts': [[0, 0, 0], [518400, 0, 0], [1009920, 0, 0], [518400, 0,
+        0]], 'digest': 'a6ae7cb3b6b8d9a7', 'db': 44.8797, 'boxes': [[1, 0, 270, 0, 1920], [2,
+        540, 1066, 0, 1920], [3, 0, 270, 0, 1920]]},
+    'mesh turbo 2 bilateral': {'counts': [[0, 0, 0], [518400, 0, 0], [1009920, 0, 0], [518400,
+        0, 0]], 'digest': 'a6ae7cb3b6b8d9a7', 'db': 45.2373, 'boxes': [[1, 0, 270, 0, 1920],
+        [2, 540, 1066, 0, 1920], [3, 0, 270, 0, 1920]]},
+    'mesh turbo 2 layers': {'counts': [[1036800, 0, 0], [518400, 0, 0], [1009920, 0, 0], [0, 0,
+        0]], 'digest': '215eecea7414ae2e', 'db': 51.6923, 'boxes': [[0, 270, 810, 0, 1920], [1,
+        0, 270, 0, 1920], [2, 540, 1066, 0, 1920], [0, 0, 1080, 0, 1920]]},
+    'mesh turbo 2 linear': {'counts': [[0, 0, 0], [518400, 0, 0], [1009920, 0, 0], [518400, 0,
+        0]], 'digest': 'a6ae7cb3b6b8d9a7', 'db': 45.2373, 'boxes': [[1, 0, 270, 0, 1920], [2,
+        540, 1066, 0, 1920], [3, 0, 270, 0, 1920]]},
+}
+NONFINITE_DB_MARGIN = 0.05
 # Phase 11. The native library's build routes (utils/native.py), and the
 # least speed-up of the OpenMP CPU bilateral on 8 threads over 1 (the cpu8
 # and cpu1 configs' filter) at 1080p on a host of at least CPU8_MIN_CORES
@@ -799,12 +929,12 @@ def write_animation(imageio, render_frame, root: str) -> dict:
     }
 
 
-def write_hdr_animation(imageio, render_frame, root: str) -> dict:
+def write_hdr_animation(imageio, render_frame, root: str, name: str = "hdr") -> dict:
     """Phase 10's 1080p EXR animation (HDR_* above) and its layers, saved
-    with `imageio` (either package's). Returns the target's path, the
-    frames as written (float32 EXR is lossless), the target's albedo layer
-    as loaded and the number of fireflies."""
-    anim = os.path.join(root, "hdr")
+    with `imageio` (either package's) into root/name. Returns the target's
+    path, the frames as written (float32 EXR is lossless), the target's
+    albedo layer as loaded and the number of fireflies."""
+    anim = os.path.join(root, name)
     layers_dir = os.path.join(anim, "RenderElements")
     os.makedirs(layers_dir)
     rng = np.random.default_rng(SEED)
@@ -1022,37 +1152,84 @@ def pipeline_check(torch, case: str, got, want, img) -> None:
           f"({loose:.4%} of pixels beyond {1e-5 * scale:g})")
 
 
-# The non-finite frame of phases 5 and 6: one +inf, one -inf and one NaN
-# value, each (row, column, channel) of the 1080p target (or layer).
-NONFINITE_VALUES = ((100, 200, 0, float("inf")), (500, 900, 1, float("-inf")),
-                    (800, 1500, 2, float("nan")))
+# The non-finite frame of phases 5, 6 and 12: one +inf, one -inf and two
+# NaN values, each (row, column, channel) of the 1080p target (or layer),
+# scaled to another frame's size by nonfinite_frame. The NaNs fall in band 0
+# and band 2 of a 1x4 mesh (bands of 270 rows at 1080p, 540 at 4K), the
+# +inf in band 0 and the -inf in band 1.
+NONFINITE_VALUES = ((100, 200, 0, float("inf")), (150, 600, 1, float("nan")),
+                    (500, 900, 1, float("-inf")), (800, 1500, 2, float("nan")))
 
 
-def nonfinite_frame(img):
-    """A copy of img with NONFINITE_VALUES written in."""
+def scaled_position(y: int, x: int, h: int, w: int) -> tuple[int, int]:
+    """A (row, column) of a 1920x1080 frame at the same place of an h x w
+    one (band by band: bands of a 1x4 mesh keep their values)."""
+    return y * h // 1080, x * w // 1920
+
+
+def nonfinite_frame(img, shift: int = 0):
+    """A copy of img with NONFINITE_VALUES written in, each position scaled
+    to img's rows and columns, the columns moved by shift * 97 (another
+    frame's or a layer's values beside the target's)."""
     out = img.clone()
+    h, w = img.shape[:2]
     for y, x, c, v in NONFINITE_VALUES:
-        out[y, x, c] = v
+        yy, xx = scaled_position(y, x, h, w)
+        out[yy, (xx + shift * 97) % w, c] = v
     return out
 
 
-def same_nonfinite(torch, what: str, got, want) -> str:
-    """A kernel's bf16 grid against its plain version's on a non-finite
-    frame: the same positions of NaN, +inf and -inf, and every other value
-    bit for bit (NaN payloads may differ). Fails otherwise; returns the
-    counts as printed."""
+def same_nonfinite(torch, what: str, got, want, tol=None, bf16_ulps=None, flips=None) -> str:
+    """A kernel's output (or tuple of outputs) against its plain version's,
+    or another kernel's, on a non-finite frame: the same positions of NaN,
+    +inf and -inf, and every value finite in both bit for bit (NaN payloads
+    may differ); or within tol (rtol, atol) where it is given, but for at
+    most flips[0] of them within flips[1] of their value where flips is
+    given (HRW_BF16_FLIPS); or within bf16_ulps bfloat16 ulps with at most 1%
+    of them off (the stored-grid contract of check_bf16_close). Fails
+    otherwise; returns the counts as printed."""
     torch.cuda.synchronize()
-    g, w = got.float(), want.float()
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
     kinds = {"NaN": torch.isnan, "+inf": torch.isposinf, "-inf": torch.isneginf}
-    counts = {k: (int(f(g).sum()), int(f(w).sum()), int((f(g) != f(w)).sum()))
-              for k, f in kinds.items()}
-    finite = torch.isfinite(g) & torch.isfinite(w)
-    bits = int((got.view(torch.int16)[finite] != want.view(torch.int16)[finite]).sum())
-    check(all(c[2] == 0 for c in counts.values()) and bits == 0,
-          f"{what}: non-finite positions (kernel, plain, differing) {counts}, {bits} finite "
-          f"values differ in their bits")
+    counts = {k: [0, 0, 0] for k in kinds}
+    n_finite, worst, off, flipped = 0, 0.0, 0, 0
+    for g_raw, w_raw in pairs:
+        g, w = g_raw.float(), w_raw.float()
+        for k, f in kinds.items():
+            counts[k][0] += int(f(g).sum())
+            counts[k][1] += int(f(w).sum())
+            counts[k][2] += int((f(g) != f(w)).sum())
+        finite = torch.isfinite(g) & torch.isfinite(w)
+        n_finite += int(finite.sum())
+        a, b = g[finite], w[finite]
+        if a.numel():
+            worst = max(worst, float((a - b).abs().max()))
+        if tol is not None:
+            beyond = (a - b).abs() > tol["atol"] + tol["rtol"] * b.abs()
+            if flips is not None:
+                flipped += int(beyond.sum())
+                beyond &= (a - b).abs() > flips[1] * b.abs()
+            off += int(beyond.sum())
+        elif bf16_ulps is not None:
+            def key(x):
+                k = x.to(torch.bfloat16).view(torch.int16).int()
+                return torch.where(k < 0, -(k & 0x7FFF), k)
+
+            ulps = (key(a) - key(b)).abs()
+            off += int((ulps > bf16_ulps).sum()) + (int((ulps > 0).sum()) > 0.01 * a.numel())
+        else:
+            bits = torch.int16 if g_raw.dtype == torch.bfloat16 else torch.int32
+            off += int((g_raw.view(bits)[finite] != w_raw.view(bits)[finite]).sum())
+    rule = (f"within {tol}" if tol is not None else f"within {bf16_ulps} bf16 ulps"
+            if bf16_ulps is not None else "bit for bit")
+    if flips is not None:
+        off += flipped > flips[0] * n_finite
+        rule += f" but {flipped} (at most {flips[0]:g} of them) within {flips[1]:.3g} relative"
+    check(all(c[2] == 0 for c in counts.values()) and off == 0,
+          f"{what}: non-finite positions (kernel, plain, differing) {counts}, {off} finite "
+          f"values not {rule} (max abs {worst:.3g})")
     return (f"{what}: " + ", ".join(f"{k} at {c[0]} values" for k, c in counts.items())
-            + f" in both, {int(finite.sum())} finite values bit for bit")
+            + f" in both, {n_finite} finite values {rule} (max abs {worst:.3g})")
 
 
 def band_ext(torch, fast, small, i: int, rows: int, halo: int, border: str):
@@ -2645,6 +2822,325 @@ def phase_hdr(torch, cfg, stencils, fast, cli, imageio, dataset, native, Session
     return results, totals, anim, out_exact, exact_exec_ns
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: non-finite frames
+# ---------------------------------------------------------------------------
+
+
+def mesh_range(torch, small, levels: int, bands: int = 4):
+    """The grid range of parallel/spatial.py:_grid_range over `bands` row
+    bands of the pooled image, on one device: each band's RGB extrema, a NaN
+    extremum replaced by +inf (the identity), reduced over the bands; then
+    grid_range's step. On a frame whose NaN lies in one band, the other
+    bands' finite range (the JAX package's pmin/pmax)."""
+    rgb = small[..., :3]
+    ext = torch.stack([torch.cat([b.amin((0, 1)), -b.amax((0, 1))])
+                       for b in torch.tensor_split(rgb, bands)])
+    ext = torch.where(ext.isnan(), float("inf"), ext).amin(0)
+    lmin, lmax = ext[:3], -ext[3:]
+    return lmin, (lmax - lmin).clamp_min(1e-6) / (levels - 1)
+
+
+def d1_fringe(torch, what: str, got, want, grid) -> str:
+    """The d = 1 slice kernel (own cell) against slice_grid_plain on a grid
+    with non-finite cells, the known difference of ROADMAP.md queue C: the
+    kernel's NaN, +inf and -inf a subset of the plain version's, each value
+    where they differ one whose bilinear footprint (cells y..y+1, x..x+1 of
+    its channel's plane, at any level) holds a non-finite cell the kernel
+    does not read, and every value finite in both bit for bit."""
+    torch.cuda.synchronize()
+    bad = (~torch.isfinite(grid.float())).any(0)  # (H, W, 4)
+    h, w = bad.shape[:2]
+    yy = torch.arange(h, device=bad.device).add(1).clamp_max(h - 1)
+    xx = torch.arange(w, device=bad.device).add(1).clamp_max(w - 1)
+    foot = bad | bad[yy] | bad[:, xx] | bad[yy][:, xx]
+    g_bad, w_bad = ~torch.isfinite(got), ~torch.isfinite(want)
+    subset = not bool((g_bad & ~w_bad).any())
+    kinds_agree = all(bool(((f(got) != f(want)) & g_bad).sum() == 0)
+                      for f in (torch.isnan, torch.isposinf, torch.isneginf))
+    apart = w_bad & ~g_bad
+    finite = ~g_bad & ~w_bad
+    bits = int((got.view(torch.int32)[finite] != want.view(torch.int32)[finite]).sum())
+    check(subset and kinds_agree and not bool((apart & ~foot).any()) and bits == 0,
+          f"{what}: kernel non-finite a subset {subset}, kinds agree {kinds_agree}, "
+          f"{int((apart & ~foot).sum())} values apart outside the footprint, {bits} finite "
+          f"values differ in their bits")
+    return (f"{what}: {int(g_bad.sum())} non-finite values (plain {int(w_bad.sum())}; "
+            f"{int(apart.sum())} apart, each a footprint cell the own-cell read skips, "
+            f"queue C), {int(finite.sum())} finite values bit for bit")
+
+
+NONFINITE_KERNELS = ("bilateral", "bilateral_guided", "bilateral_bf16", "bilateral_guided_bf16",
+                     "nlm", "nlm_bf16", "nlm_hrw", "nlm_hrw_bf16", "normalize", "pool",
+                     "build_grid", "slice_grid", "build_grid_d1", "slice_grid_d1", "fused_grid",
+                     "build_guided_grid", "slice_guided_grid", "build_guided_grid_d1",
+                     "slice_guided_grid_d1", "fused_guided")
+
+
+def phase_nonfinite_kernels(torch, fast, stencils, cfg, frames_np, layer_np, frame_4k,
+                            layer_4k) -> None:
+    """Every kernel form on the kernels line against its plain version on
+    non-finite frames (nonfinite_frame: +inf, -inf and two NaN values, the
+    NaNs in bands 0 and 2 of a 1x4 mesh), under same_nonfinite's contract at
+    each kernel's tolerance: at 1080p the four bilateral forms (target and
+    albedo layer non-finite), the four NLM forms at F = 1 and F = 6 (a
+    neighbour frame non-finite too) and normalize on their partials; the
+    grid kernels at each setting of the turbo battery (D = 1, 2, 4, 8), and
+    at 4K for each (D, K) of TURBO_CELLS, each on three grid ranges: the
+    frame's own (not finite: a channel's every level NaN), the sharded
+    range of a 1x4 mesh (mesh_range: the NaN bands left out, finite), and
+    the finite frame's (a non-finite guide on a finite grid); at D = 1 the
+    slab slices of the four bands against the whole slice's rows; the fused
+    kernels bit for bit against the two kernels. Every kernel must launch
+    (no wrapper hands the frame to its plain version)."""
+    dev = torch.device("cuda")
+    clamp = cfg.BorderPolicy.CLAMP
+    bf16 = cfg.TilingConfig(compute_dtype="bfloat16")
+
+    def on_card(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    finite_t = on_card(frames_np[TARGET_FRAME])
+    finite_l = on_card(layer_np)
+    target = nonfinite_frame(finite_t)
+    nbr = nonfinite_frame(on_card(frames_np[TARGET_FRAME - 1]), shift=1)
+    layer = nonfinite_frame(finite_l, shift=2)
+    frames6 = torch.stack([target, on_card(frames_np[0]), on_card(frames_np[1]), nbr, target,
+                           on_card(frames_np[4])])
+    valid6 = torch.tensor([1.0, 1.0, 0.0, 1.0, 1.0, 1.0], device=dev)
+    stencils.reset_launches()
+
+    def hold(what, got, want, **kw):
+        print("  " + same_nonfinite(torch, what, got, want, **kw))
+
+    bp, lp = cfg.BilateralParams(), cfg.LayersParams()
+    for tiling, dtype, sfx in ((None, "float32", ""), (bf16, "bfloat16", "_bf16")):
+        hold(f"bilateral{sfx} 1080p", stencils.bilateral(target, bp, tiling),
+             stencils.bilateral_plain(target, None, bp, True, dtype)[0], tol=TOL_BILATERAL)
+        hold(f"bilateral_guided{sfx} 1080p",
+             stencils.cross_bilateral_layers(target, layer, lp, tiling),
+             stencils.bilateral_plain(target, layer, lp, False, dtype), tol=TOL_BILATERAL)
+    np_ = cfg.NlmParams()
+    turbo = cfg.NlmParams(search_stride=2)
+    hrw = cfg.NlmParams(search_stride=2, weights_halfres=True)
+    for name, p, tiling, dtype in (("nlm", np_, None, "float32"),
+                                   ("nlm_bf16", turbo, bf16, "bfloat16"),
+                                   ("nlm_hrw", hrw, None, "float32"),
+                                   ("nlm_hrw_bf16", hrw, bf16, "bfloat16")):
+        flips = HRW_BF16_FLIPS if name == "nlm_hrw_bf16" else None
+        hold(f"{name} 1080p F=1", stencils.nlm_accumulate(target, nbr, p, tiling),
+             stencils.nlm_plain(target, nbr[None], p, None, dtype), tol=TOL_NLM, flips=flips)
+        wc6, nw6 = stencils.nlm_accumulate_frames(target, frames6, p, tiling, valid6)
+        hold(f"{name} 1080p F=6, valid mask", (wc6, nw6),
+             stencils.nlm_plain(target, frames6, p, valid6, dtype), tol=TOL_NLM, flips=flips)
+        if name == "nlm":
+            hold("normalize 1080p F=6 partials", stencils.normalize(wc6, nw6),
+                 stencils.normalize_plain(wc6, nw6, cfg.NormalizeParams()), tol=TOL_NORMALIZE)
+
+    cells = [("1080p", target, layer, finite_t, finite_l, d, turbo_levels(d), sigma_s)
+             for d, sigma_s in TURBO_RUNS]
+    img4k, lay4k = on_card(frame_4k), on_card(layer_4k)
+    cells += [("4K", nonfinite_frame(img4k), nonfinite_frame(lay4k, shift=2), img4k, lay4k, d,
+               levels, 2.0) for d, levels in TURBO_CELLS]
+    for label, img, lay, fin_img, fin_lay, d, levels, sigma_s in cells:
+        taps = fast._grid_taps(sigma_s, d)
+        inv2sc = 0.5 / bp.sigma_color**2
+        build, sliced = (D1_FORMS[k] if d == 1 else k for k in ("build_grid", "slice_grid"))
+        case = f"{label} D={d} K={levels}"
+        small = fast.pool(img, d, clamp)
+        hold(f"pool {case}", small, fast.pool_plain(img, d, clamp), tol=TOL_POOL)
+        fin_small = fast.pool_plain(fin_img, d, clamp)
+        ranges = {"mesh range": (small, img, mesh_range(torch, small, levels)),
+                  "finite frame's range, non-finite guide":
+                      (fin_small, img, fast.grid_range(fin_small, levels))}
+        if label == "1080p":
+            ranges["own range"] = (small, img, fast.grid_range(small, levels))
+        for rname, (sm, guide, (lmin, step)) in ranges.items():
+            what = f"{case} {rname}"
+            args = (sm, lmin, step, levels, taps, clamp, inv2sc, False)
+            grid = fast.build_grid_plain(*args)
+            got = fast.build_grid(*args, d=d)
+            hold(f"{build} {what}", got, grid, bf16_ulps=None if d == 1 else 2)
+            got = fast.slice_grid(guide, grid, lmin, 1.0 / step, d)
+            want = fast.slice_grid_plain(guide, grid, lmin, 1.0 / step, d)
+            if d == 1:
+                print("  " + d1_fringe(torch, f"{sliced} {what}", got, want, grid))
+                h, rows = guide.shape[0], guide.shape[0] // 4
+                for i in range(4):
+                    lo = max(i * rows - 1, 0)
+                    slab = grid[:, lo : min((i + 1) * rows + 1, h)].contiguous()
+                    band = guide[i * rows : (i + 1) * rows].contiguous()
+                    hold(f"{sliced} {what} slab band {i}",
+                         fast.slice_grid(band, slab, lmin, 1.0 / step, d, None, i * rows, h, lo),
+                         got[i * rows : (i + 1) * rows])
+                continue
+            hold(f"{sliced} {what}", got, want, tol=TOL_SLICE)
+            fused = fast.fused_grid(sm, guide, lmin, step, 1.0 / step, levels, taps, clamp,
+                                    inv2sc, d)
+            two = fast.slice_grid(guide, fast.build_grid(*args, d=d), lmin, 1.0 / step, d)
+            hold(f"fused_grid {what} against build + slice", fused, two)
+        # The guided grid: range weights from the layer, payload the target.
+        gbuild, gslice = (D1_FORMS[k] if d == 1 else k
+                          for k in ("build_guided_grid", "slice_guided_grid"))
+        small_t, small_l = fast.pool(img, d, clamp), fast.pool(lay, d, clamp)
+        fin_l = fast.pool_plain(fin_lay, d, clamp)
+        granges = {"mesh range": (small_l, lay, mesh_range(torch, small_l, levels)),
+                   "finite layer's range, non-finite guide":
+                       (fin_l, lay, fast.grid_range(fin_l, levels))}
+        if label == "1080p":
+            granges["own range"] = (small_l, lay, fast.grid_range(small_l, levels))
+        for rname, (sl, guide, (lmin, step)) in granges.items():
+            what = f"{case} {rname}"
+            args = (small_t, sl, lmin, step, levels, taps, clamp, inv2sc)
+            grid = fast.build_guided_grid_plain(*args)
+            got = fast.build_guided_grid(*args, d=d)
+            hold(f"{gbuild} {what}", got, grid, bf16_ulps=None if d == 1 else 2)
+            got = fast.slice_guided_grid(guide, grid, lmin, 1.0 / step, d)
+            hold(f"{gslice} {what}", got,
+                 fast.slice_guided_grid_plain(guide, grid, lmin, 1.0 / step, d), tol=TOL_SLICE)
+            if d == 1:
+                h, rows = guide.shape[0], guide.shape[0] // 4
+                for i in range(4):
+                    lo = max(i * rows - 1, 0)
+                    slab = grid[:, lo : min((i + 1) * rows + 1, h)].contiguous()
+                    band = guide[i * rows : (i + 1) * rows].contiguous()
+                    hold(f"{gslice} {what} slab band {i}",
+                         fast.slice_guided_grid(band, slab, lmin, 1.0 / step, d, i * rows, h, lo),
+                         tuple(x[i * rows : (i + 1) * rows] for x in got))
+            if d in (2, 4) and fast.fused_guided_fits(d, taps.size, dev):
+                fused = fast.fused_guided(small_t, sl, guide, lmin, step, 1.0 / step, levels,
+                                          taps, clamp, inv2sc, d)
+                two = fast.slice_guided_grid(guide, fast.build_guided_grid(*args, d=d), lmin,
+                                             1.0 / step, d)
+                hold(f"fused_guided {what} against build + slice", fused, two)
+    launched = {k: n for k, n in stencils.launches.items() if n}
+    check(all(launched.get(k, 0) > 0 for k in NONFINITE_KERNELS),
+          f"non-finite frames: a kernel form did not launch: {launched}")
+    print(f"  non-finite frames: every kernel form launched {launched}")
+
+
+def write_nonfinite_animation(imageio, render_frame, root: str) -> dict:
+    """Phase 12's animation: phase 10's EXR animation (write_hdr_animation)
+    with NONFINITE_ANIMATION's values written in, the target's albedo layer
+    as a float32 EXR in place of its PNG (it holds the +inf). Returns the
+    target's path."""
+    anim = write_hdr_animation(imageio, render_frame, root, "nonfinite")
+    base = os.path.dirname(anim["target"])
+    for i, values in NONFINITE_ANIMATION["frames"].items():
+        frame = anim["frames"][i].copy()
+        for y, x, c, v in values:
+            frame[(*scaled_position(y, x, *frame.shape[:2]), c)] = v
+        imageio.save(os.path.join(base, f"Animation01_HDR_{i:04d}.exr"), frame)
+    png = os.path.join(base, "RenderElements", f"albedo_{TARGET_FRAME:04d}.png")
+    albedo = imageio.load(png)[0].copy()
+    os.remove(png)
+    for y, x, c, v in NONFINITE_ANIMATION["albedo"]:
+        albedo[(*scaled_position(y, x, *albedo.shape[:2]), c)] = v
+    imageio.save(png[: -len(".png")] + ".exr", albedo)
+    return {"target": anim["target"]}
+
+
+def nonfinite_masks(out: np.ndarray) -> np.ndarray:
+    """(3, H, W, 4): where out is NaN, +inf, -inf."""
+    return np.stack([np.isnan(out), np.isposinf(out), np.isneginf(out)])
+
+
+def nonfinite_reading(out: np.ndarray, exact, boxes=()) -> dict:
+    """One output's reading on phase 12's animation (the JAX package's by
+    tools/nonfinite_jax_reading.py, the port's here): per channel the counts
+    of NaN, +inf and -inf; a digest of their positions; and, against the
+    exact output of its config (None for the exact configs themselves), dB
+    over the RGB values finite in both and outside `boxes` ([channel, y0,
+    y1, x0, x1] each), psnr_peak's formula with the exact output's largest
+    finite RGB value as the peak."""
+    masks = nonfinite_masks(out)
+    reading = {"counts": masks.sum((1, 2)).T.tolist(),
+               "digest": hashlib.sha256(np.packbits(masks).tobytes()).hexdigest()[:16],
+               "db": None}
+    if exact is None:
+        return reading
+    keep = np.isfinite(out[..., :3]) & np.isfinite(exact[..., :3])
+    for c, y0, y1, x0, x1 in boxes:
+        if c < 3:
+            keep[y0:y1, x0:x1, c] = False
+    a = out[..., :3][keep].astype(np.float64)
+    b = exact[..., :3][keep].astype(np.float64)
+    peak = float(exact[..., :3][np.isfinite(exact[..., :3])].max())
+    mse = float(np.mean((a - b) ** 2))
+    reading["db"] = math.inf if mse == 0.0 else round(10.0 * math.log10(peak * peak / mse), 4)
+    return reading
+
+
+def nonfinite_exact_key(run: str, key: str):
+    """The exact config an output of phase 12's `run` is read against: its
+    own config's (the grid configs the tiled bilateral's), none for the
+    exact battery."""
+    if run == "exact":
+        return None
+    return "bilateral" if key == "linear" else key
+
+
+def phase_nonfinite(torch, cfg, stencils, cli, imageio, render_frame, root: str, smi: str):
+    """Phase 12, end to end: the non-finite EXR animation
+    (write_nonfinite_animation) through gpu-denoise --device cuda, each run
+    of NONFINITE_RUNS, every output's reading (nonfinite_reading) held to
+    the JAX package's (JAX_NONFINITE_READINGS): the same counts and digest,
+    or, where the JAX package's banded matmuls spread a non-finite value
+    over their tile (an entry with "boxes"), every non-finite value of the
+    port's inside those boxes; dB no lower than the JAX package's less
+    NONFINITE_DB_MARGIN (phase 10's gate), read over the same values.
+    Returns the launch counts."""
+    target = write_nonfinite_animation(imageio, render_frame, root)["target"]
+    names = {k: c.output_name(True) for k, c in zip(cli.CONFIG_KEYS, cfg.GPU_BATTERY)}
+    totals = dict.fromkeys(stencils.launches, 0)
+    exact = {}
+    for run, flags, keys in NONFINITE_RUNS:
+        out_dir = os.path.join(root, "nonfinite_" + run.replace(" ", "_"))
+        what = f"gpu-denoise <non-finite HDR target> {' '.join(flags)}".rstrip()
+        t0 = time.perf_counter()
+        stencils.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(
+                err := io.StringIO()):
+            rc, rank_counts = cli.run([target, "--device", "cuda", *flags, "--configs",
+                                       ",".join(keys), "--output-dir", out_dir])
+        check(rc == 0, f"{what} failed ({rc}): {err.getvalue().strip()[-2000:]}")
+        counts = sum_counts(stencils, rank_counts)
+        for k, n in counts.items():
+            totals[k] += n
+        print(f"  {what}: {time.perf_counter() - t0:.1f} s, launches "
+              f"{ {k: n for k, n in counts.items() if n} }")
+        for key in keys:
+            out = imageio.load(os.path.join(out_dir, names[key]))[0]
+            check(out.shape == (H, W, 4), f"{what} {key}: shape {out.shape}")
+            if run == "exact":
+                exact[key] = out
+            name = f"{run} {key}"
+            want = JAX_NONFINITE_READINGS[name]
+            boxes = want.get("boxes", ())
+            ref = nonfinite_exact_key(run, key)
+            got = nonfinite_reading(out, None if ref is None else exact[ref], boxes)
+            if boxes:
+                outside = nonfinite_masks(out).any(0)
+                for c, y0, y1, x0, x1 in boxes:
+                    outside[y0:y1, x0:x1, c] = False
+                check(not outside.any(), f"{what} {key}: {int(outside.sum())} non-finite values "
+                                         f"outside the JAX package's {len(boxes)} boxes")
+                rule = f"non-finite inside the JAX package's {len(boxes)} boxes"
+            else:
+                check(got["counts"] == want["counts"] and got["digest"] == want["digest"],
+                      f"{what} {key}: counts {got['counts']} digest {got['digest']}, the JAX "
+                      f"package's {want['counts']} {want['digest']}")
+                rule = "counts and positions the JAX package's"
+            if ref is not None:
+                check(got["db"] >= want["db"] - NONFINITE_DB_MARGIN,
+                      f"{what} {key}: {got['db']} dB vs exact, below the JAX package's "
+                      f"{want['db']} less {NONFINITE_DB_MARGIN}")
+            per_kind = np.asarray(got["counts"]).sum(0).tolist()
+            db = "" if ref is None else f"; {got['db']} dB vs exact (JAX {want['db']})"
+            print(f"    {key:10s} NaN/+inf/-inf {per_kind}, {rule}{db}")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -2663,7 +3159,7 @@ def main() -> int:
     check_no_jax()
     render_frame = load_render_frame()
     smi = nvidia_smi_line()
-    print(f"[1/11] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
+    print(f"[1/12] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
 
@@ -2673,7 +3169,7 @@ def main() -> int:
         lib_path, log = _build.build()
         build_s = time.perf_counter() - t0
         native_info = native_build.result()
-    print(f"[2/11] build: {build_s:.2f} s -> {os.path.relpath(lib_path, REPO)}; native host "
+    print(f"[2/12] build: {build_s:.2f} s -> {os.path.relpath(lib_path, REPO)}; native host "
           f"library: route {native_info.route}, {native_info.build_s:.2f} s of g++ beside it")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -2682,19 +3178,20 @@ def main() -> int:
     root = scratch_dir()
     try:
         anim = write_animation(imageio, render_frame, root)
-        print(f"[3/11] kernels vs plain versions at {W}x{H}")
+        print(f"[3/12] kernels vs plain versions at {W}x{H}")
         kernels = phase_kernels(torch, stencils, cfg, anim["frames"], anim["layer"])
-        print(f"[4/11] battery through gpu-denoise --device cuda ({N_FRAMES} frames + 3 layers)")
+        print(f"[4/12] battery through gpu-denoise --device cuda ({N_FRAMES} frames + 3 layers)")
         counts, exact_dir, exec4 = phase_battery(cfg, stencils, cli, imageio, Session, anim, root)
-        print(f"[5/11] turbo grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
+        print(f"[5/12] turbo grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
         noisy_4k, layers_4k = render_frame(0.5, H4K, W4K, np.random.default_rng(SEED),
                                            noise=NOISE)
         turbo_kernels_results, fused_counts = phase_turbo_kernels(
             torch, fast, stencils, cfg, noisy_4k, anim["frames"][TARGET_FRAME])
         kernels.update(turbo_kernels_results)
-        print(f"[6/11] guided grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
+        print(f"[6/12] guided grid kernels vs plain versions at {W4K}x{H4K} and {W}x{H}")
+        albedo_4k = np.clip(layers_4k["albedo"], 0, 1)
         images = {
-            "4K": (noisy_4k, np.clip(layers_4k["albedo"], 0, 1)),
+            "4K": (noisy_4k, albedo_4k),
             "1080p": (anim["frames"][TARGET_FRAME], anim["layer"]),
         }
         images = {k: tuple(torch.from_numpy(np.ascontiguousarray(x)).to("cuda") for x in v)
@@ -2703,23 +3200,23 @@ def main() -> int:
         del layers_4k
         kernels.update(phase_guided_kernels(torch, fast, cfg, images))
         del images
-        print("[7/11] turbo battery through gpu-denoise --turbo D --device cuda")
+        print("[7/12] turbo battery through gpu-denoise --turbo D --device cuda")
         totals = phase_turbo_battery(cfg, stencils, cli, imageio, anim, root, exact_dir)
-        print("[8/11] CPU configs, parity, profile, content")
+        print("[8/12] CPU configs, parity, profile, content")
         t0 = time.perf_counter()
         profiled = phase_cpu_parity_profile(torch, cfg, stencils, cli, imageio, content,
                                             reference, native, kernels, anim, root, exact_dir)
         print(f"  phase 8: {time.perf_counter() - t0:.1f} s")
         for k, n in profiled.items():
             totals[k] += n
-        print("[9/11] sharded: gpu-denoise --mesh on 4 ranks sharing the card over gloo")
+        print("[9/12] sharded: gpu-denoise --mesh on 4 ranks sharing the card over gloo")
         t0 = time.perf_counter()
         sharded = phase_sharded(torch, cfg, stencils, fast, cli, imageio, launch, dryrun,
                                 turbo_pad_rows, anim, root, exact_dir, smi)
         print(f"  phase 9: {time.perf_counter() - t0:.1f} s")
         for k, n in sharded.items():
             totals[k] += n
-        print("[10/11] HDR: an EXR animation through the kernels and gpu-denoise --device cuda")
+        print("[10/12] HDR: an EXR animation through the kernels and gpu-denoise --device cuda")
         t0 = time.perf_counter()
         _, hdr_counts, hdr, hdr_dir, hdr_exec = phase_hdr(
             torch, cfg, stencils, fast, cli, imageio, dataset, native, Session, render_frame,
@@ -2727,7 +3224,7 @@ def main() -> int:
         print(f"  phase 10: {time.perf_counter() - t0:.1f} s")
         for k, n in hdr_counts.items():
             totals[k] += n
-        print("[11/11] host runtime: the native library, the default run, the native frame "
+        print("[11/12] host runtime: the native library, the default run, the native frame "
               "loader, --all-frames, --mesh 1x4 on HDR")
         t0 = time.perf_counter()
         host_counts = phase_host_runtime(torch, cfg, stencils, cli, imageio, dataset, native,
@@ -2736,7 +3233,18 @@ def main() -> int:
         print(f"  phase 11: {time.perf_counter() - t0:.1f} s")
         for k, n in host_counts.items():
             totals[k] += n
-        print("output files of phases 3-11, by directory:")
+        print("[12/12] non-finite frames: every kernel form against its plain version, and an "
+              "EXR animation with NaN and +inf through gpu-denoise --device cuda")
+        t0 = time.perf_counter()
+        phase_nonfinite_kernels(torch, fast, stencils, cfg, anim["frames"], anim["layer"],
+                                noisy_4k, albedo_4k)
+        del albedo_4k
+        nonfinite_counts = phase_nonfinite(torch, cfg, stencils, cli, imageio, render_frame,
+                                           root, smi)
+        print(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+        for k, n in nonfinite_counts.items():
+            totals[k] += n
+        print("output files of phases 3-12, by directory:")
         for line in output_digests(root):
             print("  " + line)
     finally:

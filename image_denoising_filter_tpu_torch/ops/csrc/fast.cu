@@ -82,6 +82,35 @@ __device__ __forceinline__ float4 lerp4(float4 a, float4 b, float w) {
                      __fadd_rn(__fmul_rn(a.w, u), __fmul_rn(b.w, w)));
 }
 
+// max(a, b) and min(a, b) that return NaN where either operand is NaN
+// (max.NaN / min.NaN, sm_80 and later); fmaxf and fminf return the other
+// operand. On other operands the same value as fmaxf and fminf, in one
+// instruction.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// A slice's t_c = clip((v - lmin) * inv_step, 0, K-1) and its tent weight at
+// level k, max(1 - |t - k|, 0), both NaN where the level coordinate is NaN
+// (a NaN guide value, or a range that is not finite), as the plain
+// versions' clamp (and jnp.clip) keeps it: every level's tent is then NaN,
+// no level is skipped, and the channel's sums are NaN.
+__device__ __forceinline__ float level_t(float v, float lmin, float inv_step, float kmax) {
+  return min_nan(max_nan(__fmul_rn(v - lmin, inv_step), 0.f), kmax);
+}
+
+__device__ __forceinline__ float tent(float t, float k) {
+  return max_nan(1.f - fabsf(t - k), 0.f);
+}
+
 // d x d mean pool with the TPU kernel's roundings.
 //
 // Replaces image_denoising_filter_tpu/ops/fast.py:_pool_pallas. The input is
@@ -167,9 +196,9 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
   const size_t idx = static_cast<size_t>(y) * w + x;
   const float4 g = guide[idx];
   const float kmax = static_cast<float>(levels - 1);
-  const float t0 = fminf(fmaxf(__fmul_rn(g.x - lmin[0], inv_step[0]), 0.f), kmax);
-  const float t1 = fminf(fmaxf(__fmul_rn(g.y - lmin[1], inv_step[1]), 0.f), kmax);
-  const float t2 = fminf(fmaxf(__fmul_rn(g.z - lmin[2], inv_step[2]), 0.f), kmax);
+  const float t0 = level_t(g.x, lmin[0], inv_step[0], kmax);
+  const float t1 = level_t(g.y, lmin[1], inv_step[1], kmax);
+  const float t2 = level_t(g.z, lmin[2], inv_step[2], kmax);
   // (y + 0.5)/d - 0.5 is exact in float32 for d a power of two.
   const float gy = __fmul_rn(static_cast<float>(y) + 0.5f, inv_d) - 0.5f;
   const float gx = __fmul_rn(static_cast<float>(x) + 0.5f, inv_d) - 0.5f;
@@ -186,9 +215,9 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int k = 0; k < levels; ++k) {
     const float kf = static_cast<float>(k);
-    const float e0 = fmaxf(1.f - fabsf(t0 - kf), 0.f);
-    const float e1 = fmaxf(1.f - fabsf(t1 - kf), 0.f);
-    const float e2 = fmaxf(1.f - fabsf(t2 - kf), 0.f);
+    const float e0 = tent(t0, kf);
+    const float e1 = tent(t1, kf);
+    const float e2 = tent(t2, kf);
     if (e0 == 0.f && e1 == 0.f && e2 == 0.f) continue;
     const Bf16x4* level = grid + static_cast<size_t>(k) * plane;
     const float4 row0 = lerp4(load_cell(level, y0, x0, ws), load_cell(level, y0, x1, ws), wx);
@@ -259,6 +288,9 @@ __device__ __forceinline__ void add_guided_level(float (&acc)[kGuided], const fl
   acc[6] = __fadd_rn(acc[6], __fmul_rn(e2, up[6]));
 }
 
+// t for the fused kernels' level window: clip with fminf/fmaxf, a NaN taken
+// as 0, which only widens the window (a tile whose every t is NaN still
+// slices a level, into NaN sums).
 __device__ __forceinline__ float clip_t(float v, float lmin, float inv_step, float kmax) {
   return fminf(fmaxf(__fmul_rn(v - lmin, inv_step), 0.f), kmax);
 }
@@ -290,9 +322,9 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
   const size_t idx = static_cast<size_t>(y) * w + x;
   const float4 g = guide[idx];
   const float kmax = static_cast<float>(levels - 1);
-  const float t0 = clip_t(g.x, lmin[0], inv_step[0], kmax);
-  const float t1 = clip_t(g.y, lmin[1], inv_step[1], kmax);
-  const float t2 = clip_t(g.z, lmin[2], inv_step[2], kmax);
+  const float t0 = level_t(g.x, lmin[0], inv_step[0], kmax);
+  const float t1 = level_t(g.y, lmin[1], inv_step[1], kmax);
+  const float t2 = level_t(g.z, lmin[2], inv_step[2], kmax);
   const float gy = __fmul_rn(static_cast<float>(y) + 0.5f, inv_d) - 0.5f;
   const float gx = __fmul_rn(static_cast<float>(x) + 0.5f, inv_d) - 0.5f;
   const float fy = floorf(gy);
@@ -306,9 +338,9 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
   float acc[kGuided] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (int k = 0; k < levels; ++k) {
     const float kf = static_cast<float>(k);
-    const float e0 = fmaxf(1.f - fabsf(t0 - kf), 0.f);
-    const float e1 = fmaxf(1.f - fabsf(t1 - kf), 0.f);
-    const float e2 = fmaxf(1.f - fabsf(t2 - kf), 0.f);
+    const float e0 = tent(t0, kf);
+    const float e1 = tent(t1, kf);
+    const float e2 = tent(t2, kf);
     if (e0 == 0.f && e1 == 0.f && e2 == 0.f) continue;
     float up[8];
     sample_guided(grid + k * plane, ws, y0, y1, x0, x1, gx - fx, gy - fy, up);
@@ -327,7 +359,8 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
 // One RGB channel's levels at d = 1: its tent is nonzero at floor(t) and
 // floor(t) + 1 only (t in [0, K-1]). lo = floor(t), its tent 1 - frac(t) > 0;
 // hi = lo + 1 clamped to K - 1, its tent zero where t is whole or lo is the
-// last level. Both tents are the d >= 2 kernels' expression.
+// last level. Both tents are the d >= 2 kernels' expression. A NaN t
+// converts to level 0 and its tents are NaN.
 struct Levels {
   int lo, hi;
   float e_lo, e_hi;
@@ -337,8 +370,8 @@ __device__ __forceinline__ Levels channel_levels(float t, int levels) {
   Levels v;
   v.lo = static_cast<int>(t);  // t >= 0: truncation is floor
   v.hi = min(v.lo + 1, levels - 1);
-  v.e_lo = fmaxf(1.f - fabsf(t - static_cast<float>(v.lo)), 0.f);
-  v.e_hi = v.lo + 1 < levels ? fmaxf(1.f - fabsf(t - static_cast<float>(v.lo + 1)), 0.f) : 0.f;
+  v.e_lo = tent(t, static_cast<float>(v.lo));
+  v.e_hi = v.lo + 1 < levels ? tent(t, static_cast<float>(v.lo + 1)) : 0.f;
   return v;
 }
 
@@ -393,9 +426,9 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
   const Bf16x4* own =
       grid + static_cast<size_t>(min(max(y + y_off, 0), hs_all - 1) - gy_off) * w + x;
   const float4 g = guide[idx];
-  const Levels r = channel_levels(clip_t(g.x, lmin[0], inv_step[0], kmax), levels);
-  const Levels gr = channel_levels(clip_t(g.y, lmin[1], inv_step[1], kmax), levels);
-  const Levels b = channel_levels(clip_t(g.z, lmin[2], inv_step[2], kmax), levels);
+  const Levels r = channel_levels(level_t(g.x, lmin[0], inv_step[0], kmax), levels);
+  const Levels gr = channel_levels(level_t(g.y, lmin[1], inv_step[1], kmax), levels);
+  const Levels b = channel_levels(level_t(g.z, lmin[2], inv_step[2], kmax), levels);
   const Bf16x4 r_lo = own[r.lo * plane], r_hi = own[r.hi * plane];
   const Bf16x4 g_lo = own[gr.lo * plane], g_hi = own[gr.hi * plane];
   const Bf16x4 b_lo = own[b.lo * plane], b_hi = own[b.hi * plane];
@@ -1369,9 +1402,9 @@ __global__ void __launch_bounds__(kFusedThreads, kGuidedMinBlocks)
       if (px >= w || py >= py_end) continue;
       const size_t idx = static_cast<size_t>(py) * w + px;
       const float4 g = guide[idx];
-      const float t0 = clip_t(g.x, lmin3.x, inv_step[0], kmax);
-      const float t1 = clip_t(g.y, lmin3.y, inv_step[1], kmax);
-      const float t2 = clip_t(g.z, lmin3.z, inv_step[2], kmax);
+      const float t0 = level_t(g.x, lmin3.x, inv_step[0], kmax);
+      const float t1 = level_t(g.y, lmin3.y, inv_step[1], kmax);
+      const float t2 = level_t(g.z, lmin3.z, inv_step[2], kmax);
       float acc[kGuided] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if (k0 > k_range.x) {
         const float4 wc = out_wc[idx];
@@ -1389,9 +1422,9 @@ __global__ void __launch_bounds__(kFusedThreads, kGuidedMinBlocks)
       const int y1 = min(max(static_cast<int>(fy) + 1, 0), hs - 1) - ay0;
       for (int k = k0; k <= k1; ++k) {
         const float kf = static_cast<float>(k);
-        const float e0 = fmaxf(1.f - fabsf(t0 - kf), 0.f);
-        const float e1 = fmaxf(1.f - fabsf(t1 - kf), 0.f);
-        const float e2 = fmaxf(1.f - fabsf(t2 - kf), 0.f);
+        const float e0 = tent(t0, kf);
+        const float e1 = tent(t1, kf);
+        const float e2 = tent(t2, kf);
         if (e0 == 0.f && e1 == 0.f && e2 == 0.f) continue;
         float up[8];
         sample_guided(cells + (k - k0) * n_cells, cols, y0, y1, x0, x1, gx - fx, gy - fy, up);
@@ -1511,9 +1544,9 @@ __global__ void __launch_bounds__(kFusedThreads, kGridMinBlocks)
     for (int py = py0; py < py_end; py += row_step) {
       const size_t idx = static_cast<size_t>(py) * w + px;
       const float4 g = guide[idx];
-      const float t0 = clip_t(g.x, lmin3.x, inv3.x, kmax);
-      const float t1 = clip_t(g.y, lmin3.y, inv3.y, kmax);
-      const float t2 = clip_t(g.z, lmin3.z, inv3.z, kmax);
+      const float t0 = level_t(g.x, lmin3.x, inv3.x, kmax);
+      const float t1 = level_t(g.y, lmin3.y, inv3.y, kmax);
+      const float t2 = level_t(g.z, lmin3.z, inv3.z, kmax);
       const float gy = __fmul_rn(static_cast<float>(py) + 0.5f, inv_d) - 0.5f;
       const float fy = floorf(gy);
       const int y0 = min(max(static_cast<int>(fy), 0), hs - 1) - ay0;
@@ -1522,9 +1555,9 @@ __global__ void __launch_bounds__(kFusedThreads, kGridMinBlocks)
       float4 acc = k0 > k_range.x ? out[idx] : make_float4(0.f, 0.f, 0.f, 0.f);
       for (int k = k0; k <= k1; ++k) {
         const float kf = static_cast<float>(k);
-        const float e0 = fmaxf(1.f - fabsf(t0 - kf), 0.f);
-        const float e1 = fmaxf(1.f - fabsf(t1 - kf), 0.f);
-        const float e2 = fmaxf(1.f - fabsf(t2 - kf), 0.f);
+        const float e0 = tent(t0, kf);
+        const float e1 = tent(t1, kf);
+        const float e2 = tent(t2, kf);
         if (e0 == 0.f && e1 == 0.f && e2 == 0.f) continue;
         const Bf16x4* lv = cells + (k - k0) * n_cells;
         const float4 row0 = lerp4(load_cell(lv, y0, x0, cols), load_cell(lv, y0, x1, cols), wx);

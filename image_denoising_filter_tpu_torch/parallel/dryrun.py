@@ -37,6 +37,7 @@ from ..ops import fast, reference, stencils
 from . import launch
 from .mesh import FRAME_AXIS, make_mesh
 from .spatial import (
+    _grid_range,
     gather_rows,
     shard_rows,
     spatial_bilateral,
@@ -49,8 +50,9 @@ from .spatial import (
 
 
 def _run_case(case: dict, mesh, device: torch.device) -> tuple[np.ndarray, ...]:
-    """One case's outputs as whole images. case: {"kind", "inputs" (name ->
-    numpy array of the whole image), "kw" (keyword arguments)}."""
+    """One case's outputs as whole images (the "grid_range" kind: lmin and
+    step, a row each rank). case: {"kind", "inputs" (name -> numpy array of
+    the whole image), "kw" (keyword arguments)}."""
     kind, kw = case["kind"], case.get("kw", {})
     x = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
          for k, v in case["inputs"].items()}
@@ -69,6 +71,10 @@ def _run_case(case: dict, mesh, device: torch.device) -> tuple[np.ndarray, ...]:
     elif kind == "layers_fast":
         outs = spatial_cross_bilateral_layers_fast(band("target"), band("layer"), mesh=mesh,
                                                    **kw)
+    elif kind == "grid_range":
+        # the grid range of the pooled bands over 'y', one row a rank
+        small = fast.pool(band("img"), kw["downsample"], kw.get("border", "clamp"))
+        outs = tuple(o[None] for o in _grid_range(small, kw["levels"], mesh))
     elif kind == "temporal":
         # frames over 'frame' (each rank a block of them), rows over 'y'
         n_f, f = mesh.size(0), mesh.get_local_rank(FRAME_AXIS)

@@ -407,12 +407,21 @@ def _grid_geometry(rows: int, d: int, sigma_spatial: float, what: str):
 
 
 def _grid_range(small: torch.Tensor, levels: int, mesh: DeviceMesh):
-    """fast.grid_range over the whole pooled image: this band's extrema
+    """The grid range over the whole pooled image: this band's extrema
     reduced over 'y' (min of the mins and of the negated maxes, which is
-    exact), then grid_range's step formula. Pooling partitions the rows
-    exactly, so the range equals the single-device one bit for bit."""
+    exact), then fast.grid_range's step formula. On a finite image pooling
+    partitions the rows exactly, so the range equals the single-device one
+    bit for bit. A band whose channel holds a NaN has a NaN extremum there,
+    which the JAX package's pmin/pmax drop wherever it sits (XLA on the CPU
+    takes the other bands' extremum; a channel NaN in every band gives
+    +inf / -inf, the identities, and the least step). gloo's MIN keeps or
+    drops a NaN by the rank that holds it, so each band sends the identity,
+    +inf, in its place. One device (or one 'y' rank) keeps the NaN range,
+    as fast.grid_range does."""
     rgb = small[..., :3]
     ext = torch.cat([rgb.amin((0, 1)), -rgb.amax((0, 1))])
+    if _axis(mesh, SPATIAL_AXIS)[2] > 1:
+        ext = torch.where(ext.isnan(), float("inf"), ext)
     ext = _all_reduce(ext, dist.ReduceOp.MIN, mesh, SPATIAL_AXIS)
     lmin, lmax = ext[:3], -ext[3:]
     return lmin, (lmax - lmin).clamp_min(1e-6) / (levels - 1)

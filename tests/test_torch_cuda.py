@@ -1709,3 +1709,107 @@ def test_build_d1_body_equals_build_grid_kernel(cuda):
     assert torch.equal(fast.build_guided_grid(*gargs, d=1), fast.build_guided_grid(*gargs, d=2))
     assert {k: n for k, n in stencils.launches.items() if n} == {
         "build_grid_d1": 1, "build_grid": 1, "build_guided_grid_d1": 1, "build_guided_grid": 1}
+
+
+def _nonfinite_guide(img):
+    """img with NaN, +inf and -inf values, each in its own channel, row and
+    column, and a pixel NaN in every channel."""
+    out = img.clone()
+    out[3, 5, 0], out[7, 11, 1], out[11, 17, 2] = float("nan"), float("inf"), float("-inf")
+    out[15, 23, :3] = float("nan")
+    return out
+
+
+def _assert_same_nonfinite(got, want, tol=None):
+    """NaN, +inf and -inf at the same positions; the finite values bit for
+    bit, or within tol (rtol, atol)."""
+    torch.cuda.synchronize()
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        for f in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(f(g), f(w)), f.__name__
+        finite = torch.isfinite(g)
+        if tol is None:
+            assert torch.equal(g[finite].view(torch.int32), w[finite].view(torch.int32))
+        else:
+            _close(g[finite], w[finite], **tol)
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+@pytest.mark.parametrize("nan_range", [False, True], ids=["nan_guide", "nan_range"])
+def test_slices_keep_a_nan_level_coordinate(cuda, d, nan_range):
+    """A NaN level coordinate (v - lmin) * inv_step, from a NaN guide value
+    or a range that is not finite (lmin NaN in green): fminf/fmaxf would clip
+    it to 0, the plain versions' clamp keeps it, and every slice kernel gives
+    NaN in that channel's sums (alpha's under green's) as its plain version
+    does (fast.cu:level_t, tent); +inf and -inf clip to the ends in both. On
+    a finite grid, whole and in the slab form; the fused kernels bit for bit
+    the two kernels. Each kernel launches: no wrapper hands the frame to its
+    plain version."""
+    img = _smooth_image(4, cuda, 48, 64)
+    guide = _nonfinite_guide(img)
+    small, small_l = fast.pool_plain(img, d, BorderPolicy.CLAMP), fast.pool_plain(
+        _smooth_image(5, cuda, 48, 64), d, BorderPolicy.CLAMP)
+    lmin, step = fast.grid_range(small, 5)
+    if nan_range:
+        lmin[1] = float("nan")
+    taps = fast._grid_taps(2.0, d)
+    build = (small, lmin, step, 5, taps, BorderPolicy.CLAMP, 12.5)
+    grid = fast.build_grid_plain(*build, False)
+    args = (guide, grid, lmin, 1.0 / step, d, None)
+    got = fast.slice_grid(*args)
+    _assert_same_nonfinite(got, fast.slice_grid_plain(*args), None if d == 1 else dict(
+        rtol=1e-5, atol=1e-6))
+    assert bool(torch.isnan(got[15, 23]).all()) and bool(torch.isnan(got[3, 5, 0]))
+    assert bool(torch.isnan(got[..., 1]).all()) == nan_range
+    rows = 16 if d == 1 else 24
+    band = fast.slice_grid(guide[rows:].contiguous(), grid[:, rows // d - 1 :].contiguous(),
+                           lmin, 1.0 / step, d, None, rows, grid.shape[1], rows // d - 1)
+    _assert_same_nonfinite(band, got[rows:])
+    gbuild = (small, small_l, lmin, step, 5, taps, BorderPolicy.CLAMP, 12.5)
+    ggrid = fast.build_guided_grid_plain(*gbuild)
+    gargs = (guide, ggrid, lmin, 1.0 / step, d)
+    ggot = fast.slice_guided_grid(*gargs)
+    _assert_same_nonfinite(ggot, fast.slice_guided_grid_plain(*gargs), dict(rtol=1e-5, atol=1e-6))
+    assert bool(torch.isnan(ggot[0][..., 3]).all()) == bool(torch.isnan(ggot[1][..., 1]).all()) \
+        == nan_range
+    if d > 1:
+        fused = fast.fused_grid(small, guide, lmin, step, 1.0 / step, 5, taps,
+                                BorderPolicy.CLAMP, 12.5, d)
+        _assert_same_nonfinite(fused, fast.slice_grid(guide, fast.build_grid(
+            *build, False, d=d), lmin, 1.0 / step, d))
+        gfused = fast.fused_guided(small, small_l, guide, lmin, step, 1.0 / step, 5, taps,
+                                   BorderPolicy.CLAMP, 12.5, d)
+        _assert_same_nonfinite(gfused, fast.slice_guided_grid(
+            guide, fast.build_guided_grid(*gbuild, d=d), lmin, 1.0 / step, d))
+    names = ("slice_grid", "slice_guided_grid") if d > 1 else ("slice_grid_d1",
+                                                               "slice_guided_grid_d1")
+    assert all(stencils.launches[k] > 0 for k in names)
+    assert d == 1 or stencils.launches["fused_grid"] == stencils.launches["fused_guided"] == 1
+
+
+def test_slice_d1_kernel_on_a_nan_grid_region(cuda):
+    """The d = 1 slice on a grid whose cells are NaN in a region, as a NaN
+    pixel builds them on the sharded range (every level, within the blur's
+    reach): the kernel's NaN values are its plain version's but the row
+    above and the column left of the region, whose zero-weight bilinear
+    corner (the cell below, the cell right) the own-cell read skips
+    (ROADMAP.md queue C); elsewhere bit for bit."""
+    img = _smooth_image(6, cuda, 40, 56)
+    small = fast.pool_plain(img, 1, BorderPolicy.CLAMP)
+    lmin, step = fast.grid_range(small, 6)
+    grid = fast.build_grid_plain(small, lmin, step, 6, fast._grid_taps(2.0, 1),
+                                 BorderPolicy.CLAMP, 12.5, False)
+    grid[:, 10:20, 30:40, 1] = float("nan")
+    args = (img, grid, lmin, 1.0 / step, 1, None)
+    got, want = fast.slice_grid(*args), fast.slice_grid_plain(*args)
+    torch.cuda.synchronize()
+    region = torch.zeros_like(got, dtype=torch.bool)
+    region[10:20, 30:40, 1] = True
+    fringe = torch.zeros_like(region)
+    fringe[9:20, 29:40, 1] = True
+    fringe &= ~region
+    assert torch.equal(torch.isnan(got), region)
+    assert torch.equal(torch.isnan(want), region | fringe)
+    finite = ~torch.isnan(want)
+    assert torch.equal(got[finite].view(torch.int32), want[finite].view(torch.int32))

@@ -127,14 +127,75 @@ def test_d1_forms_are_launch_counters():
     assert all(k in stencils.launches for k in smoke.D1_FORMS)
 
 
-def test_nonfinite_frame_holds_one_of_each():
+@pytest.mark.parametrize("h,w", [(1080, 1920), (2160, 3840)], ids=["1080p", "4K"])
+def test_nonfinite_frame_holds_one_of_each(h, w):
+    """One +inf, one -inf and two NaN values, at 1080p and 4K; the NaNs in
+    bands 0 and 2 of a 1x4 mesh, the +inf in band 0, the -inf in band 1; a
+    shifted copy (a neighbour frame's, a layer's) elsewhere."""
     import torch
 
-    img = torch.zeros((1080, 1920, 4))
+    img = torch.zeros((h, w, 4))
     out = smoke.nonfinite_frame(img)
     assert int(torch.isposinf(out).sum()) == int(torch.isneginf(out).sum()) == 1
-    assert int(torch.isnan(out).sum()) == 1
+    assert int(torch.isnan(out).sum()) == 2
     assert bool((img == 0).all())  # the input stays as it was
+    band = h // 4
+    rows = {kind: sorted({int(y) // band for y in torch.nonzero(f(out))[:, 0]})
+            for kind, f in (("nan", torch.isnan), ("+inf", torch.isposinf),
+                            ("-inf", torch.isneginf))}
+    assert rows == {"nan": [0, 2], "+inf": [0], "-inf": [1]}
+    shifted = smoke.nonfinite_frame(img, shift=1)
+    assert not bool((torch.isfinite(shifted) == torch.isfinite(out)).all())
+
+
+def test_nonfinite_animation_puts_its_nans_in_bands_0_and_2():
+    """Phase 12's target: a NaN in band 0 and one in band 2 of a 1x4 mesh at
+    1080p, on different channels; a NaN in a neighbour frame; +inf in the
+    albedo layer."""
+    frames = smoke.NONFINITE_ANIMATION["frames"]
+    target = frames[smoke.TARGET_FRAME]
+    assert sorted(y // (smoke.H // 4) for y, *_ in target) == [0, 2]
+    assert all(np.isnan(v) for *_, v in target) and len({c for _, _, c, _ in target}) == 2
+    (other,) = set(frames) - {smoke.TARGET_FRAME}
+    assert 0 <= other < smoke.N_FRAMES and all(np.isnan(v) for *_, v in frames[other])
+    assert all(v == np.inf for *_, v in smoke.NONFINITE_ANIMATION["albedo"])
+
+
+def test_nonfinite_readings_cover_every_run():
+    """The JAX package's readings (tools/nonfinite_jax_reading.py) hold an
+    entry for each output of phase 12's runs, in nonfinite_reading's shape:
+    counts per channel [NaN, +inf, -inf], a 16-hex digest, dB against exact
+    (None for the exact battery), and for the runs the JAX package's tiles
+    spread over, boxes [channel, y0, y1, x0, x1] inside the frame."""
+    names = {f"{run} {key}" for run, _, keys in smoke.NONFINITE_RUNS for key in keys}
+    assert set(smoke.JAX_NONFINITE_READINGS) == names
+    for name, r in smoke.JAX_NONFINITE_READINGS.items():
+        assert np.asarray(r["counts"]).shape == (4, 3)
+        assert len(r["digest"]) == 16 and int(r["digest"], 16) >= 0
+        assert (r["db"] is None) == name.startswith("exact ")
+        for c, y0, y1, x0, x1 in r.get("boxes", ()):
+            assert 0 <= c < 4 and 0 <= y0 < y1 <= smoke.H and 0 <= x0 < x1 <= smoke.W
+    spread = {n for n, r in smoke.JAX_NONFINITE_READINGS.items() if "boxes" in r}
+    assert {n for n in names if n.startswith("mesh ") or n.endswith(" layers")
+            and not n.startswith("exact") or "half-row" in n} == spread
+
+
+def test_nonfinite_reading_counts_and_reads_finite_values():
+    """nonfinite_reading on a small pair: the counts by channel and kind, a
+    digest that moves with a position, and dB over the values finite in both
+    and outside the boxes."""
+    exact = np.full((4, 6, 4), 0.5, np.float32)
+    out = exact.copy()
+    out[0, 0, 0], out[1, 2, 1], out[2, 3, 2] = np.nan, np.inf, -np.inf
+    out[3, 5, 0] = 0.75
+    r = smoke.nonfinite_reading(out, exact)
+    assert r["counts"] == [[1, 0, 0], [0, 1, 0], [0, 0, 1], [0, 0, 0]]
+    moved = out.copy()
+    moved[0, 0, 0], moved[0, 1, 0] = 0.5, np.nan
+    assert smoke.nonfinite_reading(moved, exact)["digest"] != r["digest"]
+    assert r["db"] == pytest.approx(10 * np.log10(0.25 / (0.0625 / (4 * 6 * 3 - 3))), abs=1e-4)
+    assert smoke.nonfinite_reading(out, exact, [[0, 3, 4, 5, 6]])["db"] == np.inf
+    assert smoke.nonfinite_reading(out, None)["db"] is None
 
 
 def test_slice_guided_grid_d1_reads_each_pixels_own_cell():
