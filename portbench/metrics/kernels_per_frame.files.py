@@ -1,0 +1,7 @@
+"""Kernels a frame launches on the device, in the files cell. (portbench/readers.py)"""
+
+from portbench import readers
+
+
+def read(r):
+    return readers.kernels_per_frame(r)

@@ -1,0 +1,7 @@
+"""The layer-guided step's share of its roofline. (portbench/readers.py)"""
+
+from portbench import readers
+
+
+def read(r):
+    return readers.step_roofline_pct(r, "layer_guided")
