@@ -71,7 +71,10 @@ Phases, one line or block each:
                 on the crop); the six device
                 configs through `gpu-denoise --profile`, the trace's kernel
                 events against the run's launch counts, and each config's
-                host ms, device busy ms and busy share;
+                host ms, device busy ms and busy share; the device's idle ms
+                under each of the program's idf.* spans (utils/timing.py),
+                and most of its busy ms under them (one clock, to about a
+                millisecond);
   9. sharded -- gpu-denoise --mesh on four ranks that share the card over
                 gloo: the six configs on 1x4 (every file phase 4's byte for
                 byte) and on 2x2 (the spatial configs phase 4's, the
@@ -1859,13 +1862,47 @@ def read_trace(path: str, keys) -> tuple[dict, list]:
     return spans, [e for e in events if e.get("cat") in DEVICE_EVENTS]
 
 
+def program_spans(path: str, prefix: str = "idf.") -> list:
+    """The program's own spans in a Chrome trace of torch.profiler (the
+    spans of utils/timing.py, every one of a name kept): [(name, start,
+    end)] in microseconds, by start."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted((e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                  for e in events
+                  if e.get("cat") == "user_annotation" and e.get("name", "").startswith(prefix))
+
+
+def idle_under_spans(spans, device, start: float, end: float) -> tuple[dict, float, float]:
+    """({name: (ms of its spans, ms of them in which the device ran no
+    kernel, copy or fill)} over the spans that start in [start, end), the
+    device's busy ms in [start, end), and the part of it under those
+    spans). A span holds the spans nested in it."""
+    def clipped(a, b):
+        out = []
+        for e in device:
+            s0, s1 = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))
+            if s1 > a and s0 < b:
+                out.append((max(s0, a), min(s1, b)))
+        return out
+
+    inside = [(n, a, b) for n, a, b in spans if start <= a < end]
+    out = {}
+    for name, a, b in inside:
+        span_ms, idle_ms = out.get(name, (0.0, 0.0))
+        out[name] = (span_ms + (b - a) / 1e3, idle_ms + (b - a) / 1e3 - busy_ms(clipped(a, b)))
+    under = busy_ms(piece for _, a, b in inside for piece in clipped(a, b))
+    return out, busy_ms(clipped(start, end)), under
+
+
 def phase_cpu_parity_profile(torch, cfg, stencils, cli, imageio, content, reference, native,
                              kernels, anim, root, exact_dir):
     """Phase 8: the card's render against the host's; the parity reading on
     two frames (the bilateral kernel also against its plain version, into
     kernels); the CPU configs through gpu-denoise on the crop; the six device
     configs through gpu-denoise --profile, their outputs equal to phase 4's
-    files. Returns the launch counts of the profiled run."""
+    files, and per config the device's idle ms under each of the program's
+    idf.* spans. Returns the launch counts of the profiled run."""
     h, w = CPU_CROP
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1974,6 +2011,7 @@ def phase_cpu_parity_profile(torch, cfg, stencils, cli, imageio, content, refere
     trace = os.path.join(prof_dir, cli.TRACE_NAME)
     t0 = time.perf_counter()
     spans, device = read_trace(trace, cli.CONFIG_KEYS)
+    ours = program_spans(trace)
     parse_s = time.perf_counter() - t0
     check(sorted(spans) == sorted(cli.CONFIG_KEYS), f"trace spans {sorted(spans)}")
     for name, keys in PROFILE_KERNELS.items():
@@ -1992,6 +2030,18 @@ def phase_cpu_parity_profile(torch, cfg, stencils, cli, imageio, content, refere
         host_ms = (end - start) / 1e3
         print(f"    {key:10s} span {host_ms:.3f} ms on the host, device busy {busy:.3f} ms "
               f"({busy / host_ms:.2%})")
+        # The program's spans and the device's events share one clock: the
+        # device's work falls under the Session's phases. The profiler maps
+        # the device's timestamps onto the host's clock to within about a
+        # millisecond (on the H100, 88% of the multiframe config's busy ms
+        # has read under the spans, its uploads shifted into the alpha
+        # checks before them), so the check is that most of it does.
+        idle, busy_all, under = idle_under_spans(ours, device, start, end)
+        check(busy_all > 0 and under >= 0.5 * busy_all,
+              f"{key}: {under:.3f} of the device's {busy_all:.3f} busy ms under idf.* spans")
+        print(f"      device busy {under:.3f} of {busy_all:.3f} ms under idf.* spans; idle ms "
+              "under each (of its ms): " + ", ".join(
+                  f"{n.removeprefix('idf.')} {i:.3f} ({t:.3f})" for n, (t, i) in idle.items()))
     names = sorted(os.listdir(exact_dir))
     check(sorted(os.listdir(out_prof)) == names, f"--profile wrote {sorted(os.listdir(out_prof))}")
     for name in names:

@@ -34,6 +34,7 @@ from ..config import (
 )
 
 from ..ops import eager, stencils
+from ..utils import timing
 
 TILED = "tiled"
 LINEAR = "linear"
@@ -90,9 +91,10 @@ class BilateralDenoiser(nn.Module):
         self.tiling = tiling
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
-        if self.layout == TILED:
-            return stencils.bilateral(img, self.params, self.tiling)
-        return eager.bilateral_eager(img, self.params)
+        with timing.span(timing.FORWARD):
+            if self.layout == TILED:
+                return stencils.bilateral(img, self.params, self.tiling)
+            return eager.bilateral_eager(img, self.params)
 
 
 class LayerGuidedDenoiser(_Normalizing):
@@ -112,17 +114,19 @@ class LayerGuidedDenoiser(_Normalizing):
 
     def forward(self, target: torch.Tensor, layers: Iterable[torch.Tensor]) -> torch.Tensor:
         """target: (H, W, 4); layers: (L, H, W, 4) stacked G-buffer layers."""
-        h, w, _ = target.shape
-        wc = torch.zeros((h, w, 4), dtype=torch.float32, device=target.device)
-        nw = torch.zeros((h, w), dtype=torch.float32, device=target.device)
-        for layer in layers:
-            if self.layout == TILED:
-                pwc, pnw = stencils.cross_bilateral_layers(target, layer, self.params, self.tiling)
-            else:
-                pwc, pnw = eager.cross_bilateral_layers_eager(target, layer, self.params)
-            wc = wc + pwc
-            nw = nw + pnw
-        return self._normalize(wc, nw)
+        with timing.span(timing.FORWARD):
+            h, w, _ = target.shape
+            wc = torch.zeros((h, w, 4), dtype=torch.float32, device=target.device)
+            nw = torch.zeros((h, w), dtype=torch.float32, device=target.device)
+            for layer in layers:
+                if self.layout == TILED:
+                    pwc, pnw = stencils.cross_bilateral_layers(target, layer, self.params,
+                                                               self.tiling)
+                else:
+                    pwc, pnw = eager.cross_bilateral_layers_eager(target, layer, self.params)
+                wc = wc + pwc
+                nw = nw + pnw
+            return self._normalize(wc, nw)
 
 
 class NlmDenoiser(_Normalizing):
@@ -139,11 +143,12 @@ class NlmDenoiser(_Normalizing):
         self.params = params
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
-        if self.layout == TILED:
-            wc, nw = stencils.nlm_accumulate(img, img, self.params, self.tiling)
-        else:
-            wc, nw = eager.nlm_eager(img, img, self.params)
-        return self._normalize(wc, nw)
+        with timing.span(timing.FORWARD):
+            if self.layout == TILED:
+                wc, nw = stencils.nlm_accumulate(img, img, self.params, self.tiling)
+            else:
+                wc, nw = eager.nlm_eager(img, img, self.params)
+            return self._normalize(wc, nw)
 
 
 class TemporalNlmDenoiser(_Normalizing):
@@ -164,7 +169,8 @@ class TemporalNlmDenoiser(_Normalizing):
     def forward(self, target: torch.Tensor, frames: torch.Tensor) -> torch.Tensor:
         """target: (H, W, 4); frames: (F, H, W, 4) neighbour frames (the
         target itself is frames[0] in the reference's loop)."""
-        return self.finalize(self.accumulate(target, frames))
+        with timing.span(timing.FORWARD):
+            return self.finalize(self.accumulate(target, frames))
 
     def accumulate(
         self, target: torch.Tensor, frames: torch.Tensor

@@ -16,7 +16,7 @@ from typing import Callable, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
-from ..utils import native
+from ..utils import native, timing
 from ..utils.timing import TimingReport
 
 
@@ -80,12 +80,13 @@ class FramePrefetcher:
         return dev, done
 
     def _upload(self, idx: int):
-        """Decode frame idx (untimed, like the JAX prefetcher) and issue its
-        upload (timed as transfer)."""
-        host = torch.from_numpy(np.ascontiguousarray(self._host(idx), np.float32))
+        """Decode frame idx (untimed by the report, like the JAX prefetcher;
+        the span LOAD) and issue its upload (timed as transfer)."""
+        with timing.span(timing.LOAD):
+            host = torch.from_numpy(np.ascontiguousarray(self._host(idx), np.float32))
         if self._report is None:
             return self._copy(host)
-        with self._report.transfer():
+        with self._report.transfer(timing.UPLOAD):
             return self._copy(host)
 
     def __iter__(self) -> Iterator[torch.Tensor]:

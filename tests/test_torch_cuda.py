@@ -1510,7 +1510,7 @@ def test_synthetic_render_device_on_card_matches_host(cuda, h, w, seed):
 
 def test_cli_profile_on_card_sees_every_nlm_launch(cuda, tmp_path):
     """gpu-denoise --profile DIR on the card: the trace holds one nlm_kernel
-    event a launch, and the span of the config."""
+    event a launch, the span of the config, and the Session's phases."""
     import json
 
     from image_denoising_filter_tpu_torch import cli
@@ -1528,7 +1528,11 @@ def test_cli_profile_on_card_sees_every_nlm_launch(cuda, tmp_path):
     kernels = [e for e in events if e.get("cat") == "kernel" and "nlm_kernel" in e["name"]]
     assert stencils.launches["nlm"] > 0
     assert len(kernels) == stencils.launches["nlm"]
-    assert [e["name"] for e in events if e.get("cat") == "user_annotation"] == ["nlm"]
+    spans = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert [n for n in spans if not n.startswith("idf.")] == ["nlm"]
+    assert {n for n in spans if n.startswith("idf.session.")} == {
+        "idf.session." + p for p in ("open", "load", "upload", "warmup", "exec", "readback",
+                                     "save")}
 
 
 def test_cuda_session_builds_the_native_library_and_streams_on_its_loader(cuda, tmp_path):

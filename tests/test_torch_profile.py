@@ -27,10 +27,13 @@ def target(tmp_path_factory):
     return str(root / "frame_0000.png")
 
 
-def _spans(trace_path):
+def _spans(trace_path, program=False):
+    """The config spans of the trace, in order; with program, the program's
+    own spans (idf.*, utils/timing.py) instead."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
-    return [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    return [e["name"] for e in events
+            if e.get("cat") == "user_annotation" and e["name"].startswith("idf.") == program]
 
 
 def _run(target, out_dir, *extra):
@@ -52,6 +55,8 @@ def test_profile_spans_the_cpu_configs(target, tmp_path):
                    "--configs", "cpu1,cpu8", "--profile", prof])
     assert rc == 0
     assert _spans(os.path.join(prof, cli.TRACE_NAME)) == ["cpu1", "cpu8"]
+    assert set(_spans(os.path.join(prof, cli.TRACE_NAME), program=True)) == {
+        "idf.session.open", "idf.session.load", "idf.session.exec", "idf.session.save"}
 
 
 def test_profile_leaves_the_outputs_unchanged(target, tmp_path):
