@@ -7,6 +7,10 @@ else => LDR PNG path (src/main.cpp:1380, 1735). LDR bytes become floats via
 values > 1 wrap modulo 256 and negatives are UB in C; we reproduce the wrap via
 int truncation mod 256, which matches the common-case behavior and is
 well-defined. Use `quantize(..., clamp=True)` for the sane mode.
+
+The PNG save is png.encode_bands, whatever `codec()` says: the frame's row
+bands quantize, filter and deflate on the host's cores into one zlib stream.
+Decodes and the EXR save take the codec `codec()` names.
 """
 
 from __future__ import annotations
@@ -33,12 +37,10 @@ def _read_png(path: str) -> np.ndarray:
     return _png.read(path)
 
 
-def _write_png(path: str, rgba: np.ndarray) -> None:
-    if _native.available():
-        with open(path, "wb") as f:
-            f.write(_native.png_encode(np.ascontiguousarray(rgba, np.uint8)))
-        return
-    _png.write(path, rgba)
+def _write_png(path: str, rgba: np.ndarray, clamp: bool) -> None:
+    data = _png.encode_bands(np.asarray(rgba), lambda rows: quantize(rows, clamp))
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def _read_exr(path: str) -> np.ndarray:
@@ -63,11 +65,12 @@ def _write_exr(path: str, rgba: np.ndarray) -> None:
 
 
 def codec() -> str:
-    """The codec load and save run in this process: "native" (the C++ codecs
-    (lodepng/tinyexr role) of the native library that utils/native.py loaded
-    or found; a file they cannot decode falls back to the Python codec) or
-    "python" (utils/png.py and utils/exr.py). Read at each call, so load and
-    save take the library that native.ensure() builds from then on."""
+    """The codec that load and the EXR save run in this process: "native"
+    (the C++ codecs (lodepng/tinyexr role) of the native library that
+    utils/native.py loaded or found; a file they cannot decode falls back to
+    the Python codec) or "python" (utils/png.py and utils/exr.py). Read at
+    each call, so they take the library that native.ensure() builds from
+    then on. The PNG save is png.encode_bands under either."""
     return "native" if _native.available() else "python"
 
 
@@ -107,4 +110,4 @@ def save(path: str, rgba: np.ndarray, hdr: bool | None = None, clamp: bool = Fal
     if hdr:
         _write_exr(path, rgba)
     else:
-        _write_png(path, quantize(rgba, clamp=clamp))
+        _write_png(path, rgba, clamp)

@@ -11,15 +11,22 @@ subset it doesn't cover. Decode supports bit depths 1/2/4/8/16, color types
 files lodepng's decoder accepts (16-bit samples take their high byte, like
 lodepng's default RGBA8 conversion; sub-byte grayscale is scaled to 0..255).
 Encode writes color type 6 (RGBA8) with per-row adaptive None/Sub/Up
-filtering.
+filtering. `encode_bands` writes the same file from a float frame and its
+cast, the frame cut into row bands that cast, filter and deflate on a pool of
+host threads (imageio.save's PNG path).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import os
 import struct
+import threading
 import zlib
 
 import numpy as np
+
+from . import timing
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 
@@ -74,6 +81,113 @@ def encode(rgba: np.ndarray, compress_level: int = 6) -> bytes:
         + _chunk(b"IDAT", zlib.compress(bytes(lines), compress_level))
         + _chunk(b"IEND", b"")
     )
+
+
+# encode_bands: the least filtered bytes a band takes (a frame under twice
+# this is one band), deflate's window, and the pool of host threads, made on
+# first use in each process (a forked child has none of its parent's threads).
+_BAND_BYTES = 256 << 10
+_WINDOW = 32 << 10
+_pool: concurrent.futures.ThreadPoolExecutor | None = None
+_pool_pid = 0
+_pool_lock = threading.Lock()
+
+
+def _threads() -> concurrent.futures.ThreadPoolExecutor:
+    global _pool, _pool_pid
+    with _pool_lock:
+        if _pool is None or _pool_pid != os.getpid():
+            _pool = concurrent.futures.ThreadPoolExecutor(
+                len(os.sched_getaffinity(0)), thread_name_prefix="png-band")
+            _pool_pid = os.getpid()
+        return _pool
+
+
+def band_count(h: int, w: int) -> int:
+    """The row bands encode_bands cuts an (h, w) RGBA frame into: one a core
+    this process may run on, each with at least _BAND_BYTES filtered bytes,
+    and at least one row."""
+    return max(1, min(len(os.sched_getaffinity(0)), h * (4 * w + 1) // _BAND_BYTES, h))
+
+
+def filter_rows(rows: np.ndarray, above: np.ndarray | None = None) -> np.ndarray:
+    """PNG scanlines of (n, stride) uint8 RGBA rows: each row's filter byte,
+    then the row under the None, Sub or Up filter whose bytes, read as
+    signed, sum smallest in magnitude (encode's choice, ties to the lower
+    filter). Up takes the first row against `above`, the row over it in
+    the image (none for the image's first row). Returns (n, stride + 1)."""
+    sub = rows.copy()
+    sub[:, 4:] -= rows[:, :-4]  # uint8 arithmetic wraps mod 256
+    up = rows.copy()
+    up[1:] -= rows[:-1]
+    if above is not None:
+        up[0] -= above
+    cands = (rows, sub, up)
+    # |int8(c)| as uint8 is min(c, 256 - c), 128 included
+    cost = np.stack([np.abs(c.view(np.int8)).view(np.uint8).sum(axis=1, dtype=np.int64)
+                     for c in cands])
+    choice = np.argmin(cost, axis=0).astype(np.uint8)
+    out = np.empty((rows.shape[0], rows.shape[1] + 1), np.uint8)
+    out[:, 0] = choice
+    out[:, 1:] = rows
+    for f in (1, 2):
+        picked = choice == f
+        out[picked, 1:] = cands[f][picked]
+    return out
+
+
+def _adler32_join(a1: int, a2: int, n2: int) -> int:
+    """The Adler-32 of x + y from a1 = adler32(x), and a2 = adler32(y) of
+    y's n2 bytes."""
+    base = 65521
+    lo = ((a1 & 0xFFFF) + (a2 & 0xFFFF) - 1) % base
+    hi = ((a1 >> 16) + (a2 >> 16) + n2 * ((a1 & 0xFFFF) - 1)) % base
+    return hi << 16 | lo
+
+
+def encode_bands(frame: np.ndarray, cast, compress_level: int = 6) -> bytes:
+    """Encode `cast(frame)` as a PNG as encode does, on band_count's row
+    bands of the (H, W, 4) frame at once, one a thread of the pool.
+
+    Each band casts its rows with `cast` (float rows -> uint8 RGBA rows; the
+    row above the band is cast again for Up), filters them as filter_rows
+    does, and deflates them raw at `compress_level`, primed with the last
+    32 KiB of the band above and ended with a sync flush (the last band:
+    finished). One IDAT holds the zlib header, the bands' bodies in order
+    and the Adler-32 of the whole filtered stream. One band gives encode's
+    bytes; more give the same filtered stream and pixels in a stream a
+    little larger. Counts the bands as png_encode.bands."""
+    if frame.ndim != 3 or frame.shape[2] != 4:
+        raise PngError(f"expected (H, W, 4), got {frame.shape}")
+    h, w, _ = frame.shape
+    n = band_count(h, w)
+    timing.count(timing.PNG_BANDS, n)
+    cuts = [h * k // n for k in range(n + 1)]
+    run = map if n == 1 else _threads().map
+
+    def lines(k: int) -> np.ndarray:
+        y0, y1 = cuts[k], cuts[k + 1]
+        rows = cast(frame[max(y0 - 1, 0):y1]).reshape(-1, 4 * w)
+        if y0 == 0:
+            return filter_rows(rows)
+        return filter_rows(rows[1:], rows[0])
+
+    bands = [b.reshape(-1) for b in run(lines, range(n))]
+
+    def deflate(k: int) -> tuple[bytes, int]:
+        z = (zlib.compressobj(compress_level, zlib.DEFLATED, -15, zdict=bands[k - 1][-_WINDOW:])
+             if k else zlib.compressobj(compress_level, zlib.DEFLATED, -15))
+        body = z.compress(bands[k]) + z.flush(zlib.Z_FINISH if k == n - 1 else zlib.Z_SYNC_FLUSH)
+        return body, zlib.adler32(bands[k])
+
+    parts = list(run(deflate, range(n)))
+    adler = parts[0][1]
+    for band, (_, a) in zip(bands[1:], parts[1:]):
+        adler = _adler32_join(adler, a, band.size)
+    idat = b"".join([zlib.compress(b"", compress_level)[:2], *(body for body, _ in parts),
+                     struct.pack(">I", adler)])
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0)
+    return _PNG_SIG + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", idat) + _chunk(b"IEND", b"")
 
 
 def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
@@ -255,8 +369,3 @@ def decode(data: bytes) -> np.ndarray:
 def read(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         return decode(f.read())
-
-
-def write(path: str, rgba: np.ndarray) -> None:
-    with open(path, "wb") as f:
-        f.write(encode(rgba))

@@ -48,6 +48,7 @@ SAVE = SESSION + "save"          # quantize, encode and write the output
 FORWARD = "idf.model.forward"
 CACHE_HIT = "frame_cache.hit"    # counters of Session._load's cache lookups
 CACHE_MISS = "frame_cache.miss"
+PNG_BANDS = "png_encode.bands"   # row bands of png.encode_bands, the PNG save
 
 # name -> [host ns, count] of the last profiled stretch (a counter's ns is 0).
 totals: dict[str, list[int]] = {}
