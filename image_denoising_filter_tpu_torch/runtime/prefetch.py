@@ -32,7 +32,12 @@ class FramePrefetcher:
     native library's C++ worker threads (utils/native.FrameLoader). On a
     CUDA device that loader or an error; on a CPU device without a native
     library, `loader` on this thread. `loader` says which ran: "native" or
-    "python".
+    "python". The native loader's threads stop when the iteration ends,
+    is abandoned or raises, so its frames stream once.
+
+    Spans and counter (utils/timing.py): PREFETCH_WAIT while the loop's
+    thread waits for a decoded frame, PREFETCH_PIN around the pinned
+    staging, PREFETCH_FRAMES once a frame handed out.
     """
 
     def __init__(
@@ -63,16 +68,18 @@ class FramePrefetcher:
                     raise
 
     def _host(self, idx: int) -> np.ndarray:
-        if self._native is not None:
-            return self._native.get(idx)
-        return self._loader(self._items[idx])
+        with timing.span(timing.PREFETCH_WAIT):
+            if self._native is not None:
+                return self._native.get(idx)
+            return self._loader(self._items[idx])
 
     def _copy(self, host: torch.Tensor):
         if self._stream is None:
             return host.to(self._device), None
         # The caching host allocator keeps each pinned block alive until the
         # copy that reads it has finished, so the block can be dropped here.
-        pinned = host.pin_memory()
+        with timing.span(timing.PREFETCH_PIN):
+            pinned = host.pin_memory()
         with torch.cuda.stream(self._stream):
             dev = pinned.to(self._device, non_blocking=True)
             done = torch.cuda.Event()
@@ -92,19 +99,24 @@ class FramePrefetcher:
     def __iter__(self) -> Iterator[torch.Tensor]:
         pending = []
         n = len(self._items)
-        for i in range(min(self._depth, n)):
-            pending.append(self._upload(i))
-        for i in range(n):
-            if i + self._depth < n:
-                pending.append(self._upload(i + self._depth))
-            dev, done = pending.pop(0)
-            if done is not None:
-                consumer = torch.cuda.current_stream(self._device)
-                consumer.wait_event(done)
-                # the tensor was allocated on the side stream but is used
-                # (and freed) on the consumer stream
-                dev.record_stream(consumer)
-            yield dev
+        try:
+            for i in range(min(self._depth, n)):
+                pending.append(self._upload(i))
+            for i in range(n):
+                if i + self._depth < n:
+                    pending.append(self._upload(i + self._depth))
+                dev, done = pending.pop(0)
+                if done is not None:
+                    consumer = torch.cuda.current_stream(self._device)
+                    consumer.wait_event(done)
+                    # the tensor was allocated on the side stream but is used
+                    # (and freed) on the consumer stream
+                    dev.record_stream(consumer)
+                timing.count(timing.PREFETCH_FRAMES)
+                yield dev
+        finally:
+            if self._native is not None:
+                self._native.close()
 
     def __len__(self) -> int:
         return len(self._items)

@@ -451,7 +451,10 @@ class FrameLoader:
 
     def get(self, idx: int) -> np.ndarray:
         """Fetch frame idx (blocking). Gets must be monotonically increasing:
-        get(i) releases every frame <= i; a later get(j <= i) raises."""
+        get(i) releases every frame <= i; a later get(j <= i) raises, as
+        does a get after close()."""
+        if not self._handle:
+            raise ValueError("frame loader already closed")
         data = ctypes.POINTER(ctypes.c_float)()
         w = ctypes.c_int()
         h = ctypes.c_int()

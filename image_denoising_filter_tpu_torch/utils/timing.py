@@ -49,6 +49,13 @@ FORWARD = "idf.model.forward"
 CACHE_HIT = "frame_cache.hit"    # counters of Session._load's cache lookups
 CACHE_MISS = "frame_cache.miss"
 PNG_BANDS = "png_encode.bands"   # row bands of png.encode_bands, the PNG save
+# The overlap loop's FramePrefetcher (runtime/prefetch.py): a layer of its
+# own, so its spans, which lie inside the Session's load, upload and exec,
+# are not taken out of them.
+PREFETCH = "idf.prefetch."
+PREFETCH_WAIT = PREFETCH + "wait"    # the loop's thread waiting for a decoded frame
+PREFETCH_PIN = PREFETCH + "pin"      # a frame's copy into pinned staging (CUDA only)
+PREFETCH_FRAMES = "prefetch.frames"  # frames the prefetcher hands out
 
 # name -> [host ns, count] of the last profiled stretch (a counter's ns is 0).
 totals: dict[str, list[int]] = {}

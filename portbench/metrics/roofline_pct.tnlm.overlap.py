@@ -1,0 +1,7 @@
+"""The overlap temporal NLM step's share of its roofline, in the overlap files cell. (portbench/readers.py)"""
+
+from portbench import readers
+
+
+def read(r):
+    return readers.step_roofline_pct(r, "temporal_nlm_overlap")

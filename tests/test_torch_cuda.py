@@ -1817,3 +1817,42 @@ def test_slice_d1_kernel_on_a_nan_grid_region(cuda):
     assert torch.equal(torch.isnan(want), region | fringe)
     finite = ~torch.isnan(want)
     assert torch.equal(got[finite].view(torch.int32), want[finite].view(torch.int32))
+
+
+def test_overlap_session_at_1080p_on_card(cuda, tmp_path):
+    """The benchmark's overlap configuration (`temporal_nlm_overlap_1080p`)
+    through one Session.run on the card, a shot of ten 1080p PNGs: the
+    prefetcher waits for and stages in pinned memory each of the window's
+    nine frames and hands out nine, and the output is the plain reference's
+    within the configuration's max_abs_err."""
+    import sys
+
+    from image_denoising_filter_tpu_torch.utils import timing
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    from portbench import harness
+    from portbench.reference import png
+    from portbench.reference import temporal_nlm_overlap as overlap
+
+    cell = harness.find_cell(harness.ROOT, "tnlm-1080p-overlap-files")
+    cfg, fam = cell.config, harness.family(harness.ROOT, cell)
+    u8 = fam.host_shots(cfg, 1, 2**31 + 22, cuda)[0]
+    for i, img in enumerate(u8):
+        (tmp_path / f"frame_{i:04d}.png").write_bytes(png.encode(img, 1))
+    out = tmp_path / "out"
+    out.mkdir()
+    kw, run_cfg = fam.session(cfg, "program")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        result = Session(str(tmp_path / "frame_0003.png"), device=cuda, output_dir=str(out),
+                         **kw).run(run_cfg)
+    t = timing.totals
+    assert result.frame_loader == "native"
+    assert t[timing.PREFETCH_FRAMES] == [0, 9]
+    assert t[timing.PREFETCH_WAIT][1] == t[timing.PREFETCH_PIN][1] == 9
+    assert t[timing.PREFETCH_WAIT][0] > 0 and t[timing.PREFETCH_PIN][0] > 0
+    shot = torch.from_numpy(png.to_float(u8)).to(cuda)
+    want = overlap.temporal_nlm_overlap(shot, 3, cfg["params"]).cpu().numpy()
+    assert np.abs(result.image - want).max() <= cfg["limits"]["max_abs_err"]

@@ -255,6 +255,8 @@ def test_profile_cli_spans_lie_inside_their_config_span(shot, tmp_path):
             names |= {timing.UPLOAD, timing.WARMUP, timing.READBACK}
         if key == "bilateral":
             names.add(timing.FORWARD)  # the model's forward, under warmup and exec
+        if key == "overlap":
+            names.add(timing.PREFETCH_WAIT)  # the prefetcher's waits, under load (no pin here)
         assert set(idle) == names
         assert all(ms == pytest.approx(span_ms) for span_ms, ms in idle.values())
     (_, e0, e1), = [s for s in ours if s[0] == timing.EXEC and configs["bilateral"][0] <= s[1]
