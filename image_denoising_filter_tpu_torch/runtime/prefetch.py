@@ -7,6 +7,10 @@ uploads run from pinned host memory with `non_blocking=True` on a side
 stream, so they proceed under the kernels of the consumer stream; each frame
 is handed out only after the consumer stream has been made to wait on its
 upload's event.
+
+The decoded-frame cache that a Session may share across targets (a plain
+dict, path -> frame, least recent first) keeps one policy, `cache_lookup`
+and `cache_insert`, for the Session's loads and the prefetcher's window.
 """
 
 from __future__ import annotations
@@ -18,6 +22,24 @@ import torch
 
 from ..utils import native, timing
 from ..utils.timing import TimingReport
+
+FRAME_CACHE_MAX = 32  # decoded frames a shared cache keeps
+
+
+def cache_lookup(cache: dict, key) -> Optional[np.ndarray]:
+    """The frame cached under key, touched as the most recent; None on a miss."""
+    img = cache.pop(key, None)
+    if img is not None:
+        cache[key] = img
+    return img
+
+
+def cache_insert(cache: dict, key, img: np.ndarray) -> None:
+    """Cache img under key as the most recent, evicting the least recent
+    frames beyond FRAME_CACHE_MAX."""
+    cache[key] = img
+    while len(cache) > FRAME_CACHE_MAX:
+        cache.pop(next(iter(cache)))
 
 
 class FramePrefetcher:
@@ -31,13 +53,23 @@ class FramePrefetcher:
     native_paths: the items are file paths, decoded ahead of use on the
     native library's C++ worker threads (utils/native.FrameLoader). On a
     CUDA device that loader or an error; on a CPU device without a native
-    library, `loader` on this thread. `loader` says which ran: "native" or
-    "python". The native loader's threads stop when the iteration ends,
+    library, `loader` on this thread. `loader` says which decodes: "native"
+    or "python". The native loader's threads stop when the iteration ends,
     is abandoned or raises, so its frames stream once.
 
-    Spans and counter (utils/timing.py): PREFETCH_WAIT while the loop's
-    thread waits for a decoded frame, PREFETCH_PIN around the pinned
-    staging, PREFETCH_FRAMES once a frame handed out.
+    The window is decoded once an item: a repeated item is served from its
+    first occurrence's frame. frame_cache: a decoded-frame cache shared with
+    the Session (keyed by item). Each item is looked up there when the
+    prefetcher is built, and a hit's frame is held from then on, so a later
+    eviction cannot take it. Only the misses are decoded, each distinct item
+    once and in window order (the native loader runs over them alone, and
+    not at all when every item hits), and each decoded miss is inserted.
+
+    Spans and counters (utils/timing.py): PREFETCH_WAIT while the loop's
+    thread waits for a decoded miss, PREFETCH_PIN around the pinned
+    staging, PREFETCH_FRAMES once a frame handed out, PREFETCH_CACHE_MISS
+    once an item sent to the decoder and PREFETCH_CACHE_HIT once any other
+    item (a cached one, or a repeat), so the two sum to the window.
     """
 
     def __init__(
@@ -48,6 +80,7 @@ class FramePrefetcher:
         depth: int = 2,
         report: Optional[TimingReport] = None,
         native_paths: bool = False,
+        frame_cache: Optional[dict] = None,
     ) -> None:
         self._items = list(items)
         self._loader = loader
@@ -57,21 +90,45 @@ class FramePrefetcher:
         self._stream = (
             torch.cuda.Stream(self._device) if self._device.type == "cuda" else None
         )
+        self._cache = frame_cache
+        # item -> its frame: the cache's hits from now, a miss once decoded
+        self._frames: dict = {}
+        self._misses: list = []  # the distinct items to decode, in window order
+        for item in self._items:
+            if item not in self._frames and item not in self._misses:
+                img = None if frame_cache is None else cache_lookup(frame_cache, item)
+                if img is None:
+                    self._misses.append(item)
+                    timing.count(timing.PREFETCH_CACHE_MISS)
+                    continue
+                self._frames[item] = img
+            timing.count(timing.PREFETCH_CACHE_HIT)
         self._native = None
         self.loader = "python"
         if native_paths:
             try:
-                self._native = native.FrameLoader(self._items, lookahead=self._depth + 2)
+                if self._misses:
+                    self._native = native.FrameLoader(self._misses, lookahead=self._depth + 2)
+                elif not native.available():
+                    raise native.NativeUnavailable("no native library to decode misses")
                 self.loader = "native"
             except (ImportError, OSError):
                 if self._device.type == "cuda":
                     raise
 
     def _host(self, idx: int) -> np.ndarray:
-        with timing.span(timing.PREFETCH_WAIT):
-            if self._native is not None:
-                return self._native.get(idx)
-            return self._loader(self._items[idx])
+        item = self._items[idx]
+        img = self._frames.get(item)
+        if img is None:
+            with timing.span(timing.PREFETCH_WAIT):
+                if self._native is not None:
+                    img = self._native.get(self._misses.index(item))
+                else:
+                    img = self._loader(item)
+            self._frames[item] = img
+            if self._cache is not None:
+                cache_insert(self._cache, item, img)
+        return img
 
     def _copy(self, host: torch.Tensor):
         if self._stream is None:
@@ -115,6 +172,7 @@ class FramePrefetcher:
                 timing.count(timing.PREFETCH_FRAMES)
                 yield dev
         finally:
+            self._frames.clear()
             if self._native is not None:
                 self._native.close()
 

@@ -71,7 +71,7 @@ from ..parallel import (
 )
 from ..parallel.mesh import FRAME_AXIS
 from ..parallel.spatial import _all_reduce, temporal_nlm_local_partials
-from .prefetch import FramePrefetcher
+from .prefetch import FramePrefetcher, cache_insert, cache_lookup
 
 
 def turbo_pad_rows(img: np.ndarray, n_y: int, radius: int, d: int, border: str) -> np.ndarray:
@@ -127,8 +127,6 @@ class Session:
     of ranks (re-usable across configs, like the reference app object
     re-running RunOnGPU)."""
 
-    _FRAME_CACHE_MAX = 32  # decoded frames kept when a cache dict is shared
-
     def __init__(
         self,
         target: str,
@@ -181,7 +179,8 @@ class Session:
         # with the reference's loop (src/main.cpp:1574-1607).
         self.batch_frames = batch_frames
         # Optional decoded-frame LRU shared across Sessions (serving mode
-        # re-targets over the same neighbour frames).
+        # re-targets over the same neighbour frames), also the overlap
+        # loop's (prefetch.cache_lookup, cache_insert).
         self._frame_cache = frame_cache
         self.is_hdr = imageio.is_hdr_path(target)
 
@@ -200,15 +199,13 @@ class Session:
         with timing.span(timing.LOAD):
             if self._frame_cache is None:
                 return imageio.load(path)[0]
-            if path in self._frame_cache:
+            img = cache_lookup(self._frame_cache, path)
+            if img is not None:
                 timing.count(timing.CACHE_HIT)
-                self._frame_cache[path] = self._frame_cache.pop(path)  # LRU touch
-                return self._frame_cache[path]
+                return img
             timing.count(timing.CACHE_MISS)
             img = imageio.load(path)[0]
-            self._frame_cache[path] = img
-            while len(self._frame_cache) > self._FRAME_CACHE_MAX:
-                self._frame_cache.pop(next(iter(self._frame_cache)))
+            cache_insert(self._frame_cache, path, img)
             return img
 
     def run(self, cfg: RunConfig) -> RunResult:
@@ -613,6 +610,7 @@ class Session:
                 depth=2,
                 report=report,
                 native_paths=True,
+                frame_cache=self._frame_cache,
             )
             with report.execute():
                 for i, frame_dev in enumerate(frames):

@@ -53,9 +53,11 @@ PNG_BANDS = "png_encode.bands"   # row bands of png.encode_bands, the PNG save
 # own, so its spans, which lie inside the Session's load, upload and exec,
 # are not taken out of them.
 PREFETCH = "idf.prefetch."
-PREFETCH_WAIT = PREFETCH + "wait"    # the loop's thread waiting for a decoded frame
+PREFETCH_WAIT = PREFETCH + "wait"    # the loop's thread waiting for a decoded miss
 PREFETCH_PIN = PREFETCH + "pin"      # a frame's copy into pinned staging (CUDA only)
 PREFETCH_FRAMES = "prefetch.frames"  # frames the prefetcher hands out
+PREFETCH_CACHE_HIT = "prefetch.cache_hit"    # window items served without a decode
+PREFETCH_CACHE_MISS = "prefetch.cache_miss"  # window items sent to the decoder
 
 # name -> [host ns, count] of the last profiled stretch (a counter's ns is 0).
 totals: dict[str, list[int]] = {}

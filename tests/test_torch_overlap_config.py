@@ -201,8 +201,8 @@ def _profiler():
 
 
 def test_a_profiled_run_counts_the_window_and_its_waits(shot, tmp_path, no_library):
-    """Under a profiler: nine frames handed out and nine waits, no pinned
-    staging on the CPU, and the Session's spans as before the prefetcher had
+    """Under a profiler: nine frames handed out and eight waits (the target,
+    twice in its window, is decoded once), no pinned staging on the CPU, and the Session's spans as before the prefetcher had
     spans: the load (the target and the nine frames) keeps the waits nested
     in it, and upload and readback are the report's transfer. With the
     profiler off the totals are left alone."""
@@ -210,7 +210,7 @@ def test_a_profiled_run_counts_the_window_and_its_waits(shot, tmp_path, no_libra
         report = _run(shot, tmp_path).report
     t = timing.totals
     assert t[timing.PREFETCH_FRAMES] == [0, WINDOW]
-    assert t[timing.PREFETCH_WAIT][1] == WINDOW and t[timing.PREFETCH_WAIT][0] > 0
+    assert t[timing.PREFETCH_WAIT][1] == WINDOW - 1 and t[timing.PREFETCH_WAIT][0] > 0
     assert timing.PREFETCH_PIN not in t
     assert t[timing.LOAD][1] == 1 + WINDOW
     assert t[timing.LOAD][0] >= t[timing.PREFETCH_WAIT][0]
@@ -242,6 +242,8 @@ READER_CASES = [
      2, 3.0),
     ("prefetch_pin_ms", {"idf.prefetch.pin": [9_000_000, 18]}, 2, 4.5),
     ("prefetch_frames_per_target", {"prefetch.frames": [0, 18]}, 2, 9.0),
+    ("prefetch_cache_hit_pct", {"prefetch.cache_hit": [0, 83], "prefetch.cache_miss": [0, 7]},
+     10, 100 * 83 / 90),
 ]
 
 

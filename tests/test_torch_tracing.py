@@ -226,14 +226,14 @@ def test_nested_spans_leave_the_outer_span_of_their_layer():
     assert t[timing.EXEC][0] == report.exec_ns >= t[timing.FORWARD][0] >= 2_000_000
 
 
-def test_profile_cli_spans_lie_inside_their_config_span(shot, tmp_path):
-    """gpu-denoise --profile on the CPU: each idf.session.* span but the
-    Session's construction (before the first config) lies inside the span of
-    its config, and chip_smoke's phase 8 reads the device's idle ms under
-    each (all of a span's ms here, where no device event runs; less a
-    kernel's ms where one is put under a span)."""
+def _cli_spans_inside_their_configs(shot, tmp_path, keys, waits):
+    """gpu-denoise --profile over `keys` on the CPU: each idf.session.* span
+    but the Session's construction (before the first config) lies inside the
+    span of its config, and chip_smoke's phase 8 reads the device's idle ms
+    under each (all of a span's ms here, where no device event runs). The
+    configs in `waits` wait on the prefetcher (no pin, on the CPU). Returns
+    the configs' spans and the program's."""
     prof = tmp_path / "prof"
-    keys = ("bilateral", "multiframe", "overlap", "cpu1")
     assert cli.main([shot, "--device", "cpu", "--output-dir", str(tmp_path / "out"),
                      "--configs", ",".join(keys), "--radius", "2", "--search-radius", "2",
                      "--patch-radius", "1", "--profile", str(prof)]) == 0
@@ -255,10 +255,27 @@ def test_profile_cli_spans_lie_inside_their_config_span(shot, tmp_path):
             names |= {timing.UPLOAD, timing.WARMUP, timing.READBACK}
         if key == "bilateral":
             names.add(timing.FORWARD)  # the model's forward, under warmup and exec
-        if key == "overlap":
-            names.add(timing.PREFETCH_WAIT)  # the prefetcher's waits, under load (no pin here)
+        if key in waits:
+            names.add(timing.PREFETCH_WAIT)  # the prefetcher's waits, under load
         assert set(idle) == names
         assert all(ms == pytest.approx(span_ms) for span_ms, ms in idle.values())
+    return configs, ours
+
+
+def test_profile_cli_overlap_alone_waits_inside_its_config_span(shot, tmp_path):
+    """The overlap config alone: the target's load cached the target, so the
+    window's other frame misses, and its decode's wait lies inside the
+    config's span, all idle."""
+    _cli_spans_inside_their_configs(shot, tmp_path, ("overlap",), waits={"overlap"})
+
+
+def test_profile_cli_spans_lie_inside_their_config_span(shot, tmp_path):
+    """The battery's configs through gpu-denoise --profile, and a kernel put
+    under a span: phase 8 reads less idle there by the kernel's ms. The
+    overlap config waits on no decode: the multiframe config before it put
+    every window frame in the run's shared cache."""
+    configs, ours = _cli_spans_inside_their_configs(
+        shot, tmp_path, ("bilateral", "multiframe", "overlap", "cpu1"), waits=set())
     (_, e0, e1), = [s for s in ours if s[0] == timing.EXEC and configs["bilateral"][0] <= s[1]
                     < configs["bilateral"][1]]
     kernel = [{"cat": "kernel", "name": "void k()", "ts": e0, "dur": (e1 - e0) / 2}]
