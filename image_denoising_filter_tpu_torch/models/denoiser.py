@@ -38,6 +38,7 @@ from ..utils import timing
 
 TILED = "tiled"
 LINEAR = "linear"
+Sums = tuple[torch.Tensor, torch.Tensor]  # (weightColor, normWeight)
 
 
 def _check_layout(layout: str) -> str:
@@ -57,6 +58,19 @@ def carry_from_numpy(
         torch.tensor(np.asarray(wc), dtype=torch.float32, device=device),
         torch.tensor(np.asarray(nw), dtype=torch.float32, device=device),
     )
+
+
+def fold(acc: Optional[Sums], part: Sums) -> Sums:
+    """Add the partials part = (weightColor, normWeight) into the sums acc
+    in place and return acc; acc None starts the sums from part, copied if
+    it is a view (a cropped output), so a fold writes into no memory but
+    the sums' own. Pass part straight from the op: no partial then outlives
+    its fold, and the sums peak at two sets."""
+    if acc is None:
+        return tuple(p.clone() if p._base is not None else p for p in part)
+    acc[0].add_(part[0])
+    acc[1].add_(part[1])
+    return acc
 
 
 class _Normalizing(nn.Module):
@@ -116,17 +130,15 @@ class LayerGuidedDenoiser(_Normalizing):
         """target: (H, W, 4); layers: (L, H, W, 4) stacked G-buffer layers."""
         with timing.span(timing.FORWARD):
             h, w, _ = target.shape
-            wc = torch.zeros((h, w, 4), dtype=torch.float32, device=target.device)
-            nw = torch.zeros((h, w), dtype=torch.float32, device=target.device)
+            acc = (torch.zeros((h, w, 4), dtype=torch.float32, device=target.device),
+                   torch.zeros((h, w), dtype=torch.float32, device=target.device))
             for layer in layers:
                 if self.layout == TILED:
-                    pwc, pnw = stencils.cross_bilateral_layers(target, layer, self.params,
-                                                               self.tiling)
+                    fold(acc, stencils.cross_bilateral_layers(target, layer, self.params,
+                                                              self.tiling))
                 else:
-                    pwc, pnw = eager.cross_bilateral_layers_eager(target, layer, self.params)
-                wc = wc + pwc
-                nw = nw + pnw
-            return self._normalize(wc, nw)
+                    fold(acc, eager.cross_bilateral_layers_eager(target, layer, self.params))
+            return self._normalize(*acc)
 
 
 class NlmDenoiser(_Normalizing):
@@ -181,13 +193,11 @@ class TemporalNlmDenoiser(_Normalizing):
         if self.layout == TILED:
             return stencils.nlm_accumulate_frames(target, frames, self.params, self.tiling)
         h, w, _ = target.shape
-        wc = torch.zeros((h, w, 4), dtype=torch.float32, device=target.device)
-        nw = torch.zeros((h, w), dtype=torch.float32, device=target.device)
+        acc = (torch.zeros((h, w, 4), dtype=torch.float32, device=target.device),
+               torch.zeros((h, w), dtype=torch.float32, device=target.device))
         for frame in frames:
-            pwc, pnw = eager.nlm_eager(target, frame, self.params)
-            wc = wc + pwc
-            nw = nw + pnw
-        return wc, nw
+            fold(acc, eager.nlm_eager(target, frame, self.params))
+        return acc
 
     def accumulate_one(
         self,
@@ -195,15 +205,11 @@ class TemporalNlmDenoiser(_Normalizing):
         frame: torch.Tensor,
         carry: Optional[tuple[torch.Tensor, torch.Tensor]],
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Streaming form: fold one frame into the carry (frames arriving one
-        at a time from the prefetcher)."""
+        """Streaming form: fold one frame's partials into the carry in place,
+        or start it from them (frames arriving one at a time)."""
         if self.layout == TILED:
-            pwc, pnw = stencils.nlm_accumulate(target, frame, self.params, self.tiling)
-        else:
-            pwc, pnw = eager.nlm_eager(target, frame, self.params)
-        if carry is None:
-            return pwc, pnw
-        return carry[0] + pwc, carry[1] + pnw
+            return fold(carry, stencils.nlm_accumulate(target, frame, self.params, self.tiling))
+        return fold(carry, eager.nlm_eager(target, frame, self.params))
 
     def finalize(self, carry: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
         return self._normalize(carry[0], carry[1])

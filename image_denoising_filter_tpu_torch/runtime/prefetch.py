@@ -8,13 +8,14 @@ stream, so they proceed under the kernels of the consumer stream; each frame
 is handed out only after the consumer stream has been made to wait on its
 upload's event.
 
-The decoded-frame cache that a Session may share across targets (a plain
-dict, path -> frame, least recent first) keeps one policy, `cache_lookup`
+The decoded-frame cache that a Session may share across targets (a dict,
+path -> DecodedFrame, least recent first) keeps one policy, `cache_lookup`
 and `cache_insert`, for the Session's loads and the prefetcher's window.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
@@ -26,7 +27,25 @@ from ..utils.timing import TimingReport
 FRAME_CACHE_MAX = 32  # decoded frames a shared cache keeps
 
 
-def cache_lookup(cache: dict, key) -> Optional[np.ndarray]:
+class DecodedFrame:
+    """A decoded (H, W, 4) float32 frame `img`, as the cache keeps it, and
+    whether its alpha is one constant (a NaN alpha is not): scanned at the
+    first ask and kept with the frame, so each decode is scanned at most
+    once. Reads as its frame where an array is expected."""
+
+    def __init__(self, img: np.ndarray) -> None:
+        self.img = img
+
+    @functools.cached_property
+    def uniform_alpha(self) -> bool:
+        a = self.img[..., 3]
+        return bool(a.min() == a.max())
+
+    def __array__(self, dtype=None, copy=None) -> np.ndarray:
+        return np.array(self.img, dtype=dtype, copy=copy)
+
+
+def cache_lookup(cache: dict, key) -> Optional[DecodedFrame]:
     """The frame cached under key, touched as the most recent; None on a miss."""
     img = cache.pop(key, None)
     if img is not None:
@@ -34,10 +53,10 @@ def cache_lookup(cache: dict, key) -> Optional[np.ndarray]:
     return img
 
 
-def cache_insert(cache: dict, key, img: np.ndarray) -> None:
-    """Cache img under key as the most recent, evicting the least recent
+def cache_insert(cache: dict, key, entry: DecodedFrame) -> None:
+    """Cache entry under key as the most recent, evicting the least recent
     frames beyond FRAME_CACHE_MAX."""
-    cache[key] = img
+    cache[key] = entry
     while len(cache) > FRAME_CACHE_MAX:
         cache.pop(next(iter(cache)))
 
@@ -96,12 +115,12 @@ class FramePrefetcher:
         self._misses: list = []  # the distinct items to decode, in window order
         for item in self._items:
             if item not in self._frames and item not in self._misses:
-                img = None if frame_cache is None else cache_lookup(frame_cache, item)
-                if img is None:
+                entry = None if frame_cache is None else cache_lookup(frame_cache, item)
+                if entry is None:
                     self._misses.append(item)
                     timing.count(timing.PREFETCH_CACHE_MISS)
                     continue
-                self._frames[item] = img
+                self._frames[item] = entry.img
             timing.count(timing.PREFETCH_CACHE_HIT)
         self._native = None
         self.loader = "python"
@@ -127,7 +146,7 @@ class FramePrefetcher:
                     img = self._loader(item)
             self._frames[item] = img
             if self._cache is not None:
-                cache_insert(self._cache, item, img)
+                cache_insert(self._cache, item, DecodedFrame(img))
         return img
 
     def _copy(self, host: torch.Tensor):

@@ -29,6 +29,7 @@ barrier, so rank 0's report covers the slowest rank.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Optional
 
@@ -57,6 +58,7 @@ from ..models.denoiser import (
     LayerGuidedDenoiser,
     NlmDenoiser,
     TemporalNlmDenoiser,
+    fold,
 )
 from ..ops import _build, eager, fast, reference, stencils
 from ..parallel import (
@@ -71,7 +73,7 @@ from ..parallel import (
 )
 from ..parallel.mesh import FRAME_AXIS
 from ..parallel.spatial import _all_reduce, temporal_nlm_local_partials
-from .prefetch import FramePrefetcher, cache_insert, cache_lookup
+from .prefetch import DecodedFrame, FramePrefetcher, cache_insert, cache_lookup
 
 
 def turbo_pad_rows(img: np.ndarray, n_y: int, radius: int, d: int, border: str) -> np.ndarray:
@@ -84,6 +86,17 @@ def turbo_pad_rows(img: np.ndarray, n_y: int, radius: int, d: int, border: str) 
     ph = rows * n_y - img.shape[0]
     mode = "edge" if border == BorderPolicy.CLAMP else "constant"
     return np.pad(img, ((0, ph), (0, 0), (0, 0)), mode=mode) if ph else img
+
+
+def uniform_alpha_params(params, frames: list[DecodedFrame]):
+    """params with uniform_alpha=True (the exact fast path: the kernels
+    rebuild alpha from the norm) when the border is CLAMP (ZERO padding
+    injects alpha-0 taps with nonzero weight) and every DecodedFrame behind
+    their alpha taps, asked only then, has one constant alpha; else params."""
+    if (params.border == BorderPolicy.CLAMP and not params.uniform_alpha
+            and all(f.uniform_alpha for f in frames)):
+        return dataclasses.replace(params, uniform_alpha=True)
+    return params
 
 
 def _open_device(device: torch.device | str) -> torch.device:
@@ -195,18 +208,18 @@ class Session:
     def _upload(self, host: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(host, np.float32)).to(self.device)
 
-    def _load(self, path: str) -> np.ndarray:
+    def _load(self, path: str) -> DecodedFrame:
         with timing.span(timing.LOAD):
             if self._frame_cache is None:
-                return imageio.load(path)[0]
-            img = cache_lookup(self._frame_cache, path)
-            if img is not None:
+                return DecodedFrame(imageio.load(path)[0])
+            entry = cache_lookup(self._frame_cache, path)
+            if entry is not None:
                 timing.count(timing.CACHE_HIT)
-                return img
+                return entry
             timing.count(timing.CACHE_MISS)
-            img = imageio.load(path)[0]
-            cache_insert(self._frame_cache, path, img)
-            return img
+            entry = DecodedFrame(imageio.load(path)[0])
+            cache_insert(self._frame_cache, path, entry)
+            return entry
 
     def run(self, cfg: RunConfig) -> RunResult:
         report = TimingReport()
@@ -218,45 +231,32 @@ class Session:
             use_layers=cfg.use_layers,
             max_frames=cfg.max_frames if cfg.overlap else None,
         )
-        target_host = self._load(ds.target)
-
-        # Exact uniform-alpha fast path: when the target's alpha is one
-        # constant AND the border is CLAMP (ZERO padding injects alpha-0 taps
-        # with nonzero weight), the kernels rebuild alpha from the norm.
-        # Applied where the alpha taps provably come from the target;
-        # multiframe keeps the user's setting (frames arrive later).
-        a = target_host[..., 3]
-        ua = bool(a.min() == a.max())
-
-        def _with_ua(params):
-            if ua and params.border == BorderPolicy.CLAMP and not params.uniform_alpha:
-                return dataclasses.replace(params, uniform_alpha=True)
-            return params
-
-        bilateral_params = _with_ua(self.bilateral_params)
-        layers_params = _with_ua(self.layers_params)
-        nlm_single_params = self.nlm_params if cfg.multiframe else _with_ua(self.nlm_params)
+        # The single-frame configs' alpha taps come from the target alone.
+        target = self._load(ds.target)
 
         if self.mesh is not None:
-            out_band = self._run_sharded(target_host, ds, report, cfg, bilateral_params,
-                                         layers_params, nlm_single_params)
-            return self._save(cfg, out_band, report, target_host.shape[0])
+            out_band = self._run_sharded(target, ds, report, cfg)
+            return self._save(cfg, out_band, report, target.img.shape[0])
 
         with report.transfer(timing.UPLOAD):
-            target_dev = self._upload(target_host)
+            target_dev = self._upload(target.img)
 
         layout = LINEAR if cfg.linear else TILED
 
         if cfg.use_layers:
-            out_dev = self._run_layers(target_dev, ds, report, layout, layers_params)
+            out_dev = self._run_layers(target_dev, ds, report, layout,
+                                       uniform_alpha_params(self.layers_params, [target]))
         elif cfg.nlm and cfg.multiframe:
-            out_dev, frame_loader = self._run_multiframe(target_dev, ds, report, layout, cfg)
+            out_dev, frame_loader = self._run_multiframe(target_dev, ds, report, layout, cfg,
+                                                         target)
             return self._save(cfg, out_dev, report, frame_loader=frame_loader)
         else:
             if cfg.nlm:
-                model = NlmDenoiser(nlm_single_params, layout=layout, tiling=self.nlm_tiling)
+                model = NlmDenoiser(uniform_alpha_params(self.nlm_params, [target]),
+                                    layout=layout, tiling=self.nlm_tiling)
             else:
-                model = BilateralDenoiser(bilateral_params, layout=layout, tiling=self.tiling)
+                model = BilateralDenoiser(uniform_alpha_params(self.bilateral_params, [target]),
+                                          layout=layout, tiling=self.tiling)
             out_dev = self._execute(lambda: model(target_dev), report)
         return self._save(cfg, out_dev, report)
 
@@ -315,21 +315,20 @@ class Session:
         linear layout (models/denoiser.py:_Normalizing)."""
         return eager.normalize_eager(wc, nw) if linear else stencils.normalize(wc, nw)
 
-    def _run_sharded(self, target_host, ds, report, cfg, bp, lp, nlm_single) -> torch.Tensor:
+    def _run_sharded(self, target: DecodedFrame, ds, report, cfg) -> torch.Tensor:
         """The exact configs on the mesh (JAX session.py:254-310): rows over
         'y' with halo exchange, the multiframe NLM's frames over 'frame'.
         The linear configs shard the linear layout over the same mesh.
         Returns this rank's output band, row padding included."""
         linear = cfg.linear
         if cfg.use_layers:
-            halo, border = lp.effective_radius, lp.border
+            halo, border = self.layers_params.effective_radius, self.layers_params.border
         elif cfg.nlm:
-            # nlm_single is self.nlm_params for the multiframe configs
-            halo, border = nlm_single.halo, nlm_single.border
+            halo, border = self.nlm_params.halo, self.nlm_params.border
         else:
-            halo, border = bp.effective_radius, bp.border
+            halo, border = self.bilateral_params.effective_radius, self.bilateral_params.border
         with report.transfer(timing.UPLOAD):
-            tgt = self._upload_band(self._pad_rows(target_host, halo, border))
+            tgt = self._upload_band(self._pad_rows(target.img, halo, border))
         if cfg.nlm and cfg.multiframe:
             # The overlap loop never filters the last uploaded frame
             # (src/main.cpp:1554-1572), as in _run_multiframe.
@@ -339,25 +338,28 @@ class Session:
             return self._run_sharded_temporal(tgt, paths, report, halo, border, cfg)
         mesh = self.mesh
         if cfg.use_layers:
-            layers_host = [self._pad_rows(self._load(p), halo, border) for p in ds.layers]
+            lp = uniform_alpha_params(self.layers_params, [target])
+            layers_host = [self._pad_rows(self._load(p).img, halo, border) for p in ds.layers]
             with report.transfer(timing.UPLOAD):
                 layers = [self._upload_band(x) for x in layers_host]
 
             def run():
-                wc = torch.zeros(tgt.shape, dtype=torch.float32, device=self.device)
-                nw = torch.zeros(tgt.shape[:2], dtype=torch.float32, device=self.device)
+                acc = (torch.zeros(tgt.shape, dtype=torch.float32, device=self.device),
+                       torch.zeros(tgt.shape[:2], dtype=torch.float32, device=self.device))
                 for layer in layers:
-                    pwc, pnw = spatial_cross_bilateral_layers(tgt, layer, lp, mesh, self.tiling,
-                                                              linear)
-                    wc = wc + pwc
-                    nw = nw + pnw
-                return self._normalize(wc, nw, linear)
+                    fold(acc, spatial_cross_bilateral_layers(tgt, layer, lp, mesh, self.tiling,
+                                                             linear))
+                return self._normalize(*acc, linear)
         elif cfg.nlm:
+            nlm_params = uniform_alpha_params(self.nlm_params, [target])
+
             def run():
-                wc, nw = spatial_nlm_accumulate(tgt, tgt, nlm_single, mesh, self.nlm_tiling,
+                wc, nw = spatial_nlm_accumulate(tgt, tgt, nlm_params, mesh, self.nlm_tiling,
                                                 linear)
                 return self._normalize(wc, nw, linear)
         else:
+            bp = uniform_alpha_params(self.bilateral_params, [target])
+
             def run():
                 return spatial_bilateral(tgt, bp, mesh, self.tiling, linear)
         return self._execute(run, report)
@@ -372,9 +374,6 @@ class Session:
         The uniform-alpha rule of the per-frame loop holds per frame
         (_run_multiframe; the overlap loop keeps the user's setting)."""
         params = self.nlm_params
-        fast_ok = (border == BorderPolicy.CLAMP and not params.uniform_alpha
-                   and not cfg.overlap)
-        fast_params = dataclasses.replace(params, uniform_alpha=True)
         n_f = self.mesh.size(0)
         f_idx = self.mesh.get_local_rank(FRAME_AXIS)
         linear = cfg.linear
@@ -383,10 +382,9 @@ class Session:
         def upload_chunk(chunk):
             if f_idx >= len(chunk):
                 return torch.zeros_like(tgt)[None], 0.0, params
-            host = self._load(chunk[f_idx])
-            a = host[..., 3]
-            fparams = fast_params if fast_ok and a.min() == a.max() else params
-            padded = self._pad_rows(host, halo, border)
+            frame = self._load(chunk[f_idx])
+            fparams = params if cfg.overlap else uniform_alpha_params(params, [frame])
+            padded = self._pad_rows(frame.img, halo, border)
             with report.transfer(timing.UPLOAD):
                 frame = self._upload_band(padded)[None]
             return frame, 1.0, fparams
@@ -401,20 +399,18 @@ class Session:
                 partials(tgt[None], 1.0, params)
                 self._fence()
         chunks = [paths[i : i + n_f] for i in range(0, len(paths), n_f)]
-        pending = upload_chunk(chunks[0]) if chunks else None
-        wc = torch.zeros(tgt.shape, dtype=torch.float32, device=self.device)
-        nw = torch.zeros(tgt.shape[:2], dtype=torch.float32, device=self.device)
+        pending = upload_chunk(chunks[0])
+        acc = None
         bar = ProgressBar(label="frames")
         with report.execute():
             for ci in range(len(chunks)):
-                pwc, pnw = partials(*pending)
+                acc = fold(acc, partials(*pending))
                 if ci + 1 < len(chunks):
                     pending = upload_chunk(chunks[ci + 1])
-                wc, nw = (pwc, pnw) if ci == 0 else (wc + pwc, nw + pnw)
                 bar.progress(min((ci + 1) * n_f, len(paths)), len(paths))
             bar.finish()
-            wc = _all_reduce(wc, dist.ReduceOp.SUM, mesh, FRAME_AXIS)
-            nw = _all_reduce(nw, dist.ReduceOp.SUM, mesh, FRAME_AXIS)
+            wc = _all_reduce(acc[0], dist.ReduceOp.SUM, mesh, FRAME_AXIS)
+            nw = _all_reduce(acc[1], dist.ReduceOp.SUM, mesh, FRAME_AXIS)
             out = self._normalize(wc, nw, linear)
             self._fence()
         return out
@@ -455,7 +451,7 @@ class Session:
             return self._run_turbo_layers(cfg, levels, downsample)
 
         report = TimingReport()
-        target_host = self._load(self.target)
+        target_host = self._load(self.target).img
         bp = self.bilateral_params
         if self.mesh is not None:
             d = max(1, downsample)
@@ -482,8 +478,8 @@ class Session:
         sentinel everywhere."""
         report = TimingReport()
         ds = dataset_mod.discover(self.target, multiframe=False, use_layers=True)
-        target_host = self._load(ds.target)
-        layers_host = [self._load(p) for p in ds.layers]
+        target_host = self._load(ds.target).img
+        layers_host = [self._load(p).img for p in ds.layers]
         lp = self.layers_params
         rows = target_host.shape[0]
         if self.mesh is not None:
@@ -517,13 +513,11 @@ class Session:
 
         def run():
             h, w, _ = target_dev.shape
-            wc = torch.zeros((h, w, 4), dtype=torch.float32, device=self.device)
-            nw = torch.zeros((h, w, 3), dtype=torch.float32, device=self.device)
+            acc = (torch.zeros((h, w, 4), dtype=torch.float32, device=self.device),
+                   torch.zeros((h, w, 3), dtype=torch.float32, device=self.device))
             for layer_dev in layers_dev:
-                pwc, pnw = partials(layer_dev)
-                wc += pwc
-                nw += pnw
-            return fast.normalize_layers_fast(wc, nw)
+                fold(acc, partials(layer_dev))
+            return fast.normalize_layers_fast(*acc)
 
         return self._save(cfg, self._execute(run, report), report, rows)
 
@@ -543,7 +537,7 @@ class Session:
         """Per-layer accumulate then normalize (src/main.cpp:1608-1624,
         1649-1652). Layers are always LDR (src/main.cpp:1396)."""
         model = LayerGuidedDenoiser(layers_params, layout=layout, tiling=self.tiling)
-        layers_host = [self._load(p) for p in ds.layers]
+        layers_host = [self._load(p).img for p in ds.layers]
         if not layers_host:
             # No layers: the accumulators stay zero and normalize paints the
             # magenta sentinel everywhere, like the reference would.
@@ -559,7 +553,7 @@ class Session:
             layers_dev = self._upload(np.stack(layers_host))
         return self._execute(lambda: model(target_dev, layers_dev), report)
 
-    def _run_multiframe(self, target_dev, ds, report, layout, cfg):
+    def _run_multiframe(self, target_dev, ds, report, layout, cfg, target: DecodedFrame):
         """Temporal NLM over neighbour frames (src/main.cpp:1554-1624).
 
         overlap=True streams frames through the double-buffered prefetcher
@@ -567,34 +561,22 @@ class Session:
         by one like the reference's non-overlapped loop, or as frame-batched
         launches with batch_frames. Returns the output and the overlap
         loop's frame loader (None for the other loops)."""
-        model = TemporalNlmDenoiser(self.nlm_params, layout=layout, tiling=self.nlm_tiling)
-        # Per-frame uniform-alpha fast path (non-overlap loops, where the
-        # host frame is at hand): each frame's partial is exact on its own,
-        # so mixing the two kernels' partials stays exact. CLAMP required.
-        fast_ok = (
-            self.nlm_params.border == BorderPolicy.CLAMP
-            and not self.nlm_params.uniform_alpha
-        )
-        model_fast = (
-            TemporalNlmDenoiser(
-                dataclasses.replace(self.nlm_params, uniform_alpha=True),
-                layout=layout,
-                tiling=self.nlm_tiling,
-            )
-            if fast_ok
-            else model
-        )
+        # The loops but the overlap one take the uniform-alpha rule per
+        # launch, on its frames: each launch's partials are exact on their
+        # own, so mixing the two kernels' partials stays exact.
+        model_of = functools.cache(
+            lambda params: TemporalNlmDenoiser(params, layout=layout, tiling=self.nlm_tiling))
+        model = model_of(self.nlm_params)
 
-        def pick_model(frame_host):
-            a = frame_host[..., 3]
-            return model_fast if fast_ok and a.min() == a.max() else model
+        def model_for(frames):
+            return model_of(uniform_alpha_params(self.nlm_params, frames))
 
         if self.warmup and not (self.batch_frames and not cfg.overlap):
             with timing.span(timing.WARMUP):
-                wmodel = model if cfg.overlap else pick_model(target_dev.cpu().numpy())
-                warm = wmodel.accumulate_one(target_dev, target_dev, None)
-                warm = wmodel.accumulate_one(target_dev, target_dev, warm)  # +carry path
-                wmodel.finalize(warm)
+                wmodel = model if cfg.overlap else model_for([target])
+                # the +carry path too; no name keeps the sums past the warm-up
+                wmodel.finalize(wmodel.accumulate_one(
+                    target_dev, target_dev, wmodel.accumulate_one(target_dev, target_dev, None)))
                 self._fence()
         carry = None
         bar = ProgressBar(label="frames")
@@ -630,46 +612,37 @@ class Session:
             h_t, w_t, _ = target_dev.shape
             frame_bytes = h_t * w_t * 4 * 4
             chunk = max(1, min(n, int(1.5e9 // max(1, frame_bytes))))
-            total_wc = total_nw = None
             warmed: set = set()
             for start_i in range(0, n, chunk):
-                frames_host = [self._load(p) for p in ds.frames[start_i : start_i + chunk]]
+                frames = [self._load(p) for p in ds.frames[start_i : start_i + chunk]]
                 bar.progress(min(start_i + chunk, n), n)
-                all_uniform = fast_ok and all(
-                    f[..., 3].min() == f[..., 3].max() for f in frames_host
-                )
-                bmodel = model_fast if all_uniform else model
+                bmodel = model_for(frames)
                 with report.transfer(timing.UPLOAD):
-                    frames_dev = self._upload(np.stack(frames_host))
+                    frames_dev = self._upload(np.stack([f.img for f in frames]))
                     self._fence()
                 # Warm every distinct (shape, kernel variant) this loop runs,
                 # so no first use lands inside the timed block below.
-                warm_key = (tuple(frames_dev.shape), bmodel is model_fast)
+                warm_key = (tuple(frames_dev.shape), bmodel)
                 if self.warmup and warm_key not in warmed:
                     with timing.span(timing.WARMUP):
                         bmodel.finalize(bmodel.accumulate(target_dev, frames_dev))
                         self._fence()
                     warmed.add(warm_key)
                 with report.execute():
-                    wc, nw = bmodel.accumulate(target_dev, frames_dev)
-                    if total_wc is None:
-                        total_wc, total_nw = wc, nw
-                    else:
-                        total_wc = total_wc + wc
-                        total_nw = total_nw + nw
+                    carry = fold(carry, bmodel.accumulate(target_dev, frames_dev))
                     self._fence()
             bar.finish()
             with report.execute():
                 if self.debug_weights:
-                    self._dump_weights(total_wc, total_nw)
-                out = model.finalize((total_wc, total_nw))
+                    self._dump_weights(*carry)
+                out = model.finalize(carry)
                 self._fence()
         else:
             for i, p in enumerate(ds.frames):
-                host = self._load(p)
-                fmodel = pick_model(host)
+                frame = self._load(p)
+                fmodel = model_for([frame])
                 with report.transfer(timing.UPLOAD):
-                    frame_dev = self._upload(host)
+                    frame_dev = self._upload(frame.img)
                     self._fence()
                 with report.execute():
                     carry = fmodel.accumulate_one(target_dev, frame_dev, carry)

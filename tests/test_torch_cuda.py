@@ -25,6 +25,7 @@ from image_denoising_filter_tpu_torch.config import (
     NormalizeParams,
     TilingConfig,
 )
+from image_denoising_filter_tpu_torch.models import LayerGuidedDenoiser
 from image_denoising_filter_tpu_torch.ops import fast, reference, stencils
 from image_denoising_filter_tpu_torch.runtime import Session
 from image_denoising_filter_tpu_torch.utils import content, imageio
@@ -1857,3 +1858,22 @@ def test_overlap_session_at_1080p_on_card(cuda, tmp_path):
     shot = torch.from_numpy(png.to_float(u8)).to(cuda)
     want = overlap.temporal_nlm_overlap(shot, 3, cfg["params"]).cpu().numpy()
     assert np.abs(result.image - want).max() <= cfg["limits"]["max_abs_err"]
+
+
+def test_layer_guided_forward_peaks_at_two_sets_of_sums(cuda):
+    """LayerGuidedDenoiser.forward over three layers folds each layer's
+    partials into its sums in place: above its inputs, the call's device
+    memory peaks at two sets of sums (weightColor and normWeight) plus its
+    output, where summing out of place held three sets."""
+    h, w = 256, 384
+    target = _image(0, cuda, h, w)
+    layers = torch.stack([_image(s, cuda, h, w) for s in (1, 2, 3)])
+    model = LayerGuidedDenoiser(LP)
+    model(target, layers)  # first use: the kernel library is loaded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = model(target, layers)
+    torch.cuda.synchronize()
+    sums = h * w * 4 * 4 + h * w * 4
+    assert torch.cuda.max_memory_allocated() - base <= 2 * sums + out.numel() * 4

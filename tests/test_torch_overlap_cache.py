@@ -146,7 +146,9 @@ def test_the_prefetcher_decodes_each_distinct_miss_once(shot, loader, decodes, c
     misses are cached; the counters sum to the window."""
     window, cached, decoded, hits, misses = WINDOWS[case]
     items = [shot[i] for i in window]
-    cache = None if cached is None else {shot[i]: imageio.load(shot[i])[0] for i in cached}
+    cache = None if cached is None else {}
+    for i in cached or []:
+        prefetch.cache_insert(cache, shot[i], prefetch.DecodedFrame(imageio.load(shot[i])[0]))
     del decodes[:]
     with _profiler():
         pf = FramePrefetcher(items, lambda p: imageio.load(p)[0], "cpu", native_paths=True,
@@ -169,7 +171,8 @@ def test_a_held_hit_outlives_its_eviction(shot, no_library):
     """A hit is resolved when the prefetcher is built: the frame reaches
     the window though the cache has dropped it since."""
     frame = imageio.load(shot[0])[0]
-    cache = {shot[0]: frame}
+    cache: dict = {}
+    prefetch.cache_insert(cache, shot[0], prefetch.DecodedFrame(frame))
     pf = FramePrefetcher([shot[0], shot[1]], lambda p: imageio.load(p)[0], "cpu",
                          frame_cache=cache)
     cache.clear()
