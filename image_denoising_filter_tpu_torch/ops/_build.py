@@ -134,7 +134,7 @@ def library() -> ctypes.CDLL:
     lib.idf_nlm.restype = i32
     lib.idf_max_shared_bytes.argtypes = [i32p]
     lib.idf_max_shared_bytes.restype = i32
-    lib.idf_nlm_info.argtypes = [i32, i32, i32, i32, i32p]
+    lib.idf_nlm_info.argtypes = [i32, i32, i32, i32, i32, i32p]
     lib.idf_nlm_info.restype = i32
     lib.idf_nlm_hrw.argtypes = [
         ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, f32, f32, f32, i32, i32, i32, ptr, ptr,

@@ -26,25 +26,26 @@ constexpr int kBlockX = 32;  // a warp spans 32 neighbouring pixels of a row
 constexpr int kBlockY = 8;
 constexpr int kMaxRuns = 128;
 constexpr int kMaxCands = 1024;  // (2s)^2 candidates up to s = 16
-// The NLM kernel's block, defined in ops/stencils.py and passed to nvcc as
-// macros by ops/_build.py: kNlmThreads threads own an output tile of
-// kNlmTileW columns and up to kNlmMaxTileH rows. For patch radii 1 to
-// kNlmRegisterPatch each thread holds the target RGB of at most
-// kNlmEPerThread squared-difference positions in registers; wider radii
-// read the target from shared memory.
+// The NLM kernel's blocks, defined in ops/stencils.py and passed to nvcc as
+// macros by ops/_build.py. For patch radii 1 to kNlmRegisterPatch (the
+// sliding body) a warp's 32 lanes are 32 consecutive rows of squared
+// differences, the first 33 - 2p of them output rows, each lane owning
+// kNlmSeg output columns of its row; a block is up to kNlmSlideThreads / 32
+// such warps side by side. Wider radii (the staged body): kNlmThreads
+// threads own an output tile of kNlmTileW columns and up to kNlmMaxTileH
+// rows.
 constexpr int kNlmThreads = IDF_NLM_THREADS;
+constexpr int kNlmSeg = IDF_NLM_SEG;
 constexpr int kNlmTileW = IDF_NLM_TILE_W;
 constexpr int kNlmMaxTileH = IDF_NLM_MAX_TILE_H;
 constexpr int kNlmRegisterPatch = IDF_NLM_REGISTER_PATCH;
-constexpr int kNlmEPerThread = IDF_NLM_E_PER_THREAD;
-static_assert((kNlmMaxTileH + 2 * kNlmRegisterPatch - 1) *
-                      (kNlmTileW + 2 * kNlmRegisterPatch - 1) <=
-                  kNlmThreads * kNlmEPerThread,
-              "the e region of the largest tile must fit the threads' registers");
+constexpr int kNlmSlideThreads = IDF_NLM_SLIDE_THREADS;  // the sliding body's widest block
+constexpr int kNlmMinBlocks = IDF_NLM_MIN_BLOCKS;         // and its blocks a SM at the least
 static_assert(kNlmMaxTileH * kNlmTileW % kNlmThreads == 0 && kNlmThreads % kNlmTileW == 0,
-              "a thread owns whole output rows of one column");
+              "a thread of the staged body owns whole output rows of one column");
+static_assert(kNlmSlideThreads % 32 == 0 && 2 * kNlmRegisterPatch - 1 < 32,
+              "the sliding body's warps have output rows");
 constexpr int kNlmOutPerThread = kNlmMaxTileH * kNlmTileW / kNlmThreads;
-constexpr int kNlmStrip = 4;  // patch row sums a thread makes in the row pass
 // The half-row NLM kernel's block, from ops/stencils.py likewise: kHrwThreads
 // threads own an output tile of kHrwTileW columns and up to kHrwMaxTileH
 // rows, each thread one pixel pair (rows 2i, 2i+1) of one column, and keep
@@ -111,20 +112,20 @@ constexpr float kBilExp2Min = IDF_BIL_EXP2_MIN;
 static_assert(kBilPx % 2 == 1, "an odd stride of 16- or 8-byte pixels spreads a warp's loads "
                                 "over the shared-memory banks");
 
-// A pixel's RGB as the bilateral's bf16 forms stage it: red and green in one
-// bfloat162, blue and a zero in the other.
-struct alignas(8) BilBf16 {
+// A pixel's RGB as the bf16 forms (bilateral, NLM) stage it: red and green
+// in one bfloat162, blue and a zero in the other.
+struct alignas(8) RgbBf16 {
   __nv_bfloat162 rg;
   __nv_bfloat162 b0;
 };
 
-__device__ __forceinline__ BilBf16 to_bil_bf16(float4 v) {
+__device__ __forceinline__ RgbBf16 to_rgb_bf16(float4 v) {
   return {__floats2bfloat162_rn(v.x, v.y), __floats2bfloat162_rn(v.z, 0.f)};
 }
 
 // A value tap as the bf16 forms accumulate it: the bf16 RGB widened, the
 // float32 alpha beside it.
-__device__ __forceinline__ float4 widen(BilBf16 p, float alpha) {
+__device__ __forceinline__ float4 widen(RgbBf16 p, float alpha) {
   return make_float4(__low2float(p.rg), __high2float(p.rg), __low2float(p.b0), alpha);
 }
 
@@ -153,7 +154,7 @@ __device__ __forceinline__ float bil_sq_diff(float4 c, float4 t) {
 // the squares added to themselves swapped (bf16 addition commutes); each
 // lane rounds as the scalar operation does.
 template <bool BLUE>
-__device__ __forceinline__ float bil_sq_diff(BilBf16 c, BilBf16 t) {
+__device__ __forceinline__ float bil_sq_diff(RgbBf16 c, RgbBf16 t) {
   const __nv_bfloat162 d = __hsub2_rn(c.rg, t.rg);
   const __nv_bfloat162 sq = __hmul2_rn(d, d);
   __nv_bfloat162 e = __hadd2_rn(sq, __lowhigh2highlow(sq));
@@ -169,7 +170,7 @@ struct BilPair {
   __nv_bfloat162 r, g, b;
 };
 
-__device__ __forceinline__ BilPair bil_pair(BilBf16 a, BilBf16 b) {
+__device__ __forceinline__ BilPair bil_pair(RgbBf16 a, RgbBf16 b) {
   return {__lows2bfloat162(a.rg, b.rg), __highs2bfloat162(a.rg, b.rg),
           __lows2bfloat162(a.b0, b.b0)};
 }
@@ -178,7 +179,7 @@ __device__ __forceinline__ BilPair bil_pair(BilBf16 a, BilBf16 b) {
 // against tap ta, lane 1 centre c.y against tap tb; the same roundings as
 // the scalar form, lane by lane.
 template <bool BLUE>
-__device__ __forceinline__ float2 bil_sq_diff2(const BilPair& c, BilBf16 ta, BilBf16 tb) {
+__device__ __forceinline__ float2 bil_sq_diff2(const BilPair& c, RgbBf16 ta, RgbBf16 tb) {
   const BilPair t = bil_pair(ta, tb);
   const __nv_bfloat162 dr = __hsub2_rn(c.r, t.r);
   const __nv_bfloat162 dg = __hsub2_rn(c.g, t.g);
@@ -301,7 +302,7 @@ struct BilTile {
 constexpr int kBilTileFields = 8;
 
 template <bool BF16>
-using BilPx = typename std::conditional<BF16, BilBf16, float4>::type;
+using BilPx = typename std::conditional<BF16, RgbBf16, float4>::type;
 
 // One 16-byte pixel into shared memory, or 16 zero bytes (a copy of none).
 __device__ __forceinline__ void cp_async_pixel(float4* dst, const float4* src, bool copy) {
@@ -350,11 +351,11 @@ __global__ void __launch_bounds__(32 * kBilMaxTileH)
     if constexpr (BF16) {
       const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
       const float4 wv = inside ? __ldg(wsrc + at) : zero;
-      wpx[i] = to_bil_bf16(wv);
+      wpx[i] = to_rgb_bf16(wv);
       float4 vv = wv;
       if constexpr (GUIDED) {
         vv = inside ? __ldg(img + at) : zero;
-        vpx[i] = to_bil_bf16(vv);
+        vpx[i] = to_rgb_bf16(vv);
       }
       if constexpr (!UA) apx[i] = vv.w;
     } else {
@@ -424,7 +425,7 @@ __global__ void __launch_bounds__(32 * kBilMaxTileH)
   }
   float ssd_max;
   if constexpr (BF16) {
-    ssd_max = bil_sq_diff<BLUE>(to_bil_bf16(hi), to_bil_bf16(lo));
+    ssd_max = bil_sq_diff<BLUE>(to_rgb_bf16(hi), to_rgb_bf16(lo));
   } else {
     ssd_max = bil_sq_diff<BLUE>(hi, lo);
   }
@@ -543,9 +544,9 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
         float4 v = GUIDED ? col_tap<ZERO>(vrow, ok, x + dx, w) : g;
         float ssd;
         if constexpr (BF16) {
-          ssd = blue_bug ? bil_sq_diff<false>(to_bil_bf16(c), to_bil_bf16(g))
-                         : bil_sq_diff<true>(to_bil_bf16(c), to_bil_bf16(g));
-          v = widen(to_bil_bf16(v), v.w);
+          ssd = blue_bug ? bil_sq_diff<false>(to_rgb_bf16(c), to_rgb_bf16(g))
+                         : bil_sq_diff<true>(to_rgb_bf16(c), to_rgb_bf16(g));
+          v = widen(to_rgb_bf16(v), v.w);
         } else {
           ssd = blue_bug ? bil_sq_diff<false>(c, g) : bil_sq_diff<true>(c, g);
         }
@@ -567,6 +568,27 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
 // forms (add.rn / sub.rn / mul.rn.bf16), since ptxas may contract a plain
 // __hmul and __hadd into one fused multiply-add with one rounding fewer.
 // Value taps and accumulators stay float32.
+__device__ __forceinline__ float sq_diff(float4 t, float4 n) {
+  const float d0 = t.x - n.x;
+  const float d1 = t.y - n.y;
+  const float d2 = t.z - n.z;
+  return d0 * d0 + d1 * d1 + d2 * d2;
+}
+
+// The sliding NLM body's bf16 taps: red and green go through their
+// difference and square as one bfloat162, each half rounded as its scalar
+// operation would round it.
+__device__ __forceinline__ float sq_diff(RgbBf16 t, RgbBf16 n) {
+  const __nv_bfloat162 d01 = __hsub2_rn(t.rg, n.rg);
+  const __nv_bfloat162 s01 = __hmul2_rn(d01, d01);
+  const __nv_bfloat16 d2 = __hsub_rn(__low2bfloat16(t.b0), __low2bfloat16(n.b0));
+  const __nv_bfloat16 e = __hadd_rn(__low2bfloat16(s01), __high2bfloat16(s01));
+  return __bfloat162float(__hadd_rn(e, __hmul_rn(d2, d2)));
+}
+
+// The staged NLM bodies' bf16 taps (nlm_wide_kernel, nlm_hrw_kernel): four
+// bf16 and scalar operations, the same bits. The half-row kernel ran ~10%
+// slower with RgbBf16 taps (tools/torch_kernel_ab.py, nlm_hrw_bf16).
 struct alignas(8) Bf16x4 {
   __nv_bfloat16 x, y, z, w;
 };
@@ -574,13 +596,6 @@ struct alignas(8) Bf16x4 {
 __device__ __forceinline__ Bf16x4 to_bf16x4(float4 v) {
   return {__float2bfloat16_rn(v.x), __float2bfloat16_rn(v.y), __float2bfloat16_rn(v.z),
           __float2bfloat16_rn(0.f)};
-}
-
-__device__ __forceinline__ float sq_diff(float4 t, float4 n) {
-  const float d0 = t.x - n.x;
-  const float d1 = t.y - n.y;
-  const float d2 = t.z - n.z;
-  return d0 * d0 + d1 * d1 + d2 * d2;
 }
 
 __device__ __forceinline__ float sq_diff(Bf16x4 t, Bf16x4 n) {
@@ -591,22 +606,18 @@ __device__ __forceinline__ float sq_diff(Bf16x4 t, Bf16x4 n) {
   return __bfloat162float(__hadd_rn(e, __hmul_rn(d2, d2)));
 }
 
+// A pixel as the squared difference reads it: float4, or its RGB in bf16,
+// in the sliding body's form and in the staged bodies'.
 template <bool BF16>
-__device__ __forceinline__ float tap_sq_diff(float4 t, float4 n) {
-  if constexpr (BF16) {
-    return sq_diff(to_bf16x4(t), to_bf16x4(n));
-  } else {
-    return sq_diff(t, n);
-  }
-}
+using NlmTap = typename std::conditional<BF16, RgbBf16, float4>::type;
+template <bool BF16>
+using StagedTap = typename std::conditional<BF16, Bf16x4, float4>::type;
 
-// A pixel as the squared difference reads it: float4, or its RGB in bf16.
-template <bool BF16>
-using NlmTap = typename std::conditional<BF16, Bf16x4, float4>::type;
-
-template <bool BF16>
-__device__ __forceinline__ NlmTap<BF16> nlm_tap(float4 v) {
-  if constexpr (BF16) {
+template <typename Tap>
+__device__ __forceinline__ Tap nlm_tap(float4 v) {
+  if constexpr (std::is_same<Tap, RgbBf16>::value) {
+    return to_rgb_bf16(v);
+  } else if constexpr (std::is_same<Tap, Bf16x4>::value) {
     return to_bf16x4(v);
   } else {
     return v;
@@ -623,7 +634,12 @@ __device__ __forceinline__ NlmTap<BF16> nlm_tap(float4 v) {
 // (patch offsets [-p, p)^2); the weight is exp2(ssd_coef * SSD + bias), with
 // bias log2(stride^2) for every candidate but the self match (0 when stride
 // is 1). Each frame seeds nw with norm_seed, and the frame's partial, seed
-// included, is scaled by valid[f].
+// included, is scaled by valid[f]. Both bodies below add each box pass's 2p
+// terms in the plain version's order (ops/eager.py:_box_sum: rows, then
+// lanes), so the SSD matches nlm_plain's up to the contraction of e's own
+// multiply-adds; at a radius both can take, the sliding body's outputs are
+// the staged body's bit for bit (tools/torch_kernel_ab.py against the tree
+// whose staged body took every radius).
 //
 // Bound on the H100: chip_smoke.py's kernel_work counts 24 operations a
 // candidate, pixel and frame with the box sums (e 8, two running sums 4,
@@ -631,69 +647,285 @@ __device__ __forceinline__ NlmTap<BF16> nlm_tap(float4 v) {
 // parameters a 1080p frame is 196 x 2.07 M candidate-pixels, 9.8 GFLOP,
 // 0.146 ms at 67 TFLOP/s. The kernel does more: each box pass adds 2p - 1
 // terms a sum in the plain version's order, where running sums would add
-// two, and e is computed over the tile's patch halo (1.5 positions an
-// output at p = 3). What limits it is an estimate from a hand count, which
-// no profiler reading backs: per tile and candidate at p = 3 it moves ~400
-// shared-memory wavefronts of 128 bytes (e ~150, row pass ~90, lane pass and
-// value taps ~160), at most one a cycle on each SM, against ~230 cycles of
-// instruction issue, so shared-memory bandwidth before issue. Measured on
-// an H100 80GB HBM3 (tools/torch_kernel_ab.py), a 1080p frame takes ~607
-// cycles a tile and candidate on each SM at the 1980 MHz SM clock that
-// nvidia-smi reads during the run. ptxas gives it 60-64 registers and no
-// spills at p = 3, so 4 blocks (32 warps) a SM.
+// two, and e is computed over the patch halo as well.
 //
-// Design: a block of kNlmThreads threads owns an output tile of th x
-// kNlmTileW pixels (th from ops/stencils.py:nlm_tile, 16 where the window
-// fits) and makes one pass over the frames. Per frame it stages the
-// neighbour window, the tile plus the search and patch halo ((th + 2p - 1 +
-// dy range) x (kNlmTileW + 2p - 1 + dx range) pixels), in shared memory,
-// applying the border policy (index clamp, or a zero pixel) as it stages,
-// and with bf16 taps also the window's RGB rounded to bf16. The target's e
-// positions, the tile plus the patch halo, are loaded once a block. Per
-// candidate, with two barriers:
-//   1. e once per position of the (th + 2p - 1) x (kNlmTileW + 2p - 1)
-//      region;
-//   2. the row pass: each row sum adds 2p values of e, top to bottom;
-//   3. the lane pass: each output adds 2p row sums left to right, then
-//      exp2, one value tap from the window and five multiply-adds.
-// The sums keep the plain version's order (ops/eager.py:_box_sum), so the
-// SSD matches nlm_plain's up to the contraction of e's own multiply-adds.
+// The staged window. A block owns an output tile of th x tw pixels (from
+// ops/stencils.py:nlm_tile) and makes one pass over the frames. Per frame it
+// stages the neighbour window, the tile plus the search and patch halo ((th +
+// 2p - 1 + dy range) x (tw + 2p - 1 + dx range) pixels, rows `pitch` pixels
+// apart), in shared memory, applying the border policy (index clamp, or a
+// zero pixel) as it stages, and with bf16 taps also the window's RGB rounded
+// to bf16. Candidate (dy, dx) reads e(r, c)'s neighbour at window index (r +
+// dy - dy_min) * pitch + c + dx - dx_min and output (i, j)'s value tap at
+// (i + p + dy - dy_min) * pitch + j + p + dx - dx_min.
 //
-// P > 0 is the patch radius, 1 to kNlmRegisterPatch: both box passes unroll
-// into loads and adds with no loop or predicate, each thread keeps the
-// target's taps for its kNlmEPerThread e positions in registers (every
-// candidate computes the same positions), and a row-pass thread sums a strip
-// of kNlmStrip row sums of one column from 2p + kNlmStrip - 1 loaded values.
-// P == 0 takes the radius `patch` at run time, for radii above
-// kNlmRegisterPatch: the target's taps are staged in shared memory, and the
-// e positions, row sums and lane sums are loops. The shared-memory layout
-// (byte offsets in `tile`) is nlm_tile's.
+// NlmTile is nlm_tile's: the window's geometry and the byte offsets of the
+// regions of nlm_layout, each body's own beside the window.
 struct NlmTile {
-  int th, oy, ox, win_h, win_w;
+  int th, tw, oy, ox, win_h, win_w, pitch;
   // byte offsets: the window's bf16 RGB (the window itself with float32
-  // taps), the target's taps (P == 0), e, the row sums
-  int taps_at, tgt_at, e_at, rows_at;
+  // taps); the sliding body's frame sums; the staged body's target taps, e
+  // and row sums
+  int taps_at, sums_at, tgt_at, e_at, rows_at;
 };
 // The ints of a tile as the launcher takes them: NlmTile's, then the bytes.
-constexpr int kNlmTileFields = 10;
+constexpr int kNlmTileFields = 13;
+
+// Stages frame `nbr`'s window for the block at (y0, x0): pixel (i, j) of the
+// win_h x win_w window at index i * pitch + j.
+template <bool ZERO, typename Tap>
+__device__ __forceinline__ void nlm_stage(const float4* __restrict__ nbr, int h, int w, int y0,
+                                          int x0, const NlmTile& tile, float4* win,
+                                          Tap* win_taps) {
+  const int n_win = tile.win_h * tile.win_w;
+  for (int i = threadIdx.x; i < n_win; i += blockDim.x) {
+    const int wr = i / tile.win_w;
+    const int wc = i - wr * tile.win_w;
+    bool ok;
+    const float4* row = row_ptr<ZERO>(nbr, y0 + tile.oy + wr, h, w, ok);
+    const float4 v = col_tap<ZERO>(row, ok, x0 + tile.ox + wc, w);
+    win[wr * tile.pitch + wc] = v;
+    if constexpr (!std::is_same<Tap, float4>::value)
+      win_taps[wr * tile.pitch + wc] = nlm_tap<Tap>(v);
+  }
+}
+
+__device__ __forceinline__ float nlm_bias(int dy, int dx, float log_m) {
+  return (dy != 0 || dx != 0) ? log_m : 0.f;
+}
+
+// The sliding body, patch radius P of 1 to kNlmRegisterPatch (the staged
+// body below takes the wider radii).
+//
+// What bounded the staged body on this card was shared memory: per 16 x 32
+// tile and candidate at p = 3 it moved ~400 wavefronts of 128 bytes (e
+// written and read back, the row sums written and read back, the value
+// taps), with two barriers a candidate, and took ~607 cycles a tile and
+// candidate on each SM. Here only the staged window (and each thread's sums
+// of the frames so far) is in shared memory, written once a frame with one
+// barrier after it; the candidate loop keeps everything else in registers
+// and warp shuffles:
+//   - lane l of a warp is e row l (target row y0 - P + l) and owns output
+//     row l (the first kRows = 33 - 2P lanes; the rest complete the patches
+//     of the rows above them) at kNlmSeg columns: its e positions are a row
+//     segment of kW = kNlmSeg + 2P - 1 columns;
+//   - the target's taps of those positions stay in registers for the call
+//     (tv), and the window's taps of the current candidate in a ring of kW
+//     registers: nlm_candidates orders the candidates dy-major with dx
+//     rising, so a candidate dx - dx' columns right of the one before it
+//     in the same row loads only that many new taps into the ring (one
+//     LDS a stride), and any other candidate reloads the ring. The ring
+//     turns by one slot a column; the loop is unrolled over a whole turn,
+//     so every register index is static;
+//   - the row pass sums e over lanes l .. l + 2P - 1 of each column through
+//     __shfl_down_sync, top to bottom, the lane pass 2P row sums left to
+//     right in the thread, then exp2, one value tap (LDS.128 of the
+//     window) and five multiply-adds an output.
+// Every branch of the loop is warp-uniform (the table, the counters), so
+// the shuffles need no divergence handling; a warp whose columns lie past
+// the image computes them all the same.
+//
+// What bounds it: the shared-memory pipe, which serves one SHFL or 128
+// bytes of LDS a cycle on each SM. Per warp and candidate at P = 3 and
+// kNlmSeg 8 (13 columns, 27 x 8 outputs): 65 SHFL, 8 LDS.128 value taps and
+// one LDS of the ring, ~101 pipe cycles, against ~350 issued instructions
+// (78 for e, 65 + 65 for the row pass, 40 lane adds, 40 for the weights, 40
+// multiply-adds, the loop), ~88 cycles of issue on the SM's four
+// schedulers: per 27 x 32 tile and candidate ~404 pipe cycles. Measured on
+// an H100 80GB HBM3 (700 W, SM clock 1980 MHz by nvidia-smi;
+// tools/torch_kernel_ab.py): ~630 cycles a tile and candidate on each SM
+// (~375 per 512 outputs, against the staged body's ~607), 2 blocks of 4
+// warps a SM with float32 taps (221 registers), 3 with bf16 taps (167),
+// no spills. kNlmSeg 8 took the least time of 2, 4, 6, 8, 10 and 12 at
+// both tap forms together (tools/nlm_slide_sweep.py): a wider segment
+// shares each column's 2P - 1 shuffles among more outputs, and past 8 the
+// registers cut the warps a SM.
+// The window's pitch is odd, so a warp's lanes, one row apart, load
+// 16-byte (8-byte) taps from distinct banks.
+template <int P, bool BF16>
+__device__ __forceinline__ void nlm_candidate(const NlmTap<BF16> (&tv)[kNlmSeg + 2 * P - 1],
+                                              const NlmTap<BF16> (&ring)[kNlmSeg + 2 * P - 1],
+                                              int rot, const float4* vwin, float bias,
+                                              float ssd_coef, float4 (&acc)[kNlmSeg],
+                                              float (&nw)[kNlmSeg]) {
+  constexpr int kBox = 2 * P;
+  constexpr int kW = kNlmSeg + kBox - 1;
+  // 1. e of each column of the segment, 2. the row pass
+  float rs[kW];
+#pragma unroll
+  for (int c = 0; c < kW; ++c) {
+    const float e = sq_diff(tv[c], ring[(c + rot) % kW]);
+    float s = e;
+#pragma unroll
+    for (int i = 1; i < kBox; ++i) s += __shfl_down_sync(0xffffffffu, e, i);
+    rs[c] = s;
+  }
+  // 3. the lane pass, weight and value tap
+#pragma unroll
+  for (int j = 0; j < kNlmSeg; ++j) {
+    float ssd = rs[j];
+#pragma unroll
+    for (int i = 1; i < kBox; ++i) ssd += rs[j + i];
+    const float wgt = exp2f(ssd * ssd_coef + bias);
+    const float4 v = vwin[j];
+    acc[j].x += v.x * wgt;
+    acc[j].y += v.y * wgt;
+    acc[j].z += v.z * wgt;
+    acc[j].w += v.w * wgt;
+    nw[j] += wgt;
+  }
+}
+
+// The columns the ring turns by to reach candidate k from (dy, dx): dx[k] -
+// dx in the same row, 1 to kW - 1; 0 where candidate k reloads the ring or
+// the table ends.
+template <int kW>
+__device__ __forceinline__ int nlm_slide(const Cands& cands, int k, int dy, int dx) {
+  if (k >= cands.n || cands.dy[k] != dy) return 0;
+  const int step = cands.dx[k] - dx;
+  return step > 0 && step < kW ? step : 0;
+}
 
 template <int P, bool ZERO, bool BF16>
-__global__ void __launch_bounds__(kNlmThreads)
+__global__ void __launch_bounds__(kNlmSlideThreads, kNlmMinBlocks)
     nlm_kernel(const float4* __restrict__ tgt, const float4* __restrict__ frames,
                const float* __restrict__ valid, float4* __restrict__ out_wc,
                float* __restrict__ out_nw, int h, int w, int n_frames, int patch,
                const Cands cands, float ssd_coef, float log_m, float norm_seed,
                int uniform_alpha, const NlmTile tile) {
   using Tap = NlmTap<BF16>;
-  constexpr bool kRegs = P > 0;
-  constexpr int kBox = 2 * P;
-  const int p = kRegs ? P : patch;
-  const int box = kRegs ? kBox : 2 * patch;
+  constexpr int kRows = 33 - 2 * P;
+  constexpr int kW = kNlmSeg + 2 * P - 1;
+  extern __shared__ __align__(16) unsigned char nlm_smem[];
+  float4* win = reinterpret_cast<float4*>(nlm_smem);
+  Tap* win_taps = reinterpret_cast<Tap*>(nlm_smem + tile.taps_at);
+  // The frames' sums so far of this thread's outputs: output j's at [j *
+  // blockDim.x], read and written by this thread alone.
+  float4* sum_wc = reinterpret_cast<float4*>(nlm_smem + tile.sums_at) + threadIdx.x;
+  float* sum_nw = reinterpret_cast<float*>(nlm_smem + tile.sums_at +
+                                           16 * kNlmSeg * blockDim.x) + threadIdx.x;
+  const int lane = threadIdx.x % 32;
+  const int y0 = blockIdx.y * kRows;
+  const int x0 = blockIdx.x * tile.tw;
+  const int seg = threadIdx.x / 32 * kNlmSeg;  // the warp's first column in the tile
+  const int y = y0 + lane;
+  const int dy_min = tile.oy + P;
+  const int dx_min = tile.ox + P;
+  const size_t plane = static_cast<size_t>(h) * w;
+
+  // e(lane, c) pairs target pixel (y0 - P + lane, x0 + seg - P + c) with the
+  // window tap at e_at + (dy - dy_min) * pitch + dx - dx_min + c.
+  Tap tv[kW];
+  {
+    bool ok;
+    const float4* row = row_ptr<ZERO>(tgt, y0 - P + lane, h, w, ok);
+#pragma unroll
+    for (int c = 0; c < kW; ++c) tv[c] = nlm_tap<Tap>(col_tap<ZERO>(row, ok, x0 + seg - P + c, w));
+  }
+  const int e_at = lane * tile.pitch + seg;
+  // output (lane, j)'s value tap at v_at + (dy - dy_min) * pitch + dx -
+  // dx_min + j (the lanes past the output rows read the last output row's,
+  // inside the window); the self match's is the neighbour's own pixel
+  const int v_at = (min(lane, kRows - 1) + P) * tile.pitch + seg + P;
+  const int self_at = v_at - dy_min * tile.pitch - dx_min;
+#pragma unroll
+  for (int j = 0; j < kNlmSeg; ++j) {
+    sum_wc[j * blockDim.x] = make_float4(0.f, 0.f, 0.f, 0.f);
+    sum_nw[j * blockDim.x] = 0.f;
+  }
+
+  for (int f = 0; f < n_frames; ++f) {
+    __syncthreads();  // the previous frame's last window reads are done
+    nlm_stage<ZERO>(frames + f * plane, h, w, y0, x0, tile, win, win_taps);
+    __syncthreads();
+    float4 acc[kNlmSeg];
+    float nw[kNlmSeg];
+#pragma unroll
+    for (int j = 0; j < kNlmSeg; ++j) {
+      acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      nw[j] = norm_seed;
+    }
+    for (int k = 0; k < cands.n;) {
+      // A run of candidates: load the ring at candidate k, then slide it.
+      const int dy = cands.dy[k];
+      int dx = cands.dx[k];
+      const int row_off = (dy - dy_min) * tile.pitch - dx_min;
+      const Tap* next = win_taps + e_at + row_off + dx;
+      Tap ring[kW];
+#pragma unroll
+      for (int c = 0; c < kW; ++c) ring[c] = next[c];
+      next += kW;
+      nlm_candidate<P, BF16>(tv, ring, 0, win + v_at + row_off + dx,
+                                   nlm_bias(dy, dx, log_m), ssd_coef, acc, nw);
+      int step = nlm_slide<kW>(cands, ++k, dy, dx);
+      while (step > 0) {
+        // One turn of the ring: after u more columns, e column c's tap is
+        // in slot (c + u) % kW.
+#pragma unroll
+        for (int u = 1; u <= kW; ++u) {
+          if (step > 0) {
+            ring[(u - 1) % kW] = *next++;
+            if (--step == 0) {
+              dx = cands.dx[k];
+              nlm_candidate<P, BF16>(tv, ring, u % kW, win + v_at + row_off + dx,
+                                           nlm_bias(dy, dx, log_m), ssd_coef, acc, nw);
+              step = nlm_slide<kW>(cands, ++k, dy, dx);
+            }
+          }
+        }
+      }
+    }
+    const float vf = valid[f];
+#pragma unroll
+    for (int j = 0; j < kNlmSeg; ++j) {
+      // This frame's tap alphas are one constant a: sum(w * a) = a * (nw -
+      // seed); the seed is not alpha-weighted.
+      if (uniform_alpha && lane < kRows && y < h && x0 + seg + j < w)
+        acc[j].w = win[self_at + j].w * (nw[j] - norm_seed);
+      float4 total = sum_wc[j * blockDim.x];
+      total.x += acc[j].x * vf;
+      total.y += acc[j].y * vf;
+      total.z += acc[j].z * vf;
+      total.w += acc[j].w * vf;
+      sum_wc[j * blockDim.x] = total;
+      sum_nw[j * blockDim.x] += nw[j] * vf;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kNlmSeg; ++j) {
+    const int x = x0 + seg + j;
+    if (lane < kRows && y < h && x < w) {
+      const size_t idx = static_cast<size_t>(y) * w + x;
+      out_wc[idx] = sum_wc[j * blockDim.x];
+      out_nw[idx] = sum_nw[j * blockDim.x];
+    }
+  }
+}
+
+// The staged body, for patch radii above kNlmRegisterPatch: the radius
+// `patch` at run time. A block of kNlmThreads threads owns a tile of th x
+// kNlmTileW outputs (th from NLM_TILE_HS, 16 where the window fits); the
+// target's taps over the e region, tile plus patch halo, are staged once a
+// block. Per candidate, with two barriers:
+//   1. e once per position of the (th + 2p - 1) x (kNlmTileW + 2p - 1)
+//      region, into shared memory;
+//   2. the row pass: each row sum adds 2p values of e, top to bottom;
+//   3. the lane pass: each output adds 2p row sums left to right, then
+//      exp2, one value tap from the window and five multiply-adds.
+template <bool ZERO, bool BF16>
+__global__ void __launch_bounds__(kNlmThreads)
+    nlm_wide_kernel(const float4* __restrict__ tgt, const float4* __restrict__ frames,
+                    const float* __restrict__ valid, float4* __restrict__ out_wc,
+                    float* __restrict__ out_nw, int h, int w, int n_frames, int patch,
+                    const Cands cands, float ssd_coef, float log_m, float norm_seed,
+                    int uniform_alpha, const NlmTile tile) {
+  using Tap = StagedTap<BF16>;
+  const int p = patch;
+  const int box = 2 * patch;
   const int e_w = kNlmTileW + box - 1;
   const int th = tile.th;
-  const int win_w = tile.win_w;
+  const int pitch = tile.pitch;
   extern __shared__ __align__(16) unsigned char nlm_smem[];
-  const int n_win = tile.win_h * win_w;
   const int e_h = th + box - 1;
   const int n_e = e_h * e_w;
   float4* win = reinterpret_cast<float4*>(nlm_smem);
@@ -706,35 +938,18 @@ __global__ void __launch_bounds__(kNlmThreads)
   const int y0 = blockIdx.y * th;
   const int x0 = blockIdx.x * kNlmTileW;
   // Window index of candidate (dy, dx) relative to (dy_min, dx_min):
-  // off = (dy - dy_min) * win_w + dx - dx_min.
+  // off = (dy - dy_min) * pitch + dx - dx_min.
   const int dy_min = tile.oy + p;
   const int dx_min = tile.ox + p;
   const size_t plane = static_cast<size_t>(h) * w;
 
   // The target's e positions: e(r, c) pairs target pixel (y0 - p + r,
-  // x0 - p + c) with the window's pixel r * win_w + c + off. With P > 0
-  // this thread's positions t + q * kNlmThreads, in registers.
-  Tap tv[kNlmEPerThread];
-  int e_win[kNlmEPerThread];
-  if constexpr (kRegs) {
-#pragma unroll
-    for (int q = 0; q < kNlmEPerThread; ++q) {
-      const int pos = t + q * kNlmThreads;
-      const int r = pos / e_w;
-      const int c = pos - r * e_w;
-      e_win[q] = r * win_w + c;
-      bool ok;
-      const float4* row = row_ptr<ZERO>(tgt, y0 - p + r, h, w, ok);
-      tv[q] = nlm_tap<BF16>(pos < n_e ? col_tap<ZERO>(row, ok, x0 - p + c, w)
-                                      : make_float4(0.f, 0.f, 0.f, 0.f));
-    }
-  } else {
-    for (int pos = t; pos < n_e; pos += kNlmThreads) {
-      const int r = pos / e_w;
-      bool ok;
-      const float4* row = row_ptr<ZERO>(tgt, y0 - p + r, h, w, ok);
-      tgt_taps[pos] = nlm_tap<BF16>(col_tap<ZERO>(row, ok, x0 - p + pos - r * e_w, w));
-    }
+  // x0 - p + c) with the window's pixel r * pitch + c + off.
+  for (int pos = t; pos < n_e; pos += kNlmThreads) {
+    const int r = pos / e_w;
+    bool ok;
+    const float4* row = row_ptr<ZERO>(tgt, y0 - p + r, h, w, ok);
+    tgt_taps[pos] = nlm_tap<Tap>(col_tap<ZERO>(row, ok, x0 - p + pos - r * e_w, w));
   }
   // This thread's outputs: rows (t / kNlmTileW) + q * (kNlmThreads /
   // kNlmTileW) of column t % kNlmTileW, the value tap of candidate (dy, dx)
@@ -746,23 +961,15 @@ __global__ void __launch_bounds__(kNlmThreads)
 #pragma unroll
   for (int q = 0; q < kNlmOutPerThread; ++q) {
     const int orow = t / kNlmTileW + q * (kNlmThreads / kNlmTileW);
-    o_win[q] = (orow + p) * win_w + ocol + p;
+    o_win[q] = (orow + p) * pitch + ocol + p;
     total[q] = make_float4(0.f, 0.f, 0.f, 0.f);
     total_nw[q] = 0.f;
   }
-  const int n_strips = (th + kNlmStrip - 1) / kNlmStrip * e_w;
 
   for (int f = 0; f < n_frames; ++f) {
     const float4* nbr = frames + f * plane;
     __syncthreads();  // the previous frame's last window reads are done
-    for (int i = t; i < n_win; i += kNlmThreads) {
-      const int wr = i / win_w;
-      bool ok;
-      const float4* row = row_ptr<ZERO>(nbr, y0 + tile.oy + wr, h, w, ok);
-      const float4 v = col_tap<ZERO>(row, ok, x0 + tile.ox + i - wr * win_w, w);
-      win[i] = v;
-      if constexpr (BF16) win_taps[i] = nlm_tap<true>(v);
-    }
+    nlm_stage<ZERO>(nbr, h, w, y0, x0, tile, win, win_taps);
     __syncthreads();
     float4 acc[kNlmOutPerThread];
     float nw[kNlmOutPerThread];
@@ -774,54 +981,24 @@ __global__ void __launch_bounds__(kNlmThreads)
     for (int k = 0; k < cands.n; ++k) {
       const int dy = cands.dy[k];
       const int dx = cands.dx[k];
-      const int off = (dy - dy_min) * win_w + dx - dx_min;
+      const int off = (dy - dy_min) * pitch + dx - dx_min;
       // 1. e over the tile and its patch halo.
-      if constexpr (kRegs) {
-#pragma unroll
-        for (int q = 0; q < kNlmEPerThread; ++q) {
-          const int pos = t + q * kNlmThreads;
-          if (pos < n_e) e_buf[pos] = sq_diff(tv[q], win_taps[e_win[q] + off]);
-        }
-      } else {
-        for (int pos = t; pos < n_e; pos += kNlmThreads) {
-          const int r = pos / e_w;
-          e_buf[pos] = sq_diff(tgt_taps[pos], win_taps[r * win_w + pos - r * e_w + off]);
-        }
+      for (int pos = t; pos < n_e; pos += kNlmThreads) {
+        const int r = pos / e_w;
+        e_buf[pos] = sq_diff(tgt_taps[pos], win_taps[r * pitch + pos - r * e_w + off]);
       }
       __syncthreads();
       // 2. Row pass: rs(r, c) = e(r, c) + e(r + 1, c) + ... + e(r + 2p - 1,
-      // c), added in that order.
-      if constexpr (kRegs) {
-        for (int task = t; task < n_strips; task += kNlmThreads) {
-          const int strip = task / e_w;
-          const int c = task - strip * e_w;
-          const int r0 = strip * kNlmStrip;
-          const int rows = min(kNlmStrip, th - r0);
-          const float* ecol = e_buf + r0 * e_w + c;
-          float ev[kNlmStrip + kBox - 1];
-#pragma unroll
-          for (int j = 0; j < kNlmStrip + kBox - 1; ++j)
-            ev[j] = j < rows + kBox - 1 ? ecol[j * e_w] : 0.f;
-#pragma unroll
-          for (int i = 0; i < kNlmStrip; ++i) {
-            float rs = ev[i];
-#pragma unroll
-            for (int j = 1; j < kBox; ++j) rs += ev[i + j];
-            if (i < rows) row_buf[(r0 + i) * e_w + c] = rs;
-          }
-        }
-      } else {
-        // task = r * e_w + c indexes both e(r, c) and rs(r, c)
-        for (int task = t; task < th * e_w; task += kNlmThreads) {
-          float rs = e_buf[task];
-          for (int j = 1; j < box; ++j) rs += e_buf[task + j * e_w];
-          row_buf[task] = rs;
-        }
+      // c), added in that order; task = r * e_w + c indexes both.
+      for (int task = t; task < th * e_w; task += kNlmThreads) {
+        float rs = e_buf[task];
+        for (int j = 1; j < box; ++j) rs += e_buf[task + j * e_w];
+        row_buf[task] = rs;
       }
       __syncthreads();
       // 3. Lane pass, weight and value tap. The next candidate's e and row
       // sums are written only after the barriers that follow these reads.
-      const float bias = (dy != 0 || dx != 0) ? log_m : 0.f;
+      const float bias = nlm_bias(dy, dx, log_m);
 #pragma unroll
       for (int q = 0; q < kNlmOutPerThread; ++q) {
         const int orow = t / kNlmTileW + q * (kNlmThreads / kNlmTileW);
@@ -882,7 +1059,7 @@ __device__ __forceinline__ float bf16_round(float x) {
 // (bf16(a) + bf16(b))), the sum in float32, returned as the bf16 tap. Alpha
 // is not pooled (zero).
 template <bool ZERO, bool BF16>
-__device__ __forceinline__ NlmTap<BF16> half_row_cell(const float4* __restrict__ img, int ci,
+__device__ __forceinline__ StagedTap<BF16> half_row_cell(const float4* __restrict__ img, int ci,
                                                      int x, int h, int w, int hc) {
   ci = min(max(ci, -1), hc);
   bool ok_a, ok_b;
@@ -963,7 +1140,7 @@ __global__ void __launch_bounds__(kHrwThreads)
                    float* __restrict__ out_nw, int h, int w, int n_frames, const Cands cands,
                    float ssd_coef, float stride_w, float norm_seed, int uniform_alpha,
                    const HrwTile tile) {
-  using Tap = NlmTap<BF16>;
+  using Tap = StagedTap<BF16>;
   extern __shared__ __align__(16) unsigned char hrw_smem[];
   const int th = tile.th;
   const int win_w = tile.win_w;
@@ -1186,8 +1363,8 @@ NlmKernel nlm_kernel_for(int zero_border, int bf16_taps) {
                      : (bf16_taps ? nlm_kernel<P, false, true> : nlm_kernel<P, false, false>);
 }
 
-// The kernel for patch radius p: unrolled up to kNlmRegisterPatch, the
-// run-time radius above it; nullptr for p < 1.
+// The kernel for patch radius p: the sliding body up to kNlmRegisterPatch,
+// the staged body with the run-time radius above it; nullptr for p < 1.
 NlmKernel nlm_kernel_for(int p, int zero_border, int bf16_taps) {
   static_assert(kNlmRegisterPatch == 4, "one case per unrolled patch radius");
   switch (p) {
@@ -1195,7 +1372,11 @@ NlmKernel nlm_kernel_for(int p, int zero_border, int bf16_taps) {
     case 2: return nlm_kernel_for<2>(zero_border, bf16_taps);
     case 3: return nlm_kernel_for<3>(zero_border, bf16_taps);
     case 4: return nlm_kernel_for<4>(zero_border, bf16_taps);
-    default: return p > kNlmRegisterPatch ? nlm_kernel_for<0>(zero_border, bf16_taps) : nullptr;
+    default:
+      if (p <= kNlmRegisterPatch) return nullptr;
+      return zero_border ? (bf16_taps ? nlm_wide_kernel<true, true> : nlm_wide_kernel<true, false>)
+                         : (bf16_taps ? nlm_wide_kernel<false, true>
+                                      : nlm_wide_kernel<false, false>);
   }
 }
 
@@ -1350,10 +1531,12 @@ int idf_bilateral_info(int guided, int bf16_taps, int uniform_alpha, int blue_bu
 // valid: device array of n_frames floats.
 // bf16_taps selects the bf16 tap arithmetic (the turbo NLM).
 // tile: host array of kNlmTileFields ints from ops/stencils.py:nlm_tile: th
-// output rows of kNlmTileW columns; the staged window of win_h x win_w
-// pixels at (oy, ox) from the tile's first output pixel; the byte offsets
-// of NlmTile; the block's dynamic shared memory in bytes, which must fit
-// the device. Every candidate's taps must fall inside the window, else
+// output rows of tw columns (the sliding body, p <= kNlmRegisterPatch: 33 -
+// 2p rows, tw / kNlmSeg warps; the staged body: kNlmTileW columns); the
+// staged window of win_h x win_w pixels, rows pitch pixels apart, at (oy, ox)
+// from the tile's first output pixel; the byte offsets of NlmTile; the
+// block's dynamic shared memory in bytes, which must fit the device. Every
+// candidate's taps, and the self match's, must fall inside the window, else
 // cudaErrorInvalidValue and no launch.
 int idf_nlm(const void* tgt, const void* frames, const void* valid, void* out_wc,
             void* out_nw, int h, int w, int n_frames, int p, const int* cands,
@@ -1361,25 +1544,33 @@ int idf_nlm(const void* tgt, const void* frames, const void* valid, void* out_wc
             int uniform_alpha, int bf16_taps, const int* tile, void* stream) {
   const cudaError_t invalid = cudaErrorInvalidValue;
   const NlmKernel kernel = nlm_kernel_for(p, zero_border, bf16_taps);
-  const NlmTile geom{tile[0], tile[1], tile[2], tile[3], tile[4],
-                     tile[5], tile[6], tile[7], tile[8]};
+  const NlmTile geom{tile[0], tile[1], tile[2], tile[3], tile[4],  tile[5],
+                     tile[6], tile[7], tile[8], tile[9], tile[10], tile[11]};
   const int shared_bytes = tile[kNlmTileFields - 1];
+  const bool sliding = p <= kNlmRegisterPatch;
+  const int threads = sliding ? geom.tw / kNlmSeg * 32 : kNlmThreads;
   if (kernel == nullptr || n_cands < 0 || n_cands > kMaxCands || n_frames < 0 ||
-      geom.th < 1 || geom.th > kNlmMaxTileH || geom.win_h < 1 || geom.win_w < 1)
+      geom.win_h < 1 || geom.win_w < 1 || geom.pitch < geom.win_w ||
+      (sliding ? geom.th != 33 - 2 * p || geom.tw < kNlmSeg || geom.tw % kNlmSeg != 0 ||
+                     threads > kNlmSlideThreads
+               : geom.th < 1 || geom.th > kNlmMaxTileH || geom.tw != kNlmTileW))
     return static_cast<int>(invalid);
-  for (const int at : {geom.taps_at, geom.tgt_at, geom.e_at, geom.rows_at})
+  for (const int at : {geom.taps_at, geom.sums_at, geom.tgt_at, geom.e_at, geom.rows_at})
     if (at < 0 || at > shared_bytes) return static_cast<int>(invalid);
   const int e_h = geom.th + 2 * p - 1;
-  const int e_w = kNlmTileW + 2 * p - 1;
+  const int e_w = geom.tw + 2 * p - 1;
+  // e rows dy - p .. dy + th + p - 2 and columns likewise from the tile.
+  const auto inside = [&](int dy, int dx) {
+    return dy - p >= geom.oy && dy - p + e_h <= geom.oy + geom.win_h && dx - p >= geom.ox &&
+           dx - p + e_w <= geom.ox + geom.win_w;
+  };
+  if (!inside(0, 0)) return static_cast<int>(invalid);
   Cands table;
   table.n = n_cands;
   for (int i = 0; i < n_cands; ++i) {
     const int dy = cands[2 * i];
     const int dx = cands[2 * i + 1];
-    // e rows dy - p .. dy + th + p - 2 and columns likewise from the tile.
-    if (dy < -128 || dy > 127 || dx < -128 || dx > 127 || dy - p < geom.oy ||
-        dy - p + e_h > geom.oy + geom.win_h || dx - p < geom.ox ||
-        dx - p + e_w > geom.ox + geom.win_w)
+    if (dy < -128 || dy > 127 || dx < -128 || dx > 127 || !inside(dy, dx))
       return static_cast<int>(invalid);
     table.dy[i] = static_cast<signed char>(dy);
     table.dx[i] = static_cast<signed char>(dx);
@@ -1393,8 +1584,8 @@ int idf_nlm(const void* tgt, const void* frames, const void* valid, void* out_wc
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((w + kNlmTileW - 1) / kNlmTileW, (h + geom.th - 1) / geom.th);
-  kernel<<<grid, kNlmThreads, shared_bytes, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((w + geom.tw - 1) / geom.tw, (h + geom.th - 1) / geom.th);
+  kernel<<<grid, threads, shared_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(tgt), static_cast<const float4*>(frames),
       static_cast<const float*>(valid), static_cast<float4*>(out_wc),
       static_cast<float*>(out_nw), h, w, n_frames, p, table, ssd_coef, log_m, norm_seed,
@@ -1406,12 +1597,13 @@ int idf_nlm(const void* tgt, const void* frames, const void* valid, void* out_wc
 int idf_max_shared_bytes(int* bytes) { return static_cast<int>(idf::max_shared_bytes(bytes)); }
 
 // The NLM kernel of a patch radius, border and tap form as compiled, and its
-// occupancy at shared_bytes a block (kernel_info's).
-int idf_nlm_info(int p, int zero_border, int bf16_taps, int shared_bytes, int* info) {
+// occupancy at `threads` and shared_bytes a block (kernel_info's).
+int idf_nlm_info(int p, int zero_border, int bf16_taps, int threads, int shared_bytes,
+                 int* info) {
   const NlmKernel kernel = nlm_kernel_for(p, zero_border, bf16_taps);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
-      idf::kernel_info(reinterpret_cast<const void*>(kernel), kNlmThreads, shared_bytes, info));
+      idf::kernel_info(reinterpret_cast<const void*>(kernel), threads, shared_bytes, info));
 }
 
 // The half-row NLM: the inputs and outputs of idf_nlm (patch radius 3, every

@@ -55,16 +55,22 @@ LOG2E = math.log2(math.e)
 MAX_RUNS = 128
 MAX_CANDIDATES = 1024
 
-# The NLM kernel's block, compiled into stencils.cu (nvcc_defines): 256
-# threads own an output tile of 32 columns and one of NLM_TILE_HS rows. Up to
-# patch radius NLM_REGISTER_PATCH the kernel is unrolled for the radius and
-# each thread keeps the target's taps of NLM_E_PER_THREAD squared-difference
-# positions in registers; wider radii read them from shared memory.
+# The NLM kernel's blocks, compiled into stencils.cu (nvcc_defines). Up to
+# patch radius NLM_REGISTER_PATCH the sliding body, unrolled for the radius: a
+# warp's 32 lanes are 32 consecutive rows of squared differences, the first
+# 33 - 2p of them output rows, each lane owning NLM_SEG output columns of its
+# row, and a block is one of NLM_SLIDE_WARPS warps side by side. Wider radii
+# take the staged body: NLM_THREADS threads own an output tile of NLM_TILE_W
+# columns and one of NLM_TILE_HS rows.
 NLM_THREADS = 256
+NLM_SEG = 8
+NLM_SLIDE_WARPS = (4, 2, 1)
+# The sliding body's __launch_bounds__ minimum of blocks a multiprocessor:
+# with none, ptxas trims some bf16 instances to 128 registers and spills.
+NLM_MIN_BLOCKS = 2
 NLM_TILE_W = 32
 NLM_TILE_HS = (16, 8, 4, 2, 1)
 NLM_REGISTER_PATCH = 4
-NLM_E_PER_THREAD = 4
 # The half-row NLM kernel's block, likewise: 256 threads own an output tile
 # of 32 columns and one of HRW_TILE_HS rows (even: the tile starts on the
 # absolute even-row lattice of the half-row cells), each thread one pixel
@@ -93,10 +99,12 @@ def nvcc_defines() -> tuple[str, ...]:
     """The blocks above as the macros stencils.cu is compiled with."""
     return (
         f"-DIDF_NLM_THREADS={NLM_THREADS}",
+        f"-DIDF_NLM_SEG={NLM_SEG}",
+        f"-DIDF_NLM_SLIDE_THREADS={32 * max(NLM_SLIDE_WARPS)}",
+        f"-DIDF_NLM_MIN_BLOCKS={NLM_MIN_BLOCKS}",
         f"-DIDF_NLM_TILE_W={NLM_TILE_W}",
         f"-DIDF_NLM_MAX_TILE_H={max(NLM_TILE_HS)}",
         f"-DIDF_NLM_REGISTER_PATCH={NLM_REGISTER_PATCH}",
-        f"-DIDF_NLM_E_PER_THREAD={NLM_E_PER_THREAD}",
         f"-DIDF_HRW_THREADS={HRW_THREADS}",
         f"-DIDF_HRW_TILE_W={HRW_TILE_W}",
         f"-DIDF_HRW_MAX_TILE_H={max(HRW_TILE_HS)}",
@@ -375,11 +383,13 @@ def bilateral_walks(guide: torch.Tensor, params: BilateralParams, bf16: bool,
 
 
 def _window_offsets(params: NlmParams) -> tuple[list[int], list[int]]:
-    """The candidates' dy and dx, which the staged windows span. An empty
-    table (search radius 0) takes the window of the self match (0, 0): the
-    kernel then runs no candidate and writes each frame's seed, as the JAX
-    package does."""
-    cands = nlm_candidates(params) or [(0, 0)]
+    """The candidates' dy and dx, and the self match's (0, 0), which the
+    staged windows span: every table of a positive search radius holds the
+    self match, and the NLM kernel reads each frame's own pixels there (the
+    uniform alpha). An empty table (search radius 0) takes the window of the
+    self match alone: the kernel then runs no candidate and writes each
+    frame's seed, as the JAX package does."""
+    cands = nlm_candidates(params) + [(0, 0)]
     return [dy for dy, _ in cands], [dx for _, dx in cands]
 
 
@@ -389,16 +399,23 @@ class NlmTile:
     [y0, y0 + th) and columns [x0, x0 + tw) and computes the squared
     difference e(r, c) of target pixel (y0 - p + r, x0 - p + c) for r <
     e_h = th + 2p - 1, c < e_w = tw + 2p - 1. Per frame it stages the
-    neighbour's pixels (y0 + oy + i, x0 + ox + j), i < win_h, j < win_w: with
-    (dy_min, dx_min) the table's least offsets, oy = dy_min - p, ox = dx_min -
-    p, candidate (dy, dx) reads e(r, c)'s neighbour at window index (r + dy -
-    dy_min, c + dx - dx_min) and output (y0 + i, x0 + j)'s value tap at (i +
-    p + dy - dy_min, j + p + dx - dx_min). The block's dynamic shared memory
-    (nlm_layout) holds the window as float4 at byte 0, and from the byte
-    offsets taps_at, tgt_at, e_at and rows_at the window's bf16 RGB (with
-    float32 taps the window itself, taps_at 0), the target's taps (patch
-    radii above NLM_REGISTER_PATCH; empty below), e and the row sums;
-    shared_bytes in all."""
+    neighbour's pixels (y0 + oy + i, x0 + ox + j), i < win_h, j < win_w, at
+    window index i * pitch + j: with (dy_min, dx_min) the table's least
+    offsets, oy = dy_min - p, ox = dx_min - p, candidate (dy, dx) reads e(r,
+    c)'s neighbour at window row r + dy - dy_min, column c + dx - dx_min, and
+    output (y0 + i, x0 + j)'s value tap at (i + p + dy - dy_min, j + p + dx -
+    dx_min).
+
+    Up to NLM_REGISTER_PATCH (sliding): th = 33 - 2p, so that e_h is a
+    warp's 32 lanes, tw / NLM_SEG warps side by side, each lane sliding the
+    NLM_SEG + 2p - 1 columns of its e row from column NLM_SEG * warp, and an
+    odd pitch (a warp's loads, one row apart, fall on distinct banks). Above it (staged): th of NLM_TILE_HS, tw = NLM_TILE_W,
+    pitch = win_w. The block's dynamic shared memory (nlm_layout) holds the
+    window as float4 at byte 0, and from the byte offsets taps_at, sums_at,
+    tgt_at, e_at and rows_at the window's bf16 RGB (with float32 taps the
+    window itself, taps_at 0), then the sliding body's frame sums, or the
+    staged body's target taps, e and row sums (each body's other regions
+    empty); shared_bytes in all."""
 
     th: int
     tw: int
@@ -407,11 +424,17 @@ class NlmTile:
     ox: int
     win_h: int
     win_w: int
+    pitch: int
     taps_at: int
+    sums_at: int
     tgt_at: int
     e_at: int
     rows_at: int
     shared_bytes: int
+
+    @property
+    def sliding(self) -> bool:
+        return self.p <= NLM_REGISTER_PATCH
 
     @property
     def e_h(self) -> int:
@@ -421,54 +444,73 @@ class NlmTile:
     def e_w(self) -> int:
         return self.tw + 2 * self.p - 1
 
+    @property
+    def threads(self) -> int:
+        """The block's threads: a warp a segment, or NLM_THREADS."""
+        return 32 * self.tw // NLM_SEG if self.sliding else NLM_THREADS
+
     def launch_args(self) -> np.ndarray:
         """The ints idf_nlm takes (stencils.cu: NlmTile, then the bytes)."""
         return np.asarray(
-            [self.th, self.oy, self.ox, self.win_h, self.win_w, self.taps_at, self.tgt_at,
-             self.e_at, self.rows_at, self.shared_bytes],
+            [self.th, self.tw, self.oy, self.ox, self.win_h, self.win_w, self.pitch,
+             self.taps_at, self.sums_at, self.tgt_at, self.e_at, self.rows_at,
+             self.shared_bytes],
             np.int32,
         )
 
 
-def nlm_layout(th: int, p: int, win_h: int, win_w: int, bf16: bool) -> tuple[int, ...]:
+def nlm_layout(th: int, tw: int, p: int, win_h: int, pitch: int,
+               bf16: bool) -> tuple[int, ...]:
     """The NLM kernel's shared memory, in this order: the window as float4
-    (16 bytes a pixel); with bf16 taps its RGB in bf16 (8 bytes a pixel); for
-    patch radii above NLM_REGISTER_PATCH the target's taps over the e region
-    (one window tap each); e (th + 2p - 1 rows of e_w floats); the row sums
-    (th rows of e_w floats). Returns (taps_at, tgt_at, e_at, rows_at,
-    shared bytes)."""
-    tap = 8 if bf16 else 16
-    e_w = NLM_TILE_W + 2 * p - 1
-    n_e = (th + 2 * p - 1) * e_w
-    n_win = win_h * win_w
+    (win_h rows of `pitch` pixels, 16 bytes a pixel); with bf16 taps its RGB
+    in bf16 (8 bytes a pixel); up to NLM_REGISTER_PATCH the sliding body's
+    sums of the frames so far, NLM_SEG outputs a thread (float4 weighted
+    colours, then float weights; from a 16-byte boundary); above it the
+    staged body's target taps over the e region (one window tap each), e (th
+    + 2p - 1 rows of e_w floats) and the row sums (th rows of e_w floats).
+    Returns (taps_at, sums_at, tgt_at, e_at, rows_at, shared bytes)."""
+    n_win = win_h * pitch
     at = 16 * n_win
     taps_at = at if bf16 else 0
     at += 8 * n_win if bf16 else 0
+    if p <= NLM_REGISTER_PATCH:
+        sums_at = -(-at // 16) * 16
+        # 16 + 4 bytes an output, NLM_SEG outputs a thread, 32 * tw / NLM_SEG threads
+        end = sums_at + 20 * 32 * tw
+        return taps_at, sums_at, end, end, end, end
+    e_w = tw + 2 * p - 1
+    n_e = (th + 2 * p - 1) * e_w
     tgt_at = at
-    at += tap * n_e if p > NLM_REGISTER_PATCH else 0
-    e_at = at
+    e_at = tgt_at + (8 if bf16 else 16) * n_e
     rows_at = e_at + 4 * n_e
-    return taps_at, tgt_at, e_at, rows_at, rows_at + 4 * th * e_w
+    return taps_at, at, tgt_at, e_at, rows_at, rows_at + 4 * th * e_w
+
+
+def nlm_tile_shapes(p: int) -> list[tuple[int, int]]:
+    """The (th, tw) a block of patch radius p may take, widest first:
+    nlm_tile takes the first whose window fits."""
+    if p <= NLM_REGISTER_PATCH:
+        return [(33 - 2 * p, warps * NLM_SEG) for warps in NLM_SLIDE_WARPS]
+    return [(th, NLM_TILE_W) for th in NLM_TILE_HS]
 
 
 @functools.lru_cache(maxsize=None)
 def nlm_tile(params: NlmParams, bf16: bool, shared_limit: int) -> NlmTile:
     """The NLM kernel's tile for these parameters on a card whose blocks may
-    hold `shared_limit` bytes of shared memory (max_shared_bytes): the
-    tallest of NLM_TILE_HS whose window fits; ValueError where no height
-    fits, or for a patch radius under 1 (no box to sum)."""
+    hold `shared_limit` bytes of shared memory (max_shared_bytes): the first
+    of nlm_tile_shapes whose window fits; ValueError where none fits, or for
+    a patch radius under 1 (no box to sum)."""
     p = params.patch_radius
     if p < 1:
         raise ValueError(f"the NLM kernel takes patch radius 1 or more, got {p}")
     dys, dxs = _window_offsets(params)
-    e_w = NLM_TILE_W + 2 * p - 1
-    win_w = e_w + max(dxs) - min(dxs)
-    for th in NLM_TILE_HS:
-        e_h = th + 2 * p - 1
-        win_h = e_h + max(dys) - min(dys)
-        *offsets, nbytes = nlm_layout(th, p, win_h, win_w, bf16)
+    for th, tw in nlm_tile_shapes(p):
+        win_h = th + 2 * p - 1 + max(dys) - min(dys)
+        win_w = tw + 2 * p - 1 + max(dxs) - min(dxs)
+        pitch = win_w | 1 if p <= NLM_REGISTER_PATCH else win_w
+        *offsets, nbytes = nlm_layout(th, tw, p, win_h, pitch, bf16)
         if nbytes <= shared_limit:
-            return NlmTile(th, NLM_TILE_W, p, min(dys) - p, min(dxs) - p, win_h, win_w,
+            return NlmTile(th, tw, p, min(dys) - p, min(dxs) - p, win_h, win_w, pitch,
                            *offsets, nbytes)
     raise ValueError(
         f"no NLM tile fits patch radius {p} and search radius {params.search_radius} "
@@ -748,7 +790,8 @@ def kernel_info(kernel: str, device: torch.device, params) -> dict:
             rc = lib.idf_nlm_hrw_info(zero, int(bf16), tile.shared_bytes, info)
         else:
             tile = nlm_tile(params, bf16, max_shared_bytes(device))
-            rc = lib.idf_nlm_info(params.patch_radius, zero, int(bf16), tile.shared_bytes, info)
+            rc = lib.idf_nlm_info(params.patch_radius, zero, int(bf16), tile.threads,
+                                  tile.shared_bytes, info)
     _raise_on_error(rc, f"{kernel} info")
     return info_dict(info, f"{tile.th}x{tile.tw}", tile.shared_bytes)
 

@@ -119,11 +119,10 @@ def test_guided_kernel_matches_plain(cuda):
 )
 def test_nlm_kernel_matches_plain(cuda, params, tol, shape):
     """F = 3 with the middle frame masked, on shapes that are not multiples
-    of the kernel's 16 x 32 tile (one row; narrower than 2s), both borders,
+    of the kernel's tiles (one row; narrower than 2s), both borders,
     uniform alpha, and the largest table (s = 16, 1024 candidates, its
-    window above 48 KB of shared memory); patch radii 5 to 8, which read
-    the target from shared memory (h raised so that the random patches
-    still weigh)."""
+    window above 48 KB of shared memory); patch radii 5 to 8, which take the
+    staged body (h raised so that the random patches still weigh)."""
     target = _image(0, cuda, *shape)
     frames = torch.stack([_image(i, cuda, *shape) for i in range(3)])
     valid = torch.tensor([1.0, 0.0, 1.0], device=cuda)
@@ -132,6 +131,52 @@ def test_nlm_kernel_matches_plain(cuda, params, tol, shape):
     _close(wc, pwc, **tol)
     _close(nw, pnw, **tol)
     assert stencils.launches["nlm"] == 1
+
+
+@pytest.mark.parametrize(
+    "params,shape,bf16",
+    [
+        (NlmParams(), (55, 39), False),
+        (NlmParams(uniform_alpha=True), (82, 70), False),
+        (NlmParams(search_radius=4, patch_radius=1), (32, 41), False),
+        (NlmParams(search_radius=3, patch_radius=2, border=BorderPolicy.ZERO), (30, 45), False),
+        (NlmParams(search_radius=5, patch_radius=4, h=4.0), (26, 35), False),
+        (NlmParams(border=BorderPolicy.ZERO), (28, 33), False),
+        (NlmParams(search_stride=2), (55, 39), True),
+        (NlmParams(search_stride=2, search_disk=True, border=BorderPolicy.ZERO), (28, 70), True),
+        (NlmParams(search_stride=2, uniform_alpha=True), (3, 130), True),
+        (NlmParams(search_radius=9, patch_radius=2, search_stride=3), (40, 37), False),
+        (NlmParams(search_radius=0), (55, 39), False),
+        (NlmParams(search_radius=0, border=BorderPolicy.ZERO), (55, 39), True),
+    ],
+    ids=["reference_55x39", "reference_ua_82x70", "p1_32x41", "p2_zero_30x45", "p4_26x35",
+         "reference_zero_28x33", "stride2_bf16_55x39", "stride2_disk_zero_bf16_28x70",
+         "stride2_ua_bf16_3x130", "stride3_40x37", "s0_55x39", "s0_zero_bf16_55x39"],
+)
+def test_nlm_sliding_body_matches_plain(cuda, params, shape, bf16):
+    """The sliding body (patch radii 1-4) on shapes whose rows are not a
+    multiple of a warp's 33 - 2p output rows and whose columns are not a
+    multiple of a lane's segment, F = 4 with the second frame masked, each
+    frame's alpha its own random plane (general alpha; 1 where alpha is
+    uniform), both borders and tap forms, strides 1-3 (a stride of 3 slides
+    the ring three columns a candidate) and search radius 0 (the seeds
+    only)."""
+    gen = np.random.default_rng(5)
+    imgs = []
+    for i in range(5):
+        img = _smooth_image(i, "cpu", *shape)
+        if not params.uniform_alpha:
+            img[..., 3] = torch.from_numpy(gen.uniform(0.25, 1.0, shape).astype(np.float32))
+        imgs.append(img.to(cuda))
+    target, frames = imgs[0], torch.stack(imgs[1:])
+    valid = torch.tensor([1.0, 0.0, 1.0, 1.0], device=cuda)
+    tiling = TilingConfig(compute_dtype="bfloat16") if bf16 else None
+    wc, nw = stencils.nlm_accumulate_frames(target, frames, params, tiling, valid)
+    pwc, pnw = stencils.nlm_plain(target, frames, params, valid,
+                                  "bfloat16" if bf16 else "float32")
+    _close(wc, pwc, **TOL_NLM)
+    _close(nw, pnw, **TOL_NLM)
+    assert stencils.launches["nlm_bf16" if bf16 else "nlm"] == 1
 
 
 def test_nlm_launcher_refuses_a_window_that_misses_a_tap(cuda):
@@ -143,8 +188,8 @@ def test_nlm_launcher_refuses_a_window_that_misses_a_tap(cuda):
     valid = torch.ones(1, device=cuda)
     tile = stencils.nlm_tile(NP_, False, stencils.max_shared_bytes(img.device))
     short = tile.launch_args()
-    short[3] -= 1  # win_h
-    short[5:] = stencils.nlm_layout(tile.th, tile.p, tile.win_h - 1, tile.win_w, False)
+    short[4] -= 1  # win_h
+    short[7:] = stencils.nlm_layout(tile.th, tile.tw, tile.p, tile.win_h - 1, tile.pitch, False)
     cands = np.asarray(stencils.nlm_candidates(NP_), np.int32).reshape(-1)
     lib = stencils._build.library()
     for geom, want in ((tile.launch_args(), 0), (short, 1)):
@@ -160,11 +205,12 @@ def test_nlm_launcher_refuses_a_window_that_misses_a_tap(cuda):
                                            ("nlm_bf16", NlmParams(search_stride=2)),
                                            ("nlm", NlmParams(patch_radius=6))])
 def test_nlm_kernel_info(cuda, kernel, params):
-    """The reference tiles, and a patch radius above the unrolled ones,
-    launch: registers without spills, and at least two blocks a
-    multiprocessor."""
+    """The reference tiles (the sliding body's 27 x 32 at p = 3), and a patch
+    radius above the unrolled ones (the staged body's 16 x 32), launch:
+    registers without spills, and at least two blocks a multiprocessor."""
     info = stencils.kernel_info(kernel, cuda, params)
-    assert info["tile"] == "16x32" and info["spill_bytes"] == 0
+    assert info["tile"] == ("16x32" if params.patch_radius > 4 else "27x32")
+    assert info["spill_bytes"] == 0
     assert info["blocks_per_sm"] >= 2 and 0 < info["registers"] <= 255
 
 
@@ -754,7 +800,7 @@ def test_nlm_bf16_kernel_matches_plain(cuda, params, shape):
     """On smooth content, where many candidates carry weight, so one bf16
     rounding of a squared difference that the kernel skipped (a contracted
     multiply-add) would show. F = 3 with the middle frame masked; shapes
-    that are not multiples of the 16 x 32 tile, both borders, uniform alpha
+    that are not multiples of the kernel's tiles, both borders, uniform alpha
     and the largest table (s = 16, 1024 candidates); patch radii 5 to 8."""
     target = _smooth_image(0, cuda, *shape)
     frames = torch.stack([_smooth_image(i, cuda, *shape) for i in range(3)])

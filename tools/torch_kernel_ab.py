@@ -78,9 +78,10 @@ kernel and not the cache, a frame larger than L2 at each d.
 
 This checkout's processes also read the SM clock with nvidia-smi while the
 nlm kernel runs back to back (with --only, the first case it times), and
-turn the nlm time into cycles a tile and candidate on each SM. Prints one JSON line a run, the median of each side's
-two runs and the nvidia-smi line; --out PATH also writes them to PATH as
-JSON.
+turn the nlm time into cycles a tile and candidate on each SM, and a 512
+outputs (a 16x32 tile) and candidate, which compares tiles of two shapes.
+Prints one JSON line a run, the median of each side's two runs and the
+nvidia-smi line; --out PATH also writes them to PATH as JSON.
 """
 
 from __future__ import annotations
@@ -297,6 +298,9 @@ def worker(root: str, only: tuple = ("",)) -> dict:
         out["sm_clock_mhz"] = mhz
         out["nlm cycles a tile-candidate a SM"] = (
             out["nlm"] * 1e-3 * mhz * 1e6 * sms / (tiles * len(stencils.nlm_candidates(ref))))
+        # per 512 outputs (a 16x32 tile), whatever the side's tile
+        out["nlm cycles a 512-output candidate a SM"] = (
+            out["nlm"] * 1e-3 * mhz * 1e6 * sms * 512 / (H * W * len(stencils.nlm_candidates(ref))))
     return out
 
 
