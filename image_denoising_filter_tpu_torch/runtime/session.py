@@ -537,7 +537,8 @@ class Session:
         """Per-layer accumulate then normalize (src/main.cpp:1608-1624,
         1649-1652). Layers are always LDR (src/main.cpp:1396)."""
         model = LayerGuidedDenoiser(layers_params, layout=layout, tiling=self.tiling)
-        layers_host = [self._load(p).img for p in ds.layers]
+        with timing.span(timing.LAYERS_LOAD):
+            layers_host = [self._load(p).img for p in ds.layers]
         if not layers_host:
             # No layers: the accumulators stay zero and normalize paints the
             # magenta sentinel everywhere, like the reference would.
@@ -549,7 +550,8 @@ class Session:
                 )
                 self._fence()
             return out
-        with report.transfer(timing.UPLOAD):
+        timing.count(timing.LAYERS_LOADED, len(layers_host))
+        with report.transfer(timing.UPLOAD), timing.span(timing.LAYERS_UPLOAD):
             layers_dev = self._upload(np.stack(layers_host))
         return self._execute(lambda: model(target_dev, layers_dev), report)
 

@@ -58,6 +58,13 @@ PREFETCH_PIN = PREFETCH + "pin"      # a frame's copy into pinned staging (CUDA 
 PREFETCH_FRAMES = "prefetch.frames"  # frames the prefetcher hands out
 PREFETCH_CACHE_HIT = "prefetch.cache_hit"    # window items served without a decode
 PREFETCH_CACHE_MISS = "prefetch.cache_miss"  # window items sent to the decoder
+# The layers config's G-buffer layers (Session._run_layers): a layer of its
+# own, so its spans, which hold the Session's load and lie inside its
+# upload, are not taken out of them.
+LAYERS = "idf.layers."
+LAYERS_LOAD = LAYERS + "load"      # the target's layers' cache lookups and decodes
+LAYERS_UPLOAD = LAYERS + "upload"  # the host stack and the layers' host -> device copy
+LAYERS_LOADED = "layers.loaded"    # layers handed to the model
 
 # name -> [host ns, count] of the last profiled stretch (a counter's ns is 0).
 totals: dict[str, list[int]] = {}

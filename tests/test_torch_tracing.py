@@ -11,6 +11,7 @@ import json
 import os
 import sys
 import time
+import types
 
 import numpy as np
 import pytest
@@ -63,6 +64,17 @@ def shot(tmp_path_factory):
         imageio.save(str(root / f"frame_{i:04d}.png"), _frame(i))
     for i, name in enumerate(("albedo", "normal")):
         imageio.save(str(root / "RenderElements" / f"{name}_0001.png"), _frame(10 + i))
+    return str(root / "frame_0001.png")
+
+
+@pytest.fixture(scope="module")
+def layered_shot(tmp_path_factory):
+    """A target, frame_0001, with three G-buffer layers (its path)."""
+    root = tmp_path_factory.mktemp("layered")
+    (root / "RenderElements").mkdir()
+    imageio.save(str(root / "frame_0001.png"), _frame(0))
+    for i, name in enumerate(("albedo", "normal", "depth")):
+        imageio.save(str(root / "RenderElements" / f"{name}_0001.png"), _frame(20 + i))
     return str(root / "frame_0001.png")
 
 
@@ -186,6 +198,44 @@ def test_batched_frames_warm_up_and_upload_once_a_chunk(shot, tmp_path):
     assert t[timing.UPLOAD][0] + t[timing.READBACK][0] == result.report.transfer_ns
 
 
+def test_a_layers_run_spans_its_layers_once(layered_shot, tmp_path):
+    """The layers config: one idf.layers.load around the three layers'
+    loads, one idf.layers.upload around their stack and copy, three layers
+    counted. The Session's phases keep the spans of their own layer whole:
+    the target's and the three layers' loads, the target's and the stack's
+    uploads, which with the readback are the report's transfer."""
+    result, wall, _ = _run(layered_shot, str(tmp_path), True, cache={}, cfg=GPU_BATTERY[1])
+    t = timing.totals
+    assert t[timing.LAYERS_LOAD][1] == 1 and t[timing.LAYERS_UPLOAD][1] == 1
+    assert t[timing.LAYERS_LOADED] == [0, 3]
+    assert t[timing.LOAD][1] == 1 + 3 and t[timing.UPLOAD][1] == 2
+    assert t[timing.UPLOAD][0] + t[timing.READBACK][0] == result.report.transfer_ns
+    assert 0 < t[timing.LAYERS_UPLOAD][0] <= t[timing.UPLOAD][0]
+    assert 0 < t[timing.LAYERS_LOAD][0] <= wall
+
+
+@pytest.mark.parametrize("outer, inner", [(timing.LAYERS_LOAD, timing.LOAD),
+                                          (timing.UPLOAD, timing.LAYERS_UPLOAD)])
+def test_a_layers_span_and_a_session_span_keep_their_totals(monkeypatch, outer, inner):
+    """On a clock that reads 0, 10, 40, 100: a span of the layers' layer
+    around a Session span, or inside one, takes nothing out of the other:
+    the outer keeps its 100 ns, the inner its 30."""
+    ticks = iter([0, 10, 40, 100])
+    monkeypatch.setattr(timing, "time", types.SimpleNamespace(perf_counter_ns=lambda: next(ticks)))
+    with _profiler():
+        with timing.span(outer):
+            with timing.span(inner):
+                pass
+    assert timing.totals[outer] == [100, 1] and timing.totals[inner] == [30, 1]
+
+
+def test_a_multiframe_run_opens_no_layers_span(shot, tmp_path):
+    _run(shot, str(tmp_path), True, cache={})
+    assert timing.LOAD in timing.totals
+    assert not [n for n in timing.totals if n.startswith(timing.LAYERS)]
+    assert timing.LAYERS_LOADED not in timing.totals
+
+
 def _inputs(family):
     img = torch.from_numpy(_frame(0))
     if family == "layers":
@@ -298,6 +348,11 @@ READER_CASES = [
      None, 100.0 * 30 / 35),
     ("forward_host_ms", {"idf.model.forward": [3_000_000, 4], "idf.session.exec": [1, 1]}, 2,
      None, 0.75),
+    ("layer_load_ms", {"idf.layers.load": [9_000_000, 2], "idf.session.load": [1, 8]}, 2,
+     None, 4.5),
+    ("layer_upload_ms", {"idf.layers.upload": [5_000_000, 2], "idf.session.upload": [1, 4]}, 2,
+     None, 2.5),
+    ("layers_per_target", {"layers.loaded": [0, 6], "frame_cache.miss": [0, 8]}, 2, None, 3.0),
 ]
 
 
