@@ -10,18 +10,21 @@ upload's event.
 
 The decoded-frame cache that a Session may share across targets (a dict,
 path -> DecodedFrame, least recent first) keeps one policy, `cache_lookup`
-and `cache_insert`, for the Session's loads and the prefetcher's window.
+and `cache_insert`, for the Session's loads (`RunFrames`, which decodes a
+run's misses together on the native decode threads) and the prefetcher's
+window.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
-from ..utils import native, timing
+from ..utils import imageio, native, timing
 from ..utils.timing import TimingReport
 
 FRAME_CACHE_MAX = 32  # decoded frames a shared cache keeps
@@ -56,9 +59,98 @@ def cache_lookup(cache: dict, key) -> Optional[DecodedFrame]:
 def cache_insert(cache: dict, key, entry: DecodedFrame) -> None:
     """Cache entry under key as the most recent, evicting the least recent
     frames beyond FRAME_CACHE_MAX."""
+    cache.pop(key, None)
     cache[key] = entry
     while len(cache) > FRAME_CACHE_MAX:
         cache.pop(next(iter(cache)))
+
+
+class RunFrames:
+    """The decoded frames of one Session run, handed out in order by `take`.
+
+    At the first take each path is looked up in the shared cache (None: no
+    cache, every path misses uncounted), in order, and counted as CACHE_HIT
+    or CACHE_MISS; a hit's frame is held from then on, and a repeat of a
+    path is served by its first occurrence, as a hit. Where a native library
+    is loaded and two or more distinct paths miss, they all decode at once
+    on one native.FrameLoader, one thread a host core and as many frames
+    ahead (DECODES_AHEAD counts them); a single miss, or every miss where no
+    library is loaded, decodes on the loop's thread, as does a file the
+    native decoder refuses (imageio.load's Python codec reads it). Each
+    frame is (re)inserted into the cache as it is handed out, so the cache
+    ends in the order that looking the paths up one at a time leaves. The
+    waits lie in LOAD spans, one a take. Close it (or use it as a context
+    manager) to stop the decode threads."""
+
+    def __init__(self, paths: Iterable, cache: Optional[dict]) -> None:
+        self._paths = list(paths)
+        self._cache = cache
+        self._last = {path: i for i, path in enumerate(self._paths)}
+        self._held: dict = {}    # path -> DecodedFrame: the hits, and misses that recur
+        self._misses: dict = {}  # path -> its place among the distinct misses
+        self._native = None
+        self._next = 0
+
+    def _start(self) -> None:
+        for path in self._paths:
+            if path not in self._held and path not in self._misses:
+                entry = None if self._cache is None else cache_lookup(self._cache, path)
+                if entry is None:
+                    self._misses[path] = len(self._misses)
+                    if self._cache is not None:
+                        timing.count(timing.CACHE_MISS)
+                    continue
+                self._held[path] = entry
+            if self._cache is not None:
+                timing.count(timing.CACHE_HIT)
+        if len(self._misses) > 1 and native.available():
+            n = min(len(self._misses), len(os.sched_getaffinity(0)))
+            self._native = native.FrameLoader(list(self._misses), lookahead=n, threads=n)
+            timing.count(timing.DECODES_AHEAD, len(self._misses))
+
+    def _decode(self, path, out: Optional[np.ndarray]) -> np.ndarray:
+        if self._native is not None:
+            try:
+                return self._native.get(self._misses[path], out)
+            except ValueError:
+                pass  # the native decoder refuses the file
+        img = imageio.load(path)[0]
+        if out is None:
+            return img
+        np.copyto(out, img)
+        return out
+
+    def take(self, out: Optional[np.ndarray] = None) -> DecodedFrame:
+        """The run's next frame, its array copied into `out` (an (H, W, 4)
+        float32 slot) where given; a miss decoded there is cached as a view
+        of it."""
+        with timing.span(timing.LOAD):
+            if self._next == 0:
+                self._start()
+            i, self._next = self._next, self._next + 1
+            path = self._paths[i]
+            entry = self._held.pop(path, None)
+            if entry is None:
+                entry = DecodedFrame(self._decode(path, out))
+            elif out is not None:
+                np.copyto(out, entry.img)
+            if self._last[path] > i:
+                self._held[path] = entry
+            if self._cache is not None:
+                cache_insert(self._cache, path, entry)
+            return entry
+
+    def close(self) -> None:
+        self._held.clear()
+        if self._native is not None:
+            self._native.close()
+            self._native = None
+
+    def __enter__(self) -> RunFrames:
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 class FramePrefetcher:

@@ -449,10 +449,12 @@ class FrameLoader:
     def __len__(self) -> int:
         return len(self._paths)
 
-    def get(self, idx: int) -> np.ndarray:
-        """Fetch frame idx (blocking). Gets must be monotonically increasing:
-        get(i) releases every frame <= i; a later get(j <= i) raises, as
-        does a get after close()."""
+    def get(self, idx: int, out: Optional[np.ndarray] = None) -> np.ndarray:
+        """Fetch frame idx (blocking): a new array, or copied into `out`
+        (float32, the frame's shape), which is returned. Gets must be
+        monotonically increasing: get(i) releases every frame <= i, one that
+        failed to decode too; a later get(j <= i) raises, as does a get
+        after close()."""
         if not self._handle:
             raise ValueError("frame loader already closed")
         data = ctypes.POINTER(ctypes.c_float)()
@@ -465,11 +467,16 @@ class FrameLoader:
             raise ValueError(f"frame index {idx} out of range (0..{len(self._paths) - 1})")
         if rc == 201:
             raise ValueError(f"frame {idx} already released (gets must be monotonic)")
-        if rc != 0:
-            raise ValueError(f"frame decode failed for {self._paths[idx]} (code {rc})")
-        out = np.ctypeslib.as_array(data, shape=(h.value, w.value, 4)).copy()
-        self._lib.idf_loader_release(self._handle, idx)
-        return out
+        try:
+            if rc != 0:
+                raise ValueError(f"frame decode failed for {self._paths[idx]} (code {rc})")
+            frame = np.ctypeslib.as_array(data, shape=(h.value, w.value, 4))
+            if out is None:
+                return frame.copy()
+            np.copyto(out, frame)
+            return out
+        finally:
+            self._lib.idf_loader_release(self._handle, idx)
 
     def __iter__(self):
         for i in range(len(self._paths)):

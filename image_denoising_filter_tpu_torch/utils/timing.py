@@ -39,15 +39,16 @@ _CLEAR = "\033[0m"
 # models' forward (models/denoiser.py), as a trace and `totals` name them.
 SESSION = "idf.session."
 OPEN = SESSION + "open"          # Session construction: the device, the mesh
-LOAD = SESSION + "load"          # a frame's cache lookup and, on a miss, decode
+LOAD = SESSION + "load"          # a frame's cache lookup and, on a miss, its decode or wait
 UPLOAD = SESSION + "upload"      # host -> device, a TimingReport transfer
 WARMUP = SESSION + "warmup"      # the untimed model run before exec
 EXEC = SESSION + "exec"          # TimingReport.execute (the CPU filter in run_cpu)
 READBACK = SESSION + "readback"  # device -> host, a TimingReport transfer
 SAVE = SESSION + "save"          # quantize, encode and write the output
 FORWARD = "idf.model.forward"
-CACHE_HIT = "frame_cache.hit"    # counters of Session._load's cache lookups
+CACHE_HIT = "frame_cache.hit"    # counters of the Session's cache lookups (prefetch.RunFrames)
 CACHE_MISS = "frame_cache.miss"
+DECODES_AHEAD = "session.decodes_ahead"  # a run's misses sent to the native decode threads
 PNG_BANDS = "png_encode.bands"   # row bands of png.encode_bands, the PNG save
 # The overlap loop's FramePrefetcher (runtime/prefetch.py): a layer of its
 # own, so its spans, which lie inside the Session's load, upload and exec,
@@ -62,8 +63,8 @@ PREFETCH_CACHE_MISS = "prefetch.cache_miss"  # window items sent to the decoder
 # own, so its spans, which hold the Session's load and lie inside its
 # upload, are not taken out of them.
 LAYERS = "idf.layers."
-LAYERS_LOAD = LAYERS + "load"      # the target's layers' cache lookups and decodes
-LAYERS_UPLOAD = LAYERS + "upload"  # the host stack and the layers' host -> device copy
+LAYERS_LOAD = LAYERS + "load"      # the wait for the target's layers and their copy into a stack
+LAYERS_UPLOAD = LAYERS + "upload"  # the stacked layers' host -> device copy
 LAYERS_LOADED = "layers.loaded"    # layers handed to the model
 
 # name -> [host ns, count] of the last profiled stretch (a counter's ns is 0).

@@ -206,12 +206,13 @@ def test_each_decoded_frame_is_scanned_once_across_sessions(shots, tmp_path, mon
 
 
 def test_without_a_cache_each_load_scans_once(shots, tmp_path, monkeypatch, decodes):
-    """No shared cache: each load of a frame is its own decode and its own
-    scan, the target's included (loaded by run and again as frame 0), and
-    the warm-up scans no second time."""
+    """No shared cache: each decode of a frame is its own scan. A run
+    decodes each of its files once, the target's included (taken by run and
+    again among the frames, as the first and in its place), and the warm-up
+    scans no second time."""
     scanned = _counted_scans(monkeypatch)
     Session(shots["uniform"], device="cpu", output_dir=str(tmp_path),
             nlm_params=NlmParams(search_radius=1, patch_radius=1)).run(MULTIFRAME)
-    assert len(decodes) == 1 + N_FRAMES + 1
+    assert len(decodes) == N_FRAMES
     assert len(scanned) == len(decodes)
     assert all(s is d for s, d in zip(scanned, decodes))
