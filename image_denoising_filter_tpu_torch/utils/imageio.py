@@ -10,7 +10,10 @@ well-defined. Use `quantize(..., clamp=True)` for the sane mode.
 
 The PNG save is png.encode_bands, whatever `codec()` says: the frame's row
 bands quantize, filter and deflate on the host's cores into one zlib stream.
-Decodes and the EXR save take the codec `codec()` names.
+Decodes and the EXR save take the codec `codec()` names. An EXR decode on
+the calling thread and an EXR save's encode lie in the spans
+`timing.EXR_DECODE` and `timing.EXR_ENCODE`; `timing.EXR_BYTES` counts the
+encoded bytes.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 from . import exr as _exr
 from . import native as _native
 from . import png as _png
+from . import timing as _timing
 
 
 def _read_png(path: str) -> np.ndarray:
@@ -44,24 +48,28 @@ def _write_png(path: str, rgba: np.ndarray, clamp: bool) -> None:
 
 
 def _read_exr(path: str) -> np.ndarray:
-    if _native.available():
-        with open(path, "rb") as f:
-            data = f.read()
-        try:
-            return _native.exr_decode(data)
-        except ValueError:
-            # Per-file fallback: the Python decoder additionally covers
-            # RLE/PIZ/PXR24 compression.
-            return _exr.decode(data)
-    return _exr.read(path)
+    with _timing.span(_timing.EXR_DECODE):
+        if _native.available():
+            with open(path, "rb") as f:
+                data = f.read()
+            try:
+                return _native.exr_decode(data)
+            except ValueError:
+                # Per-file fallback: the Python decoder additionally covers
+                # RLE/PIZ/PXR24 compression.
+                return _exr.decode(data)
+        return _exr.read(path)
 
 
 def _write_exr(path: str, rgba: np.ndarray) -> None:
-    if _native.available():
-        with open(path, "wb") as f:
-            f.write(_native.exr_encode(np.ascontiguousarray(rgba, np.float32)))
-        return
-    _exr.write(path, rgba)
+    with _timing.span(_timing.EXR_ENCODE):
+        if _native.available():
+            data = _native.exr_encode(np.ascontiguousarray(rgba, np.float32))
+        else:
+            data = _exr.encode(rgba)
+    _timing.count(_timing.EXR_BYTES, len(data))
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def codec() -> str:

@@ -66,6 +66,13 @@ LAYERS = "idf.layers."
 LAYERS_LOAD = LAYERS + "load"      # the wait for the target's layers and their copy into a stack
 LAYERS_UPLOAD = LAYERS + "upload"  # the stacked layers' host -> device copy
 LAYERS_LOADED = "layers.loaded"    # layers handed to the model
+# The EXR codec (utils/imageio.py), native or Python: a layer of its own, so
+# its spans, which lie inside the Session's load and save, are not taken out
+# of them.
+EXR = "idf.exr."
+EXR_ENCODE = EXR + "encode"        # a frame's encode to EXR bytes (the file write is outside)
+EXR_DECODE = EXR + "decode"        # a file's decode on the calling thread
+EXR_BYTES = "exr_encode.bytes"     # bytes of the encoded files
 
 # name -> [host ns, count] of the last profiled stretch (a counter's ns is 0).
 totals: dict[str, list[int]] = {}
